@@ -1,0 +1,544 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (``accelerate_tpu_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It imports nothing of JAX or of ``accelerate_tpu``. Phases (each raises on
+failure, so the script exits non-zero and prints no result):
+
+1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+2. build: every CUDA kernel of the port from ``accelerate_tpu_torch/csrc``
+   into ``build/torch_kernels`` (nvcc, sm_90a), with the build seconds;
+3. the paged-attention kernel against its plain PyTorch version on the
+   card: decode (s=1) and prefill-chunk (s=32) queries, hd=128, bs=16, MHA
+   12/12 and GQA 32/8, ``idx`` on and beside block edges, f32 / bf16 /
+   int8 / fp8 pools written through ``write_paged_kv``, table tails on the
+   null block, which holds garbage; then hd=64, a one-split table, and bf16
+   queries on an int8 pool. Gates: f32 ``atol=rtol=1e-5``; bf16 outputs
+   ``atol=2e-2`` in f32; int8 / fp8 ``atol=rtol=1e-4`` on the same
+   quantized bytes;
+4. the flagship llama's paged step in f32, kernel against plain: one
+   64-token prefill chunk then 8 decode steps, max |Δ logits| <= 1e-3;
+5. the main path: ``python -m accelerate_tpu_torch serve --preset flagship
+   --dtype bf16 --num-slots 8 --max-seq-len 1024`` answering 12 JSONL
+   requests (prompts of 16-900 ids, 64 new tokens each) in a fresh process
+   (so its kernel count starts at 0; its stderr summary names the count),
+   then the same engine in-process with ``--kv-dtype int8`` and 4 requests,
+   the launch counter set to 0 just before and read just after;
+6. times at the flagship decode shape (8 slots, context 512, bf16, the 16
+   layers' pools rotated so L2 does not hold them): the kernel, the plain
+   version, ``scaled_dot_product_attention`` over the pre-gathered span
+   (the gather excluded), and the bound — bytes of valid K/V + q + out
+   over 3.35 TB/s. Printed as one ``{"kernels": [...]}`` line;
+7. where a flagship decode step's time goes on the serve engine: a
+   ``torch.profiler`` window (device busy share, launches and top kernels
+   per step) and one step eager against the same step replayed from a CUDA
+   graph. Printed as one ``{"serve_breakdown": {...}}`` line.
+
+The last line of standard output is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+F32_FLOPS_PER_S = 67e12     # H100 SXM f32, outside the tensor cores
+SERVE_TIMEOUT_S = 600
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+
+
+# -- phase 3 ----------------------------------------------------------------
+
+
+_STORE = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
+          "fp8": torch.float8_e4m3fn}
+
+
+def _filled_pools(rng, *, b, s, nh, n_kv, hd, bs, mb, idx, pool, q_dtype, dev):
+    """Pools written through the port's ``write_paged_kv`` for positions
+    ``0 .. idx[b]+s-1`` of each row, tables partly filled (tails on block 0),
+    and the null block then overwritten with garbage that must never be
+    attended."""
+    from accelerate_tpu_torch.ops.layers import write_paged_kv
+
+    store = _STORE[pool]
+    bt = torch.zeros((b, mb), dtype=torch.int32)
+    nxt = 1
+    for i, ix in enumerate(idx):
+        for j in range(min((ix + s - 1) // bs + 1, mb)):
+            bt[i, j] = nxt
+            nxt += 1
+    nb = nxt + 3
+    bt = bt.to(dev)
+    kp = torch.zeros((nb, bs, n_kv, hd), dtype=store, device=dev)
+    vp = torch.zeros_like(kp)
+    quant = pool in ("int8", "fp8")
+    ks = torch.ones((nb, bs, n_kv), device=dev) if quant else None
+    vs = torch.ones_like(ks) if quant else None
+    span = max(idx) + s
+    k = torch.as_tensor(rng.normal(size=(b, span, n_kv, hd)).astype("float32"), device=dev)
+    v = torch.as_tensor(rng.normal(size=(b, span, n_kv, hd)).astype("float32"), device=dev)
+    pos = torch.arange(span, device=dev)[None, :].expand(b, span)
+    lens = torch.as_tensor([ix + s for ix in idx], device=dev)
+    write_paged_kv(kp, vp, k, v, bt, pos, write_mask=pos < lens[:, None],
+                   k_scale_l=ks, v_scale_l=vs)
+    garbage = torch.full((bs, n_kv, hd), 100.0, device=dev)
+    kp[0] = garbage.to(store)
+    vp[0] = (-garbage).to(store)
+    if quant:
+        ks[0] = 50.0
+        vs[0] = 50.0
+    q = torch.as_tensor(rng.normal(size=(b, s, nh, hd)).astype("float32"), device=dev)
+    return q.to(_STORE[q_dtype]), kp, vp, ks, vs, bt, torch.as_tensor(idx, dtype=torch.int32,
+                                                                       device=dev)
+
+
+def _kernel_cases():
+    """(pool, q dtype, s, nh, n_kv, hd, mb): the flagship shapes (hd 128, MHA
+    12/12) and GQA 32/8 at decode and prefill-chunk s in every pool dtype,
+    with 40-entry tables (5 key splits); then hd 64 and a table short
+    enough for one split, and bf16 queries on an int8 pool (a bf16 model
+    serving int8 KV)."""
+    cases = [(pool, "bf16" if pool == "bf16" else "f32", s, nh, n_kv, 128, 40)
+             for pool in ("f32", "bf16", "int8", "fp8")
+             for nh, n_kv in ((12, 12), (32, 8)) for s in (1, 32)]
+    cases += [(pool, q, s, 8, 2, 64, 8) for pool, q in (("f32", "f32"), ("bf16", "bf16"))
+              for s in (1, 32)]
+    cases += [("int8", "bf16", s, 12, 12, 128, 40) for s in (1, 32)]
+    return cases
+
+
+def check_kernel_vs_plain(dev) -> dict:
+    """Gates: f32 ``atol=rtol=1e-5``; a bf16 output (bf16 queries) ``atol=2e-2``
+    compared in f32; int8 / fp8 pools ``atol=rtol=1e-4`` on the same
+    quantized bytes."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(0)
+    errs: dict = {}
+    for pool, q_dtype, s, nh, n_kv, hd, mb in _kernel_cases():
+        bs = 16
+        idx = [i for i in (0, 1, 15, 16, 17, 31, 32, 100, 255, 511) if i + s <= mb * bs]
+        q, kp, vp, ks, vs, bt, ix = _filled_pools(
+            rng, b=len(idx), s=s, nh=nh, n_kv=n_kv, hd=hd, bs=bs, mb=mb, idx=idx,
+            pool=pool, q_dtype=q_dtype, dev=dev,
+        )
+        out = pa.paged_attention(q, kp, vp, bt, ix, ks, vs)
+        ref = pa.paged_attention(q, kp, vp, bt, ix, ks, vs, impl="plain")
+        torch.cuda.synchronize()
+        what = f"{pool} pool, {q_dtype} q, s={s}, nh={nh}, n_kv={n_kv}, hd={hd}, mb={mb}"
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError(f"kernel output not finite ({what})")
+        err = (out.float() - ref.float()).abs().max().item()
+        if q_dtype == "bf16":
+            ok = torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=0)
+        else:
+            tol = 1e-5 if pool == "f32" else 1e-4
+            ok = torch.allclose(out, ref, atol=tol, rtol=tol)
+        log(f"  paged_attention {what}: max |kernel - plain| = {err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"paged_attention kernel disagrees ({what})")
+        key = f"{pool}/{q_dtype}"
+        errs[key] = max(errs.get(key, 0.0), err)
+    return errs
+
+
+# -- phase 4 ----------------------------------------------------------------
+
+
+def check_flagship_forward(dev) -> float:
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.flagship_700m()
+    model = LlamaForCausalLM.from_config(cfg, seed=0, dtype=torch.float32, device=dev)
+    bs, mb, chunk, steps = 16, 64, 64, 8
+    nb = mb + 1
+    shape = (cfg.num_hidden_layers, nb, bs, cfg.num_key_value_heads, cfg.head_dim)
+    bt = torch.arange(1, mb + 1, dtype=torch.int32, device=dev)[None, :]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, chunk), generator=gen, device=dev)
+    logits, fed = {}, []
+    for impl in (None, "plain"):  # the plain run is fed the kernel run's tokens
+        pages = {"k": torch.zeros(shape, device=dev), "v": torch.zeros(shape, device=dev)}
+        out = model.paged_step(prompt, pages, bt, torch.zeros(1, dtype=torch.int32, device=dev),
+                               attn_impl=impl)
+        seq = [out.logits[0]]
+        for t in range(steps):
+            if impl is None:
+                fed.append(seq[-1][-1:].argmax(-1)[None])  # [1, 1] greedy pick
+            pos = torch.full((1,), chunk + t, dtype=torch.int32, device=dev)
+            out = model.paged_step(fed[t], pages, bt, pos, attn_impl=impl)
+            seq.append(out.logits[0])
+        logits[impl] = seq
+    torch.cuda.synchronize()
+    diff = max((a - b).abs().max().item() for a, b in zip(logits[None], logits["plain"]))
+    if not all(torch.isfinite(x).all() for x in logits[None]):
+        raise AssertionError("flagship logits not finite")
+    if logits[None][0].shape != (chunk, cfg.vocab_size):
+        raise AssertionError(f"flagship prefill logits shape {tuple(logits[None][0].shape)}")
+    log(f"  flagship f32 paged step ({chunk}-token prefill + {steps} decode steps): "
+        f"max |Δ logits| kernel vs plain = {diff:.3e}")
+    if not diff <= 1e-3:
+        raise AssertionError("flagship logits: kernel and plain disagree beyond 1e-3")
+    return diff
+
+
+# -- phase 5 ----------------------------------------------------------------
+
+SERVE_ARGS = ["serve", "--preset", "flagship", "--dtype", "bf16", "--num-slots", "8",
+              "--max-seq-len", "1024"]
+
+
+def _requests(n: int, seed: int) -> list[dict]:
+    rng = np.random.default_rng(seed)
+    lens = np.linspace(16, 900, n).astype(int)
+    return [
+        {"id": i, "prompt": rng.integers(1, 32000, size=int(L)).tolist(), "max_new_tokens": 64}
+        for i, L in enumerate(lens)
+    ]
+
+
+def _check_rows(rows: list[dict], n: int, what: str) -> None:
+    if len(rows) != n:
+        raise AssertionError(f"{what}: {len(rows)} answers for {n} requests")
+    for row in rows:
+        if "error" in row:
+            raise AssertionError(f"{what}: request {row.get('id')} failed: {row['error']}")
+        toks = row["tokens"]
+        if not (len(toks) == 64 or row["finish_reason"] == "eos"):
+            raise AssertionError(f"{what}: request {row['id']} gave {len(toks)} tokens")
+        if not all(0 <= t < 32000 for t in toks):
+            raise AssertionError(f"{what}: request {row['id']} emitted an id outside the vocab")
+
+
+def run_serve_subprocess() -> tuple[int, float]:
+    reqs = _requests(12, seed=0)
+    stdin = "".join(json.dumps(r) + "\n" for r in reqs)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "accelerate_tpu_torch", *SERVE_ARGS],
+        input=stdin, capture_output=True, text=True, cwd=REPO, timeout=SERVE_TIMEOUT_S,
+    )
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serve exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.strip()]
+    _check_rows(rows, len(reqs), "serve (bf16 KV)")
+    summary = [ln for ln in proc.stderr.splitlines() if ln.startswith("served ")]
+    m = re.search(r"paged_attention launches (\d+)", summary[-1] if summary else "")
+    if m is None:
+        raise AssertionError(f"serve printed no launch summary:\n{proc.stderr[-2000:]}")
+    launches = int(m.group(1))
+    log(f"  serve subprocess: {len(rows)} answers in {wall:.1f} s; {summary[-1]}")
+    if launches <= 0:
+        raise AssertionError("serve ran no paged-attention kernel launch")
+    return launches, wall
+
+
+def run_serve_int8_inprocess() -> int:
+    from accelerate_tpu_torch.commands import serve
+    from accelerate_tpu_torch.commands.accelerate_cli import build_parser
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    args = build_parser().parse_args([*SERVE_ARGS, "--kv-dtype", "int8"])
+    engine = serve._make_engine(args)
+    reqs = _requests(4, seed=1)
+    pa.launches = 0
+    handles = [engine.add_request(r["prompt"], r["max_new_tokens"]) for r in reqs]
+    engine.run_until_idle()
+    launches = pa.launches
+    rows = [serve._result_dict(h, r["id"]) for h, r in zip(handles, reqs)]
+    _check_rows(rows, len(reqs), "serve (int8 KV, in-process)")
+    log(f"  serve int8 KV in-process: {len(rows)} answers, paged_attention launches {launches}, "
+        f"kv_dtype {engine.stats()['kv_dtype']}")
+    if launches <= 0:
+        raise AssertionError("int8 serve ran no paged-attention kernel launch")
+    del engine
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -- phase 6 ----------------------------------------------------------------
+
+
+def _time_ms(fn, calls: int, repeats: int) -> float:
+    """Median over ``repeats`` of the mean per-call time of ``calls`` calls,
+    by CUDA events, after a warm-up."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(calls):
+            fn(i)
+        stop.record()
+        stop.synchronize()
+        samples.append(start.elapsed_time(stop) / calls)
+    samples.sort()
+    return samples[len(samples) // 2]
+
+
+def time_decode_shape(dev) -> dict:
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    layers, b, nh, hd, bs, mb, ctx = 16, 8, 12, 128, 16, 64, 512
+    nb = b * mb + 1
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bt = torch.zeros((b, mb), dtype=torch.int32, device=dev)
+    used = ctx // bs
+    bt[:, :used] = torch.arange(1, b * used + 1, dtype=torch.int32, device=dev).reshape(b, used)
+    idx = torch.full((b,), ctx - 1, dtype=torch.int32, device=dev)
+    pools = [
+        (torch.randn((nb, bs, nh, hd), generator=gen, device=dev).to(torch.bfloat16),
+         torch.randn((nb, bs, nh, hd), generator=gen, device=dev).to(torch.bfloat16))
+        for _ in range(layers)
+    ]
+    qs = [torch.randn((b, 1, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
+          for _ in range(layers)]
+    # the span gathered ahead of time for the library call: [b, h, ctx, hd]
+    gathered = [
+        tuple(p[bt[:, :used].long()].reshape(b, ctx, nh, hd).transpose(1, 2).contiguous()
+              for p in pair)
+        for pair in pools
+    ]
+    mask = torch.ones((b, 1, 1, ctx), dtype=torch.bool, device=dev)
+
+    def kernel(i):
+        kp, vp = pools[i % layers]
+        return pa.paged_attention(qs[i % layers], kp, vp, bt, idx)
+
+    def plain(i):
+        kp, vp = pools[i % layers]
+        return pa.paged_attention(qs[i % layers], kp, vp, bt, idx, impl="plain")
+
+    def library(i):
+        k, v = gathered[i % layers]
+        return F.scaled_dot_product_attention(qs[i % layers].transpose(1, 2), k, v,
+                                              attn_mask=mask)
+
+    err = (kernel(0).float() - plain(0).float()).abs().max().item()
+    ref = library(0).transpose(1, 2).float()
+    lib_err = (kernel(0).float() - ref).abs().max().item()
+    kernel_ms = _time_ms(kernel, calls=160, repeats=9)
+    plain_ms = _time_ms(plain, calls=16, repeats=5)
+    library_ms = _time_ms(library, calls=160, repeats=9)
+    kv_bytes = 2 * b * ctx * nh * hd * 2              # valid K and V, bf16, read once
+    io_bytes = 2 * b * nh * hd * 2 + b * mb * 4 + b * 4  # q, out, tables, idx
+    flops = 4 * b * nh * ctx * hd                     # QK^T and PV, f32 FMAs
+    bytes_ms = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    log(f"  decode shape b={b} ctx={ctx} bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa (span pre-gathered, gather excluded) {library_ms:.4f} ms, "
+        f"bound {max(bytes_ms, ops_ms):.4f} ms; |kernel - plain| {err:.2e}, "
+        f"|kernel - sdpa| {lib_err:.2e}")
+    return {
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "shape": {"slots": b, "context": ctx, "n_heads": nh, "n_kv": nh, "head_dim": hd,
+                  "block_size": bs, "max_blocks": mb, "dtype": "bf16", "layers_rotated": layers},
+        "library_call": "scaled_dot_product_attention over the pre-gathered span, "
+                        "boolean mask; gather excluded",
+    }
+
+
+# -- phase 7 ----------------------------------------------------------------
+
+
+def serve_breakdown() -> dict:
+    """Where a flagship decode step's time goes, on the main path's engine
+    (bf16, 8 slots, prompts of 100 ids): host wall time per step over two
+    decode bursts; device time per step and the top kernels over two more
+    bursts under ``torch.profiler`` (kernel rows only: the profiler's own
+    host overhead inflates wall time, so wall comes from the unprofiled
+    window); and one paged step eager against the same step replayed from a
+    CUDA graph, which takes the host out of the way (the port itself does
+    not capture graphs yet)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch.commands import serve
+    from accelerate_tpu_torch.commands.accelerate_cli import build_parser
+    from accelerate_tpu_torch.serving import RequestState
+
+    engine = serve._make_engine(build_parser().parse_args(SERVE_ARGS))
+    rng = np.random.default_rng(3)
+    for _ in range(engine.config.num_slots):
+        engine.add_request(rng.integers(1, 32000, size=100).tolist(), 128)
+    while engine.scheduler.queue_depth or engine.scheduler.active(RequestState.PREFILL):
+        engine.step()  # admission and chunked prefill (decode bursts start meanwhile)
+    bursts = 2
+    steps = bursts * engine.config.decode_burst
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(bursts):
+        engine.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(bursts):
+            engine.step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    if not device_ms > 0:
+        raise AssertionError("the profiler saw no kernel in the serve window")
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    paged_ms = sum(e.self_device_time_total for e in kernels
+                   if "paged_attention" in e.key or "combine_splits" in e.key) / 1e3 / steps
+
+    # one decode step over the engine's pools, every lane inactive (writes
+    # land in the null block), eager and replayed from a graph
+    model, n = engine.model, engine.config.num_slots
+    toks = torch.zeros((n, 1), dtype=torch.int32, device="cuda")
+    tables = torch.as_tensor(engine._block_tables, device="cuda")
+    pos = torch.full((n,), 100, dtype=torch.int32, device="cuda")
+    lanes = torch.zeros((n, 1), dtype=torch.bool, device="cuda")
+
+    def step():
+        return model.paged_step(toks, engine._pages, tables, pos, paged_write_mask=lanes)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    reps = 20
+    graph_ms = _time_ms(lambda i: graph.replay(), calls=reps, repeats=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / reps
+    out = {
+        "decode_steps_per_window": steps,
+        "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "kernels_per_step": sum(e.count for e in kernels) / steps,
+        "paged_attention_share_of_device": paged_ms / device_ms,
+        "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / steps
+                                    for e in top},
+        "eager_step_ms": eager_ms,
+        "graph_replay_step_ms": graph_ms,
+    }
+    log(f"  decode step (8 slots, bf16): wall {wall_ms:.2f} ms, device {device_ms:.2f} ms "
+        f"(busy {out['device_busy_share']:.1%}), {out['kernels_per_step']:.0f} kernels; "
+        f"eager {eager_ms:.2f} ms vs "
+        f"graph-replayed {graph_ms:.2f} ms; paged attention "
+        f"{out['paged_attention_share_of_device']:.1%} of device time")
+    del graph, engine, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this run needs one GPU",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from accelerate_tpu_torch import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    log("phase 1: device")
+    smi = nvidia_smi()
+    log(smi)
+    log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+
+    log("phase 2: build")
+    t0 = time.perf_counter()
+    built = _build.build_all()
+    build_s = time.perf_counter() - t0
+    for src, path in built.items():
+        regs = sorted(set(re.findall(r"Used (\d+) registers", _build.build_log(src))))
+        log(f"  {src} -> {os.path.relpath(path, REPO)} (registers per thread: {regs})")
+    log(f"  build seconds: {build_s:.2f}")
+
+    log("phase 3: paged_attention kernel against its plain version")
+    errs = check_kernel_vs_plain(dev)
+
+    log("phase 4: flagship paged step, kernel against plain")
+    logits_diff = check_flagship_forward(dev)
+    torch.cuda.empty_cache()
+
+    log("phase 5: serve through the entry point")
+    launches, serve_wall = run_serve_subprocess()
+    launches_int8 = run_serve_int8_inprocess()
+
+    log("phase 6: times at the flagship decode shape")
+    times = time_decode_shape(dev)
+
+    log("phase 7: where a decode step's time goes")
+    breakdown = serve_breakdown()
+    log(json.dumps({"serve_breakdown": breakdown}))
+
+    kernels = [{
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "accelerate_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "accelerate_tpu/ops/paged_attention.py:159",
+        "replaces_function": "_pallas_kernel",
+        "launches": launches,
+        "launches_int8_in_process": launches_int8,
+        "max_abs_err": max(errs.values()),
+        "max_abs_err_by_pool": errs,
+        "flagship_logits_max_abs_diff": logits_diff,
+        "ms": times["kernel_ms"],
+        "kernel_ms": times["kernel_ms"],
+        "plain_ms": times["plain_ms"],
+        "bound_ms": times["bound_ms"],
+        "bound_by": times["bound_by"],
+        "library_ms": times["library_ms"],
+        "library_call": times["library_call"],
+        "timed_shape": times["shape"],
+    }]
+    log(json.dumps({"kernels": kernels, "build_s": build_s, "serve_wall_s": serve_wall,
+                    "total_s": time.perf_counter() - t_start}))
+    log(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
