@@ -30,7 +30,7 @@ NVCC_FLAGS = (
 )
 
 #: every kernel source of the package, built together by :func:`build_all`
-SOURCES = ("paged_attention.cu",)
+SOURCES = ("paged_attention.cu", "flash_attention.cu")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,14 +1,15 @@
-"""Llama-family causal LM (port of ``accelerate_tpu/models/llama.py``, the
-serving half).
+"""Llama-family causal LM (port of ``accelerate_tpu/models/llama.py``: the
+training forward and the serving step).
 
 The JAX model keeps layer-stacked params and scans one block over them;
 here each layer is its own submodule (``nn.Linear(bias=False)`` stores
 ``[out, in]``, the transpose of the JAX ``[in, out]``), and the layer loop
 is a Python loop. Ported: :class:`LlamaConfig`, :func:`init_llama_params`,
-:func:`params_from_jax` and the paged step the serving engine runs
+:func:`params_from_jax`, the training/eval forward
+(:meth:`LlamaForCausalLM.forward`, the port of ``llama_apply``'s default
+mode and ``llama_layer_apply``) and the paged step the serving engine runs
 (:meth:`LlamaForCausalLM.paged_step`, the port of ``_llama_paged_step``).
-The training forward, the dense KV-cache decode and the streaming
-segments are later slices.
+The dense KV-cache decode and the streaming segments are later slices.
 """
 
 from __future__ import annotations
@@ -19,9 +20,18 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..modules import ModelOutput
-from ..ops.layers import rms_norm, rope_frequencies, rope_paged_attention_block
+from ..ops.attention import attention
+from ..ops.layers import (
+    apply_rope,
+    fused_cross_entropy,
+    rms_norm,
+    rope_frequencies,
+    rope_paged_attention_block,
+    shift_labels,
+)
 from ..utils.device import resolve_device
 
 
@@ -37,6 +47,16 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
     tie_word_embeddings: bool = False
+    #: recompute each layer in the backward (``torch.utils.checkpoint``);
+    #: the JAX ``jax.checkpoint_policies`` names are not ported
+    remat: bool = False
+
+    def __post_init__(self):
+        if not isinstance(self.remat, bool):
+            raise ValueError(
+                f"remat policy {self.remat!r} is not yet ported: use True (recompute "
+                "each layer) or False"
+            )
 
     @property
     def head_dim(self) -> int:
@@ -44,12 +64,13 @@ class LlamaConfig:
 
     @classmethod
     def llama2_7b(cls):
-        return cls()
+        return cls(remat=True)
 
     @classmethod
-    def flagship_700m(cls, max_position_embeddings: int = 1024):
+    def flagship_700m(cls, max_position_embeddings: int = 1024, remat: bool = False):
         """The ~700M flagship (hidden 1536, 12 heads × 128, ff 4h, 16
-        layers): the serve CLI's ``--preset flagship``."""
+        layers): the train step ``chip_smoke.py`` drives and the serve
+        CLI's ``--preset flagship``."""
         return cls(
             vocab_size=32000,
             hidden_size=1536,
@@ -58,6 +79,7 @@ class LlamaConfig:
             num_attention_heads=12,
             num_key_value_heads=12,
             max_position_embeddings=max_position_embeddings,
+            remat=remat,
         )
 
     @classmethod
@@ -152,9 +174,48 @@ class LlamaDecoderLayer(nn.Module):
                 torch.ones(config.hidden_size, dtype=dtype, device=device)
             ))
 
+    def weights(self) -> dict[str, torch.Tensor]:
+        """The block's tensors as the JAX layer dict (projections ``[out,
+        in]``), read at call time, so a ``functional_call`` that swapped in
+        compute-dtype copies hands those over."""
+        w = {name: getattr(self, name).weight for name in _LINEARS}
+        w.update({name: getattr(self, name) for name in _NORMS})
+        return w
+
+
+def llama_layer_apply(config: LlamaConfig, w: dict, x, cos, sin, positions, attention_mask):
+    """One transformer block on a layer's weight dict (port of
+    ``llama_layer_apply``): RMSNorm → q/k/v → RoPE → :func:`ops.attention.attention`
+    (causal, ``attention_mask [b, s]`` as the key mask) → output projection
+    residual → RMSNorm → SwiGLU MLP residual."""
+    c = config
+    nh, nkv, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
+    b, s, _ = x.shape
+    y = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
+    q = apply_rope(F.linear(y, w["wq"]).reshape(b, s, nh, hd), cos, sin, positions)
+    k = apply_rope(F.linear(y, w["wk"]).reshape(b, s, nkv, hd), cos, sin, positions)
+    v = F.linear(y, w["wv"]).reshape(b, s, nkv, hd)
+    attn = attention(q, k, v, segment_mask=attention_mask, causal=True)
+    x = x + F.linear(attn.reshape(b, s, nh * hd), w["wo"])
+    y = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
+    gated = F.silu(F.linear(y, w["w_gate"])) * F.linear(y, w["w_up"])
+    return x + F.linear(gated, w["w_down"])
+
+
+_LAYER_KEYS = _LINEARS + _NORMS
+
+
+def _remat_layer(config, x, cos, sin, positions, attention_mask, *weights):
+    """:func:`llama_layer_apply` with the weights as positional tensors, so
+    ``torch.utils.checkpoint`` keeps the very tensors the forward used (the
+    compute-dtype copies under mixed precision) for the recompute."""
+    return llama_layer_apply(config, dict(zip(_LAYER_KEYS, weights)), x, cos, sin, positions,
+                             attention_mask)
+
 
 class LlamaForCausalLM(nn.Module):
-    """Llama with the serving engine's block-paged KV step. Build one with
+    """Llama: the training forward and the serving engine's block-paged KV
+    step. Build one with
     :meth:`from_config` (random weights from a seed) or construct it and
     ``load_state_dict`` (e.g. :func:`params_from_jax`): the constructor
     leaves the weights uninitialised."""
@@ -199,6 +260,52 @@ class LlamaForCausalLM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.norm.dtype
 
+    def _head(self) -> torch.Tensor:
+        """The LM head ``[vocab, h]`` (the embeddings when tied)."""
+        return self.embed_tokens.weight if self.lm_head is None else self.lm_head.weight
+
+    def forward(self, input_ids, attention_mask=None, labels=None, positions=None,
+                return_logits: bool = False) -> ModelOutput:
+        """Training / eval forward over ``input_ids [b, s]`` with full causal
+        attention; ``attention_mask [b, s]`` (1 = real token) masks keys.
+        With ``labels [b, s]`` (-100 ignored) the loss is the next-token CE
+        computed from the pre-head hidden states by
+        :func:`ops.layers.fused_cross_entropy`, one sequence chunk of logits
+        at a time.
+
+        Deviation from the JAX model: there, XLA drops the unused ``[b, s,
+        vocab]`` logits when a step forces only the loss; eager PyTorch
+        would compute them. So with ``labels`` given the head product over
+        the whole sequence is skipped and ``out`` holds only ``loss``,
+        unless ``return_logits=True``."""
+        c = self.config
+        b, s = input_ids.shape
+        if s > c.max_position_embeddings:
+            raise ValueError(
+                f"sequence length {s} exceeds max_position_embeddings "
+                f"{c.max_position_embeddings}: RoPE position tables would be "
+                "indexed out of range"
+            )
+        if positions is None:
+            positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
+        x = self.embed_tokens(input_ids.long())
+        rope = (self.rope_cos, self.rope_sin)
+        for layer in self.layers:
+            w = layer.weights()
+            if c.remat:
+                x = checkpoint(_remat_layer, c, x, *rope, positions, attention_mask,
+                               *(w[n] for n in _LAYER_KEYS), use_reentrant=False)
+            else:
+                x = llama_layer_apply(c, w, x, *rope, positions, attention_mask)
+        x = rms_norm(x, self.norm, c.rms_norm_eps)
+        head = self._head()
+        out = ModelOutput()
+        if labels is None or return_logits:
+            out["logits"] = F.linear(x, head)
+        if labels is not None:
+            out["loss"] = fused_cross_entropy(x, head.t(), shift_labels(labels))
+        return out
+
     @torch.no_grad()
     def paged_step(self, input_ids, paged_kv, block_tables, cache_positions,
                    paged_write_mask=None, attn_impl=None) -> ModelOutput:
@@ -235,5 +342,4 @@ class LlamaForCausalLM(nn.Module):
             y = rms_norm(x, layer.mlp_norm, c.rms_norm_eps)
             x = x + layer.w_down(F.silu(layer.w_gate(y)) * layer.w_up(y))
         x = rms_norm(x, self.norm, c.rms_norm_eps)
-        head = self.embed_tokens.weight if self.lm_head is None else self.lm_head.weight
-        return ModelOutput(logits=F.linear(x, head), paged_kv=paged_kv)
+        return ModelOutput(logits=F.linear(x, self._head()), paged_kv=paged_kv)

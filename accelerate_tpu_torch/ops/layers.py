@@ -1,6 +1,7 @@
 """Core transformer ops (port of ``accelerate_tpu/ops/layers.py``): the
-norm, RoPE, cached attention and the block-paged KV cache ops the serving
-path runs.
+norm, RoPE, the reference attention and the losses the training step runs,
+and the cached attention and block-paged KV cache ops the serving path
+runs.
 
 Layouts follow the JAX package at every public function (``[b, s, heads,
 head_dim]`` activations, ``[num_blocks, block_size, n_kv, head_dim]``
@@ -53,6 +54,101 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     sin = sin[positions][:, :, None, :].to(dtype)
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def dot_product_attention(q, k, v, mask=None, scale=None):
+    """Reference attention: QKᵀ in the inputs' dtype → f32 masked softmax →
+    probabilities in q's dtype → PV. ``q [b, s, nh, hd]``, ``k``/``v``
+    ``[b, skv, n_kv, hd]`` (GQA by repeating KV heads), ``mask``
+    broadcastable to ``[b, nh, s, skv]``. The flash kernels replace it on
+    the hot path."""
+    b, s, nh, hd = q.shape
+    n_kv = k.shape[2]
+    if n_kv != nh:
+        k = k.repeat_interleave(nh // n_kv, dim=2)
+        v = v.repeat_interleave(nh // n_kv, dim=2)
+    scale = scale if scale is not None else 1.0 / np.sqrt(hd)
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q, k) * scale).float()
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def causal_mask(q_len: int, kv_len: int, dtype=torch.bool, device=None) -> torch.Tensor:
+    return torch.tril(torch.ones((q_len, kv_len), dtype=dtype, device=device),
+                      diagonal=kv_len - q_len)
+
+
+def causal_attention(q, k, v, segment_mask=None):
+    """Causal self-attention; ``segment_mask [b, s]`` marks valid tokens."""
+    s, skv = q.shape[1], k.shape[1]
+    mask = causal_mask(s, skv, device=q.device)[None, None, :, :]
+    if segment_mask is not None:
+        mask = mask & segment_mask[:, None, None, :].bool()
+    return dot_product_attention(q, k, v, mask=mask)
+
+
+def cross_entropy_loss(logits, labels, ignore_index: int = -100):
+    """Token-level CE with an ignore mask, f32 log-softmax; the masked mean
+    over valid tokens, the count clamped at 1."""
+    logits = logits.float()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def shift_labels(labels, ignore_index: int = -100):
+    """Next-token targets without slicing: position t's target is token
+    t+1 and the final position is ``ignore_index``, so the sequence length
+    (and :func:`fused_cross_entropy`'s chunking) is unchanged."""
+    pad = torch.full((labels.shape[0], 1), ignore_index, dtype=labels.dtype,
+                     device=labels.device)
+    return torch.cat([labels[:, 1:], pad], dim=1)
+
+
+def _chunk_nll(x_i, head, l_i, ignore_index: int):
+    """One chunk's summed NLL and valid count; the head product runs in the
+    compute dtype and is cast to f32 before the log-softmax."""
+    logits = torch.matmul(x_i, head).float()  # [b, s/C, V]
+    valid = l_i != ignore_index
+    safe = torch.where(valid, l_i, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def fused_cross_entropy(x, head, labels, ignore_index: int = -100, chunk_tokens: int = 1024):
+    """Token CE from pre-head hidden states ``x [b, s, h]`` and ``head [h,
+    vocab]`` without holding the full ``[b, s, vocab]`` logits: the sequence
+    splits into ``C`` chunks, the largest divisor of ``s`` with ``s // C >=
+    chunk_tokens // b`` (``C == 1`` is the plain loss), and each chunk runs
+    under ``torch.utils.checkpoint`` so the backward recomputes its logits
+    (the JAX ``jax.checkpoint`` inside ``lax.scan``). Equal to
+    ``cross_entropy_loss(x @ head, labels)``."""
+    b, s, _ = x.shape
+    rows = max(1, chunk_tokens // b)
+    C = 1
+    for c in range(1, s + 1):
+        if s % c == 0 and s // c >= rows:
+            C = c
+    if C == 1:
+        return cross_entropy_loss(torch.matmul(x, head), labels, ignore_index)
+    from torch.utils.checkpoint import checkpoint
+
+    n = s // C
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(C):
+        d_nll, d_cnt = checkpoint(_chunk_nll, x[:, i * n:(i + 1) * n], head,
+                                  labels[:, i * n:(i + 1) * n], ignore_index,
+                                  use_reentrant=False)
+        nll = nll + d_nll
+        count = count + d_cnt
+    return nll / torch.clamp(count, min=1)
 
 
 def cached_attention(q, k_cache, v_cache, idx):

@@ -1,3 +1,11 @@
+from .dataclasses import DistributedType, GradientAccumulationPlugin, PrecisionType
 from .device import resolve_device
+from .random import set_seed
 
-__all__ = ["resolve_device"]
+__all__ = [
+    "DistributedType",
+    "GradientAccumulationPlugin",
+    "PrecisionType",
+    "resolve_device",
+    "set_seed",
+]

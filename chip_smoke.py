@@ -35,13 +35,42 @@ failure, so the script exits non-zero and prints no result):
 7. where a flagship decode step's time goes on the serve engine: a
    ``torch.profiler`` window (device busy share, launches and top kernels
    per step) and one step eager against the same step replayed from a CUDA
-   graph. Printed as one ``{"serve_breakdown": {...}}`` line.
+   graph. Printed as one ``{"serve_breakdown": {...}}`` line;
+8. the flash-attention kernels (forward, backward dq, backward dk/dv)
+   against their plain versions on the card, on seeded numpy inputs: the
+   flagship shape (b 8, s 1024, 12 × 128) and GQA 32/8 at hd 64 and 128,
+   causal and not, s = 1000 (not a tile multiple), a left-padded key mask
+   with fully masked rows, f32 and bf16. Gates (the JAX tests' own): f32
+   output 2e-5, lse 1e-5, dq/dk/dv 2e-4 × max(|ref|, 1); bf16 output 3e-2
+   and grads 5e-2 × max(|ref|, 1), compared in f32. The f32 cases with no
+   mask also hold the kernels' grads to autograd through the plain
+   ``dot_product_attention`` at the same gate;
+9. one training forward and backward at flagship width (2 layers, b 2,
+   s 512, f32), attention through the kernels against the plain
+   autograd.Function: loss within 1e-5 relative, every parameter's grad
+   within 1e-4 × max(|ref|, 1);
+10. the training main path: the flagship (16 layers, 8 × 1024 tokens)
+    through the 5-line ``Accelerator(mixed_precision="bf16")`` loop with
+    ``torch.optim.AdamW`` at optax's ``adamw(1e-4)`` settings, 2 warm-up
+    and 10 timed steps, the flash counters set to 0 just before and read
+    just after (16 launches of each per step); finite, falling loss;
+    tokens/s, MFU against 989 TFLOP/s and peak memory; then the same model
+    through a hand-written PyTorch step, for ``vs_raw``;
+11. where a train step's time goes: one step under ``torch.profiler``
+    (device busy share, top kernels, the flash kernels' share). Printed as
+    one ``{"train_breakdown": {...}}`` line;
+12. the flash kernels timed at the flagship shape (b 8, s 1024, 12 × 128,
+    bf16, causal) beside their plain versions, ``scaled_dot_product_attention``
+    (forward for B1; its backward, fwd+bwd minus fwd, for the B2+B3 pair)
+    and their bounds.
 
-The last line of standard output is ``{"ok": true, "device": {...}}``.
+The ``{"kernels": [...]}`` line lists all four kernels. The last line of
+standard output is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -55,6 +84,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 SERVE_TIMEOUT_S = 600
 
 
@@ -373,6 +403,15 @@ def time_decode_shape(dev) -> dict:
 # -- phase 7 ----------------------------------------------------------------
 
 
+def _kernel_rows(prof) -> list:
+    """The profiler's device rows that are kernels: user annotations (such
+    as the optimizer's ``Optimizer.step`` range) also appear on the device
+    timeline, span other kernels, and would count their time twice."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def serve_breakdown() -> dict:
     """Where a flagship decode step's time goes, on the main path's engine
     (bf16, 8 slots, prompts of 100 ids): host wall time per step over two
@@ -406,7 +445,7 @@ def serve_breakdown() -> dict:
         for _ in range(bursts):
             engine.step()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _kernel_rows(prof)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     if not device_ms > 0:
         raise AssertionError("the profiler saw no kernel in the serve window")
@@ -464,6 +503,388 @@ def serve_breakdown() -> dict:
     return out
 
 
+# -- phase 8 ----------------------------------------------------------------
+
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _flash_counts() -> dict:
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd": fa.fwd_launches, "flash_bwd_dq": fa.bwd_dq_launches,
+            "flash_bwd_dkv": fa.bwd_dkv_launches}
+
+
+def _zero_flash_counts() -> None:
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    fa.fwd_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+
+
+def _flash_cases():
+    """(b, s, nh, n_kv, hd, causal, left pad or 0, dtype)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        (8, 1024, 12, 12, 128, True, 0, f32),      # the flagship training shape
+        (8, 1024, 12, 12, 128, True, 0, bf16),
+        (8, 1024, 12, 12, 128, False, 0, bf16),
+        (2, 1024, 32, 8, 128, True, 0, f32),       # GQA 32/8
+        (2, 1024, 32, 8, 128, False, 0, bf16),
+        (2, 1024, 32, 8, 64, True, 0, bf16),
+        (2, 1024, 32, 8, 64, False, 0, f32),
+        (4, 1000, 12, 12, 128, True, 0, bf16),     # s not a multiple of the 64 tile
+        (4, 1000, 12, 12, 128, True, 77, f32),     # left-padded: rows 0..76 fully masked
+        (4, 1000, 32, 8, 64, True, 130, bf16),
+        (2, 1000, 32, 8, 64, False, 130, f32),
+    ]
+
+
+def _flash_inputs(rng, b, s, nh, n_kv, hd, pad, dtype, dev):
+    def draw(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev).to(dtype)
+
+    q, do = draw(b, s, nh, hd), draw(b, s, nh, hd)
+    k, v = draw(b, s, n_kv, hd), draw(b, s, n_kv, hd)
+    mask = None
+    if pad:
+        mask = torch.ones((b, s), dtype=torch.bool, device=dev)
+        mask[:, :pad] = False
+    return q, k, v, do, mask
+
+
+def _scaled_err(got, ref) -> float:
+    """max |got - ref| / max(|ref|, 1), in f32."""
+    return ((got.float() - ref.float()).abs().max() / max(ref.float().abs().max().item(), 1.0)).item()
+
+
+def check_flash_vs_plain(dev) -> dict:
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops.layers import causal_attention, dot_product_attention
+
+    rng = np.random.default_rng(8)
+    errs = {name: {"f32": 0.0, "bf16": 0.0} for name in FLASH_KERNELS}
+    autograd_err = 0.0
+    for b, s, nh, n_kv, hd, causal, pad, dtype in _flash_cases():
+        q, k, v, do, mask = _flash_inputs(rng, b, s, nh, n_kv, hd, pad, dtype, dev)
+        f32 = dtype == torch.float32
+        o, lse = fa.flash_fwd(q, k, v, mask, causal=causal, impl="cuda")
+        dq, dk, dv = fa.flash_bwd(q, k, v, mask, o, lse, do, causal=causal, impl="cuda")
+        ro, rlse = fa.flash_fwd(q, k, v, mask, causal=causal, impl="plain")
+        # the plain backward from the plain forward's (o, lse)
+        rdq, rdk, rdv = fa.flash_bwd(q, k, v, mask, ro, rlse, do, causal=causal, impl="plain")
+        torch.cuda.synchronize()
+        what = (f"b={b} s={s} nh={nh} n_kv={n_kv} hd={hd} causal={causal} pad={pad} "
+                f"{'f32' if f32 else 'bf16'}")
+        outs = (o, lse, dq, dk, dv)
+        if not all(torch.isfinite(t.float()).all() for t in outs):
+            raise AssertionError(f"flash kernel output not finite ({what})")
+        if (lse == fa.NEG_INF).ne(rlse == fa.NEG_INF).any():
+            raise AssertionError(f"flash kernel: fully masked rows differ ({what})")
+        o_err = (o.float() - ro.float()).abs().max().item()
+        lse_err = (lse - rlse).abs().max().item()
+        g_errs = [_scaled_err(g, r) for g, r in ((dq, rdq), (dk, rdk), (dv, rdv))]
+        o_gate, g_gate = (2e-5, 2e-4) if f32 else (3e-2, 5e-2)
+        ok = o_err <= o_gate and lse_err <= 1e-5 and max(g_errs) <= g_gate
+        if pad and causal:  # rows with no valid key: output 0, dq 0
+            ok = ok and o[:, :pad].abs().max().item() == 0.0 and dq[:, :pad].abs().max().item() == 0.0
+        line = (f"  flash {what}: |o| {o_err:.2e} |lse| {lse_err:.2e} "
+                f"dq/dk/dv {g_errs[0]:.2e}/{g_errs[1]:.2e}/{g_errs[2]:.2e}")
+        if f32 and not pad:
+            # the kernels' grads against autograd through the reference attention
+            rq, rk, rv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            ref = causal_attention(rq, rk, rv) if causal else dot_product_attention(rq, rk, rv)
+            ref.backward(do)
+            a_errs = [_scaled_err(g, r.grad) for g, r in ((dq, rq), (dk, rk), (dv, rv))]
+            a_errs.append((o - ref.detach()).abs().max().item())
+            autograd_err = max(autograd_err, *a_errs[:3])
+            ok = ok and max(a_errs[:3]) <= 2e-4 and a_errs[3] <= 2e-5
+            line += f"; vs autograd: grads {max(a_errs[:3]):.2e}, o {a_errs[3]:.2e}"
+            del rq, rk, rv, ref
+        log(line + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"flash kernels disagree with the plain versions ({what})")
+        key = "f32" if f32 else "bf16"
+        g_abs = [(g.float() - r.float()).abs().max().item()
+                 for g, r in ((dq, rdq), (dk, rdk), (dv, rdv))]
+        for name, err in zip(FLASH_KERNELS, (o_err, g_abs[0], max(g_abs[1:]))):
+            errs[name][key] = max(errs[name][key], err)
+        del q, k, v, do, mask, o, lse, dq, dk, dv, ro, rlse, rdq, rdk, rdv
+        torch.cuda.empty_cache()
+    return {"by_dtype": errs, "autograd_grad_err_f32": autograd_err}
+
+
+# -- phase 9 ----------------------------------------------------------------
+
+
+def check_train_step_kernel_vs_plain(dev) -> dict:
+    import dataclasses
+
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from accelerate_tpu_torch.ops.attention import attention_context
+
+    cfg = dataclasses.replace(LlamaConfig.flagship_700m(), num_hidden_layers=2)
+    model = LlamaForCausalLM.from_config(cfg, seed=0, dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(9)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 512)), device=dev)
+    mask = torch.ones((2, 512), dtype=torch.int32, device=dev)
+    mask[1, :100] = 0  # a left-padded row: its first 100 queries see no key
+    labels = torch.where(mask.bool(), ids, -100)
+    results = {}
+    for flash_impl in (None, "plain"):
+        model.zero_grad(set_to_none=True)
+        with attention_context(impl="flash", flash_impl=flash_impl):
+            loss = model(ids, attention_mask=mask, labels=labels).loss
+            loss.backward()
+        results[flash_impl] = (loss.detach(), {n: p.grad.detach().clone()
+                                               for n, p in model.named_parameters()})
+    torch.cuda.synchronize()
+    (loss_k, grads_k), (loss_p, grads_p) = results[None], results["plain"]
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    grad_err = max(_scaled_err(grads_k[n], grads_p[n]) for n in grads_p)
+    finite = all(torch.isfinite(g).all() for g in grads_k.values())
+    log(f"  2-layer flagship-width step (b=2, s=512, f32): loss {loss_k.item():.6f} vs "
+        f"{loss_p.item():.6f} (rel {loss_rel:.2e}); max grad err {grad_err:.2e} × max(|ref|, 1)")
+    if not (finite and loss_rel <= 1e-5 and grad_err <= 1e-4):
+        raise AssertionError("the train step through the kernels disagrees with the plain path")
+    del model, results
+    torch.cuda.empty_cache()
+    return {"loss_rel_err": loss_rel, "grad_err": grad_err}
+
+
+# -- phase 10 ---------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+
+
+def _train_flops_per_step(n_params: int, config, bsz: int, seq: int) -> float:
+    """6N per token (fwd+bwd matmuls) + causal self-attention term (the
+    formula of the repository's train-step benchmark)."""
+    tokens = bsz * seq
+    attn = 6.0 * config.num_hidden_layers * tokens * seq * config.hidden_size
+    return 6.0 * n_params * tokens + attn
+
+
+def _timed(step, n: int) -> float:
+    """Mean ms per step over ``n`` chained steps, synchronised only at the end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def run_train_loop() -> dict:
+    """The main training path: 2 warm-up and 10 timed steps of the 5-line
+    loop. Returns the numbers, the per-step launch counts and the live
+    objects phase 11 profiles."""
+    from torch.func import functional_call
+
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.flagship_700m(max_position_embeddings=1024)
+    accelerator = Accelerator(mixed_precision="bf16")
+    module = LlamaForCausalLM.from_config(cfg, seed=0, device=accelerator.device)
+    adamw = dict(lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)  # optax.adamw(1e-4)
+    model, opt = accelerator.prepare(module, torch.optim.AdamW(module.parameters(), **adamw))
+    n_params = sum(p.numel() for p in module.parameters())
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ))
+    ids = torch.as_tensor(ids, device=accelerator.device)
+    batch = {"input_ids": ids, "labels": ids}
+    losses, per_step = [], []
+
+    def step():
+        out = model(**batch)
+        accelerator.backward(out.loss)
+        opt.step()
+        opt.zero_grad()
+        losses.append(out.loss.detach())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    for _ in range(2):
+        step()
+        per_step.append(_flash_counts())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # the first timed window: the same 10 steps
+    for _ in range(10):
+        step()
+        per_step.append(_flash_counts())
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / 10
+    counts = _flash_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    loss_vals = [x.item() for x in losses]
+
+    deltas = [{k: c[k] - (per_step[i - 1][k] if i else 0) for k in c}
+              for i, c in enumerate(per_step)]
+    layers = cfg.num_hidden_layers
+    log(f"  flagship bf16 loop: losses {['%.4f' % x for x in loss_vals]}")
+    log(f"  flash launches in the 12 steps: {counts}; per step {sorted({tuple(d.values()) for d in deltas})}")
+    if not all(np.isfinite(loss_vals)):
+        raise AssertionError("a train-step loss is not finite")
+    if not loss_vals[-1] < loss_vals[0]:
+        raise AssertionError("the loss did not fall over 12 steps on a fixed batch")
+    if any(d[k] != layers for d in deltas for k in FLASH_KERNELS):
+        raise AssertionError(f"each flash kernel must launch {layers} times per step: {deltas}")
+
+    # the same model and batch through a hand-written step: bf16 copies of
+    # every weight, loss.backward(), AdamW.step() (ABBA with the loop)
+    params = dict(module.named_parameters())
+    raw_opt = torch.optim.AdamW(module.parameters(), **adamw)
+
+    def raw_step():
+        p16 = {n: p.to(torch.bfloat16) for n, p in params.items()}
+        loss = functional_call(module, p16, (), {"input_ids": ids, "labels": ids}).loss
+        loss.backward()
+        raw_opt.step()
+        raw_opt.zero_grad(set_to_none=True)
+
+    for _ in range(2):
+        raw_step()
+    raw_ms = [_timed(raw_step, 10)]
+    raw_ms.append(_timed(raw_step, 10))
+    loop_ms_2 = _timed(step, 10)
+    raw_mean, loop_mean = sum(raw_ms) / 2, (loop_ms + loop_ms_2) / 2
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = _train_flops_per_step(n_params, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    out = {
+        "n_params": n_params,
+        "tokens_per_step": tokens,
+        "step_ms": loop_ms,
+        "step_ms_repeat": loop_ms_2,
+        "tokens_per_s": tokens / (loop_ms / 1e3),
+        "mfu": flops / (loop_ms / 1e3) / BF16_FLOPS_PER_S,
+        "train_flops_per_step": flops,
+        "max_memory_allocated_bytes": peak_bytes,
+        "raw_step_ms": raw_ms,
+        "vs_raw": raw_mean / loop_mean,
+        "losses": loss_vals,
+        "launches": counts,
+        "launches_per_step": deltas[0],
+    }
+    log(f"  step {loop_ms:.2f} ms (repeat {loop_ms_2:.2f}), {out['tokens_per_s']:.0f} tokens/s, "
+        f"MFU {out['mfu']:.4f} of 989 TFLOP/s, peak memory {peak_bytes / 2**30:.2f} GiB; "
+        f"raw step {raw_ms[0]:.2f}/{raw_ms[1]:.2f} ms, vs_raw {out['vs_raw']:.4f}")
+    return out, (step, module, opt, raw_opt)
+
+
+# -- phase 11 ---------------------------------------------------------------
+
+
+def train_breakdown(step, step_ms: float) -> dict:
+    """Kernel rows of one flagship train step under ``torch.profiler``; the
+    wall time is the unprofiled step of phase 10 (the profiler's host
+    overhead inflates wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = _kernel_rows(prof)
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not device_ms > 0:
+        raise AssertionError("the profiler saw no kernel in the train step")
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    # flash_fwd_kernel (f32) or flash_fwd_mma_kernel (bf16), and so on
+    flash_ms = {name: sum(e.self_device_time_total for e in kernels
+                          if re.search(rf"\b{name}_(mma_)?kernel\b", e.key)) / 1e3
+                for name in FLASH_KERNELS}
+    if not all(flash_ms.values()):
+        raise AssertionError(f"the profiled train step shows no flash kernel: {flash_ms}")
+    flash_total = sum(flash_ms.values())
+    out = {
+        "step_wall_ms": step_ms,
+        "device_ms": device_ms,
+        "device_busy_share": device_ms / step_ms,
+        "kernels_launched": sum(e.count for e in kernels),
+        "flash_ms": flash_ms,
+        "flash_share_of_device": flash_total / device_ms,
+        "flash_share_of_step": flash_total / step_ms,
+        "top_kernels_ms": {e.key[:70]: e.self_device_time_total / 1e3 for e in top},
+    }
+    log(f"  train step: wall {step_ms:.2f} ms, device {device_ms:.2f} ms "
+        f"(busy {out['device_busy_share']:.1%}), {out['kernels_launched']} kernels; "
+        f"flash kernels {flash_total:.2f} ms = {out['flash_share_of_step']:.1%} of the step")
+    return out
+
+
+# -- phase 12 ---------------------------------------------------------------
+
+
+def time_flash_kernels(dev) -> dict:
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    b, s, nh, hd = TRAIN_BATCH, TRAIN_SEQ, 12, 128
+    rng = np.random.default_rng(12)
+    q, k, v, do, _ = _flash_inputs(rng, b, s, nh, nh, hd, 0, torch.bfloat16, dev)
+    scale = 1.0 / float(np.sqrt(hd))
+    o, lse = fa.flash_fwd(q, k, v, impl="cuda")
+    delta = fa._delta(o, do)
+
+    calls, repeats = 20, 7
+    ms = {
+        "flash_fwd": _time_ms(lambda i: fa._flash_fwd_cuda(q, k, v, None, scale, True),
+                              calls, repeats),
+        "flash_bwd_dq": _time_ms(
+            lambda i: fa._bwd_dq_cuda(q, k, v, None, lse, delta, do, scale, True), calls, repeats),
+        "flash_bwd_dkv": _time_ms(
+            lambda i: fa._bwd_dkv_cuda(q, k, v, None, lse, delta, do, scale, True), calls, repeats),
+    }
+    plain_fwd = _time_ms(lambda i: fa._flash_fwd_plain(q, k, v, None, scale, True), 3, 3)
+    plain_bwd = _time_ms(lambda i: fa._flash_bwd_plain(q, k, v, None, o, lse, do, scale, True),
+                         3, 3)
+
+    # the library call, which the port never makes: [b, h, s, d] layout
+    lq, lk, lv, ldo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    lib_err = (F.scaled_dot_product_attention(lq, lk, lv, is_causal=True).transpose(1, 2).float()
+               - o.float()).abs().max().item()
+    lib_fwd = _time_ms(lambda i: F.scaled_dot_product_attention(lq, lk, lv, is_causal=True),
+                       calls, repeats)
+    gq, gk, gv = (t.detach().clone().requires_grad_() for t in (lq, lk, lv))
+
+    def lib_fwd_bwd(i):
+        out = F.scaled_dot_product_attention(gq, gk, gv, is_causal=True)
+        torch.autograd.grad(out, (gq, gk, gv), ldo)
+
+    lib_bwd_pair = _time_ms(lib_fwd_bwd, calls, repeats) - lib_fwd
+
+    pairs = s * (s + 1) / 2 * b * nh  # causal (query, key) pairs
+    tile = b * s * nh * hd * 2        # one bf16 [b, s, nh, hd] tensor
+    rows = b * nh * s * 4             # one f32 [b, nh, s] tensor
+    work = {  # (flops, bytes): each input read once, each output written once
+        "flash_fwd": (2 * 2 * pairs * hd, 4 * tile + rows),               # q k v -> o, lse
+        "flash_bwd_dq": (3 * 2 * pairs * hd, 5 * tile + 2 * rows),        # q k v dO lse δ -> dq
+        "flash_bwd_dkv": (4 * 2 * pairs * hd, 6 * tile + 2 * rows),       # q k v dO lse δ -> dk dv
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = {
+            "kernel_ms": ms[name],
+            "plain_ms": plain_fwd if name == "flash_fwd" else plain_bwd,
+            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd_pair,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops,
+            "bytes": nbytes,
+        }
+        log(f"  {name}: kernel {ms[name]:.4f} ms, plain {out[name]['plain_ms']:.4f} ms, "
+            f"library {out[name]['library_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} ms "
+            f"({out[name]['bound_by']}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+    log(f"  (plain_ms of the two backward kernels is the plain backward, which computes "
+        f"dq, dk and dv together; library_ms of both is sdpa's backward, the pair); "
+        f"|sdpa - flash_fwd| {lib_err:.2e}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this run needs one GPU",
@@ -510,6 +931,27 @@ def main() -> int:
     breakdown = serve_breakdown()
     log(json.dumps({"serve_breakdown": breakdown}))
 
+    log("phase 8: flash-attention kernels against their plain versions")
+    flash_errs = check_flash_vs_plain(dev)
+
+    log("phase 9: a flagship-width train step, kernels against plain")
+    step_check = check_train_step_kernel_vs_plain(dev)
+
+    log("phase 10: the flagship train step through the 5-line Accelerator loop")
+    train, (step, *live) = run_train_loop()
+
+    log("phase 11: where a train step's time goes")
+    train_bd = train_breakdown(step, train["step_ms"])
+    log(json.dumps({"train_breakdown": train_bd}))
+    del step, live
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 12: flash kernels timed at the flagship shape")
+    flash_times = time_flash_kernels(dev)
+    log(json.dumps({"train": {k: v for k, v in train.items() if k != "losses"},
+                    "train_step_check": step_check}))
+
     kernels = [{
         "name": "paged_attention",
         "route": "cuda",
@@ -530,6 +972,35 @@ def main() -> int:
         "library_call": times["library_call"],
         "timed_shape": times["shape"],
     }]
+    replaces = {"flash_fwd": ("accelerate_tpu/ops/flash_attention.py:48", "_fwd_kernel"),
+                "flash_bwd_dq": ("accelerate_tpu/ops/flash_attention.py:131", "_bwd_dq_kernel"),
+                "flash_bwd_dkv": ("accelerate_tpu/ops/flash_attention.py:184", "_bwd_dkv_kernel")}
+    for name in FLASH_KERNELS:
+        t = flash_times[name]
+        by_dtype = flash_errs["by_dtype"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "accelerate_tpu_torch/csrc/flash_attention.cu",
+            "replaces": replaces[name][0],
+            "replaces_function": replaces[name][1],
+            "launches": train["launches"][name],
+            "launches_per_train_step": train["launches_per_step"][name],
+            "max_abs_err": max(by_dtype.values()),
+            "max_abs_err_by_dtype": by_dtype,
+            "ms": t["kernel_ms"],
+            "kernel_ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_call": ("scaled_dot_product_attention(is_causal=True) forward"
+                             if name == "flash_fwd" else
+                             "scaled_dot_product_attention backward (fwd+bwd minus fwd): "
+                             "the pair flash_bwd_dq + flash_bwd_dkv"),
+            "timed_shape": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "n_heads": 12, "n_kv": 12,
+                            "head_dim": 128, "dtype": "bf16", "causal": True},
+        })
     log(json.dumps({"kernels": kernels, "build_s": build_s, "serve_wall_s": serve_wall,
                     "total_s": time.perf_counter() - t_start}))
     log(smi)

@@ -42,16 +42,27 @@ def fake_toolchain(tmp_path, monkeypatch):
     return log
 
 
+def test_sources_name_every_kernel_file():
+    assert _build.SOURCES == ("paged_attention.cu", "flash_attention.cu")
+    on_disk = sorted(p.name for p in _build.CSRC_DIR.glob("*.cu"))
+    assert sorted(_build.SOURCES) == on_disk
+
+
 def test_builds_once_per_source_hash_and_flags(fake_toolchain, monkeypatch):
     built = _build.build_all()
+    assert set(built) == set(_build.SOURCES)
+    for src, path in built.items():
+        stem = src.removesuffix(".cu")
+        assert path.parent == _build.BUILD_DIR and path.is_file()
+        assert path.name.startswith(f"{stem}-") and path.suffix == ".so"
+        assert "Used 42 registers" in _build.build_log(src)
     path = built["paged_attention.cu"]
-    assert path.parent == _build.BUILD_DIR and path.is_file()
-    assert path.name.startswith("paged_attention-") and path.suffix == ".so"
-    assert "Used 42 registers" in _build.build_log("paged_attention.cu")
     calls = fake_toolchain.read_text().splitlines()
-    assert len(calls) == 1 and "arch=compute_90a,code=sm_90a" in calls[0]
+    assert len(calls) == len(_build.SOURCES)  # one nvcc per source, started together
+    assert all("arch=compute_90a,code=sm_90a" in call for call in calls)
+    assert sorted(call.split()[-1].rsplit("/", 1)[-1] for call in calls) == sorted(_build.SOURCES)
     assert _build.build_all() == built  # unchanged source: nothing rebuilt
-    assert len(fake_toolchain.read_text().splitlines()) == 1
+    assert len(fake_toolchain.read_text().splitlines()) == len(_build.SOURCES)
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.library_path("paged_attention.cu") != path  # new flags, new build
     assert not list(_build.BUILD_DIR.glob("*.tmp.so"))

@@ -47,6 +47,9 @@ def test_every_module_imports_without_jax_or_triton():
     result = json.loads(proc.stdout.splitlines()[-1])
     assert "accelerate_tpu_torch.serving.engine" in result["modules"]
     assert "accelerate_tpu_torch.ops.paged_attention" in result["modules"]
+    for name in ("accelerator", "state", "optimizer", "scheduler", "ops.attention",
+                 "ops.flash_attention", "utils.dataclasses", "utils.random"):
+        assert f"accelerate_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 
 
