@@ -10,9 +10,10 @@ backward is :func:`flash_bwd`:
 * the **CUDA kernels** ``csrc/flash_attention.cu`` (hand-written for
   ``sm_90a``): ``flash_fwd_*`` replaces the TPU kernel ``_fwd_kernel``,
   ``flash_bwd_dq_*`` ``_bwd_dq_kernel`` and ``flash_bwd_dkv_*``
-  ``_bwd_dkv_kernel``; bf16 inputs run their products on the tensor cores,
-  f32 inputs on the FMA units (no TF32). Taken for CUDA tensors, and only
-  the kernels: a build or launch failure raises;
+  ``_bwd_dkv_kernel``; bf16 inputs run their products on the tensor cores
+  (forward and dk/dv: ``wgmma`` fed by a TMA ring; dq: ``mma.sync``), f32
+  inputs on the FMA units (no TF32). Taken for CUDA tensors, and only the
+  kernels: a build or launch failure raises;
 * the **plain** PyTorch versions :func:`_flash_fwd_plain` and
   :func:`_flash_bwd_plain` — the kernels' math as a loop over key tiles,
   with the same masking and rounding points. Taken for CPU tensors, and by
@@ -45,7 +46,11 @@ bwd_dkv_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-#: key tile of the plain versions (the kernels' tile)
+#: key tile of the plain forward: the bf16 forward kernel's (``kFwdTileKeys``
+#: in ``csrc/flash_attention.cu``), where P is rounded at each tile's running max
+_FWD_TILE = 128
+#: key tile of the plain backward (P comes from lse there, so the tile does not
+#: change its rounding)
 _TILE = 64
 
 
@@ -140,16 +145,17 @@ def _tile_valid(segment_mask, t0, t1, sq, causal, device):
     return valid
 
 
-def _tile_ends(sq, skv, causal):
+def _tile_ends(sq, skv, causal, tile=_TILE):
     """Key tiles the kernels visit: with ``causal``, none starting past the
     last query."""
     end = min(skv, sq) if causal else skv
-    return [(t0, min(t0 + _TILE, skv)) for t0 in range(0, end, _TILE)]
+    return [(t0, min(t0 + tile, skv)) for t0 in range(0, end, tile)]
 
 
 def _flash_fwd_plain(q, k, v, segment_mask, scale, causal):
     """The math of ``_fwd_kernel``: f32 scores, an online softmax over key
-    tiles, P rounded to V's dtype before P·V, f32 accumulators."""
+    tiles of ``_FWD_TILE``, P rounded to V's dtype before P·V, f32
+    accumulators."""
     b, sq, nh, hd = q.shape
     skv = k.shape[1]
     qt, kt, vt = _heads_first(q, k, v)
@@ -157,7 +163,7 @@ def _flash_fwd_plain(q, k, v, segment_mask, scale, causal):
     m = torch.full((b, nh, sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, nh, sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, nh, sq, hd), dtype=torch.float32, device=dev)
-    for t0, t1 in _tile_ends(sq, skv, causal):
+    for t0, t1 in _tile_ends(sq, skv, causal, _FWD_TILE):
         s = torch.matmul(qt, kt[:, :, t0:t1].transpose(-1, -2)) * scale
         s = torch.where(_tile_valid(segment_mask, t0, t1, sq, causal, dev), s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))

@@ -12,6 +12,8 @@ are held to the plain versions on the card by ``chip_smoke.py``.
 """
 
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -96,6 +98,10 @@ CASES = {
     "ragged_s50": dict(causal=True, s=50),
     "left_padded": dict(causal=True, b=2, pad=20),
     "gqa_4_2": dict(causal=True, h=4, n_kv=2),
+    # more than one of the bf16 forward kernel's 128-key tiles
+    "ragged_s200": dict(causal=True, s=200),
+    # query rows 0..127 (a whole 128-row tile) see no valid key
+    "left_padded_s200": dict(causal=True, b=2, s=200, pad=130),
 }
 
 
@@ -124,6 +130,17 @@ def test_plain_flash_matches_jax_pallas_kernels(case):
         assert (lse.numpy()[:, :, :pad] == tfa.NEG_INF).all()
         assert all(np.isfinite(g).all() for g in got_grads)
         assert np.abs(got_grads[0][:, :pad]).max() == 0.0
+
+
+def test_plain_forward_tile_is_the_forward_kernels_tile():
+    """The plain forward rounds P at each key tile's running max, where the
+    bf16 forward kernel rounds it: their key tiles must be the same."""
+    src = (Path(tfa.__file__).resolve().parent.parent / "csrc" / "flash_attention.cu").read_text()
+    found = re.findall(r"constexpr int kFwdTileKeys = (\d+);", src)
+    assert len(found) == 1
+    assert tfa._FWD_TILE == int(found[0])
+    assert [t1 - t0 for t0, t1 in tfa._tile_ends(300, 300, False, tfa._FWD_TILE)] == [
+        tfa._FWD_TILE, tfa._FWD_TILE, 300 - 2 * tfa._FWD_TILE]
 
 
 def test_plain_flash_bf16_matches_jax():
