@@ -48,10 +48,10 @@
 //    no TF32, so they meet the JAX gates (2e-5) against the plain version:
 //    64-row tiles, 256 threads form a 16 x 16 grid over a 64 x 64 score
 //    tile, tiles staged as f32 with rows padded by one float; expf, logf.
-//  * bf16 forward (B1) and dk/dv (B3), the training path's heaviest two:
-//    wgmma fed by a ring of TMA copies with mbarriers, two warpgroups of
-//    products (section "bf16 forward (B1) and dk/dv (B3) for Hopper"). B1
-//    takes 128 query rows a block, with a producer warp in a third
+//  * bf16 forward (B1), dq (B2) and dk/dv (B3): wgmma fed by a ring of TMA
+//    copies with mbarriers, two warpgroups of products (section "bf16
+//    forward (B1), dq (B2) and dk/dv (B3) for Hopper"). B1 takes 128
+//    query rows a block, with a producer warp in a third
 //    warpgroup, and streams K/V tiles of 128 keys through three stages, so
 //    the next tiles' loads overlap this tile's products; it applies the
 //    causal compare and the key mask only on the tiles that need them (the
@@ -59,10 +59,13 @@
 //    causal query tiles first. B3 takes 128 keys a block, loads K and V
 //    once and streams tiles of 64 query rows (Q, dO, lse, delta) through
 //    three stages; its four products per tile are wgmmas, P^T and dS^T never
-//    leave registers, and it masks only the diagonal and masked keys. exp
-//    is ex2.approx with scale * log2(e) folded in; lse stays a natural log.
-//  * bf16 dq (B2): mma.sync m16n8k16 on 64-row tiles staged in shared
-//    memory, four warps a block, no overlap of loads and products.
+//    leave registers, and it masks only the diagonal and masked keys. B2
+//    takes 128 query rows a block, loads Q and dO once and streams K/V
+//    tiles of 64 keys (with their mask bytes) through four stages; S and dP
+//    are SS wgmmas, dS stays in registers as the A operand of dS K against
+//    the same K tile read MN-major; it masks as B1 does and launches the
+//    heaviest causal query tiles first. exp is ex2.approx with
+//    scale * log2(e) folded in; lse stays a natural log.
 
 #include <cfloat>
 #include <cstdint>
@@ -423,110 +426,15 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dq (B2) on the tensor cores with mma.sync m16n8k16 and f32
-// accumulators. Four warps per block; a warp owns 16 rows of the block's
-// 64-row tile. Tiles are staged in shared memory as bf16 with rows padded by
-// 8 elements, so fragment loads (32-bit, 8 rows x 4 words) and ldmatrix
-// rows (16 bytes at a 16-byte offset mod 128) are free of bank conflicts.
-// The f32 score accumulators of one product are laid out as the A operand of
-// the next (the C fragment of a 16 x 16 score slice is the A fragment of the
-// same slice), so dS passes from one product to the next in registers,
-// rounded to bf16 on the way as the TPU kernel rounds it.
+// bf16 helpers shared by the tensor-core kernels
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int kMmaThreads = 128;
-
-template <int HD>
-__host__ __device__ constexpr int mma_stride() { return HD + 8; }
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8 x 8 bf16 matrices, transposed: the B fragments (k = row of the
-// staged tile, n = column) of two neighbouring 8-column n-tiles
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // two f32 values rounded to bf16, the lower column in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// A fragment (16 rows from r0, 16 columns from c0) of a staged row-major tile
-template <int HD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t, int r0, int c0, int gr,
-                                       int tg) {
-  constexpr int S = mma_stride<HD>();
-  a[0] = lds32(t + (r0 + gr) * S + c0 + 2 * tg);
-  a[1] = lds32(t + (r0 + gr + 8) * S + c0 + 2 * tg);
-  a[2] = lds32(t + (r0 + gr) * S + c0 + 8 + 2 * tg);
-  a[3] = lds32(t + (r0 + gr + 8) * S + c0 + 8 + 2 * tg);
-}
-
-// B fragment of X^T for a staged X[n][k] (k contiguous): 8 rows from n0,
-// 16 columns from k0
-template <int HD>
-__device__ __forceinline__ void frag_bt(uint32_t& b0, uint32_t& b1, const bf16* t, int n0, int k0,
-                                        int gr, int tg) {
-  constexpr int S = mma_stride<HD>();
-  b0 = lds32(t + (n0 + gr) * S + k0 + 2 * tg);
-  b1 = lds32(t + (n0 + gr) * S + k0 + 8 + 2 * tg);
-}
-
-// acc[HD/8][4] += A (16 x 16*KSTEPS, from score accumulators s[2*KSTEPS][4]
-// rounded to bf16) times the staged tile X[k][HD] (k = rows from row 0)
-template <int HD, int KSTEPS>
-__device__ __forceinline__ void mma_scores_x(float (&acc)[HD / 8][4],
-                                             const float (&s)[2 * KSTEPS][4], const bf16* x,
-                                             int lane) {
-  constexpr int S = mma_stride<HD>();
-  const int r = (lane & 7) + ((lane >> 3) & 1) * 8, c = (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                           pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                           pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                           pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < HD / 16; ++np) {
-      uint32_t b[4];
-      ldsm_x4_trans(b, x + (16 * kk + r) * S + 16 * np + c);
-      mma16816(acc[2 * np], a, b[0], b[1]);
-      mma16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Stage rows [row0, row0 + ROWS) of one head of a bf16 [b, s, heads, HD]
-// tensor; rows >= n_rows are zero.
-template <int HD, int ROWS>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* __restrict__ src,
-                                               int64_t pitch, int row0, int n_rows) {
-  constexpr int S = mma_stride<HD>();
-  constexpr int kVecs = HD / 8;
-  for (int e = threadIdx.x; e < ROWS * kVecs; e += kMmaThreads) {
-    const int r = e / kVecs, c = (e % kVecs) * 8;
-    const int row = row0 + r;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (row < n_rows) x = __ldg(reinterpret_cast<const uint4*>(src + row * pitch + c));
-    *reinterpret_cast<uint4*>(dst + r * S + c) = x;
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -539,90 +447,10 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFull, x, 2);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                        const bf16* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, bf16* __restrict__ dq, int sq, int skv,
-                        int nh, int n_kv, float scale, int causal) {
-  constexpr int S = mma_stride<HD>();
-  constexpr int kNT = kBlock / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + kBlock * S;
-  bf16* k_s = do_s + kBlock * S;
-  bf16* v_s = k_s + kBlock * S;
-
-  const int q0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
-  const int g = h / (nh / n_kv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, gr = lane >> 2, tg = lane & 3;
-  const int64_t q_pitch = static_cast<int64_t>(nh) * HD;
-  const int64_t kv_pitch = static_cast<int64_t>(n_kv) * HD;
-  const int64_t q_off = (static_cast<int64_t>(b) * sq * nh + h) * HD;
-  const int64_t kv_off = (static_cast<int64_t>(b) * skv * n_kv + g) * HD;
-  const int64_t row_off = (static_cast<int64_t>(b) * nh + h) * sq;
-  const uint8_t* mask_b = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * skv;
-
-  load_tile_bf16<HD, kBlock>(q_s, q + q_off, q_pitch, q0, sq);
-  load_tile_bf16<HD, kBlock>(do_s, dout + q_off, q_pitch, q0, sq);
-  const int rows[2] = {q0 + warp * 16 + gr, q0 + warp * 16 + gr + 8};
-  float lse_r[2], delta_r[2], acc[HD / 8][4] = {};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse_r[r] = rows[r] < sq ? lse[row_off + rows[r]] : kNegInf;
-    delta_r[r] = rows[r] < sq ? delta[row_off + rows[r]] : 0.f;
-  }
-
-  const int kv_end = causal ? min(skv, q0 + kBlock) : skv;
-  for (int t0 = 0; t0 < kv_end; t0 += kBlock) {
-    __syncthreads();  // the previous tile is consumed (and q_s, do_s written)
-    load_tile_bf16<HD, kBlock>(k_s, k + kv_off, kv_pitch, t0, skv);
-    load_tile_bf16<HD, kBlock>(v_s, v + kv_off, kv_pitch, t0, skv);
-    __syncthreads();
-
-    float s[kNT][4] = {}, dp[kNT][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      uint32_t aq[4], ad[4];
-      frag_a<HD>(aq, q_s, warp * 16, 16 * kk, gr, tg);
-      frag_a<HD>(ad, do_s, warp * 16, 16 * kk, gr, tg);
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        uint32_t b0, b1;
-        frag_bt<HD>(b0, b1, k_s, 8 * j, 16 * kk, gr, tg);
-        mma16816(s[j], aq, b0, b1);
-        frag_bt<HD>(b0, b1, v_s, 8 * j, 16 * kk, gr, tg);
-        mma16816(dp[j], ad, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kNT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, key = t0 + 8 * j + 2 * tg + (e & 1);
-        const bool valid = key_valid(mask_b, key, skv) && (!causal || rows[r] >= key);
-        const float sc = valid ? s[j][e] * scale : kNegInf;
-        // a fully masked row has lse == NEG_INF and must give p = 0
-        const float p = lse_r[r] == kNegInf ? 0.f : expf(sc - lse_r[r]);
-        s[j][e] = p * (dp[j][e] - delta_r[r]) * scale;  // dS
-      }
-    mma_scores_x<HD, kNT / 2>(acc, s, k_s, lane);  // dS rounded to K's dtype
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= sq) continue;
-    bf16* row = dq + ((static_cast<int64_t>(b) * sq + rows[r]) * nh + h) * HD;
-#pragma unroll
-    for (int c = 0; c < HD / 8; ++c)
-      *reinterpret_cast<uint32_t*>(row + 8 * c + 2 * tg) =
-          pack_bf16(acc[c][2 * r], acc[c][2 * r + 1]);
-  }
-}
 
 // ---------------------------------------------------------------------------
-// bf16 forward (B1) and dk/dv (B3) for Hopper: wgmma fed by a TMA ring.
+// bf16 forward (B1), dq (B2) and dk/dv (B3) for Hopper: wgmma fed by a TMA
+// ring.
 //
 // Two warpgroups compute: each owns 64 rows of the block's 128-row output
 // tile (the wgmma M) and runs the products. One warp keeps a ring of stages
@@ -640,6 +468,10 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //    setmaxnreg.inc, so a producer warpgroup made B3 spill. B3 is two
 //    warpgroups (a 255-register budget) and warp 0 refills, at the top of
 //    each tile, the stage the previous tile used.
+//  * B2 takes B3's shape with the roles of queries and keys swapped: Q and
+//    dO of 128 query rows are loaded once, and tiles of 64 keys (K, V and
+//    the tile's mask bytes) stream through four stages. ptxas gives it
+//    160 registers a thread at hd 128 (the dQ accumulator is 64 of them).
 //
 // Operand tiles live in shared memory exactly as TMA writes them with the
 // 128-byte swizzle: rows of 64 bf16 (128 bytes), a head of 128 split into
@@ -651,8 +483,8 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //
 // Score accumulators stay in registers: the wgmma accumulator layout of a
 // 64 x 16 slice is the register A layout of the next wgmma, so P (forward)
-// and P^T, dS^T (dk/dv) are rounded to bf16 where the TPU kernels round
-// them and fed to register-A wgmmas against V, dO and Q.
+// P^T, dS^T (dk/dv) and dS (dq) are rounded to bf16 where the TPU kernels
+// round them and fed to register-A wgmmas against V, dO, Q and K.
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 128;                  // one warpgroup
@@ -665,6 +497,10 @@ constexpr int kDkvKeys = 128;                    // keys of a dk/dv block
 constexpr int kDkvQRows = 64;                    // query rows per dk/dv tile (the wgmma N)
 constexpr int kDkvStages = 3;
 constexpr int kDkvThreads = 2 * kWgThreads;      // two warpgroups, no producer warpgroup
+constexpr int kDqRows = 128;                     // query rows of a dq block
+constexpr int kDqTileKeys = 64;                  // keys per dq tile (the wgmma N of S and dP)
+constexpr int kDqStages = 4;
+constexpr int kDqThreads = 2 * kWgThreads;       // two warpgroups, as B3
 // B1's registers a thread after setmaxnreg: 128 x kProducerRegs + 256 x
 // kConsumerRegs is the pool of 384 threads at 168 each (the launch bound)
 constexpr int kProducerRegs = 24;
@@ -1274,12 +1110,202 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+template <int HD>
+struct DqSmem {
+  static constexpr int kHalves = HD / 64;
+  static constexpr uint32_t kQHalf = kDqRows * kSwizzleRow;
+  static constexpr uint32_t kQTile = kHalves * kQHalf;
+  static constexpr uint32_t kKVHalf = kDqTileKeys * kSwizzleRow;
+  static constexpr uint32_t kKVTile = kHalves * kKVHalf;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDo = kQ + kQTile;
+  // stage s: K at kK + 2 s kKVTile, V right after it
+  static constexpr uint32_t kK = kDo + kQTile;
+  static constexpr uint32_t kMask = kK + kDqStages * 2 * kKVTile;
+  static constexpr uint32_t kNeed = kMask + kDqStages * kDqTileKeys;
+  // barriers: Q and dO, then full and empty for each stage
+  static constexpr uint32_t kBars = kNeed + kDqStages * 4;
+  static constexpr uint32_t kBytes = kBars + (1 + 2 * kDqStages) * 8 + 1024;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+                          const float* __restrict__ delta, bf16* __restrict__ dq, int sq,
+                          int skv, int nh, int n_kv, float scale, int causal) {
+  using L = DqSmem<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_q = base + L::kBars;
+  const uint32_t bar_f = bar_q + 8, bar_e = bar_f + 8 * kDqStages;
+  uint8_t* mask_s = smem + L::kMask;
+  int* need_s = reinterpret_cast<int*>(smem + L::kNeed);
+
+  // the heaviest causal query tiles first: the last grid axis, reversed
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kDqRows, h = blockIdx.x, b = blockIdx.y;
+  const int g = h / (nh / n_kv);
+  const int kv_end = causal ? min(skv, q0 + kDqRows) : skv;
+  const int n_tiles = (kv_end + kDqTileKeys - 1) / kDqTileKeys;
+  const uint8_t* mask_b = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * skv;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(bar_f + 8 * s, 32);  // warp 0: mask bytes, then K's and V's copies
+      mbar_init(bar_e + 8 * s, kDqThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWgThreads, tid = threadIdx.x % kWgThreads;
+  const int warp = tid / 32, lane = tid % 32;
+  const bool stager = threadIdx.x < 32;  // warp 0 keeps the ring filled
+  const CUtensorMap* k_tma = &k_map;
+  const CUtensorMap* v_tma = &v_map;
+  // warp 0: wait until tile jt's stage is free, stage its mask bytes (and
+  // whether any key of it is masked) and start its K and V copies
+  auto stage_tile = [&](int jt) {
+    const int s = jt % kDqStages, t0 = jt * kDqTileKeys;
+    mbar_wait(bar_e + 8 * s, ((jt / kDqStages) & 1) ^ 1);
+    int need = 0;
+    if (mask_b != nullptr) {
+      uint32_t word = 0;
+      bool all = true;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = t0 + 2 * lane + i;
+        const uint32_t mv = key < skv ? mask_b[key] : 1u;  // the ragged edge is tested apart
+        word |= mv << (8 * i);
+        all = all && mv != 0;
+      }
+      reinterpret_cast<uint16_t*>(mask_s + s * kDqTileKeys)[lane] = static_cast<uint16_t>(word);
+      need = !__all_sync(kFull, all);
+    }
+    if (lane == 0) {
+      need_s[s] = need;
+      const uint32_t k_s = base + L::kK + 2 * s * L::kKVTile;
+      mbar_expect_tx(bar_f + 8 * s, 2 * L::kKVTile);
+      for (int hf = 0; hf < L::kHalves; ++hf) {
+        tma_load_4d(k_s + hf * L::kKVHalf, k_tma, 64 * hf, g, t0, b, bar_f + 8 * s);
+        tma_load_4d(k_s + L::kKVTile + hf * L::kKVHalf, v_tma, 64 * hf, g, t0, b, bar_f + 8 * s);
+      }
+    } else {
+      mbar_arrive(bar_f + 8 * s);
+    }
+  };
+  if (stager) {
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, 2 * L::kQTile);
+      for (int hf = 0; hf < L::kHalves; ++hf) {
+        tma_load_4d(base + L::kQ + hf * L::kQHalf, &q_map, 64 * hf, h, q0, b, bar_q);
+        tma_load_4d(base + L::kDo + hf * L::kQHalf, &do_map, 64 * hf, h, q0, b, bar_q);
+      }
+    }
+    for (int jt = 0; jt < kDqStages - 1 && jt < n_tiles; ++jt) stage_tile(jt);
+  }
+
+  const int gr = lane >> 2, tg = lane & 3;
+  const int r0 = q0 + 64 * wg;  // this warpgroup's first query row
+  const int rows[2] = {r0 + 16 * warp + gr, r0 + 16 * warp + gr + 8};
+  // lse (in log2 units) and delta of the thread's two rows, read once. A row
+  // past the sequence or with no valid key (lse == NEG_INF) gives p = 0.
+  const int64_t row_off = (static_cast<int64_t>(b) * nh + h) * sq;
+  bool live[2];
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float l = rows[r] < sq ? lse[row_off + rows[r]] : kNegInf;
+    live[r] = l != kNegInf;
+    lse2[r] = live[r] ? l * kLog2e : 0.f;
+    dl[r] = rows[r] < sq ? delta[row_off + rows[r]] : 0.f;
+  }
+  const float c = scale * kLog2e;  // exp(scale * x - lse) = 2^(c * x - lse2)
+  const uint32_t q_wg = base + L::kQ + 64 * wg * kSwizzleRow;
+  const uint32_t do_wg = base + L::kDo + 64 * wg * kSwizzleRow;
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  mbar_wait(bar_q, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    // refill the stage that tile j - 1 used: warpgroup 0 may run at most
+    // one tile ahead of warpgroup 1, warpgroup 1 as far ahead as the ring
+    if (stager && j + kDqStages - 1 < n_tiles) stage_tile(j + kDqStages - 1);
+    const int s = j % kDqStages, t0 = j * kDqTileKeys;
+    const uint32_t k_s = base + L::kK + 2 * s * L::kKVTile, v_s = k_s + L::kKVTile;
+    mbar_wait(bar_f + 8 * s, (j / kDqStages) & 1);
+    if (causal && t0 >= r0 + 64) {  // every key after every query row
+      mbar_arrive(bar_e + 8 * s);
+      continue;
+    }
+    float sc[kDqTileKeys / 2], dp[kDqTileKeys / 2];  // S = Q K^T, dP = dO V^T
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss_n64(sc, desc_kmajor(q_wg + (kk / 4) * L::kQHalf + off),
+                   desc_kmajor(k_s + (kk / 4) * L::kKVHalf + off), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss_n64(dp, desc_kmajor(do_wg + (kk / 4) * L::kQHalf + off),
+                   desc_kmajor(v_s + (kk / 4) * L::kKVHalf + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    settle(sc);
+    settle(dp);
+
+    // the causal compare and the key mask only on the diagonal, the ragged
+    // edge and tiles with a masked key
+    const bool need = need_s[s] != 0 || t0 + kDqTileKeys > skv ||
+                      (causal && t0 + kDqTileKeys - 1 > r0);
+    const uint8_t* mk = mask_s + s * kDqTileKeys;
+#pragma unroll
+    for (int i = 0; i < kDqTileKeys / 2; ++i) {
+      const int col = 8 * (i >> 2) + 2 * tg + (i & 1), r = (i >> 1) & 1, key = t0 + col;
+      bool valid = live[r];
+      if (need)
+        valid = valid && key < skv && (!causal || rows[r] >= key) &&
+                (mask_b == nullptr || mk[col] != 0);
+      const float p = valid ? ex2(fmaf(sc[i], c, -lse2[r])) : 0.f;
+      sc[i] = p * (dp[i] - dl[r]) * scale;  // dS
+    }
+    uint32_t pd[kDqTileKeys / 4];
+    pack_a<kDqTileKeys / 16>(pd, sc);  // dS rounded to K's dtype
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDqTileKeys / 16; ++kk)  // dQ += dS K, K read MN-major
+      wgmma_rs_hd<HD>(acc, pd, kk, k_s + kk * 16 * kSwizzleRow, L::kKVHalf);
+    wgmma_commit();
+    wgmma_wait_all();
+    settle(acc);
+    settle(pd);
+    mbar_arrive(bar_e + 8 * s);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= sq) continue;
+    bf16* row = dq + ((static_cast<int64_t>(b) * sq + rows[r]) * nh + h) * HD;
+#pragma unroll
+    for (int c8 = 0; c8 < HD / 8; ++c8)
+      *reinterpret_cast<uint32_t*>(row + 8 * c8 + 2 * tg) =
+          pack_bf16(acc[4 * c8 + 2 * r], acc[4 * c8 + 2 * r + 1]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-template <int HD>
-constexpr int dq_mma_smem_bytes() { return 4 * kBlock * mma_stride<HD>() * 2; }
 
 template <int HD>
 constexpr int fwd_smem_bytes() { return (3 * kBlock * (HD + 1) + kBlock * kSStride) * 4; }
@@ -1406,7 +1432,6 @@ template <int HD>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* mask,
                       const void* dout, const float* lse, const float* delta, void* dq,
                       const Shape& a, int dtype, cudaStream_t stream) {
-  const dim3 grid((a.sq + kBlock - 1) / kBlock, a.nh, a.b);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaError_t err;
   if (dtype == 0) {
@@ -1414,17 +1439,24 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* m
     constexpr int bytes = dq_smem_bytes<HD>();
     if ((err = allow_smem(flash_bwd_dq_kernel<HD>, bytes, ready)) != cudaSuccess)
       return err;
+    const dim3 grid((a.sq + kBlock - 1) / kBlock, a.nh, a.b);
     flash_bwd_dq_kernel<HD><<<grid, kThreads, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         m, static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), a.sq, a.skv,
         a.nh, a.n_kv, a.scale, a.causal);
   } else {
     static bool ready = false;
-    constexpr int bytes = dq_mma_smem_bytes<HD>();
-    if ((err = allow_smem(flash_bwd_dq_mma_kernel<HD>, bytes, ready)) != cudaSuccess) return err;
-    flash_bwd_dq_mma_kernel<HD><<<grid, kMmaThreads, bytes, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), m,
-        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), a.sq, a.skv, a.nh,
+    constexpr int bytes = DqSmem<HD>::kBytes;
+    CUtensorMap q_map, k_map, v_map, do_map;
+    if ((err = tma_map(&q_map, q, HD, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
+        (err = tma_map(&do_map, dout, HD, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
+        (err = tma_map(&k_map, k, HD, a.n_kv, a.skv, a.b, kDqTileKeys)) != cudaSuccess ||
+        (err = tma_map(&v_map, v, HD, a.n_kv, a.skv, a.b, kDqTileKeys)) != cudaSuccess ||
+        (err = allow_smem(flash_bwd_dq_wgmma_kernel<HD>, bytes, ready)) != cudaSuccess)
+      return err;
+    const dim3 grid(a.nh, a.b, (a.sq + kDqRows - 1) / kDqRows);
+    flash_bwd_dq_wgmma_kernel<HD><<<grid, kDqThreads, bytes, stream>>>(
+        q_map, k_map, v_map, do_map, m, lse, delta, static_cast<bf16*>(dq), a.sq, a.skv, a.nh,
         a.n_kv, a.scale, a.causal);
   }
   return cudaGetLastError();
@@ -1468,6 +1500,29 @@ bool valid_shape(const Shape& a, int hd, int dtype) {
   return a.b >= 1 && a.sq >= 1 && a.skv >= 1 && a.n_kv >= 1 && a.nh >= a.n_kv &&
          a.nh % a.n_kv == 0 && (hd == 64 || hd == 128) && (dtype == 0 || dtype == 1) &&
          a.b <= 65535 && a.nh <= 65535;
+}
+
+// Resident blocks an SM holds of a kernel launched with `threads` threads
+// and `bytes` of dynamic shared memory, by the runtime's occupancy
+// calculator for this device.
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, int threads, int bytes, int* blocks) {
+  bool ready = false;
+  const cudaError_t err = allow_smem(kernel, bytes, ready);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, bytes);
+}
+
+template <int HD>
+cudaError_t wgmma_blocks_per_sm(int which, int* blocks) {
+  switch (which) {
+    case 0: return occupancy(flash_fwd_wgmma_kernel<HD>, kFwdThreads, FwdSmem<HD>::kBytes, blocks);
+    case 1:
+      return occupancy(flash_bwd_dq_wgmma_kernel<HD>, kDqThreads, DqSmem<HD>::kBytes, blocks);
+    case 2:
+      return occupancy(flash_bwd_dkv_wgmma_kernel<HD>, kDkvThreads, DkvSmem<HD>::kBytes, blocks);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1515,6 +1570,15 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
   const float* d = static_cast<const float*>(delta);
   return hd == 64 ? launch_dkv<64>(q, k, v, mask, dout, l, d, dk, dv, a, dtype, st)
                   : launch_dkv<128>(q, k, v, mask, dout, l, d, dk, dv, a, dtype, st);
+}
+
+// Resident blocks an SM holds of the bf16 kernel `which` (0 forward, 1 dq,
+// 2 dk/dv) at head dim hd, with the threads and shared memory it launches with.
+extern "C" int flash_attention_blocks_per_sm(int which, int hd, int* blocks) {
+  (void)cudaGetLastError();
+  if (hd != 64 && hd != 128) return cudaErrorInvalidValue;
+  return hd == 64 ? wgmma_blocks_per_sm<64>(which, blocks)
+                  : wgmma_blocks_per_sm<128>(which, blocks);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

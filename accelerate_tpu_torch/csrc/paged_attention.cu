@@ -329,6 +329,18 @@ extern "C" int paged_attention_forward(const void* q, const void* k_pages, const
   }
 }
 
+// Resident blocks an SM holds of the split kernel and of the combine kernel
+// at hd 128 with bf16 queries and a bf16 pool (the flagship's decode), by
+// the runtime's occupancy calculator for this device.
+extern "C" int paged_attention_blocks_per_sm(int* split, int* combine) {
+  (void)cudaGetLastError();
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      split, paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false>, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      combine, combine_splits_kernel<128, __nv_bfloat16>, 128, 0);
+}
+
 extern "C" const char* paged_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -11,8 +11,8 @@ backward is :func:`flash_bwd`:
   ``sm_90a``): ``flash_fwd_*`` replaces the TPU kernel ``_fwd_kernel``,
   ``flash_bwd_dq_*`` ``_bwd_dq_kernel`` and ``flash_bwd_dkv_*``
   ``_bwd_dkv_kernel``; bf16 inputs run their products on the tensor cores
-  (forward and dk/dv: ``wgmma`` fed by a TMA ring; dq: ``mma.sync``), f32
-  inputs on the FMA units (no TF32). Taken for CUDA tensors, and only the
+  (``wgmma`` fed by a TMA ring), f32 inputs on the FMA units (no TF32).
+  Taken for CUDA tensors, and only the
   kernels: a build or launch failure raises;
 * the **plain** PyTorch versions :func:`_flash_fwd_plain` and
   :func:`_flash_bwd_plain` — the kernels' math as a loop over key tiles,

@@ -11,7 +11,11 @@ failure, so the script exits non-zero and prints no result):
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: every CUDA kernel of the port from ``accelerate_tpu_torch/csrc``
    into ``build/torch_kernels`` (nvcc, sm_90a), with the build seconds and
-   each flash kernel's registers and spills from ptxas;
+   each kernel instance's registers, spills and static shared memory from
+   ptxas (the flash kernels and the paged kernel's split and combine
+   instances), and the blocks a SM holds of the bf16 flash kernels and of
+   the paged kernels' timed instances, from the CUDA runtime's occupancy
+   calculator on the card;
 3. the paged-attention kernel against its plain PyTorch version on the
    card: decode (s=1) and prefill-chunk (s=32) queries, hd=128, bs=16, MHA
    12/12 and GQA 32/8, ``idx`` on and beside block edges, f32 / bf16 /
@@ -29,10 +33,14 @@ failure, so the script exits non-zero and prints no result):
    then the same engine in-process with ``--kv-dtype int8`` and 4 requests,
    the launch counter set to 0 just before and read just after;
 6. times at the flagship decode shape (8 slots, context 512, bf16, the 16
-   layers' pools rotated so L2 does not hold them): the kernel, the plain
-   version, ``scaled_dot_product_attention`` over the pre-gathered span
-   (the gather excluded), and the bound — bytes of valid K/V + q + out
-   over 3.35 TB/s. Printed as one ``{"kernels": [...]}`` line;
+   layers' pools rotated so L2 does not hold them), and again at context
+   1024 (the table's ``mb · bs``): the kernel (CUDA events around the
+   Python wrapper), the device time a launch of its split kernel and of
+   its combine kernel under ``torch.profiler``, the plain version,
+   ``scaled_dot_product_attention`` over the pre-gathered span (the gather
+   excluded; its kernels' device time a call, and CUDA events around it),
+   and the bound — bytes of valid K/V + q + out over 3.35 TB/s.
+   Printed as one ``{"kernels": [...]}`` line;
 7. where a flagship decode step's time goes on the serve engine: a
    ``torch.profiler`` window (device busy share, launches and top kernels
    per step) and one step eager against the same step replayed from a CUDA
@@ -41,10 +49,12 @@ failure, so the script exits non-zero and prints no result):
    against their plain versions on the card, on seeded numpy inputs: the
    flagship shape (b 8, s 1024, 12 × 128) and GQA 32/8 at hd 64 and 128,
    causal and not, s = 1000 (not a tile multiple), a left-padded key mask
-   with fully masked rows, f32 and bf16, and two bf16 cases at the edges of
-   the 128-row tiles of the bf16 forward and dk/dv kernels: s = 129 (one
-   row past a tile) and s = 200 with a left pad of 130 (a whole query tile
-   fully masked). Gates (the JAX tests' own): f32 output 2e-5, lse 1e-5,
+   with fully masked rows, f32 and bf16, and four bf16 cases at the edges
+   of the bf16 kernels' tiles: s = 129 (one row past a 128-row tile),
+   s = 200 with a left pad of 130 (a whole query tile fully masked), GQA
+   32/8 × 128 at s = 1000 (a multiple of neither the 64-key nor the 128-row
+   tile) and s = 200 non-causal with a left pad of 130 (masked keys inside
+   a key tile off the diagonal). Gates (the JAX tests' own): f32 output 2e-5, lse 1e-5,
    dq/dk/dv 2e-4 × max(|ref|, 1); bf16 output 3e-2, lse 1e-5 and grads
    5e-2 × max(|ref|, 1), compared in f32. The f32 cases with no mask also
    hold the kernels' grads to autograd through the plain
@@ -69,10 +79,14 @@ failure, so the script exits non-zero and prints no result):
     line;
 12. the flash kernels timed at the flagship shape (b 8, s 1024, 12 × 128,
     bf16, causal) beside their plain versions, ``scaled_dot_product_attention``
-    (forward for B1; its backward, fwd+bwd minus fwd, for the B2+B3 pair)
-    and their bounds; each with its achieved TFLOP/s, by CUDA events around
-    the Python wrapper and by phase 11's profiler time per launch (the
-    kernel alone, without the wrapper's host cost).
+    (forward for B1; its backward alone, ``autograd.grad`` over one
+    retained forward, for the B2+B3 pair) and their bounds; each kernel
+    with its achieved TFLOP/s, by CUDA events around the Python wrapper
+    (min, median and max of the repeats) and by phase 11's profiler time
+    per launch (the kernel alone, without the wrapper's host cost); the
+    library call by its kernels' device time a call under the profiler
+    (``library_ms``: as a Python call its host cost can exceed its
+    kernels'), and by events (min, median and max).
 
 The ``{"kernels": [...]}`` line lists all four kernels. The last line of
 standard output is ``{"ok": true, "device": {...}}``.
@@ -102,14 +116,23 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def kernel_key(mangled: str):
+    """``kernel<args>`` of a kernel template from its mangled name, as the
+    C++ runtime's demangler writes it (``paged_attention_kernel<128,
+    __nv_bfloat16, __nv_bfloat16, false>``), or None for any other name."""
+    m = re.search(r"(\w+<[^()]*>)\(", torch._C._demangle(mangled))
+    return m.group(1) if m else None
+
+
 def ptxas_report(log: str) -> dict:
-    """``{kernel<hd>: {"registers": n, "spill_stores": bytes, "spill_loads": bytes}}``
-    for the flash kernels, from nvcc's ``-Xptxas -v`` output."""
+    """``{"kernel<args>": {"registers": n, "spill_stores": bytes, "spill_loads":
+    bytes, "static_smem": bytes}}`` for every kernel instance in nvcc's
+    ``-Xptxas -v`` output."""
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Function properties for \S*?(flash_[a-z_]+?_kernel)ILi(\d+)E", line)
+        m = re.search(r"Function properties for (\S+)", line)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            name = kernel_key(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if name and m:
@@ -118,8 +141,44 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if name and m and name in out:
             out[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(smem.group(1)) if smem else 0
             name = None
     return out
+
+
+#: B4's instances at the timed decode shape (hd 128, bf16 queries and pool)
+PAGED_TIMED = ("paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false>",
+               "combine_splits_kernel<128, __nv_bfloat16>")
+
+
+def occupancy_report() -> dict:
+    """``{"kernel<args>": blocks}``: resident blocks an SM holds of each
+    bf16 flash kernel and of B4's timed instances, from the CUDA runtime's
+    occupancy calculator on this card, for the threads and shared memory
+    each is launched with."""
+    import ctypes
+
+    from accelerate_tpu_torch import _build
+
+    blocks, combine, out = ctypes.c_int(), ctypes.c_int(), {}
+    flash = _build.load("flash_attention.cu")
+    for which, name in enumerate(FLASH_KERNELS):
+        for hd in (64, 128):
+            if flash.flash_attention_blocks_per_sm(which, hd, ctypes.byref(blocks)):
+                raise AssertionError(f"the occupancy query failed for {name} at hd {hd}")
+            out[f"{name}_wgmma_kernel<{hd}>"] = blocks.value
+    paged = _build.load("paged_attention.cu")
+    if paged.paged_attention_blocks_per_sm(ctypes.byref(blocks), ctypes.byref(combine)):
+        raise AssertionError("the occupancy query failed for the paged kernels")
+    out[PAGED_TIMED[0]], out[PAGED_TIMED[1]] = blocks.value, combine.value
+    return out
+
+
+def flash_kernel_pattern(name: str) -> str:
+    """A profiler row of kernel family ``name`` (``flash_bwd_dq``): the f32
+    kernel ``flash_bwd_dq_kernel`` or the bf16 ``flash_bwd_dq_wgmma_kernel``."""
+    return rf"\b{name}_(wgmma_)?kernel\b"
 
 
 def nvidia_smi() -> str:
@@ -344,9 +403,9 @@ def run_serve_int8_inprocess() -> int:
 # -- phase 6 ----------------------------------------------------------------
 
 
-def _time_ms(fn, calls: int, repeats: int) -> float:
-    """Median over ``repeats`` of the mean per-call time of ``calls`` calls,
-    by CUDA events, after a warm-up."""
+def _time_spread(fn, calls: int, repeats: int) -> list:
+    """``[min, median, max]`` over ``repeats`` of the mean per-call time of
+    ``calls`` calls, by CUDA events, after a warm-up."""
     for i in range(3):
         fn(i)
     torch.cuda.synchronize()
@@ -361,15 +420,57 @@ def _time_ms(fn, calls: int, repeats: int) -> float:
         stop.synchronize()
         samples.append(start.elapsed_time(stop) / calls)
     samples.sort()
-    return samples[len(samples) // 2]
+    return [samples[0], samples[len(samples) // 2], samples[-1]]
 
 
-def time_decode_shape(dev) -> dict:
+def _time_ms(fn, calls: int, repeats: int) -> float:
+    """The median of :func:`_time_spread`."""
+    return _time_spread(fn, calls, repeats)[1]
+
+
+PAGED_KERNELS = ("paged_attention_kernel", "combine_splits_kernel")
+
+
+def _profiled_rows(fn, calls: int) -> list:
+    """The kernel rows of ``calls`` calls of ``fn`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(calls):
+            fn(i)
+        torch.cuda.synchronize()
+    return _kernel_rows(prof)
+
+
+def _profiled_ms_per_call(fn, calls: int) -> float:
+    """Device time a call of ``fn``: every kernel it runs, without the host
+    time between them (a library call whose host cost exceeds its kernels'
+    time shows more by events than here)."""
+    return sum(e.self_device_time_total for e in _profiled_rows(fn, calls)) / 1e3 / calls
+
+
+def _profiled_ms_per_launch(fn, calls: int, names) -> dict:
+    """Device time a launch of each kernel in ``names`` over ``calls`` calls
+    of ``fn`` under ``torch.profiler`` (kernel rows whose name holds it)."""
+    rows = _profiled_rows(fn, calls)
+    out = {}
+    for name in names:
+        hits = [e for e in rows if name in e.key]
+        launches = sum(e.count for e in hits)
+        if not launches:
+            raise AssertionError(f"the profiler saw no {name} launch")
+        out[name] = sum(e.self_device_time_total for e in hits) / 1e3 / launches
+    return out
+
+
+def time_decode_shape(dev, ctx: int = 512) -> dict:
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import paged_attention as pa
 
-    layers, b, nh, hd, bs, mb, ctx = 16, 8, 12, 128, 16, 64, 512
+    layers, b, nh, hd, bs, mb = 16, 8, 12, 128, 16, 64
     nb = b * mb + 1
     gen = torch.Generator(device=dev).manual_seed(2)
     bt = torch.zeros((b, mb), dtype=torch.int32, device=dev)
@@ -408,19 +509,25 @@ def time_decode_shape(dev) -> dict:
     ref = library(0).transpose(1, 2).float()
     lib_err = (kernel(0).float() - ref).abs().max().item()
     kernel_ms = _time_ms(kernel, calls=160, repeats=9)
+    device_ms = _profiled_ms_per_launch(kernel, 160, PAGED_KERNELS)
     plain_ms = _time_ms(plain, calls=16, repeats=5)
     library_ms = _time_ms(library, calls=160, repeats=9)
+    library_device_ms = _profiled_ms_per_call(library, 160)
     kv_bytes = 2 * b * ctx * nh * hd * 2              # valid K and V, bf16, read once
     io_bytes = 2 * b * nh * hd * 2 + b * mb * 4 + b * 4  # q, out, tables, idx
     flops = 4 * b * nh * ctx * hd                     # QK^T and PV, f32 FMAs
     bytes_ms = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    log(f"  decode shape b={b} ctx={ctx} bf16: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa (span pre-gathered, gather excluded) {library_ms:.4f} ms, "
+    log(f"  decode shape b={b} ctx={ctx} bf16: kernel {kernel_ms:.4f} ms (events around the "
+        f"wrapper; profiler a launch: split {device_ms['paged_attention_kernel']:.4f} ms, "
+        f"combine {device_ms['combine_splits_kernel']:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"sdpa (span pre-gathered, gather excluded) {library_device_ms:.4f} ms a call by the "
+        f"profiler ({library_ms:.4f} ms by events), "
         f"bound {max(bytes_ms, ops_ms):.4f} ms; |kernel - plain| {err:.2e}, "
         f"|kernel - sdpa| {lib_err:.2e}")
     return {
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_device_ms,
+        "profiler_ms_per_launch": device_ms, "library_events_ms": library_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "shape": {"slots": b, "context": ctx, "n_heads": nh, "n_kv": nh, "head_dim": hd,
@@ -568,6 +675,8 @@ def _flash_cases():
         (2, 1000, 32, 8, 64, False, 130, f32),
         (2, 129, 12, 12, 128, True, 0, bf16),      # one row past a 128-row tile
         (2, 200, 32, 8, 64, True, 130, bf16),      # query tile 0 (rows 0..127) fully masked
+        (2, 1000, 32, 8, 128, True, 0, bf16),      # GQA at flagship width, no tile multiple
+        (2, 200, 32, 8, 128, False, 130, bf16),    # keys 128, 129 masked in key tile 128..191
     ]
 
 
@@ -835,9 +944,8 @@ def train_breakdown(step, step_ms: float) -> dict:
     if not device_ms > 0:
         raise AssertionError("the profiler saw no kernel in the train step")
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-    # flash_fwd_kernel (f32), flash_fwd_wgmma_kernel and flash_bwd_dkv_wgmma_kernel
-    # (bf16), flash_bwd_dq_mma_kernel (bf16)
-    rows = {name: [e for e in kernels if re.search(rf"\b{name}_(mma_|wgmma_)?kernel\b", e.key)]
+    # flash_*_kernel (f32) and flash_*_wgmma_kernel (bf16)
+    rows = {name: [e for e in kernels if re.search(flash_kernel_pattern(name), e.key)]
             for name in FLASH_KERNELS}
     flash_ms = {name: sum(e.self_device_time_total for e in r) / 1e3 for name, r in rows.items()}
     flash_launches = {name: sum(e.count for e in r) for name, r in rows.items()}
@@ -881,12 +989,12 @@ def time_flash_kernels(dev, per_launch_ms: dict) -> dict:
     delta = fa._delta(o, do)
 
     calls, repeats = 20, 7
-    ms = {
-        "flash_fwd": _time_ms(lambda i: fa._flash_fwd_cuda(q, k, v, None, scale, True),
-                              calls, repeats),
-        "flash_bwd_dq": _time_ms(
+    spread = {
+        "flash_fwd": _time_spread(lambda i: fa._flash_fwd_cuda(q, k, v, None, scale, True),
+                                  calls, repeats),
+        "flash_bwd_dq": _time_spread(
             lambda i: fa._bwd_dq_cuda(q, k, v, None, lse, delta, do, scale, True), calls, repeats),
-        "flash_bwd_dkv": _time_ms(
+        "flash_bwd_dkv": _time_spread(
             lambda i: fa._bwd_dkv_cuda(q, k, v, None, lse, delta, do, scale, True), calls, repeats),
     }
     plain_fwd = _time_ms(lambda i: fa._flash_fwd_plain(q, k, v, None, scale, True), 3, 3)
@@ -897,15 +1005,25 @@ def time_flash_kernels(dev, per_launch_ms: dict) -> dict:
     lq, lk, lv, ldo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     lib_err = (F.scaled_dot_product_attention(lq, lk, lv, is_causal=True).transpose(1, 2).float()
                - o.float()).abs().max().item()
-    lib_fwd = _time_ms(lambda i: F.scaled_dot_product_attention(lq, lk, lv, is_causal=True),
-                       calls, repeats)
+    spread["library_fwd"] = _time_spread(
+        lambda i: F.scaled_dot_product_attention(lq, lk, lv, is_causal=True), calls, repeats)
+    # its backward alone: one forward, then autograd.grad over it per call
     gq, gk, gv = (t.detach().clone().requires_grad_() for t in (lq, lk, lv))
-
-    def lib_fwd_bwd(i):
-        out = F.scaled_dot_product_attention(gq, gk, gv, is_causal=True)
-        torch.autograd.grad(out, (gq, gk, gv), ldo)
-
-    lib_bwd_pair = _time_ms(lib_fwd_bwd, calls, repeats) - lib_fwd
+    lib_out = F.scaled_dot_product_attention(gq, gk, gv, is_causal=True)
+    spread["library_bwd"] = _time_spread(
+        lambda i: torch.autograd.grad(lib_out, (gq, gk, gv), ldo, retain_graph=True),
+        calls, repeats)
+    ms = {name: t[1] for name, t in spread.items()}
+    lib_device = {  # its kernels' device time a call, without the host time between calls
+        "library_fwd": _profiled_ms_per_call(
+            lambda i: F.scaled_dot_product_attention(lq, lk, lv, is_causal=True), calls),
+        "library_bwd": _profiled_ms_per_call(
+            lambda i: torch.autograd.grad(lib_out, (gq, gk, gv), ldo, retain_graph=True), calls),
+    }
+    for name, (lo, mid, hi) in spread.items():
+        log(f"  {name}: min {lo:.4f} / median {mid:.4f} / max {hi:.4f} ms over {repeats} "
+            f"repeats of {calls} calls" + (f"; profiler {lib_device[name]:.4f} ms a call"
+                                           if name in lib_device else ""))
 
     pairs = s * (s + 1) / 2 * b * nh  # causal (query, key) pairs
     tile = b * s * nh * hd * 2        # one bf16 [b, s, nh, hd] tensor
@@ -919,10 +1037,14 @@ def time_flash_kernels(dev, per_launch_ms: dict) -> dict:
     for name, (flops, nbytes) in work.items():
         ops_ms = flops / BF16_FLOPS_PER_S * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        lib = "library_fwd" if name == "flash_fwd" else "library_bwd"
         out[name] = {
             "kernel_ms": ms[name],
             "plain_ms": plain_fwd if name == "flash_fwd" else plain_bwd,
-            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd_pair,
+            "library_ms": lib_device[lib],
+            "library_events_ms": ms[lib],
+            "library_events_spread": spread[lib],
+            "ms_spread": spread[name],
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "flops": flops,
@@ -934,10 +1056,11 @@ def time_flash_kernels(dev, per_launch_ms: dict) -> dict:
         log(f"  {name}: kernel {ms[name]:.4f} ms ({out[name]['tflops']:.0f} TFLOP/s), profiler "
             f"{per_launch_ms[name]:.4f} ms a launch ({out[name]['tflops_profiler']:.0f} TFLOP/s), "
             f"plain {out[name]['plain_ms']:.4f} ms, "
-            f"library {out[name]['library_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} ms "
+            f"library {out[name]['library_ms']:.4f} ms a call by the profiler (events "
+            f"{out[name]['library_events_ms']:.4f}), bound {out[name]['bound_ms']:.4f} ms "
             f"({out[name]['bound_by']}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
     log(f"  (plain_ms of the two backward kernels is the plain backward, which computes "
-        f"dq, dk and dv together; library_ms of both is sdpa's backward, the pair); "
+        f"dq, dk and dv together; library_ms of both is sdpa's backward alone, the pair); "
         f"|sdpa - flash_fwd| {lib_err:.2e}")
     return out
 
@@ -966,13 +1089,22 @@ def main() -> int:
     built = _build.build_all()
     build_s = time.perf_counter() - t0
     for src, path in built.items():
-        regs = sorted(set(re.findall(r"Used (\d+) registers", _build.build_log(src))))
-        log(f"  {src} -> {os.path.relpath(path, REPO)} (registers per thread: {regs})")
+        log(f"  {src} -> {os.path.relpath(path, REPO)}")
     log(f"  build seconds: {build_s:.2f}")
-    flash_ptxas = ptxas_report(_build.build_log("flash_attention.cu"))
-    for kname, rep in sorted(flash_ptxas.items()):
+    ptxas = {src: ptxas_report(_build.build_log(src)) for src in built}
+    for key, blocks in occupancy_report().items():
+        for report in ptxas.values():
+            if key in report:
+                report[key]["blocks_per_sm"] = blocks
+    for kname, rep in sorted(kv for report in ptxas.values() for kv in report.items()):
         log(f"  {kname}: {rep.get('registers')} registers, spill stores {rep['spill_stores']} B, "
-            f"spill loads {rep['spill_loads']} B")
+            f"spill loads {rep['spill_loads']} B, static smem {rep.get('static_smem')} B"
+            + (f", blocks a SM {rep['blocks_per_sm']}" if "blocks_per_sm" in rep else ""))
+    flash_ptxas = ptxas["flash_attention.cu"]
+    wgmma = {k: v for k, v in flash_ptxas.items() if "_wgmma_kernel<" in k}
+    if len(wgmma) != 6 or any(v["spill_stores"] or v["spill_loads"] for v in wgmma.values()):
+        raise AssertionError(f"the wgmma flash kernels (3 at hd 64 and 128) must build without "
+                             f"spills: {wgmma}")
 
     log("phase 3: paged_attention kernel against its plain version")
     errs = check_kernel_vs_plain(dev)
@@ -987,6 +1119,7 @@ def main() -> int:
 
     log("phase 6: times at the flagship decode shape")
     times = time_decode_shape(dev)
+    times_1024 = time_decode_shape(dev, ctx=1024)
 
     log("phase 7: where a decode step's time goes")
     breakdown = serve_breakdown()
@@ -1026,10 +1159,16 @@ def main() -> int:
         "flagship_logits_max_abs_diff": logits_diff,
         "ms": times["kernel_ms"],
         "kernel_ms": times["kernel_ms"],
+        "profiler_ms_per_launch": times["profiler_ms_per_launch"],
+        "at_context_1024": {k: times_1024[k] for k in ("kernel_ms", "profiler_ms_per_launch",
+                                                       "plain_ms", "library_ms",
+                                                       "library_events_ms", "bound_ms")},
+        "ptxas": {k: ptxas["paged_attention.cu"][k] for k in PAGED_TIMED},
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"],
         "library_ms": times["library_ms"],
+        "library_events_ms": times["library_events_ms"],
         "library_call": times["library_call"],
         "timed_shape": times["shape"],
     }]
@@ -1059,10 +1198,13 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "library_events_ms": t["library_events_ms"],
+            "library_events_spread": t["library_events_spread"],
             "library_call": ("scaled_dot_product_attention(is_causal=True) forward"
                              if name == "flash_fwd" else
-                             "scaled_dot_product_attention backward (fwd+bwd minus fwd): "
-                             "the pair flash_bwd_dq + flash_bwd_dkv"),
+                             "scaled_dot_product_attention backward alone (autograd.grad "
+                             "over one retained forward): the pair flash_bwd_dq + "
+                             "flash_bwd_dkv"),
             "timed_shape": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "n_heads": 12, "n_kv": 12,
                             "head_dim": 128, "dtype": "bf16", "causal": True},
         })

@@ -12,6 +12,7 @@ are held to the plain versions on the card by ``chip_smoke.py``.
 """
 
 import importlib
+import importlib.util
 import re
 from pathlib import Path
 
@@ -153,6 +154,105 @@ def test_plain_flash_bf16_matches_jax():
     np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), rtol=0, atol=3e-2)
     oracle = jlayers.causal_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     np.testing.assert_allclose(out.float().numpy(), np.asarray(oracle), rtol=0, atol=3e-2)
+
+
+BF16_GRAD_CASES = {
+    "causal_s64": dict(causal=True),
+    # rows 0..129 see no valid key: a whole 128-row query tile of the bf16
+    # dq kernel is fully masked, and dq of those rows is exactly 0
+    "gqa_4_2_s200_pad130": dict(causal=True, b=2, s=200, h=4, n_kv=2, pad=130),
+    "non_causal_s64": dict(causal=False),
+}
+
+
+@pytest.mark.parametrize("case", list(BF16_GRAD_CASES))
+def test_plain_flash_bf16_grads_match_jax(case):
+    """The plain backward on bf16 inputs — dS rounded to K's dtype before
+    dS·K, where the bf16 dq kernel rounds it — against the JAX Pallas
+    backward in interpret mode on the same bf16 values. Gate: the bf16
+    grads within 5e-2 × max(|ref|, 1), compared in f32."""
+    kw = dict(BF16_GRAD_CASES[case])
+    causal, pad = kw.pop("causal"), kw.pop("pad", None)
+    q, k, v, do = _inputs(**kw)
+    mask = None if pad is None else _left_padded(q.shape[0], q.shape[1], pad)
+    jm = None if mask is None else jnp.asarray(mask)
+
+    def fn(q_, k_, v_):
+        return jfa.flash_attention(q_, k_, v_, segment_mask=jm, causal=causal, interpret=True)
+
+    _, vjp = jax.vjp(fn, *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    ref = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do, jnp.bfloat16))]
+
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_() for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, None if mask is None else torch.from_numpy(mask),
+                              causal=causal)
+    out.backward(torch.from_numpy(do).to(torch.bfloat16))
+    assert all(t.grad.dtype == torch.bfloat16 for t in (tq, tk, tv))
+    got = [t.grad.float().numpy() for t in (tq, tk, tv)]
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r, rtol=0, atol=5e-2 * max(float(np.abs(r).max()), 1.0))
+    if pad is not None:
+        assert np.abs(got[0][:, :pad]).max() == 0.0
+        assert np.abs(ref[0][:, :pad]).max() == 0.0
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module: it imports only numpy and torch at
+    top level, so its parsers run here."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(tfa.__file__).resolve().parents[2] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+#: ``nvcc -Xptxas -v`` output for a dq kernel and two paged instances (one
+#: spilling, one naming a type twice, which the mangling substitutes)
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125flash_bwd_dq_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKhPKfS5_P13__nv_bfloat16iiiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125flash_bwd_dq_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKhPKfS5_P13__nv_bfloat16iiiiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 160 registers, used 1 barriers, 448 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122paged_attention_kernelILi64E13__nv_bfloat16S1_Lb0EEEvPKT0_PKT1_S6_PKfS8_PKiSA_PS2_PfSC_iiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122paged_attention_kernelILi64E13__nv_bfloat16S1_Lb0EEEvPKT0_PKT1_S6_PKfS8_PKiSA_PS2_PfSC_iiiiii
+    16 bytes stack frame, 16 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 56 registers, used 1 barriers, 20608 bytes smem, 480 bytes cmem[0]
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122paged_attention_kernelILi128EfaLb1EEEvPKT0_PKT1_S6_PKfS8_PKiSA_PS2_PfSC_iiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 41088 bytes smem, 480 bytes cmem[0]
+ptxas info    : Function properties for __internal_accurate_fdividef
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+"""
+
+
+def test_chip_smoke_reads_registers_and_spills_from_ptxas():
+    smoke = _chip_smoke()
+    assert smoke.ptxas_report(PTXAS_LOG) == {
+        "flash_bwd_dq_wgmma_kernel<128>":
+            {"registers": 160, "spill_stores": 0, "spill_loads": 0, "static_smem": 0},
+        "paged_attention_kernel<64, __nv_bfloat16, __nv_bfloat16, false>":
+            {"registers": 56, "spill_stores": 16, "spill_loads": 32, "static_smem": 20608},
+        "paged_attention_kernel<128, float, signed char, true>":
+            {"registers": 96, "spill_stores": 0, "spill_loads": 0, "static_smem": 41088},
+    }
+    assert smoke.PAGED_TIMED[0] in smoke.ptxas_report(PTXAS_LOG.replace("ILi64E", "ILi128E"))
+
+
+def test_chip_smoke_profiler_pattern_finds_each_flash_kernel():
+    smoke = _chip_smoke()
+    names = {
+        "flash_fwd": ["void (anonymous namespace)::flash_fwd_wgmma_kernel<128>(CUtensorMap_st)",
+                      "void (anonymous namespace)::flash_fwd_kernel<64>(float const*)"],
+        "flash_bwd_dq": ["void (anonymous namespace)::flash_bwd_dq_wgmma_kernel<128>(int)",
+                         "void (anonymous namespace)::flash_bwd_dq_kernel<128>(float const*)"],
+        "flash_bwd_dkv": ["void (anonymous namespace)::flash_bwd_dkv_wgmma_kernel<128>(int)"],
+    }
+    for family in names:
+        for other, keys in names.items():
+            for key in keys:
+                found = re.search(smoke.flash_kernel_pattern(family), key) is not None
+                assert found == (other == family), (family, key)
 
 
 def test_flash_fwd_bwd_pair_equals_the_autograd_function():
