@@ -153,7 +153,9 @@ def serve_command(args) -> int:
         f"served {stats['completed']} requests, "
         f"{stats['tokens_emitted']} tokens "
         f"({stats.get('tokens_per_sec', 0.0):.1f} tok/s) on {stats['device']}, "
-        f"paged_attention launches {stats['paged_attention_launches']}",
+        f"paged_attention launches {stats['paged_attention_launches']} "
+        f"(decode {stats['paged_attention_decode_launches']}, "
+        f"other {stats['paged_attention_launches'] - stats['paged_attention_decode_launches']})",
         file=sys.stderr,
     )
     return 0

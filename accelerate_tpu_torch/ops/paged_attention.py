@@ -23,6 +23,8 @@ Three implementations behind one dispatcher:
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,6 +36,9 @@ _NEG_INF = float(np.finfo(np.float32).min)
 #: CUDA kernel launches since import (the plain and gather versions never
 #: count): the serving path's proof that it went through the kernel
 launches = 0
+#: the share of ``launches`` with one query a row (``s == 1``, decode); the
+#: rest are prefill chunks and other multi-token calls
+decode_launches = 0
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
@@ -145,16 +150,71 @@ def _paged_attention_gather(q, k_pages_l, v_pages_l, block_tables, idx, k_scale_
 # ---------------------------------------------------------------------------
 
 
+#: the kernel's tiling (``csrc/paged_attention.cu``: kRows, kStageKeys,
+#: kMaxSplitKeys), which the split plan needs on the host
+_TILE_ROWS = 16
+_TILE_KEYS = 64
+_MAX_SPLIT_KEYS = 4096
+#: blocks the plan aims for, per SM: two waves of the two blocks an SM holds
+#: at the flagship decode shape
+_BLOCKS_PER_SM_TARGET = 4
+
+
+class SplitPlan(NamedTuple):
+    """How a launch cuts each row's keys: ``splits`` blocks per (row, kv
+    head, 16-row query tile), and the f32 partial buffers' shapes (``None``
+    when one split writes the output directly)."""
+
+    splits: int
+    part_acc_shape: tuple | None
+    part_ml_shape: tuple | None
+
+
+def _split_plan(b: int, s: int, nh: int, n_kv: int, hd: int, span: int,
+                sm_count: int) -> SplitPlan:
+    """The number of key splits, from static shapes only (``span`` is the
+    table's ``max_blocks * block_size``): about ``_BLOCKS_PER_SM_TARGET``
+    blocks an SM over the launch, at least one split, never more splits than
+    64-key tiles in the table, and no split over 4096 keys. Nothing here
+    reads ``idx`` or the tables, so the same shapes always give the same
+    launch (a captured CUDA graph stays valid); the kernel cuts each row's
+    valid prefix evenly over the splits it needs on the device."""
+    row_tiles = -(-((nh // n_kv) * s) // _TILE_ROWS)
+    tiles = -(-span // _TILE_KEYS)
+    splits = (_BLOCKS_PER_SM_TARGET * sm_count) // max(1, b * n_kv * row_tiles)
+    splits = max(1, min(max(splits, -(-span // _MAX_SPLIT_KEYS)), tiles))
+    if splits == 1:
+        return SplitPlan(1, None, None)
+    return SplitPlan(splits, (b, s, nh, splits, hd), (b, s, nh, splits, 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+#: per device, the int32 tickets the last split of a (row, kv head, row tile)
+#: takes to merge the row's partials; zero between launches (the kernel
+#: resets each one it uses), so they are allocated once and only grow
+_tickets: dict = {}
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[device] = buf
+    return buf
+
+
 def _kernel():
     from .. import _build
 
     lib = _build.load("paged_attention.cu")
     fn = lib.paged_attention_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.paged_attention_split_keys.argtypes = []
-        lib.paged_attention_split_keys.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -166,8 +226,9 @@ def _check(cond: bool, msg: str) -> None:
 
 
 def _paged_attention_cuda(q, k_pages_l, v_pages_l, block_tables, idx, k_scale_l, v_scale_l):
-    """Validate, allocate the output, launch on the current stream, count."""
-    global launches
+    """Validate, plan the splits from shapes, allocate, launch on the current
+    stream, count."""
+    global launches, decode_launches
     tensors = [q, k_pages_l, v_pages_l, block_tables, idx]
     quantized = k_scale_l is not None
     if quantized:
@@ -196,21 +257,21 @@ def _paged_attention_cuda(q, k_pages_l, v_pages_l, block_tables, idx, k_scale_l,
     _check(block_tables.dtype == torch.int32 and block_tables.shape == (b, mb),
            "block_tables must be int32 [b, max_blocks]")
     _check(idx.dtype == torch.int32 and idx.numel() == b, "idx must be int32 [b]")
-    _check(k_pages_l.data_ptr() % 16 == 0 and v_pages_l.data_ptr() % 16 == 0,
-           "pools must be 16-byte aligned (the kernel loads 16 bytes a thread)")
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k_pages_l, v_pages_l)),
+           "q and the pools must be 16-byte aligned (the kernel copies 16 bytes a thread)")
 
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out
     lib = _kernel()
-    # key splits (flash-decoding): partials in f32 scratch, merged by a
-    # second kernel; one split writes the output directly
-    split_keys = lib.paged_attention_split_keys()
-    splits = -(-(mb * bs) // split_keys)
-    part_acc = part_ml = None
-    if splits > 1:
-        part_acc = torch.empty((b, s, nh, splits, hd), dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((b, s, nh, splits, 2), dtype=torch.float32, device=q.device)
+    # key splits (flash-decoding), planned from shapes alone: partials in
+    # f32 scratch, merged by the row's last split; one split writes the output
+    plan = _split_plan(b, s, nh, n_kv, hd, mb * bs, _sm_count(q.device.index))
+    part_acc = part_ml = tickets = None
+    if plan.splits > 1:
+        part_acc = torch.empty(plan.part_acc_shape, dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(plan.part_ml_shape, dtype=torch.float32, device=q.device)
+        tickets = _ticket_buffer(q.device, b * n_kv * -(-((nh // n_kv) * s) // _TILE_ROWS))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paged_attention_forward(
         q.data_ptr(), k_pages_l.data_ptr(), v_pages_l.data_ptr(),
@@ -219,11 +280,14 @@ def _paged_attention_cuda(q, k_pages_l, v_pages_l, block_tables, idx, k_scale_l,
         block_tables.data_ptr(), idx.data_ptr(), out.data_ptr(),
         None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(),
-        b, s, nh, n_kv, hd, nb, bs, mb, splits,
+        None if tickets is None else tickets.data_ptr(),
+        b, s, nh, n_kv, hd, nb, bs, mb, plan.splits,
         _Q_CODES[q.dtype], _POOL_CODES[k_pages_l.dtype], stream,
     )
     if err != 0:
         msg = lib.paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_attention CUDA kernel launch failed: {msg} ({err})")
     launches += 1
+    if s == 1:
+        decode_launches += 1
     return out

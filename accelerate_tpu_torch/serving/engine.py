@@ -16,7 +16,8 @@ Orca-style iteration scheduling over a vLLM-style block-paged KV cache:
   place** by the paged step (the JAX engine donates them instead);
 * every paged-attention call on a CUDA device is the hand-written kernel
   (``csrc/paged_attention.cu``); ``stats()["paged_attention_launches"]``
-  counts its launches.
+  counts its launches, ``"paged_attention_decode_launches"`` those of them
+  with one query a row.
 
 Greedy output is the parity contract with the JAX engine. Not ported yet
 (later slices): per-slot sampling lanes and grammars, the radix prefix
@@ -158,6 +159,7 @@ class InferenceEngine:
         self._pending_tok = np.zeros((cfg.num_slots,), np.int32)
 
         self._launches_at_start = _paged_attention.launches
+        self._decode_launches_at_start = _paged_attention.decode_launches
         self._iterations = 0
         self._tokens_emitted = 0
         self._out_of_blocks_total = 0
@@ -289,6 +291,8 @@ class InferenceEngine:
             "num_slots": self.config.num_slots,
             "tokens_emitted": self._tokens_emitted,
             "paged_attention_launches": _paged_attention.launches - self._launches_at_start,
+            "paged_attention_decode_launches": (_paged_attention.decode_launches
+                                                - self._decode_launches_at_start),
             "device": str(self.device),
             "kv_dtype": self.kv_dtype,
             "kv_bytes_per_token": self.kv_bytes_per_token,

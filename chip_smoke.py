@@ -12,35 +12,41 @@ failure, so the script exits non-zero and prints no result):
 2. build: every CUDA kernel of the port from ``accelerate_tpu_torch/csrc``
    into ``build/torch_kernels`` (nvcc, sm_90a), with the build seconds and
    each kernel instance's registers, spills and static shared memory from
-   ptxas (the flash kernels and the paged kernel's split and combine
-   instances), and the blocks a SM holds of the bf16 flash kernels and of
-   the paged kernels' timed instances, from the CUDA runtime's occupancy
-   calculator on the card;
+   ptxas (the flash kernels and every instance of the paged kernel), and the
+   blocks a SM holds of the bf16 flash kernels and of the paged kernel's
+   timed instance (with its dynamic shared memory), from the CUDA runtime's
+   occupancy calculator on the card. Fails if a wgmma flash kernel or B4's
+   bf16 hd-128 instance spills;
 3. the paged-attention kernel against its plain PyTorch version on the
    card: decode (s=1) and prefill-chunk (s=32) queries, hd=128, bs=16, MHA
    12/12 and GQA 32/8, ``idx`` on and beside block edges, f32 / bf16 /
    int8 / fp8 pools written through ``write_paged_kv``, table tails on the
-   null block, which holds garbage; then hd=64, a one-split table, and bf16
-   queries on an int8 pool. Gates: f32 ``atol=rtol=1e-5``; bf16 outputs
-   ``atol=2e-2`` in f32; int8 / fp8 ``atol=rtol=1e-4`` on the same
-   quantized bytes;
+   null block, which holds garbage; then hd=64, a one-tile table, bf16
+   queries on an int8 pool; block sizes 8 and 32; one batch whose rows'
+   valid lengths are 1, 127, 128, 129 and 1000 (and 32..1000 in a chunk, MHA
+   and GQA); s=5. Gates: f32 ``atol=rtol=1e-5``; bf16 outputs ``atol=2e-2``
+   in f32; int8 / fp8 ``atol=rtol=1e-4`` on the same quantized bytes. Each
+   case launches twice and requires bit-identical outputs;
 4. the flagship llama's paged step in f32, kernel against plain: one
    64-token prefill chunk then 8 decode steps, max |Δ logits| <= 1e-3;
 5. the main path: ``python -m accelerate_tpu_torch serve --preset flagship
    --dtype bf16 --num-slots 8 --max-seq-len 1024`` answering 12 JSONL
    requests (prompts of 16-900 ids, 64 new tokens each) in a fresh process
-   (so its kernel count starts at 0; its stderr summary names the count),
-   then the same engine in-process with ``--kv-dtype int8`` and 4 requests,
-   the launch counter set to 0 just before and read just after;
+   (so its kernel counts start at 0; its stderr summary names the count,
+   split into decode launches, one query a row, and the others), then the
+   same engine in-process with ``--kv-dtype int8`` and 4 requests, the
+   launch counters set to 0 just before and read just after;
 6. times at the flagship decode shape (8 slots, context 512, bf16, the 16
-   layers' pools rotated so L2 does not hold them), and again at context
-   1024 (the table's ``mb · bs``): the kernel (CUDA events around the
-   Python wrapper), the device time a launch of its split kernel and of
-   its combine kernel under ``torch.profiler``, the plain version,
-   ``scaled_dot_product_attention`` over the pre-gathered span (the gather
-   excluded; its kernels' device time a call, and CUDA events around it),
-   and the bound — bytes of valid K/V + q + out over 3.35 TB/s.
-   Printed as one ``{"kernels": [...]}`` line;
+   layers' pools rotated so L2 does not hold them), at context 1024 (the
+   table's ``mb · bs``), and at the prefill chunk (b 1, s 32, the chunk's
+   last query at context 512 and 896): the kernel (CUDA events around the
+   Python wrapper), its device time a launch under ``torch.profiler``, the
+   plain version,
+   ``scaled_dot_product_attention`` over the pre-gathered span with the
+   chunk's causal-offset mask (the gather excluded; its kernels' device
+   time a call, and CUDA events around it), and the bound — the larger of
+   the bytes of valid K/V + q + out over 3.35 TB/s and the flops over 989
+   TFLOP/s. Printed in the ``{"kernels": [...]}`` line;
 7. where a flagship decode step's time goes on the serve engine: a
    ``torch.profiler`` window (device busy share, launches and top kernels
    per step) and one step eager against the same step replayed from a CUDA
@@ -107,7 +113,6 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-F32_FLOPS_PER_S = 67e12     # H100 SXM f32, outside the tensor cores
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 SERVE_TIMEOUT_S = 600
 
@@ -147,21 +152,21 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-#: B4's instances at the timed decode shape (hd 128, bf16 queries and pool)
-PAGED_TIMED = ("paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false>",
-               "combine_splits_kernel<128, __nv_bfloat16>")
+#: B4's instance at the timed decode shape (hd 128, bf16 queries and pool)
+PAGED_TIMED = "paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false>"
 
 
-def occupancy_report() -> dict:
-    """``{"kernel<args>": blocks}``: resident blocks an SM holds of each
-    bf16 flash kernel and of B4's timed instances, from the CUDA runtime's
-    occupancy calculator on this card, for the threads and shared memory
-    each is launched with."""
+def occupancy_report() -> tuple[dict, int]:
+    """``({"kernel<args>": blocks}, bytes)``: resident blocks an SM holds of
+    each bf16 flash kernel and of B4's timed instances, from the CUDA
+    runtime's occupancy calculator on this card, for the threads and shared
+    memory each is launched with; and B4's dynamic shared memory at the
+    decode shape."""
     import ctypes
 
     from accelerate_tpu_torch import _build
 
-    blocks, combine, out = ctypes.c_int(), ctypes.c_int(), {}
+    blocks, smem, out = ctypes.c_int(), ctypes.c_int(), {}
     flash = _build.load("flash_attention.cu")
     for which, name in enumerate(FLASH_KERNELS):
         for hd in (64, 128):
@@ -169,10 +174,10 @@ def occupancy_report() -> dict:
                 raise AssertionError(f"the occupancy query failed for {name} at hd {hd}")
             out[f"{name}_wgmma_kernel<{hd}>"] = blocks.value
     paged = _build.load("paged_attention.cu")
-    if paged.paged_attention_blocks_per_sm(ctypes.byref(blocks), ctypes.byref(combine)):
-        raise AssertionError("the occupancy query failed for the paged kernels")
-    out[PAGED_TIMED[0]], out[PAGED_TIMED[1]] = blocks.value, combine.value
-    return out
+    if paged.paged_attention_blocks_per_sm(ctypes.byref(blocks), ctypes.byref(smem)):
+        raise AssertionError("the occupancy query failed for the paged kernel")
+    out[PAGED_TIMED] = blocks.value
+    return out, smem.value
 
 
 def flash_kernel_pattern(name: str) -> str:
@@ -234,50 +239,83 @@ def _filled_pools(rng, *, b, s, nh, n_kv, hd, bs, mb, idx, pool, q_dtype, dev):
                                                                        device=dev)
 
 
+#: ``idx`` (the first query's position) of phase 3's rows: on and beside
+#: block edges, then the mixed-length batch (valid lengths idx + s)
+EDGE_IDX = (0, 1, 15, 16, 17, 31, 32, 100, 255, 511)
+
+
 def _kernel_cases():
-    """(pool, q dtype, s, nh, n_kv, hd, mb): the flagship shapes (hd 128, MHA
-    12/12) and GQA 32/8 at decode and prefill-chunk s in every pool dtype,
-    with 40-entry tables (5 key splits); then hd 64 and a table short
-    enough for one split, and bf16 queries on an int8 pool (a bf16 model
-    serving int8 KV)."""
-    cases = [(pool, "bf16" if pool == "bf16" else "f32", s, nh, n_kv, 128, 40)
+    """(pool, q dtype, s, nh, n_kv, hd, bs, mb, idx): the flagship shapes (hd
+    128, MHA 12/12) and GQA 32/8 at decode and prefill-chunk s in every pool
+    dtype, with 40-entry tables; hd 64 and a table of one 64-key tile, and
+    bf16 queries on an int8 pool (a bf16 model serving int8 KV). Then the
+    edges of the kernel's design: block sizes 8 and 32 (tiles that straddle
+    pages, pages larger than a warp's 16 keys); one batch whose rows' valid
+    lengths run 1, 127, 128, 129, 1000 (so the rows use different numbers of
+    splits), at decode and in a 32-query chunk; GQA 32/8 chunks at s = 32
+    (eight 16-row tiles a kv head) over that batch; and s = 5 (rows that do
+    not fill a 16-row tile)."""
+    def edge(s, bs, mb):
+        return tuple(i for i in EDGE_IDX if i + s <= mb * bs)
+
+    cases = [(pool, "bf16" if pool == "bf16" else "f32", s, nh, n_kv, 128, 16, 40,
+              edge(s, 16, 40))
              for pool in ("f32", "bf16", "int8", "fp8")
              for nh, n_kv in ((12, 12), (32, 8)) for s in (1, 32)]
-    cases += [(pool, q, s, 8, 2, 64, 8) for pool, q in (("f32", "f32"), ("bf16", "bf16"))
-              for s in (1, 32)]
-    cases += [("int8", "bf16", s, 12, 12, 128, 40) for s in (1, 32)]
+    cases += [(pool, q, s, 8, 2, 64, 16, 8, edge(s, 16, 8))
+              for pool, q in (("f32", "f32"), ("bf16", "bf16")) for s in (1, 32)]
+    cases += [("int8", "bf16", s, 12, 12, 128, 16, 40, edge(s, 16, 40)) for s in (1, 32)]
+    for bs in (8, 32):
+        mb = 640 // bs
+        cases += [(pool, q, s, nh, n_kv, 128, bs, mb, edge(s, bs, mb))
+                  for pool, q, s, nh, n_kv in (("bf16", "bf16", 1, 12, 12),
+                                               ("bf16", "bf16", 32, 32, 8),
+                                               ("f32", "f32", 1, 12, 12),
+                                               ("int8", "bf16", 32, 12, 12))]
+    mixed = {1: (0, 126, 127, 128, 999), 32: (0, 95, 96, 97, 968)}  # lengths 1/32 .. 1000
+    cases += [(pool, q, 1, 12, 12, 128, 16, 64, mixed[1])
+              for pool, q in (("bf16", "bf16"), ("f32", "f32"), ("int8", "bf16"), ("fp8", "f32"))]
+    cases += [("bf16", "bf16", 32, nh, n_kv, 128, 16, 64, mixed[32])
+              for nh, n_kv in ((12, 12), (32, 8))]
+    cases += [("f32", "f32", 32, 32, 8, 128, 16, 64, mixed[32])]
+    cases += [(pool, q, 5, nh, n_kv, 128, 16, 40, edge(5, 16, 40))
+              for pool, q, nh, n_kv in (("bf16", "bf16", 12, 12), ("bf16", "bf16", 32, 8),
+                                        ("f32", "f32", 32, 8))]
     return cases
 
 
 def check_kernel_vs_plain(dev) -> dict:
     """Gates: f32 ``atol=rtol=1e-5``; a bf16 output (bf16 queries) ``atol=2e-2``
     compared in f32; int8 / fp8 pools ``atol=rtol=1e-4`` on the same
-    quantized bytes."""
+    quantized bytes. Every case launches the kernel twice and requires
+    bit-identical outputs (the splits merge in a fixed order)."""
     from accelerate_tpu_torch.ops import paged_attention as pa
 
     rng = np.random.default_rng(0)
     errs: dict = {}
-    for pool, q_dtype, s, nh, n_kv, hd, mb in _kernel_cases():
-        bs = 16
-        idx = [i for i in (0, 1, 15, 16, 17, 31, 32, 100, 255, 511) if i + s <= mb * bs]
+    for pool, q_dtype, s, nh, n_kv, hd, bs, mb, idx in _kernel_cases():
         q, kp, vp, ks, vs, bt, ix = _filled_pools(
             rng, b=len(idx), s=s, nh=nh, n_kv=n_kv, hd=hd, bs=bs, mb=mb, idx=idx,
             pool=pool, q_dtype=q_dtype, dev=dev,
         )
         out = pa.paged_attention(q, kp, vp, bt, ix, ks, vs)
+        again = pa.paged_attention(q, kp, vp, bt, ix, ks, vs)
         ref = pa.paged_attention(q, kp, vp, bt, ix, ks, vs, impl="plain")
         torch.cuda.synchronize()
-        what = f"{pool} pool, {q_dtype} q, s={s}, nh={nh}, n_kv={n_kv}, hd={hd}, mb={mb}"
+        what = (f"{pool} pool, {q_dtype} q, s={s}, nh={nh}, n_kv={n_kv}, hd={hd}, bs={bs}, "
+                f"mb={mb}, lengths {min(idx) + s}..{max(idx) + s}")
         if not torch.isfinite(out.float()).all():
             raise AssertionError(f"kernel output not finite ({what})")
+        if not torch.equal(out, again):
+            raise AssertionError(f"two launches of the kernel differ ({what})")
         err = (out.float() - ref.float()).abs().max().item()
         if q_dtype == "bf16":
             ok = torch.allclose(out.float(), ref.float(), atol=2e-2, rtol=0)
         else:
             tol = 1e-5 if pool == "f32" else 1e-4
             ok = torch.allclose(out, ref, atol=tol, rtol=tol)
-        log(f"  paged_attention {what}: max |kernel - plain| = {err:.3e} "
-            f"{'ok' if ok else 'FAIL'}")
+        log(f"  paged_attention {what}: max |kernel - plain| = {err:.3e}, "
+            f"bit-identical twice {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"paged_attention kernel disagrees ({what})")
         key = f"{pool}/{q_dtype}"
@@ -353,7 +391,7 @@ def _check_rows(rows: list[dict], n: int, what: str) -> None:
             raise AssertionError(f"{what}: request {row['id']} emitted an id outside the vocab")
 
 
-def run_serve_subprocess() -> tuple[int, float]:
+def run_serve_subprocess() -> tuple[dict, float]:
     reqs = _requests(12, seed=0)
     stdin = "".join(json.dumps(r) + "\n" for r in reqs)
     t0 = time.perf_counter()
@@ -367,17 +405,18 @@ def run_serve_subprocess() -> tuple[int, float]:
     rows = [json.loads(line) for line in proc.stdout.splitlines() if line.strip()]
     _check_rows(rows, len(reqs), "serve (bf16 KV)")
     summary = [ln for ln in proc.stderr.splitlines() if ln.startswith("served ")]
-    m = re.search(r"paged_attention launches (\d+)", summary[-1] if summary else "")
+    m = re.search(r"paged_attention launches (\d+) \(decode (\d+), other (\d+)\)",
+                  summary[-1] if summary else "")
     if m is None:
         raise AssertionError(f"serve printed no launch summary:\n{proc.stderr[-2000:]}")
-    launches = int(m.group(1))
+    launches = {"total": int(m.group(1)), "decode": int(m.group(2)), "other": int(m.group(3))}
     log(f"  serve subprocess: {len(rows)} answers in {wall:.1f} s; {summary[-1]}")
-    if launches <= 0:
-        raise AssertionError("serve ran no paged-attention kernel launch")
+    if launches["total"] <= 0 or launches["decode"] + launches["other"] != launches["total"]:
+        raise AssertionError(f"serve's paged-attention launch counts are wrong: {launches}")
     return launches, wall
 
 
-def run_serve_int8_inprocess() -> int:
+def run_serve_int8_inprocess() -> dict:
     from accelerate_tpu_torch.commands import serve
     from accelerate_tpu_torch.commands.accelerate_cli import build_parser
     from accelerate_tpu_torch.ops import paged_attention as pa
@@ -385,16 +424,17 @@ def run_serve_int8_inprocess() -> int:
     args = build_parser().parse_args([*SERVE_ARGS, "--kv-dtype", "int8"])
     engine = serve._make_engine(args)
     reqs = _requests(4, seed=1)
-    pa.launches = 0
+    pa.launches = pa.decode_launches = 0
     handles = [engine.add_request(r["prompt"], r["max_new_tokens"]) for r in reqs]
     engine.run_until_idle()
-    launches = pa.launches
+    launches = {"total": pa.launches, "decode": pa.decode_launches,
+                "other": pa.launches - pa.decode_launches}
     rows = [serve._result_dict(h, r["id"]) for h, r in zip(handles, reqs)]
     _check_rows(rows, len(reqs), "serve (int8 KV, in-process)")
     log(f"  serve int8 KV in-process: {len(rows)} answers, paged_attention launches {launches}, "
         f"kv_dtype {engine.stats()['kv_dtype']}")
-    if launches <= 0:
-        raise AssertionError("int8 serve ran no paged-attention kernel launch")
+    if launches["decode"] <= 0 or launches["other"] <= 0:
+        raise AssertionError("int8 serve ran no decode or no prefill paged-attention launch")
     del engine
     torch.cuda.empty_cache()
     return launches
@@ -428,7 +468,10 @@ def _time_ms(fn, calls: int, repeats: int) -> float:
     return _time_spread(fn, calls, repeats)[1]
 
 
-PAGED_KERNELS = ("paged_attention_kernel", "combine_splits_kernel")
+PAGED_KERNELS = ("paged_attention_kernel",)
+#: what the kernels line carries of B4's other timed shapes
+PAGED_TIMED_KEYS = ("kernel_ms", "profiler_ms_per_launch", "plain_ms", "library_ms",
+                    "library_events_ms", "bound_ms", "hbm_share")
 
 
 def _profiled_rows(fn, calls: int) -> list:
@@ -465,24 +508,29 @@ def _profiled_ms_per_launch(fn, calls: int, names) -> dict:
     return out
 
 
-def time_decode_shape(dev, ctx: int = 512) -> dict:
+def time_paged_shape(dev, b: int = 8, s: int = 1, ctx: int = 512) -> dict:
+    """B4 timed at ``b`` rows of ``s`` queries whose last query sits at
+    position ``ctx - 1`` (decode: 8 slots, s = 1; the prefill chunk: b = 1,
+    s = 32), flagship heads (12 × 128), bf16, 16-key pages in a 64-entry
+    table, the 16 layers' pools rotated so L2 does not hold them."""
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import paged_attention as pa
 
-    layers, b, nh, hd, bs, mb = 16, 8, 12, 128, 16, 64
+    layers, nh, hd, bs, mb = 16, 12, 128, 16, 64
     nb = b * mb + 1
     gen = torch.Generator(device=dev).manual_seed(2)
     bt = torch.zeros((b, mb), dtype=torch.int32, device=dev)
     used = ctx // bs
     bt[:, :used] = torch.arange(1, b * used + 1, dtype=torch.int32, device=dev).reshape(b, used)
-    idx = torch.full((b,), ctx - 1, dtype=torch.int32, device=dev)
+    start = ctx - s  # the first query's position
+    idx = torch.full((b,), start, dtype=torch.int32, device=dev)
     pools = [
         (torch.randn((nb, bs, nh, hd), generator=gen, device=dev).to(torch.bfloat16),
          torch.randn((nb, bs, nh, hd), generator=gen, device=dev).to(torch.bfloat16))
         for _ in range(layers)
     ]
-    qs = [torch.randn((b, 1, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
+    qs = [torch.randn((b, s, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
           for _ in range(layers)]
     # the span gathered ahead of time for the library call: [b, h, ctx, hd]
     gathered = [
@@ -490,7 +538,10 @@ def time_decode_shape(dev, ctx: int = 512) -> dict:
               for p in pair)
         for pair in pools
     ]
-    mask = torch.ones((b, 1, 1, ctx), dtype=torch.bool, device=dev)
+    # query i sees keys <= start + i (all of them at decode)
+    mask = (torch.arange(ctx, device=dev)[None, :]
+            <= start + torch.arange(s, device=dev)[:, None])[None, None]
+    lq = [x.transpose(1, 2).contiguous() for x in qs]
 
     def kernel(i):
         kp, vp = pools[i % layers]
@@ -502,8 +553,7 @@ def time_decode_shape(dev, ctx: int = 512) -> dict:
 
     def library(i):
         k, v = gathered[i % layers]
-        return F.scaled_dot_product_attention(qs[i % layers].transpose(1, 2), k, v,
-                                              attn_mask=mask)
+        return F.scaled_dot_product_attention(lq[i % layers], k, v, attn_mask=mask)
 
     err = (kernel(0).float() - plain(0).float()).abs().max().item()
     ref = library(0).transpose(1, 2).float()
@@ -513,27 +563,31 @@ def time_decode_shape(dev, ctx: int = 512) -> dict:
     plain_ms = _time_ms(plain, calls=16, repeats=5)
     library_ms = _time_ms(library, calls=160, repeats=9)
     library_device_ms = _profiled_ms_per_call(library, 160)
-    kv_bytes = 2 * b * ctx * nh * hd * 2              # valid K and V, bf16, read once
-    io_bytes = 2 * b * nh * hd * 2 + b * mb * 4 + b * 4  # q, out, tables, idx
-    flops = 4 * b * nh * ctx * hd                     # QK^T and PV, f32 FMAs
+    pairs = b * nh * sum(start + i + 1 for i in range(s))  # (query, key) pairs attended
+    kv_bytes = 2 * b * ctx * nh * hd * 2                   # valid K and V, bf16, read once
+    io_bytes = 2 * b * s * nh * hd * 2 + b * mb * 4 + b * 4  # q, out, tables, idx
+    flops = 4 * pairs * hd                                 # QK^T and PV on the tensor cores
     bytes_ms = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    log(f"  decode shape b={b} ctx={ctx} bf16: kernel {kernel_ms:.4f} ms (events around the "
-        f"wrapper; profiler a launch: split {device_ms['paged_attention_kernel']:.4f} ms, "
-        f"combine {device_ms['combine_splits_kernel']:.4f} ms), plain {plain_ms:.4f} ms, "
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    split_ms = device_ms["paged_attention_kernel"]
+    log(f"  b={b} s={s} ctx={ctx} bf16: kernel {kernel_ms:.4f} ms (events around the "
+        f"wrapper; profiler {split_ms:.4f} ms a launch), plain {plain_ms:.4f} ms, "
         f"sdpa (span pre-gathered, gather excluded) {library_device_ms:.4f} ms a call by the "
         f"profiler ({library_ms:.4f} ms by events), "
-        f"bound {max(bytes_ms, ops_ms):.4f} ms; |kernel - plain| {err:.2e}, "
-        f"|kernel - sdpa| {lib_err:.2e}")
+        f"bound {max(bytes_ms, ops_ms):.4f} ms ({kv_bytes / 1e6:.2f} MB of K/V, the kernel at "
+        f"{(kv_bytes + io_bytes) / (split_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of HBM's rate); "
+        f"|kernel - plain| {err:.2e}, |kernel - sdpa| {lib_err:.2e}")
     return {
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_device_ms,
-        "profiler_ms_per_launch": device_ms, "library_events_ms": library_ms,
+        "profiler_ms_per_launch": split_ms, "library_events_ms": library_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "shape": {"slots": b, "context": ctx, "n_heads": nh, "n_kv": nh, "head_dim": hd,
-                  "block_size": bs, "max_blocks": mb, "dtype": "bf16", "layers_rotated": layers},
+        "hbm_share": (kv_bytes + io_bytes) / (split_ms * 1e-3) / HBM_BYTES_PER_S,
+        "shape": {"rows": b, "queries": s, "context": ctx, "n_heads": nh, "n_kv": nh,
+                  "head_dim": hd, "block_size": bs, "max_blocks": mb, "dtype": "bf16",
+                  "layers_rotated": layers},
         "library_call": "scaled_dot_product_attention over the pre-gathered span, "
-                        "boolean mask; gather excluded",
+                        "boolean mask (causal offset in a chunk); gather excluded",
     }
 
 
@@ -588,7 +642,7 @@ def serve_breakdown() -> dict:
         raise AssertionError("the profiler saw no kernel in the serve window")
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
     paged_ms = sum(e.self_device_time_total for e in kernels
-                   if "paged_attention" in e.key or "combine_splits" in e.key) / 1e3 / steps
+                   if "paged_attention" in e.key) / 1e3 / steps
 
     # one decode step over the engine's pools, every lane inactive (writes
     # land in the null block), eager and replayed from a graph
@@ -1092,19 +1146,25 @@ def main() -> int:
         log(f"  {src} -> {os.path.relpath(path, REPO)}")
     log(f"  build seconds: {build_s:.2f}")
     ptxas = {src: ptxas_report(_build.build_log(src)) for src in built}
-    for key, blocks in occupancy_report().items():
+    occupancy, paged_smem = occupancy_report()
+    for key, blocks in occupancy.items():
         for report in ptxas.values():
             if key in report:
                 report[key]["blocks_per_sm"] = blocks
+    ptxas["paged_attention.cu"][PAGED_TIMED]["dynamic_smem"] = paged_smem
     for kname, rep in sorted(kv for report in ptxas.values() for kv in report.items()):
         log(f"  {kname}: {rep.get('registers')} registers, spill stores {rep['spill_stores']} B, "
             f"spill loads {rep['spill_loads']} B, static smem {rep.get('static_smem')} B"
+            + (f", dynamic smem {rep['dynamic_smem']} B" if "dynamic_smem" in rep else "")
             + (f", blocks a SM {rep['blocks_per_sm']}" if "blocks_per_sm" in rep else ""))
     flash_ptxas = ptxas["flash_attention.cu"]
     wgmma = {k: v for k, v in flash_ptxas.items() if "_wgmma_kernel<" in k}
     if len(wgmma) != 6 or any(v["spill_stores"] or v["spill_loads"] for v in wgmma.values()):
         raise AssertionError(f"the wgmma flash kernels (3 at hd 64 and 128) must build without "
                              f"spills: {wgmma}")
+    b4 = ptxas["paged_attention.cu"][PAGED_TIMED]
+    if b4["spill_stores"] or b4["spill_loads"]:
+        raise AssertionError(f"B4's bf16 hd-128 instance must build without spills: {b4}")
 
     log("phase 3: paged_attention kernel against its plain version")
     errs = check_kernel_vs_plain(dev)
@@ -1117,9 +1177,10 @@ def main() -> int:
     launches, serve_wall = run_serve_subprocess()
     launches_int8 = run_serve_int8_inprocess()
 
-    log("phase 6: times at the flagship decode shape")
-    times = time_decode_shape(dev)
-    times_1024 = time_decode_shape(dev, ctx=1024)
+    log("phase 6: times at the flagship decode shape and the prefill chunk")
+    times = time_paged_shape(dev, ctx=512)
+    times_1024 = time_paged_shape(dev, ctx=1024)
+    prefill = {f"context_{ctx}": time_paged_shape(dev, b=1, s=32, ctx=ctx) for ctx in (512, 896)}
 
     log("phase 7: where a decode step's time goes")
     breakdown = serve_breakdown()
@@ -1152,7 +1213,9 @@ def main() -> int:
         "source": "accelerate_tpu_torch/csrc/paged_attention.cu",
         "replaces": "accelerate_tpu/ops/paged_attention.py:159",
         "replaces_function": "_pallas_kernel",
-        "launches": launches,
+        "launches": launches["total"],
+        "launches_decode": launches["decode"],
+        "launches_other": launches["other"],
         "launches_int8_in_process": launches_int8,
         "max_abs_err": max(errs.values()),
         "max_abs_err_by_pool": errs,
@@ -1160,10 +1223,12 @@ def main() -> int:
         "ms": times["kernel_ms"],
         "kernel_ms": times["kernel_ms"],
         "profiler_ms_per_launch": times["profiler_ms_per_launch"],
-        "at_context_1024": {k: times_1024[k] for k in ("kernel_ms", "profiler_ms_per_launch",
-                                                       "plain_ms", "library_ms",
-                                                       "library_events_ms", "bound_ms")},
-        "ptxas": {k: ptxas["paged_attention.cu"][k] for k in PAGED_TIMED},
+        "hbm_share": times["hbm_share"],
+        "at_context_1024": {k: times_1024[k] for k in PAGED_TIMED_KEYS},
+        "at_prefill_chunk": {c: {k: t[k] for k in PAGED_TIMED_KEYS + ("bound_by", "shape")}
+                             for c, t in prefill.items()},
+        "ptxas": ptxas["paged_attention.cu"][PAGED_TIMED],
+        "ptxas_all_instances": ptxas["paged_attention.cu"],
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],
         "bound_by": times["bound_by"],

@@ -1,7 +1,8 @@
-"""The port stands alone: ``accelerate_tpu_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor anything of the JAX package ``accelerate_tpu``
-(whose ``__init__`` pulls in jax), and the package imports on a box with
-no GPU, no ``nvcc`` and no ``triton``.
+"""The port stands alone: ``accelerate_tpu_torch``, ``chip_smoke.py`` and
+``benchmarks/torch_paged_attention_sweep.py`` import neither ``jax`` nor
+anything of the JAX package ``accelerate_tpu`` (whose ``__init__`` pulls in
+jax), and the package imports on a box with no GPU, no ``nvcc`` and no
+``triton``.
 
 Checked twice: at run time, by importing every module of the package in a
 fresh interpreter and reading ``sys.modules``; and statically, by walking
@@ -65,7 +66,8 @@ def _imports(path: Path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                     REPO / "benchmarks" / "torch_paged_attention_sweep.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_source_imports_jax_or_the_jax_package(path):

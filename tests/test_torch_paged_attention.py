@@ -10,6 +10,8 @@ JAX gate); int8/fp8 pools — written by both packages from the same numpy
 K/V — dequantized pools 1e-6 and attention 1e-4.
 """
 
+import re
+
 import numpy as np
 import pytest
 
@@ -173,6 +175,84 @@ def test_cuda_impl_refuses_cpu_tensors():
     q = rng.normal(size=(3, 1, 2, 16)).astype(np.float32)
     with pytest.raises(ValueError, match="CUDA device"):
         _run_port(q, bt, idx, tp, impl="cuda")
+
+
+def test_mixed_lengths_block_size_8_match_jax_kernel():
+    """One batch whose rows' valid lengths differ (1 .. 38 keys, so the
+    kernel's rows use different numbers of splits) over 8-key pages, GQA,
+    decode and a 3-token chunk."""
+    for s in (1, 3):
+        rng = np.random.default_rng(45 + s)
+        idx = tuple(max(0, x - s + 1) for x in (0, 7, 8, 9, 23, 37))
+        bt, idx, jp, tp = _pools(rng, n_kv=2, s=s, b=len(idx), idx=idx, bs=8, mb=5)
+        q = rng.normal(size=(len(idx), s, 8, 16)).astype(np.float32)
+        ref = _run_jax(q, bt, idx, jp, _jax_kernel_impl())
+        np.testing.assert_allclose(_run_port(q, bt, idx, tp), ref, rtol=1e-5, atol=1e-5)
+
+
+# (b, s, nh, n_kv, span, sm_count): the flagship decode and prefill chunk on
+# an H100, GQA, a tiny table, a huge table, a big batch, s = 5
+PLAN_SHAPES = [
+    (8, 1, 12, 12, 1024, 132), (1, 32, 12, 12, 1024, 132), (2, 32, 32, 8, 1024, 132),
+    (3, 1, 2, 2, 16, 132), (1, 1, 8, 8, 131072, 132), (256, 1, 32, 32, 4096, 132),
+    (4, 5, 32, 8, 640, 132), (1, 1, 1, 1, 1, 1),
+]
+
+
+@pytest.mark.parametrize("b,s,nh,n_kv,span,sms", PLAN_SHAPES)
+def test_split_plan_bounds_and_partial_shapes(b, s, nh, n_kv, span, sms):
+    hd = 128
+    plan = tpa._split_plan(b, s, nh, n_kv, hd, span, sms)
+    tiles = -(-span // tpa._TILE_KEYS)
+    assert 1 <= plan.splits <= tiles
+    assert span <= plan.splits * tpa._MAX_SPLIT_KEYS  # no split stages too many pages
+    if plan.splits == 1:
+        assert plan.part_acc_shape is None and plan.part_ml_shape is None
+    else:
+        assert plan.part_acc_shape == (b, s, nh, plan.splits, hd)
+        assert plan.part_ml_shape == (b, s, nh, plan.splits, 2)
+
+
+def test_split_plan_fills_the_card_at_the_flagship_decode_shape():
+    """8 slots × 12 kv heads on 132 SMs: about two waves of two blocks an
+    SM, and the prefill chunk's two row tiles split less per row."""
+    decode = tpa._split_plan(8, 1, 12, 12, 128, 1024, 132)
+    assert 1.0 <= decode.splits * 8 * 12 / (2 * 132) <= 2.0
+    chunk = tpa._split_plan(1, 32, 12, 12, 128, 1024, 132)
+    assert chunk.splits == 1024 // tpa._TILE_KEYS
+
+
+def test_split_plan_reads_shapes_only():
+    """The plan takes no tensor: the same shapes give the same plan whatever
+    ``idx`` or the tables hold (a captured graph stays valid), and the
+    launch is planned before anything is read from the device."""
+    import inspect
+
+    params = list(inspect.signature(tpa._split_plan).parameters)
+    assert params == ["b", "s", "nh", "n_kv", "hd", "span", "sm_count"]
+    assert tpa._split_plan(8, 1, 12, 12, 128, 1024, 132) == tpa._split_plan(
+        8, 1, 12, 12, 128, 1024, 132)
+
+
+def test_split_plan_constants_match_the_kernel_source():
+    from pathlib import Path
+
+    src = (Path(tpa.__file__).resolve().parent.parent / "csrc" / "paged_attention.cu").read_text()
+    for name, value in (("kRows", tpa._TILE_ROWS), ("kStageKeys", tpa._TILE_KEYS),
+                        ("kMaxSplitKeys", tpa._MAX_SPLIT_KEYS)):
+        m = re.search(rf"constexpr int {name} = ([^;]+);", src)
+        assert m, name
+        got = eval(m.group(1), {}, {"kWarps": 4, "kWarpKeys": 16})  # noqa: S307
+        assert got == value, (name, got, value)
+
+
+def test_cpu_tensors_count_no_decode_launch():
+    rng = np.random.default_rng(47)
+    bt, idx, _, tp = _pools(rng)
+    q = rng.normal(size=(3, 1, 2, 16)).astype(np.float32)
+    before = (tpa.launches, tpa.decode_launches)
+    _run_port(q, bt, idx, tp)
+    assert (tpa.launches, tpa.decode_launches) == before
 
 
 def test_unknown_impl_raises():
