@@ -22,16 +22,20 @@
 //  * A split plan sized to the card, from shapes only. One thread block owns
 //    (split, kv head n, a tile of kRows = 16 of the rep * s query rows that
 //    share that kv head, row b). The wrapper picks the number of splits from
-//    b, n_kv, the row tiles, the table width and the SM count (about two
-//    waves of two resident blocks an SM), never from idx or the tables, so a
-//    captured CUDA graph stays valid. On the device each row's valid prefix
+//    b, n_kv, the row tiles, the table width and the SM count (about one
+//    wave of the two blocks an SM holds: each block's fixed latency, idx ->
+//    table -> first tile, is paid once a wave), never from idx or the tables,
+//    so a captured CUDA graph stays valid. On the device each row's valid prefix
 //    (idx[b] + s keys) is cut evenly, in 16-key units, into min(splits,
 //    64-key tiles of the prefix) splits, so every launched split in use has
 //    keys to read and the splits of a row differ by at most 16 keys. A row
 //    with one split in use writes its output directly; otherwise each split
-//    writes an f32 partial (m, l, acc), takes a ticket (one integer atomic),
-//    and the last split of the row merges the partials in split order: no
-//    second launch, deterministic, no float atomics.
+//    writes an f32 partial (m, l, acc) and a second small kernel merges the
+//    row's partials in split order: deterministic, no float atomics. (A
+//    version where the row's last split merged them after taking an integer
+//    ticket saved the launch but lost device time at every timed shape, most
+//    at the prefill chunk, whose 16-row tiles leave one block a long serial
+//    merge; PERF.md has the numbers.)
 //  * Every warp busy. The four warps divide the keys of each staged 64-key
 //    tile (16 each), each keeping its own online-softmax state for all 16
 //    rows of the tile; they merge through shared memory, in warp order, at
@@ -180,8 +184,8 @@ __device__ __forceinline__ float lds1(const char* p) {
 }
 
 // Shared memory of one block, in bytes: the ring (reused by the warps'
-// merge), the scales' ring, the query tile, the FMA path's p, a flag, the
-// table. All of it dynamic: the opt-in takes the whole 227 KB.
+// merge), the scales' ring, the query tile, the FMA path's p, the table.
+// All of it dynamic: the opt-in takes the whole 227 KB.
 template <int HD, typename QT, typename KT, bool kQuant>
 struct Smem {
   static constexpr bool kMma = std::is_same_v<QT, __nv_bfloat16>;
@@ -197,8 +201,7 @@ struct Smem {
   static constexpr int kScaleOff = kRing;
   static constexpr int kQOff = kScaleOff + kScales;
   static constexpr int kPOff = kQOff + kQ;
-  static constexpr int kFlagOff = kPOff + kP;  // "this split merges the row" (16 bytes)
-  static constexpr int kTableOff = kFlagOff + 16;
+  static constexpr int kTableOff = kPOff + kP;
   static int bytes(int table_cap) { return kTableOff + table_cap * 4; }
 };
 
@@ -519,16 +522,15 @@ struct FmaWarp {
 };
 
 // Two blocks an SM: what the bf16 ring allows, and it lets ptxas give a
-// thread up to 255 registers rather than aim at three blocks.
+// thread more than the 168 registers it aims at for three blocks.
 template <int HD, typename QT, typename KT, bool kQuant>
 __global__ void __launch_bounds__(kThreads, 2)
 paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
                        const KT* __restrict__ v_pages, const float* __restrict__ k_scale,
                        const float* __restrict__ v_scale, const int* __restrict__ block_tables,
                        const int* __restrict__ idx, QT* __restrict__ out,
-                       float* __restrict__ part_acc, float* __restrict__ part_ml,
-                       int* __restrict__ tickets, int s, int nh, int n_kv, int nb, int bs, int mb,
-                       int splits) {
+                       float* __restrict__ part_acc, float* __restrict__ part_ml, int s, int nh,
+                       int n_kv, int nb, int bs, int mb, int splits) {
   using S = Smem<HD, QT, KT, kQuant>;
   using T = Tile<HD, KT>;
   using Warp = std::conditional_t<S::kMma, MmaWarp<HD, KT, kQuant>, FmaWarp<HD, KT, kQuant>>;
@@ -675,37 +677,34 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
       }
     }
   }
-  if (used == 1) return;
+}
 
-  // The last of the row's splits to finish (a ticket per (row, kv head, row
-  // tile), left at 0 for the next launch) merges the partials in split
-  // order, so the result does not depend on which split finishes last.
-  int& is_last = *reinterpret_cast<int*>(smem + S::kFlagOff);
-  __threadfence();  // this split's partials are visible before its ticket
-  __syncthreads();
-  if (tid == 0) {
-    int* ticket = tickets + static_cast<int64_t>(b) * gridDim.y + blockIdx.y;
-    is_last = atomicAdd(ticket, 1) == used - 1;
-    if (is_last) atomicExch(ticket, 0);
+// Merge the splits of each query row, in split order: one block per (b, qj,
+// head), one thread per output dim. Only the splits the row used are read;
+// a row that used one split was written by the split kernel.
+template <int HD, typename QT>
+__global__ void __launch_bounds__(HD)
+combine_splits_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                      const int* __restrict__ idx, QT* __restrict__ out, int s, int nh, int bs,
+                      int mb, int splits) {
+  const int64_t out_row = blockIdx.x;
+  const int b = static_cast<int>(out_row / (static_cast<int64_t>(s) * nh));
+  const int d = threadIdx.x;
+  int used, lo, hi;
+  split_range(min(idx[b] + s, mb * bs), splits, 0, used, lo, hi);
+  if (used == 1) return;
+  const float* ml = part_ml + 2 * out_row * splits;
+  const float* pa = part_acc + out_row * splits * HD;
+  float m_all = -FLT_MAX;
+  for (int j = 0; j < used; ++j) m_all = fmaxf(m_all, ml[2 * j]);
+  float l_all = 0.f, o = 0.f;
+  for (int j = 0; j < used; ++j) {
+    // the tensor-core path (bf16 queries) keeps m in log2 units
+    const float w = ex<std::is_same_v<QT, __nv_bfloat16>>(ml[2 * j] - m_all);
+    l_all = fmaf(ml[2 * j + 1], w, l_all);
+    o = fmaf(pa[j * HD + d], w, o);
   }
-  __syncthreads();
-  if (!is_last) return;
-  __threadfence();
-  for (int e = tid; e < rows_here * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
-    const int64_t out_row = out_row_of(b, row0 + r, rep, n, s, nh);
-    const float* pml = part_ml + 2 * out_row * splits;
-    const float* pa = part_acc + out_row * splits * HD + d;
-    float m_all = -FLT_MAX;
-    for (int j = 0; j < used; ++j) m_all = fmaxf(m_all, __ldcg(pml + 2 * j));
-    float l_all = 0.f, o = 0.f;
-    for (int j = 0; j < used; ++j) {
-      const float f = ex<S::kMma>(__ldcg(pml + 2 * j) - m_all);
-      l_all = fmaf(__ldcg(pml + 2 * j + 1), f, l_all);
-      o = fmaf(__ldcg(pa + j * HD), f, o);
-    }
-    store_as(out + out_row * HD + d, o / fmaxf(l_all, 1e-30f));
-  }
+  store_as(out + out_row * HD + d, o / fmaxf(l_all, 1e-30f));
 }
 
 struct Args {
@@ -719,7 +718,6 @@ struct Args {
   void* out;
   float* part_acc;
   float* part_ml;
-  int* tickets;
   int b, s, nh, n_kv, nb, bs, mb, splits;
 };
 
@@ -758,8 +756,13 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       static_cast<const QT*>(a.q), static_cast<const KT*>(a.k_pages),
       static_cast<const KT*>(a.v_pages), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.block_tables),
-      static_cast<const int*>(a.idx), static_cast<QT*>(a.out), a.part_acc, a.part_ml,
-      a.tickets, a.s, a.nh, a.n_kv, a.nb, a.bs, a.mb, a.splits);
+      static_cast<const int*>(a.idx), static_cast<QT*>(a.out), a.part_acc, a.part_ml, a.s,
+      a.nh, a.n_kv, a.nb, a.bs, a.mb, a.splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return err;
+  combine_splits_kernel<HD, QT><<<a.b * a.s * a.nh, HD, 0, stream>>>(
+      a.part_acc, a.part_ml, static_cast<const int*>(a.idx), static_cast<QT*>(a.out), a.s,
+      a.nh, a.bs, a.mb, a.splits);
   return cudaGetLastError();
 }
 
@@ -788,16 +791,13 @@ cudaError_t by_query(const Args& a, int q_dtype, int kv_dtype, cudaStream_t stre
 }  // namespace
 
 // part_acc [b, s, nh, splits, hd] and part_ml [b, s, nh, splits, 2] (f32)
-// are scratch the wrapper allocates when splits > 1, else null; tickets
-// [b, n_kv, ceil(rep * s / 16)] int32 are zero before a launch and after it
-// (the wrapper keeps one zeroed buffer per device, used by one stream).
-// splits is the wrapper's plan: at least ceil(mb * bs / 4096), at most the
+// are scratch the wrapper allocates when splits > 1, else null. splits is
+// the wrapper's plan: at least ceil(mb * bs / 4096), at most the
 // table's 64-key tiles.
 extern "C" int paged_attention_forward(const void* q, const void* k_pages, const void* v_pages,
                                        const void* k_scale, const void* v_scale,
                                        const void* block_tables, const void* idx, void* out,
-                                       void* part_acc, void* part_ml, void* tickets, int b, int s,
-                                       int nh,
+                                       void* part_acc, void* part_ml, int b, int s, int nh,
                                        int n_kv, int hd, int nb, int bs, int mb, int splits,
                                        int q_dtype, int kv_dtype, void* stream) {
   (void)cudaGetLastError();  // report this launch's error, not a stale one
@@ -806,11 +806,11 @@ extern "C" int paged_attention_forward(const void* q, const void* k_pages, const
       span > (int64_t{1} << 30) || splits < 1 ||
       splits > (span + kStageKeys - 1) / kStageKeys ||
       splits < (span + kMaxSplitKeys - 1) / kMaxSplitKeys ||
-      (splits > 1 && (part_acc == nullptr || part_ml == nullptr || tickets == nullptr)))
+      (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return cudaErrorInvalidValue;
   const Args a{q, k_pages, v_pages, k_scale, v_scale, block_tables, idx, out,
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-               static_cast<int*>(tickets), b, s, nh, n_kv, nb, bs, mb, splits};
+               b, s, nh, n_kv, nb, bs, mb, splits};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: return by_query<64>(a, q_dtype, kv_dtype, st);
@@ -819,19 +819,23 @@ extern "C" int paged_attention_forward(const void* q, const void* k_pages, const
   }
 }
 
-// Resident blocks an SM holds of the kernel at hd 128 with bf16 queries and
-// a bf16 pool (the flagship's decode: a 64-entry table of 16-key pages in 5
-// splits), by the runtime's occupancy calculator for this device, and its
-// dynamic shared memory there.
-extern "C" int paged_attention_blocks_per_sm(int* blocks, int* smem_bytes) {
+// Resident blocks an SM holds of the split kernel and of the combine kernel
+// at hd 128 with bf16 queries and a bf16 pool (the flagship's decode: a
+// 64-entry table of 16-key pages in 2 splits), by the runtime's occupancy
+// calculator for this device, and the split kernel's dynamic shared memory
+// there.
+extern "C" int paged_attention_blocks_per_sm(int* split, int* combine, int* smem_bytes) {
   (void)cudaGetLastError();
   using S = Smem<128, __nv_bfloat16, __nv_bfloat16, false>;
-  const cudaError_t err = opt_in<128, __nv_bfloat16, __nv_bfloat16, false>();
+  cudaError_t err = opt_in<128, __nv_bfloat16, __nv_bfloat16, false>();
   if (err != cudaSuccess) return err;
-  *smem_bytes = S::bytes(table_cap(64 * 16, 16, 64, 5));
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false>, kThreads,
+  *smem_bytes = S::bytes(table_cap(64 * 16, 16, 64, 2));
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      split, paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false>, kThreads,
       *smem_bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      combine, combine_splits_kernel<128, __nv_bfloat16>, 128, 0);
 }
 
 extern "C" const char* paged_attention_error_string(int code) {

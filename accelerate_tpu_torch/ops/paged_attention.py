@@ -155,9 +155,10 @@ def _paged_attention_gather(q, k_pages_l, v_pages_l, block_tables, idx, k_scale_
 _TILE_ROWS = 16
 _TILE_KEYS = 64
 _MAX_SPLIT_KEYS = 4096
-#: blocks the plan aims for, per SM: two waves of the two blocks an SM holds
-#: at the flagship decode shape
-_BLOCKS_PER_SM_TARGET = 4
+#: blocks the plan aims for, per SM: one wave of the two blocks an SM holds
+#: at the flagship decode shape (each block pays a fixed latency, idx ->
+#: table -> first tile, once a wave; one wave beat two and three on the H100)
+_BLOCKS_PER_SM_TARGET = 2
 
 
 class SplitPlan(NamedTuple):
@@ -173,7 +174,7 @@ class SplitPlan(NamedTuple):
 def _split_plan(b: int, s: int, nh: int, n_kv: int, hd: int, span: int,
                 sm_count: int) -> SplitPlan:
     """The number of key splits, from static shapes only (``span`` is the
-    table's ``max_blocks * block_size``): about ``_BLOCKS_PER_SM_TARGET``
+    table's ``max_blocks * block_size``): at most ``_BLOCKS_PER_SM_TARGET``
     blocks an SM over the launch, at least one split, never more splits than
     64-key tiles in the table, and no split over 4096 keys. Nothing here
     reads ``idx`` or the tables, so the same shapes always give the same
@@ -193,27 +194,13 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-#: per device, the int32 tickets the last split of a (row, kv head, row tile)
-#: takes to merge the row's partials; zero between launches (the kernel
-#: resets each one it uses), so they are allocated once and only grow
-_tickets: dict = {}
-
-
-def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
-    buf = _tickets.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _tickets[device] = buf
-    return buf
-
-
 def _kernel():
     from .. import _build
 
     lib = _build.load("paged_attention.cu")
     fn = lib.paged_attention_forward
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
         lib.paged_attention_error_string.restype = ctypes.c_char_p
@@ -265,13 +252,12 @@ def _paged_attention_cuda(q, k_pages_l, v_pages_l, block_tables, idx, k_scale_l,
         return out
     lib = _kernel()
     # key splits (flash-decoding), planned from shapes alone: partials in
-    # f32 scratch, merged by the row's last split; one split writes the output
+    # f32 scratch, merged by a second kernel; one split writes the output
     plan = _split_plan(b, s, nh, n_kv, hd, mb * bs, _sm_count(q.device.index))
-    part_acc = part_ml = tickets = None
+    part_acc = part_ml = None
     if plan.splits > 1:
         part_acc = torch.empty(plan.part_acc_shape, dtype=torch.float32, device=q.device)
         part_ml = torch.empty(plan.part_ml_shape, dtype=torch.float32, device=q.device)
-        tickets = _ticket_buffer(q.device, b * n_kv * -(-((nh // n_kv) * s) // _TILE_ROWS))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.paged_attention_forward(
         q.data_ptr(), k_pages_l.data_ptr(), v_pages_l.data_ptr(),
@@ -280,7 +266,6 @@ def _paged_attention_cuda(q, k_pages_l, v_pages_l, block_tables, idx, k_scale_l,
         block_tables.data_ptr(), idx.data_ptr(), out.data_ptr(),
         None if part_acc is None else part_acc.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(),
-        None if tickets is None else tickets.data_ptr(),
         b, s, nh, n_kv, hd, nb, bs, mb, plan.splits,
         _Q_CODES[q.dtype], _POOL_CODES[k_pages_l.dtype], stream,
     )

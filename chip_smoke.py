@@ -12,11 +12,12 @@ failure, so the script exits non-zero and prints no result):
 2. build: every CUDA kernel of the port from ``accelerate_tpu_torch/csrc``
    into ``build/torch_kernels`` (nvcc, sm_90a), with the build seconds and
    each kernel instance's registers, spills and static shared memory from
-   ptxas (the flash kernels and every instance of the paged kernel), and the
-   blocks a SM holds of the bf16 flash kernels and of the paged kernel's
-   timed instance (with its dynamic shared memory), from the CUDA runtime's
-   occupancy calculator on the card. Fails if a wgmma flash kernel or B4's
-   bf16 hd-128 instance spills;
+   ptxas (the flash kernels and every instance of the paged kernel's split
+   and combine kernels), and the blocks a SM holds of the bf16 flash kernels
+   and of the paged kernels' timed instances (with the split kernel's
+   dynamic shared memory), from the CUDA runtime's occupancy calculator on
+   the card. Fails if a wgmma flash kernel or B4's bf16 hd-128 split
+   instance spills;
 3. the paged-attention kernel against its plain PyTorch version on the
    card: decode (s=1) and prefill-chunk (s=32) queries, hd=128, bs=16, MHA
    12/12 and GQA 32/8, ``idx`` on and beside block edges, f32 / bf16 /
@@ -40,8 +41,8 @@ failure, so the script exits non-zero and prints no result):
    layers' pools rotated so L2 does not hold them), at context 1024 (the
    table's ``mb · bs``), and at the prefill chunk (b 1, s 32, the chunk's
    last query at context 512 and 896): the kernel (CUDA events around the
-   Python wrapper), its device time a launch under ``torch.profiler``, the
-   plain version,
+   Python wrapper), the device time a launch of its split kernel and of its
+   combine kernel under ``torch.profiler``, the plain version,
    ``scaled_dot_product_attention`` over the pre-gathered span with the
    chunk's causal-offset mask (the gather excluded; its kernels' device
    time a call, and CUDA events around it), and the bound — the larger of
@@ -152,21 +153,22 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-#: B4's instance at the timed decode shape (hd 128, bf16 queries and pool)
-PAGED_TIMED = "paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false>"
+#: B4's instances at the timed decode shape (hd 128, bf16 queries and pool)
+PAGED_TIMED = ("paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false>",
+               "combine_splits_kernel<128, __nv_bfloat16>")
 
 
 def occupancy_report() -> tuple[dict, int]:
     """``({"kernel<args>": blocks}, bytes)``: resident blocks an SM holds of
     each bf16 flash kernel and of B4's timed instances, from the CUDA
     runtime's occupancy calculator on this card, for the threads and shared
-    memory each is launched with; and B4's dynamic shared memory at the
-    decode shape."""
+    memory each is launched with; and the dynamic shared memory of B4's
+    split kernel at the decode shape."""
     import ctypes
 
     from accelerate_tpu_torch import _build
 
-    blocks, smem, out = ctypes.c_int(), ctypes.c_int(), {}
+    blocks, combine, smem, out = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), {}
     flash = _build.load("flash_attention.cu")
     for which, name in enumerate(FLASH_KERNELS):
         for hd in (64, 128):
@@ -174,9 +176,10 @@ def occupancy_report() -> tuple[dict, int]:
                 raise AssertionError(f"the occupancy query failed for {name} at hd {hd}")
             out[f"{name}_wgmma_kernel<{hd}>"] = blocks.value
     paged = _build.load("paged_attention.cu")
-    if paged.paged_attention_blocks_per_sm(ctypes.byref(blocks), ctypes.byref(smem)):
-        raise AssertionError("the occupancy query failed for the paged kernel")
-    out[PAGED_TIMED] = blocks.value
+    if paged.paged_attention_blocks_per_sm(ctypes.byref(blocks), ctypes.byref(combine),
+                                           ctypes.byref(smem)):
+        raise AssertionError("the occupancy query failed for the paged kernels")
+    out[PAGED_TIMED[0]], out[PAGED_TIMED[1]] = blocks.value, combine.value
     return out, smem.value
 
 
@@ -468,10 +471,10 @@ def _time_ms(fn, calls: int, repeats: int) -> float:
     return _time_spread(fn, calls, repeats)[1]
 
 
-PAGED_KERNELS = ("paged_attention_kernel",)
+PAGED_KERNELS = ("paged_attention_kernel", "combine_splits_kernel")
 #: what the kernels line carries of B4's other timed shapes
 PAGED_TIMED_KEYS = ("kernel_ms", "profiler_ms_per_launch", "plain_ms", "library_ms",
-                    "library_events_ms", "bound_ms", "hbm_share")
+                    "library_events_ms", "bound_ms", "hbm_share_split_kernel")
 
 
 def _profiled_rows(fn, calls: int) -> list:
@@ -571,18 +574,19 @@ def time_paged_shape(dev, b: int = 8, s: int = 1, ctx: int = 512) -> dict:
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     split_ms = device_ms["paged_attention_kernel"]
     log(f"  b={b} s={s} ctx={ctx} bf16: kernel {kernel_ms:.4f} ms (events around the "
-        f"wrapper; profiler {split_ms:.4f} ms a launch), plain {plain_ms:.4f} ms, "
+        f"wrapper; profiler a launch: split {split_ms:.4f} ms, "
+        f"combine {device_ms['combine_splits_kernel']:.4f} ms), plain {plain_ms:.4f} ms, "
         f"sdpa (span pre-gathered, gather excluded) {library_device_ms:.4f} ms a call by the "
         f"profiler ({library_ms:.4f} ms by events), "
-        f"bound {max(bytes_ms, ops_ms):.4f} ms ({kv_bytes / 1e6:.2f} MB of K/V, the kernel at "
+        f"bound {max(bytes_ms, ops_ms):.4f} ms ({kv_bytes / 1e6:.2f} MB of K/V, the split kernel at "
         f"{(kv_bytes + io_bytes) / (split_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of HBM's rate); "
         f"|kernel - plain| {err:.2e}, |kernel - sdpa| {lib_err:.2e}")
     return {
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_device_ms,
-        "profiler_ms_per_launch": split_ms, "library_events_ms": library_ms,
+        "profiler_ms_per_launch": device_ms, "library_events_ms": library_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "hbm_share": (kv_bytes + io_bytes) / (split_ms * 1e-3) / HBM_BYTES_PER_S,
+        "hbm_share_split_kernel": (kv_bytes + io_bytes) / (split_ms * 1e-3) / HBM_BYTES_PER_S,
         "shape": {"rows": b, "queries": s, "context": ctx, "n_heads": nh, "n_kv": nh,
                   "head_dim": hd, "block_size": bs, "max_blocks": mb, "dtype": "bf16",
                   "layers_rotated": layers},
@@ -642,7 +646,7 @@ def serve_breakdown() -> dict:
         raise AssertionError("the profiler saw no kernel in the serve window")
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
     paged_ms = sum(e.self_device_time_total for e in kernels
-                   if "paged_attention" in e.key) / 1e3 / steps
+                   if "paged_attention" in e.key or "combine_splits" in e.key) / 1e3 / steps
 
     # one decode step over the engine's pools, every lane inactive (writes
     # land in the null block), eager and replayed from a graph
@@ -1151,7 +1155,7 @@ def main() -> int:
         for report in ptxas.values():
             if key in report:
                 report[key]["blocks_per_sm"] = blocks
-    ptxas["paged_attention.cu"][PAGED_TIMED]["dynamic_smem"] = paged_smem
+    ptxas["paged_attention.cu"][PAGED_TIMED[0]]["dynamic_smem"] = paged_smem
     for kname, rep in sorted(kv for report in ptxas.values() for kv in report.items()):
         log(f"  {kname}: {rep.get('registers')} registers, spill stores {rep['spill_stores']} B, "
             f"spill loads {rep['spill_loads']} B, static smem {rep.get('static_smem')} B"
@@ -1162,7 +1166,7 @@ def main() -> int:
     if len(wgmma) != 6 or any(v["spill_stores"] or v["spill_loads"] for v in wgmma.values()):
         raise AssertionError(f"the wgmma flash kernels (3 at hd 64 and 128) must build without "
                              f"spills: {wgmma}")
-    b4 = ptxas["paged_attention.cu"][PAGED_TIMED]
+    b4 = ptxas["paged_attention.cu"][PAGED_TIMED[0]]
     if b4["spill_stores"] or b4["spill_loads"]:
         raise AssertionError(f"B4's bf16 hd-128 instance must build without spills: {b4}")
 
@@ -1223,11 +1227,11 @@ def main() -> int:
         "ms": times["kernel_ms"],
         "kernel_ms": times["kernel_ms"],
         "profiler_ms_per_launch": times["profiler_ms_per_launch"],
-        "hbm_share": times["hbm_share"],
+        "hbm_share_split_kernel": times["hbm_share_split_kernel"],
         "at_context_1024": {k: times_1024[k] for k in PAGED_TIMED_KEYS},
         "at_prefill_chunk": {c: {k: t[k] for k in PAGED_TIMED_KEYS + ("bound_by", "shape")}
                              for c, t in prefill.items()},
-        "ptxas": ptxas["paged_attention.cu"][PAGED_TIMED],
+        "ptxas": {k: ptxas["paged_attention.cu"][k] for k in PAGED_TIMED},
         "ptxas_all_instances": ptxas["paged_attention.cu"],
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],

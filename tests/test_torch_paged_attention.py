@@ -214,12 +214,12 @@ def test_split_plan_bounds_and_partial_shapes(b, s, nh, n_kv, span, sms):
 
 
 def test_split_plan_fills_the_card_at_the_flagship_decode_shape():
-    """8 slots × 12 kv heads on 132 SMs: about two waves of two blocks an
-    SM, and the prefill chunk's two row tiles split less per row."""
-    decode = tpa._split_plan(8, 1, 12, 12, 128, 1024, 132)
-    assert 1.0 <= decode.splits * 8 * 12 / (2 * 132) <= 2.0
-    chunk = tpa._split_plan(1, 32, 12, 12, 128, 1024, 132)
-    assert chunk.splits == 1024 // tpa._TILE_KEYS
+    """8 slots × 12 kv heads, and the 32-query chunk's 12 × 2 row tiles, on
+    132 SMs: more than half of one wave of two blocks an SM, never more."""
+    for b, s in ((8, 1), (1, 32)):
+        plan = tpa._split_plan(b, s, 12, 12, 128, 1024, 132)
+        blocks = plan.splits * b * 12 * -(-s // tpa._TILE_ROWS)
+        assert 0.5 * 2 * 132 < blocks <= tpa._BLOCKS_PER_SM_TARGET * 132
 
 
 def test_split_plan_reads_shapes_only():
