@@ -12,8 +12,9 @@ answered with an ``{"id", "error"}`` row and never stops the loop. Prompts
 are raw token ids; the weights are random, made from ``--seed``.
 
 The engine runs on the CUDA card unless ``--device cpu`` is given. On exit
-the stderr summary names the paged-attention kernel launches. HTTP,
-OpenAI routes, routing, chaos and workload replay are later slices.
+the stderr summary names the paged-attention kernel launches (all of them,
+then decode and other apart). HTTP, OpenAI routes, routing, chaos and
+workload replay are later slices.
 """
 
 from __future__ import annotations

@@ -211,8 +211,8 @@ __device__ __forceinline__ float ex(float x) {
   return kLog2 ? exp2f(x) : expf(x);
 }
 
-// The output row [b, qj, head] of query row `row` (qj * rep + the head's
-// index in its group) of kv head n
+// The row [b, qj, head] of q and of the output that query row `row`
+// (qj * rep + the head's index in its group) of kv head n stands for
 __device__ __forceinline__ int64_t out_row_of(int b, int row, int rep, int n, int s, int nh) {
   const int qj = row / rep, head = n * rep + row % rep;
   return (static_cast<int64_t>(b) * s + qj) * nh + head;
@@ -567,11 +567,8 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
       const int r = e / (HD / kV), c = e % (HD / kV);
       const int row = row0 + r;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < rows) {
-        const int qj = row / rep, head = n * rep + row % rep;
-        v = *reinterpret_cast<const uint4*>(
-            q + ((static_cast<int64_t>(b) * s + qj) * nh + head) * HD + c * kV);
-      }
+      if (row < rows)
+        v = *reinterpret_cast<const uint4*>(q + out_row_of(b, row, rep, n, s, nh) * HD + c * kV);
       *reinterpret_cast<uint4*>(q_s + r * S::kQRow + c * kV) = v;
     }
   } else {
@@ -581,10 +578,7 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
       const int r = e / HD, d = e % HD;
       const int row = row0 + r;
       float x = 0.f;
-      if (row < rows) {
-        const int qj = row / rep, head = n * rep + row % rep;
-        x = to_f32(q[((static_cast<int64_t>(b) * s + qj) * nh + head) * HD + d]) / root;
-      }
+      if (row < rows) x = to_f32(q[out_row_of(b, row, rep, n, s, nh) * HD + d]) / root;
       q_s[r * S::kQRow + d] = x;
     }
   }

@@ -174,7 +174,7 @@ class SplitPlan(NamedTuple):
 def _split_plan(b: int, s: int, nh: int, n_kv: int, hd: int, span: int,
                 sm_count: int) -> SplitPlan:
     """The number of key splits, from static shapes only (``span`` is the
-    table's ``max_blocks * block_size``): at most ``_BLOCKS_PER_SM_TARGET``
+    table's ``max_blocks * block_size``): about ``_BLOCKS_PER_SM_TARGET``
     blocks an SM over the launch, at least one split, never more splits than
     64-key tiles in the table, and no split over 4096 keys. Nothing here
     reads ``idx`` or the tables, so the same shapes always give the same
