@@ -20,12 +20,27 @@ import os
 import torch
 
 from .modules import PreparedModel, extract_model_from_parallel
+from .ops.flash_attention import HEAD_DIMS
 from .optimizer import AcceleratedOptimizer
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import GradientAccumulationPlugin
 
 _COMPUTE_DTYPES = {"bf16": torch.bfloat16}
+
+
+def check_kernel_head_dim(model, device: torch.device) -> None:
+    """On a CUDA device, refuse a model whose attention head dim the flash
+    kernels (B1-B3, ``csrc/flash_attention.cu``) do not take, before any
+    step: a ``ValueError`` naming the head dims they take. The CPU runs the
+    plain attention, which takes any head dim. A model without
+    ``config.head_dim`` passes."""
+    head_dim = getattr(getattr(model, "config", None), "head_dim", None)
+    if device.type == "cuda" and head_dim is not None and head_dim not in HEAD_DIMS:
+        raise ValueError(
+            f"the model's head_dim {head_dim} is not taken by the flash-attention "
+            f"kernels on the card (they take head dims {HEAD_DIMS})"
+        )
 
 
 class Accelerator:
@@ -149,9 +164,11 @@ class Accelerator:
                       evaluation_mode: bool = False) -> PreparedModel:
         """The module moved to :attr:`device` (in place, so an optimizer
         built on its parameters keeps them) and wrapped with the compute
-        dtype."""
+        dtype. On the card a head dim the flash kernels do not take raises
+        here (:func:`check_kernel_head_dim`)."""
         if isinstance(model, PreparedModel):
             return model
+        check_kernel_head_dim(model, self.device)
         if device_placement if device_placement is not None else self.device_placement:
             model.to(self.device)
         prepared = PreparedModel(model, compute_dtype=self.compute_dtype)

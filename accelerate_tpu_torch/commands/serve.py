@@ -11,15 +11,22 @@ A malformed request, or one carrying a field this port does not serve yet
 answered with an ``{"id", "error"}`` row and never stops the loop. Prompts
 are raw token ids; the weights are random, made from ``--seed``.
 
-The engine runs on the CUDA card unless ``--device cpu`` is given. On exit
-the stderr summary names the paged-attention kernel launches (all of them,
-then decode and other apart). HTTP, OpenAI routes, routing, chaos and
+The engine runs on the CUDA card unless ``--device cpu`` is given; there
+it replays its decode burst and prefill chunk from CUDA graphs, with
+double-buffered dispatch unless ``--sync-engine`` (or
+``ACCELERATE_SYNC_ENGINE=1``) asks for the synchronous loop, which gives
+the same tokens. On exit the stderr summary names the paged-attention
+kernel launches (all of them, then decode and other apart), the captures
+(``decode_compiles``, ``prefill_compiles``) and the flight recorder's
+``host_fraction``, and a second line ``serve stats: {...}`` carries the
+engine's ``stats()`` as JSON. HTTP, OpenAI routes, routing, chaos and
 workload replay are later slices.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import queue
 import sys
 import threading
@@ -63,6 +70,7 @@ def _make_engine(args):
             seed=args.seed,
             max_new_tokens=args.max_new_tokens,
             kv_dtype=args.kv_dtype,
+            async_dispatch=not args.sync_engine,
         ),
         device=args.device,
     )
@@ -105,7 +113,7 @@ def _engine_loop(engine, inbox, emit, stop):
                 pending[req.request_id] = req_id
         except queue.Empty:
             pass
-        if engine.scheduler.has_work():
+        if engine.has_work():
             for req in engine.step():
                 emit(_result_dict(req, pending.pop(req.request_id, None)))
             continue
@@ -156,9 +164,13 @@ def serve_command(args) -> int:
         f"({stats.get('tokens_per_sec', 0.0):.1f} tok/s) on {stats['device']}, "
         f"paged_attention launches {stats['paged_attention_launches']} "
         f"(decode {stats['paged_attention_decode_launches']}, "
-        f"other {stats['paged_attention_launches'] - stats['paged_attention_decode_launches']})",
+        f"other {stats['paged_attention_launches'] - stats['paged_attention_decode_launches']}), "
+        f"decode_compiles {stats['decode_compiles']}, "
+        f"prefill_compiles {stats['prefill_compiles']}, "
+        f"host_fraction {stats.get('host_fraction', 0.0):.4f}",
         file=sys.stderr,
     )
+    print(f"serve stats: {json.dumps(stats)}", file=sys.stderr)
     return 0
 
 
@@ -188,6 +200,12 @@ def add_parser(subparsers):
                    default="auto",
                    help="KV pool storage (default auto = the params' dtype): "
                    "int8/fp8 quantize on scatter with per-row amax scales")
+    p.add_argument(
+        "--sync-engine", action="store_true",
+        default=os.environ.get("ACCELERATE_SYNC_ENGINE", "") not in ("", "0"),
+        help="disable double-buffered dispatch and run the synchronous step "
+        "loop (env ACCELERATE_SYNC_ENGINE=1): the baseline to time the "
+        "default against; the tokens are identical either way")
     p.add_argument("--eos-token-id", type=int, default=None)
     p.add_argument("--temperature", type=float, default=None,
                    help="sampling temperature (default: greedy)")

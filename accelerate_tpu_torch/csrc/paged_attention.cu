@@ -63,9 +63,14 @@
 //    are applied in f32: the K scale on the score, the V scale on p before it
 //    is rounded to bf16. Softmax in base 2 with scale * log2(e) folded in.
 //    f32 queries keep f32 arithmetic on the FMA units (a lane owns a key for
-//    scores, hd / 32 output dims for P.V), with the same staging and warp
-//    split, expf and IEEE divide, so f32 pools meet 1e-5 against the plain
-//    PyTorch version.
+//    scores, hd / 32 output dims for P.V; at hd 16 lanes 0..15 own one dim
+//    and the others idle in P.V), with the same staging and warp split, expf
+//    and IEEE divide, so f32 pools meet 1e-5 against the plain PyTorch
+//    version.
+//  * Head dims 16, 32, 64 and 128 (the tiny preset serves at 16). A key row
+//    is hd * sizeof(pool) bytes in 16-byte chunks, so the narrowest row, an
+//    int8 or fp8 row of 16 dims, is one chunk: the swizzle then has nothing
+//    to permute, and 128 threads stage a 64-key tile one key a thread.
 
 #include <algorithm>
 #include <cfloat>
@@ -158,6 +163,11 @@ template <int HD, typename KT>
 struct Tile {
   static constexpr int kRowBytes = HD * static_cast<int>(sizeof(KT));
   static constexpr int kChunks = kRowBytes / 16;
+  static_assert(HD % 16 == 0 && kRowBytes % 16 == 0,
+                "a row is whole 16-byte chunks: one cp.async each, one k16 mma step each 16 dims");
+  static_assert((kChunks & (kChunks - 1)) == 0 && kThreads % kChunks == 0,
+                "the swizzle XORs within a power-of-two chunk count, and the block stages whole "
+                "keys a pass");
   static constexpr int kVec = 16 / static_cast<int>(sizeof(KT));  // elements per chunk
   static constexpr int kSwz = (kChunks < 8 ? kChunks : 8) - 1;
   __device__ static __forceinline__ int off(int r, int d) {  // byte offset of element (r, d)
@@ -412,8 +422,10 @@ template <int HD, typename KT, bool kQuant>
 struct FmaWarp {
   using T = Tile<HD, KT>;
   static constexpr int kQRow = HD + 4;
-  static constexpr int kDims = HD / 32;
+  static constexpr int kDims = (HD + 31) / 32;      // output dims a lane owns in P.V
+  static constexpr bool kPartial = HD % 32 != 0;    // hd 16: lanes 16..31 own none
   static constexpr int kPRow = kWarpKeys + 2;
+  static_assert(HD % 4 == 0, "scores read q and K four dims at a time");
   const float* q_s;
   float* p_s;  // this warp's [kRows][kPRow]: p by key, then the row's alpha
   float acc[kRows][kDims];
@@ -491,7 +503,9 @@ struct FmaWarp {
     for (int j = 0; j < kWarpKeys; ++j) {
       float vv[kDims];
 #pragma unroll
-      for (int c = 0; c < kDims; ++c) vv[c] = lds1<KT>(vt + T::off(wkey + j, lane + 32 * c));
+      for (int c = 0; c < kDims; ++c)
+        vv[c] = (!kPartial || lane + 32 * c < HD) ? lds1<KT>(vt + T::off(wkey + j, lane + 32 * c))
+                                                  : 0.f;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         if (r >= rows_here) continue;
@@ -517,7 +531,8 @@ struct FmaWarp {
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
 #pragma unroll
-      for (int c = 0; c < kDims; ++c) mo[(warp * kRows + r) * HD + lane + 32 * c] = acc[r][c];
+      for (int c = 0; c < kDims; ++c)
+        if (!kPartial || lane + 32 * c < HD) mo[(warp * kRows + r) * HD + lane + 32 * c] = acc[r][c];
   }
 };
 
@@ -807,6 +822,8 @@ extern "C" int paged_attention_forward(const void* q, const void* k_pages, const
                b, s, nh, n_kv, nb, bs, mb, splits};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 16: return by_query<16>(a, q_dtype, kv_dtype, st);
+    case 32: return by_query<32>(a, q_dtype, kv_dtype, st);
     case 64: return by_query<64>(a, q_dtype, kv_dtype, st);
     case 128: return by_query<128>(a, q_dtype, kv_dtype, st);
     default: return cudaErrorInvalidValue;

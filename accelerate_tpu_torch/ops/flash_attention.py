@@ -45,7 +45,9 @@ bwd_dq_launches = 0
 bwd_dkv_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+#: head dims the kernels take (the training entry point refuses others on
+#: the card before any step: ``accelerator.check_kernel_head_dim``)
+HEAD_DIMS = (64, 128)
 #: key tile of the plain forward: the bf16 forward kernel's (``kFwdTileKeys``
 #: in ``csrc/flash_attention.cu``), where P is rounded at each tile's running max
 _FWD_TILE = 128
@@ -296,7 +298,7 @@ def _validate(q, k, v, segment_mask, *extra):
     b, sq, nh, hd = q.shape
     _, skv, n_kv, hd_k = k.shape
     _check(k.shape[0] == b and hd_k == hd, "q and k/v shapes disagree")
-    _check(hd in _HEAD_DIMS, f"head_dim {hd} not supported (takes {_HEAD_DIMS})")
+    _check(hd in HEAD_DIMS, f"head_dim {hd} not supported (takes {HEAD_DIMS})")
     _check(nh % n_kv == 0, f"n_heads {nh} is not a multiple of n_kv {n_kv}")
     _check(q.dtype in _DTYPE_CODES and k.dtype == q.dtype and v.dtype == q.dtype,
            f"q, k, v must share one dtype of {list(_DTYPE_CODES)}")

@@ -47,9 +47,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
     """Rotate ``[batch, seq, heads, head_dim]`` by position-indexed tables.
     The rotation runs in ``x.dtype`` (bf16 under bf16 compute), as in the
-    JAX package; the f32 tables are cast once per gathered slice."""
+    JAX package; the f32 tables are cast once per gathered slice.
+
+    A position past the table is clamped to its last row, as JAX's gather
+    clamps an out-of-range index: the serving engine's dead lane-steps at
+    the end of a decode burst and the padded tail of a prefill chunk may
+    run past ``max_position_embeddings``, and what they compute is never
+    read. The clamp has fixed shapes and no host sync, so a CUDA graph
+    can capture it."""
     dtype = x.dtype
-    positions = positions.long()
+    positions = positions.long().clamp(max=cos.shape[0] - 1)
     cos = cos[positions][:, :, None, :].to(dtype)  # [b, s, 1, hd/2]
     sin = sin[positions][:, :, None, :].to(dtype)
     x1, x2 = x.chunk(2, dim=-1)

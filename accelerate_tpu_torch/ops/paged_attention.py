@@ -34,7 +34,10 @@ from .fp8 import dequantize_kv
 _NEG_INF = float(np.finfo(np.float32).min)
 
 #: CUDA kernel launches since import (the plain and gather versions never
-#: count): the serving path's proof that it went through the kernel
+#: count): the serving path's proof that it went through the kernel. A
+#: launch recorded into a CUDA graph under capture counts once here; the
+#: graph's replays launch it again without passing the wrapper, so the
+#: serving engine adds replays × what each capture recorded
 launches = 0
 #: the share of ``launches`` with one query a row (``s == 1``, decode); the
 #: rest are prefill chunks and other multi-token calls
@@ -42,7 +45,7 @@ decode_launches = 0
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def paged_attention(

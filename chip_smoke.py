@@ -25,18 +25,37 @@ failure, so the script exits non-zero and prints no result):
    null block, which holds garbage; then hd=64, a one-tile table, bf16
    queries on an int8 pool; block sizes 8 and 32; one batch whose rows'
    valid lengths are 1, 127, 128, 129 and 1000 (and 32..1000 in a chunk, MHA
-   and GQA); s=5. Gates: f32 ``atol=rtol=1e-5``; bf16 outputs ``atol=2e-2``
-   in f32; int8 / fp8 ``atol=rtol=1e-4`` on the same quantized bytes. Each
-   case launches twice and requires bit-identical outputs;
+   and GQA); s=5; then hd=16 (MHA 4/4) and hd=32 (GQA 8/2) in every pool
+   with f32 and bf16 queries, and the mixed-length batch at hd=16. Gates:
+   f32 ``atol=rtol=1e-5``; bf16 outputs ``atol=2e-2`` in f32; int8 / fp8
+   (and a bf16 pool under f32 queries) ``atol=rtol=1e-4`` on the same
+   stored bytes. Each case launches twice and requires bit-identical
+   outputs;
 4. the flagship llama's paged step in f32, kernel against plain: one
    64-token prefill chunk then 8 decode steps, max |Δ logits| <= 1e-3;
 5. the main path: ``python -m accelerate_tpu_torch serve --preset flagship
    --dtype bf16 --num-slots 8 --max-seq-len 1024`` answering 12 JSONL
    requests (prompts of 16-900 ids, 64 new tokens each) in a fresh process
-   (so its kernel counts start at 0; its stderr summary names the count,
-   split into decode launches, one query a row, and the others), then the
-   same engine in-process with ``--kv-dtype int8`` and 4 requests, the
-   launch counters set to 0 just before and read just after;
+   (so its kernel counts start at 0). The engine replays its decode burst
+   and prefill chunk from CUDA graphs: its stderr summary and its ``serve
+   stats`` line must show one capture of each (``decode_compiles``,
+   ``prefill_compiles``), the burst's capture 8 × 16 launches, all decode,
+   the chunk's 16, none decode, and launches = eager (the warm-ups) +
+   replays × captured, split into decode (one query a row) and other.
+   Then the same engine in-process with ``--kv-dtype int8`` and 4
+   requests, the wrapper's counters set to 0 just before and read just
+   after (they count the warm-ups and what each capture recorded; the
+   engine multiplies by the replays), under the same checks; then ``serve
+   --preset tiny`` on its defaults (f32, head dim 16) answering 6 requests;
+5b. the 12 requests through the graph engine with async dispatch on and
+   off, which must give identical tokens, and each request alone through
+   ``paged_step`` in an eager Python loop at the engine's shapes: where a
+   request parts from that reference, the first divergence and the
+   reference's top-2 logit margin are printed, and a divergence whose gap
+   exceeds 2^-5 of the reference's largest |logit| (four bf16 ulps at the
+   top) fails;
+5c. two engines with one seed and ``do_sample=True``: identical tokens,
+   and the generator's Philox offset advancing on every replay;
 6. times at the flagship decode shape (8 slots, context 512, bf16, the 16
    layers' pools rotated so L2 does not hold them), at context 1024 (the
    table's ``mb · bs``), and at the prefill chunk (b 1, s 32, the chunk's
@@ -47,11 +66,17 @@ failure, so the script exits non-zero and prints no result):
    chunk's causal-offset mask (the gather excluded; its kernels' device
    time a call, and CUDA events around it), and the bound — the larger of
    the bytes of valid K/V + q + out over 3.35 TB/s and the flops over 989
-   TFLOP/s. Printed in the ``{"kernels": [...]}`` line;
-7. where a flagship decode step's time goes on the serve engine: a
-   ``torch.profiler`` window (device busy share, launches and top kernels
-   per step) and one step eager against the same step replayed from a CUDA
-   graph. Printed as one ``{"serve_breakdown": {...}}`` line;
+   TFLOP/s. Printed in the ``{"kernels": [...]}`` line. A profiler window
+   that shows no kernel row is taken again once, then the script fails: no
+   library time reads 0.0;
+7. where a flagship decode step's time goes on the graph engine: four
+   legs, async and sync alternating, each its own engine past prefill,
+   four timed ``step()`` calls (wall per decode step, tokens/s, the flight
+   recorder's ``host_fraction`` and per-phase p50) and two under
+   ``torch.profiler`` (device time and busy share, launches and top kernels
+   per step); then one paged step eager against the same step replayed
+   from a CUDA graph. Printed as one ``{"serve_breakdown": {...}}`` line
+   with phase 5's serve numbers and phases 5b-5c;
 8. the flash-attention kernels (forward, backward dq, backward dk/dv)
    against their plain versions on the card, on seeded numpy inputs: the
    flagship shape (b 8, s 1024, 12 × 128) and GQA 32/8 at hd 64 and 128,
@@ -257,7 +282,9 @@ def _kernel_cases():
     lengths run 1, 127, 128, 129, 1000 (so the rows use different numbers of
     splits), at decode and in a 32-query chunk; GQA 32/8 chunks at s = 32
     (eight 16-row tiles a kv head) over that batch; and s = 5 (rows that do
-    not fill a 16-row tile)."""
+    not fill a 16-row tile). Last, head dims 16 (MHA 4/4, the tiny preset's
+    shape) and 32 (GQA 8/2) in every pool dtype with f32 and bf16 queries,
+    and the mixed-length batch at hd 16."""
     def edge(s, bs, mb):
         return tuple(i for i in EDGE_IDX if i + s <= mb * bs)
 
@@ -284,6 +311,14 @@ def _kernel_cases():
     cases += [(pool, q, 5, nh, n_kv, 128, 16, 40, edge(5, 16, 40))
               for pool, q, nh, n_kv in (("bf16", "bf16", 12, 12), ("bf16", "bf16", 32, 8),
                                         ("f32", "f32", 32, 8))]
+    # head dims 16 (the tiny preset's, MHA 4/4) and 32 (GQA 8/2): every pool
+    # with f32 and bf16 queries, then the mixed-length batch at hd 16
+    cases += [(pool, q, s, nh, n_kv, hd, 16, 8, edge(s, 16, 8))
+              for hd, nh, n_kv in ((16, 4, 4), (32, 8, 2))
+              for pool in ("f32", "bf16", "int8", "fp8") for q in ("f32", "bf16")
+              for s in (1, 32)]
+    cases += [(pool, q, 1, 4, 4, 16, 16, 64, mixed[1])
+              for pool, q in (("bf16", "bf16"), ("f32", "f32"))]
     return cases
 
 
@@ -394,7 +429,48 @@ def _check_rows(rows: list[dict], n: int, what: str) -> None:
             raise AssertionError(f"{what}: request {row['id']} emitted an id outside the vocab")
 
 
-def run_serve_subprocess() -> tuple[dict, float]:
+def _serve_stats(stderr: str, what: str) -> dict:
+    """The engine's ``stats()`` from serve's ``serve stats: {...}`` line."""
+    lines = [ln for ln in stderr.splitlines() if ln.startswith("serve stats: ")]
+    if not lines:
+        raise AssertionError(f"{what} printed no stats line:\n{stderr[-2000:]}")
+    return json.loads(lines[-1][len("serve stats: "):])
+
+
+def check_graph_counts(stats: dict, layers: int, burst: int, what: str) -> dict:
+    """One capture of each program, and the launch counts the engine reports
+    equal to its eager launches plus replays × the launches each capture
+    recorded: the decode burst ``burst × layers`` launches, all decode; the
+    prefill chunk ``layers``, none decode. The eager launches are the two
+    warm-ups before the captures and nothing else."""
+    graphs = stats["cuda_graphs"]
+    if stats["decode_compiles"] != 1 or stats["prefill_compiles"] != 1:
+        raise AssertionError(f"{what}: decode_compiles {stats['decode_compiles']}, "
+                             f"prefill_compiles {stats['prefill_compiles']} (each must be 1)")
+    dec, pre = graphs["decode"], graphs["prefill"]
+    if (dec["launches_captured"], dec["decode_launches_captured"]) != (burst * layers,) * 2:
+        raise AssertionError(f"{what}: the decode capture recorded {dec}, not "
+                             f"{burst * layers} decode launches")
+    if (pre["launches_captured"], pre["decode_launches_captured"]) != (layers, 0):
+        raise AssertionError(f"{what}: the prefill capture recorded {pre}, not {layers} "
+                             "launches with more than one query a row")
+    eager = stats["paged_attention_eager_launches"]
+    total = eager + sum(g["replays"] * g["launches_captured"] for g in graphs.values())
+    decode = stats["paged_attention_decode_launches"]
+    launches = {"total": stats["paged_attention_launches"], "decode": decode,
+                "other": stats["paged_attention_launches"] - decode,
+                "eager": eager, "decode_replays": dec["replays"],
+                "prefill_replays": pre["replays"]}
+    if total != launches["total"] or not 0 < decode < total:
+        raise AssertionError(f"{what}: launches {launches} are not eager {eager} + replays × "
+                             f"captured ({graphs})")
+    if eager != dec["launches_captured"] + pre["launches_captured"]:
+        raise AssertionError(f"{what}: {eager} eager launches, not one warm-up of each program "
+                             "(the engine ran a burst or a chunk outside its graphs)")
+    return launches
+
+
+def run_serve_subprocess() -> dict:
     reqs = _requests(12, seed=0)
     stdin = "".join(json.dumps(r) + "\n" for r in reqs)
     t0 = time.perf_counter()
@@ -412,11 +488,17 @@ def run_serve_subprocess() -> tuple[dict, float]:
                   summary[-1] if summary else "")
     if m is None:
         raise AssertionError(f"serve printed no launch summary:\n{proc.stderr[-2000:]}")
-    launches = {"total": int(m.group(1)), "decode": int(m.group(2)), "other": int(m.group(3))}
+    printed = {"total": int(m.group(1)), "decode": int(m.group(2)), "other": int(m.group(3))}
     log(f"  serve subprocess: {len(rows)} answers in {wall:.1f} s; {summary[-1]}")
-    if launches["total"] <= 0 or launches["decode"] + launches["other"] != launches["total"]:
-        raise AssertionError(f"serve's paged-attention launch counts are wrong: {launches}")
-    return launches, wall
+    if printed["decode"] + printed["other"] != printed["total"]:
+        raise AssertionError(f"serve's paged-attention launch counts are wrong: {printed}")
+    stats = _serve_stats(proc.stderr, "serve (bf16 KV)")
+    launches = check_graph_counts(stats, 16, 8, "serve (bf16 KV)")
+    if {k: launches[k] for k in printed} != printed:
+        raise AssertionError(f"serve's summary {printed} and stats {launches} disagree")
+    return {"launches": launches, "wall_s": wall, "tokens_per_sec": stats["tokens_per_sec"],
+            "host_fraction": stats["host_fraction"], "tokens": stats["tokens_emitted"],
+            "iteration_phases_s": stats["iteration_phases_s"]}
 
 
 def run_serve_int8_inprocess() -> dict:
@@ -425,22 +507,189 @@ def run_serve_int8_inprocess() -> dict:
     from accelerate_tpu_torch.ops import paged_attention as pa
 
     args = build_parser().parse_args([*SERVE_ARGS, "--kv-dtype", "int8"])
+    pa.launches = pa.decode_launches = 0
     engine = serve._make_engine(args)
     reqs = _requests(4, seed=1)
-    pa.launches = pa.decode_launches = 0
     handles = [engine.add_request(r["prompt"], r["max_new_tokens"]) for r in reqs]
     engine.run_until_idle()
-    launches = {"total": pa.launches, "decode": pa.decode_launches,
-                "other": pa.launches - pa.decode_launches}
+    # the wrapper counts what it launched or recorded into a capture; the
+    # engine multiplies the captures by their replays
+    recorded = {"total": pa.launches, "decode": pa.decode_launches}
+    stats = engine.stats()
     rows = [serve._result_dict(h, r["id"]) for h, r in zip(handles, reqs)]
     _check_rows(rows, len(reqs), "serve (int8 KV, in-process)")
-    log(f"  serve int8 KV in-process: {len(rows)} answers, paged_attention launches {launches}, "
-        f"kv_dtype {engine.stats()['kv_dtype']}")
-    if launches["decode"] <= 0 or launches["other"] <= 0:
-        raise AssertionError("int8 serve ran no decode or no prefill paged-attention launch")
+    launches = check_graph_counts(stats, 16, 8, "serve (int8 KV, in-process)")
+    graphs = stats["cuda_graphs"]
+    if recorded["total"] != launches["eager"] + sum(g["launches_captured"]
+                                                    for g in graphs.values()):
+        raise AssertionError(f"int8 serve: the wrapper counted {recorded}, not the eager "
+                             f"launches and the captures ({launches}, {graphs})")
+    log(f"  serve int8 KV in-process: {len(rows)} answers, paged_attention launches {launches} "
+        f"(the wrapper counted {recorded}: warm-ups and captures), kv_dtype {stats['kv_dtype']}")
     del engine
     torch.cuda.empty_cache()
     return launches
+
+
+def run_serve_tiny_defaults() -> dict:
+    """``serve --preset tiny`` on its defaults (f32, head dim 16) on the card."""
+    rng = np.random.default_rng(4)
+    reqs = [{"id": i, "prompt": rng.integers(1, 256, size=int(n)).tolist(), "max_new_tokens": 16}
+            for i, n in enumerate((3, 40, 200, 17, 90, 5))]
+    stdin = "".join(json.dumps(r) + "\n" for r in reqs)
+    proc = subprocess.run([sys.executable, "-m", "accelerate_tpu_torch", "serve", "--preset",
+                           "tiny"], input=stdin, capture_output=True, text=True, cwd=REPO,
+                          timeout=SERVE_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"serve --preset tiny exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.strip()]
+    if len(rows) != len(reqs) or any("error" in r or len(r["tokens"]) != 16 for r in rows):
+        raise AssertionError(f"serve --preset tiny did not answer every request: {rows}")
+    stats = _serve_stats(proc.stderr, "serve --preset tiny")
+    launches = check_graph_counts(stats, 2, 8, "serve --preset tiny")
+    log(f"  serve --preset tiny (head dim 16, f32): {len(rows)} answers; "
+        f"{[ln for ln in proc.stderr.splitlines() if ln.startswith('served ')][-1]}")
+    return launches
+
+
+# -- phase 5b, 5c -------------------------------------------------------------
+
+#: a divergence from the eager reference within this share of the
+#: reference's largest |logit| (four bf16 ulps at the top) is rounding: the
+#: logits are bf16, so picks an ulp apart are ties
+BF16_NOISE = 2.0 ** -5
+
+
+def _flagship_engine(model, **kw):
+    from accelerate_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    return InferenceEngine(model, EngineConfig(num_slots=8, max_seq_len=1024, **kw),
+                           device="cuda")
+
+
+def _eager_reference(model, prompt, new_tokens, cfg):
+    """One request alone through ``model.paged_step`` in a Python loop, at
+    the engine's shapes (prefill chunks ``[1, c]``; decode steps ``[num_slots,
+    1]`` with the request in slot 0 and every other lane inactive), greedy.
+    Returns its tokens and each pick's logits (f32)."""
+    dev = torch.device("cuda")
+    c, bs, n = cfg.prefill_chunk, cfg.block_size, cfg.num_slots
+    mb = cfg.blocks_per_slot
+    mc = model.config
+    shape = (mc.num_hidden_layers, mb + 1, bs, mc.num_key_value_heads, mc.head_dim)
+    pages = {"k": torch.zeros(shape, dtype=model.dtype, device=dev),
+             "v": torch.zeros(shape, dtype=model.dtype, device=dev)}
+    tables = torch.zeros((n, mb), dtype=torch.int32, device=dev)
+    tables[0] = torch.arange(1, mb + 1, dtype=torch.int32, device=dev)
+    for start in range(0, len(prompt), c):
+        piece = prompt[start:start + c]
+        chunk = torch.zeros((1, c), dtype=torch.int32, device=dev)
+        chunk[0, :len(piece)] = torch.as_tensor(piece, dtype=torch.int32)
+        valid = torch.zeros((1, c), dtype=torch.int32, device=dev)
+        valid[0, :len(piece)] = 1
+        out = model.paged_step(chunk, pages, tables[:1],
+                               torch.tensor([start], dtype=torch.int32, device=dev),
+                               paged_write_mask=valid)
+    picks = [out.logits[0, len(piece) - 1].float()]  # the last chunk, at the prompt's last id
+    tokens = [int(picks[-1].argmax())]
+    active = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+    active[0] = 1
+    for t in range(new_tokens - 1):
+        toks = torch.zeros((n, 1), dtype=torch.int32, device=dev)
+        toks[0, 0] = tokens[-1]
+        pos = torch.zeros((n,), dtype=torch.int32, device=dev)
+        pos[0] = len(prompt) + t
+        out = model.paged_step(toks, pages, tables, pos, paged_write_mask=active)
+        picks.append(out.logits[0, -1].float())
+        tokens.append(int(picks[-1].argmax()))
+    return tokens, picks
+
+
+def check_graph_engine_parity(model) -> dict:
+    """The 12 phase-5 requests, greedy, through the graph engine with async
+    dispatch on and off (bit-identical tokens), each against the eager
+    reference: where a request parts from it, the first divergence and the
+    reference's top-2 logit margin there are printed, and a divergence whose
+    gap (the reference's logit of its pick over that of the engine's) is
+    above ``BF16_NOISE`` × its largest |logit| fails."""
+    reqs = _requests(12, seed=0)
+    legs, walls = {}, {}
+    for async_dispatch in (True, False):
+        engine = _flagship_engine(model, async_dispatch=async_dispatch)
+        handles = [engine.add_request(r["prompt"], r["max_new_tokens"]) for r in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        walls[async_dispatch] = time.perf_counter() - t0
+        legs[async_dispatch] = [list(h.output_tokens) for h in handles]
+        check_graph_counts(engine.stats(), 16, 8, f"graph engine (async {async_dispatch})")
+        cfg = engine.config
+        del engine
+    torch.cuda.empty_cache()
+    if legs[True] != legs[False]:
+        bad = [i for i, (a, b) in enumerate(zip(legs[True], legs[False])) if a != b]
+        raise AssertionError(f"async and sync graph engines differ on requests {bad}")
+    log(f"  async and sync graph engines: identical tokens for {len(reqs)} requests "
+        f"({walls[True]:.2f} s and {walls[False]:.2f} s to drain)")
+    matched, diverged = 0, []
+    for r, got in zip(reqs, legs[True]):
+        ref, picks = _eager_reference(model, r["prompt"], r["max_new_tokens"], cfg)
+        if got == ref:
+            matched += 1
+            continue
+        t = next(i for i, (a, b) in enumerate(zip(got, ref)) if a != b)
+        logits = picks[t]
+        top = torch.topk(logits, 2).values
+        margin = float(top[0] - top[1])
+        gap = float(logits[ref[t]] - logits[got[t]])
+        noise = BF16_NOISE * float(logits.abs().max())
+        diverged.append({"id": r["id"], "token": t, "top2_margin": margin, "gap": gap,
+                         "noise": noise})
+        log(f"  request {r['id']} parts from the eager reference at token {t}: engine "
+            f"{got[t]} vs reference {ref[t]}; reference top-2 margin {margin:.4e}, gap "
+            f"{gap:.4e}, bf16 noise {noise:.4e}")
+        if gap > noise:
+            raise AssertionError(f"request {r['id']}: a divergence above bf16 noise")
+    log(f"  eager reference: {matched} of {len(reqs)} requests identical, {len(diverged)} part "
+        "within bf16 noise")
+    return {"identical_async_sync": True, "matched_reference": matched, "diverged": diverged,
+            "drain_s": {"async": walls[True], "sync": walls[False]}}
+
+
+def check_sampled_pair(model) -> dict:
+    """Two engines with the same seed and ``do_sample=True`` give the same
+    tokens; the generator the graphs draw from advances on every replay."""
+    reqs = _requests(4, seed=5)
+    outs, offsets = [], []
+    for _ in range(2):
+        engine = _flagship_engine(model, do_sample=True, temperature=1.0, seed=11)
+        gen = engine._generator
+        handles = [engine.add_request(r["prompt"], r["max_new_tokens"]) for r in reqs]
+        engine.step()
+        engine.step()
+        torch.cuda.synchronize()
+        seen = [gen.get_offset()]
+        for _ in range(2):
+            engine.step()
+            torch.cuda.synchronize()
+            seen.append(gen.get_offset())
+        engine.run_until_idle()
+        outs.append([list(h.output_tokens) for h in handles])
+        offsets.append(seen)
+        check_graph_counts(engine.stats(), 16, 8, "sampled engine")
+        del engine
+    torch.cuda.empty_cache()
+    if outs[0] != outs[1]:
+        raise AssertionError("two sampled engines with the same seed gave different tokens")
+    if not all(a < b for seen in offsets for a, b in zip(seen, seen[1:])):
+        raise AssertionError(f"the generator did not advance on every replay: {offsets}")
+    _check_rows([{"id": i, "tokens": t, "finish_reason": "length"} for i, t in enumerate(outs[0])],
+                len(reqs), "sampled engine")
+    log(f"  sampled pair (seed 11, temperature 1.0): identical tokens for {len(reqs)} requests; "
+        f"generator offsets {offsets[0]}")
+    return {"identical": True, "generator_offsets": offsets[0]}
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -493,8 +742,14 @@ def _profiled_rows(fn, calls: int) -> list:
 def _profiled_ms_per_call(fn, calls: int) -> float:
     """Device time a call of ``fn``: every kernel it runs, without the host
     time between them (a library call whose host cost exceeds its kernels'
-    time shows more by events than here)."""
-    return sum(e.self_device_time_total for e in _profiled_rows(fn, calls)) / 1e3 / calls
+    time shows more by events than here). A window in which the profiler
+    saw no kernel row is taken once more, then raises: a time of 0.0 is
+    never returned."""
+    for _ in range(2):
+        rows = _profiled_rows(fn, calls)
+        if rows:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / calls
+    raise AssertionError("the profiler saw no kernel row in two windows of the library call")
 
 
 def _profiled_ms_per_launch(fn, calls: int, names) -> dict:
@@ -607,50 +862,105 @@ def _kernel_rows(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def serve_breakdown() -> dict:
-    """Where a flagship decode step's time goes, on the main path's engine
-    (bf16, 8 slots, prompts of 100 ids): host wall time per step over two
-    decode bursts; device time per step and the top kernels over two more
-    bursts under ``torch.profiler`` (kernel rows only: the profiler's own
-    host overhead inflates wall time, so wall comes from the unprofiled
-    window); and one paged step eager against the same step replayed from a
-    CUDA graph, which takes the host out of the way (the port itself does
-    not capture graphs yet)."""
+def _engine_leg(model, async_dispatch: bool, bursts: int = 4) -> dict:
+    """One leg of phase 7: the graph engine (8 slots, prompts of 100 ids,
+    128 new tokens) past admission and prefill, then ``bursts`` timed
+    ``step()`` calls (the host clock, synchronised before and after), their
+    flight-recorder summary, and two more steps under ``torch.profiler``
+    (kernel rows only; synchronised before, so exactly the two rounds they
+    dispatch run in the window). Returns the numbers and the engine."""
     from torch.profiler import ProfilerActivity, profile
 
-    from accelerate_tpu_torch.commands import serve
-    from accelerate_tpu_torch.commands.accelerate_cli import build_parser
     from accelerate_tpu_torch.serving import RequestState
 
-    engine = serve._make_engine(build_parser().parse_args(SERVE_ARGS))
+    engine = _flagship_engine(model, async_dispatch=async_dispatch)
     rng = np.random.default_rng(3)
     for _ in range(engine.config.num_slots):
         engine.add_request(rng.integers(1, 32000, size=100).tolist(), 128)
     while engine.scheduler.queue_depth or engine.scheduler.active(RequestState.PREFILL):
-        engine.step()  # admission and chunked prefill (decode bursts start meanwhile)
-    bursts = 2
+        engine.step()  # admission and chunked prefill; the graphs are captured here
+    engine.step()
     steps = bursts * engine.config.decode_burst
     torch.cuda.synchronize()
+    engine.reset_stats()
     t0 = time.perf_counter()
     for _ in range(bursts):
         engine.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    stats = engine.stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(bursts):
+        for _ in range(2):
             engine.step()
         torch.cuda.synchronize()
     kernels = _kernel_rows(prof)
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    prof_steps = 2 * engine.config.decode_burst
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / prof_steps
     if not device_ms > 0:
         raise AssertionError("the profiler saw no kernel in the serve window")
-    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
     paged_ms = sum(e.self_device_time_total for e in kernels
-                   if "paged_attention" in e.key or "combine_splits" in e.key) / 1e3 / steps
+                   if "paged_attention" in e.key or "combine_splits" in e.key) / 1e3 / prof_steps
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    check_graph_counts(engine.stats(), 16, 8, f"phase 7 engine (async {async_dispatch})")
+    # the decode graph alone, replayed on an idle card (the last round's
+    # operands again: the same writes): the host time of the replay call,
+    # and the wall from the call until the card is idle, against the
+    # burst's device time
+    graph = engine._programs["decode"].graph
+    launch_ms, burst_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.replay()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        launch_ms.append((t1 - t0) * 1e3)
+        burst_ms.append((time.perf_counter() - t0) * 1e3)
+    return {
+        "async_dispatch": async_dispatch,
+        "decode_steps_timed": steps,
+        "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": device_ms,
+        "device_busy_share": device_ms / wall_ms,
+        "kernels_per_step": sum(e.count for e in kernels) / prof_steps,
+        "paged_attention_share_of_device": paged_ms / device_ms,
+        "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / prof_steps
+                                    for e in top},
+        "tokens_per_s": stats["tokens_per_sec"],
+        "host_fraction": stats["host_fraction"],
+        "overlap_hidden_s": stats["overlap_hidden_s"],
+        "iteration_p50_s": stats["iteration_p50_s"],
+        "phase_p50_ms": {p: v["p50"] * 1e3 for p, v in stats["iteration_phases_s"].items()},
+        "decode_graph_replay_call_ms": sorted(launch_ms)[1],
+        "decode_graph_replay_to_idle_ms": sorted(burst_ms)[1],
+        "decode_graph_device_ms": device_ms * engine.config.decode_burst,
+    }, engine
+
+
+def serve_breakdown(model) -> dict:
+    """Where a flagship decode step's time goes on the graph engine (bf16,
+    8 slots): async and sync legs alternating (async, sync, async, sync),
+    each its own engine; then one paged step over the last engine's pools,
+    eager against replayed from a CUDA graph of its own (the numbers PRs 1-5
+    kept)."""
+    legs, engine = [], None
+    for async_dispatch in (True, False, True, False):
+        engine = None  # the previous leg's pools go before the next leg's
+        leg, engine = _engine_leg(model, async_dispatch)
+        legs.append(leg)
+        log(f"  {'async' if async_dispatch else 'sync '} graph engine: decode step wall "
+            f"{leg['wall_ms_per_step']:.3f} ms, device {leg['device_ms_per_step']:.3f} ms "
+            f"(busy {leg['device_busy_share']:.1%}), {leg['kernels_per_step']:.0f} kernels; "
+            f"{leg['tokens_per_s']:.1f} tok/s; host_fraction {leg['host_fraction']:.4f}; "
+            f"phase p50 ms {json.dumps({k: round(v, 4) for k, v in leg['phase_p50_ms'].items()})}; "
+            f"the decode graph on an idle card: replay call "
+            f"{leg['decode_graph_replay_call_ms']:.3f} ms, call to idle "
+            f"{leg['decode_graph_replay_to_idle_ms']:.3f} ms, device "
+            f"{leg['decode_graph_device_ms']:.3f} ms")
 
     # one decode step over the engine's pools, every lane inactive (writes
     # land in the null block), eager and replayed from a graph
-    model, n = engine.model, engine.config.num_slots
+    n = engine.config.num_slots
     toks = torch.zeros((n, 1), dtype=torch.int32, device="cuda")
     tables = torch.as_tensor(engine._block_tables, device="cuda")
     pos = torch.full((n,), 100, dtype=torch.int32, device="cuda")
@@ -676,26 +986,10 @@ def serve_breakdown() -> dict:
         step()
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t0) * 1e3 / reps
-    out = {
-        "decode_steps_per_window": steps,
-        "wall_ms_per_step": wall_ms,
-        "device_ms_per_step": device_ms,
-        "device_busy_share": device_ms / wall_ms,
-        "kernels_per_step": sum(e.count for e in kernels) / steps,
-        "paged_attention_share_of_device": paged_ms / device_ms,
-        "top_kernels_ms_per_step": {e.key[:60]: e.self_device_time_total / 1e3 / steps
-                                    for e in top},
-        "eager_step_ms": eager_ms,
-        "graph_replay_step_ms": graph_ms,
-    }
-    log(f"  decode step (8 slots, bf16): wall {wall_ms:.2f} ms, device {device_ms:.2f} ms "
-        f"(busy {out['device_busy_share']:.1%}), {out['kernels_per_step']:.0f} kernels; "
-        f"eager {eager_ms:.2f} ms vs "
-        f"graph-replayed {graph_ms:.2f} ms; paged attention "
-        f"{out['paged_attention_share_of_device']:.1%} of device time")
-    del graph, engine, model
+    log(f"  one paged step: eager {eager_ms:.2f} ms vs replayed from a graph {graph_ms:.2f} ms")
+    del graph, engine
     torch.cuda.empty_cache()
-    return out
+    return {"legs": legs, "eager_step_ms": eager_ms, "graph_replay_step_ms": graph_ms}
 
 
 # -- phase 8 ----------------------------------------------------------------
@@ -1178,17 +1472,32 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 5: serve through the entry point")
-    launches, serve_wall = run_serve_subprocess()
+    serve_run = run_serve_subprocess()
+    launches = serve_run["launches"]
     launches_int8 = run_serve_int8_inprocess()
+    launches_tiny = run_serve_tiny_defaults()
+
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    flagship = LlamaForCausalLM.from_config(LlamaConfig.flagship_700m(), seed=0,
+                                            dtype=torch.bfloat16, device=dev)
+    log("phase 5b: the graph engine, async and sync, against an eager reference")
+    parity = check_graph_engine_parity(flagship)
+    log("phase 5c: two sampled graph engines with one seed")
+    sampled = check_sampled_pair(flagship)
 
     log("phase 6: times at the flagship decode shape and the prefill chunk")
     times = time_paged_shape(dev, ctx=512)
     times_1024 = time_paged_shape(dev, ctx=1024)
     prefill = {f"context_{ctx}": time_paged_shape(dev, b=1, s=32, ctx=ctx) for ctx in (512, 896)}
 
-    log("phase 7: where a decode step's time goes")
-    breakdown = serve_breakdown()
-    log(json.dumps({"serve_breakdown": breakdown}))
+    log("phase 7: where a decode step's time goes on the graph engine")
+    breakdown = serve_breakdown(flagship)
+    del flagship
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(json.dumps({"serve_breakdown": breakdown, "serve": serve_run, "parity": parity,
+                    "sampled_pair": sampled}))
 
     log("phase 8: flash-attention kernels against their plain versions")
     flash_errs = check_flash_vs_plain(dev)
@@ -1221,6 +1530,7 @@ def main() -> int:
         "launches_decode": launches["decode"],
         "launches_other": launches["other"],
         "launches_int8_in_process": launches_int8,
+        "launches_tiny_preset": launches_tiny,
         "max_abs_err": max(errs.values()),
         "max_abs_err_by_pool": errs,
         "flagship_logits_max_abs_diff": logits_diff,
@@ -1277,7 +1587,7 @@ def main() -> int:
             "timed_shape": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "n_heads": 12, "n_kv": 12,
                             "head_dim": 128, "dtype": "bf16", "causal": True},
         })
-    log(json.dumps({"kernels": kernels, "build_s": build_s, "serve_wall_s": serve_wall,
+    log(json.dumps({"kernels": kernels, "build_s": build_s, "serve_wall_s": serve_run["wall_s"],
                     "total_s": time.perf_counter() - t_start}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
