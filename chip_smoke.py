@@ -941,8 +941,7 @@ def serve_breakdown(model) -> dict:
     """Where a flagship decode step's time goes on the graph engine (bf16,
     8 slots): async and sync legs alternating (async, sync, async, sync),
     each its own engine; then one paged step over the last engine's pools,
-    eager against replayed from a CUDA graph of its own (the numbers PRs 1-5
-    kept)."""
+    eager against replayed from a CUDA graph of its own."""
     legs, engine = [], None
     for async_dispatch in (True, False, True, False):
         engine = None  # the previous leg's pools go before the next leg's
