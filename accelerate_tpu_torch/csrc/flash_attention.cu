@@ -15,7 +15,8 @@
 // package computes it outside Pallas. The mask gets no gradient.
 //
 // Tensors are read in the model layout [b, s, heads, hd] (contiguous) by
-// strides: no transposed or padded copies. The optional key mask is
+// strides: no transposed or padded copies. Every kernel has instances at hd
+// 16, 32, 64 and 128. The optional key mask is
 // [b, skv] bytes (1 = valid) and applies where(valid, s, NEG_INF), equal to
 // the JAX "s + bias" after rounding because NEG_INF is the f32 minimum.
 // Causal attention compares query index >= key index. GQA: query head h
@@ -69,6 +70,7 @@
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -475,7 +477,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 //
 // Operand tiles live in shared memory exactly as TMA writes them with the
 // 128-byte swizzle: rows of 64 bf16 (128 bytes), a head of 128 split into
-// two such halves, each half 1024-byte aligned. A wgmma descriptor reads
+// two such halves, each half 1024-byte aligned; hd 16 and 32 are staged as
+// one zero-padded half (staged_hd). A wgmma descriptor reads
 // them K-major (a 16-wide K step is 32 bytes into the row, walking across
 // the halves) or MN-major (a 16-row K step is 2048 bytes on, the second
 // half of the MN extent one half-tile on). Tensor maps are 4-D over
@@ -507,6 +510,16 @@ constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr int kLaunchRegs = 168;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Head dims 16 and 32 are staged as 64-column tiles whose columns past the
+// head dim are zero: the TMA box stays 64 columns (one 128-byte swizzled
+// row) over a global inner dimension of hd, and TMA fills the elements past
+// the tensor's edge with zeros. Zero columns add nothing to Q K^T, dO V^T,
+// dS K or dS^T Q, so the hd-64 loops run as they are; the products over the
+// head dim take hd / 16 K steps, and only the first hd columns of O, dQ, dK
+// and dV are stored. Narrow heads pay 4x (hd 16) and 2x (hd 32) of P V, dS K,
+// P^T dO and dS^T Q: widths only the small presets use.
+constexpr int staged_hd(int hd) { return hd < 64 ? 64 : hd; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -749,7 +762,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const uint8_t* __restrict__ mask, bf16* __restrict__ o,
                        float* __restrict__ lse, int sq, int skv, int nh, int n_kv, float scale,
                        int causal) {
-  using L = FwdSmem<HD>;
+  constexpr int HDT = staged_hd(HD);
+  using L = FwdSmem<HDT>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // 128-byte swizzle: 1024-byte aligned tiles
@@ -827,9 +841,9 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int rows[2] = {r0 + 16 * warp + gr, r0 + 16 * warp + gr + 8};
     const float c = scale * kLog2e;  // exp(scale * x) = 2^(c * x)
     const uint32_t q_wg = base + L::kQ + 64 * wg * kSwizzleRow;
-    float acc[HD / 2];
+    float acc[HDT / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < HDT / 2; ++i) acc[i] = 0.f;
     // m is the running max of the raw scores Q K^T (NEG_INF while a row has
     // seen no valid key); l the running sum of p
     float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -890,7 +904,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         m[r] = mx[r];
       }
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < HDT / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
       uint32_t pa[kFwdTileKeys / 4];  // P rounded to V's dtype
       pack_a<kFwdTileKeys / 16>(pa, sc);
@@ -898,7 +912,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kFwdTileKeys / 16; ++kk)
-        wgmma_rs_hd<HD>(acc, pa, kk, v_s + kk * 16 * kSwizzleRow, L::kKVHalf);
+        wgmma_rs_hd<HDT>(acc, pa, kk, v_s + kk * 16 * kSwizzleRow, L::kKVHalf);
       wgmma_commit();
       wgmma_wait_all();
       settle(acc);
@@ -950,7 +964,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const float* __restrict__ delta, bf16* __restrict__ dk,
                            bf16* __restrict__ dv, int sq, int skv, int nh, int n_kv, float scale,
                            int causal) {
-  using L = DkvSmem<HD>;
+  constexpr int HDT = staged_hd(HD);
+  using L = DkvSmem<HDT>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1027,9 +1042,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const float c = scale * kLog2e;
   const uint32_t k_wg = base + L::kK + 64 * wg * kSwizzleRow;
   const uint32_t v_wg = base + L::kV + 64 * wg * kSwizzleRow;
-  float dk_acc[HD / 2], dv_acc[HD / 2];
+  float dk_acc[HDT / 2], dv_acc[HDT / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < HDT / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   mbar_wait(bar_kv, 0);
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -1083,10 +1098,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDkvQRows / 16; ++kk)
-      wgmma_rs_hd<HD>(dv_acc, pp, kk, do_s + kk * 16 * kSwizzleRow, L::kQHalf);
+      wgmma_rs_hd<HDT>(dv_acc, pp, kk, do_s + kk * 16 * kSwizzleRow, L::kQHalf);
 #pragma unroll
     for (int kk = 0; kk < kDkvQRows / 16; ++kk)
-      wgmma_rs_hd<HD>(dk_acc, pd, kk, q_s + kk * 16 * kSwizzleRow, L::kQHalf);
+      wgmma_rs_hd<HDT>(dk_acc, pd, kk, q_s + kk * 16 * kSwizzleRow, L::kQHalf);
     wgmma_commit();
     wgmma_wait_all();
     settle(dv_acc);
@@ -1137,7 +1152,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const uint8_t* __restrict__ mask, const float* __restrict__ lse,
                           const float* __restrict__ delta, bf16* __restrict__ dq, int sq,
                           int skv, int nh, int n_kv, float scale, int causal) {
-  using L = DqSmem<HD>;
+  constexpr int HDT = staged_hd(HD);
+  using L = DqSmem<HDT>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -1229,9 +1245,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const float c = scale * kLog2e;  // exp(scale * x - lse) = 2^(c * x - lse2)
   const uint32_t q_wg = base + L::kQ + 64 * wg * kSwizzleRow;
   const uint32_t do_wg = base + L::kDo + 64 * wg * kSwizzleRow;
-  float acc[HD / 2];
+  float acc[HDT / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HDT / 2; ++i) acc[i] = 0.f;
   mbar_wait(bar_q, 0);
 
   for (int j = 0; j < n_tiles; ++j) {
@@ -1284,7 +1300,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDqTileKeys / 16; ++kk)  // dQ += dS K, K read MN-major
-      wgmma_rs_hd<HD>(acc, pd, kk, k_s + kk * 16 * kSwizzleRow, L::kKVHalf);
+      wgmma_rs_hd<HDT>(acc, pd, kk, k_s + kk * 16 * kSwizzleRow, L::kKVHalf);
     wgmma_commit();
     wgmma_wait_all();
     settle(acc);
@@ -1373,7 +1389,8 @@ EncodeTiledFn encode_tiled() {
 
 // A 4-D TMA map over a bf16 [b, s, heads, hd] tensor, innermost first
 // (hd, heads, s, b). A box is 64 columns (128 bytes, one swizzled row) by
-// `rows` rows of one head; rows past the sequence's end load as zeros.
+// `rows` rows of one head; rows past the sequence's end, and at hd 16 and 32
+// the columns past hd, load as zeros.
 cudaError_t tma_map(CUtensorMap* map, const void* ptr, int hd, int heads, int s, int b, int rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
@@ -1412,7 +1429,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
         m, static_cast<float*>(o), lse, a.sq, a.skv, a.nh, a.n_kv, a.scale, a.causal);
   } else {
     static bool ready = false, pool = false;
-    constexpr int bytes = FwdSmem<HD>::kBytes;
+    constexpr int bytes = FwdSmem<staged_hd(HD)>::kBytes;
     CUtensorMap q_map, k_map, v_map;
     if ((err = tma_map(&q_map, q, HD, a.nh, a.sq, a.b, kFwdRows)) != cudaSuccess ||
         (err = tma_map(&k_map, k, HD, a.n_kv, a.skv, a.b, kFwdTileKeys)) != cudaSuccess ||
@@ -1446,7 +1463,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* m
         a.nh, a.n_kv, a.scale, a.causal);
   } else {
     static bool ready = false;
-    constexpr int bytes = DqSmem<HD>::kBytes;
+    constexpr int bytes = DqSmem<staged_hd(HD)>::kBytes;
     CUtensorMap q_map, k_map, v_map, do_map;
     if ((err = tma_map(&q_map, q, HD, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
         (err = tma_map(&do_map, dout, HD, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
@@ -1480,7 +1497,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
         static_cast<float*>(dv), a.sq, a.skv, a.nh, a.n_kv, a.scale, a.causal);
   } else {
     static bool ready = false;
-    constexpr int bytes = DkvSmem<HD>::kBytes;
+    constexpr int bytes = DkvSmem<staged_hd(HD)>::kBytes;
     CUtensorMap q_map, k_map, v_map, do_map;
     if ((err = tma_map(&q_map, q, HD, a.nh, a.sq, a.b, kDkvQRows)) != cudaSuccess ||
         (err = tma_map(&do_map, dout, HD, a.nh, a.sq, a.b, kDkvQRows)) != cudaSuccess ||
@@ -1498,8 +1515,22 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 bool valid_shape(const Shape& a, int hd, int dtype) {
   return a.b >= 1 && a.sq >= 1 && a.skv >= 1 && a.n_kv >= 1 && a.nh >= a.n_kv &&
-         a.nh % a.n_kv == 0 && (hd == 64 || hd == 128) && (dtype == 0 || dtype == 1) &&
+         a.nh % a.n_kv == 0 && (hd == 16 || hd == 32 || hd == 64 || hd == 128) &&
+         (dtype == 0 || dtype == 1) &&
          a.b <= 65535 && a.nh <= 65535;
+}
+
+// fn(std::integral_constant<int, hd>) for a head dim valid_shape takes: one
+// instance of every kernel at each of 16, 32, 64 and 128
+template <typename Fn>
+cudaError_t by_head_dim(int hd, Fn&& fn) {
+  switch (hd) {
+    case 16: return fn(std::integral_constant<int, 16>{});
+    case 32: return fn(std::integral_constant<int, 32>{});
+    case 64: return fn(std::integral_constant<int, 64>{});
+    case 128: return fn(std::integral_constant<int, 128>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // Resident blocks an SM holds of a kernel launched with `threads` threads
@@ -1516,11 +1547,15 @@ cudaError_t occupancy(Kernel kernel, int threads, int bytes, int* blocks) {
 template <int HD>
 cudaError_t wgmma_blocks_per_sm(int which, int* blocks) {
   switch (which) {
-    case 0: return occupancy(flash_fwd_wgmma_kernel<HD>, kFwdThreads, FwdSmem<HD>::kBytes, blocks);
+    case 0:
+      return occupancy(flash_fwd_wgmma_kernel<HD>, kFwdThreads, FwdSmem<staged_hd(HD)>::kBytes,
+                       blocks);
     case 1:
-      return occupancy(flash_bwd_dq_wgmma_kernel<HD>, kDqThreads, DqSmem<HD>::kBytes, blocks);
+      return occupancy(flash_bwd_dq_wgmma_kernel<HD>, kDqThreads, DqSmem<staged_hd(HD)>::kBytes,
+                       blocks);
     case 2:
-      return occupancy(flash_bwd_dkv_wgmma_kernel<HD>, kDkvThreads, DkvSmem<HD>::kBytes, blocks);
+      return occupancy(flash_bwd_dkv_wgmma_kernel<HD>, kDkvThreads,
+                       DkvSmem<staged_hd(HD)>::kBytes, blocks);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1538,8 +1573,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (!valid_shape(a, hd, dtype)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  return hd == 64 ? launch_fwd<64>(q, k, v, mask, o, l, a, dtype, st)
-                  : launch_fwd<128>(q, k, v, mask, o, l, a, dtype, st);
+  return by_head_dim(hd, [&](auto c) {
+    return launch_fwd<decltype(c)::value>(q, k, v, mask, o, l, a, dtype, st);
+  });
 }
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
@@ -1553,8 +1589,9 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
-  return hd == 64 ? launch_dq<64>(q, k, v, mask, dout, l, d, dq, a, dtype, st)
-                  : launch_dq<128>(q, k, v, mask, dout, l, d, dq, a, dtype, st);
+  return by_head_dim(hd, [&](auto c) {
+    return launch_dq<decltype(c)::value>(q, k, v, mask, dout, l, d, dq, a, dtype, st);
+  });
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1568,17 +1605,19 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
-  return hd == 64 ? launch_dkv<64>(q, k, v, mask, dout, l, d, dk, dv, a, dtype, st)
-                  : launch_dkv<128>(q, k, v, mask, dout, l, d, dk, dv, a, dtype, st);
+  return by_head_dim(hd, [&](auto c) {
+    return launch_dkv<decltype(c)::value>(q, k, v, mask, dout, l, d, dk, dv, a, dtype, st);
+  });
 }
 
 // Resident blocks an SM holds of the bf16 kernel `which` (0 forward, 1 dq,
 // 2 dk/dv) at head dim hd, with the threads and shared memory it launches with.
 extern "C" int flash_attention_blocks_per_sm(int which, int hd, int* blocks) {
   (void)cudaGetLastError();
-  if (hd != 64 && hd != 128) return cudaErrorInvalidValue;
-  return hd == 64 ? wgmma_blocks_per_sm<64>(which, blocks)
-                  : wgmma_blocks_per_sm<128>(which, blocks);
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return cudaErrorInvalidValue;
+  return by_head_dim(hd, [&](auto c) {
+    return wgmma_blocks_per_sm<decltype(c)::value>(which, blocks);
+  });
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

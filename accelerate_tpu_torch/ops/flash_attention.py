@@ -46,8 +46,9 @@ bwd_dkv_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernels take (the training entry point refuses others on
-#: the card before any step: ``accelerator.check_kernel_head_dim``)
-HEAD_DIMS = (64, 128)
+#: the card before any step: ``accelerator.check_kernel_head_dim``); the bf16
+#: kernels stage 16 and 32 as zero-padded 64-column tiles
+HEAD_DIMS = (16, 32, 64, 128)
 #: key tile of the plain forward: the bf16 forward kernel's (``kFwdTileKeys``
 #: in ``csrc/flash_attention.cu``), where P is rounded at each tile's running max
 _FWD_TILE = 128

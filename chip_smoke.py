@@ -1028,6 +1028,12 @@ def _flash_cases():
         (2, 200, 32, 8, 64, True, 130, bf16),      # query tile 0 (rows 0..127) fully masked
         (2, 1000, 32, 8, 128, True, 0, bf16),      # GQA at flagship width, no tile multiple
         (2, 200, 32, 8, 128, False, 130, bf16),    # keys 128, 129 masked in key tile 128..191
+    ] + [  # the narrow heads, staged as zero-padded 64-column tiles (launched twice)
+        (4, s, nh, n_kv, hd, causal, pad, dtype)
+        for hd, nh, n_kv in ((16, 4, 4), (32, 8, 2))
+        for dtype in (f32, bf16)
+        for s, causal, pad in ((129, True, 0), (129, False, 0), (1000, True, 77),
+                               (1000, False, 0))
     ]
 
 
@@ -1061,6 +1067,12 @@ def check_flash_vs_plain(dev) -> dict:
         f32 = dtype == torch.float32
         o, lse = fa.flash_fwd(q, k, v, mask, causal=causal, impl="cuda")
         dq, dk, dv = fa.flash_bwd(q, k, v, mask, o, lse, do, causal=causal, impl="cuda")
+        if hd < 64:  # the narrow instances: a second launch gives the same bits
+            again = (*fa.flash_fwd(q, k, v, mask, causal=causal, impl="cuda"),
+                     *fa.flash_bwd(q, k, v, mask, o, lse, do, causal=causal, impl="cuda"))
+            if not all(torch.equal(a, b) for a, b in zip(again, (o, lse, dq, dk, dv))):
+                raise AssertionError(f"flash kernels at hd {hd}: two launches differ "
+                                     f"(b={b} s={s} causal={causal} pad={pad} {dtype})")
         ro, rlse = fa.flash_fwd(q, k, v, mask, causal=causal, impl="plain")
         # the plain backward from the plain forward's (o, lse)
         rdq, rdk, rdv = fa.flash_bwd(q, k, v, mask, ro, rlse, do, causal=causal, impl="plain")
@@ -1103,6 +1115,45 @@ def check_flash_vs_plain(dev) -> dict:
         del q, k, v, do, mask, o, lse, dq, dk, dv, ro, rlse, rdq, rdk, rdv
         torch.cuda.empty_cache()
     return {"by_dtype": errs, "autograd_grad_err_f32": autograd_err}
+
+
+def run_tiny_train() -> dict:
+    """``LlamaConfig.tiny()`` (head dim 16) trained through the 5-line loop
+    with ``Accelerator(mixed_precision="bf16")``: 20 steps on a fixed batch
+    of 8 × 128 ids, finite and falling loss, the flash counters set to 0
+    just before and read just after (each kernel 2 launches a step, one a
+    layer)."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    cfg = LlamaConfig.tiny()
+    accelerator = Accelerator(mixed_precision="bf16")
+    module = LlamaForCausalLM.from_config(cfg, seed=0, device=accelerator.device)
+    model, opt = accelerator.prepare(module, torch.optim.AdamW(module.parameters(), lr=1e-3))
+    ids = np.random.default_rng(13).integers(0, cfg.vocab_size, size=(8, 128))
+    ids = torch.as_tensor(ids, device=accelerator.device)
+    steps, losses = 20, []
+    _zero_flash_counts()
+    for _ in range(steps):
+        out = model(input_ids=ids, labels=ids)
+        accelerator.backward(out.loss)
+        opt.step()
+        opt.zero_grad()
+        losses.append(out.loss.detach())
+    torch.cuda.synchronize()
+    counts = _flash_counts()
+    loss_vals = [x.item() for x in losses]
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    log(f"  tiny llama (head dim {cfg.head_dim}, bf16): losses {loss_vals[0]:.4f} -> "
+        f"{loss_vals[-1]:.4f} over {steps} steps; flash launches {counts}")
+    if not (all(np.isfinite(loss_vals)) and loss_vals[-1] < loss_vals[0]):
+        raise AssertionError(f"the tiny llama's loss is not finite and falling: {loss_vals}")
+    if any(counts[k] != steps * cfg.num_hidden_layers for k in FLASH_KERNELS):
+        raise AssertionError(f"the tiny llama's steps did not launch each flash kernel once a "
+                             f"layer: {counts}")
+    return {"head_dim": cfg.head_dim, "losses": loss_vals, "launches": counts}
 
 
 # -- phase 9 ----------------------------------------------------------------
@@ -1456,9 +1507,9 @@ def main() -> int:
             + (f", blocks a SM {rep['blocks_per_sm']}" if "blocks_per_sm" in rep else ""))
     flash_ptxas = ptxas["flash_attention.cu"]
     wgmma = {k: v for k, v in flash_ptxas.items() if "_wgmma_kernel<" in k}
-    if len(wgmma) != 6 or any(v["spill_stores"] or v["spill_loads"] for v in wgmma.values()):
-        raise AssertionError(f"the wgmma flash kernels (3 at hd 64 and 128) must build without "
-                             f"spills: {wgmma}")
+    if len(wgmma) != 12 or any(v["spill_stores"] or v["spill_loads"] for v in wgmma.values()):
+        raise AssertionError(f"the wgmma flash kernels (3 at hd 16, 32, 64 and 128) must build "
+                             f"without spills: {wgmma}")
     b4 = ptxas["paged_attention.cu"][PAGED_TIMED[0]]
     if b4["spill_stores"] or b4["spill_loads"]:
         raise AssertionError(f"B4's bf16 hd-128 instance must build without spills: {b4}")
@@ -1501,6 +1552,9 @@ def main() -> int:
     log("phase 8: flash-attention kernels against their plain versions")
     flash_errs = check_flash_vs_plain(dev)
 
+    log("phase 8b: the tiny llama (head dim 16) trained on the card")
+    tiny_train = run_tiny_train()
+
     log("phase 9: a flagship-width train step, kernels against plain")
     step_check = check_train_step_kernel_vs_plain(dev)
 
@@ -1517,7 +1571,7 @@ def main() -> int:
     log("phase 12: flash kernels timed at the flagship shape")
     flash_times = time_flash_kernels(dev, train_bd["flash_ms_per_launch"])
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "losses"},
-                    "train_step_check": step_check}))
+                    "train_step_check": step_check, "tiny_train": tiny_train}))
 
     kernels = [{
         "name": "paged_attention",

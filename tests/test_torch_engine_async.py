@@ -310,17 +310,24 @@ def test_serve_sync_engine_flag_and_env_reach_the_engine(monkeypatch):
 
 
 def test_training_refuses_head_dims_the_flash_kernels_do_not_take():
-    """C2b: on the card, ``prepare()`` refuses a model whose head dim B1-B3
-    do not take, before any step; the CPU's plain attention takes any."""
+    """C2b closed: on the card, ``prepare()`` passes the head dims B1-B3 take
+    (16, 32, 64, 128: the tiny llama's 16 among them) and still refuses a
+    width outside ``HEAD_DIMS`` before any step; the CPU's plain attention
+    takes any."""
     from accelerate_tpu_torch.accelerator import check_kernel_head_dim
     from accelerate_tpu_torch.ops.flash_attention import HEAD_DIMS
 
+    assert HEAD_DIMS == (16, 32, 64, 128)
     tiny = tllama.LlamaForCausalLM.from_config(tllama.LlamaConfig.tiny(), device="cpu")
     assert tiny.config.head_dim == 16
-    with pytest.raises(ValueError, match=r"head dims \(64, 128\)"):
-        check_kernel_head_dim(tiny, torch.device("cuda"))
-    check_kernel_head_dim(tiny, torch.device("cpu"))
-    wide = tllama.LlamaForCausalLM.from_config(tllama.LlamaConfig.tiny(hidden_size=256),
-                                               device="cpu")
-    assert wide.config.head_dim == 64 and 64 in HEAD_DIMS
-    check_kernel_head_dim(wide, torch.device("cuda"))
+    for hd in HEAD_DIMS:
+        model = tllama.LlamaForCausalLM.from_config(
+            tllama.LlamaConfig.tiny(hidden_size=4 * hd), device="cpu")
+        assert model.config.head_dim == hd
+        check_kernel_head_dim(model, torch.device("cuda"))
+    odd = tllama.LlamaForCausalLM.from_config(tllama.LlamaConfig.tiny(hidden_size=96),
+                                              device="cpu")
+    assert odd.config.head_dim == 24
+    with pytest.raises(ValueError, match=r"head dims \(16, 32, 64, 128\)"):
+        check_kernel_head_dim(odd, torch.device("cuda"))
+    check_kernel_head_dim(odd, torch.device("cpu"))

@@ -103,6 +103,10 @@ CASES = {
     "ragged_s200": dict(causal=True, s=200),
     # query rows 0..127 (a whole 128-row tile) see no valid key
     "left_padded_s200": dict(causal=True, b=2, s=200, pad=130),
+    # the narrow heads the kernels stage as zero-padded 64-column tiles
+    "hd16_mha_s129": dict(causal=True, h=4, d=16, s=129),
+    "hd16_left_padded": dict(causal=True, b=2, h=4, d=16, pad=20),
+    "hd32_gqa_8_2_non_causal": dict(causal=False, h=8, n_kv=2, d=32, s=129),
 }
 
 
