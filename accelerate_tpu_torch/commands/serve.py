@@ -4,12 +4,22 @@ JSONL on stdin (port of the stdin branch of
 
 Request protocol, one JSON object per line:
 ``{"id": <any>, "prompt": [token ids], "max_new_tokens": <int?>,
-"priority": "interactive"|"batch"?}``; each completion is written back as
-``{"id", "tokens", "prompt_tokens", "ttft_s", "tpot_s", "finish_reason"}``.
-A malformed request, or one carrying a field this port does not serve yet
-(``sampling``, ``grammar``, ``deadline_ms``, ``tenant``, ``logprobs``), is
-answered with an ``{"id", "error"}`` row and never stops the loop. Prompts
-are raw token ids; the weights are random, made from ``--seed``.
+"priority": "interactive"|"batch"?, "sampling": {...}?, "grammar": {...}?,
+"logprobs": <int?>}``. ``sampling`` holds per-request
+:class:`~accelerate_tpu_torch.serving.sampling.SamplingParams` fields
+(``do_sample``, ``temperature``, ``top_k``, ``top_p``,
+``repetition_penalty``, ``seed``, ``min_tokens``, ``stop`` as token-id
+sequences, ``logprobs``); ``grammar`` is ``{"type": "regex", "pattern":
+...}`` or ``{"type": "json_schema", "schema": {...}}`` over the byte
+vocabulary; ``logprobs`` asks for the top-N per token, up to
+``--logprobs-topn``. Each completion is written back as ``{"id",
+"tokens", "prompt_tokens", "ttft_s", "tpot_s", "finish_reason"}``, plus
+``"logprobs"`` (``[{"token", "logprob", "top": [[id, logprob], ...]}]``)
+when the request asked. A malformed request, or one carrying a field this
+port does not serve yet (``deadline_ms``, ``tenant``), is answered with an
+``{"id", "error"}`` row and never stops the loop. Prompts are raw token
+ids; the weights are random, made from ``--seed``. The radix prefix cache
+is on unless ``--no-prefix-cache``.
 
 The engine runs on the CUDA card unless ``--device cpu`` is given; there
 it replays its decode burst and prefill chunk from CUDA graphs, with
@@ -17,7 +27,7 @@ double-buffered dispatch unless ``--sync-engine`` (or
 ``ACCELERATE_SYNC_ENGINE=1``) asks for the synchronous loop, which gives
 the same tokens. On exit the stderr summary names the paged-attention
 kernel launches (all of them, then decode and other apart), the captures
-(``decode_compiles``, ``prefill_compiles``) and the flight recorder's
+(``decode_compiles``, ``lane_decode_compiles``, ``prefill_compiles``) and the flight recorder's
 ``host_fraction``, and a second line ``serve stats: {...}`` carries the
 engine's ``stats()`` as JSON. HTTP, OpenAI routes, routing, chaos and
 workload replay are later slices.
@@ -25,6 +35,7 @@ workload replay are later slices.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import queue
@@ -71,13 +82,15 @@ def _make_engine(args):
             max_new_tokens=args.max_new_tokens,
             kv_dtype=args.kv_dtype,
             async_dispatch=not args.sync_engine,
+            prefix_cache=args.prefix_cache,
+            logprobs_topn=args.logprobs_topn,
         ),
         device=args.device,
     )
 
 
 def _result_dict(req, req_id) -> dict:
-    return {
+    out = {
         "id": req_id,
         "tokens": req.output_tokens,
         "prompt_tokens": req.prompt_len,
@@ -85,6 +98,9 @@ def _result_dict(req, req_id) -> dict:
         "tpot_s": req.tpot_s,
         "finish_reason": req.finish_reason,
     }
+    if req.logprobs is not None:
+        out["logprobs"] = req.logprobs
+    return out
 
 
 def _engine_loop(engine, inbox, emit, stop):
@@ -92,10 +108,18 @@ def _engine_loop(engine, inbox, emit, stop):
     quiet server does not spin a core. A malformed, over-budget or
     not-yet-ported request is answered with an ``{"error": ...}`` row — it
     never kills the loop under the other in-flight requests. Returns once
-    ``stop`` is set (stdin EOF) and nothing is left in flight."""
+    ``stop`` is set (stdin EOF) and nothing is left in flight.
+
+    A payload may carry a ``_stream`` callable (an in-process caller): it
+    is called with each NEW token chunk as decode emits them. When the
+    request has stop sequences, streaming lags by ``max(len(stop)) - 1``
+    tokens so a chunk never carries tokens a matched stop sequence later
+    trims — the final row is authoritative and completes what was
+    streamed."""
     from ..serving import UNPORTED_REQUEST_FIELDS
 
     pending = {}  # engine request_id -> user id
+    streams = {}  # engine request_id -> [stream_cb, req, served, holdback]
     while True:
         try:
             while True:
@@ -105,17 +129,33 @@ def _engine_loop(engine, inbox, emit, stop):
                     req = engine.add_request(
                         payload["prompt"], payload.get("max_new_tokens"),
                         priority=payload.get("priority", "interactive"),
+                        sampling=payload.get("sampling"),
+                        grammar=payload.get("grammar"),
+                        logprobs=payload.get("logprobs"),
                         **{name: payload.get(name) for name in UNPORTED_REQUEST_FIELDS},
                     )
                 except Exception as e:  # noqa: BLE001 — reported, not fatal
                     emit({"id": req_id, "error": str(e)})
                     continue
                 pending[req.request_id] = req_id
+                stream_cb = payload.get("_stream")
+                if stream_cb is not None:
+                    hold = 0
+                    if req.sampling is not None and req.sampling.stop:
+                        hold = max(len(s) for s in req.sampling.stop) - 1
+                    streams[req.request_id] = [stream_cb, req, 0, hold]
         except queue.Empty:
             pass
         if engine.has_work():
             for req in engine.step():
+                streams.pop(req.request_id, None)
                 emit(_result_dict(req, pending.pop(req.request_id, None)))
+            for entry in streams.values():
+                stream_cb, req, served, hold = entry
+                avail = len(req.output_tokens) - hold
+                if avail > served:
+                    stream_cb(req.output_tokens[served:avail])
+                    entry[2] = avail
             continue
         if stop.is_set() and inbox.empty():
             return
@@ -166,6 +206,7 @@ def serve_command(args) -> int:
         f"(decode {stats['paged_attention_decode_launches']}, "
         f"other {stats['paged_attention_launches'] - stats['paged_attention_decode_launches']}), "
         f"decode_compiles {stats['decode_compiles']}, "
+        f"lane_decode_compiles {stats['lane_decode_compiles']}, "
         f"prefill_compiles {stats['prefill_compiles']}, "
         f"host_fraction {stats.get('host_fraction', 0.0):.4f}",
         file=sys.stderr,
@@ -206,8 +247,15 @@ def add_parser(subparsers):
         help="disable double-buffered dispatch and run the synchronous step "
         "loop (env ACCELERATE_SYNC_ENGINE=1): the baseline to time the "
         "default against; the tokens are identical either way")
+    p.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction, default=True,
+                   help="radix prefix sharing: admission maps a request's longest "
+                   "cached prompt prefix and prefills only the tail "
+                   "(--no-prefix-cache disables)")
+    p.add_argument("--logprobs-topn", type=int, default=0,
+                   help="top-N per-token logprobs a request may ask for (0 = off)")
     p.add_argument("--eos-token-id", type=int, default=None)
     p.add_argument("--temperature", type=float, default=None,
-                   help="sampling temperature (default: greedy)")
+                   help="the default sampling temperature of a request that sends no "
+                   "sampling params (default: greedy)")
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(func=serve_command)

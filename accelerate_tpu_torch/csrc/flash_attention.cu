@@ -519,7 +519,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // head dim take hd / 16 K steps, and only the first hd columns of O, dQ, dK
 // and dV are stored. Narrow heads pay 4x (hd 16) and 2x (hd 32) of P V, dS K,
 // P^T dO and dS^T Q: widths only the small presets use.
-constexpr int staged_hd(int hd) { return hd < 64 ? 64 : hd; }
+__host__ __device__ constexpr int staged_hd(int hd) { return hd < 64 ? 64 : hd; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

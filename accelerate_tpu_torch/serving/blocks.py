@@ -26,8 +26,7 @@ class BlockAllocator:
     a block that is not currently allocated (double-free, the null block, an
     out-of-range id) raises — the engine's invariant tests lean on this.
 
-    Blocks are **refcounted** for prefix sharing (the JAX package's radix
-    cache; not ported yet): ``allocate``
+    Blocks are **refcounted** for prefix sharing (:mod:`.radix`): ``allocate``
     hands a block out at refcount 1, ``incref`` adds a holder (a request
     mapping a cached prefix block, or the radix cache itself), ``decref``
     drops one and returns the block to the freelist only when the last

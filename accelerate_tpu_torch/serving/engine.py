@@ -40,33 +40,66 @@ Orca-style iteration scheduling over a vLLM-style block-paged KV cache:
 * the flight recorder (:mod:`.flight`) splits every iteration into
   schedule, prefill, dispatch, device_wait and harvest, and
   ``stats()["host_fraction"]`` says how much of the wall time the host
-  held the card back.
+  held the card back;
+* **per-slot sampling lanes** (``per_slot_sampling``, the default):
+  temperature / top-k / top-p / repetition penalty / seed / min_tokens, a
+  grammar DFA and top-N logprobs ride as fixed-shape lane operands of a
+  third program, the *lane burst*, captured once into its own CUDA graph
+  at the first dispatch that needs it (``stats()["lane_decode_compiles"]``).
+  CUDA graphs cannot branch on data, so the JAX engine's in-trace
+  ``lax.cond`` becomes a host choice each dispatch: the plain burst graph
+  replays when every live request is inert for the whole burst (no
+  sampling, no grammar row, no repetition penalty, no min_tokens left, no
+  logprobs), the lane graph otherwise. Draws come from a counter-based
+  hash of (engine seed, request seed, output position)
+  (:mod:`.sampling`), so a seeded request reproduces across admission
+  orders and batches; stop sequences, min/max tokens and the
+  authoritative DFA state are host state (``_emit_token``);
+* the **radix prefix cache** (``prefix_cache``, the default): admission
+  maps a request's longest cached prompt prefix into its block table at
+  refcount+1 and prefills only the tail; a partial-block hit owes one
+  copy-on-write block copy, issued in place on the engine's stream before
+  the first prefill chunk. The pools are never reassigned, so the captured
+  graphs stay valid.
 
 Greedy output is the parity contract with the JAX engine. Not ported yet
-(later slices): per-slot sampling lanes and grammars, the radix prefix
-cache and copy-on-write, swap preemption (and the fence it needs),
-speculative decoding, the usage ledger, deadlines and tenants.
+(later slices): swap preemption (and the fence it needs), speculative
+decoding, the usage ledger, deadlines and tenants.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..generation import pick_next_token
 from ..ops import paged_attention as _paged_attention
 from ..utils.device import resolve_device
 from .blocks import BlockAllocator, blocks_needed
 from .flight import ITERATION_PHASES, FlightRecorder, set_active_flight_recorder
+from .grammar import compile_grammar
+from .radix import RadixCache
+from .sampling import (
+    LANE_SPECS,
+    SamplingParams,
+    blank_lanes,
+    match_stop,
+    pick_tokens,
+    resolve_sampling,
+    set_slot_lane,
+)
 from .scheduler import Request, RequestState, SlotScheduler
 
 #: ``add_request`` options of the JAX engine this port does not carry yet:
 #: a request that uses one is refused, never silently served without it
-UNPORTED_REQUEST_FIELDS = ("sampling", "grammar", "deadline_ms", "tenant", "logprobs")
+UNPORTED_REQUEST_FIELDS = ("deadline_ms", "tenant")
+
+#: the float lanes, bit-cast views of the lane program's int32 operands
+_FLOAT_LANES = frozenset(name for name, dtype, _ in LANE_SPECS if dtype == np.float32)
 
 
 @dataclass
@@ -111,16 +144,65 @@ class EngineConfig:
     flight_history: int = 256
     #: finished requests kept for the ``stats()`` percentiles (a ring)
     completed_history: int = 4096
+    #: radix prefix sharing (:mod:`.radix`): admission maps a request's
+    #: longest cached prompt prefix into its block table at refcount+1 and
+    #: chunk-prefills only the tail; finished prompts' full blocks stay
+    #: cached (LRU-evicted under pool pressure). Sharing edits only block
+    #: tables, refcounts and (on a partial-block hit) one in-place block
+    #: copy — the captured graphs stay valid
+    prefix_cache: bool = True
+    #: per-request sampling + constrained decoding (:mod:`.sampling`,
+    #: :mod:`.grammar`): temperature / top-k / top-p / repetition penalty /
+    #: seed / stop / min_tokens and a grammar DFA ride as fixed-shape lane
+    #: operands of the lane burst graph, so per-request variation never
+    #: re-captures. ``False`` keeps the plain greedy burst only and refuses
+    #: per-request params (and engine-wide ``do_sample``) at add_request
+    per_slot_sampling: bool = True
+    #: top-N per-step logprobs harvested with the tokens (0 disables — the
+    #: lane graph's output shape is static, so this is engine geometry;
+    #: requests opt in *up to* this cap)
+    logprobs_topn: int = 0
+    #: concurrent distinct grammars resident in the device mask/transition
+    #: tables (+1 internal row for the unconstrained sentinel). Rows are
+    #: refcounted per live request and LRU-cached when idle; admission
+    #: with every row held by a live request raises
+    grammar_slots: int = 4
+    #: DFA state budget per grammar — sizes the device tables; a grammar
+    #: compiling to more states refuses at add_request
+    grammar_states: int = 64
+    #: repetition-penalty window: the last this-many tokens ride the
+    #: ``[num_slots, rep_window]`` ring lane
+    rep_window: int = 32
 
     @property
     def blocks_per_slot(self) -> int:
         return blocks_needed(self.max_seq_len, self.block_size)
 
 
+def _packed_views(buffer, fields: dict, floats=frozenset()) -> dict:
+    """Named views of one flat int32 buffer (torch or numpy), ``fields``
+    ``{name: shape}`` laid out in order; names in ``floats`` are bit-cast to
+    float32 (same width, same bytes)."""
+    views, lo = {}, 0
+    for name, shape in fields.items():
+        hi = lo + int(np.prod(shape))
+        v = buffer[lo:hi].reshape(shape)
+        if name in floats:
+            v = v.view(torch.float32) if isinstance(v, torch.Tensor) else v.view(np.float32)
+        views[name] = v
+        lo = hi
+    return views
+
+
+def _packed_size(fields: dict) -> int:
+    return sum(int(np.prod(shape)) for shape in fields.values())
+
+
 class _Operands:
     """A program's operands as named views of ONE persistent int32 device
     buffer (made once, so a CUDA graph can hold its pointer), and a ring of
-    host staging copies of it (pinned on a CUDA device).
+    host staging copies of it (pinned on a CUDA device). Float operands are
+    bit-cast views of the same buffer, so a program still needs one copy.
 
     :meth:`stage` hands out the next host copy as numpy views, once the
     copy that last read it has run (its event); :meth:`upload` copies it
@@ -129,21 +211,14 @@ class _Operands:
     reads, however far the stream runs behind."""
 
     def __init__(self, shapes: dict[str, tuple[int, ...]], device: torch.device,
-                 depth: int):
-        slices, total = {}, 0
-        for name, shape in shapes.items():
-            n = int(np.prod(shape))
-            slices[name] = (total, total + n, shape)
-            total += n
+                 depth: int, floats=frozenset()):
+        total = _packed_size(shapes)
         self._buffer = torch.zeros(total, dtype=torch.int32, device=device)
-        self.views = {name: self._buffer[lo:hi].view(shape)
-                      for name, (lo, hi, shape) in slices.items()}
+        self.views = _packed_views(self._buffer, shapes, floats)
         cuda = device.type == "cuda"
         self._host = [torch.zeros(total, dtype=torch.int32, pin_memory=cuda)
                       for _ in range(depth)]
-        self._host_views = [{name: h.numpy()[lo:hi].reshape(shape)
-                             for name, (lo, hi, shape) in slices.items()}
-                            for h in self._host]
+        self._host_views = [_packed_views(h.numpy(), shapes, floats) for h in self._host]
         self._events = [torch.cuda.Event() if cuda else None for _ in range(depth)]
         self._next = 0
 
@@ -164,20 +239,46 @@ class _Operands:
         self._next = (i + 1) % len(self._host)
 
 
+class _Outputs:
+    """A program's outputs as named views of one int32 device buffer (float
+    outputs bit-cast), landed on the host by ONE non-blocking copy into a
+    pinned mirror, behind an event."""
+
+    def __init__(self, shapes: dict[str, tuple[int, ...]], device: torch.device,
+                 floats=frozenset()):
+        total = _packed_size(shapes)
+        cuda = device.type == "cuda"
+        self._buffer = torch.zeros(total, dtype=torch.int32, device=device)
+        self._host = torch.zeros(total, dtype=torch.int32, pin_memory=cuda)
+        self.views = _packed_views(self._buffer, shapes, floats)
+        self.host_views = _packed_views(self._host.numpy(), shapes, floats)
+        self._done = torch.cuda.Event() if cuda else None
+
+    def copy_to_host(self) -> None:
+        self._host.copy_(self._buffer, non_blocking=True)
+        if self._done is not None:
+            self._done.record()
+
+    def wait(self) -> None:
+        if self._done is not None:
+            self._done.synchronize()
+
+
 class _Program:
     """A fixed-shape function over the engine's static buffers: replayed
     from a CUDA graph on a CUDA device (captured at its first run), called
     as it is on the CPU. Counts its captures, its replays and the
     paged-attention launches its capture recorded."""
 
-    def __init__(self, fn, device: torch.device, generator: torch.Generator | None, pool):
+    def __init__(self, fn, device: torch.device, pool):
         self._fn = fn
         self._device = device
-        self._generator = generator
         self._pool = pool
         self.graph = None
         self.captures = 0
         self.replays = 0
+        #: dispatches of the program, replayed or (on the CPU) eager
+        self.runs = 0
         #: paged-attention launches (all, and those with one query a row)
         #: the capture recorded, which every replay launches again
         self.launches_captured = 0
@@ -187,6 +288,7 @@ class _Program:
         """``upload()`` (the operands' copy to the device), then the
         program; on a CUDA device the first run captures before uploading,
         so its warm-up sees the zeroed operands of an unused buffer."""
+        self.runs += 1
         if self._device.type != "cuda":
             upload()
             self._fn()
@@ -210,10 +312,6 @@ class _Program:
             self._fn()
         current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        if self._generator is not None:
-            # each replay advances the generator's Philox offset: two
-            # replays never draw the same numbers
-            graph.register_generator_state(self._generator)
         before = (pa.launches, pa.decode_launches)
         with torch.cuda.graph(graph, pool=self._pool):
             self._fn()
@@ -227,12 +325,12 @@ class InferenceEngine:
     """Slot-scheduled continuous-batching engine over a paged-KV model.
 
     ``add_request()`` enqueues; ``step()`` runs one scheduler iteration
-    (evict → admit → one prefill chunk per prefilling slot → harvest the
-    in-flight round → one decode dispatch over every decoding slot) and
-    returns the requests that finished; ``run_until_idle()`` drains;
-    ``stream()`` is a per-request generator. ``device=None`` means the CUDA
-    card (raising when there is none); pass ``device="cpu"`` for the plain
-    PyTorch paths."""
+    (evict → admit and place → one prefill chunk per prefilling slot →
+    harvest the in-flight round → one decode dispatch over every decoding
+    slot) and returns the requests that finished; ``run_until_idle()``
+    drains; ``stream()`` is a per-request generator. ``device=None`` means
+    the CUDA card (raising when there is none); pass ``device="cpu"`` for
+    the plain PyTorch paths."""
 
     def __init__(self, model, config: EngineConfig | None = None, device=None):
         self.config = cfg = config or EngineConfig()
@@ -259,6 +357,38 @@ class InferenceEngine:
                 "prefill_chunk, block_size, num_slots, decode_burst must be >= 1"
             )
 
+        # per-slot sampling + grammar state. The engine-wide
+        # do_sample/temperature survive as the DEFAULT SamplingParams a
+        # request inherits when it supplies none
+        self._psampling = bool(cfg.per_slot_sampling)
+        if min(cfg.logprobs_topn, cfg.grammar_slots, cfg.rep_window - 1,
+               cfg.grammar_states - 1) < 0:
+            raise ValueError(
+                "logprobs_topn/grammar_slots must be >= 0; "
+                "rep_window/grammar_states must be >= 1"
+            )
+        if cfg.do_sample and not self._psampling:
+            raise ValueError(
+                "EngineConfig(do_sample=True) needs per_slot_sampling=True: sampled "
+                "draws ride the lane burst (the engine has no threaded generator)"
+            )
+        self._default_sampling = SamplingParams(
+            do_sample=cfg.do_sample, temperature=cfg.temperature, seed=cfg.seed,
+        ).validate()
+        self._vocab_size = int(mcfg.vocab_size)
+        self._sampled_greedy = 0
+        self._sampled_sample = 0
+        self._grammar_masked_steps = 0
+        self._first_token_picks = 0
+        # grammar row table: row 0 is the permanently-pinned unconstrained
+        # sentinel (mask all-True, transitions all-0); rows 1..G are
+        # refcounted per live request, cached under their grammar hash
+        # when idle, LRU-evicted when a new grammar needs a row
+        self._grammar_rows: dict[str, int] = {}
+        self._row_refs = [0] * (cfg.grammar_slots + 1)
+        self._row_grammar: dict[int, object] = {}
+        self._row_lru: OrderedDict[str, int] = OrderedDict()
+
         self._mb = mb = cfg.blocks_per_slot  # block-table width
         num_blocks = (
             cfg.num_blocks if cfg.num_blocks is not None
@@ -282,9 +412,11 @@ class InferenceEngine:
         )
 
         self.allocator = BlockAllocator(num_blocks)
+        self.radix = RadixCache(self.allocator, cfg.block_size) if cfg.prefix_cache else None
         self.scheduler = SlotScheduler(
-            cfg.num_slots, self.allocator, cfg.block_size, cfg.max_seq_len
+            cfg.num_slots, self.allocator, cfg.block_size, cfg.max_seq_len, radix=self.radix
         )
+        self._cow_copies = 0
         shape = (mcfg.num_hidden_layers, num_blocks, cfg.block_size, n_kv, mcfg.head_dim)
         dev = self.device
         # never reassigned: the graphs hold these pointers
@@ -296,7 +428,6 @@ class InferenceEngine:
             # all-ones init: a never-written row dequantizes to exactly 0
             self._pages["k_scale"] = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
             self._pages["v_scale"] = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
-        self._generator = torch.Generator(device=dev).manual_seed(cfg.seed)
 
         # host mirrors the dispatches stage from
         self._block_tables = np.zeros((cfg.num_slots, mb), np.int32)
@@ -307,27 +438,47 @@ class InferenceEngine:
         # are one buffer and one copy. Prefill staging has a copy for each
         # chunk an iteration can dispatch (one per slot) and one more, so a
         # chunk staged under the in-flight round never waits for it.
-        n, c = cfg.num_slots, cfg.prefill_chunk
-        self._decode_ops = _Operands(
-            {"tables": (n, mb), "pos0": (n,), "toks": (n, 1), "active": (n, 1)}, dev, depth=2)
+        n, c, burst = cfg.num_slots, cfg.prefill_chunk, cfg.decode_burst
+        decode_fields = {"tables": (n, mb), "pos0": (n,), "toks": (n, 1), "active": (n, 1)}
+        self._decode_ops = _Operands(decode_fields, dev, depth=2)
         self._prefill_ops = _Operands(
             {"chunk": (1, c), "table": (1, mb), "start": (1,), "valid": (1, c), "last": (1,)},
             dev, depth=n + 1)
-        self._decode_out = torch.zeros((cfg.decode_burst, n), dtype=torch.int32, device=dev)
+        self._decode_out = torch.zeros((burst, n), dtype=torch.int32, device=dev)
         self._prefill_out = torch.zeros((1,), dtype=torch.int32, device=dev)
         pin = dev.type == "cuda"
-        self._decode_host = torch.zeros((cfg.decode_burst, n), dtype=torch.int32, pin_memory=pin)
+        self._decode_host = torch.zeros((burst, n), dtype=torch.int32, pin_memory=pin)
         self._prefill_host = torch.zeros((1,), dtype=torch.int32, pin_memory=pin)
         # recorded after each copy to the host; one round is in flight at a
         # time, and its harvest precedes the next dispatch
         self._decode_done = torch.cuda.Event() if pin else None
         self._prefill_done = torch.cuda.Event() if pin else None
-        pool = torch.cuda.graph_pool_handle() if pin else None  # the two graphs share it
-        generator = self._generator if cfg.do_sample else None
+        pool = torch.cuda.graph_pool_handle() if pin else None  # the graphs share it
         self._programs = {
-            "decode": _Program(self._decode_burst, dev, generator, pool),
-            "prefill": _Program(self._prefill_chunk, dev, generator, pool),
+            "decode": _Program(self._decode_burst, dev, pool),
+            "prefill": _Program(self._prefill_chunk, dev, pool),
         }
+        if self._psampling:
+            topn = max(int(cfg.logprobs_topn), 1)
+            lane_fields = {name: (n,) for name, _, _ in LANE_SPECS}
+            lane_fields["rep_ring"] = (n, cfg.rep_window)
+            self._lane_ops = _Operands({**decode_fields, **lane_fields}, dev, depth=2,
+                                       floats=_FLOAT_LANES)
+            self._lane_out = _Outputs(
+                {"tok": (burst, n), "logp": (burst, n), "top_vals": (burst, n, topn),
+                 "top_ids": (burst, n, topn)}, dev, floats=frozenset({"logp", "top_vals"}))
+            g = cfg.grammar_slots + 1
+            # written in place, row by row: the lane graph holds their pointers
+            self._gmask = torch.ones((g, cfg.grammar_states, self._vocab_size),
+                                     dtype=torch.bool, device=dev)
+            self._gtrans = torch.zeros((g, cfg.grammar_states, self._vocab_size),
+                                       dtype=torch.int32, device=dev)
+            # the prompt-final logits, for the first-token pick of a request
+            # that is not inert
+            self._prefill_logits = torch.zeros((1, self._vocab_size), dtype=torch.float32,
+                                               device=dev)
+            # captured at the first dispatch that needs it
+            self._programs["lane_decode"] = _Program(self._lane_decode_burst, dev, pool)
 
         self._launches_at_start = _paged_attention.launches
         self._decode_launches_at_start = _paged_attention.decode_launches
@@ -338,11 +489,13 @@ class InferenceEngine:
         self._completed: deque[Request] = deque(maxlen=max(1, int(cfg.completed_history)))
         self._completed_total = 0
         #: the live requests of the round dispatched and not yet harvested
-        #: (None = nothing in flight). Slots cannot be reassigned while a
-        #: round is in flight (eviction only touches FINISHED requests, and
-        #: members only finish at harvest), so ``req.slot`` still indexes
-        #: the round's tokens when the harvest lands
+        #: (None = nothing in flight), and which program ran it ("decode" or
+        #: "lane_decode"). Slots cannot be reassigned while a round is in
+        #: flight (eviction only touches FINISHED requests, and members only
+        #: finish at harvest), so ``req.slot`` still indexes the round's
+        #: tokens when the harvest lands
         self._inflight: list[Request] | None = None
+        self._inflight_kind = "decode"
         # per-iteration flight recorder (None = disabled: step() pays one
         # `is None` check), registered process-globally
         self._flight = FlightRecorder(cfg.flight_history) if cfg.flight_history else None
@@ -352,19 +505,11 @@ class InferenceEngine:
 
     # -- device programs (fixed shapes, static buffers only) -----------------
 
-    def _pick(self, logits: torch.Tensor) -> torch.Tensor:
-        cfg = self.config
-        finished = torch.zeros(logits.shape[:-1], dtype=torch.bool, device=logits.device)
-        tok, _ = pick_next_token(
-            logits, self._generator, finished, 0, cfg.temperature, cfg.do_sample,
-            has_eos=False,  # eos is host-side state
-        )
-        return tok
-
     def _decode_burst(self) -> None:
         """``decode_burst`` paged steps over every slot, reading the decode
         operands and writing ``[burst, num_slots]`` int32 tokens into
-        ``_decode_out``; tokens stay on the device between steps."""
+        ``_decode_out``; tokens stay on the device between steps. Greedy:
+        the first maximal index, as ``jnp.argmax``."""
         ops = self._decode_ops.views
         toks, pos = ops["toks"], ops["pos0"]
         for t in range(self.config.decode_burst):
@@ -372,21 +517,55 @@ class InferenceEngine:
                 toks, self._pages, ops["tables"], pos,
                 paged_write_mask=ops["active"],  # PREFILL/free lanes must not scribble
             )
-            tok = self._pick(step.logits[:, -1, :])
+            tok = torch.argmax(step.logits[:, -1, :], dim=-1).to(torch.int32)
             self._decode_out[t].copy_(tok)
+            toks, pos = tok[:, None], pos + 1
+
+    def _lane_decode_burst(self) -> None:
+        """The lane twin of :meth:`_decode_burst` (JAX
+        ``_build_lane_decode_fn``): each step runs :func:`pick_tokens` over
+        the lanes and advances the per-slot DFA state on the device (the
+        host re-derives the authoritative state per emitted token, so a
+        discarded burst tail never corrupts it); tokens, their logprobs and
+        the top-N land in ``_lane_out``."""
+        cfg = self.config
+        ops = self._lane_ops.views
+        out = self._lane_out.views
+        lanes = {name: ops[name] for name, _, _ in LANE_SPECS}
+        lanes["rep_ring"] = ops["rep_ring"]
+        toks, pos, dfa = ops["toks"], ops["pos0"], ops["dfa_state"]
+        rows = ops["grammar_row"].long()
+        for t in range(cfg.decode_burst):
+            step = self.model.paged_step(
+                toks, self._pages, ops["tables"], pos, paged_write_mask=ops["active"],
+            )
+            tok, logp, top_vals, top_ids = pick_tokens(
+                step.logits[:, -1, :], lanes, dfa, t, self._gmask, cfg.seed,
+                eos_id=cfg.eos_token_id, logprobs_topn=cfg.logprobs_topn,
+            )
+            dfa = self._gtrans[rows, dfa.long(), tok.long()]
+            out["tok"][t].copy_(tok)
+            out["logp"][t].copy_(logp)
+            out["top_vals"][t].copy_(top_vals)
+            out["top_ids"][t].copy_(top_ids)
             toks, pos = tok[:, None], pos + 1
 
     def _prefill_chunk(self) -> None:
         """One ``[1, prefill_chunk]`` chunk through the paged step (the
-        padded tail dropped by ``valid``), then the pick at the static
-        ``last`` index: one token into ``_prefill_out``, never the ``[1, c,
-        vocab]`` logits. Only a chunk that ends its prompt reads it."""
+        padded tail dropped by ``valid``), then the greedy pick at the
+        static ``last`` index: one token into ``_prefill_out`` (and, with
+        the lanes on, that row's logits into ``_prefill_logits``), never
+        the ``[1, c, vocab]`` logits. Only a chunk that ends its prompt
+        reads them."""
         ops = self._prefill_ops.views
         step = self.model.paged_step(
             ops["chunk"], self._pages, ops["table"], ops["start"],
             paged_write_mask=ops["valid"],
         )
-        self._prefill_out.copy_(self._pick(step.logits[0].index_select(0, ops["last"])))
+        row = step.logits[0].index_select(0, ops["last"])
+        self._prefill_out.copy_(torch.argmax(row, dim=-1).to(torch.int32))
+        if self._psampling:
+            self._prefill_logits.copy_(row)
 
     # -- public API ----------------------------------------------------------
 
@@ -396,12 +575,24 @@ class InferenceEngine:
         max_new_tokens: int | None = None,
         arrival_time: float | None = None,
         priority: str = "interactive",
+        sampling=None,
+        grammar: dict | None = None,
+        logprobs: int | None = None,
         **unported,
     ) -> Request:
-        """Enqueue one request (``prompt`` = token ids). Options of the JAX
-        engine that are not ported yet (:data:`UNPORTED_REQUEST_FIELDS`)
-        raise ``ValueError`` when set, so the serve loop answers them with
-        an error row instead of serving the request without them."""
+        """Enqueue one request (``prompt`` = token ids).
+
+        ``sampling`` is a :class:`~.sampling.SamplingParams` (or a dict of
+        its fields) scoped to THIS request; ``None`` inherits the engine-wide
+        defaults. ``logprobs`` (top-N, at most ``logprobs_topn``) sets the
+        params' ``logprobs``. ``grammar`` is a constrained-decoding spec
+        (``{"type": "regex", ...}`` or ``{"type": "json_schema", ...}``)
+        compiled here — admission fails loudly on an unsupported grammar or
+        when every grammar row is held by a live request, never mid-decode.
+        Options of the JAX engine that are not ported yet
+        (:data:`UNPORTED_REQUEST_FIELDS`) raise ``ValueError`` when set, so
+        the serve loop answers them with an error row instead of serving
+        the request without them."""
         for name, value in unported.items():
             if name not in UNPORTED_REQUEST_FIELDS:
                 raise TypeError(f"add_request() got an unexpected keyword argument {name!r}")
@@ -410,6 +601,13 @@ class InferenceEngine:
                     f"{name!r} is not yet ported to accelerate_tpu_torch "
                     "(the JAX engine supports it)"
                 )
+        if not self._psampling and (
+            sampling is not None or grammar is not None or logprobs is not None
+        ):
+            raise ValueError(
+                "per-request sampling/grammar/logprobs need per_slot_sampling=True "
+                "(this engine was built with the lanes disabled)"
+            )
         req = Request(
             prompt=[int(t) for t in np.asarray(prompt).reshape(-1)],
             max_new_tokens=int(
@@ -419,14 +617,39 @@ class InferenceEngine:
         )
         if arrival_time is not None:
             req.arrival_time = arrival_time
-        self.scheduler.submit(req)
+        if self._psampling:
+            params = resolve_sampling(sampling, self._default_sampling)
+            if logprobs is not None:
+                params = dataclasses.replace(params, logprobs=int(logprobs)).validate()
+            if params.logprobs > self.config.logprobs_topn:
+                raise ValueError(
+                    f"request wants logprobs={params.logprobs} but the engine "
+                    f"captures logprobs_topn={self.config.logprobs_topn}; raise "
+                    "EngineConfig.logprobs_topn (the lane graph's output shape, so "
+                    "it is per-engine, not per-request)"
+                )
+            req.sampling = params
+            if grammar is not None:
+                g = compile_grammar(
+                    grammar, self._vocab_size,
+                    eos_id=self.config.eos_token_id,
+                    max_states=self.config.grammar_states,
+                )
+                req.grammar_row = self._acquire_grammar_row(g)
+                req.dfa_state = g.start
+        try:
+            self.scheduler.submit(req)
+        except BaseException:
+            self._release_grammar_row(req)
+            raise
         return req
 
     def step(self) -> list[Request]:
-        """One engine iteration: evict finished → admit queued → one prefill
-        chunk per prefilling slot → harvest the in-flight round → one decode
-        dispatch over every decoding slot. Returns the requests that
-        finished this iteration.
+        """One engine iteration: evict finished → admit queued (and run
+        their copy-on-write block copies) → one prefill chunk per
+        prefilling slot → harvest the in-flight round → one decode dispatch
+        over every decoding slot. Returns the requests that finished this
+        iteration.
 
         With ``async_dispatch`` the round dispatched here is harvested at
         the next iteration's harvest point, so that iteration's schedule and
@@ -459,6 +682,8 @@ class InferenceEngine:
 
         self._fl_switch("harvest")
         self._iterations += 1
+        for req in finished:
+            self._release_grammar_row(req)
         self._completed.extend(finished)
         self._completed_total += len(finished)
         rec = self._fl_finish()
@@ -485,14 +710,18 @@ class InferenceEngine:
             it += 1
         return done
 
-    def stream(self, prompt, max_new_tokens: int | None = None):
+    def stream(self, prompt, max_new_tokens: int | None = None, **request):
         """Generator yielding this request's tokens as the engine emits
-        them (other in-flight requests keep decoding underneath)."""
-        req = self.add_request(prompt, max_new_tokens)
+        them (other in-flight requests keep decoding underneath). With stop
+        sequences, tokens lag by ``max(len(stop)) - 1`` so a matched stop
+        sequence, which the engine trims, is never yielded."""
+        req = self.add_request(prompt, max_new_tokens, **request)
+        stops = req.sampling.stop if req.sampling is not None else ()
+        hold = max((len(s) for s in stops), default=1) - 1
         served = 0
         while req.state is not RequestState.FINISHED:
             self.step()
-            while served < len(req.output_tokens):
+            while served < len(req.output_tokens) - hold:
                 yield req.output_tokens[served]
                 served += 1
         while served < len(req.output_tokens):
@@ -501,7 +730,8 @@ class InferenceEngine:
 
     def reset_stats(self) -> None:
         """Zero the measurement state (iterations, tokens, completions, the
-        wall clock, the flight ring) and keep the graphs, the pools and the
+        wall clock, the sampling and prefix-cache counters, the flight
+        ring) and keep the graphs, the pools, the radix trie and the
         capture and launch counters, so a run can warm up, reset and
         measure."""
         self._iterations = 0
@@ -510,6 +740,16 @@ class InferenceEngine:
         self._start_time = None
         self._completed.clear()
         self._completed_total = 0
+        self._sampled_greedy = 0
+        self._sampled_sample = 0
+        self._grammar_masked_steps = 0
+        self._first_token_picks = 0
+        self._cow_copies = 0
+        self.scheduler.prompt_tokens_admitted = 0
+        self.scheduler.prefix_hit_tokens = 0
+        if self.radix is not None:
+            self.radix.evicted_blocks = 0
+            self.radix.inserted_blocks = 0
         if self._flight is not None:
             self._flight.reset()
 
@@ -531,15 +771,33 @@ class InferenceEngine:
             "decode": eager_decode + sum(p.replays * p.decode_launches_captured for p in progs),
         }
 
+    def _sampling_stats(self) -> dict:
+        """Per-slot sampling/grammar health (JAX ``_sampling_stats``); empty
+        when the lanes are disabled."""
+        if not self._psampling:
+            return {}
+        return {
+            "sampled_tokens_greedy": self._sampled_greedy,
+            "sampled_tokens_sample": self._sampled_sample,
+            "grammar_masked_steps": self._grammar_masked_steps,
+            "grammar_rows_live": sum(1 for r in self._row_refs if r > 0),
+            "first_token_picks": self._first_token_picks,
+        }
+
     def stats(self) -> dict:
         """Serving health: tokens, slots and blocks, TTFT/TPOT percentiles over
-        the completion window, the captures (``decode_compiles``,
+        the completion window, the captures (``decode_compiles`` for the
+        plain burst, ``lane_decode_compiles`` for the lane burst,
         ``prefill_compiles``; the JAX engine's key names) and replays of the
-        two programs, the paged-attention kernel launches this engine caused
-        (0 on the CPU, where the plain version runs), and the flight
-        recorder's ``host_fraction`` and per-phase percentiles."""
+        programs, the paged-attention kernel launches this engine caused
+        (0 on the CPU, where the plain version runs), the sampling and
+        prefix-cache counters, and the flight recorder's ``host_fraction``
+        and per-phase percentiles."""
         sched = self.scheduler
         launches = self._launch_counts()
+        cached = self.radix.cached_block_count if self.radix is not None else 0
+        cached_exclusive = self.radix.exclusive_block_count() if self.radix is not None else 0
+        lane = self._programs.get("lane_decode")
         out = {
             "iterations": self._iterations,
             "completed": self._completed_total,
@@ -548,12 +806,14 @@ class InferenceEngine:
             "num_slots": self.config.num_slots,
             "tokens_emitted": self._tokens_emitted,
             "decode_compiles": self._programs["decode"].captures,
+            "lane_decode_compiles": lane.captures if lane is not None else 0,
             "prefill_compiles": self._programs["prefill"].captures,
             "paged_attention_launches": launches["total"],
             "paged_attention_decode_launches": launches["decode"],
             "paged_attention_eager_launches": launches["eager"],
             "cuda_graphs": {
-                name: {"replays": p.replays, "launches_captured": p.launches_captured,
+                name: {"runs": p.runs, "replays": p.replays,
+                       "launches_captured": p.launches_captured,
                        "decode_launches_captured": p.decode_launches_captured}
                 for name, p in self._programs.items()
             },
@@ -562,9 +822,24 @@ class InferenceEngine:
             "kv_dtype": self.kv_dtype,
             "kv_bytes_per_token": self.kv_bytes_per_token,
             "free_blocks": self.allocator.free_count,
-            "allocated_blocks": self.allocator.allocated_count,
+            # blocks live requests hold (shared prefix blocks included);
+            # blocks held ONLY by the radix cache are reported apart — at
+            # idle, allocated_blocks is 0 and free + cached == usable
+            "allocated_blocks": self.allocator.allocated_count - cached_exclusive,
+            "cached_blocks": cached,
+            "cached_exclusive_blocks": cached_exclusive,
+            "prefix_hit_tokens": sched.prefix_hit_tokens,
+            "prefix_hit_ratio": (
+                sched.prefix_hit_tokens / sched.prompt_tokens_admitted
+                if sched.prompt_tokens_admitted else 0.0
+            ),
+            "cow_copies": self._cow_copies,
             "out_of_blocks_total": self._out_of_blocks_total,
         }
+        out.update(self._sampling_stats())
+        if self.radix is not None:
+            out["radix_inserted_blocks"] = self.radix.inserted_blocks
+            out["radix_evicted_blocks"] = self.radix.evicted_blocks
         if self._flight is not None:
             out.update(self._flight.summary())
         if self._start_time is not None:
@@ -634,10 +909,21 @@ class InferenceEngine:
     # -- iteration internals -------------------------------------------------
 
     def _admit_and_place(self) -> None:
-        """Admission. Without the prefix cache and swap there is no device
-        work to place (no copy-on-write copy, no swap-in restore): admitted
-        requests start prefilling this iteration."""
-        self.scheduler.admit()
+        """Admission and its device obligation: the pending copy-on-write
+        block copy of a partial-prefix hit (JAX ``_place_admitted``), in
+        place on every pool (and scale pool when quantized), on the
+        engine's stream. That orders it after the in-flight round; it reads
+        a cached, immutable block and writes a fresh private block that no
+        in-flight lane reads. Then the eviction pin on the source drops."""
+        for req in self.scheduler.admit():
+            if req.cow is None:
+                continue
+            src, dst = req.cow
+            for pool in self._pages.values():
+                pool[:, dst].copy_(pool[:, src])
+            self.allocator.decref([src])
+            self._cow_copies += 1
+            req.cow = None
 
     def _force_finish_out_of_blocks(self, req: Request, finished: list[Request]) -> None:
         req.finish_reason = "out_of_blocks"
@@ -654,6 +940,22 @@ class InferenceEngine:
         row[:] = 0
         row[: len(req.blocks)] = req.blocks
 
+    def _params(self, req: Request) -> SamplingParams:
+        return req.sampling or self._default_sampling
+
+    def _plain_ok(self, req: Request) -> bool:
+        """True when the plain greedy argmax gives this request's tokens for
+        a whole burst (or its first token): nothing sampled, no grammar row,
+        no repetition penalty, no eos still to suppress, no logprobs."""
+        p = self._params(req)
+        return (
+            not p.do_sample
+            and p.repetition_penalty == 1.0
+            and p.logprobs == 0
+            and not req.grammar_row
+            and (self.config.eos_token_id is None or len(req.output_tokens) >= p.min_tokens)
+        )
+
     def _prefill_one_chunk(self, req: Request, finished: list[Request]) -> None:
         cfg = self.config
         start = req.prefill_pos
@@ -669,28 +971,77 @@ class InferenceEngine:
         ops["last"][0] = (req.prompt_len - 1) - start if is_final else 0
         self._programs["prefill"].run(self._prefill_ops.upload)
         req.prefill_pos = end
-        if is_final:
+        if not is_final:
+            return
+        if self.radix is not None:
+            # the prompt's full blocks now hold valid K/V: adopt them into
+            # the prefix trie (refcount+1 = the cache's reference) so later
+            # admissions with the same leading tokens map them
+            self.radix.insert(req.prompt, req.blocks)
+        lp_entry = None
+        if self._psampling and not self._plain_ok(req):
+            tok, lp_entry = self._first_token_pick(req)
+        else:
             self._prefill_host.copy_(self._prefill_out, non_blocking=True)
             if self._prefill_done is not None:
                 self._prefill_done.record()
                 self._prefill_done.synchronize()  # waits for the in-flight round too
-            self._emit_token(req, int(self._prefill_host[0]), finished)
-            if req.state is not RequestState.FINISHED:
-                req.state = RequestState.DECODE
+            tok = int(self._prefill_host[0])
+        self._emit_token(req, tok, finished, lp_entry)
+        if req.state is not RequestState.FINISHED:
+            req.state = RequestState.DECODE
+
+    def _first_token_pick(self, req: Request):
+        """The first token of a request that is not inert (JAX
+        ``_first_token_pick``): one ``[1, vocab]`` run of the shared
+        :func:`~.sampling.pick_tokens` over the prompt-final logits the
+        prefill program kept, at output position 0, eagerly (its small
+        lane tensors are copied up per call). Zero extra model forwards."""
+        cfg = self.config
+        params = self._params(req)
+        host = blank_lanes(1, cfg.rep_window)
+        set_slot_lane(
+            host, 0, params, pos=0, grammar_row=req.grammar_row, dfa_state=req.dfa_state,
+            recent=req.prompt if params.repetition_penalty != 1.0 else (),
+        )
+        lanes = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                 for k, v in host.items()}
+        tok, logp, top_vals, top_ids = pick_tokens(
+            self._prefill_logits, lanes, lanes["dfa_state"], 0, self._gmask, cfg.seed,
+            eos_id=cfg.eos_token_id, logprobs_topn=cfg.logprobs_topn,
+        )
+        self._first_token_picks += 1
+        tok, logp, top_vals, top_ids = (t.cpu() for t in (tok, logp, top_vals, top_ids))
+        entry = None
+        if params.logprobs:
+            entry = self._logprob_entry(params, float(logp[0]), top_vals[0].numpy(),
+                                        top_ids[0].numpy())
+        return int(tok[0]), entry
+
+    @staticmethod
+    def _logprob_entry(params, logp: float, top_vals, top_ids) -> dict:
+        n = int(params.logprobs)
+        return {
+            "logprob": logp,
+            "top": [[int(i), float(v)] for i, v in zip(top_ids[:n], top_vals[:n])],
+        }
 
     def _ensure_decode_capacity(self, req: Request, finished: list[Request]) -> None:
-        """Block growth for one decode lane. Without swap, pool exhaustion
-        truncates the request that failed to grow (``out_of_blocks``) —
-        never an innocent neighbour that fit its reservation."""
+        """Block growth for one decode lane (refcount-1 cached blocks are
+        evicted first). Without swap, pool exhaustion truncates the request
+        that failed to grow (``out_of_blocks``) — never an innocent
+        neighbour that fit its reservation."""
         if not self.scheduler.grow_for_decode(req, tokens_ahead=self.config.decode_burst):
             self._force_finish_out_of_blocks(req, finished)
 
     def _dispatch_decode(self, decoding: list[Request], finished: list[Request]) -> None:
-        """Grow every lane, stage the round's operands, replay the burst and
-        start the copy of its ``[burst, num_slots]`` tokens to the host —
-        non-blocking: ``_harvest_inflight`` lands them (at the next
-        iteration's harvest point under async dispatch, right after this
-        returns otherwise)."""
+        """Grow every lane, stage the round's operands, replay a burst and
+        start the copy of its outputs to the host — non-blocking:
+        ``_harvest_inflight`` lands them (at the next iteration's harvest
+        point under async dispatch, right after this returns otherwise).
+        The plain burst replays when every live request is inert for the
+        whole burst; the lane burst otherwise, its lanes rebuilt from the
+        live requests on every dispatch."""
         for req in decoding:
             if req.state is RequestState.DECODE:
                 self._ensure_decode_capacity(req, finished)
@@ -698,7 +1049,13 @@ class InferenceEngine:
                 if req.slot is not None and req.state is RequestState.DECODE]
         if not live:
             return
-        ops = self._decode_ops.stage()
+        lanes = self._psampling and not all(self._plain_ok(req) for req in live)
+        operands = self._lane_ops if lanes else self._decode_ops
+        ops = operands.stage()
+        if lanes:
+            blank = blank_lanes(self.config.num_slots, self.config.rep_window)
+            for name, values in blank.items():
+                ops[name][:] = values
         for req in live:
             # a burst writes up to decode_burst positions ahead (capped at the
             # request's own budget); lane-steps past the budget write into the
@@ -707,38 +1064,134 @@ class InferenceEngine:
             ops["pos0"][req.slot] = req.context_len
             ops["toks"][req.slot, 0] = self._pending_tok[req.slot]
             ops["active"][req.slot, 0] = 1
+            if lanes:
+                params = self._params(req)
+                set_slot_lane(
+                    ops, req.slot, params, pos=len(req.output_tokens),
+                    grammar_row=req.grammar_row, dfa_state=req.dfa_state,
+                    recent=(req.prompt + req.output_tokens
+                            if params.repetition_penalty != 1.0 else ()),
+                )
         ops["tables"][:] = self._block_tables
-        self._programs["decode"].run(self._decode_ops.upload)
-        self._decode_host.copy_(self._decode_out, non_blocking=True)  # the round's one copy
-        if self._decode_done is not None:
-            self._decode_done.record()
+        if lanes:
+            self._programs["lane_decode"].run(operands.upload)
+            self._lane_out.copy_to_host()  # the round's one copy, logprobs included
+            self._inflight_kind = "lane_decode"
+        else:
+            self._programs["decode"].run(operands.upload)
+            self._decode_host.copy_(self._decode_out, non_blocking=True)  # the round's one copy
+            if self._decode_done is not None:
+                self._decode_done.record()
+            self._inflight_kind = "decode"
         self._inflight = live
 
     def _harvest_inflight(self, finished: list[Request]) -> None:
         """Land the in-flight round: wait on its copy's event (the flight
         recorder's ``device_wait``), then emit each live lane's tokens
-        through ``_emit_token``. A member that finished mid-burst emits
-        nothing more: its tail lane-steps are waste."""
+        (and logprobs, when the request asked) through ``_emit_token``. A
+        member that finished mid-burst emits nothing more: its tail
+        lane-steps are waste."""
         live = self._inflight
         if live is None:
             return
+        lanes = self._inflight_kind == "lane_decode"
         self._fl_switch("device_wait")
-        if self._decode_done is not None:
+        if lanes:
+            self._lane_out.wait()
+        elif self._decode_done is not None:
             self._decode_done.synchronize()
         self._inflight = None
         self._fl_switch("harvest")
-        next_toks = self._decode_host.numpy()
+        if lanes:
+            out = self._lane_out.host_views
+            next_toks = out["tok"]
+        else:
+            next_toks = self._decode_host.numpy()
         for req in live:
+            params = self._params(req) if lanes else None
             for t in range(self.config.decode_burst):
                 if req.state is RequestState.FINISHED:
-                    break  # mid-burst eos/length: tail lane-steps are waste
-                self._emit_token(req, int(next_toks[t, req.slot]), finished)
+                    break  # mid-burst eos/length/stop: tail lane-steps are waste
+                entry = None
+                if params is not None and params.logprobs:
+                    entry = self._logprob_entry(params, float(out["logp"][t, req.slot]),
+                                                out["top_vals"][t, req.slot],
+                                                out["top_ids"][t, req.slot])
+                self._emit_token(req, int(next_toks[t, req.slot]), finished, entry)
 
-    def _emit_token(self, req: Request, tok: int, finished: list[Request]) -> None:
+    # -- grammar row lifecycle ------------------------------------------------
+
+    def _acquire_grammar_row(self, g) -> int:
+        """Pin one row of the device-resident grammar tables for a live
+        request (JAX ``_acquire_grammar_row``). Rows are refcounted by
+        grammar hash — concurrent requests with the same schema share one
+        row. A fully-idle row keeps its tables cached LRU-style, so many
+        requests over few schemas write each grammar once; eviction only
+        happens when a NEW grammar needs a row and every free row is
+        someone's cache entry. Runs at admission, so exhaustion (every row
+        pinned by a live request) fails the add_request loudly. A row is
+        written in place on the engine's stream, so the write lands after
+        any round in flight."""
+        row = self._grammar_rows.get(g.hash)
+        if row is not None:
+            self._row_lru.pop(g.hash, None)
+            self._row_refs[row] += 1
+            return row
+        row = next(
+            (r for r in range(1, self.config.grammar_slots + 1)
+             if self._row_refs[r] == 0 and r not in self._row_grammar),
+            None,
+        )
+        if row is None:
+            if not self._row_lru:
+                raise ValueError(
+                    f"all {self.config.grammar_slots} grammar rows are held by "
+                    "live requests; raise EngineConfig.grammar_slots or retry "
+                    "after a constrained request finishes"
+                )
+            old_hash, row = self._row_lru.popitem(last=False)
+            del self._grammar_rows[old_hash]
+        allow, trans = g.padded_tables(self.config.grammar_states)
+        self._gmask[row].copy_(torch.from_numpy(np.ascontiguousarray(allow)))
+        self._gtrans[row].copy_(torch.from_numpy(np.ascontiguousarray(trans, np.int32)))
+        self._grammar_rows[g.hash] = row
+        self._row_grammar[row] = g
+        self._row_refs[row] += 1
+        return row
+
+    def _release_grammar_row(self, req: Request) -> None:
+        row = req.grammar_row
+        if not row:
+            return
+        req.grammar_row = 0
+        self._row_refs[row] -= 1
+        if self._row_refs[row] == 0:
+            # idle: keep the written tables as an LRU cache entry so the
+            # next request with this schema skips the write
+            self._row_lru[self._row_grammar[row].hash] = row
+
+    def _emit_token(self, req: Request, tok: int, finished: list[Request],
+                    lp_entry=None) -> None:
+        """Append one token and apply the host-side finish rules (JAX
+        ``_emit_token``): eos, length, a grammar-final state (the host
+        advances the authoritative DFA), and a matched stop sequence, which
+        is trimmed from the answer (``finish_reason="stop"``). Min-token eos
+        suppression happened in the pick."""
         now = time.perf_counter()
         req.output_tokens.append(tok)
         self._pending_tok[req.slot] = tok
         self._tokens_emitted += 1
+        params = req.sampling
+        if self._psampling:
+            if params is not None and params.do_sample:
+                self._sampled_sample += 1
+            else:
+                self._sampled_greedy += 1
+        if lp_entry is not None:
+            lp_entry["token"] = tok
+            if req.logprobs is None:
+                req.logprobs = []
+            req.logprobs.append(lp_entry)
         if req.first_token_time is None:
             req.first_token_time = now
         eos = self.config.eos_token_id
@@ -746,6 +1199,20 @@ class InferenceEngine:
             req.finish_reason = "eos"
         elif len(req.output_tokens) >= req.max_new_tokens:
             req.finish_reason = "length"
+        if req.grammar_row:
+            # entering a state with no live continuation means the match is
+            # complete
+            self._grammar_masked_steps += 1
+            g = self._row_grammar[req.grammar_row]
+            req.dfa_state = g.advance(req.dfa_state, tok)
+            if req.finish_reason is None and g.final[req.dfa_state]:
+                req.finish_reason = "stop"
+        if req.finish_reason is None and params is not None and params.stop:
+            n = match_stop(req.output_tokens, params.stop)
+            if n:
+                # the matched stop sequence is not part of the answer
+                del req.output_tokens[-n:]
+                req.finish_reason = "stop"
         if req.finish_reason is not None:
             req.finish_time = now
             req.state = RequestState.FINISHED

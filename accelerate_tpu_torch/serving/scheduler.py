@@ -6,16 +6,21 @@ Orca-style (OSDI '22) slot scheduling: the paged decode step has a fixed
 steps, which request occupies which slot.
 
 * **evict** — finished requests release their slot and KV blocks first, so
-  the capacity freed this iteration is admittable this iteration;
+  the capacity freed this iteration is admittable this iteration; shared
+  blocks are *decref'd* (the radix cache or other requests keep them),
+  never hard-freed;
 * **admit** — queued requests enter free slots in (priority class,
-  arrival) order, bounded by the block freelist. Head-of-line blocking is
-  intentional (no starvation of long prompts);
+  arrival) order. Admission first maps the request's longest cached prefix
+  from the :class:`~.radix.RadixCache` at refcount+1, then allocates only
+  the tail; when the freelist is short, refcount-1 cached blocks are LRU
+  evicted before admission gives up. Head-of-line blocking is intentional
+  (no starvation of long prompts);
 * a request whose prompt is still being chunk-prefilled occupies its slot
   in ``PREFILL`` state; the engine advances one chunk per iteration so a
   long prompt never stalls in-flight decodes.
 
-Not ported yet (later slices): the radix prefix cache, swap preemption,
-deadlines and the usage ledger hooks of the JAX scheduler.
+Not ported yet (later slices): swap preemption, deadlines and the usage
+ledger hooks of the JAX scheduler.
 """
 
 from __future__ import annotations
@@ -53,7 +58,12 @@ class Request:
     ``output_tokens`` grows as the engine emits. Timing fields are
     ``time.perf_counter`` seconds: ``ttft_s`` spans arrival → first emitted
     token (queue wait + prefill included), ``tpot_s`` is the mean
-    inter-token interval after the first."""
+    inter-token interval after the first.
+
+    Prefix-sharing state: ``prefill_pos`` starts at the matched prefix
+    length (cached tokens are never re-prefilled); ``cow`` is a
+    ``(src_block, dst_block)`` device copy the engine owes before the first
+    prefill chunk."""
 
     prompt: list[int]
     max_new_tokens: int
@@ -62,12 +72,26 @@ class Request:
     arrival_time: float = field(default_factory=time.perf_counter)
     state: RequestState = RequestState.QUEUED
     output_tokens: list[int] = field(default_factory=list)
-    finish_reason: str | None = None  # "eos" | "length" | "out_of_blocks"
+    finish_reason: str | None = None  # "eos" | "length" | "stop" | "out_of_blocks"
     slot: int | None = None
+    #: resolved :class:`~.sampling.SamplingParams` (None on a
+    #: per_slot_sampling=False engine). Lives on the request — not the
+    #: slot — and the lanes are rebuilt from it on every dispatch
+    sampling: object = None
+    #: grammar table row this request holds a reference on (0 = the
+    #: unconstrained sentinel row) and its authoritative DFA state — the
+    #: host advances it per emitted token; on-device advances only feed
+    #: mid-burst masking and are discarded with the burst tail
+    grammar_row: int = 0
+    dfa_state: int = 0
+    #: per-token logprob dicts when the request asked for them
+    logprobs: list | None = None
     blocks: list[int] = field(default_factory=list)
     prefill_pos: int = 0  # prompt tokens whose K/V are already cached
     first_token_time: float | None = None
     finish_time: float | None = None
+    matched_tokens: int = 0  # prefix-cache hit length at admission
+    cow: tuple[int, int] | None = None  # (src, dst) pending device copy
 
     @property
     def prompt_len(self) -> int:
@@ -93,17 +117,22 @@ class Request:
 
 
 class SlotScheduler:
-    """Owns the waiting queues (one per priority class), the slot table and
-    the block allocator."""
+    """Owns the waiting queues (one per priority class), the slot table,
+    the block allocator, and (optionally) the radix prefix cache."""
 
     def __init__(self, num_slots: int, allocator: BlockAllocator, block_size: int,
-                 max_seq_len: int):
+                 max_seq_len: int, radix=None):
         self.num_slots = int(num_slots)
         self.allocator = allocator
         self.block_size = int(block_size)
         self.max_seq_len = int(max_seq_len)
+        self.radix = radix
         self.waiting: dict[str, deque[Request]] = {p: deque() for p in PRIORITY_CLASSES}
         self.slots: list[Request | None] = [None] * self.num_slots
+        #: cumulative prompt tokens of admitted requests — the denominator
+        #: of the prefix hit ratio
+        self.prompt_tokens_admitted = 0
+        self.prefix_hit_tokens = 0
 
     # -- queries -------------------------------------------------------------
 
@@ -165,7 +194,9 @@ class SlotScheduler:
         return request
 
     def evict_finished(self) -> list[Request]:
-        """Release slots + blocks of finished requests (engine marks them)."""
+        """Release slots + blocks of finished requests (engine marks them).
+        Blocks are decref'd: a block the radix cache (or another request)
+        still holds stays resident; the rest return to the freelist."""
         evicted = []
         for i, req in enumerate(self.slots):
             if req is not None and req.state is RequestState.FINISHED:
@@ -176,21 +207,47 @@ class SlotScheduler:
                 evicted.append(req)
         return evicted
 
+    def _ensure_free(self, need: int) -> bool:
+        """Freelist coverage for ``need`` blocks, LRU-evicting refcount-1
+        cached blocks to make room."""
+        short = need - self.allocator.free_count
+        if short > 0 and self.radix is not None:
+            self.radix.evict(short)
+        return self.allocator.can_allocate(need)
+
     def admit(self) -> list[Request]:
         """Priority-then-FCFS admission into free slots, bounded by the
-        block freelist. A request is admitted with the blocks covering its
-        prompt plus the first decode write; decode grows the rest."""
+        block freelist (after radix eviction). A request maps its longest
+        cached prefix at refcount+1 and allocates only the tail: the blocks
+        covering its prompt plus the first decode write; decode grows the
+        rest. Head-of-line blocking on blocks is intentional; a free slot
+        with an unaffordable head request stays empty until eviction refills
+        the freelist."""
         admitted = []
         free_slots = [i for i, r in enumerate(self.slots) if r is None]
         while free_slots:
             req = self.peek_head()
             if req is None:
                 break
-            need = max(blocks_needed(req.prompt_len + 1, self.block_size), 1)
-            if not self.allocator.can_allocate(need):
+            total_need = max(blocks_needed(req.prompt_len + 1, self.block_size), 1)
+            shared, matched, cow_src = [], 0, None
+            if self.radix is not None:
+                shared, matched, cow_src = self.radix.acquire(req.prompt)
+            need = total_need - len(shared)
+            if not self._ensure_free(need):
+                if self.radix is not None:
+                    self.radix.release_acquired(shared, cow_src)
                 break
-            req.blocks = self.allocator.allocate(need)
-            req.prefill_pos = 0
+            fresh = self.allocator.allocate(need)
+            req.blocks = shared + fresh
+            req.matched_tokens = matched
+            req.prefill_pos = matched
+            if cow_src is not None:
+                # the engine copies src -> the first private block before
+                # this request's first prefill chunk
+                req.cow = (cow_src, fresh[0])
+            self.prompt_tokens_admitted += req.prompt_len
+            self.prefix_hit_tokens += matched
             req.state = RequestState.PREFILL
             self.waiting[req.priority].popleft()
             req.slot = free_slots.pop(0)
@@ -204,8 +261,10 @@ class SlotScheduler:
         context_len+tokens_ahead-1``). The span is capped at the request's
         own ``prompt + max_new`` budget and the per-slot maximum: burst
         lane-steps past the budget write into the null block, which is
-        harmless. False = the pool is exhausted; the engine force-finishes
-        the request with ``finish_reason="out_of_blocks"``."""
+        harmless. When the freelist is dry, refcount-1 cached blocks are
+        LRU-evicted first. False = the pool is exhausted even after
+        eviction; the engine force-finishes the request with
+        ``finish_reason="out_of_blocks"``."""
         need = blocks_needed(
             min(
                 req.context_len + tokens_ahead,
@@ -215,7 +274,7 @@ class SlotScheduler:
             self.block_size,
         )
         while len(req.blocks) < need:
-            if not self.allocator.can_allocate(1):
+            if not self._ensure_free(1):
                 return False
             req.blocks.extend(self.allocator.allocate(1))
         return True

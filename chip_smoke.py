@@ -196,7 +196,7 @@ def occupancy_report() -> tuple[dict, int]:
     blocks, combine, smem, out = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), {}
     flash = _build.load("flash_attention.cu")
     for which, name in enumerate(FLASH_KERNELS):
-        for hd in (64, 128):
+        for hd in (16, 32, 64, 128):
             if flash.flash_attention_blocks_per_sm(which, hd, ctypes.byref(blocks)):
                 raise AssertionError(f"the occupancy query failed for {name} at hd {hd}")
             out[f"{name}_wgmma_kernel<{hd}>"] = blocks.value

@@ -312,9 +312,11 @@ def test_serve_cpu_answers_jsonl_rows():
     rows = [
         {"id": "a", "prompt": [1, 2, 3, 4, 5], "max_new_tokens": 6},
         {"id": "b", "prompt": list(range(40)), "max_new_tokens": 3, "priority": "batch"},
-        {"id": "c", "prompt": [9, 9], "sampling": {"temperature": 0.5}},
+        {"id": "c", "prompt": [9, 9], "tenant": "acme"},
         {"id": "d", "prompt": [1] * 200, "max_new_tokens": 4},
         "{not json",
+        {"id": "e", "prompt": [9, 9], "max_new_tokens": 5,
+         "sampling": {"do_sample": True, "temperature": 0.5, "seed": 4}},
     ]
     proc, out = _serve(["--device", "cpu", "--preset", "tiny", "--max-seq-len", "128",
                         "--prefill-chunk", "16", "--decode-burst", "4"], rows)
@@ -326,7 +328,8 @@ def test_serve_cpu_answers_jsonl_rows():
     assert "not yet ported" in by_id["c"]["error"]
     assert "max_seq_len" in by_id["d"]["error"]
     assert any("bad JSON" in r.get("error", "") for r in out)
-    assert "served 2 requests" in proc.stderr
+    assert len(by_id["e"]["tokens"]) == 5 and by_id["e"]["finish_reason"] == "length"
+    assert "served 3 requests" in proc.stderr
     assert "paged_attention launches 0" in proc.stderr
 
 
