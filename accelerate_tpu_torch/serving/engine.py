@@ -59,8 +59,10 @@ Orca-style iteration scheduling over a vLLM-style block-paged KV cache:
   maps a request's longest cached prompt prefix into its block table at
   refcount+1 and prefills only the tail; a partial-block hit owes one
   copy-on-write block copy, issued in place on the engine's stream before
-  the first prefill chunk. The pools are never reassigned, so the captured
-  graphs stay valid.
+  the first prefill chunk. The tail's chunks start where they would without
+  the cache (at the chunk boundary at or below the match), so a request's
+  tokens are the same bits with the cache on or off. The pools are never
+  reassigned, so the captured graphs stay valid.
 
 Greedy output is the parity contract with the JAX engine. Not ported yet
 (later slices): swap preemption (and the fence it needs), speculative
@@ -914,8 +916,17 @@ class InferenceEngine:
         place on every pool (and scale pool when quantized), on the
         engine's stream. That orders it after the in-flight round; it reads
         a cached, immutable block and writes a fresh private block that no
-        in-flight lane reads. Then the eviction pin on the source drops."""
+        in-flight lane reads. Then the eviction pin on the source drops.
+
+        A hit's prefill starts at the chunk boundary at or below the matched
+        length (the chunks sit where they would without the cache) and
+        writes only the positions past the match. The paged kernel cuts each
+        chunk's keys into splits by the chunk's start, so the same starts
+        give the same sums: with the cache or without it, a request's K/V
+        and tokens are the same bits."""
+        chunk = self.config.prefill_chunk
         for req in self.scheduler.admit():
+            req.prefill_pos -= req.prefill_pos % chunk
             if req.cow is None:
                 continue
             src, dst = req.cow
@@ -963,7 +974,9 @@ class InferenceEngine:
         self._sync_block_table(req)
         ops = self._prefill_ops.stage()
         ops["chunk"][0, : end - start] = req.prompt[start:end]
-        ops["valid"][0, : end - start] = 1  # drops the padded tail
+        # drops the padded tail, and the cached positions of a prefix hit:
+        # recomputed (as queries) but never rewritten
+        ops["valid"][0, max(0, req.matched_tokens - start): end - start] = 1
         ops["table"][0] = self._block_tables[req.slot]
         ops["start"][0] = start
         is_final = end == req.prompt_len

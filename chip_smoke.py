@@ -46,16 +46,32 @@ failure, so the script exits non-zero and prints no result):
    requests, the wrapper's counters set to 0 just before and read just
    after (they count the warm-ups and what each capture recorded; the
    engine multiplies by the replays), under the same checks; then ``serve
-   --preset tiny`` on its defaults (f32, head dim 16) answering 6 requests;
+   --preset tiny`` on its defaults (f32, head dim 16) answering 6 requests.
+   After 5b's greedy run, a mixed batch of 12 requests in-process on the
+   flagship (bf16, 8 slots, ``logprobs_topn=4``): greedy; sampled with
+   temperature / top-k / top-p and a seed; repetition penalty;
+   ``min_tokens`` over an eos id; a stop sequence; a regex and a
+   JSON-schema grammar; logprobs. One capture of the plain burst and one of
+   the lane burst; every grammar answer matches its regex or validates
+   against its schema; the stop sequence is trimmed; no eos before
+   ``min_tokens``; the greedy members give 5b's tokens;
 5b. the 12 requests through the graph engine with async dispatch on and
    off, which must give identical tokens, and each request alone through
    ``paged_step`` in an eager Python loop at the engine's shapes: where a
    request parts from that reference, the first divergence and the
    reference's top-2 logit margin are printed, and a divergence whose gap
    exceeds 2^-5 of the reference's largest |logit| (four bf16 ulps at the
-   top) fails;
-5c. two engines with one seed and ``do_sample=True``: identical tokens,
-   and the generator's Philox offset advancing on every replay;
+   top) fails. Then the 12 forced through the lane burst (each asks for
+   ``logprobs=1``), which must give the plain burst's tokens; the mixed
+   batch's sampled requests alone in reverse admission order in a fresh
+   engine, which must give their tokens again; and a shared-prefix batch
+   (8 requests, a 512-id prefix and a 5-id header, tails of 16-64 ids, 64
+   new tokens each) with the prefix cache on and off: identical tokens,
+   hits and copy-on-write copies with it, TTFT p50 and prefill chunks
+   printed both ways;
+5c. engine-wide ``do_sample=True`` with one seed in two engines and in
+   reverse admission order: identical tokens, the lane burst captured
+   once and the plain burst never;
 6. times at the flagship decode shape (8 slots, context 512, bf16, the 16
    layers' pools rotated so L2 does not hold them), at context 1024 (the
    table's ``mb · bs``), and at the prefill chunk (b 1, s 32, the chunk's
@@ -70,7 +86,9 @@ failure, so the script exits non-zero and prints no result):
    that shows no kernel row is taken again once, then the script fails: no
    library time reads 0.0;
 7. where a flagship decode step's time goes on the graph engine: four
-   legs, async and sync alternating, each its own engine past prefill,
+   greedy legs, async and sync alternating, then one async leg with all 8
+   slots sampled (temperature 0.8, top-p 0.9: the lane burst), each its
+   own engine past prefill,
    four timed ``step()`` calls (wall per decode step, tokens/s, the flight
    recorder's ``host_fraction`` and per-phase p50) and two under
    ``torch.profiler`` (device time and busy share, launches and top kernels
@@ -80,6 +98,9 @@ failure, so the script exits non-zero and prints no result):
 8. the flash-attention kernels (forward, backward dq, backward dk/dv)
    against their plain versions on the card, on seeded numpy inputs: the
    flagship shape (b 8, s 1024, 12 × 128) and GQA 32/8 at hd 64 and 128,
+   hd 16 (MHA 4/4) and hd 32 (GQA 8/2) in f32 and bf16, causal and not,
+   s = 129 and 1000 with a left-padded mask (each narrow case launched
+   twice and required bit-identical),
    causal and not, s = 1000 (not a tile multiple), a left-padded key mask
    with fully masked rows, f32 and bf16, and four bf16 cases at the edges
    of the bf16 kernels' tiles: s = 129 (one row past a 128-row tile),
@@ -91,6 +112,12 @@ failure, so the script exits non-zero and prints no result):
    5e-2 × max(|ref|, 1), compared in f32. The f32 cases with no mask also
    hold the kernels' grads to autograd through the plain
    ``dot_product_attention`` at the same gate;
+8b. ``LlamaConfig.tiny()`` (head dim 16) trained 20 steps through
+   ``Accelerator(mixed_precision="bf16").prepare(...)`` on a fixed batch:
+   finite, falling loss, each flash kernel launched once a layer a step;
+   then B1-B3 at hd 16 and 32 at that shape (b 8, s 128, 4 heads, bf16,
+   causal) by events and by the profiler, beside sdpa and the bound counted
+   on the real head dim;
 9. one training forward and backward at flagship width (2 layers, b 2,
    s 512, one left-padded row), attention through the kernels against the
    plain autograd.Function, in f32 (loss within 1e-5 relative, every
@@ -437,36 +464,45 @@ def _serve_stats(stderr: str, what: str) -> dict:
     return json.loads(lines[-1][len("serve stats: "):])
 
 
-def check_graph_counts(stats: dict, layers: int, burst: int, what: str) -> dict:
-    """One capture of each program, and the launch counts the engine reports
-    equal to its eager launches plus replays × the launches each capture
-    recorded: the decode burst ``burst × layers`` launches, all decode; the
-    prefill chunk ``layers``, none decode. The eager launches are the two
-    warm-ups before the captures and nothing else."""
+def check_graph_counts(stats: dict, layers: int, burst: int, what: str,
+                       captures: dict | None = None) -> dict:
+    """The captures of each program (``captures``: program -> count; by
+    default one plain burst, one prefill chunk and no lane burst), and the
+    launch counts the engine reports equal to its eager launches plus
+    replays × the launches each capture recorded: a burst (plain or lane)
+    ``burst × layers`` launches, all decode; the prefill chunk ``layers``,
+    none decode. The eager launches are the warm-ups before the captures and
+    nothing else."""
+    captures = {"decode": 1, "prefill": 1, "lane_decode": 0, **(captures or {})}
     graphs = stats["cuda_graphs"]
-    if stats["decode_compiles"] != 1 or stats["prefill_compiles"] != 1:
-        raise AssertionError(f"{what}: decode_compiles {stats['decode_compiles']}, "
-                             f"prefill_compiles {stats['prefill_compiles']} (each must be 1)")
-    dec, pre = graphs["decode"], graphs["prefill"]
-    if (dec["launches_captured"], dec["decode_launches_captured"]) != (burst * layers,) * 2:
-        raise AssertionError(f"{what}: the decode capture recorded {dec}, not "
-                             f"{burst * layers} decode launches")
-    if (pre["launches_captured"], pre["decode_launches_captured"]) != (layers, 0):
-        raise AssertionError(f"{what}: the prefill capture recorded {pre}, not {layers} "
-                             "launches with more than one query a row")
+    got = {"decode": stats["decode_compiles"], "prefill": stats["prefill_compiles"],
+           "lane_decode": stats["lane_decode_compiles"]}
+    if got != captures:
+        raise AssertionError(f"{what}: captures {got}, expected {captures}")
+    expect = {"decode": (burst * layers,) * 2, "lane_decode": (burst * layers,) * 2,
+              "prefill": (layers, 0)}
+    for name, g in graphs.items():
+        recorded = (g["launches_captured"], g["decode_launches_captured"])
+        if captures[name] and recorded != expect[name]:
+            raise AssertionError(f"{what}: the {name} capture recorded {g}, not {expect[name]} "
+                                 "(launches, launches with one query a row)")
+        if g["replays"] != (g["runs"] if captures[name] else 0):
+            raise AssertionError(f"{what}: {name} ran {g['runs']} times but replayed "
+                                 f"{g['replays']} (a dispatch ran outside its graph)")
     eager = stats["paged_attention_eager_launches"]
     total = eager + sum(g["replays"] * g["launches_captured"] for g in graphs.values())
     decode = stats["paged_attention_decode_launches"]
     launches = {"total": stats["paged_attention_launches"], "decode": decode,
                 "other": stats["paged_attention_launches"] - decode,
-                "eager": eager, "decode_replays": dec["replays"],
-                "prefill_replays": pre["replays"]}
+                "eager": eager, "decode_replays": graphs["decode"]["replays"],
+                "lane_decode_replays": graphs["lane_decode"]["replays"],
+                "prefill_replays": graphs["prefill"]["replays"]}
     if total != launches["total"] or not 0 < decode < total:
         raise AssertionError(f"{what}: launches {launches} are not eager {eager} + replays × "
                              f"captured ({graphs})")
-    if eager != dec["launches_captured"] + pre["launches_captured"]:
-        raise AssertionError(f"{what}: {eager} eager launches, not one warm-up of each program "
-                             "(the engine ran a burst or a chunk outside its graphs)")
+    if eager != sum(g["launches_captured"] for g in graphs.values()):
+        raise AssertionError(f"{what}: {eager} eager launches, not one warm-up of each captured "
+                             "program (the engine ran a burst or a chunk outside its graphs)")
     return launches
 
 
@@ -655,41 +691,206 @@ def check_graph_engine_parity(model) -> dict:
     log(f"  eager reference: {matched} of {len(reqs)} requests identical, {len(diverged)} part "
         "within bf16 noise")
     return {"identical_async_sync": True, "matched_reference": matched, "diverged": diverged,
-            "drain_s": {"async": walls[True], "sync": walls[False]}}
+            "drain_s": {"async": walls[True], "sync": walls[False]}}, legs[True]
+
+
+#: a JSON schema whose canonical form is bounded (``{"ok":true}`` or
+#: ``{"ok":false}``), so a greedy answer reaches its final state
+LANE_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"}}, "required": ["ok"]}
+LANE_REGEX = "[a-f][a-f][a-f][a-f]x"  # the grammar's regexes have no {n} counts
+#: the sampled requests of phase 5's mixed batch: (request index, sampling)
+LANE_SAMPLED = {
+    4: {"do_sample": True, "temperature": 0.8, "top_k": 40, "top_p": 0.9, "seed": 21},
+    5: {"do_sample": True, "temperature": 1.0, "top_p": 0.95, "seed": 22},
+    10: {"do_sample": True, "temperature": 0.7, "seed": 23, "logprobs": 2},
+}
+
+
+def _lane_batch(greedy):
+    """Phase 5's mixed batch over the 12 phase-5 prompts, from their greedy
+    tokens: ``(eos, [(max_new_tokens, add_request options)] * 12)``. The
+    eos is a token request 2 emits early that requests 0, 1, 3, 9 and 11
+    never emit in their greedy runs; greedy requests 0, 1 and 11 outlive
+    every other request, so the batch's tail replays the plain burst."""
+    keep = {t for i in (0, 1, 3, 9, 11) for t in greedy[i]}
+    eos = next(t for t in greedy[2][2:32] if t not in keep)
+    opts = [
+        (64, {}),
+        (64, {}),
+        (32, {"sampling": {"min_tokens": 12}}),
+        (32, {"sampling": {"stop": [greedy[3][5:7]]}}),
+        (24, {"sampling": LANE_SAMPLED[4]}),
+        (24, {"sampling": LANE_SAMPLED[5]}),
+        (24, {"sampling": {"repetition_penalty": 1.3}}),
+        (24, {"grammar": {"type": "regex", "pattern": LANE_REGEX}}),
+        (24, {"grammar": {"type": "json_schema", "schema": LANE_SCHEMA}}),
+        (24, {"logprobs": 4}),
+        (24, {"sampling": LANE_SAMPLED[10]}),
+        (64, {}),
+    ]
+    return eos, opts
+
+
+def check_lane_batch(model, greedy) -> dict:
+    """The mixed batch on the flagship (bf16, 8 slots, ``logprobs_topn=4``):
+    greedy, sampled (temperature / top-k / top-p, seeded), repetition
+    penalty, ``min_tokens`` over an eos, a stop sequence, a regex and a
+    JSON-schema grammar, and logprobs, in one engine. One capture of each
+    burst (plain and lane); every grammar answer matches its regex or
+    validates against its schema; the stop sequence is trimmed; no eos
+    before ``min_tokens``; the greedy requests give phase 5b's tokens."""
+    from accelerate_tpu_torch.serving.grammar import validate_instance
+
+    reqs = _requests(12, seed=0)
+    eos, opts = _lane_batch(greedy)
+    engine = _flagship_engine(model, eos_token_id=eos, logprobs_topn=4)
+    handles = [engine.add_request(r["prompt"], n, **kw) for r, (n, kw) in zip(reqs, opts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = engine.stats()
+    launches = check_graph_counts(stats, 16, 8, "mixed lane batch", {"lane_decode": 1})
+    out = [list(h.output_tokens) for h in handles]
+    if not all(0 <= t < 32000 for toks in out for t in toks):
+        raise AssertionError("the mixed batch emitted an id outside the vocab")
+    for i in (0, 1, 11):
+        if out[i] != greedy[i]:
+            raise AssertionError(f"greedy request {i} of the mixed batch parts from phase 5b")
+    if out[9] != greedy[9][:24] or [e["top"][0][0] for e in handles[9].logprobs] != out[9]:
+        raise AssertionError("the logprobs request's tokens or top ids part from greedy")
+    if any(len(e["top"]) != 4 for e in handles[9].logprobs):
+        raise AssertionError("the logprobs request did not get its top 4")
+    if eos in out[2][:12] or len(out[2]) < 12:
+        raise AssertionError(f"min_tokens 12: eos {eos} came early in {out[2]}")
+    stop = greedy[3][5:7]  # trimmed where it first ends the greedy tokens
+    cut = next(n for n in range(2, 8) if greedy[3][n - 2:n] == stop) - 2
+    if out[3] != greedy[3][:cut] or handles[3].finish_reason != "stop":
+        raise AssertionError(f"the stop sequence was not trimmed: {out[3]}, "
+                             f"{handles[3].finish_reason}")
+    texts = {i: bytes(out[i]).decode("latin-1") for i in (7, 8)}
+    if handles[7].finish_reason != "stop" or not re.fullmatch(LANE_REGEX, texts[7]):
+        raise AssertionError(f"the regex answer {texts[7]!r} does not match {LANE_REGEX}")
+    if handles[8].finish_reason != "stop":
+        raise AssertionError(f"the JSON-schema answer {texts[8]!r} did not finish")
+    validate_instance(LANE_SCHEMA, json.loads(texts[8]))
+    log(f"  mixed lane batch (eos {eos}): {len(handles)} answers in {wall:.2f} s, "
+        f"{stats['tokens_per_sec']:.1f} tok/s; regex {texts[7]!r}, schema {texts[8]!r}; "
+        f"decode_compiles {stats['decode_compiles']}, lane_decode_compiles "
+        f"{stats['lane_decode_compiles']}; bursts plain {launches['decode_replays']}, lane "
+        f"{launches['lane_decode_replays']}; first-token picks {stats['first_token_picks']}")
+    del engine
+    torch.cuda.empty_cache()
+    sampled = {i: out[i] for i in LANE_SAMPLED}
+    return {"eos": eos, "wall_s": wall, "tokens_per_sec": stats["tokens_per_sec"],
+            "launches": launches, "regex_answer": texts[7], "schema_answer": texts[8],
+            "finish_reasons": [h.finish_reason for h in handles]}, (eos, sampled)
+
+
+def check_lane_parity(model, greedy, eos, sampled) -> dict:
+    """The 12 greedy requests forced through the lane burst (each asks for
+    ``logprobs=1``) give phase 5b's plain-burst tokens; the mixed batch's
+    sampled requests, resubmitted alone in reverse admission order to a
+    fresh engine, give their tokens again."""
+    reqs = _requests(12, seed=0)
+    engine = _flagship_engine(model, logprobs_topn=1)
+    handles = [engine.add_request(r["prompt"], r["max_new_tokens"], logprobs=1) for r in reqs]
+    engine.run_until_idle()
+    check_graph_counts(engine.stats(), 16, 8, "greedy through the lanes",
+                       {"decode": 0, "lane_decode": 1})
+    lanes = [list(h.output_tokens) for h in handles]
+    if lanes != greedy:
+        bad = [i for i, (a, b) in enumerate(zip(lanes, greedy)) if a != b]
+        raise AssertionError(f"greedy through the lane burst parts from the plain burst on {bad}")
+    del engine
+    engine = _flagship_engine(model, eos_token_id=eos, logprobs_topn=4)
+    again = {i: engine.add_request(reqs[i]["prompt"], 24, sampling=LANE_SAMPLED[i])
+             for i in sorted(sampled, reverse=True)}
+    engine.run_until_idle()
+    if {i: list(h.output_tokens) for i, h in again.items()} != sampled:
+        raise AssertionError("the sampled requests did not reproduce in reverse order")
+    del engine
+    torch.cuda.empty_cache()
+    log(f"  lane burst: the {len(reqs)} greedy requests give the plain burst's tokens; "
+        f"{len(sampled)} sampled requests reproduce alone in reverse admission order")
+    return {"greedy_through_lanes_identical": True, "sampled_reproduce_reversed": True}
+
+
+def check_prefix_cache(model) -> dict:
+    """A chat-shaped batch: 8 requests share a 512-id prefix (a system
+    prompt) and a 5-id turn header, then distinct tails (16-64 ids with the
+    header), 64 new tokens each. The first request runs alone until its
+    first token (its prompt is then cached); the other 7 arrive together.
+    With the cache and without, the tokens are identical; with it, the 7
+    hit the prefix and each owes one copy-on-write copy (the header ends
+    inside a block). TTFT p50 and prefill chunks dispatched, both ways."""
+    rng = np.random.default_rng(14)
+    prefix = rng.integers(1, 32000, size=517).tolist()
+    prompts = [prefix + rng.integers(1, 32000, size=int(n) - 5).tolist()
+               for n in np.linspace(16, 64, 8)]
+    runs = {}
+    for cache in (True, False):
+        engine = _flagship_engine(model, prefix_cache=cache)
+        first = engine.add_request(prompts[0], 64)
+        while not first.output_tokens:
+            engine.step()
+        handles = [first] + [engine.add_request(p, 64) for p in prompts[1:]]
+        engine.run_until_idle()
+        torch.cuda.synchronize()
+        stats = engine.stats()
+        check_graph_counts(stats, 16, 8, f"prefix cache {cache}")
+        runs[cache] = {
+            "tokens": [list(h.output_tokens) for h in handles],
+            "ttft_p50_s": float(np.percentile([h.ttft_s for h in handles[1:]], 50)),
+            "prefill_chunks": stats["cuda_graphs"]["prefill"]["runs"],
+            "prefix_hit_tokens": stats["prefix_hit_tokens"],
+            "cow_copies": stats["cow_copies"],
+            "radix_inserted_blocks": stats.get("radix_inserted_blocks", 0),
+            "tokens_per_sec": stats["tokens_per_sec"],
+        }
+        del engine
+        torch.cuda.empty_cache()
+    on, off = runs[True], runs[False]
+    log(f"  shared-prefix batch: with the cache TTFT p50 {on['ttft_p50_s'] * 1e3:.2f} ms, "
+        f"{on['prefill_chunks']} prefill chunks, {on['prefix_hit_tokens']} hit tokens, "
+        f"{on['cow_copies']} copy-on-write copies, {on['tokens_per_sec']:.1f} tok/s; without: "
+        f"TTFT p50 {off['ttft_p50_s'] * 1e3:.2f} ms, {off['prefill_chunks']} prefill chunks, "
+        f"{off['tokens_per_sec']:.1f} tok/s")
+    if on["tokens"] != off["tokens"]:
+        bad = [i for i, (a, b) in enumerate(zip(on["tokens"], off["tokens"])) if a != b]
+        raise AssertionError(f"the prefix cache changed the tokens of requests {bad}")
+    if not (on["prefix_hit_tokens"] > 0 and on["cow_copies"] >= 1):
+        raise AssertionError(f"the shared-prefix batch did not hit the cache: {on}")
+    return {k: {n: v for n, v in r.items() if n != "tokens"} for k, r in
+            (("cache_on", on), ("cache_off", off))}
 
 
 def check_sampled_pair(model) -> dict:
-    """Two engines with the same seed and ``do_sample=True`` give the same
-    tokens; the generator the graphs draw from advances on every replay."""
+    """Engine-wide ``do_sample=True`` (the default sampling params every
+    request inherits, seed 11): two engines with one seed give the same
+    tokens, and so does a third that admits the requests in reverse order.
+    Every burst replays the lane graph; the plain one is never captured."""
     reqs = _requests(4, seed=5)
-    outs, offsets = [], []
-    for _ in range(2):
+    outs = []
+    for order in (range(4), range(4), range(3, -1, -1)):
         engine = _flagship_engine(model, do_sample=True, temperature=1.0, seed=11)
-        gen = engine._generator
-        handles = [engine.add_request(r["prompt"], r["max_new_tokens"]) for r in reqs]
-        engine.step()
-        engine.step()
-        torch.cuda.synchronize()
-        seen = [gen.get_offset()]
-        for _ in range(2):
-            engine.step()
-            torch.cuda.synchronize()
-            seen.append(gen.get_offset())
+        handles = {i: engine.add_request(reqs[i]["prompt"], reqs[i]["max_new_tokens"])
+                   for i in order}
         engine.run_until_idle()
-        outs.append([list(h.output_tokens) for h in handles])
-        offsets.append(seen)
-        check_graph_counts(engine.stats(), 16, 8, "sampled engine")
+        outs.append([list(handles[i].output_tokens) for i in range(4)])
+        check_graph_counts(engine.stats(), 16, 8, "sampled engine",
+                           {"decode": 0, "lane_decode": 1})
         del engine
     torch.cuda.empty_cache()
-    if outs[0] != outs[1]:
-        raise AssertionError("two sampled engines with the same seed gave different tokens")
-    if not all(a < b for seen in offsets for a, b in zip(seen, seen[1:])):
-        raise AssertionError(f"the generator did not advance on every replay: {offsets}")
+    if not outs[0] == outs[1] == outs[2]:
+        raise AssertionError("sampled engines with one seed gave different tokens (same order: "
+                             f"{outs[0] == outs[1]}, reversed: {outs[0] == outs[2]})")
     _check_rows([{"id": i, "tokens": t, "finish_reason": "length"} for i, t in enumerate(outs[0])],
                 len(reqs), "sampled engine")
-    log(f"  sampled pair (seed 11, temperature 1.0): identical tokens for {len(reqs)} requests; "
-        f"generator offsets {offsets[0]}")
-    return {"identical": True, "generator_offsets": offsets[0]}
+    log(f"  sampled engines (seed 11, temperature 1.0): identical tokens for {len(reqs)} "
+        "requests in two engines and in reverse admission order")
+    return {"identical": True, "identical_reversed": True}
 
 
 # -- phase 6 ----------------------------------------------------------------
@@ -862,9 +1063,14 @@ def _kernel_rows(prof) -> list:
             and not getattr(e, "is_user_annotation", False)]
 
 
-def _engine_leg(model, async_dispatch: bool, bursts: int = 4) -> dict:
+#: phase 7's sampled leg: every slot samples (a seed each)
+SAMPLED_LEG = {"do_sample": True, "temperature": 0.8, "top_p": 0.9}
+
+
+def _engine_leg(model, async_dispatch: bool, bursts: int = 4, sampled: bool = False) -> dict:
     """One leg of phase 7: the graph engine (8 slots, prompts of 100 ids,
-    128 new tokens) past admission and prefill, then ``bursts`` timed
+    128 new tokens; greedy, or with ``sampled`` every slot sampling through
+    the lane burst) past admission and prefill, then ``bursts`` timed
     ``step()`` calls (the host clock, synchronised before and after), their
     flight-recorder summary, and two more steps under ``torch.profiler``
     (kernel rows only; synchronised before, so exactly the two rounds they
@@ -875,8 +1081,9 @@ def _engine_leg(model, async_dispatch: bool, bursts: int = 4) -> dict:
 
     engine = _flagship_engine(model, async_dispatch=async_dispatch)
     rng = np.random.default_rng(3)
-    for _ in range(engine.config.num_slots):
-        engine.add_request(rng.integers(1, 32000, size=100).tolist(), 128)
+    for i in range(engine.config.num_slots):
+        engine.add_request(rng.integers(1, 32000, size=100).tolist(), 128,
+                           sampling={**SAMPLED_LEG, "seed": i} if sampled else None)
     while engine.scheduler.queue_depth or engine.scheduler.active(RequestState.PREFILL):
         engine.step()  # admission and chunked prefill; the graphs are captured here
     engine.step()
@@ -901,12 +1108,14 @@ def _engine_leg(model, async_dispatch: bool, bursts: int = 4) -> dict:
     paged_ms = sum(e.self_device_time_total for e in kernels
                    if "paged_attention" in e.key or "combine_splits" in e.key) / 1e3 / prof_steps
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
-    check_graph_counts(engine.stats(), 16, 8, f"phase 7 engine (async {async_dispatch})")
+    program = "lane_decode" if sampled else "decode"
+    check_graph_counts(engine.stats(), 16, 8, f"phase 7 engine (async {async_dispatch}, "
+                       f"sampled {sampled})", {"decode": 0, "lane_decode": 1} if sampled else None)
     # the decode graph alone, replayed on an idle card (the last round's
     # operands again: the same writes): the host time of the replay call,
     # and the wall from the call until the card is idle, against the
     # burst's device time
-    graph = engine._programs["decode"].graph
+    graph = engine._programs[program].graph
     launch_ms, burst_ms = [], []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -918,6 +1127,8 @@ def _engine_leg(model, async_dispatch: bool, bursts: int = 4) -> dict:
         burst_ms.append((time.perf_counter() - t0) * 1e3)
     return {
         "async_dispatch": async_dispatch,
+        "sampled": sampled,
+        "program": program,
         "decode_steps_timed": steps,
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
@@ -939,15 +1150,19 @@ def _engine_leg(model, async_dispatch: bool, bursts: int = 4) -> dict:
 
 def serve_breakdown(model) -> dict:
     """Where a flagship decode step's time goes on the graph engine (bf16,
-    8 slots): async and sync legs alternating (async, sync, async, sync),
-    each its own engine; then one paged step over the last engine's pools,
-    eager against replayed from a CUDA graph of its own."""
+    8 slots): greedy async and sync legs alternating (async, sync, async,
+    sync), then an async leg with all 8 slots sampled (temperature 0.8, top-p
+    0.9: the lane burst), each its own engine; then one paged step over the
+    last engine's pools, eager against replayed from a CUDA graph of its
+    own."""
     legs, engine = [], None
-    for async_dispatch in (True, False, True, False):
+    for async_dispatch, sampled in ((True, False), (False, False), (True, False), (False, False),
+                                    (True, True)):
         engine = None  # the previous leg's pools go before the next leg's
-        leg, engine = _engine_leg(model, async_dispatch)
+        leg, engine = _engine_leg(model, async_dispatch, sampled=sampled)
         legs.append(leg)
-        log(f"  {'async' if async_dispatch else 'sync '} graph engine: decode step wall "
+        log(f"  {'async' if async_dispatch else 'sync '} {leg['program']} graph engine"
+            f"{' (8 sampled slots)' if sampled else ''}: decode step wall "
             f"{leg['wall_ms_per_step']:.3f} ms, device {leg['device_ms_per_step']:.3f} ms "
             f"(busy {leg['device_busy_share']:.1%}), {leg['kernels_per_step']:.0f} kernels; "
             f"{leg['tokens_per_s']:.1f} tok/s; host_fraction {leg['host_fraction']:.4f}; "
@@ -1467,6 +1682,77 @@ def time_flash_kernels(dev, per_launch_ms: dict) -> dict:
     return out
 
 
+def time_flash_narrow(dev) -> dict:
+    """B1-B3 at head dims 16 and 32 at the tiny llama's training shape (b 8,
+    s 128, 4 heads, bf16, causal): CUDA events around the Python wrapper,
+    the profiler's device time a launch, sdpa's forward and its backward
+    alone (``library_ms``: its kernels' device time a call), and the bound
+    counted on the real head dim's work (the padded columns are waste, not
+    work)."""
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    b, s, nh = 8, 128, 4
+    out = {}
+    for hd in (16, 32):
+        rng = np.random.default_rng(15 + hd)
+        q, k, v, do, _ = _flash_inputs(rng, b, s, nh, nh, hd, 0, torch.bfloat16, dev)
+        scale = 1.0 / float(np.sqrt(hd))
+        o, lse = fa.flash_fwd(q, k, v, impl="cuda")
+        delta = fa._delta(o, do)
+        calls = {
+            "flash_fwd": lambda i: fa._flash_fwd_cuda(q, k, v, None, scale, True),
+            "flash_bwd_dq": lambda i: fa._bwd_dq_cuda(q, k, v, None, lse, delta, do, scale, True),
+            "flash_bwd_dkv": lambda i: fa._bwd_dkv_cuda(q, k, v, None, lse, delta, do, scale,
+                                                        True),
+        }
+        lq, lk, lv, ldo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+        gq, gk, gv = (t.detach().clone().requires_grad_() for t in (lq, lk, lv))
+        lib_out = F.scaled_dot_product_attention(gq, gk, gv, is_causal=True)
+        library = {
+            "fwd": _profiled_ms_per_call(
+                lambda i: F.scaled_dot_product_attention(lq, lk, lv, is_causal=True), 20),
+            "bwd": _profiled_ms_per_call(
+                lambda i: torch.autograd.grad(lib_out, (gq, gk, gv), ldo, retain_graph=True), 20),
+        }
+        pairs = s * (s + 1) / 2 * b * nh
+        tile = b * s * nh * hd * 2
+        rows = b * nh * s * 4
+        work = {"flash_fwd": (2 * 2 * pairs * hd, 4 * tile + rows),
+                "flash_bwd_dq": (3 * 2 * pairs * hd, 5 * tile + 2 * rows),
+                "flash_bwd_dkv": (4 * 2 * pairs * hd, 6 * tile + 2 * rows)}
+        for name, fn in calls.items():
+            flops, nbytes = work[name]
+            ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            spread = _time_spread(fn, 20, 5)
+            pattern = re.compile(flash_kernel_pattern(name))
+            rows_ = [e for e in _profiled_rows(fn, 20) if pattern.search(e.key)]
+            launches = sum(e.count for e in rows_)
+            if not launches:
+                raise AssertionError(f"the profiler saw no {name} launch at hd {hd}")
+            entry = {
+                "shape": {"batch": b, "seq": s, "n_heads": nh, "head_dim": hd, "dtype": "bf16",
+                          "causal": True},
+                "ms": spread[1],
+                "ms_spread": spread,
+                "profiler_ms": sum(e.self_device_time_total for e in rows_) / 1e3 / launches,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "library_ms": library["fwd" if name == "flash_fwd" else "bwd"],
+            }
+            out.setdefault(name, {})[f"head_dim_{hd}"] = entry
+            log(f"  {name} hd {hd} (b {b}, s {s}, {nh} heads, bf16, causal): kernel "
+                f"{entry['ms']:.4f} ms by events, {entry['profiler_ms']:.4f} ms a launch by the "
+                f"profiler, bound {entry['bound_ms']:.6f} ms ({entry['bound_by']}), sdpa "
+                f"{'forward' if name == 'flash_fwd' else 'backward (the pair)'} "
+                f"{entry['library_ms']:.4f} ms")
+        del q, k, v, do, o, lse, delta, lq, lk, lv, ldo, gq, gk, gv, lib_out
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this run needs one GPU",
@@ -1532,8 +1818,15 @@ def main() -> int:
     flagship = LlamaForCausalLM.from_config(LlamaConfig.flagship_700m(), seed=0,
                                             dtype=torch.bfloat16, device=dev)
     log("phase 5b: the graph engine, async and sync, against an eager reference")
-    parity = check_graph_engine_parity(flagship)
-    log("phase 5c: two sampled graph engines with one seed")
+    parity, greedy = check_graph_engine_parity(flagship)
+    log("phase 5: the mixed batch through the lane burst (sampling, grammars, stop, "
+        "min_tokens, logprobs)")
+    lane_batch, (eos, lane_sampled) = check_lane_batch(flagship, greedy)
+    log("phase 5b: greedy through the lane burst; sampled requests in reverse order; the "
+        "prefix cache on a shared-prefix batch")
+    lane_parity = check_lane_parity(flagship, greedy, eos, lane_sampled)
+    prefix = check_prefix_cache(flagship)
+    log("phase 5c: sampled graph engines with one seed, in two admission orders")
     sampled = check_sampled_pair(flagship)
 
     log("phase 6: times at the flagship decode shape and the prefill chunk")
@@ -1547,13 +1840,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(json.dumps({"serve_breakdown": breakdown, "serve": serve_run, "parity": parity,
-                    "sampled_pair": sampled}))
+                    "lane_batch": lane_batch, "lane_parity": lane_parity,
+                    "prefix_cache": prefix, "sampled_pair": sampled, "card": smi}))
 
     log("phase 8: flash-attention kernels against their plain versions")
     flash_errs = check_flash_vs_plain(dev)
 
-    log("phase 8b: the tiny llama (head dim 16) trained on the card")
+    log("phase 8b: the tiny llama (head dim 16) trained on the card; B1-B3 timed at hd 16 "
+        "and 32")
     tiny_train = run_tiny_train()
+    flash_narrow = time_flash_narrow(dev)
 
     log("phase 9: a flagship-width train step, kernels against plain")
     step_check = check_train_step_kernel_vs_plain(dev)
@@ -1639,9 +1935,10 @@ def main() -> int:
                              "flash_bwd_dkv"),
             "timed_shape": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "n_heads": 12, "n_kv": 12,
                             "head_dim": 128, "dtype": "bf16", "causal": True},
+            "at_narrow_heads": flash_narrow[name],
         })
     log(json.dumps({"kernels": kernels, "build_s": build_s, "serve_wall_s": serve_run["wall_s"],
-                    "total_s": time.perf_counter() - t_start}))
+                    "total_s": time.perf_counter() - t_start, "card": smi}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,7 @@ cache on the graph engine, held against the JAX engine on the same
 import dataclasses
 import json
 import queue
+import re
 import threading
 
 import numpy as np
@@ -43,7 +44,7 @@ GEOMETRY = dict(num_slots=4, block_size=8, max_seq_len=96, prefill_chunk=8, deco
 #: the JAX engine without what the port does not carry (or what would only
 #: slow the CPU run): one synchronous loop, no flight ring, no usage ledger
 JAX_EXTRAS = dict(async_dispatch=False, flight_history=0, usage_accounting=False)
-REGEX = {"type": "regex", "pattern": "[a-f]{3}x"}
+REGEX = {"type": "regex", "pattern": "[a-f][a-f][a-f]x"}  # no {n} counts in the grammar
 SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"}}, "required": ["ok"]}
 
 
@@ -143,7 +144,7 @@ def test_lane_requests_token_identical_to_jax(weights, kv_dtype):
     assert len(by[3].output_tokens) >= first + 3 and eos not in by[3].output_tokens[:first + 3]
     assert by[4].finish_reason == "stop" and by[4].output_tokens == greedy[2][:2]
     assert by[5].finish_reason == "stop"
-    assert bytes(by[5].output_tokens).decode()[-1] == "x"
+    assert re.fullmatch(REGEX["pattern"], bytes(by[5].output_tokens).decode())
     assert by[6].finish_reason == "stop"
     assert validate_instance(SCHEMA, json.loads(bytes(by[6].output_tokens).decode())) is None
     assert len(by[7].logprobs) == len(by[7].output_tokens) and len(by[7].logprobs[0]["top"]) == 3
@@ -199,6 +200,10 @@ def test_prefix_cache_matches_jax_with_cow_and_eviction(weights, num_blocks):
     assert {k: ts[k] for k in RADIX_KEYS} == {k: js[k] for k in RADIX_KEYS}
     assert [r.matched_tokens for r in treqs] == [r.matched_tokens for r in jreqs]
     assert ts["prefix_hit_tokens"] > 0 and ts["cow_copies"] > 0
+    # a hit's chunks start at the chunk boundary at or below the match
+    c = GEOMETRY["prefill_chunk"]
+    assert ts["cuda_graphs"]["prefill"]["runs"] == sum(
+        -(-(r.prompt_len - (r.matched_tokens - r.matched_tokens % c)) // c) for r in treqs)
     if num_blocks is not None:
         assert ts["radix_evicted_blocks"] > 0
     assert ts["allocated_blocks"] == 0 and ts["free_blocks"] + ts["cached_blocks"] == (
