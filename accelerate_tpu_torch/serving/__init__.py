@@ -4,6 +4,9 @@ for what is not ported yet."""
 
 from .blocks import NULL_BLOCK, BlockAllocator, blocks_needed
 from .engine import UNPORTED_REQUEST_FIELDS, EngineConfig, InferenceEngine
+from .grammar import Grammar, GrammarError, compile_grammar, validate_instance
+from .radix import RadixCache
+from .sampling import SamplingParams, resolve_sampling
 from .scheduler import (
     PRIORITY_CLASSES,
     Request,
@@ -19,6 +22,13 @@ __all__ = [
     "EngineConfig",
     "InferenceEngine",
     "UNPORTED_REQUEST_FIELDS",
+    "Grammar",
+    "GrammarError",
+    "compile_grammar",
+    "validate_instance",
+    "RadixCache",
+    "SamplingParams",
+    "resolve_sampling",
     "PRIORITY_CLASSES",
     "Request",
     "RequestState",

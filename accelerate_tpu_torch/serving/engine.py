@@ -446,16 +446,13 @@ class InferenceEngine:
         self._prefill_ops = _Operands(
             {"chunk": (1, c), "table": (1, mb), "start": (1,), "valid": (1, c), "last": (1,)},
             dev, depth=n + 1)
-        self._decode_out = torch.zeros((burst, n), dtype=torch.int32, device=dev)
-        self._prefill_out = torch.zeros((1,), dtype=torch.int32, device=dev)
-        pin = dev.type == "cuda"
-        self._decode_host = torch.zeros((burst, n), dtype=torch.int32, pin_memory=pin)
-        self._prefill_host = torch.zeros((1,), dtype=torch.int32, pin_memory=pin)
-        # recorded after each copy to the host; one round is in flight at a
-        # time, and its harvest precedes the next dispatch
-        self._decode_done = torch.cuda.Event() if pin else None
-        self._prefill_done = torch.cuda.Event() if pin else None
-        pool = torch.cuda.graph_pool_handle() if pin else None  # the graphs share it
+        # each program's outputs land by one copy behind an event; one round
+        # is in flight at a time, and its harvest precedes the next dispatch
+        self._decode_io = _Outputs({"tok": (burst, n)}, dev)
+        self._prefill_io = _Outputs({"tok": (1,)}, dev)
+        self._decode_out = self._decode_io.views["tok"]
+        self._prefill_out = self._prefill_io.views["tok"]
+        pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None  # shared
         self._programs = {
             "decode": _Program(self._decode_burst, dev, pool),
             "prefill": _Program(self._prefill_chunk, dev, pool),
@@ -995,11 +992,9 @@ class InferenceEngine:
         if self._psampling and not self._plain_ok(req):
             tok, lp_entry = self._first_token_pick(req)
         else:
-            self._prefill_host.copy_(self._prefill_out, non_blocking=True)
-            if self._prefill_done is not None:
-                self._prefill_done.record()
-                self._prefill_done.synchronize()  # waits for the in-flight round too
-            tok = int(self._prefill_host[0])
+            self._prefill_io.copy_to_host()
+            self._prefill_io.wait()  # waits for the in-flight round too
+            tok = int(self._prefill_io.host_views["tok"][0])
         self._emit_token(req, tok, finished, lp_entry)
         if req.state is not RequestState.FINISHED:
             req.state = RequestState.DECODE
@@ -1062,10 +1057,10 @@ class InferenceEngine:
                 if req.slot is not None and req.state is RequestState.DECODE]
         if not live:
             return
-        lanes = self._psampling and not all(self._plain_ok(req) for req in live)
-        operands = self._lane_ops if lanes else self._decode_ops
+        use_lanes = self._psampling and not all(self._plain_ok(req) for req in live)
+        operands = self._lane_ops if use_lanes else self._decode_ops
         ops = operands.stage()
-        if lanes:
+        if use_lanes:
             blank = blank_lanes(self.config.num_slots, self.config.rep_window)
             for name, values in blank.items():
                 ops[name][:] = values
@@ -1077,7 +1072,7 @@ class InferenceEngine:
             ops["pos0"][req.slot] = req.context_len
             ops["toks"][req.slot, 0] = self._pending_tok[req.slot]
             ops["active"][req.slot, 0] = 1
-            if lanes:
+            if use_lanes:
                 params = self._params(req)
                 set_slot_lane(
                     ops, req.slot, params, pos=len(req.output_tokens),
@@ -1086,17 +1081,14 @@ class InferenceEngine:
                             if params.repetition_penalty != 1.0 else ()),
                 )
         ops["tables"][:] = self._block_tables
-        if lanes:
-            self._programs["lane_decode"].run(operands.upload)
-            self._lane_out.copy_to_host()  # the round's one copy, logprobs included
-            self._inflight_kind = "lane_decode"
-        else:
-            self._programs["decode"].run(operands.upload)
-            self._decode_host.copy_(self._decode_out, non_blocking=True)  # the round's one copy
-            if self._decode_done is not None:
-                self._decode_done.record()
-            self._inflight_kind = "decode"
+        self._inflight_kind = "lane_decode" if use_lanes else "decode"
+        self._programs[self._inflight_kind].run(operands.upload)
+        self._round_io().copy_to_host()  # the round's one copy, logprobs included
         self._inflight = live
+
+    def _round_io(self) -> _Outputs:
+        """The outputs of the round in flight (or just dispatched)."""
+        return self._lane_out if self._inflight_kind == "lane_decode" else self._decode_io
 
     def _harvest_inflight(self, finished: list[Request]) -> None:
         """Land the in-flight round: wait on its copy's event (the flight
@@ -1107,21 +1099,15 @@ class InferenceEngine:
         live = self._inflight
         if live is None:
             return
-        lanes = self._inflight_kind == "lane_decode"
+        use_lanes = self._inflight_kind == "lane_decode"
         self._fl_switch("device_wait")
-        if lanes:
-            self._lane_out.wait()
-        elif self._decode_done is not None:
-            self._decode_done.synchronize()
+        self._round_io().wait()
         self._inflight = None
         self._fl_switch("harvest")
-        if lanes:
-            out = self._lane_out.host_views
-            next_toks = out["tok"]
-        else:
-            next_toks = self._decode_host.numpy()
+        out = self._round_io().host_views
+        next_toks = out["tok"]
         for req in live:
-            params = self._params(req) if lanes else None
+            params = self._params(req) if use_lanes else None
             for t in range(self.config.decode_burst):
                 if req.state is RequestState.FINISHED:
                     break  # mid-burst eos/length/stop: tail lane-steps are waste

@@ -1728,10 +1728,14 @@ def time_flash_narrow(dev) -> dict:
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             spread = _time_spread(fn, 20, 5)
             pattern = re.compile(flash_kernel_pattern(name))
-            rows_ = [e for e in _profiled_rows(fn, 20) if pattern.search(e.key)]
-            launches = sum(e.count for e in rows_)
-            if not launches:
-                raise AssertionError(f"the profiler saw no {name} launch at hd {hd}")
+            for _ in range(2):  # a window with no kernel row is taken once more
+                rows_ = [e for e in _profiled_rows(fn, 20) if pattern.search(e.key)]
+                launches = sum(e.count for e in rows_)
+                if launches:
+                    break
+            else:
+                raise AssertionError(f"the profiler saw no {name} launch at hd {hd} in two "
+                                     "windows")
             entry = {
                 "shape": {"batch": b, "seq": s, "n_heads": nh, "head_dim": hd, "dtype": "bf16",
                           "causal": True},
