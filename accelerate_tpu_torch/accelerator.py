@@ -20,7 +20,7 @@ import os
 import torch
 
 from .modules import PreparedModel, extract_model_from_parallel
-from .ops.flash_attention import HEAD_DIMS
+from .ops.flash_attention import HEAD_DIM_RULE, takes_head_dim
 from .optimizer import AcceleratedOptimizer
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
@@ -32,14 +32,14 @@ _COMPUTE_DTYPES = {"bf16": torch.bfloat16}
 def check_kernel_head_dim(model, device: torch.device) -> None:
     """On a CUDA device, refuse a model whose attention head dim the flash
     kernels (B1-B3, ``csrc/flash_attention.cu``) do not take, before any
-    step: a ``ValueError`` naming the head dims they take. The CPU runs the
-    plain attention, which takes any head dim. A model without
+    step: a ``ValueError`` naming the rule their head dims follow. The CPU
+    runs the plain attention, which takes any head dim. A model without
     ``config.head_dim`` passes."""
     head_dim = getattr(getattr(model, "config", None), "head_dim", None)
-    if device.type == "cuda" and head_dim is not None and head_dim not in HEAD_DIMS:
+    if device.type == "cuda" and head_dim is not None and not takes_head_dim(head_dim):
         raise ValueError(
             f"the model's head_dim {head_dim} is not taken by the flash-attention "
-            f"kernels on the card (they take head dims {HEAD_DIMS})"
+            f"kernels on the card (they take a head dim that is {HEAD_DIM_RULE})"
         )
 
 

@@ -4,22 +4,31 @@ JSONL on stdin (port of the stdin branch of
 
 Request protocol, one JSON object per line:
 ``{"id": <any>, "prompt": [token ids], "max_new_tokens": <int?>,
-"priority": "interactive"|"batch"?, "sampling": {...}?, "grammar": {...}?,
-"logprobs": <int?>}``. ``sampling`` holds per-request
+"priority": "interactive"|"batch"?, "deadline_ms": <number?>, "tenant":
+<str?>, "sampling": {...}?, "grammar": {...}?, "logprobs": <int?>}``. ``sampling`` holds per-request
 :class:`~accelerate_tpu_torch.serving.sampling.SamplingParams` fields
 (``do_sample``, ``temperature``, ``top_k``, ``top_p``,
 ``repetition_penalty``, ``seed``, ``min_tokens``, ``stop`` as token-id
 sequences, ``logprobs``); ``grammar`` is ``{"type": "regex", "pattern":
 ...}`` or ``{"type": "json_schema", "schema": {...}}`` over the byte
 vocabulary; ``logprobs`` asks for the top-N per token, up to
-``--logprobs-topn``. Each completion is written back as ``{"id",
-"tokens", "prompt_tokens", "ttft_s", "tpot_s", "finish_reason"}``, plus
-``"logprobs"`` (``[{"token", "logprob", "top": [[id, logprob], ...]}]``)
-when the request asked. A malformed request, or one carrying a field this
-port does not serve yet (``deadline_ms``, ``tenant``), is answered with an
+``--logprobs-topn``. ``deadline_ms`` is a relative budget: an expired
+request finishes ``deadline_exceeded`` with its partial output; ``tenant``
+is the usage ledger's accounting key. Each completion is written back as
+``{"id", "tenant", "tokens", "prompt_tokens", "ttft_s", "tpot_s",
+"finish_reason"}``, plus ``"logprobs"`` (``[{"token", "logprob", "top":
+[[id, logprob], ...]}]``) when the request asked and, with the usage
+ledger on, the request's costs ``device_time_s``, ``kv_block_seconds`` and
+``swap_bytes``. A malformed request, or one carrying a field this port does
+not serve yet (``trace_id``, ``upstream_hop``), is answered with an
 ``{"id", "error"}`` row and never stops the loop. Prompts are raw token
 ids; the weights are random, made from ``--seed``. The radix prefix cache
-is on unless ``--no-prefix-cache``.
+is on unless ``--no-prefix-cache``; ``--swap-gb`` (env
+``ACCELERATE_SERVE_SWAP_GB``) adds the host swap tier; ``--spec-k`` and
+``--draft`` (env ``ACCELERATE_SERVE_SPEC_K``, ``ACCELERATE_SERVE_DRAFT``)
+arm speculative decoding, and a bad combination is a startup refusal (an
+error row, exit 2); ``--no-usage-accounting`` (env
+``ACCELERATE_SERVE_USAGE=0``) removes the usage ledger.
 
 The engine runs on the CUDA card unless ``--device cpu`` is given; there
 it replays its decode burst and prefill chunk from CUDA graphs, with
@@ -84,6 +93,10 @@ def _make_engine(args):
             async_dispatch=not args.sync_engine,
             prefix_cache=args.prefix_cache,
             logprobs_topn=args.logprobs_topn,
+            swap_gb=args.swap_gb,
+            spec_k=args.spec_k,
+            draft=args.draft,
+            usage_accounting=args.usage_accounting,
         ),
         device=args.device,
     )
@@ -92,6 +105,7 @@ def _make_engine(args):
 def _result_dict(req, req_id) -> dict:
     out = {
         "id": req_id,
+        "tenant": req.tenant,
         "tokens": req.output_tokens,
         "prompt_tokens": req.prompt_len,
         "ttft_s": req.ttft_s,
@@ -100,6 +114,10 @@ def _result_dict(req, req_id) -> dict:
     }
     if req.logprobs is not None:
         out["logprobs"] = req.logprobs
+    if req.usage is not None:
+        # the usage ledger's answer-row costs: what THIS request spent
+        # (device_time_s / kv_block_seconds / swap_bytes, measured)
+        out.update(req.usage)
     return out
 
 
@@ -129,8 +147,10 @@ def _engine_loop(engine, inbox, emit, stop):
                     req = engine.add_request(
                         payload["prompt"], payload.get("max_new_tokens"),
                         priority=payload.get("priority", "interactive"),
+                        deadline_ms=payload.get("deadline_ms"),
                         sampling=payload.get("sampling"),
                         grammar=payload.get("grammar"),
+                        tenant=payload.get("tenant"),
                         logprobs=payload.get("logprobs"),
                         **{name: payload.get(name) for name in UNPORTED_REQUEST_FIELDS},
                     )
@@ -215,6 +235,17 @@ def serve_command(args) -> int:
     return 0
 
 
+def _env_number(name: str, kind, default):
+    """An env default for a numeric flag; a malformed value warns and falls
+    back (the parser is built for every subcommand, so it must not die)."""
+    try:
+        return kind(os.environ.get(name, "") or default)
+    except ValueError:
+        print(f"accelerate-tpu-torch: ignoring malformed {name}={os.environ[name]!r}",
+              file=sys.stderr)
+        return default
+
+
 def add_parser(subparsers):
     p = subparsers.add_parser(
         "serve", help="Continuous-batching inference engine over stdin JSONL",
@@ -251,6 +282,30 @@ def add_parser(subparsers):
                    help="radix prefix sharing: admission maps a request's longest "
                    "cached prompt prefix and prefills only the tail "
                    "(--no-prefix-cache disables)")
+    p.add_argument("--swap-gb", type=float,
+                   default=_env_number("ACCELERATE_SERVE_SWAP_GB", float, 0.0),
+                   help="host (pinned) KV swap tier in GiB (default 0 = off; env "
+                   "ACCELERATE_SERVE_SWAP_GB): under pool exhaustion the "
+                   "lowest-priority request is swapped out instead of being "
+                   "truncated with finish_reason=out_of_blocks")
+    p.add_argument("--spec-k", type=int,
+                   default=_env_number("ACCELERATE_SERVE_SPEC_K", int, 0),
+                   help="speculative decoding: draft this many tokens per slot per "
+                   "round and verify them in ONE [num_slots, k+1] captured forward "
+                   "(default 0 = off; env ACCELERATE_SERVE_SPEC_K). Greedy requests "
+                   "stay token-identical to the non-speculative engine; sampled "
+                   "requests verify by rejection sampling. A bad spec/draft "
+                   "combination is a startup refusal (error row, exit 2)")
+    p.add_argument("--draft", default=os.environ.get("ACCELERATE_SERVE_DRAFT", "early_exit:2"),
+                   help="draft policy when --spec-k > 0 (env ACCELERATE_SERVE_DRAFT): "
+                   "'early_exit:N' runs the target's own first N layers as the draft, "
+                   "sharing the target's paged pool")
+    usage_env = os.environ.get("ACCELERATE_SERVE_USAGE", "1")
+    p.add_argument("--usage-accounting", action=argparse.BooleanOptionalAction,
+                   default=usage_env.strip().lower() not in ("0", "false", "no", "off", ""),
+                   help="conservation-checked per-request usage ledger: device-seconds, "
+                   "KV block-seconds, swap bytes by tenant and class (default on; "
+                   "env ACCELERATE_SERVE_USAGE=0 or --no-usage-accounting disables)")
     p.add_argument("--logprobs-topn", type=int, default=0,
                    help="top-N per-token logprobs a request may ask for (0 = off)")
     p.add_argument("--eos-token-id", type=int, default=None)

@@ -15,8 +15,10 @@
 // package computes it outside Pallas. The mask gets no gradient.
 //
 // Tensors are read in the model layout [b, s, heads, hd] (contiguous) by
-// strides: no transposed or padded copies. Every kernel has instances at hd
-// 16, 32, 64 and 128. The optional key mask is
+// strides: no transposed or padded copies. Every kernel takes any head dim
+// hd that is a multiple of 8 up to 128: it is built at the eight multiples of
+// 16 (HD, hd rounded up to 16; the columns between hd and HD load as zeros
+// and are never stored), and pitches and stores use hd. The optional key mask is
 // [b, skv] bytes (1 = valid) and applies where(valid, s, NEG_INF), equal to
 // the JAX "s + bias" after rounding because NEG_INF is the f32 minimum.
 // Causal attention compares query index >= key index. GQA: query head h
@@ -100,19 +102,20 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Stage rows [row0, row0 + kBlock) of one head of an f32 [b, s, heads, HD]
-// tensor into dst (row stride HD + 1). `src` points at (b, row 0, head, 0),
-// `pitch` = heads * HD; rows >= n_rows are zero.
+// Stage rows [row0, row0 + kBlock) of one head of an f32 [b, s, heads, hd]
+// tensor into dst (HD columns, row stride HD + 1). `src` points at (b, row
+// 0, head, 0), `pitch` = heads * hd; rows >= n_rows and columns >= hd (a
+// multiple of 8) are zero.
 template <int HD>
 __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          int64_t pitch, int row0, int n_rows) {
+                                          int64_t pitch, int row0, int n_rows, int hd) {
   constexpr int kVecs = HD / 4;
   constexpr int kStride = HD + 1;
   for (int e = threadIdx.x; e < kBlock * kVecs; e += kThreads) {
     const int r = e / kVecs, c = (e % kVecs) * 4;
     const int row = row0 + r;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < n_rows) x = __ldg(reinterpret_cast<const float4*>(src + row * pitch + c));
+    if (row < n_rows && c < hd) x = __ldg(reinterpret_cast<const float4*>(src + row * pitch + c));
     float* d = dst + r * kStride + c;
     d[0] = x.x;
     d[1] = x.y;
@@ -171,7 +174,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const uint8_t* __restrict__ mask,
                  float* __restrict__ o, float* __restrict__ lse, int sq, int skv, int nh,
-                 int n_kv, float scale, int causal) {
+                 int n_kv, int hd, float scale, int causal) {
   constexpr int kStride = HD + 1;
   constexpr int kD = HD / kGrid;
   extern __shared__ float smem[];
@@ -183,14 +186,14 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (nh / n_kv);
   const int ty = threadIdx.x / kGrid, tx = threadIdx.x % kGrid;
-  const int64_t q_pitch = static_cast<int64_t>(nh) * HD;
-  const int64_t kv_pitch = static_cast<int64_t>(n_kv) * HD;
-  const float* q_bh = q + (static_cast<int64_t>(b) * sq * nh + h) * HD;
-  const float* k_bg = k + (static_cast<int64_t>(b) * skv * n_kv + g) * HD;
-  const float* v_bg = v + (static_cast<int64_t>(b) * skv * n_kv + g) * HD;
+  const int64_t q_pitch = static_cast<int64_t>(nh) * hd;
+  const int64_t kv_pitch = static_cast<int64_t>(n_kv) * hd;
+  const float* q_bh = q + (static_cast<int64_t>(b) * sq * nh + h) * hd;
+  const float* k_bg = k + (static_cast<int64_t>(b) * skv * n_kv + g) * hd;
+  const float* v_bg = v + (static_cast<int64_t>(b) * skv * n_kv + g) * hd;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * skv;
 
-  load_tile<HD>(q_s, q_bh, q_pitch, q0, sq);
+  load_tile<HD>(q_s, q_bh, q_pitch, q0, sq, hd);
   float m[kRows], l[kRows], acc[kRows][kD];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -204,8 +207,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = causal ? min(skv, q0 + kBlock) : skv;
   for (int t0 = 0; t0 < kv_end; t0 += kBlock) {
     __syncthreads();  // the previous tile is consumed (and q_s written)
-    load_tile<HD>(k_s, k_bg, kv_pitch, t0, skv);
-    load_tile<HD>(v_s, v_bg, kv_pitch, t0, skv);
+    load_tile<HD>(k_s, k_bg, kv_pitch, t0, skv, hd);
+    load_tile<HD>(v_s, v_bg, kv_pitch, t0, skv, hd);
     __syncthreads();
 
     float s[kRows][kCols] = {};
@@ -247,9 +250,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (qi >= sq) continue;
     const bool empty = l[i] == 0.f;
     const float den = empty ? 1.f : l[i];
-    float* o_row = o + ((static_cast<int64_t>(b) * sq + qi) * nh + h) * HD;
+    float* o_row = o + ((static_cast<int64_t>(b) * sq + qi) * nh + h) * hd;
 #pragma unroll
-    for (int c = 0; c < kD; ++c) o_row[tx + kGrid * c] = acc[i][c] / den;
+    for (int c = 0; c < kD; ++c)
+      if (tx + kGrid * c < hd) o_row[tx + kGrid * c] = acc[i][c] / den;
     if (tx == 0)
       lse[(static_cast<int64_t>(b) * nh + h) * sq + qi] = empty ? kNegInf : m[i] + logf(den);
   }
@@ -261,8 +265,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const uint8_t* __restrict__ mask, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int sq, int skv, int nh, int n_kv, float scale,
-                    int causal) {
+                    float* __restrict__ dq, int sq, int skv, int nh, int n_kv, int hd,
+                    float scale, int causal) {
   constexpr int kStride = HD + 1;
   constexpr int kD = HD / kGrid;
   extern __shared__ float smem[];
@@ -275,15 +279,15 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (nh / n_kv);
   const int ty = threadIdx.x / kGrid, tx = threadIdx.x % kGrid;
-  const int64_t q_pitch = static_cast<int64_t>(nh) * HD;
-  const int64_t kv_pitch = static_cast<int64_t>(n_kv) * HD;
-  const int64_t q_off = (static_cast<int64_t>(b) * sq * nh + h) * HD;
-  const int64_t kv_off = (static_cast<int64_t>(b) * skv * n_kv + g) * HD;
+  const int64_t q_pitch = static_cast<int64_t>(nh) * hd;
+  const int64_t kv_pitch = static_cast<int64_t>(n_kv) * hd;
+  const int64_t q_off = (static_cast<int64_t>(b) * sq * nh + h) * hd;
+  const int64_t kv_off = (static_cast<int64_t>(b) * skv * n_kv + g) * hd;
   const int64_t row_off = (static_cast<int64_t>(b) * nh + h) * sq;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * skv;
 
-  load_tile<HD>(q_s, q + q_off, q_pitch, q0, sq);
-  load_tile<HD>(do_s, dout + q_off, q_pitch, q0, sq);
+  load_tile<HD>(q_s, q + q_off, q_pitch, q0, sq, hd);
+  load_tile<HD>(do_s, dout + q_off, q_pitch, q0, sq, hd);
   float lse_r[kRows], delta_r[kRows], acc[kRows][kD];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -297,8 +301,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = causal ? min(skv, q0 + kBlock) : skv;
   for (int t0 = 0; t0 < kv_end; t0 += kBlock) {
     __syncthreads();
-    load_tile<HD>(k_s, k + kv_off, kv_pitch, t0, skv);
-    load_tile<HD>(v_s, v + kv_off, kv_pitch, t0, skv);
+    load_tile<HD>(k_s, k + kv_off, kv_pitch, t0, skv, hd);
+    load_tile<HD>(v_s, v + kv_off, kv_pitch, t0, skv, hd);
     __syncthreads();
 
     float s[kRows][kCols] = {}, dp[kRows][kCols] = {};
@@ -326,9 +330,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < kRows; ++i) {
     const int qi = q0 + ty + kGrid * i;
     if (qi >= sq) continue;
-    float* row = dq + ((static_cast<int64_t>(b) * sq + qi) * nh + h) * HD;
+    float* row = dq + ((static_cast<int64_t>(b) * sq + qi) * nh + h) * hd;
 #pragma unroll
-    for (int c = 0; c < kD; ++c) row[tx + kGrid * c] = acc[i][c];
+    for (int c = 0; c < kD; ++c)
+      if (tx + kGrid * c < hd) row[tx + kGrid * c] = acc[i][c];
   }
 }
 
@@ -339,7 +344,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const uint8_t* __restrict__ mask, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      float* __restrict__ dk, float* __restrict__ dv, int sq, int skv, int nh, int n_kv,
-                     float scale, int causal) {
+                     int hd, float scale, int causal) {
   constexpr int kStride = HD + 1;
   constexpr int kD = HD / kGrid;
   extern __shared__ float smem[];
@@ -355,13 +360,13 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k0 = blockIdx.x * kBlock, g = blockIdx.y, b = blockIdx.z;
   const int rep = nh / n_kv;
   const int ty = threadIdx.x / kGrid, tx = threadIdx.x % kGrid;
-  const int64_t q_pitch = static_cast<int64_t>(nh) * HD;
-  const int64_t kv_pitch = static_cast<int64_t>(n_kv) * HD;
-  const int64_t kv_off = (static_cast<int64_t>(b) * skv * n_kv + g) * HD;
+  const int64_t q_pitch = static_cast<int64_t>(nh) * hd;
+  const int64_t kv_pitch = static_cast<int64_t>(n_kv) * hd;
+  const int64_t kv_off = (static_cast<int64_t>(b) * skv * n_kv + g) * hd;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * skv;
 
-  load_tile<HD>(k_s, k + kv_off, kv_pitch, k0, skv);
-  load_tile<HD>(v_s, v + kv_off, kv_pitch, k0, skv);
+  load_tile<HD>(k_s, k + kv_off, kv_pitch, k0, skv, hd);
+  load_tile<HD>(v_s, v + kv_off, kv_pitch, k0, skv, hd);
   bool key_ok[kRows];
   float dk_acc[kRows][kD], dv_acc[kRows][kD];
 #pragma unroll
@@ -375,12 +380,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q_start = causal ? (k0 / kBlock) * kBlock : 0;
   for (int r = 0; r < rep; ++r) {
     const int h = g * rep + r;
-    const int64_t q_off = (static_cast<int64_t>(b) * sq * nh + h) * HD;
+    const int64_t q_off = (static_cast<int64_t>(b) * sq * nh + h) * hd;
     const int64_t row_off = (static_cast<int64_t>(b) * nh + h) * sq;
     for (int q0 = q_start; q0 < sq; q0 += kBlock) {
       __syncthreads();  // the previous query tile is consumed
-      load_tile<HD>(q_s, q + q_off, q_pitch, q0, sq);
-      load_tile<HD>(do_s, dout + q_off, q_pitch, q0, sq);
+      load_tile<HD>(q_s, q + q_off, q_pitch, q0, sq, hd);
+      load_tile<HD>(do_s, dout + q_off, q_pitch, q0, sq, hd);
       if (threadIdx.x < kBlock) {
         const int qi = q0 + threadIdx.x;
         lse_s[threadIdx.x] = qi < sq ? lse[row_off + qi] : kNegInf;  // padded rows: p = 0
@@ -418,9 +423,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < kRows; ++i) {
     const int kj = k0 + ty + kGrid * i;
     if (kj >= skv) continue;
-    const int64_t row = ((static_cast<int64_t>(b) * skv + kj) * n_kv + g) * HD;
+    const int64_t row = ((static_cast<int64_t>(b) * skv + kj) * n_kv + g) * hd;
 #pragma unroll
     for (int c = 0; c < kD; ++c) {
+      if (tx + kGrid * c >= hd) continue;
       dk[row + tx + kGrid * c] = dk_acc[i][c];
       dv[row + tx + kGrid * c] = dv_acc[i][c];
     }
@@ -477,8 +483,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 //
 // Operand tiles live in shared memory exactly as TMA writes them with the
 // 128-byte swizzle: rows of 64 bf16 (128 bytes), a head of 128 split into
-// two such halves, each half 1024-byte aligned; hd 16 and 32 are staged as
-// one zero-padded half (staged_hd). A wgmma descriptor reads
+// two such halves, each half 1024-byte aligned; a head dim up to 64 is staged
+// as one zero-padded half, one past 64 as two (staged_hd). A wgmma descriptor reads
 // them K-major (a 16-wide K step is 32 bytes into the row, walking across
 // the halves) or MN-major (a 16-row K step is 2048 bytes on, the second
 // half of the MN extent one half-tile on). Tensor maps are 4-D over
@@ -511,15 +517,16 @@ constexpr int kConsumerRegs = 240;
 constexpr int kLaunchRegs = 168;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Head dims 16 and 32 are staged as 64-column tiles whose columns past the
-// head dim are zero: the TMA box stays 64 columns (one 128-byte swizzled
-// row) over a global inner dimension of hd, and TMA fills the elements past
-// the tensor's edge with zeros. Zero columns add nothing to Q K^T, dO V^T,
-// dS K or dS^T Q, so the hd-64 loops run as they are; the products over the
-// head dim take hd / 16 K steps, and only the first hd columns of O, dQ, dK
-// and dV are stored. Narrow heads pay 4x (hd 16) and 2x (hd 32) of P V, dS K,
-// P^T dO and dS^T Q: widths only the small presets use.
-__host__ __device__ constexpr int staged_hd(int hd) { return hd < 64 ? 64 : hd; }
+// A head dim is staged as 64-column tiles (one for hd <= 64, two past it)
+// whose columns past the head dim are zero: the TMA box stays 64 columns
+// (one 128-byte swizzled row) over a global inner dimension of hd, and TMA
+// fills the elements past the tensor's edge with zeros (a second half of hd
+// 80 holds 16 real columns). Zero columns add nothing to Q K^T, dO V^T, dS K
+// or dS^T Q, so the hd-64 and hd-128 loops run as they are; the products
+// over the head dim take HD / 16 = ceil(hd / 16) K steps, and only the first
+// hd columns of O, dQ, dK and dV are stored. Heads narrower than the staged
+// width pay it in P V, dS K, P^T dO and dS^T Q (4x at hd 16, 1.6x at hd 80).
+__host__ __device__ constexpr int staged_hd(int hd) { return hd <= 64 ? 64 : 128; }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -760,8 +767,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
                        const uint8_t* __restrict__ mask, bf16* __restrict__ o,
-                       float* __restrict__ lse, int sq, int skv, int nh, int n_kv, float scale,
-                       int causal) {
+                       float* __restrict__ lse, int sq, int skv, int nh, int n_kv, int hd,
+                       float scale, int causal) {
   constexpr int HDT = staged_hd(HD);
   using L = FwdSmem<HDT>;
   extern __shared__ unsigned char smem_raw[];
@@ -925,10 +932,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       if (rows[r] >= sq) continue;
       const bool empty = l[r] == 0.f;
       const float den = empty ? 1.f : l[r];
-      bf16* o_row = o + ((static_cast<int64_t>(b) * sq + rows[r]) * nh + h) * HD;
+      bf16* o_row = o + ((static_cast<int64_t>(b) * sq + rows[r]) * nh + h) * hd;
 #pragma unroll
       for (int c8 = 0; c8 < HD / 8; ++c8)
-        *reinterpret_cast<uint32_t*>(o_row + 8 * c8 + 2 * tg) =
+        if (c8 < hd / 8)
+          *reinterpret_cast<uint32_t*>(o_row + 8 * c8 + 2 * tg) =
             pack_bf16(acc[4 * c8 + 2 * r] / den, acc[4 * c8 + 2 * r + 1] / den);
       if (tg == 0)
         lse[(static_cast<int64_t>(b) * nh + h) * sq + rows[r]] =
@@ -962,8 +970,8 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap do_map,
                            const uint8_t* __restrict__ mask, const float* __restrict__ lse,
                            const float* __restrict__ delta, bf16* __restrict__ dk,
-                           bf16* __restrict__ dv, int sq, int skv, int nh, int n_kv, float scale,
-                           int causal) {
+                           bf16* __restrict__ dv, int sq, int skv, int nh, int n_kv, int hd,
+                           float scale, int causal) {
   constexpr int HDT = staged_hd(HD);
   using L = DkvSmem<HDT>;
   extern __shared__ unsigned char smem_raw[];
@@ -1114,9 +1122,10 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (keys[i] >= skv) continue;
-    const int64_t row = ((static_cast<int64_t>(b) * skv + keys[i]) * n_kv + g) * HD;
+    const int64_t row = ((static_cast<int64_t>(b) * skv + keys[i]) * n_kv + g) * hd;
 #pragma unroll
     for (int c8 = 0; c8 < HD / 8; ++c8) {
+      if (c8 >= hd / 8) continue;
       *reinterpret_cast<uint32_t*>(dk + row + 8 * c8 + 2 * tg) =
           pack_bf16(dk_acc[4 * c8 + 2 * i], dk_acc[4 * c8 + 2 * i + 1]);
       *reinterpret_cast<uint32_t*>(dv + row + 8 * c8 + 2 * tg) =
@@ -1151,7 +1160,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap do_map,
                           const uint8_t* __restrict__ mask, const float* __restrict__ lse,
                           const float* __restrict__ delta, bf16* __restrict__ dq, int sq,
-                          int skv, int nh, int n_kv, float scale, int causal) {
+                          int skv, int nh, int n_kv, int hd, float scale, int causal) {
   constexpr int HDT = staged_hd(HD);
   using L = DqSmem<HDT>;
   extern __shared__ unsigned char smem_raw[];
@@ -1311,10 +1320,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= sq) continue;
-    bf16* row = dq + ((static_cast<int64_t>(b) * sq + rows[r]) * nh + h) * HD;
+    bf16* row = dq + ((static_cast<int64_t>(b) * sq + rows[r]) * nh + h) * hd;
 #pragma unroll
     for (int c8 = 0; c8 < HD / 8; ++c8)
-      *reinterpret_cast<uint32_t*>(row + 8 * c8 + 2 * tg) =
+      if (c8 < hd / 8)
+        *reinterpret_cast<uint32_t*>(row + 8 * c8 + 2 * tg) =
           pack_bf16(acc[4 * c8 + 2 * r], acc[4 * c8 + 2 * r + 1]);
   }
 }
@@ -1389,8 +1399,9 @@ EncodeTiledFn encode_tiled() {
 
 // A 4-D TMA map over a bf16 [b, s, heads, hd] tensor, innermost first
 // (hd, heads, s, b). A box is 64 columns (128 bytes, one swizzled row) by
-// `rows` rows of one head; rows past the sequence's end, and at hd 16 and 32
-// the columns past hd, load as zeros.
+// `rows` rows of one head; rows past the sequence's end, and the columns
+// past hd, load as zeros. hd * 2 bytes is a multiple of 16 (hd a multiple
+// of 8), as TMA needs of every stride.
 cudaError_t tma_map(CUtensorMap* map, const void* ptr, int hd, int heads, int s, int b, int rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
@@ -1408,7 +1419,7 @@ cudaError_t tma_map(CUtensorMap* map, const void* ptr, int hd, int heads, int s,
 }
 
 struct Shape {
-  int b, sq, skv, nh, n_kv;
+  int b, sq, skv, nh, n_kv, hd;
   float scale;
   int causal;
 };
@@ -1426,21 +1437,21 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
     const dim3 grid((a.sq + kBlock - 1) / kBlock, a.nh, a.b);
     flash_fwd_kernel<HD><<<grid, kThreads, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        m, static_cast<float*>(o), lse, a.sq, a.skv, a.nh, a.n_kv, a.scale, a.causal);
+        m, static_cast<float*>(o), lse, a.sq, a.skv, a.nh, a.n_kv, a.hd, a.scale, a.causal);
   } else {
     static bool ready = false, pool = false;
     constexpr int bytes = FwdSmem<staged_hd(HD)>::kBytes;
     CUtensorMap q_map, k_map, v_map;
-    if ((err = tma_map(&q_map, q, HD, a.nh, a.sq, a.b, kFwdRows)) != cudaSuccess ||
-        (err = tma_map(&k_map, k, HD, a.n_kv, a.skv, a.b, kFwdTileKeys)) != cudaSuccess ||
-        (err = tma_map(&v_map, v, HD, a.n_kv, a.skv, a.b, kFwdTileKeys)) != cudaSuccess ||
+    if ((err = tma_map(&q_map, q, a.hd, a.nh, a.sq, a.b, kFwdRows)) != cudaSuccess ||
+        (err = tma_map(&k_map, k, a.hd, a.n_kv, a.skv, a.b, kFwdTileKeys)) != cudaSuccess ||
+        (err = tma_map(&v_map, v, a.hd, a.n_kv, a.skv, a.b, kFwdTileKeys)) != cudaSuccess ||
         (err = allow_smem(flash_fwd_wgmma_kernel<HD>, bytes, ready)) != cudaSuccess ||
         (err = check_register_pool(flash_fwd_wgmma_kernel<HD>, pool)) != cudaSuccess)
       return err;
     const dim3 grid(a.nh, a.b, (a.sq + kFwdRows - 1) / kFwdRows);
     flash_fwd_wgmma_kernel<HD><<<grid, kFwdThreads, bytes, stream>>>(
-        q_map, k_map, v_map, m, static_cast<bf16*>(o), lse, a.sq, a.skv, a.nh, a.n_kv, a.scale,
-        a.causal);
+        q_map, k_map, v_map, m, static_cast<bf16*>(o), lse, a.sq, a.skv, a.nh, a.n_kv, a.hd,
+        a.scale, a.causal);
   }
   return cudaGetLastError();
 }
@@ -1460,21 +1471,21 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* m
     flash_bwd_dq_kernel<HD><<<grid, kThreads, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         m, static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), a.sq, a.skv,
-        a.nh, a.n_kv, a.scale, a.causal);
+        a.nh, a.n_kv, a.hd, a.scale, a.causal);
   } else {
     static bool ready = false;
     constexpr int bytes = DqSmem<staged_hd(HD)>::kBytes;
     CUtensorMap q_map, k_map, v_map, do_map;
-    if ((err = tma_map(&q_map, q, HD, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
-        (err = tma_map(&do_map, dout, HD, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
-        (err = tma_map(&k_map, k, HD, a.n_kv, a.skv, a.b, kDqTileKeys)) != cudaSuccess ||
-        (err = tma_map(&v_map, v, HD, a.n_kv, a.skv, a.b, kDqTileKeys)) != cudaSuccess ||
+    if ((err = tma_map(&q_map, q, a.hd, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
+        (err = tma_map(&do_map, dout, a.hd, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
+        (err = tma_map(&k_map, k, a.hd, a.n_kv, a.skv, a.b, kDqTileKeys)) != cudaSuccess ||
+        (err = tma_map(&v_map, v, a.hd, a.n_kv, a.skv, a.b, kDqTileKeys)) != cudaSuccess ||
         (err = allow_smem(flash_bwd_dq_wgmma_kernel<HD>, bytes, ready)) != cudaSuccess)
       return err;
     const dim3 grid(a.nh, a.b, (a.sq + kDqRows - 1) / kDqRows);
     flash_bwd_dq_wgmma_kernel<HD><<<grid, kDqThreads, bytes, stream>>>(
         q_map, k_map, v_map, do_map, m, lse, delta, static_cast<bf16*>(dq), a.sq, a.skv, a.nh,
-        a.n_kv, a.scale, a.causal);
+        a.n_kv, a.hd, a.scale, a.causal);
   }
   return cudaGetLastError();
 }
@@ -1494,41 +1505,47 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
     flash_bwd_dkv_kernel<HD><<<grid, kThreads, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
         m, static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-        static_cast<float*>(dv), a.sq, a.skv, a.nh, a.n_kv, a.scale, a.causal);
+        static_cast<float*>(dv), a.sq, a.skv, a.nh, a.n_kv, a.hd, a.scale, a.causal);
   } else {
     static bool ready = false;
     constexpr int bytes = DkvSmem<staged_hd(HD)>::kBytes;
     CUtensorMap q_map, k_map, v_map, do_map;
-    if ((err = tma_map(&q_map, q, HD, a.nh, a.sq, a.b, kDkvQRows)) != cudaSuccess ||
-        (err = tma_map(&do_map, dout, HD, a.nh, a.sq, a.b, kDkvQRows)) != cudaSuccess ||
-        (err = tma_map(&k_map, k, HD, a.n_kv, a.skv, a.b, kDkvKeys)) != cudaSuccess ||
-        (err = tma_map(&v_map, v, HD, a.n_kv, a.skv, a.b, kDkvKeys)) != cudaSuccess ||
+    if ((err = tma_map(&q_map, q, a.hd, a.nh, a.sq, a.b, kDkvQRows)) != cudaSuccess ||
+        (err = tma_map(&do_map, dout, a.hd, a.nh, a.sq, a.b, kDkvQRows)) != cudaSuccess ||
+        (err = tma_map(&k_map, k, a.hd, a.n_kv, a.skv, a.b, kDkvKeys)) != cudaSuccess ||
+        (err = tma_map(&v_map, v, a.hd, a.n_kv, a.skv, a.b, kDkvKeys)) != cudaSuccess ||
         (err = allow_smem(flash_bwd_dkv_wgmma_kernel<HD>, bytes, ready)) != cudaSuccess)
       return err;
     const dim3 grid(a.n_kv, a.b, (a.skv + kDkvKeys - 1) / kDkvKeys);
     flash_bwd_dkv_wgmma_kernel<HD><<<grid, kDkvThreads, bytes, stream>>>(
         q_map, k_map, v_map, do_map, m, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        a.sq, a.skv, a.nh, a.n_kv, a.scale, a.causal);
+        a.sq, a.skv, a.nh, a.n_kv, a.hd, a.scale, a.causal);
   }
   return cudaGetLastError();
 }
 
-bool valid_shape(const Shape& a, int hd, int dtype) {
+// the head dims every kernel takes: a multiple of 8 from 8 to 128
+bool valid_head_dim(int hd) { return hd >= 8 && hd <= 128 && hd % 8 == 0; }
+
+bool valid_shape(const Shape& a, int dtype) {
   return a.b >= 1 && a.sq >= 1 && a.skv >= 1 && a.n_kv >= 1 && a.nh >= a.n_kv &&
-         a.nh % a.n_kv == 0 && (hd == 16 || hd == 32 || hd == 64 || hd == 128) &&
-         (dtype == 0 || dtype == 1) &&
+         a.nh % a.n_kv == 0 && valid_head_dim(a.hd) && (dtype == 0 || dtype == 1) &&
          a.b <= 65535 && a.nh <= 65535;
 }
 
-// fn(std::integral_constant<int, hd>) for a head dim valid_shape takes: one
-// instance of every kernel at each of 16, 32, 64 and 128
+// fn(std::integral_constant<int, HD>) with HD = hd rounded up to 16: one
+// instance of every kernel at each multiple of 16 from 16 to 128
 template <typename Fn>
 cudaError_t by_head_dim(int hd, Fn&& fn) {
-  switch (hd) {
-    case 16: return fn(std::integral_constant<int, 16>{});
-    case 32: return fn(std::integral_constant<int, 32>{});
-    case 64: return fn(std::integral_constant<int, 64>{});
-    case 128: return fn(std::integral_constant<int, 128>{});
+  switch ((hd + 15) / 16) {
+    case 1: return fn(std::integral_constant<int, 16>{});
+    case 2: return fn(std::integral_constant<int, 32>{});
+    case 3: return fn(std::integral_constant<int, 48>{});
+    case 4: return fn(std::integral_constant<int, 64>{});
+    case 5: return fn(std::integral_constant<int, 80>{});
+    case 6: return fn(std::integral_constant<int, 96>{});
+    case 7: return fn(std::integral_constant<int, 112>{});
+    case 8: return fn(std::integral_constant<int, 128>{});
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1569,8 +1586,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    void* o, void* lse, int b, int sq, int skv, int nh, int n_kv,
                                    int hd, float scale, int causal, int dtype, void* stream) {
   (void)cudaGetLastError();  // report this launch's error, not a stale one
-  const Shape a{b, sq, skv, nh, n_kv, scale, causal};
-  if (!valid_shape(a, hd, dtype)) return cudaErrorInvalidValue;
+  const Shape a{b, sq, skv, nh, n_kv, hd, scale, causal};
+  if (!valid_shape(a, dtype)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   return by_head_dim(hd, [&](auto c) {
@@ -1584,8 +1601,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       int nh, int n_kv, int hd, float scale, int causal,
                                       int dtype, void* stream) {
   (void)cudaGetLastError();
-  const Shape a{b, sq, skv, nh, n_kv, scale, causal};
-  if (!valid_shape(a, hd, dtype)) return cudaErrorInvalidValue;
+  const Shape a{b, sq, skv, nh, n_kv, hd, scale, causal};
+  if (!valid_shape(a, dtype)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
@@ -1600,8 +1617,8 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
                                        int skv, int nh, int n_kv, int hd, float scale,
                                        int causal, int dtype, void* stream) {
   (void)cudaGetLastError();
-  const Shape a{b, sq, skv, nh, n_kv, scale, causal};
-  if (!valid_shape(a, hd, dtype)) return cudaErrorInvalidValue;
+  const Shape a{b, sq, skv, nh, n_kv, hd, scale, causal};
+  if (!valid_shape(a, dtype)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
@@ -1614,7 +1631,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
 // 2 dk/dv) at head dim hd, with the threads and shared memory it launches with.
 extern "C" int flash_attention_blocks_per_sm(int which, int hd, int* blocks) {
   (void)cudaGetLastError();
-  if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return cudaErrorInvalidValue;
+  if (!valid_head_dim(hd)) return cudaErrorInvalidValue;
   return by_head_dim(hd, [&](auto c) {
     return wgmma_blocks_per_sm<decltype(c)::value>(which, blocks);
   });

@@ -67,10 +67,17 @@
 //    and the others idle in P.V), with the same staging and warp split, expf
 //    and IEEE divide, so f32 pools meet 1e-5 against the plain PyTorch
 //    version.
-//  * Head dims 16, 32, 64 and 128 (the tiny preset serves at 16). A key row
-//    is hd * sizeof(pool) bytes in 16-byte chunks, so the narrowest row, an
-//    int8 or fp8 row of 16 dims, is one chunk: the swizzle then has nothing
-//    to permute, and 128 threads stage a 64-key tile one key a thread.
+//  * Any head dim that is a multiple of 8, up to 128. The kernel is built at
+//    four staged widths, 16, 32, 64 and 128, and a head dim runs at the
+//    first one that holds it: a staged row is whole 16-byte chunks, the
+//    columns past the head dim are zero-filled by the copy (so they add
+//    nothing to Q.K^T, and the output columns they make are never stored),
+//    and the pools, q and the output are addressed at the real pitch. A
+//    pool row of a 1-byte dtype whose head dim is 8 past a multiple of 16
+//    (hd 24 is 24 bytes) is not whole 16-byte chunks, so such rows are
+//    copied 8 bytes at a time. The narrowest staged row, an int8 or fp8 row
+//    of 16 dims, is one chunk: the swizzle then has nothing to permute, and
+//    128 threads stage a 64-key tile one key a thread.
 
 #include <algorithm>
 #include <cfloat>
@@ -110,6 +117,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes global -> shared, or 8 zero bytes when !valid
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 8 : 0)
                : "memory");
 }
 
@@ -156,7 +170,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A [rows][HD] tile of pool rows in shared memory, in the storage dtype:
+// A [rows][HD] tile of pool rows in shared memory, in the storage dtype (HD
+// the staged width):
 // 16-byte chunks XOR-swizzled by row (the 8 rows an ldmatrix reads, or the
 // keys the FMA lanes read, fall in distinct banks).
 template <int HD, typename KT>
@@ -251,10 +266,12 @@ struct MmaWarp {
   float o[HD / 8][4];
   float m[2], l[2];
   int qpos[2];
+  float qk_scale;  // 1 / sqrt(hd) in log2 units
 
   __device__ __forceinline__ void init(const char* q_smem, float*, int lane, int row0, int rows,
-                                       int rep, int start) {
+                                       int rep, int start, int hd) {
     const int g = lane / 4, t = lane % 4;
+    qk_scale = kLog2e / sqrtf(static_cast<float>(hd));
     const __nv_bfloat16* q_s = reinterpret_cast<const __nv_bfloat16*>(q_smem);
 #pragma unroll
     for (int ks = 0; ks < HD / 16; ++ks) {
@@ -284,7 +301,6 @@ struct MmaWarp {
                                        const float* vs_s, int wkey, int pos0, int k_hi,
                                        int lane) {
     const int g = lane / 4, t = lane % 4;
-    const float qk_scale = kLog2e / sqrtf(static_cast<float>(HD));
     float sc[2][4];
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -434,7 +450,7 @@ struct FmaWarp {
   int rows_here;
 
   __device__ __forceinline__ void init(const char* q_smem, float* p_smem, int lane, int row0,
-                                       int rows, int rep, int start) {
+                                       int rows, int rep, int start, int) {
     const int warp = threadIdx.x / 32, half = lane / 16;
     q_s = reinterpret_cast<const float*>(q_smem);
     p_s = p_smem + warp * kRows * kPRow;
@@ -545,7 +561,7 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
                        const float* __restrict__ v_scale, const int* __restrict__ block_tables,
                        const int* __restrict__ idx, QT* __restrict__ out,
                        float* __restrict__ part_acc, float* __restrict__ part_ml, int s, int nh,
-                       int n_kv, int nb, int bs, int mb, int splits) {
+                       int n_kv, int hd, int nb, int bs, int mb, int splits) {
   using S = Smem<HD, QT, KT, kQuant>;
   using T = Tile<HD, KT>;
   using Warp = std::conditional_t<S::kMma, MmaWarp<HD, KT, kQuant>, FmaWarp<HD, KT, kQuant>>;
@@ -575,45 +591,58 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
   const int* table = block_tables + static_cast<int64_t>(b) * mb + page_lo;
   for (int i = tid; i < pages; i += kThreads) tab_s[i] = min(max(table[i], 0), nb - 1);
 
-  // the query tile (rows past rep * s are zero)
+  // the query tile (rows past rep * s and columns past hd are zero)
   if constexpr (S::kMma) {
-    constexpr int kV = 8;  // bf16 a 16-byte load
+    constexpr int kV = 8;  // bf16 a 16-byte load; hd is a multiple of 8
     for (int e = tid; e < kRows * HD / kV; e += kThreads) {
       const int r = e / (HD / kV), c = e % (HD / kV);
       const int row = row0 + r;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < rows)
-        v = *reinterpret_cast<const uint4*>(q + out_row_of(b, row, rep, n, s, nh) * HD + c * kV);
+      if (row < rows && c * kV < hd)
+        v = *reinterpret_cast<const uint4*>(q + out_row_of(b, row, rep, n, s, nh) * hd + c * kV);
       *reinterpret_cast<uint4*>(q_s + r * S::kQRow + c * kV) = v;
     }
   } else {
     // scaled once by 1/sqrt(hd), as the plain version folds it into q
-    const float root = sqrtf(static_cast<float>(HD));
+    const float root = sqrtf(static_cast<float>(hd));
     for (int e = tid; e < kRows * HD; e += kThreads) {
       const int r = e / HD, d = e % HD;
       const int row = row0 + r;
       float x = 0.f;
-      if (row < rows) x = to_f32(q[out_row_of(b, row, rep, n, s, nh) * HD + d]) / root;
+      if (row < rows && d < hd) x = to_f32(q[out_row_of(b, row, rep, n, s, nh) * hd + d]) / root;
       q_s[r * S::kQRow + d] = x;
     }
   }
   __syncthreads();  // tab_s and q_s are written
 
   const int n_tiles = (k_hi - k_lo + kStageKeys - 1) / kStageKeys;
+  // a 1-byte pool row of hd = 8 mod 16 is not whole 16-byte chunks: its
+  // chunks go as two 8-byte copies (block-uniform)
+  const bool narrow = sizeof(KT) == 1 && hd % 16 != 0;
   auto load_stage = [&](int t) {
     char* kdst = smem + (t % kStages) * S::kStageBytes;
     char* vdst = kdst + kStageKeys * T::kRowBytes;
     const int k0 = k_lo + t * kStageKeys;
     const int c = tid % T::kChunks;
+    const int e0 = c * T::kVec;  // the chunk's first element of the row
     for (int key = tid / T::kChunks; key < kStageKeys; key += kThreads / T::kChunks) {
       const int p = k0 + key;
       const bool valid = p < k_hi;
       int64_t off = 0;
       if (valid)
-        off = ((static_cast<int64_t>(tab_s[p / bs - page_lo]) * bs + p % bs) * n_kv + n) * HD;
-      const int so = T::off(key, c * T::kVec);
-      cp_async16(smem_u32(kdst + so), k_pages + off + c * T::kVec, valid);
-      cp_async16(smem_u32(vdst + so), v_pages + off + c * T::kVec, valid);
+        off = ((static_cast<int64_t>(tab_s[p / bs - page_lo]) * bs + p % bs) * n_kv + n) * hd;
+      const int so = T::off(key, e0);
+      if (narrow) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = e0 + 8 * h;
+          cp_async8(smem_u32(kdst + so + 8 * h), k_pages + off + e, valid && e < hd);
+          cp_async8(smem_u32(vdst + so + 8 * h), v_pages + off + e, valid && e < hd);
+        }
+      } else {
+        cp_async16(smem_u32(kdst + so), k_pages + off + e0, valid && e0 < hd);
+        cp_async16(smem_u32(vdst + so), v_pages + off + e0, valid && e0 < hd);
+      }
     }
     if constexpr (kQuant) {
       if (tid < kStageKeys) {
@@ -636,7 +665,7 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
 
   Warp w;
   w.init(reinterpret_cast<const char*>(q_s), reinterpret_cast<float*>(smem + S::kPOff), lane,
-         row0, rows, rep, start);
+         row0, rows, rep, start, hd);
   const int last_pos = start + (min(row0 + kRows, rows) - 1) / rep;  // the tile's last query
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<kStages - 2>();  // this thread's copies of tile t have landed
@@ -660,10 +689,11 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
   w.store(mo, mm, ml, warp, lane);
   __syncthreads();
 
-  // merge the warps in warp order; one split in use writes the output
+  // merge the warps in warp order; one split in use writes the output (the
+  // first hd columns)
   const int rows_here = min(kRows, rows - row0);
-  for (int e = tid; e < rows_here * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
+  for (int e = tid; e < rows_here * hd; e += kThreads) {
+    const int r = e / hd, d = e % hd;
     float m_all = -FLT_MAX;
 #pragma unroll
     for (int i = 0; i < kWarps; ++i) m_all = fmaxf(m_all, mm[i * kRows + r]);
@@ -676,10 +706,10 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
     }
     const int64_t out_row = out_row_of(b, row0 + r, rep, n, s, nh);
     if (used == 1) {
-      store_as(out + out_row * HD + d, o / fmaxf(l_all, 1e-30f));
+      store_as(out + out_row * hd + d, o / fmaxf(l_all, 1e-30f));
     } else {
       const int64_t part = out_row * splits + split;
-      part_acc[part * HD + d] = o;
+      part_acc[part * hd + d] = o;
       if (d == 0) {
         part_ml[2 * part] = m_all;
         part_ml[2 * part + 1] = l_all;
@@ -689,21 +719,23 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
 }
 
 // Merge the splits of each query row, in split order: one block per (b, qj,
-// head), one thread per output dim. Only the splits the row used are read;
-// a row that used one split was written by the split kernel.
+// head), one thread per output dim (HD, the staged width, threads; those
+// past hd leave). Only the splits the row used are read; a row that used one
+// split was written by the split kernel.
 template <int HD, typename QT>
 __global__ void __launch_bounds__(HD)
 combine_splits_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                      const int* __restrict__ idx, QT* __restrict__ out, int s, int nh, int bs,
-                      int mb, int splits) {
+                      const int* __restrict__ idx, QT* __restrict__ out, int s, int nh, int hd,
+                      int bs, int mb, int splits) {
   const int64_t out_row = blockIdx.x;
   const int b = static_cast<int>(out_row / (static_cast<int64_t>(s) * nh));
   const int d = threadIdx.x;
+  if (d >= hd) return;
   int used, lo, hi;
   split_range(min(idx[b] + s, mb * bs), splits, 0, used, lo, hi);
   if (used == 1) return;
   const float* ml = part_ml + 2 * out_row * splits;
-  const float* pa = part_acc + out_row * splits * HD;
+  const float* pa = part_acc + out_row * splits * hd;
   float m_all = -FLT_MAX;
   for (int j = 0; j < used; ++j) m_all = fmaxf(m_all, ml[2 * j]);
   float l_all = 0.f, o = 0.f;
@@ -711,9 +743,9 @@ combine_splits_kernel(const float* __restrict__ part_acc, const float* __restric
     // the tensor-core path (bf16 queries) keeps m in log2 units
     const float w = ex<std::is_same_v<QT, __nv_bfloat16>>(ml[2 * j] - m_all);
     l_all = fmaf(ml[2 * j + 1], w, l_all);
-    o = fmaf(pa[j * HD + d], w, o);
+    o = fmaf(pa[j * hd + d], w, o);
   }
-  store_as(out + out_row * HD + d, o / fmaxf(l_all, 1e-30f));
+  store_as(out + out_row * hd + d, o / fmaxf(l_all, 1e-30f));
 }
 
 struct Args {
@@ -727,7 +759,7 @@ struct Args {
   void* out;
   float* part_acc;
   float* part_ml;
-  int b, s, nh, n_kv, nb, bs, mb, splits;
+  int b, s, nh, n_kv, hd, nb, bs, mb, splits;
 };
 
 // Block-table entries a split can stage: its keys are at most
@@ -766,12 +798,12 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       static_cast<const KT*>(a.v_pages), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.block_tables),
       static_cast<const int*>(a.idx), static_cast<QT*>(a.out), a.part_acc, a.part_ml, a.s,
-      a.nh, a.n_kv, a.nb, a.bs, a.mb, a.splits);
+      a.nh, a.n_kv, a.hd, a.nb, a.bs, a.mb, a.splits);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
   combine_splits_kernel<HD, QT><<<a.b * a.s * a.nh, HD, 0, stream>>>(
       a.part_acc, a.part_ml, static_cast<const int*>(a.idx), static_cast<QT*>(a.out), a.s,
-      a.nh, a.bs, a.mb, a.splits);
+      a.nh, a.hd, a.bs, a.mb, a.splits);
   return cudaGetLastError();
 }
 
@@ -802,7 +834,7 @@ cudaError_t by_query(const Args& a, int q_dtype, int kv_dtype, cudaStream_t stre
 // part_acc [b, s, nh, splits, hd] and part_ml [b, s, nh, splits, 2] (f32)
 // are scratch the wrapper allocates when splits > 1, else null. splits is
 // the wrapper's plan: at least ceil(mb * bs / 4096), at most the
-// table's 64-key tiles.
+// table's 64-key tiles. hd is any multiple of 8 from 8 to 128.
 extern "C" int paged_attention_forward(const void* q, const void* k_pages, const void* v_pages,
                                        const void* k_scale, const void* v_scale,
                                        const void* block_tables, const void* idx, void* out,
@@ -812,22 +844,20 @@ extern "C" int paged_attention_forward(const void* q, const void* k_pages, const
   (void)cudaGetLastError();  // report this launch's error, not a stale one
   const int64_t span = static_cast<int64_t>(mb) * bs;
   if (b < 1 || s < 1 || n_kv < 1 || nh % n_kv != 0 || nb < 1 || bs < 1 || mb < 1 ||
-      span > (int64_t{1} << 30) || splits < 1 ||
+      span > (int64_t{1} << 30) || splits < 1 || hd < 8 || hd > 128 || hd % 8 != 0 ||
       splits > (span + kStageKeys - 1) / kStageKeys ||
       splits < (span + kMaxSplitKeys - 1) / kMaxSplitKeys ||
       (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
     return cudaErrorInvalidValue;
   const Args a{q, k_pages, v_pages, k_scale, v_scale, block_tables, idx, out,
                static_cast<float*>(part_acc), static_cast<float*>(part_ml),
-               b, s, nh, n_kv, nb, bs, mb, splits};
+               b, s, nh, n_kv, hd, nb, bs, mb, splits};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return by_query<16>(a, q_dtype, kv_dtype, st);
-    case 32: return by_query<32>(a, q_dtype, kv_dtype, st);
-    case 64: return by_query<64>(a, q_dtype, kv_dtype, st);
-    case 128: return by_query<128>(a, q_dtype, kv_dtype, st);
-    default: return cudaErrorInvalidValue;
-  }
+  // the first staged width that holds hd
+  if (hd <= 16) return by_query<16>(a, q_dtype, kv_dtype, st);
+  if (hd <= 32) return by_query<32>(a, q_dtype, kv_dtype, st);
+  if (hd <= 64) return by_query<64>(a, q_dtype, kv_dtype, st);
+  return by_query<128>(a, q_dtype, kv_dtype, st);
 }
 
 // Resident blocks an SM holds of the split kernel and of the combine kernel

@@ -8,8 +8,10 @@ is a Python loop. Ported: :class:`LlamaConfig`, :func:`init_llama_params`,
 :func:`params_from_jax`, the training/eval forward
 (:meth:`LlamaForCausalLM.forward`, the port of ``llama_apply``'s default
 mode and ``llama_layer_apply``) and the paged step the serving engine runs
-(:meth:`LlamaForCausalLM.paged_step`, the port of ``_llama_paged_step``).
-The dense KV-cache decode and the streaming segments are later slices.
+(:meth:`LlamaForCausalLM.paged_step`, the port of ``_llama_paged_step``)
+with its early-exit draft for speculative decoding
+(:func:`llama_early_exit_apply`). The dense KV-cache decode and the
+streaming segments are later slices.
 """
 
 from __future__ import annotations
@@ -306,9 +308,13 @@ class LlamaForCausalLM(nn.Module):
             out["loss"] = fused_cross_entropy(x, head.t(), shift_labels(labels))
         return out
 
+    def early_exit_apply(self, draft_layers: int):
+        """The early-exit draft of this model: :func:`llama_early_exit_apply`."""
+        return llama_early_exit_apply(self, draft_layers)
+
     @torch.no_grad()
     def paged_step(self, input_ids, paged_kv, block_tables, cache_positions,
-                   paged_write_mask=None, attn_impl=None) -> ModelOutput:
+                   paged_write_mask=None, attn_impl=None, num_layers=None) -> ModelOutput:
         """One step against the block-paged KV pool: ``s == 1`` token per
         slot (a decode step) or an ``s``-token prefill chunk. ``paged_kv``
         holds ``"k"``/``"v"`` pools ``[L, num_blocks, bs, n_kv, hd]`` (plus
@@ -317,7 +323,10 @@ class LlamaForCausalLM(nn.Module):
         scattered through ``block_tables [b, max_blocks]`` at positions
         ``cache_positions[b] + j`` (``paged_write_mask [b, s]`` drops padded
         or inactive lanes) and attention walks the block table. Returns
-        ``ModelOutput(logits [b, s, vocab], paged_kv)``."""
+        ``ModelOutput(logits [b, s, vocab], paged_kv)``. ``num_layers`` runs
+        only the first that many layers (reading and writing those layers
+        of the pools) before the final norm and head: the early-exit
+        draft."""
         c = self.config
         b, s = input_ids.shape
         if s > c.max_position_embeddings:
@@ -330,7 +339,8 @@ class LlamaForCausalLM(nn.Module):
         bt = block_tables.to(torch.int32).contiguous()
         quantized = "k_scale" in paged_kv
         x = self.embed_tokens(input_ids.long())
-        for i, layer in enumerate(self.layers):
+        layers = self.layers if num_layers is None else self.layers[:num_layers]
+        for i, layer in enumerate(layers):
             x = rope_paged_attention_block(
                 layer, x, paged_kv["k"][i], paged_kv["v"][i], self.rope_cos, self.rope_sin,
                 bt, idx, c.num_attention_heads, c.num_key_value_heads, c.head_dim,
@@ -343,3 +353,29 @@ class LlamaForCausalLM(nn.Module):
             x = x + layer.w_down(F.silu(layer.w_gate(y)) * layer.w_up(y))
         x = rms_norm(x, self.norm, c.rms_norm_eps)
         return ModelOutput(logits=F.linear(x, self._head()), paged_kv=paged_kv)
+
+
+def llama_early_exit_apply(model: LlamaForCausalLM, draft_layers: int):
+    """Early-exit draft for speculative decoding (port of JAX
+    ``llama_early_exit_apply``): a paged step running only the target's
+    first ``draft_layers`` blocks, closed with the target's own final norm
+    and head. It shares the target's weights (no copy) and reads and
+    writes the FIRST ``draft_layers`` layers of the target's own paged pool:
+    identical weights make the draft's K/V at any cached position equal the
+    target's for those layers, so prefix sharing, copy-on-write and swap
+    keep the draft state for free. The returned function takes
+    :meth:`LlamaForCausalLM.paged_step`'s arguments."""
+    config = model.config
+    if not 1 <= draft_layers < config.num_hidden_layers:
+        raise ValueError(
+            f"early-exit draft needs 1 <= layers < {config.num_hidden_layers} "
+            f"(the target's depth), got {draft_layers}"
+        )
+
+    def early_exit_apply(input_ids, paged_kv, block_tables, cache_positions,
+                         paged_write_mask=None, attn_impl=None) -> ModelOutput:
+        return model.paged_step(input_ids, paged_kv, block_tables, cache_positions,
+                                paged_write_mask=paged_write_mask, attn_impl=attn_impl,
+                                num_layers=draft_layers)
+
+    return early_exit_apply

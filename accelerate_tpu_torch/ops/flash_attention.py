@@ -45,10 +45,17 @@ bwd_dq_launches = 0
 bwd_dkv_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernels take (the training entry point refuses others on
-#: the card before any step: ``accelerator.check_kernel_head_dim``); the bf16
-#: kernels stage 16 and 32 as zero-padded 64-column tiles
-HEAD_DIMS = (16, 32, 64, 128)
+#: the head dims every hand-written attention kernel takes (B1-B3 here, B4 in
+#: :mod:`.paged_attention`; the training entry point refuses others on the
+#: card before any step: ``accelerator.check_kernel_head_dim``). The kernels
+#: stage a head dim as zero-padded tiles of a wider built width
+HEAD_DIM_RULE = "a multiple of 8 from 8 to 128"
+
+
+def takes_head_dim(hd: int) -> bool:
+    """True for a head dim the CUDA kernels take (:data:`HEAD_DIM_RULE`)."""
+    return hd % 8 == 0 and 8 <= hd <= 128
+
 #: key tile of the plain forward: the bf16 forward kernel's (``kFwdTileKeys``
 #: in ``csrc/flash_attention.cu``), where P is rounded at each tile's running max
 _FWD_TILE = 128
@@ -299,7 +306,7 @@ def _validate(q, k, v, segment_mask, *extra):
     b, sq, nh, hd = q.shape
     _, skv, n_kv, hd_k = k.shape
     _check(k.shape[0] == b and hd_k == hd, "q and k/v shapes disagree")
-    _check(hd in HEAD_DIMS, f"head_dim {hd} not supported (takes {HEAD_DIMS})")
+    _check(takes_head_dim(hd), f"head_dim {hd} not supported (takes {HEAD_DIM_RULE})")
     _check(nh % n_kv == 0, f"n_heads {nh} is not a multiple of n_kv {n_kv}")
     _check(q.dtype in _DTYPE_CODES and k.dtype == q.dtype and v.dtype == q.dtype,
            f"q, k, v must share one dtype of {list(_DTYPE_CODES)}")

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .flash_attention import HEAD_DIM_RULE, takes_head_dim
 from .fp8 import dequantize_kv
 
 _NEG_INF = float(np.finfo(np.float32).min)
@@ -45,7 +46,6 @@ decode_launches = 0
 
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
-_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def paged_attention(
@@ -232,7 +232,7 @@ def _paged_attention_cuda(q, k_pages_l, v_pages_l, block_tables, idx, k_scale_l,
     nb, bs, n_kv, hd_k = k_pages_l.shape
     mb = block_tables.shape[-1]
     _check(hd == hd_k and v_pages_l.shape == k_pages_l.shape, "q and pool shapes disagree")
-    _check(hd in _HEAD_DIMS, f"head_dim {hd} not supported (takes {_HEAD_DIMS})")
+    _check(takes_head_dim(hd), f"head_dim {hd} not supported (takes {HEAD_DIM_RULE})")
     _check(nh % n_kv == 0, f"n_heads {nh} is not a multiple of n_kv {n_kv}")
     _check(q.dtype in _Q_CODES, f"q dtype {q.dtype} not supported")
     _check(k_pages_l.dtype in _POOL_CODES and v_pages_l.dtype == k_pages_l.dtype,

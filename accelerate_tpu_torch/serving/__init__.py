@@ -5,7 +5,7 @@ for what is not ported yet."""
 from .blocks import NULL_BLOCK, BlockAllocator, blocks_needed
 from .engine import UNPORTED_REQUEST_FIELDS, EngineConfig, InferenceEngine
 from .grammar import Grammar, GrammarError, compile_grammar, validate_instance
-from .radix import RadixCache
+from .radix import RadixCache, SwapPool
 from .sampling import SamplingParams, resolve_sampling
 from .scheduler import (
     PRIORITY_CLASSES,
@@ -14,6 +14,8 @@ from .scheduler import (
     SlotScheduler,
     priority_rank,
 )
+from .spec import DraftSpec, parse_draft_spec
+from .usage import UsageLedger, normalize_tenant
 
 __all__ = [
     "NULL_BLOCK",
@@ -27,6 +29,11 @@ __all__ = [
     "compile_grammar",
     "validate_instance",
     "RadixCache",
+    "SwapPool",
+    "DraftSpec",
+    "parse_draft_spec",
+    "UsageLedger",
+    "normalize_tenant",
     "SamplingParams",
     "resolve_sampling",
     "PRIORITY_CLASSES",

@@ -62,11 +62,36 @@ Orca-style iteration scheduling over a vLLM-style block-paged KV cache:
   the first prefill chunk. The tail's chunks start where they would without
   the cache (at the chunk boundary at or below the match), so a request's
   tokens are the same bits with the cache on or off. The pools are never
-  reassigned, so the captured graphs stay valid.
+  reassigned, so the captured graphs stay valid;
+* **swap preemption** (``swap_gb``): under pool exhaustion the
+  lowest-priority victim's unshared blocks are gathered on the device into
+  one buffer, copied by one non-blocking copy into pinned memory behind an
+  event, and parked in a host :class:`~.radix.SwapPool`; the victim
+  re-queues at the front of its class and is restored into fresh blocks by
+  one copy up and one ``index_copy_`` per pool at re-admission. Before any
+  pool row is read the in-flight round is fenced (harvested). Every edit is
+  in place on the static pools, outside the graphs: swap never re-captures;
+* **speculative decoding** (``spec_k``, ``draft="early_exit:N"``): the
+  decode program becomes ONE spec round per dispatch — ``spec_k`` greedy
+  (or, through the lanes, sampled) steps of the early-exit draft over the
+  first N layers of the target's own pool, one ``[num_slots, spec_k+1]``
+  verify forward through every layer and the paged kernel, and the
+  acceptance, all on the device — captured once into its own graph
+  (``spec_decode``; ``lane_spec_decode`` for the lanes). The host advances
+  each slot by ``accept + 1``; rejected drafts are rolled back by position
+  alone (the next round rewrites those rows before anything reads them);
+* the **usage ledger** (``usage_accounting``, :mod:`.usage`): decode and
+  prefill device-seconds, KV block-seconds, swap bytes, spec and grammar
+  counts per request, rolled up by tenant and class, conserved against the
+  flight recorder's ``device_wait`` and the pool-occupancy integral;
+* **deadlines** (``add_request(deadline_ms=)``): an expired request
+  finishes ``deadline_exceeded`` with its partial output; an in-flight
+  member's expiry waits for the harvest point, so async and sync engines
+  stay token-identical.
 
 Greedy output is the parity contract with the JAX engine. Not ported yet
-(later slices): swap preemption (and the fence it needs), speculative
-decoding, the usage ledger, deadlines and tenants.
+(later slices): tracing (``trace_id``, ``upstream_hop``), telemetry rows,
+the mesh and the HBM pre-flight.
 """
 
 from __future__ import annotations
@@ -79,26 +104,40 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..generation import spec_accept_tokens
 from ..ops import paged_attention as _paged_attention
 from ..utils.device import resolve_device
 from .blocks import BlockAllocator, blocks_needed
 from .flight import ITERATION_PHASES, FlightRecorder, set_active_flight_recorder
 from .grammar import compile_grammar
-from .radix import RadixCache
+from .radix import RadixCache, SwapPool
 from .sampling import (
     LANE_SPECS,
+    TAG_ACCEPT,
+    TAG_DRAFT,
     SamplingParams,
+    apply_filters,
     blank_lanes,
+    dist_logprobs,
+    inverse_cdf_pick,
     match_stop,
     pick_tokens,
+    rejection_accept,
     resolve_sampling,
     set_slot_lane,
+    slot_uniforms,
 )
-from .scheduler import Request, RequestState, SlotScheduler
+from .scheduler import Request, RequestState, SlotScheduler, priority_rank
+from .spec import parse_draft_spec
+from .usage import UsageLedger, normalize_tenant
 
-#: ``add_request`` options of the JAX engine this port does not carry yet:
-#: a request that uses one is refused, never silently served without it
-UNPORTED_REQUEST_FIELDS = ("deadline_ms", "tenant")
+#: ``add_request`` options of the JAX engine this port does not carry yet
+#: (they wait for ``--trace``): a request that sets one is refused, never
+#: silently served without it
+UNPORTED_REQUEST_FIELDS = ("trace_id", "upstream_hop")
+
+#: the spec programs; their rounds land through ``_spec_io``
+_SPEC_KINDS = frozenset({"spec_decode", "lane_spec_decode"})
 
 #: the float lanes, bit-cast views of the lane program's int32 operands
 _FLOAT_LANES = frozenset(name for name, dtype, _ in LANE_SPECS if dtype == np.float32)
@@ -175,6 +214,30 @@ class EngineConfig:
     #: repetition-penalty window: the last this-many tokens ride the
     #: ``[num_slots, rep_window]`` ring lane
     rep_window: int = 32
+    #: host swap tier in GiB (0 disables): under pool exhaustion the
+    #: lowest-priority victim's unshared blocks are copied to a pinned
+    #: :class:`~.radix.SwapPool` and the request re-queues at the front of
+    #: its class; ``finish_reason="out_of_blocks"`` truncation becomes the
+    #: last resort for when even swap capacity is gone
+    swap_gb: float = 0.0
+    #: speculative decoding (0 = off, the plain burst). ``spec_k > 0``
+    #: replaces the burst with ONE captured spec round per dispatch: every
+    #: active slot drafts ``spec_k`` tokens from the draft, one ``[num_slots,
+    #: spec_k+1]`` verify forward scores them through the paged kernel, and
+    #: the longest agreeing prefix + the target's correction are emitted
+    #: (greedy acceptance is exact: tokens equal the non-spec engine's).
+    #: Sampled slots verify by rejection sampling. ``decode_burst`` is
+    #: ignored while armed
+    spec_k: int = 0
+    #: draft policy when ``spec_k > 0`` (:mod:`.spec`): ``"early_exit:N"``
+    #: runs the target's first N layers (+ its final norm and head) over the
+    #: FIRST N LAYERS of the target's own pool
+    draft: str = "early_exit:2"
+    #: per-request resource attribution (:mod:`.usage`), conserved against
+    #: the flight recorder's ``device_wait`` and the pool-occupancy
+    #: integral. ``False`` removes the ledger (one truthiness check per
+    #: iteration)
+    usage_accounting: bool = True
 
     @property
     def blocks_per_slot(self) -> int:
@@ -359,6 +422,42 @@ class InferenceEngine:
                 "prefill_chunk, block_size, num_slots, decode_burst must be >= 1"
             )
 
+        # speculative decoding: parse the draft policy and bind the
+        # early-exit draft BEFORE anything allocates (JAX's refusals, word
+        # for word)
+        self._spec = None
+        self._draft_step = None
+        if cfg.spec_k:
+            if cfg.spec_k < 1:
+                raise ValueError("spec_k must be >= 1 (0 disables speculation)")
+            if cfg.do_sample and not cfg.per_slot_sampling:
+                raise ValueError(
+                    "spec_k with do_sample=True needs per_slot_sampling=True "
+                    "(the rejection-sampling verify path); the legacy "
+                    "per_slot_sampling=False executables are greedy-only"
+                )
+            if cfg.logprobs_topn:
+                raise ValueError(
+                    "logprobs_topn with spec_k > 0 is not supported: the "
+                    "verify round emits a variable accepted prefix, so there "
+                    "is no per-step harvest to ride — set spec_k=0 for "
+                    "logprobs"
+                )
+            self._spec = parse_draft_spec(cfg.draft, mcfg.num_hidden_layers)
+            factory = getattr(model, "early_exit_apply", None)
+            if factory is None:
+                raise ValueError(
+                    f"model {type(model).__name__!r} "
+                    "declares no early_exit_apply factory: the spec_k engine "
+                    "needs the early-exit draft path (models/llama.py "
+                    "llama_early_exit_apply)"
+                )
+            self._draft_step = factory(self._spec.layers)
+        #: cache positions one decode dispatch may write past context_len —
+        #: the block-growth lookahead (a spec round writes k+1 positions; a
+        #: plain dispatch writes decode_burst)
+        self._decode_lookahead = (cfg.spec_k + 1) if self._spec else cfg.decode_burst
+
         # per-slot sampling + grammar state. The engine-wide
         # do_sample/temperature survive as the DEFAULT SamplingParams a
         # request inherits when it supplies none
@@ -382,6 +481,8 @@ class InferenceEngine:
         self._sampled_sample = 0
         self._grammar_masked_steps = 0
         self._first_token_picks = 0
+        self._rej_drafted = 0
+        self._rej_accepted = 0
         # grammar row table: row 0 is the permanently-pinned unconstrained
         # sentinel (mask all-True, transitions all-0); rows 1..G are
         # refcounted per live request, cached under their grammar hash
@@ -415,12 +516,26 @@ class InferenceEngine:
 
         self.allocator = BlockAllocator(num_blocks)
         self.radix = RadixCache(self.allocator, cfg.block_size) if cfg.prefix_cache else None
+        dev = self.device
+        self._swap = (
+            SwapPool(
+                num_layers=mcfg.num_hidden_layers, block_size=cfg.block_size,
+                num_kv_heads=n_kv, head_dim=mcfg.head_dim, dtype=store_dtype,
+                capacity_gb=cfg.swap_gb, quantized=quantized,
+                pin_memory=dev.type == "cuda",
+            )
+            if cfg.swap_gb and cfg.swap_gb > 0
+            else None
+        )
+        #: per-request usage ledger (None = disabled: every hook site pays
+        #: one truthiness check)
+        self.usage = UsageLedger() if cfg.usage_accounting else None
         self.scheduler = SlotScheduler(
-            cfg.num_slots, self.allocator, cfg.block_size, cfg.max_seq_len, radix=self.radix
+            cfg.num_slots, self.allocator, cfg.block_size, cfg.max_seq_len, radix=self.radix,
+            usage=self.usage,
         )
         self._cow_copies = 0
         shape = (mcfg.num_hidden_layers, num_blocks, cfg.block_size, n_kv, mcfg.head_dim)
-        dev = self.device
         # never reassigned: the graphs hold these pointers
         self._pages = {
             "k": torch.zeros(shape, dtype=store_dtype, device=dev),
@@ -448,24 +563,32 @@ class InferenceEngine:
             dev, depth=n + 1)
         # each program's outputs land by one copy behind an event; one round
         # is in flight at a time, and its harvest precedes the next dispatch
-        self._decode_io = _Outputs({"tok": (burst, n)}, dev)
         self._prefill_io = _Outputs({"tok": (1,)}, dev)
-        self._decode_out = self._decode_io.views["tok"]
         self._prefill_out = self._prefill_io.views["tok"]
         pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None  # shared
-        self._programs = {
-            "decode": _Program(self._decode_burst, dev, pool),
-            "prefill": _Program(self._prefill_chunk, dev, pool),
-        }
+        self._programs = {"prefill": _Program(self._prefill_chunk, dev, pool)}
+        # the decode programs: the plain burst and the lane burst, or with
+        # spec_k the spec round and its lane twin (one round's [num_slots,
+        # k+1] tokens and [num_slots] accepted lengths land by one copy)
+        if self._spec is None:
+            self._decode_name, self._lane_name = "decode", "lane_decode"
+            self._decode_io = _Outputs({"tok": (burst, n)}, dev)
+            self._decode_out = self._decode_io.views["tok"]
+            self._programs["decode"] = _Program(self._decode_burst, dev, pool)
+        else:
+            self._decode_name, self._lane_name = "spec_decode", "lane_spec_decode"
+            self._spec_io = _Outputs({"tok": (n, cfg.spec_k + 1), "accept": (n,)}, dev)
+            self._programs["spec_decode"] = _Program(self._spec_decode, dev, pool)
         if self._psampling:
             topn = max(int(cfg.logprobs_topn), 1)
             lane_fields = {name: (n,) for name, _, _ in LANE_SPECS}
             lane_fields["rep_ring"] = (n, cfg.rep_window)
             self._lane_ops = _Operands({**decode_fields, **lane_fields}, dev, depth=2,
                                        floats=_FLOAT_LANES)
-            self._lane_out = _Outputs(
-                {"tok": (burst, n), "logp": (burst, n), "top_vals": (burst, n, topn),
-                 "top_ids": (burst, n, topn)}, dev, floats=frozenset({"logp", "top_vals"}))
+            if self._spec is None:
+                self._lane_out = _Outputs(
+                    {"tok": (burst, n), "logp": (burst, n), "top_vals": (burst, n, topn),
+                     "top_ids": (burst, n, topn)}, dev, floats=frozenset({"logp", "top_vals"}))
             g = cfg.grammar_slots + 1
             # written in place, row by row: the lane graph holds their pointers
             self._gmask = torch.ones((g, cfg.grammar_states, self._vocab_size),
@@ -477,24 +600,38 @@ class InferenceEngine:
             self._prefill_logits = torch.zeros((1, self._vocab_size), dtype=torch.float32,
                                                device=dev)
             # captured at the first dispatch that needs it
-            self._programs["lane_decode"] = _Program(self._lane_decode_burst, dev, pool)
+            lane_fn = self._lane_decode_burst if self._spec is None else self._lane_spec_decode
+            self._programs[self._lane_name] = _Program(lane_fn, dev, pool)
 
         self._launches_at_start = _paged_attention.launches
         self._decode_launches_at_start = _paged_attention.decode_launches
         self._iterations = 0
         self._tokens_emitted = 0
         self._out_of_blocks_total = 0
+        self._preemptions = 0
+        self._swapped_out_blocks = 0
+        self._swapped_in_blocks = 0
+        self._deadline_expired = 0
+        # speculative accounting (accept rate = accepted / drafted): drafted
+        # counts spec_k per live lane per round, accepted the verify-agreed
+        # prefix length (the correction token is free and counted in neither)
+        self._spec_drafted = 0
+        self._spec_accepted = 0
         self._start_time: float | None = None
         self._completed: deque[Request] = deque(maxlen=max(1, int(cfg.completed_history)))
         self._completed_total = 0
         #: the live requests of the round dispatched and not yet harvested
         #: (None = nothing in flight), and which program ran it ("decode" or
-        #: "lane_decode"). Slots cannot be reassigned while a round is in
-        #: flight (eviction only touches FINISHED requests, and members only
-        #: finish at harvest), so ``req.slot`` still indexes the round's
-        #: tokens when the harvest lands
+        #: "lane_decode", or a spec program). Slots cannot be reassigned
+        #: while a round is in flight (eviction only touches FINISHED
+        #: requests, and members only finish at harvest), so ``req.slot``
+        #: still indexes the round's tokens when the harvest lands
         self._inflight: list[Request] | None = None
-        self._inflight_kind = "decode"
+        self._inflight_kind = self._decode_name
+        #: finishes a mid-schedule fence (swap-out) harvested; drained into
+        #: the same step's finished list at its harvest point, so a fenced
+        #: finish is returned exactly once
+        self._harvest_backlog: list[Request] = []
         # per-iteration flight recorder (None = disabled: step() pays one
         # `is None` check), registered process-globally
         self._flight = FlightRecorder(cfg.flight_history) if cfg.flight_history else None
@@ -549,6 +686,104 @@ class InferenceEngine:
             out["top_ids"][t].copy_(top_ids)
             toks, pos = tok[:, None], pos + 1
 
+    def _draft_and_verify(self, ops, draft_pick):
+        """The body both spec programs share (JAX ``_build_spec_decode_fn``):
+        ``spec_k`` steps of the early-exit draft at ``[num_slots, 1]``, each
+        writing its K/V in place into the first N layers of the target's
+        pool at positions ``pos0 .. pos0+k-1`` (the verify below rewrites
+        every one of them, in every layer, before anything reads it), then
+        ONE verify forward of ``[pending, d_1 .. d_k]`` at ``[num_slots,
+        k+1]`` through all layers and the paged kernel. ``draft_pick(t,
+        logits)`` picks step ``t``'s draft token from its ``[num_slots,
+        vocab]`` logits. Returns the drafts ``[num_slots, k]`` and the verify
+        logits ``[num_slots, k+1, vocab]``."""
+        k = self.config.spec_k
+        toks, pos0, active = ops["toks"], ops["pos0"], ops["active"]
+        tok, pos, drafts = toks, pos0, []
+        for t in range(k):
+            step = self._draft_step(
+                tok, self._pages, ops["tables"], pos,
+                paged_write_mask=active,  # PREFILL/free lanes must not scribble
+            )
+            nxt = draft_pick(t, step.logits[:, -1, :])
+            drafts.append(nxt)
+            tok, pos = nxt[:, None], pos + 1
+        d = torch.stack(drafts, dim=1)
+        chunk = torch.cat([toks, d], dim=1)  # [num_slots, k+1]
+        step = self.model.paged_step(
+            chunk, self._pages, ops["tables"], pos0,
+            paged_write_mask=active.expand(-1, k + 1),
+        )
+        return d, step.logits
+
+    def _spec_decode(self) -> None:
+        """The greedy spec round (JAX ``_build_spec_decode_fn``): draft,
+        verify, then :func:`~..generation.spec_accept_tokens` on the device;
+        ``[num_slots, k+1]`` tokens and ``[num_slots]`` accepted lengths into
+        ``_spec_io``."""
+        ops = self._decode_ops.views
+
+        def greedy(_t, logits):
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+
+        d, logits = self._draft_and_verify(ops, greedy)
+        preds = torch.argmax(logits, dim=-1).to(torch.int32)  # [num_slots, k+1]
+        accept, tok_seq = spec_accept_tokens(d, preds)
+        out = self._spec_io.views
+        out["tok"].copy_(tok_seq)
+        out["accept"].copy_(accept)
+
+    def _lane_spec_decode(self) -> None:
+        """The per-slot spec round (JAX ``_build_lane_spec_decode_fn``): the
+        draft proposes through the lane transform (grammar mask, filters,
+        sampled slots by an inverse-CDF pick under ``TAG_DRAFT``), the
+        verify filters each position with the DFA state its prefix reached,
+        greedy slots keep the exact longest-agreeing prefix of the filtered
+        argmax, and sampled slots run :func:`~.sampling.rejection_accept`
+        (accept uniforms under ``TAG_ACCEPT``). The repetition ring is held
+        constant across the round, as in JAX (consistent between ``p`` and
+        ``q``, so the acceptance identity is unaffected)."""
+        cfg = self.config
+        k, seed, eos = cfg.spec_k, cfg.seed, cfg.eos_token_id
+        ops = self._lane_ops.views
+        lanes = {name: ops[name] for name, _, _ in LANE_SPECS}
+        lanes["rep_ring"] = ops["rep_ring"]
+        rows = lanes["grammar_row"].long()
+        sample = lanes["sample"] != 0
+        state = {"dfa": lanes["dfa_state"]}
+        q = []
+
+        def lane_pick(t, logits):
+            filt = apply_filters(logits.float(), lanes, state["dfa"], lanes["pos"] + t,
+                                 self._gmask, eos)
+            greedy = torch.argmax(filt, dim=-1).to(torch.int32)
+            logq = dist_logprobs(filt, lanes)
+            u = slot_uniforms(seed, TAG_DRAFT, lanes["seed"], lanes["pos"] + t)
+            nxt = torch.where(sample, inverse_cdf_pick(logq, u), greedy)
+            q.append(torch.exp(logq))
+            state["dfa"] = self._gtrans[rows, state["dfa"].long(), nxt.long()]
+            return nxt
+
+        d, logits = self._draft_and_verify(ops, lane_pick)
+        tlogits = logits.float()  # [num_slots, k+1, vocab]
+        # DFA states along the draft path: the verify filters each position
+        # with the state its PREFIX put the automaton in (the mask re-check)
+        states = [lanes["dfa_state"]]
+        for j in range(k):
+            states.append(self._gtrans[rows, states[j].long(), d[:, j].long()])
+        filts = [apply_filters(tlogits[:, j, :], lanes, states[j], lanes["pos"] + j,
+                               self._gmask, eos) for j in range(k + 1)]
+        preds = torch.stack([torch.argmax(f, dim=-1) for f in filts], dim=1).to(torch.int32)
+        accept_g, seq_g = spec_accept_tokens(d, preds)
+        p = torch.stack([torch.exp(dist_logprobs(f, lanes)) for f in filts], dim=0)
+        u = torch.stack([slot_uniforms(seed, TAG_ACCEPT, lanes["seed"], lanes["pos"] + j)
+                         for j in range(k)], dim=1)  # [num_slots, k]
+        accept_s, seq_s = rejection_accept(d, p, torch.stack(q, dim=0), u, seed,
+                                           lanes["seed"], lanes["pos"])
+        out = self._spec_io.views
+        out["tok"].copy_(torch.where(sample[:, None], seq_s, seq_g))
+        out["accept"].copy_(torch.where(sample, accept_s, accept_g))
+
     def _prefill_chunk(self) -> None:
         """One ``[1, prefill_chunk]`` chunk through the paged step (the
         padded tail dropped by ``valid``), then the greedy pick at the
@@ -574,12 +809,22 @@ class InferenceEngine:
         max_new_tokens: int | None = None,
         arrival_time: float | None = None,
         priority: str = "interactive",
+        deadline_ms: float | None = None,
         sampling=None,
         grammar: dict | None = None,
+        tenant: str | None = None,
         logprobs: int | None = None,
         **unported,
     ) -> Request:
         """Enqueue one request (``prompt`` = token ids).
+
+        ``deadline_ms`` is a *relative* budget from now: once it elapses the
+        scheduler finishes the request with
+        ``finish_reason="deadline_exceeded"`` (partial output kept, blocks
+        freed the same iteration); a malformed value raises ValueError.
+        ``tenant`` is the usage ledger's accounting dimension: any non-empty
+        string is taken (stripped, bounded), everything else is
+        ``"default"`` — never an admission gate.
 
         ``sampling`` is a :class:`~.sampling.SamplingParams` (or a dict of
         its fields) scoped to THIS request; ``None`` inherits the engine-wide
@@ -595,7 +840,7 @@ class InferenceEngine:
         for name, value in unported.items():
             if name not in UNPORTED_REQUEST_FIELDS:
                 raise TypeError(f"add_request() got an unexpected keyword argument {name!r}")
-            if value is not None:
+            if value is not None and value is not False:
                 raise ValueError(
                     f"{name!r} is not yet ported to accelerate_tpu_torch "
                     "(the JAX engine supports it)"
@@ -613,9 +858,21 @@ class InferenceEngine:
                 self.config.max_new_tokens if max_new_tokens is None else max_new_tokens
             ),
             priority=priority,
+            tenant=normalize_tenant(tenant),
         )
         if arrival_time is not None:
             req.arrival_time = arrival_time
+        if deadline_ms is not None:
+            try:
+                budget_ms = float(deadline_ms)
+            except (TypeError, ValueError):
+                budget_ms = float("nan")
+            if not budget_ms > 0:  # also rejects NaN
+                raise ValueError(
+                    f"malformed deadline_ms {deadline_ms!r}: want a positive "
+                    "number of milliseconds"
+                )
+            req.deadline = time.perf_counter() + budget_ms / 1000.0
         if self._psampling:
             params = resolve_sampling(sampling, self._default_sampling)
             if logprobs is not None:
@@ -641,6 +898,8 @@ class InferenceEngine:
         except BaseException:
             self._release_grammar_row(req)
             raise
+        if self.usage is not None:
+            self.usage.begin(req)
         return req
 
     def step(self) -> list[Request]:
@@ -663,14 +922,52 @@ class InferenceEngine:
         finished: list[Request] = []
         fl = self._flight
         self._fl_begin()
+        deferred_deadline: list[Request] = []
+        if sched.deadline_live:  # guarded: deadline-free serving = one int check
+            now = time.perf_counter()
+            inflight_slots = None
+            if self._inflight is not None:
+                # an expired member of the in-flight round still has a token
+                # landing at this step's harvest (the token the synchronous
+                # engine emitted last step): its expiry waits for the
+                # harvest point, so the two loops stay token-identical
+                inflight_slots = {r.slot for r in self._inflight}
+            for req in sched.expire_deadlines(now, skip_slots=inflight_slots):
+                if req.slot is None:
+                    self._release_expired_queued(req)
+                self._deadline_expired += 1
+                finished.append(req)
+            if inflight_slots:
+                deferred_deadline = [r for r in self._inflight
+                                     if r.deadline is not None and now > r.deadline]
         sched.evict_finished()
         self._admit_and_place()
 
         self._fl_switch("prefill")
+        u = self.usage
         for req in sched.active(RequestState.PREFILL):
-            self._prefill_one_chunk(req, finished)
-        # harvest point: the previous iteration's round lands here
+            if u is not None:
+                t0_pf = time.perf_counter()
+                self._prefill_one_chunk(req, finished)
+                u.accrue_prefill(req, time.perf_counter() - t0_pf)
+            else:
+                self._prefill_one_chunk(req, finished)
+        # harvest point: the previous iteration's round lands here. Backlog
+        # entries were harvested by a mid-schedule fence (swap-out) and
+        # drain into THIS step's finished list
+        if self._harvest_backlog:
+            finished.extend(self._harvest_backlog)
+            self._harvest_backlog.clear()
         self._harvest_inflight(finished)
+        for req in deferred_deadline:
+            # the member's in-flight token has now been emitted: expire it
+            # before the next dispatch; blocks free at the next evict
+            if req.state is RequestState.DECODE:
+                req.finish_reason = "deadline_exceeded"
+                req.finish_time = time.perf_counter()
+                req.state = RequestState.FINISHED
+                self._deadline_expired += 1
+                finished.append(req)
 
         self._fl_switch("dispatch")
         decoding = sched.active(RequestState.DECODE)
@@ -685,6 +982,13 @@ class InferenceEngine:
             self._release_grammar_row(req)
         self._completed.extend(finished)
         self._completed_total += len(finished)
+        if self.usage is not None:
+            # close each finished request's account now (held blocks drop to
+            # 0 on both sides of the block-second integral)
+            for req in finished:
+                summary = self.usage.finish(req)
+                if summary is not None:  # exactly-once across re-lists
+                    req.usage = summary
         rec = self._fl_finish()
         if rec is not None:
             t0, wall, phases, overlap = rec
@@ -729,13 +1033,21 @@ class InferenceEngine:
 
     def reset_stats(self) -> None:
         """Zero the measurement state (iterations, tokens, completions, the
-        wall clock, the sampling and prefix-cache counters, the flight
-        ring) and keep the graphs, the pools, the radix trie and the
-        capture and launch counters, so a run can warm up, reset and
-        measure."""
+        wall clock, the sampling, prefix-cache, swap, deadline and spec
+        counters, the flight ring, the usage ledger's accruals) and keep the
+        graphs, the pools, the radix trie and the capture and launch
+        counters, so a run can warm up, reset and measure."""
         self._iterations = 0
         self._tokens_emitted = 0
         self._out_of_blocks_total = 0
+        self._preemptions = 0
+        self._swapped_out_blocks = 0
+        self._swapped_in_blocks = 0
+        self._deadline_expired = 0
+        self._spec_drafted = 0
+        self._spec_accepted = 0
+        self._rej_drafted = 0
+        self._rej_accepted = 0
         self._start_time = None
         self._completed.clear()
         self._completed_total = 0
@@ -751,6 +1063,8 @@ class InferenceEngine:
             self.radix.inserted_blocks = 0
         if self._flight is not None:
             self._flight.reset()
+        if self.usage is not None:
+            self.usage.reset()
 
     def _launch_counts(self) -> dict:
         """Paged-attention launches this engine caused: eager launches (the
@@ -770,33 +1084,59 @@ class InferenceEngine:
             "decode": eager_decode + sum(p.replays * p.decode_launches_captured for p in progs),
         }
 
-    def _sampling_stats(self) -> dict:
-        """Per-slot sampling/grammar health (JAX ``_sampling_stats``); empty
-        when the lanes are disabled."""
-        if not self._psampling:
+    def _spec_stats(self) -> dict:
+        """Speculative health (JAX ``_spec_stats``; the accept rate is the
+        TPOT lever: each round costs one dispatch and emits accept+1
+        tokens); empty when speculation is off."""
+        if self._spec is None:
             return {}
         return {
+            "spec_k": self.config.spec_k,
+            "spec_draft": str(self._spec),
+            "spec_drafted_tokens": self._spec_drafted,
+            "spec_accepted_tokens": self._spec_accepted,
+            "spec_accept_rate": (
+                self._spec_accepted / self._spec_drafted if self._spec_drafted else 0.0
+            ),
+        }
+
+    def _sampling_stats(self) -> dict:
+        """Per-slot sampling/grammar health (JAX ``_sampling_stats``); empty
+        when the lanes are disabled. The rejection counters only appear with
+        speculation armed."""
+        if not self._psampling:
+            return {}
+        out = {
             "sampled_tokens_greedy": self._sampled_greedy,
             "sampled_tokens_sample": self._sampled_sample,
             "grammar_masked_steps": self._grammar_masked_steps,
             "grammar_rows_live": sum(1 for r in self._row_refs if r > 0),
             "first_token_picks": self._first_token_picks,
         }
+        if self._spec is not None:
+            out["rejection_drafted_tokens"] = self._rej_drafted
+            out["rejection_accepted_tokens"] = self._rej_accepted
+            out["rejection_accept_rate"] = (
+                self._rej_accepted / self._rej_drafted if self._rej_drafted else 0.0
+            )
+        return out
 
     def stats(self) -> dict:
         """Serving health: tokens, slots and blocks, TTFT/TPOT percentiles over
         the completion window, the captures (``decode_compiles`` for the
-        plain burst, ``lane_decode_compiles`` for the lane burst,
+        plain burst, or the spec round with ``spec_k``;
+        ``lane_decode_compiles`` for the lane burst or the lane spec round;
         ``prefill_compiles``; the JAX engine's key names) and replays of the
         programs, the paged-attention kernel launches this engine caused
-        (0 on the CPU, where the plain version runs), the sampling and
-        prefix-cache counters, and the flight recorder's ``host_fraction``
-        and per-phase percentiles."""
+        (0 on the CPU, where the plain version runs), the sampling,
+        prefix-cache, swap, deadline and spec counters, the usage ledger's
+        snapshot, and the flight recorder's ``host_fraction`` and per-phase
+        percentiles."""
         sched = self.scheduler
         launches = self._launch_counts()
         cached = self.radix.cached_block_count if self.radix is not None else 0
         cached_exclusive = self.radix.exclusive_block_count() if self.radix is not None else 0
-        lane = self._programs.get("lane_decode")
+        lane = self._programs.get(self._lane_name)
         out = {
             "iterations": self._iterations,
             "completed": self._completed_total,
@@ -804,7 +1144,7 @@ class InferenceEngine:
             "active_slots": len(sched.active()),
             "num_slots": self.config.num_slots,
             "tokens_emitted": self._tokens_emitted,
-            "decode_compiles": self._programs["decode"].captures,
+            "decode_compiles": self._programs[self._decode_name].captures,
             "lane_decode_compiles": lane.captures if lane is not None else 0,
             "prefill_compiles": self._programs["prefill"].captures,
             "paged_attention_launches": launches["total"],
@@ -833,12 +1173,25 @@ class InferenceEngine:
                 if sched.prompt_tokens_admitted else 0.0
             ),
             "cow_copies": self._cow_copies,
+            "preemptions": self._preemptions,
+            "swapped_out_blocks": self._swapped_out_blocks,
+            "swapped_in_blocks": self._swapped_in_blocks,
             "out_of_blocks_total": self._out_of_blocks_total,
+            "deadline_expired_total": self._deadline_expired,
         }
+        out.update(self._spec_stats())
         out.update(self._sampling_stats())
+        if self.usage is not None:
+            # totals, capped by_tenant, heavy hitters and the conservation
+            # partner totals (device_wait_seconds / pool_block_seconds)
+            out["usage"] = self.usage.snapshot()
         if self.radix is not None:
             out["radix_inserted_blocks"] = self.radix.inserted_blocks
             out["radix_evicted_blocks"] = self.radix.evicted_blocks
+        if self._swap is not None:
+            out["swap_used_blocks"] = self._swap.used_blocks
+            out["swap_capacity_blocks"] = self._swap.capacity_blocks
+            out["swap_pool_host_bytes"] = self._swap.capacity_blocks * self._swap.bytes_per_block
         if self._flight is not None:
             out.update(self._flight.summary())
         if self._start_time is not None:
@@ -872,14 +1225,16 @@ class InferenceEngine:
         self._fl_hidden = self._inflight is not None
         self._flight.current_phase = "schedule"
 
-    def _fl_switch(self, phase: str) -> None:
+    def _fl_switch(self, phase: str) -> float | None:
         """Close the open interval into its phase bucket and open
         ``phase``. Phases may be re-entered ("harvest" at the harvest point
         and for bookkeeping); the buckets accumulate, and their sum
         telescopes to the iteration wall, which ``FlightRecorder.record``
-        asserts."""
+        asserts. Returns the closed interval's duration (None when the
+        recorder is off): the usage ledger accrues the exact
+        ``device_wait`` float the flight recorder does."""
         if self._fl_phases is None:
-            return
+            return None
         t = time.perf_counter()
         dt = t - self._fl_last
         self._fl_phases[self._fl_cur] += dt
@@ -890,6 +1245,7 @@ class InferenceEngine:
         # device_wait is the residual the host could NOT hide
         self._fl_hidden = self._inflight is not None and phase != "device_wait"
         self._flight.current_phase = phase
+        return dt
 
     def _fl_finish(self):
         """Close the last interval; ``(t0, wall_s, phases, overlap_hidden_s)``
@@ -908,30 +1264,161 @@ class InferenceEngine:
     # -- iteration internals -------------------------------------------------
 
     def _admit_and_place(self) -> None:
-        """Admission and its device obligation: the pending copy-on-write
-        block copy of a partial-prefix hit (JAX ``_place_admitted``), in
-        place on every pool (and scale pool when quantized), on the
-        engine's stream. That orders it after the in-flight round; it reads
-        a cached, immutable block and writes a fresh private block that no
-        in-flight lane reads. Then the eviction pin on the source drops.
+        """Admission and its device obligations (copy-on-write copies,
+        swap-in restores), looped with priority preemption: when the head of
+        the waiting queue outranks a running request and cannot be admitted,
+        the lowest-priority victim is swapped to host memory and admission
+        retries (JAX ``_admit_and_place``). Strictly higher rank only: equal
+        classes never thrash each other at admission.
 
-        A hit's prefill starts at the chunk boundary at or below the matched
-        length (the chunks sit where they would without the cache) and
-        writes only the positions past the match. The paged kernel cuts each
-        chunk's keys into splits by the chunk's start, so the same starts
-        give the same sums: with the cache or without it, a request's K/V
-        and tokens are the same bits."""
+        A fresh hit's prefill starts at the chunk boundary at or below the
+        matched length (the chunks sit where they would without the cache)
+        and writes only the positions past the match. The paged kernel cuts
+        each chunk's keys into splits by the chunk's start, so the same
+        starts give the same sums: with the cache or without it, a request's
+        K/V and tokens are the same bits. A restored request resumes where
+        it stood."""
+        sched = self.scheduler
         chunk = self.config.prefill_chunk
-        for req in self.scheduler.admit():
-            req.prefill_pos -= req.prefill_pos % chunk
-            if req.cow is None:
-                continue
+        while True:
+            for req in sched.admit():
+                if not req.preempted:
+                    req.prefill_pos -= req.prefill_pos % chunk
+                self._place_admitted(req)
+            head = sched.peek_head()
+            if head is None or self._swap is None:
+                return
+            victim = sched.pick_victim()
+            if victim is None or priority_rank(victim.priority) <= priority_rank(head.priority):
+                return
+            if not self._swap_out(victim):
+                return  # swap full: the head waits its turn
+
+    def _place_admitted(self, req: Request) -> None:
+        """The device half of admission (JAX ``_place_admitted``): restore a
+        preempted request's swapped rows into its freshly allocated blocks
+        (one copy up from pinned memory, one ``index_copy_`` per pool), or
+        run the pending copy-on-write block copy of a partial-prefix hit, in
+        place on every pool, on the engine's stream. That orders either
+        after the in-flight round; both write blocks no in-flight lane
+        reads."""
+        if req.swap_plan:
+            n = len(req.swap_plan)
+            ids = torch.tensor([req.blocks[idx] for idx, _ in req.swap_plan],
+                               dtype=torch.long, device=self.device)
+            handles = [h for _, h in req.swap_plan]
+            rows = self._swap.load_rows(handles).to(self.device, non_blocking=True)
+            parts = self._swap.split_rows(rows, raw=True)
+            for name, pool in self._pages.items():  # byte views: every pool dtype
+                pool.view(torch.uint8).index_copy_(1, ids, parts[name].transpose(0, 1))
+            for h in handles:
+                self._swap.release(h)
+            self._swapped_in_blocks += n
+            req.swap_plan = []
+            req.preempted = False
+            if self.usage is not None:
+                # restored blocks re-enter the held count (admit() stamped
+                # the pre-restore count with swap_plan still pending)
+                self.usage.accrue_swap(req, bytes_in=n * self._swap.bytes_per_block)
+                self.usage.update_blocks(req)
+            if req.state is RequestState.DECODE:
+                # resume feeding the last emitted token at context_len
+                self._pending_tok[req.slot] = req.output_tokens[-1]
+        elif req.cow is not None:
             src, dst = req.cow
             for pool in self._pages.values():
                 pool[:, dst].copy_(pool[:, src])
-            self.allocator.decref([src])
+            self.allocator.decref([src])  # drop the eviction pin
             self._cow_copies += 1
             req.cow = None
+
+    def _fence_inflight(self) -> bool:
+        """Harvest the in-flight round before host code reads pool rows it
+        may still be writing (JAX ``_fence_inflight``, before swap-out's
+        gather). Its tokens land on their requests now (an in-flight member
+        already owns that token in the synchronous engine's timeline); its
+        finishes park in the backlog until the step's harvest point; the
+        evict sweep runs so the caller's capacity math sees freed slots.
+        Returns True when a round was fenced."""
+        if self._inflight is None:
+            return False
+        prev = self._fl_cur if self._fl_phases is not None else None
+        self._harvest_inflight(self._harvest_backlog)
+        self.scheduler.evict_finished()
+        if prev is not None:
+            self._fl_switch(prev)  # resume the interrupted phase
+        return True
+
+    def _swap_out(self, victim: Request) -> bool:
+        """Preempt ``victim`` (JAX ``_swap_out``): copy its unshared blocks
+        to the host swap pool, release them, free the slot, and re-queue the
+        request at the front of its class. "Unshared" means no other live
+        request reads the block: a block shared only with the radix cache
+        goes too (the cache's copy stays resident at refcount 1,
+        evictable); a block another live request maps stays resident under
+        the victim's reference. The blocks are gathered on the device into
+        one ``[n, bytes_per_block]`` byte buffer and land in pinned memory by
+        one non-blocking copy behind an event. Returns False when the swap
+        pool cannot hold the victim."""
+        # fence FIRST: the in-flight round may still write the victim's rows
+        # and holds a token the synchronous engine already emitted. The
+        # fence may finish the victim or free its slot: then there is
+        # nothing to swap, and the caller retries
+        if self._fence_inflight() and (
+            victim.state is RequestState.FINISHED or victim.slot is None
+        ):
+            return True
+        swappable = []
+        for i, b in enumerate(victim.blocks):
+            rc = self.allocator.refcount(b)
+            if rc == 1 or (rc == 2 and self.radix is not None and self.radix.is_cached(b)):
+                swappable.append(i)
+        if self._swap is None or not self._swap.can_hold(len(swappable)):
+            return False
+        plan: list[tuple[int, int]] = []
+        released = [victim.blocks[i] for i in swappable]
+        if released:
+            ids = torch.tensor(released, dtype=torch.long, device=self.device)
+            # K, V (, K scales, V scales): the swap rows' field order
+            rows = SwapPool.pack_rows([pool.view(torch.uint8).index_select(1, ids).transpose(0, 1)
+                                       for pool in self._pages.values()])
+            host = torch.empty(rows.shape, dtype=torch.uint8,
+                               pin_memory=self.device.type == "cuda")
+            host.copy_(rows, non_blocking=True)
+            if self.device.type == "cuda":
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
+            plan = list(zip(swappable, self._swap.store_rows(host)))
+        # refcount-1 blocks return to the freelist; cache-shared ones stay
+        # allocated under the cache's own (now sole, evictable) reference
+        self.allocator.decref(released)
+        victim.swap_plan = plan
+        self.scheduler.requeue_preempted(victim)
+        self._preemptions += 1
+        self._swapped_out_blocks += len(plan)
+        if self.usage is not None:
+            # swapped blocks leave the victim's held count; retained shared
+            # blocks keep accruing
+            self.usage.accrue_swap(victim, bytes_out=len(plan) * self._swap.bytes_per_block)
+            self.usage.update_blocks(victim)
+        return True
+
+    def _release_expired_queued(self, req: Request) -> None:
+        """A request that expired while queued holds no slot, but a preempted
+        one still owns swap handles and references on blocks it shares with
+        live requests: release both (JAX ``_release_expired_queued``)."""
+        if req.swap_plan:
+            for _, handle in req.swap_plan:
+                self._swap.release(handle)
+            swapped = {idx for idx, _ in req.swap_plan}
+            retained = [b for i, b in enumerate(req.blocks) if i not in swapped]
+            if retained:
+                self.allocator.decref(retained)
+            req.swap_plan = []
+        req.blocks = []
+        if self.usage is not None:
+            self.usage.update_blocks(req)
 
     def _force_finish_out_of_blocks(self, req: Request, finished: list[Request]) -> None:
         req.finish_reason = "out_of_blocks"
@@ -1035,24 +1522,58 @@ class InferenceEngine:
         }
 
     def _ensure_decode_capacity(self, req: Request, finished: list[Request]) -> None:
-        """Block growth for one decode lane (refcount-1 cached blocks are
-        evicted first). Without swap, pool exhaustion truncates the request
-        that failed to grow (``out_of_blocks``) — never an innocent
-        neighbour that fit its reservation."""
-        if not self.scheduler.grow_for_decode(req, tokens_ahead=self.config.decode_burst):
-            self._force_finish_out_of_blocks(req, finished)
+        """Block growth for one decode lane, with swap preemption under pool
+        exhaustion (JAX ``_ensure_decode_capacity``). Refcount-1 cached
+        blocks are evicted inside ``grow_for_decode``; when even that fails,
+        the lowest-priority victim (possibly ``req`` itself; a request never
+        preempts a higher-priority one) is swapped out and growth retries.
+        Truncation (``out_of_blocks``) is the last resort: swap disabled or
+        full, or ``req`` alone in the pool with nothing left to reclaim.
+        Without swap the request that failed to grow is the one truncated,
+        never an innocent neighbour that fit its reservation."""
+        sched = self.scheduler
+        while not sched.grow_for_decode(req, tokens_ahead=self._decode_lookahead):
+            if self._swap is None:
+                self._force_finish_out_of_blocks(req, finished)
+                return
+            victim = sched.pick_victim() or req
+            if priority_rank(victim.priority) < priority_rank(req.priority):
+                victim = req  # never evict someone more important than req
+            if victim is req and len(sched.active()) <= 1:
+                # req is the sole tenant: swapping itself out only helps if a
+                # strictly higher-priority head admits first; otherwise it
+                # would ping-pong through the swap pool forever
+                head = sched.peek_head()
+                if head is None or priority_rank(head.priority) >= priority_rank(req.priority):
+                    self._force_finish_out_of_blocks(req, finished)
+                    return
+            if not self._swap_out(victim):
+                # swap full: truncation only rolls downhill — a strictly
+                # lower-priority victim pays; equal priority keeps the
+                # requester-pays rule
+                if priority_rank(victim.priority) > priority_rank(req.priority):
+                    self._force_finish_out_of_blocks(victim, finished)
+                    continue
+                self._force_finish_out_of_blocks(req, finished)
+                return
+            if victim is req:
+                return  # req is queued for re-admission; its lane goes idle
 
     def _dispatch_decode(self, decoding: list[Request], finished: list[Request]) -> None:
-        """Grow every lane, stage the round's operands, replay a burst and
-        start the copy of its outputs to the host — non-blocking:
-        ``_harvest_inflight`` lands them (at the next iteration's harvest
-        point under async dispatch, right after this returns otherwise).
-        The plain burst replays when every live request is inert for the
-        whole burst; the lane burst otherwise, its lanes rebuilt from the
-        live requests on every dispatch."""
+        """Grow every lane, stage the round's operands, replay a burst (or,
+        with ``spec_k``, a spec round) and start the copy of its outputs to
+        the host — non-blocking: ``_harvest_inflight`` lands them (at the
+        next iteration's harvest point under async dispatch, right after
+        this returns otherwise). The plain program replays when every live
+        request is inert for the whole round; the lane program otherwise,
+        its lanes rebuilt from the live requests on every dispatch."""
+        # pass 1, capacity: a later lane's preemption may take an earlier
+        # lane out of its slot, so lane state is staged in pass 2, over the
+        # survivors
         for req in decoding:
-            if req.state is RequestState.DECODE:
-                self._ensure_decode_capacity(req, finished)
+            if req.slot is None or req.state is not RequestState.DECODE:
+                continue  # preempted or force-finished by an earlier lane
+            self._ensure_decode_capacity(req, finished)
         live = [req for req in decoding
                 if req.slot is not None and req.state is RequestState.DECODE]
         if not live:
@@ -1065,9 +1586,9 @@ class InferenceEngine:
             for name, values in blank.items():
                 ops[name][:] = values
         for req in live:
-            # a burst writes up to decode_burst positions ahead (capped at the
-            # request's own budget); lane-steps past the budget write into the
-            # null block and are dropped host-side
+            # a round writes up to _decode_lookahead positions ahead (capped
+            # at the request's own budget); lane-steps past the budget write
+            # into the null block and are dropped host-side
             self._sync_block_table(req)
             ops["pos0"][req.slot] = req.context_len
             ops["toks"][req.slot, 0] = self._pending_tok[req.slot]
@@ -1081,42 +1602,80 @@ class InferenceEngine:
                             if params.repetition_penalty != 1.0 else ()),
                 )
         ops["tables"][:] = self._block_tables
-        self._inflight_kind = "lane_decode" if use_lanes else "decode"
+        self._inflight_kind = self._lane_name if use_lanes else self._decode_name
         self._programs[self._inflight_kind].run(operands.upload)
-        self._round_io().copy_to_host()  # the round's one copy, logprobs included
+        self._round_io().copy_to_host()  # the round's one copy
         self._inflight = live
 
     def _round_io(self) -> _Outputs:
         """The outputs of the round in flight (or just dispatched)."""
+        if self._inflight_kind in _SPEC_KINDS:
+            return self._spec_io
         return self._lane_out if self._inflight_kind == "lane_decode" else self._decode_io
 
     def _harvest_inflight(self, finished: list[Request]) -> None:
         """Land the in-flight round: wait on its copy's event (the flight
         recorder's ``device_wait``), then emit each live lane's tokens
-        (and logprobs, when the request asked) through ``_emit_token``. A
-        member that finished mid-burst emits nothing more: its tail
-        lane-steps are waste."""
+        (and logprobs, when the request asked) through ``_emit_token``: a
+        burst's ``decode_burst`` tokens, or a spec round's accepted prefix
+        and correction (``accept + 1`` tokens). A member that finished
+        mid-round emits nothing more: the rest of its round is waste. The
+        usage ledger apportions the round's ``device_wait`` across its
+        batch by the tokens each request emitted."""
         live = self._inflight
         if live is None:
             return
-        use_lanes = self._inflight_kind == "lane_decode"
+        kind = self._inflight_kind
+        use_lanes = kind == "lane_decode"
+        u = self.usage
+        pre = None if u is None else [len(r.output_tokens) for r in live]
         self._fl_switch("device_wait")
+        # flight disabled: the ledger stamps its own device_wait interval
+        t_dw = time.perf_counter() if u is not None and self._fl_phases is None else 0.0
         self._round_io().wait()
         self._inflight = None
-        self._fl_switch("harvest")
+        dw = self._fl_switch("harvest")
+        if u is not None and dw is None:
+            dw = time.perf_counter() - t_dw
         out = self._round_io().host_views
-        next_toks = out["tok"]
-        for req in live:
-            params = self._params(req) if use_lanes else None
-            for t in range(self.config.decode_burst):
-                if req.state is RequestState.FINISHED:
-                    break  # mid-burst eos/length/stop: tail lane-steps are waste
-                entry = None
-                if params is not None and params.logprobs:
-                    entry = self._logprob_entry(params, float(out["logp"][t, req.slot]),
-                                                out["top_vals"][t, req.slot],
-                                                out["top_ids"][t, req.slot])
-                self._emit_token(req, int(next_toks[t, req.slot]), finished, entry)
+        if kind in _SPEC_KINDS:
+            k = self.config.spec_k
+            tok_seq, accept = out["tok"], out["accept"]
+            for req in live:
+                a = int(accept[req.slot])
+                self._spec_drafted += k
+                self._spec_accepted += a
+                if u is not None:
+                    u.accrue_spec(req, k, a)
+                if req.sampling is not None and req.sampling.do_sample:
+                    # rejection-sampling health, over sampled slots only
+                    self._rej_drafted += k
+                    self._rej_accepted += a
+                for t in range(a + 1):
+                    if req.state is RequestState.FINISHED:
+                        break  # mid-round eos/length/stop: the run's tail is waste
+                    self._emit_token(req, int(tok_seq[req.slot, t]), finished)
+        else:
+            next_toks = out["tok"]
+            for req in live:
+                params = self._params(req) if use_lanes else None
+                for t in range(self.config.decode_burst):
+                    if req.state is RequestState.FINISHED:
+                        break  # mid-burst eos/length/stop: tail lane-steps are waste
+                    entry = None
+                    if params is not None and params.logprobs:
+                        entry = self._logprob_entry(params, float(out["logp"][t, req.slot]),
+                                                    out["top_vals"][t, req.slot],
+                                                    out["top_ids"][t, req.slot])
+                    self._emit_token(req, int(next_toks[t, req.slot]), finished, entry)
+        if u is not None:
+            # weighted by the tokens each request emitted from this harvest
+            # (stop-trim can shrink output_tokens: clamp at 0); an
+            # all-discarded round splits equally so no interval is lost
+            emitted = [max(0, len(r.output_tokens) - p) for r, p in zip(live, pre)]
+            shares = ([(r.request_id, e) for r, e in zip(live, emitted) if e]
+                      if any(emitted) else [(r.request_id, 1) for r in live])
+            u.accrue_decode(dw, shares)
 
     # -- grammar row lifecycle ------------------------------------------------
 
@@ -1202,6 +1761,8 @@ class InferenceEngine:
             # entering a state with no live continuation means the match is
             # complete
             self._grammar_masked_steps += 1
+            if self.usage is not None:
+                self.usage.accrue_grammar(req)
             g = self._row_grammar[req.grammar_row]
             req.dfa_state = g.advance(req.dfa_state, tok)
             if req.finish_reason is None and g.final[req.dfa_state]:

@@ -1,6 +1,5 @@
-"""Radix prefix-sharing cache for the serving engine (port of the
-:class:`RadixCache` half of ``accelerate_tpu/serving/radix.py``: pure
-Python, shared semantics).
+"""Radix prefix-sharing cache + host swap pool for the serving engine (port
+of ``accelerate_tpu/serving/radix.py``: shared semantics).
 
 Production chat traffic shares long prompt prefixes (system prompts,
 few-shot preambles, multi-turn history). The block-paged KV pool is the
@@ -35,13 +34,21 @@ A request's matched prefix is capped at ``prompt_len - 1`` tokens: the
 engine derives the first output token from the final prompt position's
 logits, so at least one prompt token is always prefilled even on a 100% hit.
 
-The JAX module's ``SwapPool`` (the host-DRAM preemption tier) belongs to
-swap preemption, a later slice of the port.
+:class:`SwapPool` is the preemption tier: a capacity-bounded host mirror
+of the device pool's block layout, in ONE (pinned, on a CUDA engine) host
+tensor. Under pool exhaustion the scheduler's victim has its unshared
+blocks copied here, its slot is released, and it re-queues at the front of
+its priority class; re-admission copies the rows back into freshly
+allocated blocks. ``finish_reason="out_of_blocks"`` becomes the last resort
+for when even swap capacity is gone.
 """
 
 from __future__ import annotations
 
 import heapq
+
+import numpy as np
+import torch
 
 from .blocks import BlockAllocator
 
@@ -235,3 +242,140 @@ class RadixCache:
                 heapq.heappush(heap, (parent.last_used, id(parent), parent))
         self.evicted_blocks += freed
         return freed
+
+
+class SwapPool:
+    """Capacity-bounded host mirror of the device pool's block layout: one
+    K row and one V row of shape ``[layers, block_size, n_kv, hd]`` per
+    slot in the pool's dtype (plus f32 ``[layers, block_size, n_kv]`` scale
+    rows when quantized), JAX's ``SwapPool`` contract and messages. The slots
+    are rows of ONE ``uint8`` host tensor ``[capacity_blocks,
+    bytes_per_block]`` (pinned when ``pin_memory``), laid out K | V | K
+    scales | V scales, so the engine moves a victim's blocks in one batched
+    copy each way (:meth:`store_rows` / :meth:`load_rows`); :meth:`store` and
+    :meth:`load` take and give one block's typed rows. ``capacity_gb`` bounds
+    the mirror so a preemption storm degrades to truncation instead of
+    exhausting the host."""
+
+    def __init__(
+        self,
+        num_layers: int,
+        block_size: int,
+        num_kv_heads: int,
+        head_dim: int,
+        dtype,
+        capacity_gb: float,
+        quantized: bool = False,
+        pin_memory: bool = False,
+    ):
+        self.block_shape = (int(num_layers), int(block_size), int(num_kv_heads), int(head_dim))
+        self.dtype = dtype
+        self.quantized = bool(quantized)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        payload = itemsize * int(np.prod(self.block_shape))
+        self._fields = [("k", dtype, self.block_shape, payload),
+                        ("v", dtype, self.block_shape, payload)]
+        if self.quantized:
+            # f32 amax scale rows park beside the payload: a quantized block
+            # is meaningless without them, and they must survive the round
+            # trip byte-exact
+            self.scale_shape = self.block_shape[:-1]
+            scale = 4 * int(np.prod(self.scale_shape))
+            self._fields += [("k_scale", torch.float32, self.scale_shape, scale),
+                             ("v_scale", torch.float32, self.scale_shape, scale)]
+        per_block = sum(f[3] for f in self._fields)
+        self.bytes_per_block = per_block
+        self.capacity_blocks = max(0, int(capacity_gb * (1 << 30)) // per_block)
+        self._rows = torch.zeros((self.capacity_blocks, per_block), dtype=torch.uint8,
+                                 pin_memory=pin_memory)
+        self._free = list(range(self.capacity_blocks - 1, -1, -1))
+        self._held: set[int] = set()
+
+    @property
+    def used_blocks(self) -> int:
+        return len(self._held)
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    def can_hold(self, n_blocks: int) -> bool:
+        return n_blocks <= len(self._free)
+
+    def split_rows(self, rows: torch.Tensor, raw: bool = False) -> dict:
+        """``rows`` ``[n, bytes_per_block]`` uint8 (any device) → typed
+        ``{"k": [n, layers, bs, n_kv, hd], "v": ..., and the scales when
+        quantized}``; ``raw`` keeps them bytes, the last dim times the
+        itemsize (what a byte view of the pools takes)."""
+        out, lo = {}, 0
+        for name, dtype, shape, nbytes in self._fields:
+            part = rows[:, lo:lo + nbytes].contiguous()
+            out[name] = (part.reshape(-1, *shape[:-1], nbytes // int(np.prod(shape[:-1])))
+                         if raw else part.view(dtype).reshape(-1, *shape))
+            lo += nbytes
+        return out
+
+    @staticmethod
+    def pack_rows(parts: list) -> torch.Tensor:
+        """Typed ``[n, ...]`` blocks in K, V (, K scales, V scales) order →
+        ``[n, bytes_per_block]`` uint8 rows (on their device)."""
+        n = parts[0].shape[0]
+        return torch.cat([p.contiguous().view(torch.uint8).reshape(n, -1) for p in parts], dim=1)
+
+    def store_rows(self, rows: torch.Tensor) -> list[int]:
+        """Park ``rows`` ``[n, bytes_per_block]`` (host uint8) in n slots;
+        returns their handles, in order."""
+        n = rows.shape[0]
+        if n > len(self._free):
+            raise RuntimeError(
+                f"swap pool exhausted ({self.capacity_blocks} blocks, "
+                f"{self.bytes_per_block} B each): raise swap_gb"
+            )
+        handles = [self._free.pop() for _ in range(n)]
+        if n:
+            self._rows.index_copy_(0, torch.tensor(handles, dtype=torch.long), rows)
+        self._held.update(handles)
+        return handles
+
+    def load_rows(self, handles: list[int]) -> torch.Tensor:
+        """The parked rows of ``handles``, ``[n, bytes_per_block]`` (a host
+        copy, pinned when the pool is)."""
+        for h in handles:
+            if h not in self._held:
+                raise ValueError(f"swap handle {h} is not held")
+        out = torch.empty((len(handles), self.bytes_per_block), dtype=torch.uint8,
+                          pin_memory=self._rows.is_pinned())
+        torch.index_select(self._rows, 0, torch.tensor(handles, dtype=torch.long), out=out)
+        return out
+
+    def store(self, k_rows, v_rows, k_scale_rows=None, v_scale_rows=None) -> int:
+        """Park one block's K/V rows (+ scale rows when quantized);
+        returns the swap handle."""
+        if not self._free:
+            raise RuntimeError(
+                f"swap pool exhausted ({self.capacity_blocks} blocks, "
+                f"{self.bytes_per_block} B each): raise swap_gb"
+            )
+        if self.quantized and (k_scale_rows is None or v_scale_rows is None):
+            raise ValueError("quantized swap pool needs scale rows on store()")
+        parts = [torch.as_tensor(k_rows).to(self.dtype), torch.as_tensor(v_rows).to(self.dtype)]
+        if self.quantized:
+            parts += [torch.as_tensor(k_scale_rows, dtype=torch.float32),
+                      torch.as_tensor(v_scale_rows, dtype=torch.float32)]
+        return self.store_rows(self.pack_rows([p.reshape(1, *p.shape) for p in parts]))[0]
+
+    def load(self, handle: int):
+        """``(k, v, k_scale, v_scale)`` — the scale pair is ``None`` for
+        non-quantized pools."""
+        if handle not in self._held:
+            raise ValueError(f"swap handle {handle} is not held")
+        parts = self.split_rows(self._rows[handle:handle + 1])
+        if self.quantized:
+            return parts["k"][0], parts["v"][0], parts["k_scale"][0], parts["v_scale"][0]
+        return parts["k"][0], parts["v"][0], None, None
+
+    def release(self, handle: int) -> None:
+        if handle not in self._held:
+            raise ValueError(f"double release of swap handle {handle}")
+        self._held.remove(handle)
+        self._free.append(handle)

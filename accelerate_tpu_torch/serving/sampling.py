@@ -20,7 +20,7 @@ CPU and the card give the same bits; it needs no ``torch.Generator`` and no
 RNG state registered with a graph. It cannot reproduce the JAX package's
 threefry bits: sampled slots match JAX in distribution, greedy slots
 token for token. ``TAG_*`` separates the independent draws a speculative
-round makes at one position (speculative decoding is a later slice).
+round makes at one position (:func:`rejection_accept`).
 
 The JAX module's ``lax.cond`` greedy fast path becomes a host choice in
 the engine: CUDA graphs cannot branch on data, so the plain burst graph
@@ -60,6 +60,7 @@ __all__ = [
     "TAG_DRAFT",
     "TAG_ACCEPT",
     "TAG_RESAMPLE",
+    "rejection_accept",
 ]
 
 #: large-but-finite mask fill. Not -inf: a fully-masked row (a grammar's
@@ -349,3 +350,55 @@ def pick_tokens(logits, lanes, dfa_state, step, gmask, engine_seed, *, eos_id,
     logp_tok = torch.gather(lp, 1, tok.long()[:, None])[:, 0]
     top_vals, top_ids = torch.topk(lp, n, dim=-1)
     return tok, logp_tok, top_vals, top_ids.to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# speculative rejection sampling
+# --------------------------------------------------------------------------
+
+
+def rejection_accept(d, p, q, u, engine_seed, seed_lane, pos_lane):
+    """Standard speculative-sampling acceptance for the sampled slots of a
+    verify round (port of JAX ``rejection_accept``).
+
+    ``d [S, k]`` are the draft tokens, ``p [k+1, S, V]`` the target
+    probabilities at each draft position (plus the bonus position), ``q [k,
+    S, V]`` the draft probabilities the tokens were drawn from, ``u [S, k]``
+    the per-position accept uniforms. Draft token ``j`` is accepted while
+    ``u_j < min(1, p_j(d_j) / q_j(d_j))``; the first rejection resamples from
+    the clamped residual ``max(p - q, 0)``, and a fully-accepted row draws
+    its bonus token from ``p_k``. The resample is an inverse-CDF pick whose
+    uniform hashes (engine seed, ``TAG_RESAMPLE``, request seed, the output
+    position it lands on: ``pos_lane + accept``), so it is as admission-order
+    independent as every other draw. Returns ``(accept [S] int32, tok_seq
+    [S, k+1] int32)`` shaped like :func:`~..generation.spec_accept_tokens`.
+
+    Grammar masks are already inside ``p`` and ``q`` (both come out of
+    :func:`dist_logprobs` over filtered logits): an out-of-language draft has
+    target probability 0 and is rejected with certainty, and the residual is
+    in-language. Fixed shapes, no host sync."""
+    num_slots, k = d.shape
+    rows = torch.arange(num_slots, device=d.device)
+    dl = d.long()
+    p_d = torch.stack([p[j, rows, dl[:, j]] for j in range(k)], dim=1)
+    q_d = torch.stack([q[j, rows, dl[:, j]] for j in range(k)], dim=1)
+    ok = u < torch.clamp(p_d / torch.clamp(q_d, min=1e-20), max=1.0)
+    accept = torch.where(ok.all(dim=1), torch.full_like(dl[:, 0], k),
+                         torch.argmin(ok.to(torch.int32), dim=1))
+    p_a = p[accept, rows]  # [S, V] target dist at the first-reject position
+    q_a = q[torch.clamp(accept, max=k - 1), rows]
+    resid = torch.clamp(p_a - q_a, min=0.0)
+    bonus = (accept == k)[:, None]
+    dist = torch.where(bonus, p_a, resid)
+    degenerate = dist.sum(dim=-1, keepdim=True) <= 0.0
+    dist = torch.where(degenerate, p_a, dist)
+    u_res = slot_uniforms(engine_seed, TAG_RESAMPLE, seed_lane,
+                          pos_lane + accept.to(pos_lane.dtype))
+    corr = inverse_cdf_pick(torch.log(dist), u_res)
+    accept = accept.to(torch.int32)
+    d_ext = torch.cat([d, torch.zeros((num_slots, 1), dtype=d.dtype, device=d.device)], dim=1)
+    j = torch.arange(k + 1, device=d.device)[None, :]
+    a = accept[:, None]
+    tok_seq = torch.where(j < a, d_ext,
+                          torch.where(j == a, corr[:, None].to(d.dtype), torch.zeros_like(d_ext)))
+    return accept, tok_seq.to(torch.int32)

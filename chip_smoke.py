@@ -26,7 +26,9 @@ failure, so the script exits non-zero and prints no result):
    queries on an int8 pool; block sizes 8 and 32; one batch whose rows'
    valid lengths are 1, 127, 128, 129 and 1000 (and 32..1000 in a chunk, MHA
    and GQA); s=5; then hd=16 (MHA 4/4) and hd=32 (GQA 8/2) in every pool
-   with f32 and bf16 queries, and the mixed-length batch at hd=16. Gates:
+   with f32 and bf16 queries, and the mixed-length batch at hd=16; the spec
+   verify's shape (8 rows, s = 2, 3, 5, first queries on block edges); head
+   dims 24, 48 and 80 in every pool with f32 and bf16 queries. Gates:
    f32 ``atol=rtol=1e-5``; bf16 outputs ``atol=2e-2`` in f32; int8 / fp8
    (and a bf16 pool under f32 queries) ``atol=rtol=1e-4`` on the same
    stored bytes. Each case launches twice and requires bit-identical
@@ -72,10 +74,22 @@ failure, so the script exits non-zero and prints no result):
 5c. engine-wide ``do_sample=True`` with one seed in two engines and in
    reverse admission order: identical tokens, the lane burst captured
    once and the plain burst never;
+5d. speculative decoding (``spec_k`` 4, ``early_exit:2``) on the flagship:
+   the 12 requests greedy against 5b's plain tokens under 5b's margin rule
+   (a divergence's logits from an eager prefill of the shared prefix), one
+   capture of the spec round recording 4 × 2 draft launches and 16 verify
+   launches; 4 seeded sampled requests through the lane spec round in two
+   admission orders, identical; a 72-block pool with ``swap_gb`` giving the
+   full-residency tokens of 8 requests with swaps > 0; swap-out and swap-in
+   of a 512-id request timed (ms a block, GB/s); a request whose 600 ms
+   deadline passes mid decode finishing ``deadline_exceeded`` while 3
+   others keep their tokens; the usage ledger conserved on every engine;
 6. times at the flagship decode shape (8 slots, context 512, bf16, the 16
    layers' pools rotated so L2 does not hold them), at context 1024 (the
    table's ``mb · bs``), and at the prefill chunk (b 1, s 32, the chunk's
-   last query at context 512 and 896): the kernel (CUDA events around the
+   last query at context 512 and 896), at the spec verify (8 slots, s = 5,
+   context 512) and at decode with head dims 80 and 24 (12 heads): the
+   kernel (CUDA events around the
    Python wrapper), the device time a launch of its split kernel and of its
    combine kernel under ``torch.profiler``, the plain version,
    ``scaled_dot_product_attention`` over the pre-gathered span with the
@@ -87,7 +101,8 @@ failure, so the script exits non-zero and prints no result):
    library time reads 0.0;
 7. where a flagship decode step's time goes on the graph engine: four
    greedy legs, async and sync alternating, then one async leg with all 8
-   slots sampled (temperature 0.8, top-p 0.9: the lane burst), each its
+   slots sampled (temperature 0.8, top-p 0.9: the lane burst) and one async
+   greedy spec leg (a round's numbers, with its accept rate), each its
    own engine past prefill,
    four timed ``step()`` calls (wall per decode step, tokens/s, the flight
    recorder's ``host_fraction`` and per-phase p50) and two under
@@ -99,8 +114,9 @@ failure, so the script exits non-zero and prints no result):
    against their plain versions on the card, on seeded numpy inputs: the
    flagship shape (b 8, s 1024, 12 × 128) and GQA 32/8 at hd 64 and 128,
    hd 16 (MHA 4/4) and hd 32 (GQA 8/2) in f32 and bf16, causal and not,
-   s = 129 and 1000 with a left-padded mask (each narrow case launched
-   twice and required bit-identical),
+   s = 129 and 1000 with a left-padded mask, and hd 24, 48 and 80 at s =
+   129, 1000 (left-padded) and 200 (not causal) (each case off hd 64 and
+   128 launched twice and required bit-identical),
    causal and not, s = 1000 (not a tile multiple), a left-padded key mask
    with fully masked rows, f32 and bf16, and four bf16 cases at the edges
    of the bf16 kernels' tiles: s = 129 (one row past a 128-row tile),
@@ -115,9 +131,9 @@ failure, so the script exits non-zero and prints no result):
 8b. ``LlamaConfig.tiny()`` (head dim 16) trained 20 steps through
    ``Accelerator(mixed_precision="bf16").prepare(...)`` on a fixed batch:
    finite, falling loss, each flash kernel launched once a layer a step;
-   then B1-B3 at hd 16 and 32 at that shape (b 8, s 128, 4 heads, bf16,
-   causal) by events and by the profiler, beside sdpa and the bound counted
-   on the real head dim;
+   then B1-B3 at hd 16, 32, 24 and 80 at that shape (b 8, s 128, 4 heads,
+   bf16, causal) by events and by the profiler, beside sdpa and the bound
+   counted on the real head dim;
 9. one training forward and backward at flagship width (2 layers, b 2,
    s 512, one left-padded row), attention through the kernels against the
    plain autograd.Function, in f32 (loss within 1e-5 relative, every
@@ -205,6 +221,8 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
+#: the head dims B1-B3 are built at (a head dim runs at the first that holds it)
+FLASH_BUILT_HDS = (16, 32, 48, 64, 80, 96, 112, 128)
 #: B4's instances at the timed decode shape (hd 128, bf16 queries and pool)
 PAGED_TIMED = ("paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false>",
                "combine_splits_kernel<128, __nv_bfloat16>")
@@ -223,7 +241,7 @@ def occupancy_report() -> tuple[dict, int]:
     blocks, combine, smem, out = ctypes.c_int(), ctypes.c_int(), ctypes.c_int(), {}
     flash = _build.load("flash_attention.cu")
     for which, name in enumerate(FLASH_KERNELS):
-        for hd in (16, 32, 64, 128):
+        for hd in FLASH_BUILT_HDS:
             if flash.flash_attention_blocks_per_sm(which, hd, ctypes.byref(blocks)):
                 raise AssertionError(f"the occupancy query failed for {name} at hd {hd}")
             out[f"{name}_wgmma_kernel<{hd}>"] = blocks.value
@@ -297,6 +315,8 @@ def _filled_pools(rng, *, b, s, nh, n_kv, hd, bs, mb, idx, pool, q_dtype, dev):
 #: ``idx`` (the first query's position) of phase 3's rows: on and beside
 #: block edges, then the mixed-length batch (valid lengths idx + s)
 EDGE_IDX = (0, 1, 15, 16, 17, 31, 32, 100, 255, 511)
+#: the spec verify's 8 rows: first queries on and beside block edges
+VERIFY_IDX = (0, 14, 15, 16, 31, 47, 255, 510)
 
 
 def _kernel_cases():
@@ -309,9 +329,11 @@ def _kernel_cases():
     lengths run 1, 127, 128, 129, 1000 (so the rows use different numbers of
     splits), at decode and in a 32-query chunk; GQA 32/8 chunks at s = 32
     (eight 16-row tiles a kv head) over that batch; and s = 5 (rows that do
-    not fill a 16-row tile). Last, head dims 16 (MHA 4/4, the tiny preset's
+    not fill a 16-row tile). Then head dims 16 (MHA 4/4, the tiny preset's
     shape) and 32 (GQA 8/2) in every pool dtype with f32 and bf16 queries,
-    and the mixed-length batch at hd 16."""
+    and the mixed-length batch at hd 16. Last, the spec verify's shape (8
+    rows, s = 2, 3 and 5, first queries on block edges) and head dims 24, 48
+    and 80 in every pool with f32 and bf16 queries."""
     def edge(s, bs, mb):
         return tuple(i for i in EDGE_IDX if i + s <= mb * bs)
 
@@ -346,6 +368,16 @@ def _kernel_cases():
               for s in (1, 32)]
     cases += [(pool, q, 1, 4, 4, 16, 16, 64, mixed[1])
               for pool, q in (("bf16", "bf16"), ("f32", "f32"))]
+    # the speculative verify (8 slots, s = k+1 = 2, 3, 5) on block edges
+    cases += [(pool, pool if pool == "bf16" else "f32", s, 12, 12, 128, 16, 40, VERIFY_IDX)
+              for pool in ("bf16", "int8", "f32") for s in (2, 3, 5)]
+    # head dims off the built widths (24 -> 32, 48 -> 64, 80 -> 128; an
+    # int8/fp8 row of 24 or 80 bytes is copied 8 bytes at a time): every
+    # pool with f32 and bf16 queries, decode and a chunk
+    cases += [(pool, q, s, nh, n_kv, hd, 16, 8, edge(s, 16, 8))
+              for hd, nh, n_kv in ((24, 4, 4), (48, 8, 2), (80, 4, 2))
+              for pool in ("f32", "bf16", "int8", "fp8") for q in ("f32", "bf16")
+              for s in (1, 5)]
     return cases
 
 
@@ -893,6 +925,239 @@ def check_sampled_pair(model) -> dict:
     return {"identical": True, "identical_reversed": True}
 
 
+# -- phase 5d -----------------------------------------------------------------
+
+#: the spec engine of phase 5d and phase 7's spec leg
+SPEC = {"spec_k": 4, "draft": "early_exit:2"}
+
+
+def check_spec_counts(stats: dict, layers: int, what: str, sampled: bool = False) -> dict:
+    """One capture of the spec round (``decode_compiles``; of its lane twin,
+    ``lane_decode_compiles``, instead when every request samples), one of
+    the prefill chunk; each spec capture recorded ``k`` draft steps of
+    ``N`` layers at one query a row and one verify through every layer at
+    ``k+1``; launches = eager (the warm-ups) + replays × captured."""
+    k, n = SPEC["spec_k"], int(SPEC["draft"].split(":")[1])
+    got = {"decode": stats["decode_compiles"], "lane": stats["lane_decode_compiles"],
+           "prefill": stats["prefill_compiles"]}
+    if got != {"decode": int(not sampled), "lane": int(sampled), "prefill": 1}:
+        raise AssertionError(f"{what}: captures {got}")
+    graphs = stats["cuda_graphs"]
+    for name in ("lane_spec_decode",) if sampled else ("spec_decode",):
+        g = graphs[name]
+        if (g["launches_captured"], g["decode_launches_captured"]) != (k * n + layers, k * n):
+            raise AssertionError(f"{what}: the {name} capture recorded {g}, not "
+                                 f"{k * n + layers} launches ({k * n} with one query a row)")
+        if g["replays"] != g["runs"]:
+            raise AssertionError(f"{what}: {name} ran outside its graph: {g}")
+    eager = stats["paged_attention_eager_launches"]
+    total = eager + sum(g["replays"] * g["launches_captured"] for g in graphs.values())
+    if total != stats["paged_attention_launches"] or eager != sum(
+            g["launches_captured"] for g in graphs.values()):
+        raise AssertionError(f"{what}: launches {stats['paged_attention_launches']} are not "
+                             f"eager {eager} + replays × captured ({graphs})")
+    return {"total": total, "decode": stats["paged_attention_decode_launches"],
+            "spec_rounds": graphs["spec_decode"]["replays"],
+            "lane_spec_rounds": graphs.get("lane_spec_decode", {}).get("replays", 0)}
+
+
+def _divergence(model, prompt, got, ref, cfg) -> dict | None:
+    """Where ``got`` parts from ``ref`` (two greedy runs of one request):
+    the logits of the shared prefix's next position by an eager
+    ``paged_step`` run (the prompt and the prefix prefilled in chunks), their
+    top-2 margin, and the gap between the two picks there against
+    ``BF16_NOISE`` × the largest |logit|. None when they agree."""
+    if got == ref:
+        return None
+    t = next((i for i, (a, b) in enumerate(zip(got, ref)) if a != b), min(len(got), len(ref)))
+    if t >= min(len(got), len(ref)):
+        return {"token": t, "length_only": True, "gap": float("inf"), "noise": 0.0}
+    _, picks = _eager_reference(model, prompt + ref[:t], 1, cfg)
+    logits = picks[0]
+    top = torch.topk(logits, 2).values
+    return {"token": t, "got": got[t], "ref": ref[t],
+            "top2_margin": float(top[0] - top[1]),
+            "gap": abs(float(logits[ref[t]] - logits[got[t]])),
+            "noise": BF16_NOISE * float(logits.abs().max())}
+
+
+def check_spec_swap_deadline(model, greedy) -> dict:
+    """Phase 5d on the flagship (bf16, 8 slots): the 12 phase-5 requests
+    through the greedy spec engine (``spec_k`` 4, ``early_exit:2``) against
+    5b's plain-engine tokens under 5b's margin rule; four seeded sampled
+    requests through the lane spec program in two admission orders; one
+    capture of each spec program; a tight pool with ``swap_gb`` against the
+    full-residency tokens (swaps > 0); a request whose deadline passes mid
+    decode finishing ``deadline_exceeded`` while the others keep their
+    tokens; and the usage ledger conserved on each engine."""
+    from accelerate_tpu_torch.serving import RequestState
+
+    out = {}
+    reqs = _requests(12, seed=0)
+    engine = _flagship_engine(model, **SPEC)
+    handles = [engine.add_request(r["prompt"], r["max_new_tokens"]) for r in reqs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = engine.stats()
+    launches = check_spec_counts(stats, 16, "greedy spec engine")
+    _usage_conserved(stats, "greedy spec engine")
+    cfg = engine.config
+    del engine
+    spec = [list(h.output_tokens) for h in handles]
+    matched, diverged = 0, []
+    for r, got, ref in zip(reqs, spec, greedy):
+        d = _divergence(model, r["prompt"], got, ref, cfg)
+        if d is None:
+            matched += 1
+            continue
+        diverged.append({"id": r["id"], **d})
+        log(f"  spec request {r['id']} parts from the plain engine at token {d['token']}: "
+            f"{d.get('got')} vs {d.get('ref')}; top-2 margin {d.get('top2_margin', 0):.4e}, gap "
+            f"{d['gap']:.4e}, bf16 noise {d['noise']:.4e}")
+        if d["gap"] > d["noise"]:
+            raise AssertionError(f"spec request {r['id']}: a divergence above bf16 noise")
+    out["greedy"] = {"matched_plain": matched, "diverged": diverged, "wall_s": wall,
+                     "tokens_per_sec": stats["tokens_per_sec"], "launches": launches,
+                     "spec_accept_rate": stats["spec_accept_rate"],
+                     "spec_drafted_tokens": stats["spec_drafted_tokens"],
+                     "spec_accepted_tokens": stats["spec_accepted_tokens"]}
+    log(f"  greedy spec engine (spec_k {SPEC['spec_k']}, {SPEC['draft']}): {matched} of "
+        f"{len(reqs)} requests give the plain engine's tokens, {len(diverged)} part within bf16 "
+        f"noise; accept rate {stats['spec_accept_rate']:.3f}; {wall:.2f} s, "
+        f"{stats['tokens_per_sec']:.1f} tok/s; {launches}")
+
+    # sampled, through the lane spec program, in two admission orders
+    sreqs = _requests(4, seed=5)
+    outs = []
+    for order in (range(4), range(3, -1, -1)):
+        engine = _flagship_engine(model, **SPEC)
+        hs = {i: engine.add_request(sreqs[i]["prompt"], 32,
+                                    sampling={**SAMPLED_LEG, "seed": 31 + i}) for i in order}
+        engine.run_until_idle()
+        outs.append([list(hs[i].output_tokens) for i in range(4)])
+        st = engine.stats()
+        check_spec_counts(st, 16, "sampled spec engine", sampled=True)
+        _usage_conserved(st, "sampled spec engine")
+        del engine
+    if outs[0] != outs[1] or any(len(t) != 32 for t in outs[0]):
+        raise AssertionError("sampled spec requests did not reproduce in reverse order")
+    out["sampled"] = {"reproduce_reversed": True,
+                      "rejection_accept_rate": st["rejection_accept_rate"]}
+    log(f"  sampled spec engine: 4 seeded requests reproduce in reverse admission order; "
+        f"rejection accept rate {st['rejection_accept_rate']:.3f}")
+
+    # a tight pool with the swap tier against full residency
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(1, 32000, size=100).tolist() for _ in range(8)]
+    runs = {}
+    for name, kw in (("full", {}), ("tight", {"num_blocks": 72, "swap_gb": 1.0})):
+        engine = _flagship_engine(model, **kw)
+        hs = [engine.add_request(p, 128) for p in prompts]
+        engine.run_until_idle()
+        st = engine.stats()
+        check_graph_counts(st, 16, 8, f"swap engine ({name})")
+        _usage_conserved(st, f"swap engine ({name})")
+        runs[name] = ([list(h.output_tokens) for h in hs], st)
+        del engine
+    tight = runs["tight"][1]
+    if runs["tight"][0] != runs["full"][0]:
+        bad = [i for i, (a, b) in enumerate(zip(runs["tight"][0], runs["full"][0])) if a != b]
+        raise AssertionError(f"swap preemption changed the tokens of requests {bad}")
+    if not (tight["preemptions"] > 0 and tight["swapped_out_blocks"] == tight["swapped_in_blocks"]
+            > 0 and tight["out_of_blocks_total"] == 0 and tight["swap_used_blocks"] == 0):
+        raise AssertionError(f"the tight pool did not swap as it should: {tight}")
+    out["swap"] = {k: tight[k] for k in ("preemptions", "swapped_out_blocks", "swapped_in_blocks",
+                                         "swap_capacity_blocks", "swap_pool_host_bytes",
+                                         "tokens_per_sec")}
+    out["swap"]["full_residency_tokens_per_sec"] = runs["full"][1]["tokens_per_sec"]
+    log(f"  tight pool (72 blocks, swap 1 GiB): the full-residency tokens for 8 requests; "
+        f"{tight['preemptions']} preemptions, {tight['swapped_out_blocks']} blocks out and in")
+    out["swap"]["timing"] = time_swap(model)
+
+    # a deadline that passes mid-decode
+    engine = _flagship_engine(model)
+    base = [engine.add_request(p, 64) for p in prompts[:3]]
+    doomed = engine.add_request(prompts[3], 512 - 100, deadline_ms=600.0)
+    engine.run_until_idle()
+    st = engine.stats()
+    _usage_conserved(st, "deadline engine")
+    del engine
+    if doomed.finish_reason != "deadline_exceeded" or not doomed.output_tokens:
+        raise AssertionError(f"the deadline request finished {doomed.finish_reason} with "
+                             f"{len(doomed.output_tokens)} tokens")
+    if [list(h.output_tokens) for h in base] != [t[:64] for t in runs["full"][0][:3]]:
+        raise AssertionError("a deadline changed the other requests' tokens")
+    if doomed.state is not RequestState.FINISHED or st["deadline_expired_total"] != 1:
+        raise AssertionError(f"deadline accounting is wrong: {st['deadline_expired_total']}")
+    out["deadline"] = {"partial_tokens": len(doomed.output_tokens),
+                       "deadline_expired_total": st["deadline_expired_total"]}
+    log(f"  deadline 600 ms: finished deadline_exceeded after {len(doomed.output_tokens)} "
+        "tokens; the other 3 requests unchanged; usage conserved on every engine")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _usage_conserved(stats: dict, what: str) -> None:
+    """The usage ledger's two conservation identities (JAX's): the decode
+    shares sum to the device-wait total; the block-seconds to the pool
+    integral."""
+    u = stats["usage"]
+    for a, b in ((u["decode_device_seconds"], u["device_wait_seconds"]),
+                 (u["block_seconds"], u["pool_block_seconds"])):
+        if not abs(a - b) <= 1e-9 * max(abs(b), 1e-3):
+            raise AssertionError(f"{what}: usage not conserved ({a} vs {b})")
+
+
+def time_swap(model) -> dict:
+    """Swap-out and swap-in of one request's blocks at the flagship's block
+    shape (16 layers × 16 keys × 12 heads × 128, bf16, K and V): a 512-id
+    prompt (32 blocks) prefilled, then ``_swap_out`` (gather on the card, one
+    copy into pinned memory behind an event, the host pool's row copy) and
+    the restore at re-admission (one copy up, an ``index_copy_`` a pool),
+    each timed on the host clock around a synchronised card; GB/s of the
+    swapped bytes."""
+    from accelerate_tpu_torch.serving import RequestState
+
+    rng = np.random.default_rng(19)
+    out = {"out_ms": [], "in_ms": []}
+    engine = _flagship_engine(model, swap_gb=1.0, async_dispatch=False)
+    req = engine.add_request(rng.integers(1, 32000, size=512).tolist(), 256)
+    while not req.output_tokens:  # prefilled: decoding, its first burst harvested
+        engine.step()
+    if req.state is not RequestState.DECODE:
+        raise AssertionError(f"the swap request is {req.state}, not decoding")
+    for _ in range(3):
+        before = engine._swapped_out_blocks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not engine._swap_out(req):
+            raise AssertionError("the swap pool could not take the request")
+        t1 = time.perf_counter()
+        engine._admit_and_place()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if req.slot is None or req.swap_plan:
+            raise AssertionError("the swapped request was not restored")
+        n = engine._swapped_out_blocks - before
+        out["out_ms"].append((t1 - t0) * 1e3)
+        out["in_ms"].append((t2 - t1) * 1e3)
+    engine.run_until_idle()
+    nbytes = n * engine._swap.bytes_per_block
+    del engine
+    out.update(blocks=n, bytes=nbytes, bytes_per_block=nbytes // n,
+               out_ms_per_block=sorted(out["out_ms"])[1] / n,
+               in_ms_per_block=sorted(out["in_ms"])[1] / n,
+               out_gb_per_s=nbytes / (sorted(out["out_ms"])[1] * 1e-3) / 1e9,
+               in_gb_per_s=nbytes / (sorted(out["in_ms"])[1] * 1e-3) / 1e9)
+    log(f"  swap at the flagship block shape: {n} blocks of {nbytes // n} B; out "
+        f"{out['out_ms_per_block']:.4f} ms a block ({out['out_gb_per_s']:.2f} GB/s), in "
+        f"{out['in_ms_per_block']:.4f} ms a block ({out['in_gb_per_s']:.2f} GB/s); median of 3")
+    return out
+
+
 # -- phase 6 ----------------------------------------------------------------
 
 
@@ -967,16 +1232,17 @@ def _profiled_ms_per_launch(fn, calls: int, names) -> dict:
     return out
 
 
-def time_paged_shape(dev, b: int = 8, s: int = 1, ctx: int = 512) -> dict:
+def time_paged_shape(dev, b: int = 8, s: int = 1, ctx: int = 512, hd: int = 128) -> dict:
     """B4 timed at ``b`` rows of ``s`` queries whose last query sits at
-    position ``ctx - 1`` (decode: 8 slots, s = 1; the prefill chunk: b = 1,
-    s = 32), flagship heads (12 × 128), bf16, 16-key pages in a 64-entry
-    table, the 16 layers' pools rotated so L2 does not hold them."""
+    position ``ctx - 1`` (decode: 8 slots, s = 1; the spec verify: 8 slots,
+    s = 5; the prefill chunk: b = 1, s = 32), flagship heads (12 × 128, or
+    12 × ``hd``), bf16, 16-key pages in a 64-entry table, the 16 layers'
+    pools rotated so L2 does not hold them."""
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import paged_attention as pa
 
-    layers, nh, hd, bs, mb = 16, 12, 128, 16, 64
+    layers, nh, bs, mb = 16, 12, 16, 64
     nb = b * mb + 1
     gen = torch.Generator(device=dev).manual_seed(2)
     bt = torch.zeros((b, mb), dtype=torch.int32, device=dev)
@@ -1067,19 +1333,24 @@ def _kernel_rows(prof) -> list:
 SAMPLED_LEG = {"do_sample": True, "temperature": 0.8, "top_p": 0.9}
 
 
-def _engine_leg(model, async_dispatch: bool, bursts: int = 4, sampled: bool = False) -> dict:
+def _engine_leg(model, async_dispatch: bool, bursts: int = 4, sampled: bool = False,
+                spec: bool = False) -> dict:
     """One leg of phase 7: the graph engine (8 slots, prompts of 100 ids,
     128 new tokens; greedy, or with ``sampled`` every slot sampling through
-    the lane burst) past admission and prefill, then ``bursts`` timed
-    ``step()`` calls (the host clock, synchronised before and after), their
-    flight-recorder summary, and two more steps under ``torch.profiler``
-    (kernel rows only; synchronised before, so exactly the two rounds they
-    dispatch run in the window). Returns the numbers and the engine."""
+    the lane burst, or with ``spec`` the greedy spec round) past admission
+    and prefill, then ``bursts`` timed ``step()`` calls (the host clock,
+    synchronised before and after), their flight-recorder summary, and two
+    more steps under ``torch.profiler`` (kernel rows only; synchronised
+    before, so exactly the two rounds they dispatch run in the window). A
+    plain leg's numbers are a decode step's (a burst is ``decode_burst``
+    steps); a spec leg's are a round's. Returns the numbers and the
+    engine."""
     from torch.profiler import ProfilerActivity, profile
 
     from accelerate_tpu_torch.serving import RequestState
 
-    engine = _flagship_engine(model, async_dispatch=async_dispatch)
+    engine = _flagship_engine(model, async_dispatch=async_dispatch, **(SPEC if spec else {}))
+    per = 1 if spec else engine.config.decode_burst  # steps a dispatch
     rng = np.random.default_rng(3)
     for i in range(engine.config.num_slots):
         engine.add_request(rng.integers(1, 32000, size=100).tolist(), 128,
@@ -1087,7 +1358,7 @@ def _engine_leg(model, async_dispatch: bool, bursts: int = 4, sampled: bool = Fa
     while engine.scheduler.queue_depth or engine.scheduler.active(RequestState.PREFILL):
         engine.step()  # admission and chunked prefill; the graphs are captured here
     engine.step()
-    steps = bursts * engine.config.decode_burst
+    steps = bursts * per
     torch.cuda.synchronize()
     engine.reset_stats()
     t0 = time.perf_counter()
@@ -1096,21 +1367,27 @@ def _engine_leg(model, async_dispatch: bool, bursts: int = 4, sampled: bool = Fa
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     stats = engine.stats()
+    spec_counts = {k: stats[k] for k in ("spec_drafted_tokens", "spec_accepted_tokens",
+                                         "spec_accept_rate")} if spec else {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
             engine.step()
         torch.cuda.synchronize()
     kernels = _kernel_rows(prof)
-    prof_steps = 2 * engine.config.decode_burst
+    prof_steps = 2 * per
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / prof_steps
     if not device_ms > 0:
         raise AssertionError("the profiler saw no kernel in the serve window")
     paged_ms = sum(e.self_device_time_total for e in kernels
                    if "paged_attention" in e.key or "combine_splits" in e.key) / 1e3 / prof_steps
     top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
-    program = "lane_decode" if sampled else "decode"
-    check_graph_counts(engine.stats(), 16, 8, f"phase 7 engine (async {async_dispatch}, "
-                       f"sampled {sampled})", {"decode": 0, "lane_decode": 1} if sampled else None)
+    program = "spec_decode" if spec else "lane_decode" if sampled else "decode"
+    if spec:
+        check_spec_counts(engine.stats(), 16, "phase 7 spec engine")
+    else:
+        check_graph_counts(engine.stats(), 16, 8, f"phase 7 engine (async {async_dispatch}, "
+                           f"sampled {sampled})",
+                           {"decode": 0, "lane_decode": 1} if sampled else None)
     # the decode graph alone, replayed on an idle card (the last round's
     # operands again: the same writes): the host time of the replay call,
     # and the wall from the call until the card is idle, against the
@@ -1129,7 +1406,9 @@ def _engine_leg(model, async_dispatch: bool, bursts: int = 4, sampled: bool = Fa
         "async_dispatch": async_dispatch,
         "sampled": sampled,
         "program": program,
+        "per": "spec round" if spec else "decode step",
         "decode_steps_timed": steps,
+        **spec_counts,
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / wall_ms,
@@ -1144,7 +1423,7 @@ def _engine_leg(model, async_dispatch: bool, bursts: int = 4, sampled: bool = Fa
         "phase_p50_ms": {p: v["p50"] * 1e3 for p, v in stats["iteration_phases_s"].items()},
         "decode_graph_replay_call_ms": sorted(launch_ms)[1],
         "decode_graph_replay_to_idle_ms": sorted(burst_ms)[1],
-        "decode_graph_device_ms": device_ms * engine.config.decode_burst,
+        "decode_graph_device_ms": device_ms * per,
     }, engine
 
 
@@ -1152,17 +1431,23 @@ def serve_breakdown(model) -> dict:
     """Where a flagship decode step's time goes on the graph engine (bf16,
     8 slots): greedy async and sync legs alternating (async, sync, async,
     sync), then an async leg with all 8 slots sampled (temperature 0.8, top-p
-    0.9: the lane burst), each its own engine; then one paged step over the
-    last engine's pools, eager against replayed from a CUDA graph of its
-    own."""
+    0.9: the lane burst) and an async greedy spec leg (``spec_k`` 4,
+    ``early_exit:2``: its numbers are a round's), each its own engine; then
+    one paged step over the last engine's pools, eager against replayed from
+    a CUDA graph of its own."""
     legs, engine = [], None
-    for async_dispatch, sampled in ((True, False), (False, False), (True, False), (False, False),
-                                    (True, True)):
+    for async_dispatch, sampled, spec in ((True, False, False), (False, False, False),
+                                          (True, False, False), (False, False, False),
+                                          (True, True, False), (True, False, True)):
         engine = None  # the previous leg's pools go before the next leg's
-        leg, engine = _engine_leg(model, async_dispatch, sampled=sampled)
+        leg, engine = _engine_leg(model, async_dispatch, sampled=sampled, spec=spec)
         legs.append(leg)
         log(f"  {'async' if async_dispatch else 'sync '} {leg['program']} graph engine"
-            f"{' (8 sampled slots)' if sampled else ''}: decode step wall "
+            f"{' (8 sampled slots)' if sampled else ''}"
+            + (f" (spec_k {SPEC['spec_k']}, {SPEC['draft']}: accept rate "
+               f"{leg['spec_accept_rate']:.3f}, {leg['spec_accepted_tokens']} of "
+               f"{leg['spec_drafted_tokens']} drafts)" if spec else "")
+            + f": {leg['per']} wall "
             f"{leg['wall_ms_per_step']:.3f} ms, device {leg['device_ms_per_step']:.3f} ms "
             f"(busy {leg['device_busy_share']:.1%}), {leg['kernels_per_step']:.0f} kernels; "
             f"{leg['tokens_per_s']:.1f} tok/s; host_fraction {leg['host_fraction']:.4f}; "
@@ -1249,6 +1534,12 @@ def _flash_cases():
         for dtype in (f32, bf16)
         for s, causal, pad in ((129, True, 0), (129, False, 0), (1000, True, 77),
                                (1000, False, 0))
+    ] + [  # head dims off the built widths: 24 and 48 staged in one 64-column
+        # tile, 80 in two (launched twice)
+        (2, s, nh, n_kv, hd, causal, pad, dtype)
+        for hd, nh, n_kv in ((24, 4, 2), (48, 4, 4), (80, 8, 2))
+        for dtype in (f32, bf16)
+        for s, causal, pad in ((129, True, 0), (1000, True, 77), (200, False, 0))
     ]
 
 
@@ -1282,10 +1573,10 @@ def check_flash_vs_plain(dev) -> dict:
         f32 = dtype == torch.float32
         o, lse = fa.flash_fwd(q, k, v, mask, causal=causal, impl="cuda")
         dq, dk, dv = fa.flash_bwd(q, k, v, mask, o, lse, do, causal=causal, impl="cuda")
-        if hd < 64:  # the narrow instances: a second launch gives the same bits
+        if hd not in (64, 128):  # staged widths: a second launch gives the same bits
             again = (*fa.flash_fwd(q, k, v, mask, causal=causal, impl="cuda"),
                      *fa.flash_bwd(q, k, v, mask, o, lse, do, causal=causal, impl="cuda"))
-            if not all(torch.equal(a, b) for a, b in zip(again, (o, lse, dq, dk, dv))):
+            if not all(torch.equal(x, y) for x, y in zip(again, (o, lse, dq, dk, dv))):
                 raise AssertionError(f"flash kernels at hd {hd}: two launches differ "
                                      f"(b={b} s={s} causal={causal} pad={pad} {dtype})")
         ro, rlse = fa.flash_fwd(q, k, v, mask, causal=causal, impl="plain")
@@ -1683,8 +1974,8 @@ def time_flash_kernels(dev, per_launch_ms: dict) -> dict:
 
 
 def time_flash_narrow(dev) -> dict:
-    """B1-B3 at head dims 16 and 32 at the tiny llama's training shape (b 8,
-    s 128, 4 heads, bf16, causal): CUDA events around the Python wrapper,
+    """B1-B3 at head dims 16, 32, 24 and 80 at the tiny llama's training
+    shape (b 8, s 128, 4 heads, bf16, causal): CUDA events around the Python wrapper,
     the profiler's device time a launch, sdpa's forward and its backward
     alone (``library_ms``: its kernels' device time a call), and the bound
     counted on the real head dim's work (the padded columns are waste, not
@@ -1695,7 +1986,7 @@ def time_flash_narrow(dev) -> dict:
 
     b, s, nh = 8, 128, 4
     out = {}
-    for hd in (16, 32):
+    for hd in (16, 32, 24, 80):
         rng = np.random.default_rng(15 + hd)
         q, k, v, do, _ = _flash_inputs(rng, b, s, nh, nh, hd, 0, torch.bfloat16, dev)
         scale = 1.0 / float(np.sqrt(hd))
@@ -1797,9 +2088,10 @@ def main() -> int:
             + (f", blocks a SM {rep['blocks_per_sm']}" if "blocks_per_sm" in rep else ""))
     flash_ptxas = ptxas["flash_attention.cu"]
     wgmma = {k: v for k, v in flash_ptxas.items() if "_wgmma_kernel<" in k}
-    if len(wgmma) != 12 or any(v["spill_stores"] or v["spill_loads"] for v in wgmma.values()):
-        raise AssertionError(f"the wgmma flash kernels (3 at hd 16, 32, 64 and 128) must build "
-                             f"without spills: {wgmma}")
+    if len(wgmma) != 3 * len(FLASH_BUILT_HDS) or any(v["spill_stores"] or v["spill_loads"]
+                                                      for v in wgmma.values()):
+        raise AssertionError(f"the wgmma flash kernels (3 at each of {FLASH_BUILT_HDS}) must "
+                             f"build without spills: {wgmma}")
     b4 = ptxas["paged_attention.cu"][PAGED_TIMED[0]]
     if b4["spill_stores"] or b4["spill_loads"]:
         raise AssertionError(f"B4's bf16 hd-128 instance must build without spills: {b4}")
@@ -1832,11 +2124,15 @@ def main() -> int:
     prefix = check_prefix_cache(flagship)
     log("phase 5c: sampled graph engines with one seed, in two admission orders")
     sampled = check_sampled_pair(flagship)
+    log("phase 5d: speculative decoding, swap preemption, a deadline and the usage ledger")
+    spec_swap = check_spec_swap_deadline(flagship, greedy)
 
     log("phase 6: times at the flagship decode shape and the prefill chunk")
     times = time_paged_shape(dev, ctx=512)
     times_1024 = time_paged_shape(dev, ctx=1024)
     prefill = {f"context_{ctx}": time_paged_shape(dev, b=1, s=32, ctx=ctx) for ctx in (512, 896)}
+    verify = time_paged_shape(dev, b=8, s=SPEC["spec_k"] + 1, ctx=512)
+    paged_hd = {f"head_dim_{hd}": time_paged_shape(dev, ctx=512, hd=hd) for hd in (80, 24)}
 
     log("phase 7: where a decode step's time goes on the graph engine")
     breakdown = serve_breakdown(flagship)
@@ -1845,13 +2141,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(json.dumps({"serve_breakdown": breakdown, "serve": serve_run, "parity": parity,
                     "lane_batch": lane_batch, "lane_parity": lane_parity,
-                    "prefix_cache": prefix, "sampled_pair": sampled, "card": smi}))
+                    "prefix_cache": prefix, "sampled_pair": sampled,
+                    "spec_swap_deadline": spec_swap, "card": smi}))
 
     log("phase 8: flash-attention kernels against their plain versions")
     flash_errs = check_flash_vs_plain(dev)
 
-    log("phase 8b: the tiny llama (head dim 16) trained on the card; B1-B3 timed at hd 16 "
-        "and 32")
+    log("phase 8b: the tiny llama (head dim 16) trained on the card; B1-B3 timed at hd 16, "
+        "32, 24 and 80")
     tiny_train = run_tiny_train()
     flash_narrow = time_flash_narrow(dev)
 
@@ -1894,6 +2191,10 @@ def main() -> int:
         "at_context_1024": {k: times_1024[k] for k in PAGED_TIMED_KEYS},
         "at_prefill_chunk": {c: {k: t[k] for k in PAGED_TIMED_KEYS + ("bound_by", "shape")}
                              for c, t in prefill.items()},
+        "at_spec_verify": {k: verify[k] for k in PAGED_TIMED_KEYS + ("bound_by", "shape")},
+        "at_head_dims": {h: {k: t[k] for k in PAGED_TIMED_KEYS + ("bound_by", "shape")}
+                         for h, t in paged_hd.items()},
+        "launches_spec_greedy_in_process": spec_swap["greedy"]["launches"],
         "ptxas": {k: ptxas["paged_attention.cu"][k] for k in PAGED_TIMED},
         "ptxas_all_instances": ptxas["paged_attention.cu"],
         "plain_ms": times["plain_ms"],

@@ -310,24 +310,27 @@ def test_serve_sync_engine_flag_and_env_reach_the_engine(monkeypatch):
 
 
 def test_training_refuses_head_dims_the_flash_kernels_do_not_take():
-    """C2b closed: on the card, ``prepare()`` passes the head dims B1-B3 take
-    (16, 32, 64, 128: the tiny llama's 16 among them) and still refuses a
-    width outside ``HEAD_DIMS`` before any step; the CPU's plain attention
-    takes any."""
+    """C4 closed: on the card, ``prepare()`` passes every head dim B1-B4 take
+    (a multiple of 8 up to 128: the tiny llama's 16, and 24, 80 and 96 among
+    them) and still refuses a width off that rule before any step, naming
+    the rule; the CPU's plain attention takes any."""
     from accelerate_tpu_torch.accelerator import check_kernel_head_dim
-    from accelerate_tpu_torch.ops.flash_attention import HEAD_DIMS
+    from accelerate_tpu_torch.ops.flash_attention import HEAD_DIM_RULE, takes_head_dim
 
-    assert HEAD_DIMS == (16, 32, 64, 128)
+    assert HEAD_DIM_RULE == "a multiple of 8 from 8 to 128"
     tiny = tllama.LlamaForCausalLM.from_config(tllama.LlamaConfig.tiny(), device="cpu")
     assert tiny.config.head_dim == 16
-    for hd in HEAD_DIMS:
+    for hd in (16, 24, 32, 64, 80, 96, 128):
+        assert takes_head_dim(hd)
         model = tllama.LlamaForCausalLM.from_config(
             tllama.LlamaConfig.tiny(hidden_size=4 * hd), device="cpu")
         assert model.config.head_dim == hd
         check_kernel_head_dim(model, torch.device("cuda"))
-    odd = tllama.LlamaForCausalLM.from_config(tllama.LlamaConfig.tiny(hidden_size=96),
-                                              device="cpu")
-    assert odd.config.head_dim == 24
-    with pytest.raises(ValueError, match=r"head dims \(16, 32, 64, 128\)"):
-        check_kernel_head_dim(odd, torch.device("cuda"))
-    check_kernel_head_dim(odd, torch.device("cpu"))
+    for hd in (20, 136):
+        assert not takes_head_dim(hd)
+        odd = tllama.LlamaForCausalLM.from_config(
+            tllama.LlamaConfig.tiny(hidden_size=4 * hd), device="cpu")
+        assert odd.config.head_dim == hd
+        with pytest.raises(ValueError, match=r"a multiple of 8 from 8 to 128"):
+            check_kernel_head_dim(odd, torch.device("cuda"))
+        check_kernel_head_dim(odd, torch.device("cpu"))

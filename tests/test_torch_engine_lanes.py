@@ -312,9 +312,10 @@ def test_grammar_rows_are_refcounted_cached_and_refused(weights):
 def test_lane_config_defaults_match_jax():
     port, ref = tserving.EngineConfig(), jserving.EngineConfig()
     for name in ("per_slot_sampling", "prefix_cache", "logprobs_topn", "grammar_slots",
-                 "grammar_states", "rep_window"):
+                 "grammar_states", "rep_window", "swap_gb", "spec_k", "draft",
+                 "usage_accounting"):
         assert getattr(port, name) == getattr(ref, name), name
-    assert tserving.UNPORTED_REQUEST_FIELDS == ("deadline_ms", "tenant")
+    assert tserving.UNPORTED_REQUEST_FIELDS == ("trace_id", "upstream_hop")
 
 
 def test_serve_loop_streams_with_stop_holdback_and_logprobs(weights):
@@ -334,7 +335,7 @@ def test_serve_loop_streams_with_stop_holdback_and_logprobs(weights):
                "sampling": {"stop": [stop]}, "_stream": chunks.append})
     inbox.put({"id": "g", "prompt": [1, 2], "max_new_tokens": 8, "grammar": REGEX,
                "logprobs": 2})
-    inbox.put({"id": "t", "prompt": [1], "tenant": "acme"})
+    inbox.put({"id": "t", "prompt": [1], "trace_id": "0af7651916cd43dd8448eb211c80319c"})
     stop_evt.set()
     serve._engine_loop(engine, inbox, out.append, stop_evt)
     rows = {r["id"]: r for r in out}

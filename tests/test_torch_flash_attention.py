@@ -107,6 +107,11 @@ CASES = {
     "hd16_mha_s129": dict(causal=True, h=4, d=16, s=129),
     "hd16_left_padded": dict(causal=True, b=2, h=4, d=16, pad=20),
     "hd32_gqa_8_2_non_causal": dict(causal=False, h=8, n_kv=2, d=32, s=129),
+    # head dims off the built widths (C4): staged as 64- or 128-column tiles
+    # whose columns past hd are zero, stored at the real pitch
+    "hd24_gqa_4_2": dict(causal=True, h=4, n_kv=2, d=24, s=70),
+    "hd48_left_padded": dict(causal=True, b=2, h=2, d=48, pad=20),
+    "hd80_non_causal_s129": dict(causal=False, h=2, d=80, s=129),
 }
 
 

@@ -137,6 +137,22 @@ def test_quantized_pools_match_jax(store, s):
                                    rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("store", ["f32", "int8"])
+@pytest.mark.parametrize("hd", [24, 48, 80])
+def test_head_dims_off_the_built_widths_match_jax(hd, store):
+    """C4: head dims the kernel stages into a wider tile (24 -> 32, 48 ->
+    64, 80 -> 128; an int8 row of 24 or 80 bytes is not whole 16-byte
+    chunks), decode and a 4-token chunk, held to the JAX kernel."""
+    for s in (1, 4):
+        rng = np.random.default_rng(40 + hd + s)
+        bt, idx, jp, tp = _pools(rng, store=store, n_kv=2, hd=hd, s=s)
+        q = rng.normal(size=(3, s, 4, hd)).astype(np.float32)
+        tol = 1e-5 if store == "f32" else 1e-4
+        np.testing.assert_allclose(_run_port(q, bt, idx, tp),
+                                   _run_jax(q, bt, idx, jp, _jax_kernel_impl()),
+                                   rtol=tol, atol=tol)
+
+
 def test_null_block_is_never_attended():
     """Block 0 pads every table tail; garbage there must not move the
     output (masking is by logical position, never by block id)."""

@@ -312,11 +312,13 @@ def test_serve_cpu_answers_jsonl_rows():
     rows = [
         {"id": "a", "prompt": [1, 2, 3, 4, 5], "max_new_tokens": 6},
         {"id": "b", "prompt": list(range(40)), "max_new_tokens": 3, "priority": "batch"},
-        {"id": "c", "prompt": [9, 9], "tenant": "acme"},
+        {"id": "c", "prompt": [9, 9], "trace_id": "0af7651916cd43dd8448eb211c80319c"},
         {"id": "d", "prompt": [1] * 200, "max_new_tokens": 4},
         "{not json",
         {"id": "e", "prompt": [9, 9], "max_new_tokens": 5,
          "sampling": {"do_sample": True, "temperature": 0.5, "seed": 4}},
+        {"id": "f", "prompt": [7, 8, 9], "max_new_tokens": 4, "tenant": " acme ",
+         "deadline_ms": 600000},
     ]
     proc, out = _serve(["--device", "cpu", "--preset", "tiny", "--max-seq-len", "128",
                         "--prefill-chunk", "16", "--decode-burst", "4"], rows)
@@ -329,7 +331,12 @@ def test_serve_cpu_answers_jsonl_rows():
     assert "max_seq_len" in by_id["d"]["error"]
     assert any("bad JSON" in r.get("error", "") for r in out)
     assert len(by_id["e"]["tokens"]) == 5 and by_id["e"]["finish_reason"] == "length"
-    assert "served 3 requests" in proc.stderr
+    # a tenant and a deadline are served; the row echoes the tenant and the
+    # usage ledger's costs
+    assert by_id["f"]["tenant"] == "acme" and by_id["a"]["tenant"] == "default"
+    assert len(by_id["f"]["tokens"]) == 4 and by_id["f"]["finish_reason"] == "length"
+    assert by_id["f"]["device_time_s"] > 0 and by_id["f"]["swap_bytes"] == 0
+    assert "served 4 requests" in proc.stderr
     assert "paged_attention launches 0" in proc.stderr
 
 
