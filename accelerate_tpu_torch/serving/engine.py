@@ -944,14 +944,11 @@ class InferenceEngine:
         self._admit_and_place()
 
         self._fl_switch("prefill")
-        u = self.usage
         for req in sched.active(RequestState.PREFILL):
-            if u is not None:
-                t0_pf = time.perf_counter()
-                self._prefill_one_chunk(req, finished)
-                u.accrue_prefill(req, time.perf_counter() - t0_pf)
-            else:
-                self._prefill_one_chunk(req, finished)
+            t0_pf = time.perf_counter()
+            self._prefill_one_chunk(req, finished)
+            if self.usage is not None:
+                self.usage.accrue_prefill(req, time.perf_counter() - t0_pf)
         # harvest point: the previous iteration's round lands here. Backlog
         # entries were harvested by a mid-schedule fence (swap-out) and
         # drain into THIS step's finished list

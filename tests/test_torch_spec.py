@@ -15,7 +15,11 @@ against the JAX package on the same ``params_from_jax`` weights.
 * A round's pool rows: the draft writes in place into the first N layers
   (JAX drafts into a copy it drops); after the verify the rows the round
   owns are byte-identical to the port replaying JAX's scheme (the draft on a
-  scratch copy of the pools) and within 1e-5 of the JAX engine's pools.
+  scratch copy of the pools) and within 1e-5 of the JAX engine's pools (f32
+  KV; at int8, within one quantization step of the row: the two frameworks'
+  f32 K/V may round to neighbouring codes).
+* ``serve``'s flags and their environment defaults; a bad spec combination
+  is a startup refusal.
 """
 
 import dataclasses
@@ -368,7 +372,8 @@ def test_spec_round_pool_rows_match_jax(weights, kv_dtype):
     below its context length, all layers) after the port's in-place draft
     and verify are byte-identical to a port replay of JAX's scheme for the
     last round (draft on a scratch copy of the pools, verify into the real
-    ones) and within 1e-5 of the JAX engine's pools (dequantized for int8)."""
+    ones) and within 1e-5 of the JAX engine's pools (one quantization step
+    at int8)."""
     jmodel, tmodel = weights
     prompts = _prompts(4, sizes=(9, 14))
     kw = dict(kv_dtype=kv_dtype, **_spec(3))
