@@ -16,9 +16,12 @@
 //
 // Tensors are read in the model layout [b, s, heads, hd] (contiguous) by
 // strides: no transposed or padded copies. Every kernel takes any head dim
-// hd that is a multiple of 8 up to 128: it is built at the eight multiples of
-// 16 (HD, hd rounded up to 16; the columns between hd and HD load as zeros
-// and are never stored), and pitches and stores use hd. The optional key mask is
+// hd that is a multiple of 8 up to 256 (the Python wrapper zero-pads any
+// other head dim to the next multiple of 8 and slices the outputs back).
+// Up to 128 each family is built at the eight multiples of 16 (HD, hd
+// rounded up to 16; the columns between hd and HD load as zeros and are
+// never stored); past 128 every dtype takes the wide FMA instance at HD
+// 256. Pitches and stores use hd. The optional key mask is
 // [b, skv] bytes (1 = valid) and applies where(valid, s, NEG_INF), equal to
 // the JAX "s + bias" after rounding because NEG_INF is the f32 minimum.
 // Causal attention compares query index >= key index. GQA: query head h
@@ -51,6 +54,13 @@
 //    no TF32, so they meet the JAX gates (2e-5) against the plain version:
 //    64-row tiles, 256 threads form a 16 x 16 grid over a 64 x 64 score
 //    tile, tiles staged as f32 with rows padded by one float; expf, logf.
+//  * Head dims past 128, f32 or bf16 (C4b): the same FMA kernels with
+//    32-row tiles at HD 256 (a 64-row tile of 256 f32 columns is 64 KB, and
+//    dq's and dk/dv's four of them exceed the 227 KB of shared memory), bf16
+//    widened to f32 as it is staged and rounded where the TPU kernels round.
+//    A 64-row wgmma accumulator over 256 columns is 128 f32 registers a
+//    thread for O, and for each of dK and dV, which B3's budget cannot hold:
+//    a tensor-core kernel for these widths is later work (PERF.md §7).
 //  * bf16 forward (B1), dq (B2) and dk/dv (B3): wgmma fed by a ring of TMA
 //    copies with mbarriers, two warpgroups of products (section "bf16
 //    forward (B1), dq (B2) and dk/dv (B3) for Hopper"). B1 takes 128
@@ -80,14 +90,15 @@
 
 namespace {
 
-constexpr int kBlock = 64;                  // query rows and keys per tile
+constexpr int kBlock = 64;       // query rows and keys per tile, FMA kernels up to hd 128
+constexpr int kWideBlock = 32;   // the same for the wide FMA kernels (hd 136 to 256)
+constexpr int kWideHD = 256;     // the one staged width of the wide kernels
 constexpr int kThreads = 256;
-constexpr int kGrid = 16;                   // threads form a kGrid x kGrid square
-constexpr int kRows = kBlock / kGrid;       // tile rows per thread
-constexpr int kCols = kBlock / kGrid;       // score columns per thread
-constexpr int kSStride = kBlock + 1;        // row stride of a staged score tile
+constexpr int kGrid = 16;        // threads form a kGrid x kGrid square
 constexpr float kNegInf = -FLT_MAX;
 constexpr unsigned kFull = 0xffffffffu;
+
+using bf16 = __nv_bfloat16;
 
 // reductions over the 16 threads that share a tile row (one half-warp)
 __device__ __forceinline__ float row_max(float x) {
@@ -102,62 +113,89 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-// Stage rows [row0, row0 + kBlock) of one head of an f32 [b, s, heads, hd]
-// tensor into dst (HD columns, row stride HD + 1). `src` points at (b, row
-// 0, head, 0), `pitch` = heads * hd; rows >= n_rows and columns >= hd (a
-// multiple of 8) are zero.
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
+// An f32 value stored as T, and rounded to T's precision (round to nearest
+// even, as PyTorch's .to(torch.bfloat16)); identities for f32.
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (std::is_same_v<T, bf16>) return __float2bfloat16_rn(x);
+  else return x;
+}
+
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  if constexpr (std::is_same_v<T, bf16>) return __bfloat162float(__float2bfloat16_rn(x));
+  else return x;
+}
+
+// Stage rows [row0, row0 + BLK) of one head of a [b, s, heads, hd] tensor
+// (f32 or bf16) into dst as f32 (HD columns, row stride HD + 1), one
+// 16-byte load a thread at a time. `src` points at (b, row 0, head, 0),
+// `pitch` = heads * hd; rows >= n_rows and columns >= hd (a multiple of 8)
+// are zero.
+template <int HD, int BLK, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
                                           int64_t pitch, int row0, int n_rows, int hd) {
-  constexpr int kVecs = HD / 4;
+  constexpr int kV = 16 / static_cast<int>(sizeof(T));
+  constexpr int kVecs = HD / kV;
   constexpr int kStride = HD + 1;
-  for (int e = threadIdx.x; e < kBlock * kVecs; e += kThreads) {
-    const int r = e / kVecs, c = (e % kVecs) * 4;
+  for (int e = threadIdx.x; e < BLK * kVecs; e += kThreads) {
+    const int r = e / kVecs, c = (e % kVecs) * kV;
     const int row = row0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < n_rows && c < hd) x = __ldg(reinterpret_cast<const float4*>(src + row * pitch + c));
     float* d = dst + r * kStride + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
+    if constexpr (std::is_same_v<T, float>) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < n_rows && c < hd) x = __ldg(reinterpret_cast<const float4*>(src + row * pitch + c));
+      d[0] = x.x;
+      d[1] = x.y;
+      d[2] = x.z;
+      d[3] = x.w;
+    } else {
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (row < n_rows && c < hd) x = __ldg(reinterpret_cast<const uint4*>(src + row * pitch + c));
+      const bf16* h = reinterpret_cast<const bf16*>(&x);
+#pragma unroll
+      for (int i = 0; i < kV; ++i) d[i] = __bfloat162float(h[i]);
+    }
   }
 }
 
-// acc[i][j] += sum_d a[row i][d] * b[col j][d] over a 64 x 64 tile: thread
-// (ty, tx) owns rows ty + 16 i and columns tx + 16 j.
-template <int HD>
-__device__ __forceinline__ void tile_dot(float (&acc)[kRows][kCols], const float* a,
+// acc[i][j] += sum_d a[row i][d] * b[col j][d] over a BLK x BLK tile:
+// thread (ty, tx) owns rows ty + 16 i and columns tx + 16 j.
+template <int HD, int BLK>
+__device__ __forceinline__ void tile_dot(float (&acc)[BLK / kGrid][BLK / kGrid], const float* a,
                                          const float* b, int ty, int tx) {
   constexpr int kStride = HD + 1;
+  constexpr int kR = BLK / kGrid;
 #pragma unroll 8
   for (int d = 0; d < HD; ++d) {
-    float av[kRows], bv[kCols];
+    float av[kR], bv[kR];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) av[i] = a[(ty + kGrid * i) * kStride + d];
+    for (int i = 0; i < kR; ++i) av[i] = a[(ty + kGrid * i) * kStride + d];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) bv[j] = b[(tx + kGrid * j) * kStride + d];
+    for (int j = 0; j < kR; ++j) bv[j] = b[(tx + kGrid * j) * kStride + d];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int i = 0; i < kR; ++i)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < kR; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
   }
 }
 
-// out[i][c] += sum_t p[row i][t] * x[t][tx + 16 c]: a 64 x 64 staged score
-// tile times a 64 x HD staged value tile.
-template <int HD>
-__device__ __forceinline__ void tile_pv(float (&out)[kRows][HD / kGrid], const float* p,
+// out[i][c] += sum_t p[row i][t] * x[t][tx + 16 c]: a BLK x BLK staged score
+// tile times a BLK x HD staged value tile.
+template <int HD, int BLK>
+__device__ __forceinline__ void tile_pv(float (&out)[BLK / kGrid][HD / kGrid], const float* p,
                                         const float* x, int ty, int tx) {
   constexpr int kStride = HD + 1;
+  constexpr int kSStride = BLK + 1;
   constexpr int kD = HD / kGrid;
+  constexpr int kR = BLK / kGrid;
 #pragma unroll 4
-  for (int t = 0; t < kBlock; ++t) {
+  for (int t = 0; t < BLK; ++t) {
     float xv[kD];
 #pragma unroll
     for (int c = 0; c < kD; ++c) xv[c] = x[t * kStride + tx + kGrid * c];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
+    for (int i = 0; i < kR; ++i) {
       const float pv = p[(ty + kGrid * i) * kSStride + t];
 #pragma unroll
       for (int c = 0; c < kD; ++c) out[i][c] = fmaf(pv, xv[c], out[i][c]);
@@ -169,34 +207,41 @@ __device__ __forceinline__ bool key_valid(const uint8_t* __restrict__ mask_b, in
   return key < skv && (mask_b == nullptr || mask_b[key] != 0);
 }
 
-template <int HD>
+// The FMA kernels, at (HD, BLK, T) = (16..128, 64, f32) for f32 inputs up to
+// hd 128 and (256, 32, f32 or bf16) for every input past it. Inputs are
+// staged as f32, every product runs on the FMA units in f32, and a bf16
+// instance rounds where the TPU kernels round: P to V's dtype before P V
+// (forward), dS to K's dtype before dS K (dq), P to dO's and dS to Q's
+// dtype before P^T dO and dS^T Q (dk/dv); outputs are stored in T.
+template <int HD, int BLK, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                 float* __restrict__ o, float* __restrict__ lse, int sq, int skv, int nh,
-                 int n_kv, int hd, float scale, int causal) {
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const uint8_t* __restrict__ mask, T* __restrict__ o, float* __restrict__ lse,
+                 int sq, int skv, int nh, int n_kv, int hd, float scale, int causal) {
   constexpr int kStride = HD + 1;
+  constexpr int kSStride = BLK + 1;
   constexpr int kD = HD / kGrid;
+  constexpr int kR = BLK / kGrid;
   extern __shared__ float smem[];
   float* q_s = smem;
-  float* k_s = q_s + kBlock * kStride;
-  float* v_s = k_s + kBlock * kStride;
-  float* p_s = v_s + kBlock * kStride;
+  float* k_s = q_s + BLK * kStride;
+  float* v_s = k_s + BLK * kStride;
+  float* p_s = v_s + BLK * kStride;
 
-  const int q0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BLK, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (nh / n_kv);
   const int ty = threadIdx.x / kGrid, tx = threadIdx.x % kGrid;
   const int64_t q_pitch = static_cast<int64_t>(nh) * hd;
   const int64_t kv_pitch = static_cast<int64_t>(n_kv) * hd;
-  const float* q_bh = q + (static_cast<int64_t>(b) * sq * nh + h) * hd;
-  const float* k_bg = k + (static_cast<int64_t>(b) * skv * n_kv + g) * hd;
-  const float* v_bg = v + (static_cast<int64_t>(b) * skv * n_kv + g) * hd;
+  const T* q_bh = q + (static_cast<int64_t>(b) * sq * nh + h) * hd;
+  const T* k_bg = k + (static_cast<int64_t>(b) * skv * n_kv + g) * hd;
+  const T* v_bg = v + (static_cast<int64_t>(b) * skv * n_kv + g) * hd;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * skv;
 
-  load_tile<HD>(q_s, q_bh, q_pitch, q0, sq, hd);
-  float m[kRows], l[kRows], acc[kRows][kD];
+  load_tile<HD, BLK>(q_s, q_bh, q_pitch, q0, sq, hd);
+  float m[kR], l[kR], acc[kR][kD];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < kR; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
@@ -204,21 +249,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // causal: key tiles wholly above the diagonal are skipped
-  const int kv_end = causal ? min(skv, q0 + kBlock) : skv;
-  for (int t0 = 0; t0 < kv_end; t0 += kBlock) {
+  const int kv_end = causal ? min(skv, q0 + BLK) : skv;
+  for (int t0 = 0; t0 < kv_end; t0 += BLK) {
     __syncthreads();  // the previous tile is consumed (and q_s written)
-    load_tile<HD>(k_s, k_bg, kv_pitch, t0, skv, hd);
-    load_tile<HD>(v_s, v_bg, kv_pitch, t0, skv, hd);
+    load_tile<HD, BLK>(k_s, k_bg, kv_pitch, t0, skv, hd);
+    load_tile<HD, BLK>(v_s, v_bg, kv_pitch, t0, skv, hd);
     __syncthreads();
 
-    float s[kRows][kCols] = {};
-    tile_dot<HD>(s, q_s, k_s, ty, tx);
+    float s[kR][kR] = {};
+    tile_dot<HD, BLK>(s, q_s, k_s, ty, tx);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
+    for (int i = 0; i < kR; ++i) {
       const int qi = q0 + ty + kGrid * i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
+      for (int j = 0; j < kR; ++j) {
         const int kj = t0 + tx + kGrid * j;
         const bool valid = key_valid(mask_b, kj, skv) && (!causal || qi >= kj);
         s[i][j] = valid ? s[i][j] * scale : kNegInf;
@@ -229,10 +274,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // NEG_INF and exp(s - m_new) would be 1, so such rows take p = 0
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
+      for (int j = 0; j < kR; ++j) {
         const float p = m_new == kNegInf ? 0.f : expf(s[i][j] - m_new);
         sum += p;
-        p_s[(ty + kGrid * i) * kSStride + tx + kGrid * j] = p;
+        p_s[(ty + kGrid * i) * kSStride + tx + kGrid * j] = round_to<T>(p);
       }
       const float alpha = expf(m[i] - m_new);
       l[i] = alpha * l[i] + row_sum(sum);
@@ -241,42 +286,43 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int c = 0; c < kD; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
-    tile_pv<HD>(acc, p_s, v_s, ty, tx);
+    tile_pv<HD, BLK>(acc, p_s, v_s, ty, tx);
   }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < kR; ++i) {
     const int qi = q0 + ty + kGrid * i;
     if (qi >= sq) continue;
     const bool empty = l[i] == 0.f;
     const float den = empty ? 1.f : l[i];
-    float* o_row = o + ((static_cast<int64_t>(b) * sq + qi) * nh + h) * hd;
+    T* o_row = o + ((static_cast<int64_t>(b) * sq + qi) * nh + h) * hd;
 #pragma unroll
     for (int c = 0; c < kD; ++c)
-      if (tx + kGrid * c < hd) o_row[tx + kGrid * c] = acc[i][c] / den;
+      if (tx + kGrid * c < hd) o_row[tx + kGrid * c] = from_f32<T>(acc[i][c] / den);
     if (tx == 0)
       lse[(static_cast<int64_t>(b) * nh + h) * sq + qi] = empty ? kNegInf : m[i] + logf(den);
   }
 }
 
-template <int HD>
+template <int HD, int BLK, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const uint8_t* __restrict__ mask, const float* __restrict__ dout,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const uint8_t* __restrict__ mask, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int sq, int skv, int nh, int n_kv, int hd,
+                    T* __restrict__ dq, int sq, int skv, int nh, int n_kv, int hd,
                     float scale, int causal) {
   constexpr int kStride = HD + 1;
+  constexpr int kSStride = BLK + 1;
   constexpr int kD = HD / kGrid;
+  constexpr int kR = BLK / kGrid;
   extern __shared__ float smem[];
   float* q_s = smem;
-  float* do_s = q_s + kBlock * kStride;
-  float* k_s = do_s + kBlock * kStride;
-  float* v_s = k_s + kBlock * kStride;
-  float* ds_s = v_s + kBlock * kStride;
+  float* do_s = q_s + BLK * kStride;
+  float* k_s = do_s + BLK * kStride;
+  float* v_s = k_s + BLK * kStride;
+  float* ds_s = v_s + BLK * kStride;
 
-  const int q0 = blockIdx.x * kBlock, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BLK, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (nh / n_kv);
   const int ty = threadIdx.x / kGrid, tx = threadIdx.x % kGrid;
   const int64_t q_pitch = static_cast<int64_t>(nh) * hd;
@@ -286,11 +332,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t row_off = (static_cast<int64_t>(b) * nh + h) * sq;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * skv;
 
-  load_tile<HD>(q_s, q + q_off, q_pitch, q0, sq, hd);
-  load_tile<HD>(do_s, dout + q_off, q_pitch, q0, sq, hd);
-  float lse_r[kRows], delta_r[kRows], acc[kRows][kD];
+  load_tile<HD, BLK>(q_s, q + q_off, q_pitch, q0, sq, hd);
+  load_tile<HD, BLK>(do_s, dout + q_off, q_pitch, q0, sq, hd);
+  float lse_r[kR], delta_r[kR], acc[kR][kD];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < kR; ++i) {
     const int qi = q0 + ty + kGrid * i;
     lse_r[i] = qi < sq ? lse[row_off + qi] : kNegInf;
     delta_r[i] = qi < sq ? delta[row_off + qi] : 0.f;
@@ -298,66 +344,67 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kD; ++c) acc[i][c] = 0.f;
   }
 
-  const int kv_end = causal ? min(skv, q0 + kBlock) : skv;
-  for (int t0 = 0; t0 < kv_end; t0 += kBlock) {
+  const int kv_end = causal ? min(skv, q0 + BLK) : skv;
+  for (int t0 = 0; t0 < kv_end; t0 += BLK) {
     __syncthreads();
-    load_tile<HD>(k_s, k + kv_off, kv_pitch, t0, skv, hd);
-    load_tile<HD>(v_s, v + kv_off, kv_pitch, t0, skv, hd);
+    load_tile<HD, BLK>(k_s, k + kv_off, kv_pitch, t0, skv, hd);
+    load_tile<HD, BLK>(v_s, v + kv_off, kv_pitch, t0, skv, hd);
     __syncthreads();
 
-    float s[kRows][kCols] = {}, dp[kRows][kCols] = {};
-    tile_dot<HD>(s, q_s, k_s, ty, tx);
-    tile_dot<HD>(dp, do_s, v_s, ty, tx);
+    float s[kR][kR] = {}, dp[kR][kR] = {};
+    tile_dot<HD, BLK>(s, q_s, k_s, ty, tx);
+    tile_dot<HD, BLK>(dp, do_s, v_s, ty, tx);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
+    for (int i = 0; i < kR; ++i) {
       const int qi = q0 + ty + kGrid * i;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
+      for (int j = 0; j < kR; ++j) {
         const int kj = t0 + tx + kGrid * j;
         const bool valid = key_valid(mask_b, kj, skv) && (!causal || qi >= kj);
         const float sc = valid ? s[i][j] * scale : kNegInf;
         // a fully masked row has lse == NEG_INF and must give p = 0
         const float p = lse_r[i] == kNegInf ? 0.f : expf(sc - lse_r[i]);
         const float ds = p * (dp[i][j] - delta_r[i]) * scale;
-        ds_s[(ty + kGrid * i) * kSStride + tx + kGrid * j] = ds;
+        ds_s[(ty + kGrid * i) * kSStride + tx + kGrid * j] = round_to<T>(ds);
       }
     }
     __syncthreads();
-    tile_pv<HD>(acc, ds_s, k_s, ty, tx);
+    tile_pv<HD, BLK>(acc, ds_s, k_s, ty, tx);
   }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < kR; ++i) {
     const int qi = q0 + ty + kGrid * i;
     if (qi >= sq) continue;
-    float* row = dq + ((static_cast<int64_t>(b) * sq + qi) * nh + h) * hd;
+    T* row = dq + ((static_cast<int64_t>(b) * sq + qi) * nh + h) * hd;
 #pragma unroll
     for (int c = 0; c < kD; ++c)
-      if (tx + kGrid * c < hd) row[tx + kGrid * c] = acc[i][c];
+      if (tx + kGrid * c < hd) row[tx + kGrid * c] = from_f32<T>(acc[i][c]);
   }
 }
 
-template <int HD>
+template <int HD, int BLK, typename T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const uint8_t* __restrict__ mask, const float* __restrict__ dout,
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const uint8_t* __restrict__ mask, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int sq, int skv, int nh, int n_kv,
+                     T* __restrict__ dk, T* __restrict__ dv, int sq, int skv, int nh, int n_kv,
                      int hd, float scale, int causal) {
   constexpr int kStride = HD + 1;
+  constexpr int kSStride = BLK + 1;
   constexpr int kD = HD / kGrid;
+  constexpr int kR = BLK / kGrid;
   extern __shared__ float smem[];
   float* k_s = smem;
-  float* v_s = k_s + kBlock * kStride;
-  float* q_s = v_s + kBlock * kStride;
-  float* do_s = q_s + kBlock * kStride;
-  float* p_s = do_s + kBlock * kStride;
-  float* ds_s = p_s + kBlock * kSStride;
-  float* lse_s = ds_s + kBlock * kSStride;
-  float* delta_s = lse_s + kBlock;
+  float* v_s = k_s + BLK * kStride;
+  float* q_s = v_s + BLK * kStride;
+  float* do_s = q_s + BLK * kStride;
+  float* p_s = do_s + BLK * kStride;
+  float* ds_s = p_s + BLK * kSStride;
+  float* lse_s = ds_s + BLK * kSStride;
+  float* delta_s = lse_s + BLK;
 
-  const int k0 = blockIdx.x * kBlock, g = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BLK, g = blockIdx.y, b = blockIdx.z;
   const int rep = nh / n_kv;
   const int ty = threadIdx.x / kGrid, tx = threadIdx.x % kGrid;
   const int64_t q_pitch = static_cast<int64_t>(nh) * hd;
@@ -365,28 +412,28 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int64_t kv_off = (static_cast<int64_t>(b) * skv * n_kv + g) * hd;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * skv;
 
-  load_tile<HD>(k_s, k + kv_off, kv_pitch, k0, skv, hd);
-  load_tile<HD>(v_s, v + kv_off, kv_pitch, k0, skv, hd);
-  bool key_ok[kRows];
-  float dk_acc[kRows][kD], dv_acc[kRows][kD];
+  load_tile<HD, BLK>(k_s, k + kv_off, kv_pitch, k0, skv, hd);
+  load_tile<HD, BLK>(v_s, v + kv_off, kv_pitch, k0, skv, hd);
+  bool key_ok[kR];
+  float dk_acc[kR][kD], dv_acc[kR][kD];
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < kR; ++i) {
     key_ok[i] = key_valid(mask_b, k0 + ty + kGrid * i, skv);
 #pragma unroll
     for (int c = 0; c < kD; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
   }
 
   // causal: query tiles wholly before this key tile see none of its keys
-  const int q_start = causal ? (k0 / kBlock) * kBlock : 0;
+  const int q_start = causal ? (k0 / BLK) * BLK : 0;
   for (int r = 0; r < rep; ++r) {
     const int h = g * rep + r;
     const int64_t q_off = (static_cast<int64_t>(b) * sq * nh + h) * hd;
     const int64_t row_off = (static_cast<int64_t>(b) * nh + h) * sq;
-    for (int q0 = q_start; q0 < sq; q0 += kBlock) {
+    for (int q0 = q_start; q0 < sq; q0 += BLK) {
       __syncthreads();  // the previous query tile is consumed
-      load_tile<HD>(q_s, q + q_off, q_pitch, q0, sq, hd);
-      load_tile<HD>(do_s, dout + q_off, q_pitch, q0, sq, hd);
-      if (threadIdx.x < kBlock) {
+      load_tile<HD, BLK>(q_s, q + q_off, q_pitch, q0, sq, hd);
+      load_tile<HD, BLK>(do_s, dout + q_off, q_pitch, q0, sq, hd);
+      if (threadIdx.x < BLK) {
         const int qi = q0 + threadIdx.x;
         lse_s[threadIdx.x] = qi < sq ? lse[row_off + qi] : kNegInf;  // padded rows: p = 0
         delta_s[threadIdx.x] = qi < sq ? delta[row_off + qi] : 0.f;
@@ -394,14 +441,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       __syncthreads();
 
       // transposed score tiles: row = key (ty + 16 i), column = query (tx + 16 j)
-      float s[kRows][kCols] = {}, dp[kRows][kCols] = {};
-      tile_dot<HD>(s, k_s, q_s, ty, tx);
-      tile_dot<HD>(dp, v_s, do_s, ty, tx);
+      float s[kR][kR] = {}, dp[kR][kR] = {};
+      tile_dot<HD, BLK>(s, k_s, q_s, ty, tx);
+      tile_dot<HD, BLK>(dp, v_s, do_s, ty, tx);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
+      for (int i = 0; i < kR; ++i) {
         const int kj = k0 + ty + kGrid * i;
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) {
+        for (int j = 0; j < kR; ++j) {
           const int col = tx + kGrid * j;
           const int qi = q0 + col;
           const bool valid = key_ok[i] && (!causal || qi >= kj);
@@ -409,26 +456,26 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float lq = lse_s[col];
           const float p = lq == kNegInf ? 0.f : expf(sc - lq);
           const float ds = p * (dp[i][j] - delta_s[col]) * scale;
-          p_s[(ty + kGrid * i) * kSStride + col] = p;
-          ds_s[(ty + kGrid * i) * kSStride + col] = ds;
+          p_s[(ty + kGrid * i) * kSStride + col] = round_to<T>(p);
+          ds_s[(ty + kGrid * i) * kSStride + col] = round_to<T>(ds);
         }
       }
       __syncthreads();
-      tile_pv<HD>(dv_acc, p_s, do_s, ty, tx);
-      tile_pv<HD>(dk_acc, ds_s, q_s, ty, tx);
+      tile_pv<HD, BLK>(dv_acc, p_s, do_s, ty, tx);
+      tile_pv<HD, BLK>(dk_acc, ds_s, q_s, ty, tx);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < kR; ++i) {
     const int kj = k0 + ty + kGrid * i;
     if (kj >= skv) continue;
     const int64_t row = ((static_cast<int64_t>(b) * skv + kj) * n_kv + g) * hd;
 #pragma unroll
     for (int c = 0; c < kD; ++c) {
       if (tx + kGrid * c >= hd) continue;
-      dk[row + tx + kGrid * c] = dk_acc[i][c];
-      dv[row + tx + kGrid * c] = dv_acc[i][c];
+      dk[row + tx + kGrid * c] = from_f32<T>(dk_acc[i][c]);
+      dv[row + tx + kGrid * c] = from_f32<T>(dv_acc[i][c]);
     }
   }
 }
@@ -436,8 +483,6 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // bf16 helpers shared by the tensor-core kernels
 // ---------------------------------------------------------------------------
-
-using bf16 = __nv_bfloat16;
 
 // two f32 values rounded to bf16, the lower column in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -1343,14 +1388,18 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 // host side
 // ---------------------------------------------------------------------------
 
-template <int HD>
-constexpr int fwd_smem_bytes() { return (3 * kBlock * (HD + 1) + kBlock * kSStride) * 4; }
-template <int HD>
-constexpr int dq_smem_bytes() { return (4 * kBlock * (HD + 1) + kBlock * kSStride) * 4; }
-template <int HD>
+// the FMA kernels' shared memory: staged f32 tiles of HD + 1 columns and
+// score tiles of BLK + 1
+template <int HD, int BLK>
+constexpr int fwd_smem_bytes() { return (3 * BLK * (HD + 1) + BLK * (BLK + 1)) * 4; }
+template <int HD, int BLK>
+constexpr int dq_smem_bytes() { return (4 * BLK * (HD + 1) + BLK * (BLK + 1)) * 4; }
+template <int HD, int BLK>
 constexpr int dkv_smem_bytes() {
-  return (4 * kBlock * (HD + 1) + 2 * kBlock * kSStride + 2 * kBlock) * 4;
+  return (4 * BLK * (HD + 1) + 2 * BLK * (BLK + 1) + 2 * BLK) * 4;
 }
+static_assert(dkv_smem_bytes<kWideHD, kWideBlock>() <= 232448,
+              "the wide dk/dv kernel's tiles exceed the 227 KB a block may opt into");
 
 // Above 48 KB a kernel needs an opt-in for dynamic shared memory; once per
 // kernel instance and process.
@@ -1434,20 +1483,63 @@ struct Shape {
   int causal;
 };
 
-// dtype 0 (f32) takes the FMA kernels, dtype 1 (bf16) the tensor-core ones
+// The FMA kernels' launches: one block of kThreads per BLK query rows (or,
+// for dk/dv, BLK keys), head and batch row.
+template <int HD, int BLK, typename T>
+cudaError_t launch_fma_fwd(const void* q, const void* k, const void* v, const uint8_t* m,
+                           void* o, float* lse, const Shape& a, cudaStream_t stream) {
+  static bool ready = false;
+  constexpr int bytes = fwd_smem_bytes<HD, BLK>();
+  const cudaError_t err = allow_smem(flash_fwd_kernel<HD, BLK, T>, bytes, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sq + BLK - 1) / BLK, a.nh, a.b);
+  flash_fwd_kernel<HD, BLK, T><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m,
+      static_cast<T*>(o), lse, a.sq, a.skv, a.nh, a.n_kv, a.hd, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int HD, int BLK, typename T>
+cudaError_t launch_fma_dq(const void* q, const void* k, const void* v, const uint8_t* m,
+                          const void* dout, const float* lse, const float* delta, void* dq,
+                          const Shape& a, cudaStream_t stream) {
+  static bool ready = false;
+  constexpr int bytes = dq_smem_bytes<HD, BLK>();
+  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<HD, BLK, T>, bytes, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.sq + BLK - 1) / BLK, a.nh, a.b);
+  flash_bwd_dq_kernel<HD, BLK, T><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m,
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), a.sq, a.skv, a.nh, a.n_kv,
+      a.hd, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int HD, int BLK, typename T>
+cudaError_t launch_fma_dkv(const void* q, const void* k, const void* v, const uint8_t* m,
+                           const void* dout, const float* lse, const float* delta, void* dk,
+                           void* dv, const Shape& a, cudaStream_t stream) {
+  static bool ready = false;
+  constexpr int bytes = dkv_smem_bytes<HD, BLK>();
+  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<HD, BLK, T>, bytes, ready);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.skv + BLK - 1) / BLK, a.n_kv, a.b);
+  flash_bwd_dkv_kernel<HD, BLK, T><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m,
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), a.sq,
+      a.skv, a.nh, a.n_kv, a.hd, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// Up to hd 128: dtype 0 (f32) takes the FMA kernels, dtype 1 (bf16) the
+// tensor-core ones
 template <int HD>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
                        float* lse, const Shape& a, int dtype, cudaStream_t stream) {
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaError_t err;
   if (dtype == 0) {
-    static bool ready = false;
-    constexpr int bytes = fwd_smem_bytes<HD>();
-    if ((err = allow_smem(flash_fwd_kernel<HD>, bytes, ready)) != cudaSuccess) return err;
-    const dim3 grid((a.sq + kBlock - 1) / kBlock, a.nh, a.b);
-    flash_fwd_kernel<HD><<<grid, kThreads, bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        m, static_cast<float*>(o), lse, a.sq, a.skv, a.nh, a.n_kv, a.hd, a.scale, a.causal);
+    return launch_fma_fwd<HD, kBlock, float>(q, k, v, m, o, lse, a, stream);
   } else {
     static bool ready = false, pool = false;
     constexpr int bytes = FwdSmem<staged_hd(HD)>::kBytes;
@@ -1473,15 +1565,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* m
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaError_t err;
   if (dtype == 0) {
-    static bool ready = false;
-    constexpr int bytes = dq_smem_bytes<HD>();
-    if ((err = allow_smem(flash_bwd_dq_kernel<HD>, bytes, ready)) != cudaSuccess)
-      return err;
-    const dim3 grid((a.sq + kBlock - 1) / kBlock, a.nh, a.b);
-    flash_bwd_dq_kernel<HD><<<grid, kThreads, bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        m, static_cast<const float*>(dout), lse, delta, static_cast<float*>(dq), a.sq, a.skv,
-        a.nh, a.n_kv, a.hd, a.scale, a.causal);
+    return launch_fma_dq<HD, kBlock, float>(q, k, v, m, dout, lse, delta, dq, a, stream);
   } else {
     static bool ready = false;
     constexpr int bytes = DqSmem<staged_hd(HD)>::kBytes;
@@ -1507,15 +1591,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cudaError_t err;
   if (dtype == 0) {
-    static bool ready = false;
-    constexpr int bytes = dkv_smem_bytes<HD>();
-    if ((err = allow_smem(flash_bwd_dkv_kernel<HD>, bytes, ready)) != cudaSuccess)
-      return err;
-    const dim3 grid((a.skv + kBlock - 1) / kBlock, a.n_kv, a.b);
-    flash_bwd_dkv_kernel<HD><<<grid, kThreads, bytes, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        m, static_cast<const float*>(dout), lse, delta, static_cast<float*>(dk),
-        static_cast<float*>(dv), a.sq, a.skv, a.nh, a.n_kv, a.hd, a.scale, a.causal);
+    return launch_fma_dkv<HD, kBlock, float>(q, k, v, m, dout, lse, delta, dk, dv, a, stream);
   } else {
     static bool ready = false;
     constexpr int bytes = DkvSmem<staged_hd(HD)>::kBytes;
@@ -1534,8 +1610,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-// the head dims every kernel takes: a multiple of 8 from 8 to 128
-bool valid_head_dim(int hd) { return hd >= 8 && hd <= 128 && hd % 8 == 0; }
+// the head dims the kernels take: a multiple of 8 from 8 to 256 (the
+// wrapper zero-pads any other head dim up to 256 to the next multiple of 8)
+bool valid_head_dim(int hd) { return hd >= 8 && hd <= kWideHD && hd % 8 == 0; }
 
 bool valid_shape(const Shape& a, int dtype) {
   return a.b >= 1 && a.sq >= 1 && a.skv >= 1 && a.n_kv >= 1 && a.nh >= a.n_kv &&
@@ -1544,7 +1621,8 @@ bool valid_shape(const Shape& a, int dtype) {
 }
 
 // fn(std::integral_constant<int, HD>) with HD = hd rounded up to 16: one
-// instance of every kernel at each multiple of 16 from 16 to 128
+// instance of every kernel at each multiple of 16 from 16 to 128 (a head
+// dim past 128 takes the wide FMA kernels instead, before this)
 template <typename Fn>
 cudaError_t by_head_dim(int hd, Fn&& fn) {
   switch ((hd + 15) / 16) {
@@ -1600,6 +1678,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (!valid_shape(a, dtype)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if (hd > 128)
+    return dtype == 0 ? launch_fma_fwd<kWideHD, kWideBlock, float>(q, k, v, m, o, l, a, st)
+                      : launch_fma_fwd<kWideHD, kWideBlock, bf16>(q, k, v, m, o, l, a, st);
   return by_head_dim(hd, [&](auto c) {
     return launch_fwd<decltype(c)::value>(q, k, v, mask, o, l, a, dtype, st);
   });
@@ -1616,6 +1698,11 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if (hd > 128)
+    return dtype == 0
+               ? launch_fma_dq<kWideHD, kWideBlock, float>(q, k, v, m, dout, l, d, dq, a, st)
+               : launch_fma_dq<kWideHD, kWideBlock, bf16>(q, k, v, m, dout, l, d, dq, a, st);
   return by_head_dim(hd, [&](auto c) {
     return launch_dq<decltype(c)::value>(q, k, v, mask, dout, l, d, dq, a, dtype, st);
   });
@@ -1632,16 +1719,37 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if (hd > 128)
+    return dtype == 0 ? launch_fma_dkv<kWideHD, kWideBlock, float>(q, k, v, m, dout, l, d, dk,
+                                                                  dv, a, st)
+                      : launch_fma_dkv<kWideHD, kWideBlock, bf16>(q, k, v, m, dout, l, d, dk,
+                                                                 dv, a, st);
   return by_head_dim(hd, [&](auto c) {
     return launch_dkv<decltype(c)::value>(q, k, v, mask, dout, l, d, dk, dv, a, dtype, st);
   });
 }
 
 // Resident blocks an SM holds of the bf16 kernel `which` (0 forward, 1 dq,
-// 2 dk/dv) at head dim hd, with the threads and shared memory it launches with.
+// 2 dk/dv) at head dim hd, with the threads and shared memory it launches
+// with: a wgmma kernel up to hd 128, a wide FMA kernel past it.
 extern "C" int flash_attention_blocks_per_sm(int which, int hd, int* blocks) {
   (void)cudaGetLastError();
   if (!valid_head_dim(hd)) return cudaErrorInvalidValue;
+  if (hd > 128) {
+    switch (which) {
+      case 0:
+        return occupancy(flash_fwd_kernel<kWideHD, kWideBlock, bf16>, kThreads,
+                         fwd_smem_bytes<kWideHD, kWideBlock>(), blocks);
+      case 1:
+        return occupancy(flash_bwd_dq_kernel<kWideHD, kWideBlock, bf16>, kThreads,
+                         dq_smem_bytes<kWideHD, kWideBlock>(), blocks);
+      case 2:
+        return occupancy(flash_bwd_dkv_kernel<kWideHD, kWideBlock, bf16>, kThreads,
+                         dkv_smem_bytes<kWideHD, kWideBlock>(), blocks);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   return by_head_dim(hd, [&](auto c) {
     return wgmma_blocks_per_sm<decltype(c)::value>(which, blocks);
   });

@@ -67,17 +67,23 @@
 //    and the others idle in P.V), with the same staging and warp split, expf
 //    and IEEE divide, so f32 pools meet 1e-5 against the plain PyTorch
 //    version.
-//  * Any head dim that is a multiple of 8, up to 128. The kernel is built at
-//    four staged widths, 16, 32, 64 and 128, and a head dim runs at the
-//    first one that holds it: a staged row is whole 16-byte chunks, the
-//    columns past the head dim are zero-filled by the copy (so they add
-//    nothing to Q.K^T, and the output columns they make are never stored),
-//    and the pools, q and the output are addressed at the real pitch. A
-//    pool row of a 1-byte dtype whose head dim is 8 past a multiple of 16
-//    (hd 24 is 24 bytes) is not whole 16-byte chunks, so such rows are
-//    copied 8 bytes at a time. The narrowest staged row, an int8 or fp8 row
-//    of 16 dims, is one chunk: the swizzle then has nothing to permute, and
-//    128 threads stage a 64-key tile one key a thread.
+//  * Any head dim from 1 to 256. The kernel is built at five staged widths,
+//    16, 32, 64, 128 and 256, and a head dim runs at the first one that
+//    holds it: a staged row is whole 16-byte chunks, the columns past the
+//    head dim are zero-filled (so they add nothing to Q.K^T, and the output
+//    columns they make are never stored), and the pools, q and the output
+//    are addressed at the real pitch: the pool is never padded. A pool row
+//    whose byte length is a multiple of 16 is copied 16 bytes at a time; one
+//    of a multiple of 8 (a 1-byte row of hd = 8 mod 16, a bf16 row of hd = 4
+//    mod 8) 8 bytes at a time; any other (an odd bf16 hd, a 1-byte hd off a
+//    multiple of 8) element by element with plain loads, which a stage's
+//    barrier orders like the copies. The narrowest staged row, an int8 or
+//    fp8 row of 16 dims, is one chunk: the swizzle then has nothing to
+//    permute, and 128 threads stage a 64-key tile one key a thread. At 256
+//    the bf16 path reads the query fragments from shared memory at each
+//    step (in registers they and O would take 192 a thread), a block holds
+//    one SM, and an f32 pool's 64-key stage is 128 KB, so that pool stages
+//    one tile at a time instead of a three-stage ring.
 
 #include <algorithm>
 #include <cfloat>
@@ -95,7 +101,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16;                       // query rows per block: one mma M tile
 constexpr int kWarpKeys = 16;                   // keys a warp takes from each stage
 constexpr int kStageKeys = kWarps * kWarpKeys;  // keys per ring stage (a "tile")
-constexpr int kStages = 3;                      // ring depth
 constexpr int kMaxSplitKeys = 4096;             // the wrapper keeps a split under this
 constexpr int kMaxSmem = 232448;                // 227 KB, the most a block may opt into
 constexpr unsigned kFull = 0xffffffffu;
@@ -215,6 +220,9 @@ template <int HD, typename QT, typename KT, bool kQuant>
 struct Smem {
   static constexpr bool kMma = std::is_same_v<QT, __nv_bfloat16>;
   static constexpr int kStageBytes = 2 * kStageKeys * Tile<HD, KT>::kRowBytes;  // K rows, V rows
+  // ring depth: three stages, or one where a stage alone is 128 KB (an f32
+  // pool at HD 256)
+  static constexpr int kStages = kStageBytes > 65536 ? 1 : 3;
   static constexpr int kRing = kStages * kStageBytes;
   static constexpr int kMerge = (kWarps * kRows * HD + 2 * kWarps * kRows) * 4;
   static_assert(kMerge <= kRing, "the warps' merge reuses the ring");
@@ -262,25 +270,35 @@ template <int HD, typename KT, bool kQuant>
 struct MmaWarp {
   using T = Tile<HD, KT>;
   static constexpr int kQRow = HD + 8;
-  uint32_t qa[HD / 16][4];
+  // up to HD 128 the query tile's A fragments live in registers; past it
+  // they are read from the staged tile at each step
+  static constexpr bool kQRegs = HD <= 128;
+  uint32_t qa[kQRegs ? HD / 16 : 1][4];
+  const __nv_bfloat16* q_s;
   float o[HD / 8][4];
   float m[2], l[2];
   int qpos[2];
   float qk_scale;  // 1 / sqrt(hd) in log2 units
 
+  // A fragment ks (16 dims) of the query tile, from shared memory
+  __device__ __forceinline__ void q_frag(uint32_t (&a)[4], int ks, int lane) const {
+    const int g = lane / 4, t = lane % 4;
+    const __nv_bfloat16* r0 = q_s + g * kQRow + 16 * ks + 2 * t;
+    const __nv_bfloat16* r8 = r0 + 8 * kQRow;
+    a[0] = *reinterpret_cast<const uint32_t*>(r0);
+    a[1] = *reinterpret_cast<const uint32_t*>(r8);
+    a[2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
+    a[3] = *reinterpret_cast<const uint32_t*>(r8 + 8);
+  }
+
   __device__ __forceinline__ void init(const char* q_smem, float*, int lane, int row0, int rows,
                                        int rep, int start, int hd) {
-    const int g = lane / 4, t = lane % 4;
+    const int g = lane / 4;
     qk_scale = kLog2e / sqrtf(static_cast<float>(hd));
-    const __nv_bfloat16* q_s = reinterpret_cast<const __nv_bfloat16*>(q_smem);
+    q_s = reinterpret_cast<const __nv_bfloat16*>(q_smem);
+    if constexpr (kQRegs) {
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
-      const __nv_bfloat16* r0 = q_s + g * kQRow + 16 * ks + 2 * t;
-      const __nv_bfloat16* r8 = r0 + 8 * kQRow;
-      qa[ks][0] = *reinterpret_cast<const uint32_t*>(r0);
-      qa[ks][1] = *reinterpret_cast<const uint32_t*>(r8);
-      qa[ks][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-      qa[ks][3] = *reinterpret_cast<const uint32_t*>(r8 + 8);
+      for (int ks = 0; ks < HD / 16; ++ks) q_frag(qa[ks], ks, lane);
     }
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -324,8 +342,15 @@ struct MmaWarp {
           kb[j][1] = pack_bf16(x1.x, x1.y);
         }
       }
-      mma_bf16(sc[0], qa[ks], kb[0]);
-      mma_bf16(sc[1], qa[ks], kb[1]);
+      if constexpr (kQRegs) {
+        mma_bf16(sc[0], qa[ks], kb[0]);
+        mma_bf16(sc[1], qa[ks], kb[1]);
+      } else {
+        uint32_t a[4];
+        q_frag(a, ks, lane);
+        mma_bf16(sc[0], a, kb[0]);
+        mma_bf16(sc[1], a, kb[1]);
+      }
     }
 
     // sc[j][2 rr + e]: row g + 8 rr, key 8 j + 2 t + e; scores to log2 units
@@ -553,9 +578,10 @@ struct FmaWarp {
 };
 
 // Two blocks an SM: what the bf16 ring allows, and it lets ptxas give a
-// thread more than the 168 registers it aims at for three blocks.
+// thread more than the 168 registers it aims at for three blocks. At HD 256
+// one block an SM: its ring alone is most of the SM's shared memory.
 template <int HD, typename QT, typename KT, bool kQuant>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, HD > 128 ? 1 : 2)
 paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
                        const KT* __restrict__ v_pages, const float* __restrict__ k_scale,
                        const float* __restrict__ v_scale, const int* __restrict__ block_tables,
@@ -564,6 +590,7 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
                        int n_kv, int hd, int nb, int bs, int mb, int splits) {
   using S = Smem<HD, QT, KT, kQuant>;
   using T = Tile<HD, KT>;
+  constexpr int kStages = S::kStages;
   using Warp = std::conditional_t<S::kMma, MmaWarp<HD, KT, kQuant>, FmaWarp<HD, KT, kQuant>>;
   extern __shared__ __align__(128) char smem[];
   float* scale_s = reinterpret_cast<float*>(smem + S::kScaleOff);
@@ -593,14 +620,25 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
 
   // the query tile (rows past rep * s and columns past hd are zero)
   if constexpr (S::kMma) {
-    constexpr int kV = 8;  // bf16 a 16-byte load; hd is a multiple of 8
-    for (int e = tid; e < kRows * HD / kV; e += kThreads) {
-      const int r = e / (HD / kV), c = e % (HD / kV);
-      const int row = row0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < rows && c * kV < hd)
-        v = *reinterpret_cast<const uint4*>(q + out_row_of(b, row, rep, n, s, nh) * hd + c * kV);
-      *reinterpret_cast<uint4*>(q_s + r * S::kQRow + c * kV) = v;
+    constexpr int kV = 8;  // bf16: a 16-byte load where hd is a multiple of 8
+    if (hd % kV == 0) {
+      for (int e = tid; e < kRows * HD / kV; e += kThreads) {
+        const int r = e / (HD / kV), c = e % (HD / kV);
+        const int row = row0 + r;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (row < rows && c * kV < hd)
+          v = *reinterpret_cast<const uint4*>(q + out_row_of(b, row, rep, n, s, nh) * hd + c * kV);
+        *reinterpret_cast<uint4*>(q_s + r * S::kQRow + c * kV) = v;
+      }
+    } else {  // element by element, as raw 16-bit words
+      const uint16_t* qw = reinterpret_cast<const uint16_t*>(q);
+      uint16_t* qs = reinterpret_cast<uint16_t*>(q_s);
+      for (int e = tid; e < kRows * HD; e += kThreads) {
+        const int r = e / HD, d = e % HD;
+        const int row = row0 + r;
+        qs[r * S::kQRow + d] =
+            row < rows && d < hd ? qw[out_row_of(b, row, rep, n, s, nh) * hd + d] : 0;
+      }
     }
   } else {
     // scaled once by 1/sqrt(hd), as the plain version folds it into q
@@ -616,32 +654,57 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
   __syncthreads();  // tab_s and q_s are written
 
   const int n_tiles = (k_hi - k_lo + kStageKeys - 1) / kStageKeys;
-  // a 1-byte pool row of hd = 8 mod 16 is not whole 16-byte chunks: its
-  // chunks go as two 8-byte copies (block-uniform)
-  const bool narrow = sizeof(KT) == 1 && hd % 16 != 0;
+  // a pool row that is not whole 16-byte chunks goes as 8-byte copies, or,
+  // not whole 8-byte ones either, element by element (block-uniform)
+  const int row_bytes = hd * static_cast<int>(sizeof(KT));
+  const bool narrow = row_bytes % 16 != 0;
+  const bool scalar = row_bytes % 8 != 0;
+  // KT's bytes as one unsigned word, for the element path
+  using W = std::conditional_t<sizeof(KT) == 4, uint32_t,
+                               std::conditional_t<sizeof(KT) == 2, uint16_t, uint8_t>>;
   auto load_stage = [&](int t) {
     char* kdst = smem + (t % kStages) * S::kStageBytes;
     char* vdst = kdst + kStageKeys * T::kRowBytes;
     const int k0 = k_lo + t * kStageKeys;
     const int c = tid % T::kChunks;
     const int e0 = c * T::kVec;  // the chunk's first element of the row
-    for (int key = tid / T::kChunks; key < kStageKeys; key += kThreads / T::kChunks) {
-      const int p = k0 + key;
-      const bool valid = p < k_hi;
-      int64_t off = 0;
-      if (valid)
-        off = ((static_cast<int64_t>(tab_s[p / bs - page_lo]) * bs + p % bs) * n_kv + n) * hd;
-      const int so = T::off(key, e0);
-      if (narrow) {
+    if (scalar) {
+      for (int key = tid / T::kChunks; key < kStageKeys; key += kThreads / T::kChunks) {
+        const int p = k0 + key;
+        const bool valid = p < k_hi;
+        int64_t off = 0;
+        if (valid)
+          off = ((static_cast<int64_t>(tab_s[p / bs - page_lo]) * bs + p % bs) * n_kv + n) * hd;
+        const W* kw = reinterpret_cast<const W*>(k_pages) + off;
+        const W* vw = reinterpret_cast<const W*>(v_pages) + off;
+        const int so = T::off(key, e0);
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int e = e0 + 8 * h;
-          cp_async8(smem_u32(kdst + so + 8 * h), k_pages + off + e, valid && e < hd);
-          cp_async8(smem_u32(vdst + so + 8 * h), v_pages + off + e, valid && e < hd);
+        for (int i = 0; i < T::kVec; ++i) {
+          const bool ok = valid && e0 + i < hd;
+          *reinterpret_cast<W*>(kdst + so + i * sizeof(KT)) = ok ? kw[e0 + i] : W(0);
+          *reinterpret_cast<W*>(vdst + so + i * sizeof(KT)) = ok ? vw[e0 + i] : W(0);
         }
-      } else {
-        cp_async16(smem_u32(kdst + so), k_pages + off + e0, valid && e0 < hd);
-        cp_async16(smem_u32(vdst + so), v_pages + off + e0, valid && e0 < hd);
+      }
+    } else {
+      for (int key = tid / T::kChunks; key < kStageKeys; key += kThreads / T::kChunks) {
+        const int p = k0 + key;
+        const bool valid = p < k_hi;
+        int64_t off = 0;
+        if (valid)
+          off = ((static_cast<int64_t>(tab_s[p / bs - page_lo]) * bs + p % bs) * n_kv + n) * hd;
+        const int so = T::off(key, e0);
+        if (narrow) {
+          constexpr int kHalf = 8 / static_cast<int>(sizeof(KT));  // elements in 8 bytes
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int e = e0 + kHalf * h;
+            cp_async8(smem_u32(kdst + so + 8 * h), k_pages + off + e, valid && e < hd);
+            cp_async8(smem_u32(vdst + so + 8 * h), v_pages + off + e, valid && e < hd);
+          }
+        } else {
+          cp_async16(smem_u32(kdst + so), k_pages + off + e0, valid && e0 < hd);
+          cp_async16(smem_u32(vdst + so), v_pages + off + e0, valid && e0 < hd);
+        }
       }
     }
     if constexpr (kQuant) {
@@ -668,10 +731,18 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
          row0, rows, rep, start, hd);
   const int last_pos = start + (min(row0 + kRows, rows) - 1) / rep;  // the tile's last query
   for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<kStages - 2>();  // this thread's copies of tile t have landed
-    __syncthreads();               // everyone's have, and tile t - 1's slot is consumed
-    if (t + kStages - 1 < n_tiles) load_stage(t + kStages - 1);
-    cp_async_commit();
+    if constexpr (kStages == 1) {
+      __syncthreads();  // tile t - 1 is consumed
+      load_stage(t);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();  // tile t has landed, every thread's copies and stores
+    } else {
+      cp_async_wait<kStages - 2>();  // this thread's copies of tile t have landed
+      __syncthreads();               // everyone's have, and tile t - 1's slot is consumed
+      if (t + kStages - 1 < n_tiles) load_stage(t + kStages - 1);
+      cp_async_commit();
+    }
     const int slot = t % kStages;
     const char* kt = smem + slot * S::kStageBytes;
     const float* sc = scale_s + slot * 2 * kStageKeys;
@@ -834,7 +905,7 @@ cudaError_t by_query(const Args& a, int q_dtype, int kv_dtype, cudaStream_t stre
 // part_acc [b, s, nh, splits, hd] and part_ml [b, s, nh, splits, 2] (f32)
 // are scratch the wrapper allocates when splits > 1, else null. splits is
 // the wrapper's plan: at least ceil(mb * bs / 4096), at most the
-// table's 64-key tiles. hd is any multiple of 8 from 8 to 128.
+// table's 64-key tiles. hd is any head dim from 1 to 256.
 extern "C" int paged_attention_forward(const void* q, const void* k_pages, const void* v_pages,
                                        const void* k_scale, const void* v_scale,
                                        const void* block_tables, const void* idx, void* out,
@@ -844,7 +915,7 @@ extern "C" int paged_attention_forward(const void* q, const void* k_pages, const
   (void)cudaGetLastError();  // report this launch's error, not a stale one
   const int64_t span = static_cast<int64_t>(mb) * bs;
   if (b < 1 || s < 1 || n_kv < 1 || nh % n_kv != 0 || nb < 1 || bs < 1 || mb < 1 ||
-      span > (int64_t{1} << 30) || splits < 1 || hd < 8 || hd > 128 || hd % 8 != 0 ||
+      span > (int64_t{1} << 30) || splits < 1 || hd < 1 || hd > 256 ||
       splits > (span + kStageKeys - 1) / kStageKeys ||
       splits < (span + kMaxSplitKeys - 1) / kMaxSplitKeys ||
       (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
@@ -857,26 +928,34 @@ extern "C" int paged_attention_forward(const void* q, const void* k_pages, const
   if (hd <= 16) return by_query<16>(a, q_dtype, kv_dtype, st);
   if (hd <= 32) return by_query<32>(a, q_dtype, kv_dtype, st);
   if (hd <= 64) return by_query<64>(a, q_dtype, kv_dtype, st);
-  return by_query<128>(a, q_dtype, kv_dtype, st);
+  if (hd <= 128) return by_query<128>(a, q_dtype, kv_dtype, st);
+  return by_query<256>(a, q_dtype, kv_dtype, st);
 }
 
 // Resident blocks an SM holds of the split kernel and of the combine kernel
-// at hd 128 with bf16 queries and a bf16 pool (the flagship's decode: a
-// 64-entry table of 16-key pages in 2 splits), by the runtime's occupancy
-// calculator for this device, and the split kernel's dynamic shared memory
-// there.
-extern "C" int paged_attention_blocks_per_sm(int* split, int* combine, int* smem_bytes) {
-  (void)cudaGetLastError();
-  using S = Smem<128, __nv_bfloat16, __nv_bfloat16, false>;
-  cudaError_t err = opt_in<128, __nv_bfloat16, __nv_bfloat16, false>();
+// at head dim 128 or 256 with bf16 queries and a bf16 pool (the decode of 8
+// slots at context 1024: a 64-entry table of 16-key pages in 2 splits), by
+// the runtime's occupancy calculator for this device, and the split
+// kernel's dynamic shared memory there.
+template <int HD>
+cudaError_t blocks_per_sm(int* split, int* combine, int* smem_bytes) {
+  using S = Smem<HD, __nv_bfloat16, __nv_bfloat16, false>;
+  cudaError_t err = opt_in<HD, __nv_bfloat16, __nv_bfloat16, false>();
   if (err != cudaSuccess) return err;
   *smem_bytes = S::bytes(table_cap(64 * 16, 16, 64, 2));
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      split, paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false>, kThreads,
+      split, paged_attention_kernel<HD, __nv_bfloat16, __nv_bfloat16, false>, kThreads,
       *smem_bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      combine, combine_splits_kernel<128, __nv_bfloat16>, 128, 0);
+      combine, combine_splits_kernel<HD, __nv_bfloat16>, HD, 0);
+}
+
+extern "C" int paged_attention_blocks_per_sm(int hd, int* split, int* combine, int* smem_bytes) {
+  (void)cudaGetLastError();
+  if (hd == 128) return blocks_per_sm<128>(split, combine, smem_bytes);
+  if (hd == 256) return blocks_per_sm<256>(split, combine, smem_bytes);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* paged_attention_error_string(int code) {

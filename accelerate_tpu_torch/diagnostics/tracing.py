@@ -1,0 +1,437 @@
+"""Request-scoped tracing — Chrome/Perfetto ``trace_event`` JSON (the
+request-scoped half of ``accelerate_tpu/diagnostics/tracing.py``: trace
+ids, the :class:`Tracer` with its spans, instants, counters, request
+events and flow arrows, the process-wide active tracer and
+:func:`trace_span`; the hang watchdog and the merge/tail readers are not
+ported).
+
+The on-disk format is the JAX package's, so its ``accelerate-tpu trace
+merge`` reads a trace this module wrote:
+
+* one file per process: ``{logging_dir}/traces/host_<n>.trace.json``
+* JSON *array format*: a ``[`` line followed by one event object per line,
+  each terminated by ``,\n`` and flushed — Perfetto and ``chrome://tracing``
+  both accept a trailing comma / missing ``]``, so a SIGKILL'd run's trace
+  is loadable as-is.
+* event ``ts``/``dur`` are **monotonic** microseconds (``perf_counter``);
+  a ``clock_sync`` metadata event records this host's wall-minus-monotonic
+  offset so the merge tool can place all hosts on one wall-clock axis.
+
+The disabled path is a single module-global read returning a shared no-op
+context manager — cheap enough to leave ``trace_span`` calls in every hot
+path unconditionally. Spans and request events are host-side records:
+the serving engine emits them around its dispatches, never inside a
+captured CUDA graph.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import threading
+import time
+import uuid
+from typing import Any
+
+import logging
+from ..metrics.ingest import observe_span as _observe_metrics_span
+from ..metrics.registry import get_active_registry as _get_metrics_registry
+
+logger = logging.getLogger(__name__)
+
+#: file name pattern for per-host traces (the merge tool globs on this)
+TRACE_FILE_PATTERN = "host_{host}.trace.json"
+TRACE_SUBDIR = "traces"
+
+#: category stamped on every request-scoped event (async ``b``/``n``/``e``
+#: and flow ``s``/``f`` phases) — the merge stitcher and ``trace tail``
+#: select on this, so free-form span names can never collide with the
+#: request lifecycle vocabulary
+REQUEST_CATEGORY = "request"
+
+#: the shape a trace id must have to ride the wire: client-supplied ids
+#: outside this alphabet are replaced at the submit boundary (a trace id
+#: lands in file names, JSONL rows, and exemplar labels — it must never
+#: need escaping anywhere)
+_TRACE_ID_RE = re.compile(r"^[A-Za-z0-9_.:-]{1,64}$")
+
+
+def new_trace_id() -> str:
+    """A fresh 16-hex request trace id (random, not sequential: ids from
+    independent routers/engines must not collide in a merged timeline)."""
+    return uuid.uuid4().hex[:16]
+
+
+def valid_trace_id(trace_id) -> bool:
+    return isinstance(trace_id, str) and bool(_TRACE_ID_RE.match(trace_id))
+
+
+def ensure_trace_id(trace_id) -> str:
+    """The submit-boundary contract: a well-formed client-supplied id
+    survives verbatim; anything else (missing, wrong type, unsafe chars)
+    is replaced with a generated one — tracing must never reject a
+    request."""
+    return trace_id if valid_trace_id(trace_id) else new_trace_id()
+
+#: version stamped as ``schema`` on every trace event (the trace-row
+#: counterpart of ``telemetry.SCHEMA_VERSION``): readers skip-with-warning
+#: events from a NEWER writer; events with no field are legacy = accepted
+TRACE_SCHEMA_VERSION = 1
+
+
+def _host_index() -> int:
+    """This process's host index without forcing backend init: prefer an
+    initialized PartialState, fall back to the launcher's env."""
+    try:
+        from ..state import PartialState
+
+        if PartialState._shared_state:  # don't *create* state just to trace
+            return int(PartialState().process_index)
+    except Exception:
+        pass
+    return int(os.environ.get("ACCELERATE_PROCESS_INDEX", 0))
+
+
+class _NullSpan:
+    """Shared no-op context manager held by the disabled tracer."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set_attr(self, **attrs):
+        pass
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _NullTracer:
+    """Disabled-mode tracer: ``bool()`` is False, spans are the shared
+    no-op (mirrors telemetry's NULL_TELEMETRY contract)."""
+
+    enabled = False
+
+    def __bool__(self):
+        return False
+
+    def span(self, name, **attrs):
+        return _NULL_SPAN
+
+    def instant(self, name, **attrs):
+        pass
+
+    def counter(self, name, value):
+        pass
+
+    def request_begin(self, trace_id, name, ts=None, **attrs):
+        pass
+
+    def request_instant(self, trace_id, name, ts=None, **attrs):
+        pass
+
+    def request_end(self, trace_id, name, ts=None, **attrs):
+        pass
+
+    def flow(self, trace_id, phase, name="req/hop", **attrs):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+NULL_TRACER = _NullTracer()
+
+#: process-wide active tracer (Borg like telemetry's active recorder): free
+#: functions (lazy.py, operations.py, data_loader.py) trace through this
+_ACTIVE_TRACER: "_NullTracer | Tracer" = NULL_TRACER
+
+
+def get_tracer():
+    return _ACTIVE_TRACER
+
+
+def set_active_tracer(tracer) -> None:
+    global _ACTIVE_TRACER
+    _ACTIVE_TRACER = tracer if tracer is not None else NULL_TRACER
+
+
+class _Span:
+    """One open span: records entry on ``__enter__``, emits a complete
+    Chrome ``ph:"X"`` event on ``__exit__``."""
+
+    __slots__ = ("_tracer", "name", "attrs", "_t0")
+
+    def __init__(self, tracer: "Tracer", name: str, attrs: dict):
+        self._tracer = tracer
+        self.name = name
+        self.attrs = attrs
+        self._t0 = 0.0
+
+    def set_attr(self, **attrs):
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        t1 = time.perf_counter()
+        if exc_type is not None:
+            self.attrs["error"] = exc_type.__name__
+        self._tracer._emit_complete(self.name, self._t0, t1 - self._t0, self.attrs)
+        return False
+
+
+class Tracer:
+    """Per-host Chrome ``trace_event`` writer.
+
+    Args:
+        logging_dir: root under which ``traces/host_<n>.trace.json`` is
+            appended. ``None`` disables the file sink.
+        host: process index used as the trace ``pid``; default resolves
+            from ``PartialState``/env.
+        buffer_events: batch this many events per write+flush (1 = flush
+            every event, the crash-safest; the default batches a little to
+            keep the hot path cheap without risking more than a step's
+            worth of spans on a crash).
+        process_name: label for this process in the merged timeline
+            (default ``host_<n>``) — serving processes pass ``router`` /
+            ``replica_<i>`` so a stitched request flow reads as a hop
+            between *roles*, not anonymous host indices.
+    """
+
+    enabled = True
+
+    def __init__(
+        self,
+        logging_dir: str | None = None,
+        host: int | None = None,
+        buffer_events: int = 16,
+        process_name: str | None = None,
+    ):
+        self.host = _host_index() if host is None else int(host)
+        self.process_name = process_name or f"host_{self.host}"
+        self._file = None
+        self.path = None
+        self._lock = threading.Lock()
+        self._buffer: list[str] = []
+        self._buffer_events = max(1, int(buffer_events))
+        self._closed = False
+
+        if logging_dir is not None:
+            trace_dir = os.path.join(logging_dir, TRACE_SUBDIR)
+            try:
+                os.makedirs(trace_dir, exist_ok=True)
+                self.path = os.path.join(
+                    trace_dir, TRACE_FILE_PATTERN.format(host=self.host)
+                )
+                fresh = not os.path.exists(self.path)
+                self._file = open(self.path, "a")
+                if fresh:
+                    self._file.write("[\n")
+            except OSError:
+                logger.warning("tracing disabled: cannot write under %s", trace_dir, exc_info=True)
+                self._file = None
+                self.path = None
+        # metadata: name the process after the host, and record the
+        # wall-vs-monotonic clock offset the merge tool corrects with
+        self._write_event(
+            {
+                "name": "process_name", "ph": "M", "pid": self.host, "tid": 0,
+                "args": {"name": self.process_name},
+            },
+            flush=True,
+        )
+        self.clock_offset_s = time.time() - time.perf_counter()
+        self._write_event(
+            {
+                "name": "clock_sync", "ph": "M", "pid": self.host, "tid": 0,
+                "args": {"wall_minus_mono_s": self.clock_offset_s, "pid_os": os.getpid()},
+            },
+            flush=True,
+        )
+        # crash paths must not lose the buffered tail (same contract as the
+        # telemetry recorder's atexit close; close() unregisters)
+        import atexit
+
+        atexit.register(self.close)
+
+    # -- span surface --------------------------------------------------------
+
+    def span(self, name: str, **attrs) -> _Span:
+        return _Span(self, name, attrs)
+
+    def instant(self, name: str, **attrs):
+        """A zero-duration marker (``ph:"i"``) — recompiles, preemption
+        flags."""
+        self._write_event(
+            {
+                "name": name, "ph": "i", "s": "p",
+                "ts": time.perf_counter() * 1e6,
+                "pid": self.host, "tid": threading.get_ident(),
+                "args": attrs,
+            }
+        )
+
+    def counter(self, name: str, value: float):
+        self._write_event(
+            {
+                "name": name, "ph": "C",
+                "ts": time.perf_counter() * 1e6,
+                "pid": self.host, "tid": threading.get_ident(),
+                "args": {"value": value},
+            }
+        )
+
+    # -- request-scoped events (the per-request lifecycle surface) -----------
+    #
+    # Perfetto *nestable async* events keyed on (cat="request", id=trace_id):
+    # ``b``/``e`` bracket the request's lifetime inside THIS process and the
+    # ``n`` instants mark lifecycle transitions in between — deliberately
+    # NOT per-token spans, so a 10k-token completion costs a handful of
+    # events, not 10k. ``ts`` may be supplied (monotonic seconds) so an
+    # event can be stamped with the engine's own timing fields — `trace
+    # tail` then reproduces the engine-reported TTFT exactly instead of
+    # within call-latency noise.
+
+    def _request_event(self, ph: str, trace_id: str, name: str,
+                       ts: float | None, attrs: dict):
+        event = {
+            "name": name, "cat": REQUEST_CATEGORY, "ph": ph,
+            "id": str(trace_id),
+            "ts": (time.perf_counter() if ts is None else float(ts)) * 1e6,
+            "pid": self.host, "tid": threading.get_ident(),
+        }
+        if attrs:
+            event["args"] = attrs
+        self._write_event(event)
+
+    def request_begin(self, trace_id: str, name: str, ts: float | None = None,
+                      **attrs):
+        self._request_event("b", trace_id, name, ts, attrs)
+
+    def request_instant(self, trace_id: str, name: str, ts: float | None = None,
+                        **attrs):
+        self._request_event("n", trace_id, name, ts, attrs)
+
+    def request_end(self, trace_id: str, name: str, ts: float | None = None,
+                    **attrs):
+        self._request_event("e", trace_id, name, ts, attrs)
+
+    def flow(self, trace_id: str, phase: str, name: str = "req/hop", **attrs):
+        """A flow-event endpoint (``s`` = arrow tail at the sender, ``f`` =
+        arrow head at the receiver) keyed on the trace id: after ``trace
+        merge`` fuses the per-process files, Perfetto draws the arrow from
+        the router's dispatch to the replica's admission — the visual form
+        of cross-process trace propagation."""
+        event = {
+            "name": name, "cat": REQUEST_CATEGORY, "ph": phase,
+            "id": str(trace_id),
+            "ts": time.perf_counter() * 1e6,
+            "pid": self.host, "tid": threading.get_ident(),
+        }
+        if phase == "f":
+            event["bp"] = "e"  # bind to the enclosing slice
+        if attrs:
+            event["args"] = attrs
+        self._write_event(event)
+
+    # -- internals -----------------------------------------------------------
+
+    def _emit_complete(self, name: str, t0: float, dur: float, attrs: dict):
+        event = {
+            "name": name, "ph": "X",
+            "ts": t0 * 1e6, "dur": dur * 1e6,
+            "pid": self.host, "tid": threading.get_ident(),
+        }
+        if attrs:
+            event["args"] = attrs
+        self._write_event(event)
+        # span exit → per-phase latency histogram on the scrape surface
+        # (one global read when no registry is active — and this line only
+        # runs at all when tracing itself is enabled)
+        registry = _get_metrics_registry()
+        if registry:
+            try:
+                _observe_metrics_span(registry, name, dur)
+            except Exception:
+                pass
+
+    def _write_event(self, event: dict, flush: bool = False):
+        if self._file is None:
+            return
+        event.setdefault("schema", TRACE_SCHEMA_VERSION)
+        try:
+            line = json.dumps(event, default=str) + ",\n"
+        except (TypeError, ValueError):
+            return
+        with self._lock:
+            if self._file is None:
+                return
+            self._buffer.append(line)
+            if flush or len(self._buffer) >= self._buffer_events:
+                self._drain_locked()
+
+    def _drain_locked(self):
+        if self._file is None or not self._buffer:
+            self._buffer.clear()
+            return
+        try:
+            # tpu-lint: ignore[RC003] — serializing this trace file IS this lock's job: buffered batch append, crash-safe format, and span exit is the only writer
+            self._file.write("".join(self._buffer))
+            self._file.flush()  # tpu-lint: ignore[RC003] — same rationale
+        except (OSError, ValueError):
+            pass
+        self._buffer.clear()
+
+    def flush(self):
+        with self._lock:
+            self._drain_locked()
+
+    def close(self):
+        """Idempotent; leaves the file in the same trailing-comma format a
+        crash would (the array format tolerates it, merge normalizes it)."""
+        if self._closed:
+            return
+        self._closed = True
+        import atexit
+
+        try:
+            atexit.unregister(self.close)
+        except Exception:
+            pass
+        with self._lock:
+            self._drain_locked()
+            if self._file is not None:
+                try:
+                    self._file.close()
+                except OSError:
+                    pass
+                self._file = None
+        global _ACTIVE_TRACER
+        if _ACTIVE_TRACER is self:
+            _ACTIVE_TRACER = NULL_TRACER
+
+
+def trace_span(name: str, **attrs):
+    """Module-level span entry point for the instrumented hot paths:
+    ``with trace_span("serve/decode"): ...``. Routes through the
+    process-wide active tracer; disabled this is one global read returning
+    a shared no-op context manager."""
+    tracer = _ACTIVE_TRACER
+    if tracer:
+        return tracer.span(name, **attrs)
+    return _NULL_SPAN
+
+
+def trace_instant(name: str, **attrs):
+    _ACTIVE_TRACER.instant(name, **attrs)

@@ -10,10 +10,10 @@ backward is :func:`flash_bwd`:
 * the **CUDA kernels** ``csrc/flash_attention.cu`` (hand-written for
   ``sm_90a``): ``flash_fwd_*`` replaces the TPU kernel ``_fwd_kernel``,
   ``flash_bwd_dq_*`` ``_bwd_dq_kernel`` and ``flash_bwd_dkv_*``
-  ``_bwd_dkv_kernel``; bf16 inputs run their products on the tensor cores
-  (``wgmma`` fed by a TMA ring), f32 inputs on the FMA units (no TF32).
-  Taken for CUDA tensors, and only the
-  kernels: a build or launch failure raises;
+  ``_bwd_dkv_kernel``; bf16 inputs up to head dim 128 run their products
+  on the tensor cores (``wgmma`` fed by a TMA ring), f32 inputs and every
+  head dim past 128 on the FMA units (no TF32). Taken for CUDA tensors,
+  and only the kernels: a build or launch failure raises;
 * the **plain** PyTorch versions :func:`_flash_fwd_plain` and
   :func:`_flash_bwd_plain` — the kernels' math as a loop over key tiles,
   with the same masking and rounding points. Taken for CPU tensors, and by
@@ -48,13 +48,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims every hand-written attention kernel takes (B1-B3 here, B4 in
 #: :mod:`.paged_attention`; the training entry point refuses others on the
 #: card before any step: ``accelerator.check_kernel_head_dim``). The kernels
-#: stage a head dim as zero-padded tiles of a wider built width
-HEAD_DIM_RULE = "a multiple of 8 from 8 to 128"
+#: stage a head dim as zero-padded tiles of a wider built width; B1-B3 are
+#: handed q, k, v (and dO) zero-padded to a multiple of 8 (TMA's 16-byte
+#: strides), B4 reads the pool at its real width
+HEAD_DIM_RULE = "any head dim from 1 to 256"
+#: the widest head dim the kernels take
+MAX_HEAD_DIM = 256
 
 
 def takes_head_dim(hd: int) -> bool:
     """True for a head dim the CUDA kernels take (:data:`HEAD_DIM_RULE`)."""
-    return hd % 8 == 0 and 8 <= hd <= 128
+    return 1 <= hd <= MAX_HEAD_DIM
 
 #: key tile of the plain forward: the bf16 forward kernel's (``kFwdTileKeys``
 #: in ``csrc/flash_attention.cu``), where P is rounded at each tile's running max
@@ -306,7 +310,9 @@ def _validate(q, k, v, segment_mask, *extra):
     b, sq, nh, hd = q.shape
     _, skv, n_kv, hd_k = k.shape
     _check(k.shape[0] == b and hd_k == hd, "q and k/v shapes disagree")
-    _check(takes_head_dim(hd), f"head_dim {hd} not supported (takes {HEAD_DIM_RULE})")
+    _check(hd % 8 == 0 and takes_head_dim(hd),
+           f"head_dim {hd}: the kernels take a multiple of 8 up to {MAX_HEAD_DIM} "
+           "(flash_fwd / flash_bwd pad any other)")
     _check(nh % n_kv == 0, f"n_heads {nh} is not a multiple of n_kv {n_kv}")
     _check(q.dtype in _DTYPE_CODES and k.dtype == q.dtype and v.dtype == q.dtype,
            f"q, k, v must share one dtype of {list(_DTYPE_CODES)}")
@@ -327,7 +333,33 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _kernel_head_dim(hd: int) -> int:
+    """The head dim the kernels run at: ``hd`` rounded up to a multiple of 8.
+    Refuses a head dim they do not take, naming the rule."""
+    _check(takes_head_dim(hd), f"head_dim {hd} not supported (takes {HEAD_DIM_RULE})")
+    return -(-hd // 8) * 8
+
+
+def _pad_head_dim(t, width: int):
+    """``t`` zero-padded along its last axis to ``width`` (itself when it
+    already has it): zero columns add nothing to Q K^T, dO V^T, dS K or
+    dS^T Q, and the outputs' extra columns are sliced off."""
+    if t.shape[-1] == width:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1])).contiguous()
+
+
 def _flash_fwd_cuda(q, k, v, segment_mask, scale, causal):
+    hd = q.shape[-1]
+    width = _kernel_head_dim(hd)
+    if width != hd:
+        q, k, v = (_pad_head_dim(t, width) for t in (q, k, v))
+        o, lse = _flash_fwd_launch(q, k, v, segment_mask, scale, causal)
+        return o[..., :hd].contiguous(), lse
+    return _flash_fwd_launch(q, k, v, segment_mask, scale, causal)
+
+
+def _flash_fwd_launch(q, k, v, segment_mask, scale, causal):
     global fwd_launches
     mask, shape = _validate(q, k, v, segment_mask)
     b, sq, _, nh, _, _ = shape
@@ -346,8 +378,14 @@ def _flash_fwd_cuda(q, k, v, segment_mask, scale, causal):
 
 def _flash_bwd_cuda(q, k, v, segment_mask, o, lse, do, scale, causal):
     delta = _delta(o, do)
+    hd = q.shape[-1]
+    width = _kernel_head_dim(hd)
+    if width != hd:
+        q, k, v, do = (_pad_head_dim(t, width) for t in (q, k, v, do))
     dq = _bwd_dq_cuda(q, k, v, segment_mask, lse, delta, do, scale, causal)
     dk, dv = _bwd_dkv_cuda(q, k, v, segment_mask, lse, delta, do, scale, causal)
+    if width != hd:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 

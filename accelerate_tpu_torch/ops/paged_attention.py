@@ -219,6 +219,9 @@ def _paged_attention_cuda(q, k_pages_l, v_pages_l, block_tables, idx, k_scale_l,
     """Validate, plan the splits from shapes, allocate, launch on the current
     stream, count."""
     global launches, decode_launches
+    # the head-dim rule first: it is a property of the shapes alone
+    _check(takes_head_dim(q.shape[-1]),
+           f"head_dim {q.shape[-1]} not supported (takes {HEAD_DIM_RULE})")
     tensors = [q, k_pages_l, v_pages_l, block_tables, idx]
     quantized = k_scale_l is not None
     if quantized:
@@ -232,7 +235,6 @@ def _paged_attention_cuda(q, k_pages_l, v_pages_l, block_tables, idx, k_scale_l,
     nb, bs, n_kv, hd_k = k_pages_l.shape
     mb = block_tables.shape[-1]
     _check(hd == hd_k and v_pages_l.shape == k_pages_l.shape, "q and pool shapes disagree")
-    _check(takes_head_dim(hd), f"head_dim {hd} not supported (takes {HEAD_DIM_RULE})")
     _check(nh % n_kv == 0, f"n_heads {nh} is not a multiple of n_kv {n_kv}")
     _check(q.dtype in _Q_CODES, f"q dtype {q.dtype} not supported")
     _check(k_pages_l.dtype in _POOL_CODES and v_pages_l.dtype == k_pages_l.dtype,

@@ -3,7 +3,7 @@ vLLM-style block-paged KV cache) — see :mod:`.engine` for the design and
 for what is not ported yet."""
 
 from .blocks import NULL_BLOCK, BlockAllocator, blocks_needed
-from .engine import UNPORTED_REQUEST_FIELDS, EngineConfig, InferenceEngine
+from .engine import EngineConfig, InferenceEngine
 from .grammar import Grammar, GrammarError, compile_grammar, validate_instance
 from .radix import RadixCache, SwapPool
 from .sampling import SamplingParams, resolve_sampling
@@ -23,7 +23,6 @@ __all__ = [
     "blocks_needed",
     "EngineConfig",
     "InferenceEngine",
-    "UNPORTED_REQUEST_FIELDS",
     "Grammar",
     "GrammarError",
     "compile_grammar",

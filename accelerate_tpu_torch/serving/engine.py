@@ -87,11 +87,21 @@ Orca-style iteration scheduling over a vLLM-style block-paged KV cache:
 * **deadlines** (``add_request(deadline_ms=)``): an expired request
   finishes ``deadline_exceeded`` with its partial output; an in-flight
   member's expiry waits for the harvest point, so async and sync engines
-  stay token-identical.
+  stay token-identical;
+* **request tracing and telemetry**: every request carries a ``trace_id``
+  (a well-formed one supplied survives, else one is generated) and, with
+  an active tracer (:mod:`..diagnostics.tracing`), lands the JAX engine's
+  ``req/arrive`` … ``req/finish`` events and the ``serve/schedule``,
+  ``serve/prefill`` and ``serve/decode`` spans; with an active telemetry
+  recorder (:mod:`..telemetry`) one ``kind="request"`` row per finish and a
+  ``kind="step"`` row every ``stats_interval`` iterations, and one
+  ``type="compile"`` row per graph capture; with an active metrics
+  registry, each iteration's flight entry. All of it is host work around
+  the dispatches, outside any captured graph; each is one global read an
+  iteration when off.
 
 Greedy output is the parity contract with the JAX engine. Not ported yet
-(later slices): tracing (``trace_id``, ``upstream_hop``), telemetry rows,
-the mesh and the HBM pre-flight.
+(later slices): the mesh and the HBM pre-flight.
 """
 
 from __future__ import annotations
@@ -104,8 +114,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..diagnostics.tracing import ensure_trace_id, get_tracer, trace_span, valid_trace_id
 from ..generation import spec_accept_tokens
+from ..metrics.ingest import observe_flight
+from ..metrics.registry import get_active_registry
 from ..ops import paged_attention as _paged_attention
+from ..telemetry import get_active_recorder
 from ..utils.device import resolve_device
 from .blocks import BlockAllocator, blocks_needed
 from .flight import ITERATION_PHASES, FlightRecorder, set_active_flight_recorder
@@ -130,11 +144,6 @@ from .sampling import (
 from .scheduler import Request, RequestState, SlotScheduler, priority_rank
 from .spec import parse_draft_spec
 from .usage import UsageLedger, normalize_tenant
-
-#: ``add_request`` options of the JAX engine this port does not carry yet
-#: (they wait for ``--trace``): a request that sets one is refused, never
-#: silently served without it
-UNPORTED_REQUEST_FIELDS = ("trace_id", "upstream_hop")
 
 #: the spec programs; their rounds land through ``_spec_io``
 _SPEC_KINDS = frozenset({"spec_decode", "lane_spec_decode"})
@@ -238,6 +247,10 @@ class EngineConfig:
     #: integral. ``False`` removes the ledger (one truthiness check per
     #: iteration)
     usage_accounting: bool = True
+    #: emit a telemetry ``kind="step"`` row (windowed throughput, cumulative
+    #: counters, the usage snapshot) every this many iterations while a
+    #: telemetry recorder is active (0 disables)
+    stats_interval: int = 32
 
     @property
     def blocks_per_slot(self) -> int:
@@ -335,7 +348,8 @@ class _Program:
     as it is on the CPU. Counts its captures, its replays and the
     paged-attention launches its capture recorded."""
 
-    def __init__(self, fn, device: torch.device, pool):
+    def __init__(self, name: str, fn, device: torch.device, pool):
+        self.name = name
         self._fn = fn
         self._device = device
         self._pool = pool
@@ -370,6 +384,7 @@ class _Program:
         are still zeros at the warm-up, so its writes land in the null
         block (every table entry and write mask is 0)."""
         pa = _paged_attention
+        t0 = time.perf_counter()
         current = torch.cuda.current_stream(self._device)
         side = torch.cuda.Stream(self._device)
         side.wait_stream(current)
@@ -384,6 +399,12 @@ class _Program:
         self.decode_launches_captured = pa.decode_launches - before[1]
         self.graph = graph
         self.captures += 1
+        tel = get_active_recorder()
+        if tel:
+            # one row a capture, as the JAX engine's telemetry writes one a
+            # compile of its executables
+            tel.record_capture(self.name, time.perf_counter() - t0,
+                               launches_captured=self.launches_captured)
 
 
 class InferenceEngine:
@@ -514,6 +535,8 @@ class InferenceEngine:
             * (mcfg.head_dim * itemsize + (4 if quantized else 0))
         )
 
+        #: max-length requests the pool holds at once
+        self.kv_slot_capacity = (num_blocks - 1) // cfg.blocks_per_slot
         self.allocator = BlockAllocator(num_blocks)
         self.radix = RadixCache(self.allocator, cfg.block_size) if cfg.prefix_cache else None
         dev = self.device
@@ -566,7 +589,7 @@ class InferenceEngine:
         self._prefill_io = _Outputs({"tok": (1,)}, dev)
         self._prefill_out = self._prefill_io.views["tok"]
         pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None  # shared
-        self._programs = {"prefill": _Program(self._prefill_chunk, dev, pool)}
+        self._programs = {"prefill": _Program("prefill", self._prefill_chunk, dev, pool)}
         # the decode programs: the plain burst and the lane burst, or with
         # spec_k the spec round and its lane twin (one round's [num_slots,
         # k+1] tokens and [num_slots] accepted lengths land by one copy)
@@ -574,11 +597,11 @@ class InferenceEngine:
             self._decode_name, self._lane_name = "decode", "lane_decode"
             self._decode_io = _Outputs({"tok": (burst, n)}, dev)
             self._decode_out = self._decode_io.views["tok"]
-            self._programs["decode"] = _Program(self._decode_burst, dev, pool)
+            self._programs["decode"] = _Program("decode", self._decode_burst, dev, pool)
         else:
             self._decode_name, self._lane_name = "spec_decode", "lane_spec_decode"
             self._spec_io = _Outputs({"tok": (n, cfg.spec_k + 1), "accept": (n,)}, dev)
-            self._programs["spec_decode"] = _Program(self._spec_decode, dev, pool)
+            self._programs["spec_decode"] = _Program("spec_decode", self._spec_decode, dev, pool)
         if self._psampling:
             topn = max(int(cfg.logprobs_topn), 1)
             lane_fields = {name: (n,) for name, _, _ in LANE_SPECS}
@@ -601,7 +624,7 @@ class InferenceEngine:
                                                device=dev)
             # captured at the first dispatch that needs it
             lane_fn = self._lane_decode_burst if self._spec is None else self._lane_spec_decode
-            self._programs[self._lane_name] = _Program(lane_fn, dev, pool)
+            self._programs[self._lane_name] = _Program(self._lane_name, lane_fn, dev, pool)
 
         self._launches_at_start = _paged_attention.launches
         self._decode_launches_at_start = _paged_attention.decode_launches
@@ -618,6 +641,11 @@ class InferenceEngine:
         self._spec_drafted = 0
         self._spec_accepted = 0
         self._start_time: float | None = None
+        # the telemetry step row's throughput window
+        self._last_stats_t: float | None = None
+        self._last_stats_tokens = 0
+        #: the active tracer, read once a step() (None when tracing is off)
+        self._tr = None
         self._completed: deque[Request] = deque(maxlen=max(1, int(cfg.completed_history)))
         self._completed_total = 0
         #: the live requests of the round dispatched and not yet harvested
@@ -814,7 +842,8 @@ class InferenceEngine:
         grammar: dict | None = None,
         tenant: str | None = None,
         logprobs: int | None = None,
-        **unported,
+        trace_id: str | None = None,
+        upstream_hop: bool = False,
     ) -> Request:
         """Enqueue one request (``prompt`` = token ids).
 
@@ -826,25 +855,20 @@ class InferenceEngine:
         string is taken (stripped, bounded), everything else is
         ``"default"`` — never an admission gate.
 
+        ``trace_id`` is the request's distributed-trace identity: a
+        well-formed supplied id survives verbatim, anything else is replaced
+        by a generated one (tracing never rejects a request).
+        ``upstream_hop=True`` declares that a routing tier dispatched the
+        request and drew the flow arrow's tail: the engine lands its head at
+        arrival. A standalone engine leaves it False.
+
         ``sampling`` is a :class:`~.sampling.SamplingParams` (or a dict of
         its fields) scoped to THIS request; ``None`` inherits the engine-wide
         defaults. ``logprobs`` (top-N, at most ``logprobs_topn``) sets the
         params' ``logprobs``. ``grammar`` is a constrained-decoding spec
         (``{"type": "regex", ...}`` or ``{"type": "json_schema", ...}``)
         compiled here — admission fails loudly on an unsupported grammar or
-        when every grammar row is held by a live request, never mid-decode.
-        Options of the JAX engine that are not ported yet
-        (:data:`UNPORTED_REQUEST_FIELDS`) raise ``ValueError`` when set, so
-        the serve loop answers them with an error row instead of serving
-        the request without them."""
-        for name, value in unported.items():
-            if name not in UNPORTED_REQUEST_FIELDS:
-                raise TypeError(f"add_request() got an unexpected keyword argument {name!r}")
-            if value is not None and value is not False:
-                raise ValueError(
-                    f"{name!r} is not yet ported to accelerate_tpu_torch "
-                    "(the JAX engine supports it)"
-                )
+        when every grammar row is held by a live request, never mid-decode."""
         if not self._psampling and (
             sampling is not None or grammar is not None or logprobs is not None
         ):
@@ -852,6 +876,7 @@ class InferenceEngine:
                 "per-request sampling/grammar/logprobs need per_slot_sampling=True "
                 "(this engine was built with the lanes disabled)"
             )
+        upstream = upstream_hop and valid_trace_id(trace_id)
         req = Request(
             prompt=[int(t) for t in np.asarray(prompt).reshape(-1)],
             max_new_tokens=int(
@@ -859,6 +884,7 @@ class InferenceEngine:
             ),
             priority=priority,
             tenant=normalize_tenant(tenant),
+            trace_id=ensure_trace_id(trace_id),
         )
         if arrival_time is not None:
             req.arrival_time = arrival_time
@@ -900,6 +926,17 @@ class InferenceEngine:
             raise
         if self.usage is not None:
             self.usage.begin(req)
+        tr = get_tracer()
+        if tr:
+            # the request's async span opens at arrival, stamped with its own
+            # arrival_time so span math gives the engine's TTFT exactly
+            tr.request_begin(
+                req.trace_id, "req/arrive", ts=req.arrival_time,
+                request_id=req.request_id, prompt_tokens=req.prompt_len,
+                max_new_tokens=req.max_new_tokens, priority=req.priority,
+            )
+            if upstream:
+                tr.flow(req.trace_id, "f")
         return req
 
     def step(self) -> list[Request]:
@@ -917,38 +954,44 @@ class InferenceEngine:
         reads its first token, and that read waits for the in-flight round
         (both run on one stream), as it does in the JAX engine."""
         if self._start_time is None:
-            self._start_time = time.perf_counter()
+            self._start_time = self._last_stats_t = time.perf_counter()
+        # ONE global read an iteration when tracing is off: every request
+        # event site below keys off this cached (falsy) handle
+        self._tr = get_tracer() or None
         sched = self.scheduler
         finished: list[Request] = []
         fl = self._flight
         self._fl_begin()
         deferred_deadline: list[Request] = []
-        if sched.deadline_live:  # guarded: deadline-free serving = one int check
-            now = time.perf_counter()
-            inflight_slots = None
-            if self._inflight is not None:
-                # an expired member of the in-flight round still has a token
-                # landing at this step's harvest (the token the synchronous
-                # engine emitted last step): its expiry waits for the
-                # harvest point, so the two loops stay token-identical
-                inflight_slots = {r.slot for r in self._inflight}
-            for req in sched.expire_deadlines(now, skip_slots=inflight_slots):
-                if req.slot is None:
-                    self._release_expired_queued(req)
-                self._deadline_expired += 1
-                finished.append(req)
-            if inflight_slots:
-                deferred_deadline = [r for r in self._inflight
-                                     if r.deadline is not None and now > r.deadline]
-        sched.evict_finished()
-        self._admit_and_place()
+        with trace_span("serve/schedule"):
+            if sched.deadline_live:  # guarded: deadline-free serving = one int check
+                now = time.perf_counter()
+                inflight_slots = None
+                if self._inflight is not None:
+                    # an expired member of the in-flight round still has a
+                    # token landing at this step's harvest (the token the
+                    # synchronous engine emitted last step): its expiry waits
+                    # for the harvest point, so the two loops stay
+                    # token-identical
+                    inflight_slots = {r.slot for r in self._inflight}
+                for req in sched.expire_deadlines(now, skip_slots=inflight_slots):
+                    if req.slot is None:
+                        self._release_expired_queued(req)
+                    self._deadline_expired += 1
+                    finished.append(req)
+                if inflight_slots:
+                    deferred_deadline = [r for r in self._inflight
+                                         if r.deadline is not None and now > r.deadline]
+            sched.evict_finished()
+            self._admit_and_place()
 
         self._fl_switch("prefill")
-        for req in sched.active(RequestState.PREFILL):
-            t0_pf = time.perf_counter()
-            self._prefill_one_chunk(req, finished)
-            if self.usage is not None:
-                self.usage.accrue_prefill(req, time.perf_counter() - t0_pf)
+        with trace_span("serve/prefill"):
+            for req in sched.active(RequestState.PREFILL):
+                t0_pf = time.perf_counter()
+                self._prefill_one_chunk(req, finished)
+                if self.usage is not None:
+                    self.usage.accrue_prefill(req, time.perf_counter() - t0_pf)
         # harvest point: the previous iteration's round lands here. Backlog
         # entries were harvested by a mid-schedule fence (swap-out) and
         # drain into THIS step's finished list
@@ -969,7 +1012,8 @@ class InferenceEngine:
         self._fl_switch("dispatch")
         decoding = sched.active(RequestState.DECODE)
         if decoding:
-            self._dispatch_decode(decoding, finished)
+            with trace_span("serve/decode", slots=len(decoding)):
+                self._dispatch_decode(decoding, finished)
         if not self.config.async_dispatch:
             self._harvest_inflight(finished)  # the synchronous loop
 
@@ -979,6 +1023,15 @@ class InferenceEngine:
             self._release_grammar_row(req)
         self._completed.extend(finished)
         self._completed_total += len(finished)
+        if self._tr is not None:
+            for req in finished:
+                # exactly one end event a request, whatever path finished it
+                self._tr.request_end(
+                    req.trace_id, "req/finish", ts=req.finish_time,
+                    finish_reason=req.finish_reason,
+                    new_tokens=len(req.output_tokens),
+                    ttft_s=req.ttft_s, tpot_s=req.tpot_s,
+                )
         if self.usage is not None:
             # close each finished request's account now (held blocks drop to
             # 0 on both sides of the block-second integral)
@@ -986,11 +1039,21 @@ class InferenceEngine:
                 summary = self.usage.finish(req)
                 if summary is not None:  # exactly-once across re-lists
                     req.usage = summary
+        self._emit_telemetry(finished)
         rec = self._fl_finish()
         if rec is not None:
             t0, wall, phases, overlap = rec
-            fl.record(self._iterations, t0, wall, overlap_hidden_s=overlap, **phases)
+            entry = fl.record(self._iterations, t0, wall, overlap_hidden_s=overlap, **phases)
             fl.current_phase = "idle"
+            reg = get_active_registry()
+            if reg:
+                observe_flight(reg, entry)
+            if self._tr is not None:
+                # the host share as a counter track, and one instant an
+                # iteration carrying its phase breakdown
+                self._tr.counter("serve/iteration", fl.host_fraction())
+                self._tr.instant("serve/flight",
+                                 **{k: v for k, v in entry.items() if k != "t_start"})
         return finished
 
     def has_work(self) -> bool:
@@ -1046,6 +1109,8 @@ class InferenceEngine:
         self._rej_drafted = 0
         self._rej_accepted = 0
         self._start_time = None
+        self._last_stats_t = None
+        self._last_stats_tokens = 0
         self._completed.clear()
         self._completed_total = 0
         self._sampled_greedy = 0
@@ -1157,6 +1222,7 @@ class InferenceEngine:
             "device": str(self.device),
             "kv_dtype": self.kv_dtype,
             "kv_bytes_per_token": self.kv_bytes_per_token,
+            "kv_slot_capacity": self.kv_slot_capacity,
             "free_blocks": self.allocator.free_count,
             # blocks live requests hold (shared prefix blocks included);
             # blocks held ONLY by the radix cache are reported apart — at
@@ -1281,6 +1347,14 @@ class InferenceEngine:
             for req in sched.admit():
                 if not req.preempted:
                     req.prefill_pos -= req.prefill_pos % chunk
+                if self._tr is not None:
+                    now = time.perf_counter()
+                    self._tr.request_instant(
+                        req.trace_id, "req/admit", ts=now, slot=req.slot,
+                        queued_s=now - req.arrival_time,
+                        radix_hit_tokens=req.matched_tokens,
+                        restored=req.preempted,
+                    )
                 self._place_admitted(req)
             head = sched.peek_head()
             if head is None or self._swap is None:
@@ -1300,6 +1374,7 @@ class InferenceEngine:
         after the in-flight round; both write blocks no in-flight lane
         reads."""
         if req.swap_plan:
+            swap_t0 = time.perf_counter()
             n = len(req.swap_plan)
             ids = torch.tensor([req.blocks[idx] for idx, _ in req.swap_plan],
                                dtype=torch.long, device=self.device)
@@ -1318,6 +1393,12 @@ class InferenceEngine:
                 # the pre-restore count with swap_plan still pending)
                 self.usage.accrue_swap(req, bytes_in=n * self._swap.bytes_per_block)
                 self.usage.update_blocks(req)
+            if self._tr is not None:
+                # swap-in stalls are the tail-latency share this event names
+                self._tr.request_instant(
+                    req.trace_id, "req/swap_in", blocks=n,
+                    seconds=time.perf_counter() - swap_t0,
+                )
             if req.state is RequestState.DECODE:
                 # resume feeding the last emitted token at context_len
                 self._pending_tok[req.slot] = req.output_tokens[-1]
@@ -1357,6 +1438,7 @@ class InferenceEngine:
         one ``[n, bytes_per_block]`` byte buffer and land in pinned memory by
         one non-blocking copy behind an event. Returns False when the swap
         pool cannot hold the victim."""
+        swap_t0 = time.perf_counter()
         # fence FIRST: the in-flight round may still write the victim's rows
         # and holds a token the synchronous engine already emitted. The
         # fence may finish the victim or free its slot: then there is
@@ -1399,6 +1481,11 @@ class InferenceEngine:
             # blocks keep accruing
             self.usage.accrue_swap(victim, bytes_out=len(plan) * self._swap.bytes_per_block)
             self.usage.update_blocks(victim)
+        if self._tr is not None:
+            self._tr.request_instant(
+                victim.trace_id, "req/preempt", blocks=len(plan),
+                swap_out_s=time.perf_counter() - swap_t0,
+            )
         return True
 
     def _release_expired_queued(self, req: Request) -> None:
@@ -1465,6 +1552,11 @@ class InferenceEngine:
         ops["last"][0] = (req.prompt_len - 1) - start if is_final else 0
         self._programs["prefill"].run(self._prefill_ops.upload)
         req.prefill_pos = end
+        if self._tr is not None:
+            # one event a chunk, never a token
+            self._tr.request_instant(
+                req.trace_id, "req/prefill_chunk", start=start, end=end, final=is_final,
+            )
         if not is_final:
             return
         if self.radix is not None:
@@ -1749,6 +1841,11 @@ class InferenceEngine:
             req.logprobs.append(lp_entry)
         if req.first_token_time is None:
             req.first_token_time = now
+            if self._tr is not None:
+                self._tr.request_instant(
+                    req.trace_id, "req/first_token", ts=now,
+                    ttft_s=now - req.arrival_time,
+                )
         eos = self.config.eos_token_id
         if eos is not None and tok == eos:
             req.finish_reason = "eos"
@@ -1774,3 +1871,67 @@ class InferenceEngine:
             req.finish_time = now
             req.state = RequestState.FINISHED
             finished.append(req)
+
+    # -- observability --------------------------------------------------------
+
+    def _emit_telemetry(self, finished: list[Request]) -> None:
+        """Telemetry rows (JAX ``_emit_telemetry``): one ``kind="request"``
+        row per finished request, and every ``stats_interval`` iterations a
+        ``kind="step"`` row of windowed throughput and cumulative counters.
+        One global read when no recorder is active."""
+        tel = get_active_recorder()
+        if not tel:
+            return
+        for req in finished:
+            tel.record_serving(
+                kind="request",
+                request_id=req.request_id,
+                trace_id=req.trace_id,
+                priority=req.priority,
+                tenant=req.tenant,
+                prompt_tokens=req.prompt_len,
+                new_tokens=len(req.output_tokens),
+                ttft_s=req.ttft_s,
+                tpot_s=req.tpot_s,
+                finish_reason=req.finish_reason,
+                # the closed per-request account (absent without the ledger)
+                **(req.usage or {}),
+            )
+        interval = self.config.stats_interval
+        if interval and self._iterations % interval == 0:
+            now = time.perf_counter()
+            window_s = now - (self._last_stats_t or now)
+            window_tokens = self._tokens_emitted - self._last_stats_tokens
+            self._last_stats_t, self._last_stats_tokens = now, self._tokens_emitted
+            sched = self.scheduler
+            tel.record_serving(
+                kind="step",
+                iteration=self._iterations,
+                tokens_per_sec=(window_tokens / window_s) if window_s > 0 else None,
+                queue_depth=sched.queue_depth,
+                active_slots=len(sched.active()),
+                slot_occupancy=sched.occupancy,
+                free_blocks=self.allocator.free_count,
+                kv_dtype=self.kv_dtype,
+                kv_bytes_per_token=self.kv_bytes_per_token,
+                kv_slot_capacity=self.kv_slot_capacity,
+                decode_compiles=self._programs[self._decode_name].captures,
+                # cumulative totals: a reader of a bounded JSONL tail must
+                # not have to re-count them
+                completed_total=self._completed_total,
+                tokens_total=self._tokens_emitted,
+                prefix_hit_tokens=sched.prefix_hit_tokens,
+                prefix_hit_ratio=(
+                    sched.prefix_hit_tokens / sched.prompt_tokens_admitted
+                    if sched.prompt_tokens_admitted else 0.0
+                ),
+                preemptions=self._preemptions,
+                swapped_out_blocks=self._swapped_out_blocks,
+                swapped_in_blocks=self._swapped_in_blocks,
+                out_of_blocks_total=self._out_of_blocks_total,
+                deadline_expired_total=self._deadline_expired,
+                **self._spec_stats(),
+                **self._sampling_stats(),
+                **(self._flight.telemetry_fields() if self._flight is not None else {}),
+                **({"usage": self.usage.snapshot()} if self.usage is not None else {}),
+            )

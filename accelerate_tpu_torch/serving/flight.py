@@ -35,13 +35,21 @@ is identically 0.0 and the formula reduces to 1 − device_wait / wall.
 The recorder is a process-global active object: the engine holds a direct
 reference, external readers take ONE :func:`get_active_flight_recorder`
 read, and the disabled path is a single ``is None`` check per iteration.
-The JAX module's on-demand profiler window (``capture_profile_window``) is
-not ported: it belongs to the ``/profile`` route, which is not ported yet.
+
+:class:`ProfileWindow` is the on-demand profiler window behind ``GET
+/profile?seconds=N`` (the port of the JAX module's
+``capture_profile_window``): ``torch.profiler`` over the CPU and the card
+replaces ``jax.profiler``, a Chrome trace lands in the window's directory,
+and the manifest has the JAX keys. Only it imports torch, lazily.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
+import threading
+import time
 from collections import deque
 
 #: the exclusive phases, in stamp order — ``record()`` requires exactly
@@ -201,3 +209,106 @@ class FlightRecorder:
             for p in ITERATION_PHASES
         }
         return out
+
+
+class ProfileWindow:
+    """One on-demand profiler window over the live engine: ``torch.profiler``
+    (CPU, and CUDA when the engine runs on the card) for ``seconds``, and the
+    flight-recorder iterations that start inside it, both under
+    ``<logging_dir>/profiles/profile_<stamp>_<pid>/``.
+
+    :meth:`open` and :meth:`close` start and stop the profiler; the serve
+    loop calls them on the engine's own thread, between iterations, because
+    a CUDA call from another thread while the engine captures a CUDA graph
+    would invalidate the capture. :meth:`finish` exports the Chrome trace
+    (``trace.json``), a per-kernel summary (``kernel_summary.json``: launches
+    and device microseconds by kernel name) and the flight window, and
+    writes ``manifest.json`` with the JAX manifest's keys; it is host work,
+    done on the requesting thread while the engine keeps serving."""
+
+    def __init__(self, logging_dir: str, seconds: float):
+        self.seconds = float(seconds)
+        stamp = time.strftime("%Y%m%d_%H%M%S")
+        self.profile_dir = os.path.join(logging_dir, "profiles",
+                                        f"profile_{stamp}_{os.getpid()}")
+        os.makedirs(self.profile_dir, exist_ok=True)
+        #: set once the window is closed (or failed to open: ``error``)
+        self.closed = threading.Event()
+        self.error: str | None = None
+        self._prof = None
+        self._start = 0.0
+
+    def open(self, flight, cuda: bool) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if cuda:
+            activities.append(ProfilerActivity.CUDA)
+        self._flight = flight
+        self._iters_before = flight.iterations if flight is not None else 0
+        self._prof = profile(activities=activities)
+        self._prof.start()
+        self._start = time.perf_counter()
+
+    def expired(self) -> bool:
+        return time.perf_counter() - self._start >= self.seconds
+
+    def close(self) -> None:
+        t_stop = time.perf_counter()
+        self._prof.stop()
+        self.elapsed = time.perf_counter() - self._start
+        #: how long stopping the profiler held the engine thread
+        self.stop_s = self.elapsed - (t_stop - self._start)
+        fl = self._flight
+        # read on the engine thread: the ring is not touched meanwhile
+        self.window = fl.window(self._start) if fl is not None else []
+        self.host_fraction = fl.host_fraction() if fl is not None else None
+        self.closed.set()
+
+    def finish(self) -> dict:
+        """The window's artifacts and manifest (after :meth:`close`)."""
+        import torch
+
+        trace_path = os.path.join(self.profile_dir, "trace.json")
+        self._prof.export_chrome_trace(trace_path)
+        kernels = {}
+        for e in self._prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
+                kernels[e.key] = {"launches": e.count,
+                                  "device_time_us": e.self_device_time_total}
+        summary_path = os.path.join(self.profile_dir, "kernel_summary.json")
+        with open(summary_path, "w") as f:
+            json.dump(kernels, f, indent=2)
+        flight_path = os.path.join(self.profile_dir, "flight_window.json")
+        with open(flight_path, "w") as f:
+            json.dump(
+                {
+                    "seconds_requested": self.seconds,
+                    "seconds_measured": self.elapsed,
+                    "iterations": len(self.window),
+                    "iterations_before": self._iters_before,
+                    "profiler_stop_s": self.stop_s,
+                    "host_fraction": self.host_fraction,
+                    "phases": list(ITERATION_PHASES),
+                    "entries": self.window,
+                },
+                f, indent=2,
+            )
+        manifest = {
+            "profile_dir": self.profile_dir,
+            "seconds": self.elapsed,
+            "flight_iterations": len(self.window),
+            "host_fraction": self.host_fraction,
+            "artifacts": sorted([trace_path, summary_path, flight_path]),
+        }
+        with open(os.path.join(self.profile_dir, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=2)
+
+        from ..telemetry import get_active_recorder
+
+        tel = get_active_recorder()
+        if tel:
+            tel.record_serving(kind="profile", profile_dir=self.profile_dir,
+                               seconds=self.elapsed, flight_iterations=len(self.window))
+        return manifest

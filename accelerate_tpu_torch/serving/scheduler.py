@@ -83,9 +83,9 @@ class Request:
     #: ``priority``/``trace_id``, echoed on answer rows and usage rollups
     tenant: str = "default"
     request_id: int = field(default_factory=lambda: next(_request_ids))
-    #: distributed-trace identity of the JAX engine. The port does not carry
-    #: tracing yet (``add_request`` refuses ``trace_id``), so it stays None;
-    #: the usage ledger's summaries read it
+    #: distributed-trace identity: set by ``add_request`` (a well-formed
+    #: supplied id, else a generated one); rides answer rows, request trace
+    #: events, telemetry rows and the usage ledger's summaries
     trace_id: str | None = None
     arrival_time: float = field(default_factory=time.perf_counter)
     #: absolute ``time.perf_counter`` expiry (None = no deadline): the

@@ -16,8 +16,8 @@ failure, so the script exits non-zero and prints no result):
    and combine kernels), and the blocks a SM holds of the bf16 flash kernels
    and of the paged kernels' timed instances (with the split kernel's
    dynamic shared memory), from the CUDA runtime's occupancy calculator on
-   the card. Fails if a wgmma flash kernel or B4's bf16 hd-128 split
-   instance spills;
+   the card (B1-B3's wide FMA instances and B4's hd-256 instances too).
+   Fails if a wgmma flash kernel or B4's bf16 hd-128 split instance spills;
 3. the paged-attention kernel against its plain PyTorch version on the
    card: decode (s=1) and prefill-chunk (s=32) queries, hd=128, bs=16, MHA
    12/12 and GQA 32/8, ``idx`` on and beside block edges, f32 / bf16 /
@@ -28,7 +28,9 @@ failure, so the script exits non-zero and prints no result):
    and GQA); s=5; then hd=16 (MHA 4/4) and hd=32 (GQA 8/2) in every pool
    with f32 and bf16 queries, and the mixed-length batch at hd=16; the spec
    verify's shape (8 rows, s = 2, 3, 5, first queries on block edges); head
-   dims 24, 48 and 80 in every pool with f32 and bf16 queries. Gates:
+   dims 24, 48 and 80 in every pool with f32 and bf16 queries; C4b: head
+   dims 13, 20 and 256 in every pool with f32 and bf16 queries (decode and
+   s = 5) and the mixed-length batch at hd 256. Gates:
    f32 ``atol=rtol=1e-5``; bf16 outputs ``atol=2e-2`` in f32; int8 / fp8
    (and a bf16 pool under f32 queries) ``atol=rtol=1e-4`` on the same
    stored bytes. Each case launches twice and requires bit-identical
@@ -74,6 +76,24 @@ failure, so the script exits non-zero and prints no result):
 5c. engine-wide ``do_sample=True`` with one seed in two engines and in
    reverse admission order: identical tokens, the lane burst captured
    once and the plain burst never;
+5e. the front door: ``serve --http 0 --logging-dir`` with phase 5's flags
+   in a fresh process. ``/healthz`` reads ``starting``, then ``ready``;
+   phase 5's 12 requests as greedy SSE completions (client TTFT, TPOT and
+   tokens/s, ``/metrics`` scraped under load and timed), their deltas an
+   in-order split of phase 5's tokens; then 16 requests at once with a
+   1 s ``/profile`` window opened just before them: 10 of phase 5's greedy
+   (non-stream completions, SSE, ``/generate``: phase 5's tokens), a chat,
+   a JSON-schema answer (validated) and 4 seeded sampled requests (sent
+   again in reverse: the same tokens), whose lane burst is captured inside
+   the window; the window's kernel summary must name B4's two kernels over
+   at least one flight iteration; the 12 again with a window open (tok/s
+   with and without it); ``/metrics`` parsed and equal to ``/stats``; one
+   capture of each program and B4's launches = eager + replays ×
+   captured; SIGTERM with 8 requests of 200 tokens in flight: all
+   answered, the flight drain written, exit 0;
+5f. workload replay: ``serve --trace bursty-diurnal:7:4:8`` (stdin mode)
+   on the flagship answers every scheduled request with its budget, and
+   ``WORKLOAD.json``'s digest equals a recomputation;
 5d. speculative decoding (``spec_k`` 4, ``early_exit:2``) on the flagship:
    the 12 requests greedy against 5b's plain tokens under 5b's margin rule
    (a divergence's logits from an eager prefill of the shared prefix), one
@@ -88,7 +108,8 @@ failure, so the script exits non-zero and prints no result):
    layers' pools rotated so L2 does not hold them), at context 1024 (the
    table's ``mb · bs``), and at the prefill chunk (b 1, s 32, the chunk's
    last query at context 512 and 896), at the spec verify (8 slots, s = 5,
-   context 512) and at decode with head dims 80 and 24 (12 heads): the
+   context 512) and at decode with head dims 80 and 24 (12 heads) and 256
+   (8 heads, C4b): the
    kernel (CUDA events around the
    Python wrapper), the device time a launch of its split kernel and of its
    combine kernel under ``torch.profiler``, the plain version,
@@ -114,9 +135,10 @@ failure, so the script exits non-zero and prints no result):
    against their plain versions on the card, on seeded numpy inputs: the
    flagship shape (b 8, s 1024, 12 × 128) and GQA 32/8 at hd 64 and 128,
    hd 16 (MHA 4/4) and hd 32 (GQA 8/2) in f32 and bf16, causal and not,
-   s = 129 and 1000 with a left-padded mask, and hd 24, 48 and 80 at s =
-   129, 1000 (left-padded) and 200 (not causal) (each case off hd 64 and
-   128 launched twice and required bit-identical),
+   s = 129 and 1000 with a left-padded mask, and hd 24, 48 and 80 (and,
+   C4b, 20 and 36, handed to the kernels zero-padded, and 256) at s = 129,
+   1000 (left-padded) and 200 (not causal) (each case off hd 64 and 128
+   launched twice and required bit-identical),
    causal and not, s = 1000 (not a tile multiple), a left-padded key mask
    with fully masked rows, f32 and bf16, and four bf16 cases at the edges
    of the bf16 kernels' tiles: s = 129 (one row past a 128-row tile),
@@ -134,6 +156,9 @@ failure, so the script exits non-zero and prints no result):
    then B1-B3 at hd 16, 32, 24 and 80 at that shape (b 8, s 128, 4 heads,
    bf16, causal) by events and by the profiler, beside sdpa and the bound
    counted on the real head dim;
+8c. C4b: a tiny llama with four 256-wide heads (hidden 1024) trained the
+   same way (finite, falling loss, each kernel once a layer a step); B1-B3
+   at hd 256 (b 8, s 1024, 8 heads, bf16, causal) timed as in 8b;
 9. one training forward and backward at flagship width (2 layers, b 2,
    s 512, one left-padded row), attention through the kernels against the
    plain autograd.Function, in f32 (loss within 1e-5 relative, every
@@ -226,14 +251,21 @@ FLASH_BUILT_HDS = (16, 32, 48, 64, 80, 96, 112, 128)
 #: B4's instances at the timed decode shape (hd 128, bf16 queries and pool)
 PAGED_TIMED = ("paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false>",
                "combine_splits_kernel<128, __nv_bfloat16>")
+#: B4's instances at head dim 256 (C4b), bf16 queries and pool
+PAGED_WIDE = ("paged_attention_kernel<256, __nv_bfloat16, __nv_bfloat16, false>",
+              "combine_splits_kernel<256, __nv_bfloat16>")
+#: B1-B3's bf16 instances past head dim 128 (C4b): the wide FMA kernels
+FLASH_WIDE = tuple(f"{name}_kernel<256, 32, __nv_bfloat16>" for name in
+                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
 
 
-def occupancy_report() -> tuple[dict, int]:
-    """``({"kernel<args>": blocks}, bytes)``: resident blocks an SM holds of
-    each bf16 flash kernel and of B4's timed instances, from the CUDA
+def occupancy_report() -> tuple[dict, dict]:
+    """``({"kernel<args>": blocks}, {"kernel<args>": bytes})``: resident
+    blocks an SM holds of each bf16 flash kernel (the wide FMA instances at
+    hd 256 too) and of B4's instances at hd 128 and 256, from the CUDA
     runtime's occupancy calculator on this card, for the threads and shared
     memory each is launched with; and the dynamic shared memory of B4's
-    split kernel at the decode shape."""
+    split kernels at the decode shape."""
     import ctypes
 
     from accelerate_tpu_torch import _build
@@ -245,12 +277,18 @@ def occupancy_report() -> tuple[dict, int]:
             if flash.flash_attention_blocks_per_sm(which, hd, ctypes.byref(blocks)):
                 raise AssertionError(f"the occupancy query failed for {name} at hd {hd}")
             out[f"{name}_wgmma_kernel<{hd}>"] = blocks.value
+        if flash.flash_attention_blocks_per_sm(which, 256, ctypes.byref(blocks)):
+            raise AssertionError(f"the occupancy query failed for {name} at hd 256")
+        out[FLASH_WIDE[which]] = blocks.value
     paged = _build.load("paged_attention.cu")
-    if paged.paged_attention_blocks_per_sm(ctypes.byref(blocks), ctypes.byref(combine),
-                                           ctypes.byref(smem)):
-        raise AssertionError("the occupancy query failed for the paged kernels")
-    out[PAGED_TIMED[0]], out[PAGED_TIMED[1]] = blocks.value, combine.value
-    return out, smem.value
+    smem_bytes = {}
+    for hd, names in ((128, PAGED_TIMED), (256, PAGED_WIDE)):
+        if paged.paged_attention_blocks_per_sm(hd, ctypes.byref(blocks), ctypes.byref(combine),
+                                               ctypes.byref(smem)):
+            raise AssertionError(f"the occupancy query failed for the paged kernels at hd {hd}")
+        out[names[0]], out[names[1]] = blocks.value, combine.value
+        smem_bytes[names[0]] = smem.value
+    return out, smem_bytes
 
 
 def flash_kernel_pattern(name: str) -> str:
@@ -378,19 +416,36 @@ def _kernel_cases():
               for hd, nh, n_kv in ((24, 4, 4), (48, 8, 2), (80, 4, 2))
               for pool in ("f32", "bf16", "int8", "fp8") for q in ("f32", "bf16")
               for s in (1, 5)]
+    return cases + c4b_kernel_cases()
+
+
+def c4b_kernel_cases():
+    """C4b: head dims 13 (an odd bf16 row: element by element, the bf16
+    query tile too), 20 (a bf16 row of 40 bytes: 8-byte copies; a 1-byte
+    row of 20: element by element) and 256 (the fifth staged width; an f32
+    pool's one-stage ring) in every pool with f32 and bf16 queries, decode
+    and s = 5; then the mixed-length batch at hd 256."""
+    mixed = (0, 126, 127, 128, 999)
+    cases = [(pool, q, s, nh, n_kv, hd, 16, 8, tuple(i for i in EDGE_IDX if i + s <= 128))
+             for hd, nh, n_kv in ((13, 4, 2), (20, 4, 2), (256, 8, 2))
+             for pool in ("f32", "bf16", "int8", "fp8") for q in ("f32", "bf16")
+             for s in (1, 5)]
+    cases += [(pool, q, 1, 8, 8, 256, 16, 64, mixed)
+              for pool, q in (("bf16", "bf16"), ("f32", "f32"), ("int8", "bf16"))]
     return cases
 
 
-def check_kernel_vs_plain(dev) -> dict:
+def check_kernel_vs_plain(dev, cases=None) -> dict:
     """Gates: f32 ``atol=rtol=1e-5``; a bf16 output (bf16 queries) ``atol=2e-2``
     compared in f32; int8 / fp8 pools ``atol=rtol=1e-4`` on the same
     quantized bytes. Every case launches the kernel twice and requires
-    bit-identical outputs (the splits merge in a fixed order)."""
+    bit-identical outputs (the splits merge in a fixed order). ``cases``
+    defaults to :func:`_kernel_cases`."""
     from accelerate_tpu_torch.ops import paged_attention as pa
 
     rng = np.random.default_rng(0)
     errs: dict = {}
-    for pool, q_dtype, s, nh, n_kv, hd, bs, mb, idx in _kernel_cases():
+    for pool, q_dtype, s, nh, n_kv, hd, bs, mb, idx in cases or _kernel_cases():
         q, kp, vp, ks, vs, bt, ix = _filled_pools(
             rng, b=len(idx), s=s, nh=nh, n_kv=n_kv, hd=hd, bs=bs, mb=mb, idx=idx,
             pool=pool, q_dtype=q_dtype, dev=dev,
@@ -566,7 +621,8 @@ def run_serve_subprocess() -> dict:
         raise AssertionError(f"serve's summary {printed} and stats {launches} disagree")
     return {"launches": launches, "wall_s": wall, "tokens_per_sec": stats["tokens_per_sec"],
             "host_fraction": stats["host_fraction"], "tokens": stats["tokens_emitted"],
-            "iteration_phases_s": stats["iteration_phases_s"]}
+            "iteration_phases_s": stats["iteration_phases_s"],
+            "ttft_s": stats["ttft_s"], "tpot_s": stats["tpot_s"], "rows": rows}
 
 
 def run_serve_int8_inprocess() -> dict:
@@ -1158,6 +1214,425 @@ def time_swap(model) -> dict:
     return out
 
 
+# -- phase 5e, 5f -------------------------------------------------------------
+
+#: the front door's HTTP timeouts (a request, a wait for a state)
+HTTP_TIMEOUT_S = 300
+
+
+def _http(base: str, path: str, body: dict | None = None):
+    """``(status, text)`` of one GET (``body`` None) or JSON POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _json(base: str, path: str, body: dict | None = None) -> dict:
+    status, text = _http(base, path, body)
+    out = json.loads(text)
+    if status != 200:
+        raise AssertionError(f"{path} answered {status}: {out}")
+    return out
+
+
+def _sse(base: str, body: dict) -> dict:
+    """One streamed completion, timed on the client: ``{"deltas", "ttft_s",
+    "tpot_s", "tokens", "finish_reason"}`` (``deltas``: each chunk's text;
+    TTFT to the first chunk that carries text; TPOT over the rest of the
+    tokens)."""
+    import urllib.request
+
+    req = urllib.request.Request(base + "/v1/completions",
+                                 data=json.dumps({**body, "stream": True}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    first = last = None
+    chunks, done = [], 0
+    with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT_S) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line:
+                continue
+            if not line.startswith("data: "):
+                raise AssertionError(f"SSE frame without data: {line!r}")
+            if line == "data: [DONE]":
+                done += 1
+                continue
+            chunk = json.loads(line[6:])
+            if "error" in chunk:
+                raise AssertionError(f"SSE error chunk: {chunk}")
+            if chunk["choices"][0]["text"]:
+                last = time.perf_counter()
+                first = first or last
+            chunks.append(chunk)
+    finals = [c for c in chunks if c["choices"][0]["finish_reason"]]
+    if done != 1 or len(finals) != 1 or finals[0] is not chunks[-1]:
+        raise AssertionError(f"SSE stream: {done} [DONE] and {len(finals)} finish chunks")
+    n = finals[0]["usage"]["completion_tokens"]
+    return {"deltas": [c["choices"][0]["text"] for c in chunks if c["choices"][0]["text"]],
+            "ttft_s": first - t0, "tpot_s": (last - first) / max(n - 1, 1), "tokens": n,
+            "finish_reason": finals[0]["choices"][0]["finish_reason"]}
+
+
+def _concurrent(calls) -> list:
+    """Run the zero-argument ``calls`` at once, one thread each; their
+    results in order (an exception is re-raised)."""
+    import threading
+
+    out = [None] * len(calls)
+
+    def run(i, fn):
+        try:
+            out[i] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised on the main thread
+            out[i] = e
+
+    threads = [threading.Thread(target=run, args=(i, fn)) for i, fn in enumerate(calls)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(HTTP_TIMEOUT_S)
+    for r in out:
+        if isinstance(r, BaseException):
+            raise r
+    return out
+
+
+def _pct(values, q) -> float:
+    return float(np.percentile(values, q))
+
+
+def _splits(deltas, tokens) -> bool:
+    """True when the SSE delta texts are the byte-vocabulary decodes of
+    consecutive, non-empty runs of ``tokens`` covering all of them (each
+    chunk decodes alone, so a chunk boundary inside a UTF-8 sequence shows
+    as replacement characters: the texts are compared run by run)."""
+    from accelerate_tpu_torch.serving.openai_api import decode_tokens
+
+    reach = {0}  # token positions some split of the deltas so far can end at
+    for text in deltas:
+        reach = {j for i in reach for j in range(i + 1, len(tokens) + 1)
+                 if decode_tokens(tokens[i:j]) == text}
+    return len(tokens) in reach
+
+
+def _timed_sse_batch(base, reqs) -> dict:
+    """``reqs`` as greedy SSE completions, all at once: client TTFT and TPOT
+    p50/p99 and tokens/s over the batch's wall."""
+    t0 = time.perf_counter()
+    answers = _concurrent([lambda r=r: _sse(base, {"prompt": r["prompt"], "temperature": 0,
+                                                   "max_tokens": r["max_new_tokens"]})
+                           for r in reqs])
+    wall = time.perf_counter() - t0
+    ttft = [a["ttft_s"] for a in answers]
+    tpot = [a["tpot_s"] for a in answers]
+    return {"answers": answers, "wall_s": wall,
+            "tokens_per_sec": sum(a["tokens"] for a in answers) / wall,
+            "ttft_s": {"p50": _pct(ttft, 50), "p99": _pct(ttft, 99)},
+            "tpot_s": {"p50": _pct(tpot, 50), "p99": _pct(tpot, 99)}}
+
+
+def _kernel_summary(manifest: dict) -> dict:
+    path = next(p for p in manifest["artifacts"] if p.endswith("kernel_summary.json"))
+    with open(path) as f:
+        return json.load(f)
+
+
+def run_front_door(phase5: dict) -> dict:
+    """``serve --http`` on the flagship in a fresh process (so its counts
+    start at 0), driven as clients drive it: the lifecycle; phase 5's
+    requests as its first traffic, greedy SSE, timed on the client and
+    equal to phase 5's stdin rows (both runs include the first captures);
+    16 requests at once: greedy non-stream and SSE completions and
+    ``/generate`` (phase 5's tokens), chat, a JSON-schema answer and
+    seeded sampled requests that reproduce, with a ``/profile`` window
+    opened just before them (the lane burst's capture falls inside it);
+    two timed batches of fresh prompts of phase 5's lengths (no prefix-cache
+    hits), without and with a ``/profile`` window open; ``/healthz``,
+    ``/stats`` and ``/metrics`` timed, ``/metrics`` against ``/stats``; one
+    capture of each program and B4's launches = eager + replays × captured;
+    a SIGTERM with requests in flight: every one answered, the flight drain
+    written, exit 0."""
+    import threading
+
+    from accelerate_tpu_torch.metrics.openmetrics import parse_openmetrics, sample_value
+    from accelerate_tpu_torch.serving.grammar import validate_instance
+    from accelerate_tpu_torch.serving.openai_api import decode_tokens
+
+    logging_dir = os.path.join(REPO, "build", "front_door")
+    os.makedirs(logging_dir, exist_ok=True)
+    t_spawn = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "accelerate_tpu_torch", *SERVE_ARGS, "--http", "0",
+         "--logging-dir", logging_dir],
+        cwd=REPO, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    stderr_lines: list = []
+    try:
+        line = proc.stderr.readline()
+        stderr_lines.append(line)
+        m = re.search(r"http://127\.0\.0\.1:(\d+)", line)
+        if m is None:
+            raise AssertionError(f"serve --http printed no address: {line!r}")
+        threading.Thread(target=lambda: stderr_lines.extend(proc.stderr), daemon=True).start()
+        base = f"http://127.0.0.1:{m.group(1)}"
+        states = []
+        while not states or states[-1] != "ready":
+            if proc.poll() is not None or time.perf_counter() - t_spawn > HTTP_TIMEOUT_S:
+                raise AssertionError(f"serve --http never got ready: {states[-3:]}\n"
+                                     + "".join(stderr_lines)[-3000:])
+            states.append(_json(base, "/healthz")["state"])
+            time.sleep(0.05)
+        ready_s = time.perf_counter() - t_spawn
+        if states[0] != "starting":
+            raise AssertionError(f"/healthz did not answer `starting` first: {states[:3]}")
+        status, text = _http(base, "/nowhere")
+        if status != 404:
+            raise AssertionError(f"an unknown path answered {status}")
+
+        reqs = _requests(12, seed=0)  # phase 5's requests
+        ref = {r["id"]: r["tokens"] for r in phase5["rows"]}
+
+        # (1) the first traffic, as in phase 5: its 12 as greedy SSE (the
+        # plain burst and the prefill chunk are captured inside), scrapes
+        # under load
+        scrapes = []
+        stop_scraping = threading.Event()
+
+        def scrape():
+            while not stop_scraping.is_set():
+                t0 = time.perf_counter()
+                text = _http(base, "/metrics")[1]
+                scrapes.append(time.perf_counter() - t0)
+                parse_openmetrics(text)
+                time.sleep(0.1)
+
+        scraper = threading.Thread(target=scrape)
+        scraper.start()
+        timed = _timed_sse_batch(base, reqs)
+        stop_scraping.set()
+        scraper.join(HTTP_TIMEOUT_S)
+        for r, a in zip(reqs, timed["answers"]):
+            if not _splits(a["deltas"], ref[r["id"]]) or a["tokens"] != len(ref[r["id"]]):
+                raise AssertionError(f"SSE answer {r['id']} differs from phase 5's tokens")
+
+        # (2) 16 requests at once, a /profile window opened just before them:
+        # 10 of phase 5's greedy (4 non-stream completions, 3 SSE, 3 /generate),
+        # a chat, a JSON-schema answer and 4 sampled with seeds; the last six
+        # need the lane burst, whose capture falls inside the window
+        schema = {"type": "object", "properties": {"ok": {"type": "boolean"}},
+                  "required": ["ok"]}
+        sampled = [{"id": f"s{i}", "prompt": reqs[i]["prompt"][:64], "max_new_tokens": 32,
+                    "sampling": {"do_sample": True, "temperature": 0.8, "top_p": 0.9,
+                                 "seed": 100 + i}} for i in range(4)]
+        stats_before = _json(base, "/stats")
+        profile = {}
+        profiler = threading.Thread(target=lambda: profile.update(
+            _json(base, "/profile?seconds=1")))
+        profiler.start()
+        time.sleep(0.2)
+        greedy = [r for r in reqs[:10]]
+        calls = [lambda r=r: _json(base, "/v1/completions", {
+                     "prompt": r["prompt"], "temperature": 0, "max_tokens": 64})
+                 for r in greedy[:4]]
+        calls += [lambda r=r: _sse(base, {"prompt": r["prompt"], "temperature": 0,
+                                          "max_tokens": 64}) for r in greedy[4:7]]
+        calls += [lambda r=r: _json(base, "/generate", r) for r in greedy[7:10]]
+        calls += [lambda: _json(base, "/v1/chat/completions", {
+                      "messages": [{"role": "user", "content": "Say hello."}],
+                      "temperature": 0, "max_tokens": 16}),
+                  lambda: _json(base, "/v1/chat/completions", {
+                      "messages": [{"role": "user", "content": "Reply in JSON."}],
+                      "temperature": 0, "max_tokens": 24, "response_format": {
+                          "type": "json_schema", "json_schema": {"schema": schema}}})]
+        calls += [lambda r=r: _json(base, "/generate", r) for r in sampled]
+        answers = _concurrent(calls)
+        profiler.join(HTTP_TIMEOUT_S)
+        for r, a in zip(greedy[:4], answers[:4]):
+            if a["choices"][0]["text"] != decode_tokens(ref[r["id"]]):
+                raise AssertionError(f"completion {r['id']} differs from phase 5's tokens")
+        for r, a in zip(greedy[4:7], answers[4:7]):
+            if not _splits(a["deltas"], ref[r["id"]]):
+                raise AssertionError(f"SSE completion {r['id']} differs from phase 5's tokens")
+        for r, a in zip(greedy[7:10], answers[7:10]):
+            if a["tokens"] != ref[r["id"]]:
+                raise AssertionError(f"/generate {r['id']} differs from phase 5's tokens")
+        chat, structured = answers[10], answers[11]
+        if chat["object"] != "chat.completion" or chat["usage"]["completion_tokens"] < 1:
+            raise AssertionError(f"the chat answer is malformed: {chat}")
+        validate_instance(schema, json.loads(structured["choices"][0]["message"]["content"]))
+        again = _concurrent([lambda r=r: _json(base, "/generate", r) for r in sampled[::-1]])
+        if [a["tokens"] for a in answers[12:]] != [a["tokens"] for a in again[::-1]]:
+            raise AssertionError("the seeded sampled requests did not reproduce")
+        summary = _kernel_summary(profile)
+        named = {k: sum(v["launches"] for n, v in summary.items() if k in n)
+                 for k in PAGED_KERNELS}
+        if not all(named.values()) or profile["flight_iterations"] < 1:
+            raise AssertionError(f"/profile saw B4 {named} and {profile['flight_iterations']} "
+                                 "flight iterations")
+
+        # (3) fresh prompts of phase 5's lengths (no prefix-cache hits),
+        # without and then with a 1 s /profile window open at the start
+        timed_plain = _timed_sse_batch(base, _requests(12, seed=1))
+        profile2 = {}
+        profiler = threading.Thread(target=lambda: profile2.update(
+            _json(base, "/profile?seconds=1")))
+        profiler.start()
+        time.sleep(0.05)
+        timed_profiled = _timed_sse_batch(base, _requests(12, seed=2))
+        profiler.join(HTTP_TIMEOUT_S)
+        with open(next(p for p in profile2["artifacts"] if p.endswith("flight_window.json"))) as f:
+            window = json.load(f)
+        inside = [e["wall_s"] for e in window["entries"]]
+
+        # (4) idle: the routes timed, /metrics against /stats, the captures
+        # and B4's launches
+        idle_ms = {}
+        for route in ("/healthz", "/stats", "/metrics"):
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                text = _http(base, route)[1]
+                times.append((time.perf_counter() - t0) * 1e3)
+            idle_ms[route] = {"p50": _pct(times, 50), "max": max(times)}
+        families = parse_openmetrics(text)
+        stats = _json(base, "/stats")
+        for family, key in (("accelerate_serving_completed", "completed"),
+                            ("accelerate_serving_iterations", "iterations"),
+                            ("accelerate_serving_decode_compiles", "decode_compiles")):
+            if sample_value(families, family) != stats[key]:
+                raise AssertionError(f"/metrics {family} {sample_value(families, family)} != "
+                                     f"/stats {key} {stats[key]}")
+        launches = check_graph_counts(stats, 16, 8, "serve --http",
+                                      captures={"lane_decode": 1})
+        if (stats_before["decode_compiles"], stats_before["prefill_compiles"]) != (1, 1):
+            raise AssertionError(f"captures before the profiled batch: {stats_before}")
+
+        # (5) SIGTERM with 8 requests in flight
+        drain_reqs = [{"id": f"d{i}", "prompt": reqs[i]["prompt"], "max_new_tokens": 200}
+                      for i in range(8)]
+        drained = []
+        senders = [threading.Thread(target=lambda r=r: drained.append(
+            _json(base, "/generate", r))) for r in drain_reqs]
+        for t in senders:
+            t.start()
+        deadline = time.perf_counter() + HTTP_TIMEOUT_S
+        while True:
+            h = _json(base, "/healthz")
+            if h["active_slots"] + h["queue_depth"] >= 8:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"the drain batch never got admitted: {h}")
+            time.sleep(0.01)
+        t_term = time.perf_counter()
+        proc.send_signal(__import__("signal").SIGTERM)
+        for t in senders:
+            t.join(HTTP_TIMEOUT_S)
+        rc = proc.wait(timeout=HTTP_TIMEOUT_S)
+        drain_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    stderr = "".join(stderr_lines)
+    if rc != 0 or "(drained on SIGTERM)" not in stderr:
+        raise AssertionError(f"serve --http exited {rc} on SIGTERM:\n{stderr[-3000:]}")
+    if sorted(r["id"] for r in drained) != sorted(r["id"] for r in drain_reqs) or any(
+            len(r["tokens"]) != 200 for r in drained):
+        raise AssertionError(f"the drain lost requests: {[r.get('id') for r in drained]}")
+    if not any(n.startswith(f"FLIGHT_DRAIN_{proc.pid}") for n in os.listdir(logging_dir)):
+        raise AssertionError("the SIGTERM drain wrote no flight drain file")
+    final = _serve_stats(stderr, "serve --http")
+    final_launches = check_graph_counts(final, 16, 8, "serve --http (after the drain)",
+                                        captures={"lane_decode": 1})
+    out = {
+        "ready_s": ready_s, "healthz_states": [states[0], states[-1]],
+        "client": {k: timed[k] for k in ("wall_s", "tokens_per_sec", "ttft_s", "tpot_s")},
+        "client_fresh": {k: timed_plain[k] for k in ("wall_s", "tokens_per_sec", "ttft_s",
+                                                     "tpot_s")},
+        "client_fresh_with_profile": {k: timed_profiled[k] for k in ("wall_s", "tokens_per_sec",
+                                                                     "ttft_s", "tpot_s")},
+        "phase5_stdin": {k: phase5[k] for k in ("tokens_per_sec", "ttft_s", "tpot_s",
+                                                "wall_s")},
+        "iteration_wall_inside_profile_s": {"p50": _pct(inside, 50), "n": len(inside)},
+        "profile_window_s": window["seconds_measured"],
+        "profiler_stop_s": window["profiler_stop_s"],
+        "iteration_p50_s": stats.get("iteration_p50_s"),
+        "route_ms_idle": idle_ms,
+        "metrics_scrape_ms": {"idle": idle_ms["/metrics"]["p50"],
+                              "under_load_p50": _pct(scrapes, 50) * 1e3,
+                              "under_load_max": max(scrapes) * 1e3, "n": len(scrapes)},
+        "profile": {"flight_iterations": profile["flight_iterations"], "seconds":
+                    profile["seconds"], "b4_launches_named": named,
+                    "lane_capture_inside": stats_before["lane_decode_compiles"] == 0},
+        "launches": launches, "launches_after_drain": final_launches,
+        "captures": {k: final[k] for k in ("decode_compiles", "prefill_compiles",
+                                           "lane_decode_compiles")},
+        "drain_s": drain_s, "answered_in_drain": len(drained),
+    }
+    log(f"  serve --http: ready in {ready_s:.1f} s ({states[0]} -> ready); 12 greedy SSE "
+        f"{timed['tokens_per_sec']:.1f} tok/s, client TTFT p50/p99 "
+        f"{timed['ttft_s']['p50'] * 1e3:.1f}/{timed['ttft_s']['p99'] * 1e3:.1f} ms, TPOT "
+        f"{timed['tpot_s']['p50'] * 1e3:.2f}/{timed['tpot_s']['p99'] * 1e3:.2f} ms (phase 5 "
+        f"stdin {phase5['tokens_per_sec']:.1f} tok/s); fresh prompts "
+        f"{timed_plain['tokens_per_sec']:.1f} tok/s, with a 1 s /profile window "
+        f"{timed_profiled['tokens_per_sec']:.1f} tok/s (window {window['seconds_measured']:.2f} s, "
+        f"stopping the profiler {window['profiler_stop_s']:.2f} s); /profile under load named "
+        f"{named} over {profile['flight_iterations']} iterations (lane capture inside: "
+        f"{out['profile']['lane_capture_inside']}); idle ms {idle_ms}; /metrics "
+        f"p50 {out['metrics_scrape_ms']['under_load_p50']:.2f} ms under load; captures "
+        f"{out['captures']}; B4 launches {launches}; SIGTERM drained {len(drained)} in "
+        f"{drain_s:.2f} s, exit {rc}")
+    return out
+
+
+def run_workload_replay() -> dict:
+    """``serve --trace`` on the flagship in stdin mode: the answered count
+    equals the schedule's length, every answer has its budget of tokens,
+    and the ``WORKLOAD.json`` digest equals a recomputation."""
+    from accelerate_tpu_torch.serving.workload import (
+        WORKLOAD_FILENAME,
+        generate_schedule,
+        parse_trace_spec,
+        schedule_digest,
+    )
+
+    spec = "bursty-diurnal:7:4:8"
+    schedule = generate_schedule(parse_trace_spec(spec))
+    logging_dir = os.path.join(REPO, "build", "workload")
+    os.makedirs(logging_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "accelerate_tpu_torch", *SERVE_ARGS, "--trace", spec,
+         "--logging-dir", logging_dir],
+        input="", capture_output=True, text=True, cwd=REPO, timeout=SERVE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serve --trace exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    rows = [json.loads(line) for line in proc.stdout.splitlines() if line.strip()]
+    budgets = {e["payload"]["id"]: e["payload"]["max_new_tokens"] for e in schedule}
+    if sorted(r["id"] for r in rows) != sorted(budgets) or any(
+            len(r["tokens"]) != budgets[r["id"]] for r in rows):
+        raise AssertionError(f"serve --trace answered {len(rows)} of {len(schedule)}")
+    with open(os.path.join(logging_dir, WORKLOAD_FILENAME)) as f:
+        manifest = json.load(f)
+    if manifest["schedule_sha256"] != schedule_digest(schedule):
+        raise AssertionError("the workload manifest's digest is not the schedule's")
+    stats = _serve_stats(proc.stderr, "serve --trace")
+    launches = check_graph_counts(stats, 16, 8, "serve --trace")
+    log(f"  serve --trace {spec}: {len(rows)} of {len(schedule)} answered in {wall:.1f} s, "
+        f"digest {manifest['schedule_sha256'][:16]}..., launches {launches}")
+    return {"spec": spec, "requests": len(schedule), "answered": len(rows), "wall_s": wall,
+            "schedule_sha256": manifest["schedule_sha256"], "launches": launches}
+
+
 # -- phase 6 ----------------------------------------------------------------
 
 
@@ -1232,17 +1707,18 @@ def _profiled_ms_per_launch(fn, calls: int, names) -> dict:
     return out
 
 
-def time_paged_shape(dev, b: int = 8, s: int = 1, ctx: int = 512, hd: int = 128) -> dict:
+def time_paged_shape(dev, b: int = 8, s: int = 1, ctx: int = 512, hd: int = 128,
+                     nh: int = 12) -> dict:
     """B4 timed at ``b`` rows of ``s`` queries whose last query sits at
     position ``ctx - 1`` (decode: 8 slots, s = 1; the spec verify: 8 slots,
     s = 5; the prefill chunk: b = 1, s = 32), flagship heads (12 × 128, or
-    12 × ``hd``), bf16, 16-key pages in a 64-entry table, the 16 layers'
+    ``nh`` × ``hd``), bf16, 16-key pages in a 64-entry table, the 16 layers'
     pools rotated so L2 does not hold them."""
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import paged_attention as pa
 
-    layers, nh, bs, mb = 16, 12, 16, 64
+    layers, bs, mb = 16, 16, 64
     nb = b * mb + 1
     gen = torch.Generator(device=dev).manual_seed(2)
     bt = torch.zeros((b, mb), dtype=torch.int32, device=dev)
@@ -1295,7 +1771,7 @@ def time_paged_shape(dev, b: int = 8, s: int = 1, ctx: int = 512, hd: int = 128)
     bytes_ms = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     split_ms = device_ms["paged_attention_kernel"]
-    log(f"  b={b} s={s} ctx={ctx} bf16: kernel {kernel_ms:.4f} ms (events around the "
+    log(f"  b={b} s={s} ctx={ctx} {nh} x {hd} bf16: kernel {kernel_ms:.4f} ms (events around the "
         f"wrapper; profiler a launch: split {split_ms:.4f} ms, "
         f"combine {device_ms['combine_splits_kernel']:.4f} ms), plain {plain_ms:.4f} ms, "
         f"sdpa (span pre-gathered, gather excluded) {library_device_ms:.4f} ms a call by the "
@@ -1540,6 +2016,18 @@ def _flash_cases():
         for hd, nh, n_kv in ((24, 4, 2), (48, 4, 4), (80, 8, 2))
         for dtype in (f32, bf16)
         for s, causal, pad in ((129, True, 0), (1000, True, 77), (200, False, 0))
+    ] + c4b_flash_cases()
+
+
+def c4b_flash_cases():
+    """C4b: head dims 20 and 36 (handed to the kernels zero-padded to 24
+    and 40) and 256 (the wide FMA instances), f32 and bf16 (launched
+    twice)."""
+    return [
+        (2, s, nh, n_kv, hd, causal, pad, dtype)
+        for hd, nh, n_kv in ((20, 4, 2), (36, 4, 4), (256, 4, 2))
+        for dtype in (torch.float32, torch.bfloat16)
+        for s, causal, pad in ((129, True, 0), (1000, True, 77), (200, False, 0))
     ]
 
 
@@ -1561,14 +2049,14 @@ def _scaled_err(got, ref) -> float:
     return ((got.float() - ref.float()).abs().max() / max(ref.float().abs().max().item(), 1.0)).item()
 
 
-def check_flash_vs_plain(dev) -> dict:
+def check_flash_vs_plain(dev, cases=None) -> dict:
     from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.ops.layers import causal_attention, dot_product_attention
 
     rng = np.random.default_rng(8)
     errs = {name: {"f32": 0.0, "bf16": 0.0} for name in FLASH_KERNELS}
     autograd_err = 0.0
-    for b, s, nh, n_kv, hd, causal, pad, dtype in _flash_cases():
+    for b, s, nh, n_kv, hd, causal, pad, dtype in cases or _flash_cases():
         q, k, v, do, mask = _flash_inputs(rng, b, s, nh, n_kv, hd, pad, dtype, dev)
         f32 = dtype == torch.float32
         o, lse = fa.flash_fwd(q, k, v, mask, causal=causal, impl="cuda")
@@ -1623,17 +2111,19 @@ def check_flash_vs_plain(dev) -> dict:
     return {"by_dtype": errs, "autograd_grad_err_f32": autograd_err}
 
 
-def run_tiny_train() -> dict:
-    """``LlamaConfig.tiny()`` (head dim 16) trained through the 5-line loop
-    with ``Accelerator(mixed_precision="bf16")``: 20 steps on a fixed batch
-    of 8 × 128 ids, finite and falling loss, the flash counters set to 0
-    just before and read just after (each kernel 2 launches a step, one a
+def run_tiny_train(hidden_size: int | None = None) -> dict:
+    """``LlamaConfig.tiny()`` (head dim 16; with ``hidden_size`` its four
+    heads are ``hidden_size / 4`` wide: 1024 gives the 256-wide heads of
+    C4b) trained through the 5-line loop with
+    ``Accelerator(mixed_precision="bf16")``: 20 steps on a fixed batch of 8
+    × 128 ids, finite and falling loss, the flash counters set to 0 just
+    before and read just after (each kernel 2 launches a step, one a
     layer)."""
     from accelerate_tpu_torch import Accelerator
     from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
-    cfg = LlamaConfig.tiny()
+    cfg = LlamaConfig.tiny() if hidden_size is None else LlamaConfig.tiny(hidden_size=hidden_size)
     accelerator = Accelerator(mixed_precision="bf16")
     module = LlamaForCausalLM.from_config(cfg, seed=0, device=accelerator.device)
     model, opt = accelerator.prepare(module, torch.optim.AdamW(module.parameters(), lr=1e-3))
@@ -1973,20 +2463,20 @@ def time_flash_kernels(dev, per_launch_ms: dict) -> dict:
     return out
 
 
-def time_flash_narrow(dev) -> dict:
-    """B1-B3 at head dims 16, 32, 24 and 80 at the tiny llama's training
-    shape (b 8, s 128, 4 heads, bf16, causal): CUDA events around the Python wrapper,
-    the profiler's device time a launch, sdpa's forward and its backward
-    alone (``library_ms``: its kernels' device time a call), and the bound
+def time_flash_at(dev, b: int, s: int, nh: int, head_dims) -> dict:
+    """B1-B3 at ``head_dims`` at one shape (b, s, nh heads, bf16, causal):
+    CUDA events around the Python wrapper, the profiler's device time a
+    launch, the plain version, sdpa's forward and its backward alone
+    (``library_ms``: its kernels' device time a call), and the bound
     counted on the real head dim's work (the padded columns are waste, not
-    work)."""
+    work). Phase 8b: the tiny llama's training shape (b 8, s 128, 4 heads)
+    at hd 16, 32, 24 and 80; C4b: b 8, s 1024, 8 heads at hd 256."""
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import flash_attention as fa
 
-    b, s, nh = 8, 128, 4
     out = {}
-    for hd in (16, 32, 24, 80):
+    for hd in head_dims:
         rng = np.random.default_rng(15 + hd)
         q, k, v, do, _ = _flash_inputs(rng, b, s, nh, nh, hd, 0, torch.bfloat16, dev)
         scale = 1.0 / float(np.sqrt(hd))
@@ -1997,6 +2487,11 @@ def time_flash_narrow(dev) -> dict:
             "flash_bwd_dq": lambda i: fa._bwd_dq_cuda(q, k, v, None, lse, delta, do, scale, True),
             "flash_bwd_dkv": lambda i: fa._bwd_dkv_cuda(q, k, v, None, lse, delta, do, scale,
                                                         True),
+        }
+        plain = {
+            "flash_fwd": _time_ms(lambda i: fa._flash_fwd_plain(q, k, v, None, scale, True), 3, 3),
+            "bwd": _time_ms(lambda i: fa._flash_bwd_plain(q, k, v, None, o, lse, do, scale,
+                                                           True), 3, 3),
         }
         lq, lk, lv, ldo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
         gq, gk, gv = (t.detach().clone().requires_grad_() for t in (lq, lk, lv))
@@ -2036,15 +2531,16 @@ def time_flash_narrow(dev) -> dict:
                 "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "library_ms": library["fwd" if name == "flash_fwd" else "bwd"],
+                "plain_ms": plain["flash_fwd" if name == "flash_fwd" else "bwd"],
             }
             out.setdefault(name, {})[f"head_dim_{hd}"] = entry
             log(f"  {name} hd {hd} (b {b}, s {s}, {nh} heads, bf16, causal): kernel "
                 f"{entry['ms']:.4f} ms by events, {entry['profiler_ms']:.4f} ms a launch by the "
                 f"profiler, bound {entry['bound_ms']:.6f} ms ({entry['bound_by']}), sdpa "
                 f"{'forward' if name == 'flash_fwd' else 'backward (the pair)'} "
-                f"{entry['library_ms']:.4f} ms")
+                f"{entry['library_ms']:.4f} ms, plain {entry['plain_ms']:.3f} ms")
         del q, k, v, do, o, lse, delta, lq, lk, lv, ldo, gq, gk, gv, lib_out
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2080,7 +2576,8 @@ def main() -> int:
         for report in ptxas.values():
             if key in report:
                 report[key]["blocks_per_sm"] = blocks
-    ptxas["paged_attention.cu"][PAGED_TIMED[0]]["dynamic_smem"] = paged_smem
+    for key, nbytes in paged_smem.items():
+        ptxas["paged_attention.cu"][key]["dynamic_smem"] = nbytes
     for kname, rep in sorted(kv for report in ptxas.values() for kv in report.items()):
         log(f"  {kname}: {rep.get('registers')} registers, spill stores {rep['spill_stores']} B, "
             f"spill loads {rep['spill_loads']} B, static smem {rep.get('static_smem')} B"
@@ -2126,6 +2623,11 @@ def main() -> int:
     sampled = check_sampled_pair(flagship)
     log("phase 5d: speculative decoding, swap preemption, a deadline and the usage ledger")
     spec_swap = check_spec_swap_deadline(flagship, greedy)
+    log("phase 5e: the front door — serve --http on the flagship (lifecycle, OpenAI and "
+        "/generate answers, SSE, /profile, /metrics, a SIGTERM drain)")
+    front_door = run_front_door(serve_run)
+    log("phase 5f: workload replay — serve --trace on the flagship")
+    workload = run_workload_replay()
 
     log("phase 6: times at the flagship decode shape and the prefill chunk")
     times = time_paged_shape(dev, ctx=512)
@@ -2133,12 +2635,16 @@ def main() -> int:
     prefill = {f"context_{ctx}": time_paged_shape(dev, b=1, s=32, ctx=ctx) for ctx in (512, 896)}
     verify = time_paged_shape(dev, b=8, s=SPEC["spec_k"] + 1, ctx=512)
     paged_hd = {f"head_dim_{hd}": time_paged_shape(dev, ctx=512, hd=hd) for hd in (80, 24)}
+    # C4b: 8 heads × 256 (hidden 2048, Gemma-style widths) at the decode shape
+    paged_hd["head_dim_256"] = time_paged_shape(dev, ctx=512, hd=256, nh=8)
 
     log("phase 7: where a decode step's time goes on the graph engine")
     breakdown = serve_breakdown(flagship)
     del flagship
     gc.collect()
     torch.cuda.empty_cache()
+    log(json.dumps({"front_door": front_door, "workload": workload}))
+    serve_run = {k: v for k, v in serve_run.items() if k != "rows"}
     log(json.dumps({"serve_breakdown": breakdown, "serve": serve_run, "parity": parity,
                     "lane_batch": lane_batch, "lane_parity": lane_parity,
                     "prefix_cache": prefix, "sampled_pair": sampled,
@@ -2150,7 +2656,11 @@ def main() -> int:
     log("phase 8b: the tiny llama (head dim 16) trained on the card; B1-B3 timed at hd 16, "
         "32, 24 and 80")
     tiny_train = run_tiny_train()
-    flash_narrow = time_flash_narrow(dev)
+    flash_narrow = time_flash_at(dev, 8, 128, 4, (16, 32, 24, 80))
+    log("phase 8c: C4b — a tiny llama with 256-wide heads trained on the card; B1-B3 timed "
+        "at hd 256 (b 8, s 1024, 8 heads, bf16, causal)")
+    tiny_train_256 = run_tiny_train(hidden_size=1024)
+    flash_wide = time_flash_at(dev, 8, 1024, 8, (256,))
 
     log("phase 9: a flagship-width train step, kernels against plain")
     step_check = check_train_step_kernel_vs_plain(dev)
@@ -2168,7 +2678,8 @@ def main() -> int:
     log("phase 12: flash kernels timed at the flagship shape")
     flash_times = time_flash_kernels(dev, train_bd["flash_ms_per_launch"])
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "losses"},
-                    "train_step_check": step_check, "tiny_train": tiny_train}))
+                    "train_step_check": step_check, "tiny_train": tiny_train,
+                    "tiny_train_head_dim_256": tiny_train_256}))
 
     kernels = [{
         "name": "paged_attention",
@@ -2195,7 +2706,10 @@ def main() -> int:
         "at_head_dims": {h: {k: t[k] for k in PAGED_TIMED_KEYS + ("bound_by", "shape")}
                          for h, t in paged_hd.items()},
         "launches_spec_greedy_in_process": spec_swap["greedy"]["launches"],
+        "launches_front_door": front_door["launches_after_drain"],
+        "launches_workload_replay": workload["launches"],
         "ptxas": {k: ptxas["paged_attention.cu"][k] for k in PAGED_TIMED},
+        "ptxas_head_dim_256": {k: ptxas["paged_attention.cu"][k] for k in PAGED_WIDE},
         "ptxas_all_instances": ptxas["paged_attention.cu"],
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],
@@ -2241,6 +2755,7 @@ def main() -> int:
             "timed_shape": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "n_heads": 12, "n_kv": 12,
                             "head_dim": 128, "dtype": "bf16", "causal": True},
             "at_narrow_heads": flash_narrow[name],
+            "at_head_dim_256": flash_wide[name],
         })
     log(json.dumps({"kernels": kernels, "build_s": build_s, "serve_wall_s": serve_run["wall_s"],
                     "total_s": time.perf_counter() - t_start, "card": smi}))

@@ -310,27 +310,27 @@ def test_serve_sync_engine_flag_and_env_reach_the_engine(monkeypatch):
 
 
 def test_training_refuses_head_dims_the_flash_kernels_do_not_take():
-    """C4 closed: on the card, ``prepare()`` passes every head dim B1-B4 take
-    (a multiple of 8 up to 128: the tiny llama's 16, and 24, 80 and 96 among
-    them) and still refuses a width off that rule before any step, naming
-    the rule; the CPU's plain attention takes any."""
+    """C4b closed: on the card, ``prepare()`` passes every head dim B1-B4
+    take (any from 1 to 256: the tiny llama's 16, and 20, 24, 36, 80, 136,
+    200 and 256 among them) and still refuses a width past that rule before
+    any step, naming the rule; the CPU's plain attention takes any."""
     from accelerate_tpu_torch.accelerator import check_kernel_head_dim
     from accelerate_tpu_torch.ops.flash_attention import HEAD_DIM_RULE, takes_head_dim
 
-    assert HEAD_DIM_RULE == "a multiple of 8 from 8 to 128"
+    assert HEAD_DIM_RULE == "any head dim from 1 to 256"
     tiny = tllama.LlamaForCausalLM.from_config(tllama.LlamaConfig.tiny(), device="cpu")
     assert tiny.config.head_dim == 16
-    for hd in (16, 24, 32, 64, 80, 96, 128):
+    for hd in (16, 20, 24, 32, 36, 64, 80, 96, 128, 136, 200, 256):
         assert takes_head_dim(hd)
         model = tllama.LlamaForCausalLM.from_config(
             tllama.LlamaConfig.tiny(hidden_size=4 * hd), device="cpu")
         assert model.config.head_dim == hd
         check_kernel_head_dim(model, torch.device("cuda"))
-    for hd in (20, 136):
+    for hd in (264,):
         assert not takes_head_dim(hd)
         odd = tllama.LlamaForCausalLM.from_config(
             tllama.LlamaConfig.tiny(hidden_size=4 * hd), device="cpu")
         assert odd.config.head_dim == hd
-        with pytest.raises(ValueError, match=r"a multiple of 8 from 8 to 128"):
+        with pytest.raises(ValueError, match=r"any head dim from 1 to 256"):
             check_kernel_head_dim(odd, torch.device("cuda"))
         check_kernel_head_dim(odd, torch.device("cpu"))

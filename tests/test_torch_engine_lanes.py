@@ -20,6 +20,7 @@ cache on the graph engine, held against the JAX engine on the same
 """
 
 import dataclasses
+import inspect
 import json
 import queue
 import re
@@ -313,9 +314,12 @@ def test_lane_config_defaults_match_jax():
     port, ref = tserving.EngineConfig(), jserving.EngineConfig()
     for name in ("per_slot_sampling", "prefix_cache", "logprobs_topn", "grammar_slots",
                  "grammar_states", "rep_window", "swap_gb", "spec_k", "draft",
-                 "usage_accounting"):
+                 "usage_accounting", "stats_interval", "flight_history"):
         assert getattr(port, name) == getattr(ref, name), name
-    assert tserving.UNPORTED_REQUEST_FIELDS == ("trace_id", "upstream_hop")
+    # request tracing landed: every add_request option of the JAX engine is ported
+    jax_options = inspect.signature(jserving.InferenceEngine.add_request).parameters
+    port_options = inspect.signature(tserving.InferenceEngine.add_request).parameters
+    assert set(jax_options) <= set(port_options)
 
 
 def test_serve_loop_streams_with_stop_holdback_and_logprobs(weights):
@@ -331,11 +335,12 @@ def test_serve_loop_streams_with_stop_holdback_and_logprobs(weights):
     engine = _port(tmodel, logprobs_topn=2)
     inbox, out, chunks = queue.Queue(), [], []
     stop_evt = threading.Event()
-    inbox.put({"id": "s", "prompt": prompt, "max_new_tokens": 10,
-               "sampling": {"stop": [stop]}, "_stream": chunks.append})
-    inbox.put({"id": "g", "prompt": [1, 2], "max_new_tokens": 8, "grammar": REGEX,
-               "logprobs": 2})
-    inbox.put({"id": "t", "prompt": [1], "trace_id": "0af7651916cd43dd8448eb211c80319c"})
+    inbox.put(({"id": "s", "prompt": prompt, "max_new_tokens": 10,
+                "sampling": {"stop": [stop]}, "_stream": chunks.append}, None))
+    inbox.put(({"id": "g", "prompt": [1, 2], "max_new_tokens": 8, "grammar": REGEX,
+                "logprobs": 2}, None))
+    inbox.put(({"id": "t", "prompt": [1], "trace_id": "0af7651916cd43dd8448eb211c80319c"},
+               None))
     stop_evt.set()
     serve._engine_loop(engine, inbox, out.append, stop_evt)
     rows = {r["id"]: r for r in out}
@@ -344,7 +349,7 @@ def test_serve_loop_streams_with_stop_holdback_and_logprobs(weights):
     assert streamed == rows["s"]["tokens"][:len(streamed)]  # never a trimmed token
     assert bytes(rows["g"]["tokens"]).decode()[-1] == "x"
     assert len(rows["g"]["logprobs"]) == len(rows["g"]["tokens"])
-    assert "not yet ported" in rows["t"]["error"]
+    assert rows["t"]["trace_id"] == "0af7651916cd43dd8448eb211c80319c"  # request tracing
     # stream() holds back the same way
     engine = _port(tmodel)
     assert list(engine.stream(prompt, 10, sampling={"stop": [stop]})) == probe[:4]

@@ -9,9 +9,9 @@
   port carries), over mixed-length prompts with chunked prefill and a
   decode burst, at f32 and int8 KV. A mismatch reports the top-2 logit
   margin of the port at the step where the streams part.
-* ``serve --device cpu`` answers stdin JSONL rows; unported request
-  fields get error rows; without ``--device cpu`` on a box with no card
-  the engine refuses to start.
+* ``serve --device cpu`` answers stdin JSONL rows (a ``trace_id`` is
+  echoed); without ``--device cpu`` on a box with no card the engine
+  refuses to start.
 """
 
 import dataclasses
@@ -257,15 +257,19 @@ def test_engine_eos_stream_and_out_of_blocks(weights):
 
 
 def test_engine_refuses_unported_request_fields(weights):
+    """Every ``add_request`` option of the JAX engine is ported now (request
+    tracing landed): ``trace_id`` survives when well formed and is generated
+    otherwise, as in JAX; an option neither engine has still raises."""
     _, tmodel = weights
     engine = tserving.InferenceEngine(tmodel, tserving.EngineConfig(**GEOMETRY), device="cpu")
-    for name in tserving.UNPORTED_REQUEST_FIELDS:
-        with pytest.raises(ValueError, match="not yet ported"):
-            engine.add_request([1, 2, 3], 4, **{name: {"x": 1}})
+    kept = engine.add_request([1, 2, 3], 4, trace_id="0af7651916cd43dd", upstream_hop=True)
+    assert kept.trace_id == "0af7651916cd43dd"
+    made = engine.add_request([1, 2, 3], 4, trace_id={"x": 1})
+    assert isinstance(made.trace_id, str) and len(made.trace_id) == 16
     with pytest.raises(TypeError, match="unexpected keyword"):
         engine.add_request([1, 2, 3], 4, beam_width=2)
     engine.add_request([1, 2, 3], 4, sampling=None)  # unset: served as usual
-    assert engine.scheduler.queue_depth == 1
+    assert engine.scheduler.queue_depth == 3
 
 
 def test_engine_without_a_device_needs_cuda(weights):
@@ -327,7 +331,8 @@ def test_serve_cpu_answers_jsonl_rows():
     assert len(by_id["a"]["tokens"]) == 6 and by_id["a"]["finish_reason"] == "length"
     assert len(by_id["b"]["tokens"]) == 3 and by_id["b"]["prompt_tokens"] == 40
     assert all(0 <= t < 256 for t in by_id["a"]["tokens"] + by_id["b"]["tokens"])
-    assert "not yet ported" in by_id["c"]["error"]
+    assert by_id["c"]["trace_id"] == "0af7651916cd43dd8448eb211c80319c"
+    assert len(by_id["c"]["tokens"]) >= 1 and "error" not in by_id["c"]
     assert "max_seq_len" in by_id["d"]["error"]
     assert any("bad JSON" in r.get("error", "") for r in out)
     assert len(by_id["e"]["tokens"]) == 5 and by_id["e"]["finish_reason"] == "length"
@@ -336,7 +341,7 @@ def test_serve_cpu_answers_jsonl_rows():
     assert by_id["f"]["tenant"] == "acme" and by_id["a"]["tenant"] == "default"
     assert len(by_id["f"]["tokens"]) == 4 and by_id["f"]["finish_reason"] == "length"
     assert by_id["f"]["device_time_s"] > 0 and by_id["f"]["swap_bytes"] == 0
-    assert "served 4 requests" in proc.stderr
+    assert "served 5 requests" in proc.stderr
     assert "paged_attention launches 0" in proc.stderr
 
 
