@@ -1,12 +1,13 @@
 """CLI root of the port: ``accelerate-tpu-torch <command>`` (port of
-``accelerate_tpu/commands/accelerate_cli.py``; only ``serve`` so far)."""
+``accelerate_tpu/commands/accelerate_cli.py``; ``serve`` and ``route`` so
+far)."""
 
 from __future__ import annotations
 
 import argparse
 import sys
 
-from . import serve
+from . import route, serve
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -16,7 +17,7 @@ def build_parser() -> argparse.ArgumentParser:
         allow_abbrev=False,
     )
     subparsers = parser.add_subparsers(dest="command")
-    for module in (serve,):
+    for module in (serve, route):
         module.add_parser(subparsers)
     return parser
 

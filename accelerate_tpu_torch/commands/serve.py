@@ -69,8 +69,20 @@ the same tokens. On exit the stderr summary names the paged-attention
 kernel launches (all of them, then decode and other apart), the captures
 (``decode_compiles``, ``lane_decode_compiles``, ``prefill_compiles``) and
 the flight recorder's ``host_fraction``, and a second line ``serve stats:
-{...}`` carries the engine's ``stats()`` as JSON. Routing, chaos
-injection, the HBM pre-flight and ``--mesh`` are later slices.
+{...}`` carries the engine's ``stats()`` as JSON.
+
+``--hbm-gb`` arms the SP004 pre-flight: params + pools priced from shapes
+(:mod:`~accelerate_tpu_torch.analysis.shardplan`) against that budget,
+refused (an error row, exit 2) before any pool allocates.
+``--auto-blocks`` sizes ``num_blocks`` from the same model instead, against
+``--hbm-gb`` or the card's total memory, and logs the count and the
+predicted headroom. ``--chaos-spec`` (env ``ACCELERATE_CHAOS_SPEC``) arms
+the seeded fault injector (:mod:`~accelerate_tpu_torch.serving.chaos`) at
+the HTTP boundary: ``kill``, ``stop``, ``delay`` and ``err503`` on
+``/generate`` and the OpenAI door, ``blackout`` on ``/healthz``; a
+malformed spec is a startup refusal (exit 2). Routing over replicas is
+``accelerate-tpu-torch route`` (:mod:`.route`). ``--mesh`` (one engine over
+a mesh of cards) is not yet ported (ROADMAP item 18) and refuses to start.
 """
 
 from __future__ import annotations
@@ -237,17 +249,61 @@ def _build_model(args):
     return LlamaForCausalLM.from_config(config, seed=args.seed, dtype=dtype, device=args.device)
 
 
+def _auto_num_blocks(args, model) -> int:
+    """``--auto-blocks``: size ``num_blocks`` from the pre-flight's bytes
+    model instead of a hand-picked constant. Budget = ``--hbm-gb`` or the
+    card's total memory; raises ValueError (the SP004 refusal) when neither
+    is known (the CPU) or even one request's blocks don't fit."""
+    from ..analysis.shardplan import auto_num_blocks, kv_storage_name, plan_kv_pool, plan_params
+    from ..serving.blocks import blocks_needed
+    from ..utils.device import device_hbm_bytes
+
+    budget_bytes = (int(args.hbm_gb * (1 << 30)) if args.hbm_gb is not None
+                    else device_hbm_bytes(model.device))
+    if budget_bytes is None:
+        raise ValueError(
+            "SP004: --auto-blocks needs an HBM budget, and this device "
+            "reports no memory limit — pass --hbm-gb"
+        )
+    cfg = model.config
+    params_bytes = sum(p.bytes_per_device for p in plan_params(model))
+    per_block = sum(p.bytes_per_device for p in plan_kv_pool(
+        num_layers=cfg.num_hidden_layers,
+        num_kv_heads=cfg.num_key_value_heads,
+        head_dim=cfg.head_dim,
+        num_slots=1,
+        block_size=args.block_size,
+        max_seq_len=args.max_seq_len,
+        num_blocks=1,
+        dtype=kv_storage_name(args.kv_dtype, "bfloat16" if args.dtype == "bf16" else "float32"),
+    ))
+    blocks_per_slot = blocks_needed(args.max_seq_len, args.block_size)
+    full_residency = args.num_slots * blocks_per_slot + 1
+    num_blocks, headroom = auto_num_blocks(
+        budget_bytes, params_bytes, per_block,
+        full_residency_blocks=full_residency,
+        min_blocks=blocks_per_slot + 1,  # one full request + the null block
+    )
+    gib = 1 << 30
+    print(f"auto-blocks: {num_blocks} blocks ({per_block / 1e6:.2f} MB/block/device; "
+          f"full residency {full_residency}) — params {params_bytes / gib:.3f} GiB/device, "
+          f"predicted headroom {headroom / gib:.3f} GiB under the "
+          f"{budget_bytes / gib:.3f} GiB budget", file=sys.stderr)
+    return num_blocks
+
+
 def _make_engine(args):
     from ..serving import EngineConfig, InferenceEngine
 
     model = _build_model(args)
+    num_blocks = _auto_num_blocks(args, model) if args.auto_blocks else args.num_blocks
     return InferenceEngine(
         model,
         EngineConfig(
             num_slots=args.num_slots,
             block_size=args.block_size,
             max_seq_len=args.max_seq_len,
-            num_blocks=args.num_blocks,
+            num_blocks=num_blocks,
             prefill_chunk=args.prefill_chunk,
             decode_burst=args.decode_burst,
             eos_token_id=args.eos_token_id,
@@ -265,6 +321,7 @@ def _make_engine(args):
             usage_accounting=args.usage_accounting,
             flight_history=args.flight_history,
             stats_interval=args.stats_interval,
+            hbm_budget_gb=args.hbm_gb,
         ),
         device=args.device,
     )
@@ -511,6 +568,24 @@ def serve_command(args) -> int:
         return 2
 
     try:
+        if args.mesh:
+            return refuse("--mesh is not yet ported (ROADMAP item 18): one engine "
+                          "sharded over a mesh of cards is tensor parallelism across cards")
+        # fault injection: a malformed spec is a startup refusal — a typo'd
+        # spec silently running a clean "chaos" test would certify nothing
+        from ..serving.chaos import ChaosInjector, ChaosSpecError
+
+        try:
+            chaos = ChaosInjector.from_spec(args.chaos_spec, replica_id=args.replica_id)
+        except ChaosSpecError as e:
+            return refuse(e)
+        if chaos is not None:
+            print(f"serve: chaos injection armed (replica {args.replica_id})",
+                  file=sys.stderr)
+            if args.http is None:
+                print("serve: chaos faults fire at the HTTP replica boundary — stdin "
+                      "mode ignores the spec", file=sys.stderr)
+
         # a seeded replayable workload: a malformed spec is a startup refusal
         trace_spec = trace_schedule = None
         if args.trace:
@@ -537,7 +612,7 @@ def serve_command(args) -> int:
             try:
                 return _serve_http(build_engine, inbox, stop, args.http, health=health,
                                    handler=handler, max_queue=args.max_queue,
-                                   logging_dir=args.logging_dir)
+                                   logging_dir=args.logging_dir, chaos=chaos)
             except _StartupRefusal as e:
                 return refuse(e)
 
@@ -594,7 +669,7 @@ def serve_command(args) -> int:
 
 
 def _serve_http(engine, inbox, stop, port, health=None, handler=None, max_queue=None,
-                logging_dir=None, on_bind=None) -> int:
+                logging_dir=None, on_bind=None, chaos=None) -> int:
     """The local HTTP front end on ``127.0.0.1:port`` (0 picks a free port,
     handed to ``on_bind`` and printed). ``POST /generate`` blocks until the
     request's answer row (400 on a rejected one, 503 while starting or
@@ -605,6 +680,12 @@ def _serve_http(engine, inbox, stop, port, health=None, handler=None, max_queue=
     scrape; ``GET /profile?seconds=N`` a profiler window and flight dump
     into ``logging_dir/profiles/`` while the engine keeps serving (409 when
     a window is already open, 400 without a logging dir).
+
+    ``chaos`` (a :class:`~accelerate_tpu_torch.serving.chaos.ChaosInjector`)
+    injects its scheduled faults at this boundary: ``kill``, ``stop``,
+    ``delay`` and 503 bursts per received ``/generate`` or OpenAI request,
+    before admission; ``/healthz`` blackouts tear the connection. Disabled,
+    it is one falsy check a request.
 
     ``engine`` may be a ready instance or a zero-arg factory: with a
     factory the server binds and answers ``/healthz`` as ``starting``
@@ -669,6 +750,11 @@ def _serve_http(engine, inbox, stop, port, health=None, handler=None, max_queue=
             elif path == "/profile":
                 self._handle_profile(query)
             elif path == "/healthz":
+                if chaos is not None and chaos.healthz_blackout():
+                    # an injected blackout: tear the connection, as a starved
+                    # /healthz looks to the prober
+                    self.close_connection = True
+                    return
                 self._send(200, health.payload())
             elif path in ("", "/stats", "/health"):
                 snapshot = self._snapshot()
@@ -738,6 +824,9 @@ def _serve_http(engine, inbox, stop, port, health=None, handler=None, max_queue=
                     "message": message, "type": type_, "param": None, "code": None,
                 }})
 
+            if chaos is not None and chaos.on_generate() == "err503":
+                err(503, "chaos: injected 503 burst", "server_error")
+                return
             if not health.ready:
                 err(503, f"not accepting requests: {health.state}", "server_error")
                 return
@@ -766,6 +855,12 @@ def _serve_http(engine, inbox, stop, port, health=None, handler=None, max_queue=
                 return
             if path != "/generate":
                 self._send(404, {"error": "unknown path"})
+                return
+            # kill and stop never return; delay sleeps in this handler thread
+            # (the request is mid-flight, as on a slow engine); a 503 burst
+            # answers before admission
+            if chaos is not None and chaos.on_generate() == "err503":
+                self._send(503, {"error": "chaos: injected 503 burst"})
                 return
             if not health.ready:
                 # starting or draining: an explicit answer, so a client fails
@@ -857,6 +952,24 @@ def add_parser(subparsers):
                    help="prompt tokens prefilled per engine iteration")
     p.add_argument("--decode-burst", type=int, default=8,
                    help="decode steps per dispatch (scheduling granularity)")
+    p.add_argument("--hbm-gb", type=float, default=None,
+                   help="device-memory budget in GiB: the engine runs the SP004 "
+                   "pre-flight and refuses to start (error row, exit 2) if params + "
+                   "pools exceed it")
+    p.add_argument("--auto-blocks", action="store_true",
+                   help="size num_blocks from the pre-flight's bytes model (budget: "
+                   "--hbm-gb, or the card's total memory) and log the chosen count "
+                   "and the predicted headroom")
+    p.add_argument("--chaos-spec", default=None,
+                   help="fault-injection schedule (env ACCELERATE_CHAOS_SPEC; seed "
+                   "via ACCELERATE_CHAOS_SEED): e.g. "
+                   "'r0:kill@5;r1:delay@3:0.2;err503@2:3;blackout@6:1.5' — kill -9 / "
+                   "SIGSTOP / delay / 503 burst / healthz blackout keyed on the "
+                   "replica's request ordinal; HTTP mode only; a malformed spec "
+                   "refuses to start (exit 2)")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard the engine over a mesh of cards: not yet ported "
+                   "(ROADMAP item 18), refuses to start")
     p.add_argument("--num-blocks", type=int, default=None,
                    help="paged KV pool blocks (default: full residency — "
                    "num_slots x blocks-per-slot + 1)")

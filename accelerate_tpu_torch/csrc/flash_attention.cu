@@ -16,14 +16,15 @@
 //
 // Tensors are read in the model layout [b, s, heads, hd] (contiguous) by
 // strides: no transposed or padded copies. Every kernel takes any head dim
-// hd that is a multiple of 8 up to 256 (the Python wrapper zero-pads any
-// other head dim to the next multiple of 8 and slices the outputs back).
-// Up to 128 each family is built at the eight multiples of 16 (HD, hd
-// rounded up to 16; the columns between hd and HD load as zeros and are
-// never stored); past 128 every dtype takes the wide FMA instance at HD
-// 256. Pitches and stores use hd. The optional key mask is
-// [b, skv] bytes (1 = valid) and applies where(valid, s, NEG_INF), equal to
-// the JAX "s + bias" after rounding because NEG_INF is the f32 minimum.
+// hd that is a multiple of 8 (the Python wrapper zero-pads any other head
+// dim to the next multiple of 8 and slices the outputs back). Up to 128
+// each family is built at the eight multiples of 16 (HD, hd rounded up to
+// 16; the columns between hd and HD load as zeros and are never stored);
+// from 136 to 256 every dtype takes the wide FMA instance at HD 256, and
+// past 256 its column-block instance (kCols). Pitches and stores use hd.
+// The optional key mask is [b, skv] bytes (1 = valid) and applies
+// where(valid, s, NEG_INF), equal to the JAX "s + bias" after rounding
+// because NEG_INF is the f32 minimum.
 // Causal attention compares query index >= key index. GQA: query head h
 // reads kv head h / (nh / n_kv); nothing is repeated. lse and delta are f32
 // [b, nh, s].
@@ -61,6 +62,16 @@
 //    A 64-row wgmma accumulator over 256 columns is 128 f32 registers a
 //    thread for O, and for each of dK and dV, which B3's budget cannot hold:
 //    a tensor-core kernel for these widths is later work (PERF.md §7).
+//  * Head dims past 256, f32 or bf16 (C4c): the wide kernels at kCols. The
+//    head dim is cut into column blocks of 256 and a block owns one column
+//    block of its output, folded into grid x. S = Q K^T (and dP = dO V^T)
+//    need every column: the block stages 256-column chunks of Q and K (dO
+//    and V) in turn and adds each chunk's product into the score tile.
+//    O = P V, dQ = dS K, dK = dS^T Q and dV = P^T dO need only the block's
+//    own column block. Each column block recomputes the same scores, in
+//    the same order, so about ceil(hd / 256) times the Q K^T work; lse is
+//    written by column block 0. delta (rowsum(dO * O) over the whole head
+//    dim) comes from the caller as before.
 //  * bf16 forward (B1), dq (B2) and dk/dv (B3): wgmma fed by a ring of TMA
 //    copies with mbarriers, two warpgroups of products (section "bf16
 //    forward (B1), dq (B2) and dk/dv (B3) for Hopper"). B1 takes 128
@@ -80,6 +91,7 @@
 //    heaviest causal query tiles first. exp is ex2.approx with
 //    scale * log2(e) folded in; lse stays a natural log.
 
+#include <algorithm>
 #include <cfloat>
 #include <cstdint>
 #include <type_traits>
@@ -213,7 +225,7 @@ __device__ __forceinline__ bool key_valid(const uint8_t* __restrict__ mask_b, in
 // instance rounds where the TPU kernels round: P to V's dtype before P V
 // (forward), dS to K's dtype before dS K (dq), P to dO's and dS to Q's
 // dtype before P^T dO and dS^T Q (dk/dv); outputs are stored in T.
-template <int HD, int BLK, typename T>
+template <int HD, int BLK, typename T, bool kCols>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const uint8_t* __restrict__ mask, T* __restrict__ o, float* __restrict__ lse,
@@ -228,7 +240,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   float* v_s = k_s + BLK * kStride;
   float* p_s = v_s + BLK * kStride;
 
-  const int q0 = blockIdx.x * BLK, h = blockIdx.y, b = blockIdx.z;
+  // kCols: the block owns column block cb (columns c_lo .. c_lo + HD) of O
+  const int n_cb = kCols ? (hd + HD - 1) / HD : 1;
+  const int cb = kCols ? blockIdx.x % n_cb : 0;
+  const int c_lo = cb * HD;
+  const int q0 = (kCols ? blockIdx.x / n_cb : blockIdx.x) * BLK, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (nh / n_kv);
   const int ty = threadIdx.x / kGrid, tx = threadIdx.x % kGrid;
   const int64_t q_pitch = static_cast<int64_t>(nh) * hd;
@@ -238,7 +254,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const T* v_bg = v + (static_cast<int64_t>(b) * skv * n_kv + g) * hd;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * skv;
 
-  load_tile<HD, BLK>(q_s, q_bh, q_pitch, q0, sq, hd);
+  if constexpr (!kCols) load_tile<HD, BLK>(q_s, q_bh, q_pitch, q0, sq, hd);
   float m[kR], l[kR], acc[kR][kD];
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
@@ -251,13 +267,25 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   // causal: key tiles wholly above the diagonal are skipped
   const int kv_end = causal ? min(skv, q0 + BLK) : skv;
   for (int t0 = 0; t0 < kv_end; t0 += BLK) {
-    __syncthreads();  // the previous tile is consumed (and q_s written)
-    load_tile<HD, BLK>(k_s, k_bg, kv_pitch, t0, skv, hd);
-    load_tile<HD, BLK>(v_s, v_bg, kv_pitch, t0, skv, hd);
-    __syncthreads();
-
     float s[kR][kR] = {};
-    tile_dot<HD, BLK>(s, q_s, k_s, ty, tx);
+    if constexpr (kCols) {
+      // S needs every column: add it up over the column chunks of Q and K;
+      // P V needs only this block's column block of V
+      for (int c0 = 0; c0 < hd; c0 += HD) {
+        __syncthreads();  // the previous chunk (and tile) is consumed
+        load_tile<HD, BLK>(q_s, q_bh + c0, q_pitch, q0, sq, hd - c0);
+        load_tile<HD, BLK>(k_s, k_bg + c0, kv_pitch, t0, skv, hd - c0);
+        if (c0 == 0) load_tile<HD, BLK>(v_s, v_bg + c_lo, kv_pitch, t0, skv, hd - c_lo);
+        __syncthreads();
+        tile_dot<HD, BLK>(s, q_s, k_s, ty, tx);
+      }
+    } else {
+      __syncthreads();  // the previous tile is consumed (and q_s written)
+      load_tile<HD, BLK>(k_s, k_bg, kv_pitch, t0, skv, hd);
+      load_tile<HD, BLK>(v_s, v_bg, kv_pitch, t0, skv, hd);
+      __syncthreads();
+      tile_dot<HD, BLK>(s, q_s, k_s, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < kR; ++i) {
       const int qi = q0 + ty + kGrid * i;
@@ -295,16 +323,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     if (qi >= sq) continue;
     const bool empty = l[i] == 0.f;
     const float den = empty ? 1.f : l[i];
-    T* o_row = o + ((static_cast<int64_t>(b) * sq + qi) * nh + h) * hd;
+    T* o_row = o + ((static_cast<int64_t>(b) * sq + qi) * nh + h) * hd + c_lo;
 #pragma unroll
     for (int c = 0; c < kD; ++c)
-      if (tx + kGrid * c < hd) o_row[tx + kGrid * c] = from_f32<T>(acc[i][c] / den);
-    if (tx == 0)
+      if (c_lo + tx + kGrid * c < hd) o_row[tx + kGrid * c] = from_f32<T>(acc[i][c] / den);
+    // every column block computes the same row statistics: block 0 writes them
+    if (tx == 0 && cb == 0)
       lse[(static_cast<int64_t>(b) * nh + h) * sq + qi] = empty ? kNegInf : m[i] + logf(den);
   }
 }
 
-template <int HD, int BLK, typename T>
+template <int HD, int BLK, typename T, bool kCols>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const uint8_t* __restrict__ mask, const T* __restrict__ dout,
@@ -322,7 +351,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float* v_s = k_s + BLK * kStride;
   float* ds_s = v_s + BLK * kStride;
 
-  const int q0 = blockIdx.x * BLK, h = blockIdx.y, b = blockIdx.z;
+  // kCols: the block owns column block cb (columns c_lo .. c_lo + HD) of dQ
+  const int n_cb = kCols ? (hd + HD - 1) / HD : 1;
+  const int cb = kCols ? blockIdx.x % n_cb : 0;
+  const int c_lo = cb * HD;
+  const int q0 = (kCols ? blockIdx.x / n_cb : blockIdx.x) * BLK, h = blockIdx.y, b = blockIdx.z;
   const int g = h / (nh / n_kv);
   const int ty = threadIdx.x / kGrid, tx = threadIdx.x % kGrid;
   const int64_t q_pitch = static_cast<int64_t>(nh) * hd;
@@ -332,8 +365,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int64_t row_off = (static_cast<int64_t>(b) * nh + h) * sq;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * skv;
 
-  load_tile<HD, BLK>(q_s, q + q_off, q_pitch, q0, sq, hd);
-  load_tile<HD, BLK>(do_s, dout + q_off, q_pitch, q0, sq, hd);
+  if constexpr (!kCols) {
+    load_tile<HD, BLK>(q_s, q + q_off, q_pitch, q0, sq, hd);
+    load_tile<HD, BLK>(do_s, dout + q_off, q_pitch, q0, sq, hd);
+  }
   float lse_r[kR], delta_r[kR], acc[kR][kD];
 #pragma unroll
   for (int i = 0; i < kR; ++i) {
@@ -346,14 +381,32 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   const int kv_end = causal ? min(skv, q0 + BLK) : skv;
   for (int t0 = 0; t0 < kv_end; t0 += BLK) {
-    __syncthreads();
-    load_tile<HD, BLK>(k_s, k + kv_off, kv_pitch, t0, skv, hd);
-    load_tile<HD, BLK>(v_s, v + kv_off, kv_pitch, t0, skv, hd);
-    __syncthreads();
-
     float s[kR][kR] = {}, dp[kR][kR] = {};
-    tile_dot<HD, BLK>(s, q_s, k_s, ty, tx);
-    tile_dot<HD, BLK>(dp, do_s, v_s, ty, tx);
+    if constexpr (kCols) {
+      // S = Q K^T and dP = dO V^T need every column: add them up over the
+      // column chunks; dS K needs only K's column block cb
+      for (int c0 = 0; c0 < hd; c0 += HD) {
+        __syncthreads();
+        load_tile<HD, BLK>(q_s, q + q_off + c0, q_pitch, q0, sq, hd - c0);
+        load_tile<HD, BLK>(do_s, dout + q_off + c0, q_pitch, q0, sq, hd - c0);
+        load_tile<HD, BLK>(k_s, k + kv_off + c0, kv_pitch, t0, skv, hd - c0);
+        load_tile<HD, BLK>(v_s, v + kv_off + c0, kv_pitch, t0, skv, hd - c0);
+        __syncthreads();
+        tile_dot<HD, BLK>(s, q_s, k_s, ty, tx);
+        tile_dot<HD, BLK>(dp, do_s, v_s, ty, tx);
+      }
+      if (cb != n_cb - 1) {  // k_s holds the last column chunk
+        __syncthreads();
+        load_tile<HD, BLK>(k_s, k + kv_off + c_lo, kv_pitch, t0, skv, hd - c_lo);
+      }
+    } else {
+      __syncthreads();
+      load_tile<HD, BLK>(k_s, k + kv_off, kv_pitch, t0, skv, hd);
+      load_tile<HD, BLK>(v_s, v + kv_off, kv_pitch, t0, skv, hd);
+      __syncthreads();
+      tile_dot<HD, BLK>(s, q_s, k_s, ty, tx);
+      tile_dot<HD, BLK>(dp, do_s, v_s, ty, tx);
+    }
 #pragma unroll
     for (int i = 0; i < kR; ++i) {
       const int qi = q0 + ty + kGrid * i;
@@ -376,14 +429,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int i = 0; i < kR; ++i) {
     const int qi = q0 + ty + kGrid * i;
     if (qi >= sq) continue;
-    T* row = dq + ((static_cast<int64_t>(b) * sq + qi) * nh + h) * hd;
+    T* row = dq + ((static_cast<int64_t>(b) * sq + qi) * nh + h) * hd + c_lo;
 #pragma unroll
     for (int c = 0; c < kD; ++c)
-      if (tx + kGrid * c < hd) row[tx + kGrid * c] = from_f32<T>(acc[i][c]);
+      if (c_lo + tx + kGrid * c < hd) row[tx + kGrid * c] = from_f32<T>(acc[i][c]);
   }
 }
 
-template <int HD, int BLK, typename T>
+template <int HD, int BLK, typename T, bool kCols>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const uint8_t* __restrict__ mask, const T* __restrict__ dout,
@@ -404,7 +457,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   float* lse_s = ds_s + BLK * kSStride;
   float* delta_s = lse_s + BLK;
 
-  const int k0 = blockIdx.x * BLK, g = blockIdx.y, b = blockIdx.z;
+  // kCols: the block owns column block cb (columns c_lo .. c_lo + HD) of dK, dV
+  const int n_cb = kCols ? (hd + HD - 1) / HD : 1;
+  const int cb = kCols ? blockIdx.x % n_cb : 0;
+  const int c_lo = cb * HD;
+  const int k0 = (kCols ? blockIdx.x / n_cb : blockIdx.x) * BLK, g = blockIdx.y, b = blockIdx.z;
   const int rep = nh / n_kv;
   const int ty = threadIdx.x / kGrid, tx = threadIdx.x % kGrid;
   const int64_t q_pitch = static_cast<int64_t>(nh) * hd;
@@ -412,8 +469,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int64_t kv_off = (static_cast<int64_t>(b) * skv * n_kv + g) * hd;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * skv;
 
-  load_tile<HD, BLK>(k_s, k + kv_off, kv_pitch, k0, skv, hd);
-  load_tile<HD, BLK>(v_s, v + kv_off, kv_pitch, k0, skv, hd);
+  if constexpr (!kCols) {
+    load_tile<HD, BLK>(k_s, k + kv_off, kv_pitch, k0, skv, hd);
+    load_tile<HD, BLK>(v_s, v + kv_off, kv_pitch, k0, skv, hd);
+  }
   bool key_ok[kR];
   float dk_acc[kR][kD], dv_acc[kR][kD];
 #pragma unroll
@@ -430,20 +489,44 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int64_t q_off = (static_cast<int64_t>(b) * sq * nh + h) * hd;
     const int64_t row_off = (static_cast<int64_t>(b) * nh + h) * sq;
     for (int q0 = q_start; q0 < sq; q0 += BLK) {
-      __syncthreads();  // the previous query tile is consumed
-      load_tile<HD, BLK>(q_s, q + q_off, q_pitch, q0, sq, hd);
-      load_tile<HD, BLK>(do_s, dout + q_off, q_pitch, q0, sq, hd);
-      if (threadIdx.x < BLK) {
-        const int qi = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = qi < sq ? lse[row_off + qi] : kNegInf;  // padded rows: p = 0
-        delta_s[threadIdx.x] = qi < sq ? delta[row_off + qi] : 0.f;
-      }
-      __syncthreads();
-
       // transposed score tiles: row = key (ty + 16 i), column = query (tx + 16 j)
       float s[kR][kR] = {}, dp[kR][kR] = {};
-      tile_dot<HD, BLK>(s, k_s, q_s, ty, tx);
-      tile_dot<HD, BLK>(dp, v_s, do_s, ty, tx);
+      if constexpr (kCols) {
+        // S and dP need every column: add them up over the column chunks;
+        // P^T dO and dS^T Q need only column block cb of dO and Q
+        for (int c0 = 0; c0 < hd; c0 += HD) {
+          __syncthreads();  // the previous chunk (and query tile) is consumed
+          load_tile<HD, BLK>(k_s, k + kv_off + c0, kv_pitch, k0, skv, hd - c0);
+          load_tile<HD, BLK>(v_s, v + kv_off + c0, kv_pitch, k0, skv, hd - c0);
+          load_tile<HD, BLK>(q_s, q + q_off + c0, q_pitch, q0, sq, hd - c0);
+          load_tile<HD, BLK>(do_s, dout + q_off + c0, q_pitch, q0, sq, hd - c0);
+          if (c0 == 0 && threadIdx.x < BLK) {
+            const int qi = q0 + threadIdx.x;
+            lse_s[threadIdx.x] = qi < sq ? lse[row_off + qi] : kNegInf;  // padded rows: p = 0
+            delta_s[threadIdx.x] = qi < sq ? delta[row_off + qi] : 0.f;
+          }
+          __syncthreads();
+          tile_dot<HD, BLK>(s, k_s, q_s, ty, tx);
+          tile_dot<HD, BLK>(dp, v_s, do_s, ty, tx);
+        }
+        if (cb != n_cb - 1) {  // q_s and do_s hold the last column chunk
+          __syncthreads();
+          load_tile<HD, BLK>(q_s, q + q_off + c_lo, q_pitch, q0, sq, hd - c_lo);
+          load_tile<HD, BLK>(do_s, dout + q_off + c_lo, q_pitch, q0, sq, hd - c_lo);
+        }
+      } else {
+        __syncthreads();  // the previous query tile is consumed
+        load_tile<HD, BLK>(q_s, q + q_off, q_pitch, q0, sq, hd);
+        load_tile<HD, BLK>(do_s, dout + q_off, q_pitch, q0, sq, hd);
+        if (threadIdx.x < BLK) {
+          const int qi = q0 + threadIdx.x;
+          lse_s[threadIdx.x] = qi < sq ? lse[row_off + qi] : kNegInf;  // padded rows: p = 0
+          delta_s[threadIdx.x] = qi < sq ? delta[row_off + qi] : 0.f;
+        }
+        __syncthreads();
+        tile_dot<HD, BLK>(s, k_s, q_s, ty, tx);
+        tile_dot<HD, BLK>(dp, v_s, do_s, ty, tx);
+      }
 #pragma unroll
       for (int i = 0; i < kR; ++i) {
         const int kj = k0 + ty + kGrid * i;
@@ -470,10 +553,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int i = 0; i < kR; ++i) {
     const int kj = k0 + ty + kGrid * i;
     if (kj >= skv) continue;
-    const int64_t row = ((static_cast<int64_t>(b) * skv + kj) * n_kv + g) * hd;
+    const int64_t row = ((static_cast<int64_t>(b) * skv + kj) * n_kv + g) * hd + c_lo;
 #pragma unroll
     for (int c = 0; c < kD; ++c) {
-      if (tx + kGrid * c >= hd) continue;
+      if (c_lo + tx + kGrid * c >= hd) continue;
       dk[row + tx + kGrid * c] = from_f32<T>(dk_acc[i][c]);
       dv[row + tx + kGrid * c] = from_f32<T>(dv_acc[i][c]);
     }
@@ -1483,48 +1566,52 @@ struct Shape {
   int causal;
 };
 
+// Column blocks of HD a kCols launch folds into grid x (1 otherwise)
+template <int HD, bool kCols>
+int col_blocks(int hd) { return kCols ? (hd + HD - 1) / HD : 1; }
+
 // The FMA kernels' launches: one block of kThreads per BLK query rows (or,
-// for dk/dv, BLK keys), head and batch row.
-template <int HD, int BLK, typename T>
+// for dk/dv, BLK keys), head, batch row and, past kWideHD, column block.
+template <int HD, int BLK, typename T, bool kCols = false>
 cudaError_t launch_fma_fwd(const void* q, const void* k, const void* v, const uint8_t* m,
                            void* o, float* lse, const Shape& a, cudaStream_t stream) {
   static bool ready = false;
   constexpr int bytes = fwd_smem_bytes<HD, BLK>();
-  const cudaError_t err = allow_smem(flash_fwd_kernel<HD, BLK, T>, bytes, ready);
+  const cudaError_t err = allow_smem(flash_fwd_kernel<HD, BLK, T, kCols>, bytes, ready);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.sq + BLK - 1) / BLK, a.nh, a.b);
-  flash_fwd_kernel<HD, BLK, T><<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid((a.sq + BLK - 1) / BLK * col_blocks<HD, kCols>(a.hd), a.nh, a.b);
+  flash_fwd_kernel<HD, BLK, T, kCols><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m,
       static_cast<T*>(o), lse, a.sq, a.skv, a.nh, a.n_kv, a.hd, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <int HD, int BLK, typename T>
+template <int HD, int BLK, typename T, bool kCols = false>
 cudaError_t launch_fma_dq(const void* q, const void* k, const void* v, const uint8_t* m,
                           const void* dout, const float* lse, const float* delta, void* dq,
                           const Shape& a, cudaStream_t stream) {
   static bool ready = false;
   constexpr int bytes = dq_smem_bytes<HD, BLK>();
-  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<HD, BLK, T>, bytes, ready);
+  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<HD, BLK, T, kCols>, bytes, ready);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.sq + BLK - 1) / BLK, a.nh, a.b);
-  flash_bwd_dq_kernel<HD, BLK, T><<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid((a.sq + BLK - 1) / BLK * col_blocks<HD, kCols>(a.hd), a.nh, a.b);
+  flash_bwd_dq_kernel<HD, BLK, T, kCols><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m,
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), a.sq, a.skv, a.nh, a.n_kv,
       a.hd, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <int HD, int BLK, typename T>
+template <int HD, int BLK, typename T, bool kCols = false>
 cudaError_t launch_fma_dkv(const void* q, const void* k, const void* v, const uint8_t* m,
                            const void* dout, const float* lse, const float* delta, void* dk,
                            void* dv, const Shape& a, cudaStream_t stream) {
   static bool ready = false;
   constexpr int bytes = dkv_smem_bytes<HD, BLK>();
-  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<HD, BLK, T>, bytes, ready);
+  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<HD, BLK, T, kCols>, bytes, ready);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.skv + BLK - 1) / BLK, a.n_kv, a.b);
-  flash_bwd_dkv_kernel<HD, BLK, T><<<grid, kThreads, bytes, stream>>>(
+  const dim3 grid((a.skv + BLK - 1) / BLK * col_blocks<HD, kCols>(a.hd), a.n_kv, a.b);
+  flash_bwd_dkv_kernel<HD, BLK, T, kCols><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), m,
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), a.sq,
       a.skv, a.nh, a.n_kv, a.hd, a.scale, a.causal);
@@ -1610,14 +1697,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-// the head dims the kernels take: a multiple of 8 from 8 to 256 (the
-// wrapper zero-pads any other head dim up to 256 to the next multiple of 8)
-bool valid_head_dim(int hd) { return hd >= 8 && hd <= kWideHD && hd % 8 == 0; }
+// the head dims the kernels take: any multiple of 8 (the wrapper zero-pads
+// any other head dim to the next multiple of 8)
+bool valid_head_dim(int hd) { return hd >= 8 && hd % 8 == 0; }
 
+// Grid y and z hold heads and batch rows (at most 65535 each); past kWideHD
+// grid x holds row tiles times column blocks (at most 2^31 - 1)
 bool valid_shape(const Shape& a, int dtype) {
+  const int64_t cols = (a.hd + kWideHD - 1) / kWideHD;
+  const int64_t tiles = (std::max(a.sq, a.skv) + kWideBlock - 1) / kWideBlock;
   return a.b >= 1 && a.sq >= 1 && a.skv >= 1 && a.n_kv >= 1 && a.nh >= a.n_kv &&
          a.nh % a.n_kv == 0 && valid_head_dim(a.hd) && (dtype == 0 || dtype == 1) &&
-         a.b <= 65535 && a.nh <= 65535;
+         a.b <= 65535 && a.nh <= 65535 && tiles * cols <= INT32_MAX;
 }
 
 // fn(std::integral_constant<int, HD>) with HD = hd rounded up to 16: one
@@ -1665,6 +1756,22 @@ cudaError_t wgmma_blocks_per_sm(int which, int* blocks) {
   }
 }
 
+template <bool kCols>
+cudaError_t wide_blocks_per_sm(int which, int* blocks) {
+  switch (which) {
+    case 0:
+      return occupancy(flash_fwd_kernel<kWideHD, kWideBlock, bf16, kCols>, kThreads,
+                       fwd_smem_bytes<kWideHD, kWideBlock>(), blocks);
+    case 1:
+      return occupancy(flash_bwd_dq_kernel<kWideHD, kWideBlock, bf16, kCols>, kThreads,
+                       dq_smem_bytes<kWideHD, kWideBlock>(), blocks);
+    case 2:
+      return occupancy(flash_bwd_dkv_kernel<kWideHD, kWideBlock, bf16, kCols>, kThreads,
+                       dkv_smem_bytes<kWideHD, kWideBlock>(), blocks);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype codes shared with the Python wrapper: 0 = f32, 1 = bf16 (q, k, v, o,
@@ -1679,6 +1786,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if (hd > kWideHD)
+    return dtype == 0 ? launch_fma_fwd<kWideHD, kWideBlock, float, true>(q, k, v, m, o, l, a, st)
+                      : launch_fma_fwd<kWideHD, kWideBlock, bf16, true>(q, k, v, m, o, l, a, st);
   if (hd > 128)
     return dtype == 0 ? launch_fma_fwd<kWideHD, kWideBlock, float>(q, k, v, m, o, l, a, st)
                       : launch_fma_fwd<kWideHD, kWideBlock, bf16>(q, k, v, m, o, l, a, st);
@@ -1699,6 +1809,10 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if (hd > kWideHD)
+    return dtype == 0
+               ? launch_fma_dq<kWideHD, kWideBlock, float, true>(q, k, v, m, dout, l, d, dq, a, st)
+               : launch_fma_dq<kWideHD, kWideBlock, bf16, true>(q, k, v, m, dout, l, d, dq, a, st);
   if (hd > 128)
     return dtype == 0
                ? launch_fma_dq<kWideHD, kWideBlock, float>(q, k, v, m, dout, l, d, dq, a, st)
@@ -1720,6 +1834,11 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
+  if (hd > kWideHD)
+    return dtype == 0 ? launch_fma_dkv<kWideHD, kWideBlock, float, true>(q, k, v, m, dout, l, d,
+                                                                        dk, dv, a, st)
+                      : launch_fma_dkv<kWideHD, kWideBlock, bf16, true>(q, k, v, m, dout, l, d,
+                                                                       dk, dv, a, st);
   if (hd > 128)
     return dtype == 0 ? launch_fma_dkv<kWideHD, kWideBlock, float>(q, k, v, m, dout, l, d, dk,
                                                                   dv, a, st)
@@ -1732,24 +1851,13 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
 
 // Resident blocks an SM holds of the bf16 kernel `which` (0 forward, 1 dq,
 // 2 dk/dv) at head dim hd, with the threads and shared memory it launches
-// with: a wgmma kernel up to hd 128, a wide FMA kernel past it.
+// with: a wgmma kernel up to hd 128, a wide FMA kernel past it (the
+// column-block instance past 256).
 extern "C" int flash_attention_blocks_per_sm(int which, int hd, int* blocks) {
   (void)cudaGetLastError();
   if (!valid_head_dim(hd)) return cudaErrorInvalidValue;
-  if (hd > 128) {
-    switch (which) {
-      case 0:
-        return occupancy(flash_fwd_kernel<kWideHD, kWideBlock, bf16>, kThreads,
-                         fwd_smem_bytes<kWideHD, kWideBlock>(), blocks);
-      case 1:
-        return occupancy(flash_bwd_dq_kernel<kWideHD, kWideBlock, bf16>, kThreads,
-                         dq_smem_bytes<kWideHD, kWideBlock>(), blocks);
-      case 2:
-        return occupancy(flash_bwd_dkv_kernel<kWideHD, kWideBlock, bf16>, kThreads,
-                         dkv_smem_bytes<kWideHD, kWideBlock>(), blocks);
-      default: return cudaErrorInvalidValue;
-    }
-  }
+  if (hd > kWideHD) return wide_blocks_per_sm<true>(which, blocks);
+  if (hd > 128) return wide_blocks_per_sm<false>(which, blocks);
   return by_head_dim(hd, [&](auto c) {
     return wgmma_blocks_per_sm<decltype(c)::value>(which, blocks);
   });

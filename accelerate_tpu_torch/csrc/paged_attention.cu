@@ -67,7 +67,7 @@
 //    and the others idle in P.V), with the same staging and warp split, expf
 //    and IEEE divide, so f32 pools meet 1e-5 against the plain PyTorch
 //    version.
-//  * Any head dim from 1 to 256. The kernel is built at five staged widths,
+//  * Any head dim from 1. The kernel is built at five staged widths,
 //    16, 32, 64, 128 and 256, and a head dim runs at the first one that
 //    holds it: a staged row is whole 16-byte chunks, the columns past the
 //    head dim are zero-filled (so they add nothing to Q.K^T, and the output
@@ -84,6 +84,15 @@
 //    step (in registers they and O would take 192 a thread), a block holds
 //    one SM, and an f32 pool's 64-key stage is 128 KB, so that pool stages
 //    one tile at a time instead of a three-stage ring.
+//  * Past 256 (C4c, kCols): column blocks of 256. A block also owns one
+//    column block cb of the output (folded into grid x). The scores need
+//    every column, so for each 64-key tile the block stages the query's and
+//    K's 256-column chunks in turn (one stage, no ring) and each warp adds
+//    each chunk's product into its scores; V is staged once a tile, at
+//    column block cb. Every column block computes the same scores in the
+//    same order, so its (m, l) are bit-equal and column block 0 writes them;
+//    the merge kernel merges each column block's partials (grid y). The pool
+//    stays at the real head dim: K and V rows are read at the real pitch.
 
 #include <algorithm>
 #include <cfloat>
@@ -216,16 +225,18 @@ __device__ __forceinline__ float lds1(const char* p) {
 // Shared memory of one block, in bytes: the ring (reused by the warps'
 // merge), the scales' ring, the query tile, the FMA path's p, the table.
 // All of it dynamic: the opt-in takes the whole 227 KB.
-template <int HD, typename QT, typename KT, bool kQuant>
+template <int HD, typename QT, typename KT, bool kQuant, bool kCols = false>
 struct Smem {
   static constexpr bool kMma = std::is_same_v<QT, __nv_bfloat16>;
   static constexpr int kStageBytes = 2 * kStageKeys * Tile<HD, KT>::kRowBytes;  // K rows, V rows
   // ring depth: three stages, or one where a stage alone is 128 KB (an f32
-  // pool at HD 256)
-  static constexpr int kStages = kStageBytes > 65536 ? 1 : 3;
-  static constexpr int kRing = kStages * kStageBytes;
+  // pool at HD 256) or the head dim is walked in column chunks
+  static constexpr int kStages = kCols || kStageBytes > 65536 ? 1 : 3;
   static constexpr int kMerge = (kWarps * kRows * HD + 2 * kWarps * kRows) * 4;
-  static_assert(kMerge <= kRing, "the warps' merge reuses the ring");
+  // the warps' merge reuses the ring (a one-stage ring of narrow rows is
+  // smaller than the merge; a ring never is otherwise)
+  static_assert(kCols || kMerge <= kStages * kStageBytes, "the warps' merge reuses the ring");
+  static constexpr int kRing = std::max(kStages * kStageBytes, kMerge);
   static constexpr int kScales = kQuant ? kStages * 2 * kStageKeys * 4 : 0;
   static constexpr int kQRow = HD + 16 / static_cast<int>(sizeof(QT));  // padded rows
   static constexpr int kQ = kRows * kQRow * static_cast<int>(sizeof(QT));
@@ -313,17 +324,31 @@ struct MmaWarp {
       for (int i = 0; i < 4; ++i) o[nt][i] = 0.f;
   }
 
+  // the score fragments of the warp's 16 keys: sc[j][2 rr + e] is row
+  // g + 8 rr, key 8 j + 2 t + e
+  using Scores = float[2][4];
+
+  __device__ __forceinline__ static void zero(Scores& sc) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
+  }
+
   // keys wkey .. wkey + 15 of the stage (K rows kt, V rows vt, scales
   // ks_s / vs_s), at logical positions pos0 .. pos0 + 15
   __device__ __forceinline__ void tile(const char* kt, const char* vt, const float* ks_s,
                                        const float* vs_s, int wkey, int pos0, int k_hi,
                                        int lane) {
+    Scores sc;
+    zero(sc);
+    scores(sc, kt, wkey, lane);
+    finish(sc, vt, ks_s, vs_s, wkey, pos0, k_hi, lane);
+  }
+
+  // sc += the staged query columns . the staged K columns (HD of them)
+  __device__ __forceinline__ void scores(Scores& sc, const char* kt, int wkey, int lane) const {
     const int g = lane / 4, t = lane % 4;
-    float sc[2][4];
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
 #pragma unroll
     for (int ks = 0; ks < HD / 16; ++ks) {
       uint32_t kb[2][2];
@@ -352,8 +377,14 @@ struct MmaWarp {
         mma_bf16(sc[1], a, kb[1]);
       }
     }
+  }
 
-    // sc[j][2 rr + e]: row g + 8 rr, key 8 j + 2 t + e; scores to log2 units
+  // the online softmax of the warp's keys and P . V (V rows vt)
+  __device__ __forceinline__ void finish(Scores& sc, const char* vt, const float* ks_s,
+                                         const float* vs_s, int wkey, int pos0, int k_hi,
+                                         int lane) {
+    const int g = lane / 4, t = lane % 4;
+    // scores to log2 units
     float mx[2] = {-FLT_MAX, -FLT_MAX};
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -493,14 +524,27 @@ struct FmaWarp {
       for (int c = 0; c < kDims; ++c) acc[r][c] = 0.f;
   }
 
+  // the lane's key's scores with the 8 rows of its half-warp
+  using Scores = float[8];
+
+  __device__ __forceinline__ static void zero(Scores& s) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] = 0.f;
+  }
+
   __device__ __forceinline__ void tile(const char* kt, const char* vt, const float* ks_s,
                                        const float* vs_s, int wkey, int pos0, int k_hi,
                                        int lane) {
+    Scores s;
+    zero(s);
+    scores(s, kt, wkey, lane);
+    finish(s, vt, ks_s, vs_s, wkey, pos0, k_hi, lane);
+  }
+
+  // s += the staged query columns . the staged K columns (HD of them)
+  __device__ __forceinline__ void scores(Scores& s, const char* kt, int wkey, int lane) const {
     const int kk = lane % 16, half = lane / 16;
-    const int key = wkey + kk, p = pos0 + kk;
-    float s[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) s[i] = 0.f;
+    const int key = wkey + kk;
 #pragma unroll 4
     for (int d = 0; d < HD; d += 4) {
       const float2 k01 = lds2<KT>(kt + T::off(key, d));
@@ -514,6 +558,14 @@ struct FmaWarp {
         s[i] = fmaf(qv.w, k23.y, s[i]);
       }
     }
+  }
+
+  // the online softmax of the lane's key and P . V (V rows vt)
+  __device__ __forceinline__ void finish(Scores& s, const char* vt, const float* ks_s,
+                                         const float* vs_s, int wkey, int pos0, int k_hi,
+                                         int lane) {
+    const int kk = lane % 16, half = lane / 16;
+    const int key = wkey + kk, p = pos0 + kk;
     const float f = kQuant ? ks_s[key] : 1.f;  // x * 1.f is exact
     const float vsc = kQuant ? vs_s[key] : 1.f;
 #pragma unroll
@@ -580,7 +632,7 @@ struct FmaWarp {
 // Two blocks an SM: what the bf16 ring allows, and it lets ptxas give a
 // thread more than the 168 registers it aims at for three blocks. At HD 256
 // one block an SM: its ring alone is most of the SM's shared memory.
-template <int HD, typename QT, typename KT, bool kQuant>
+template <int HD, typename QT, typename KT, bool kQuant, bool kCols>
 __global__ void __launch_bounds__(kThreads, HD > 128 ? 1 : 2)
 paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
                        const KT* __restrict__ v_pages, const float* __restrict__ k_scale,
@@ -588,16 +640,23 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
                        const int* __restrict__ idx, QT* __restrict__ out,
                        float* __restrict__ part_acc, float* __restrict__ part_ml, int s, int nh,
                        int n_kv, int hd, int nb, int bs, int mb, int splits) {
-  using S = Smem<HD, QT, KT, kQuant>;
+  using S = Smem<HD, QT, KT, kQuant, kCols>;
   using T = Tile<HD, KT>;
   constexpr int kStages = S::kStages;
   using Warp = std::conditional_t<S::kMma, MmaWarp<HD, KT, kQuant>, FmaWarp<HD, KT, kQuant>>;
+  static_assert(!kCols || !S::kMma || !MmaWarp<HD, KT, kQuant>::kQRegs,
+                "a column chunk's query fragments are read from the staged tile");
   extern __shared__ __align__(128) char smem[];
   float* scale_s = reinterpret_cast<float*>(smem + S::kScaleOff);
   QT* q_s = reinterpret_cast<QT*>(smem + S::kQOff);
   int* tab_s = reinterpret_cast<int*>(smem + S::kTableOff);
 
-  const int split = blockIdx.x;
+  // kCols: the block owns column block cb (columns c_lo .. c_lo + HD) of
+  // the output, folded into grid x
+  const int n_cb = kCols ? (hd + HD - 1) / HD : 1;
+  const int split = kCols ? blockIdx.x / n_cb : blockIdx.x;
+  const int cb = kCols ? blockIdx.x % n_cb : 0;
+  const int c_lo = cb * HD;
   const int row_tiles = gridDim.y / n_kv;
   const int n = blockIdx.y / row_tiles;
   const int row0 = (blockIdx.y % row_tiles) * kRows;
@@ -618,39 +677,46 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
   const int* table = block_tables + static_cast<int64_t>(b) * mb + page_lo;
   for (int i = tid; i < pages; i += kThreads) tab_s[i] = min(max(table[i], 0), nb - 1);
 
-  // the query tile (rows past rep * s and columns past hd are zero)
-  if constexpr (S::kMma) {
-    constexpr int kV = 8;  // bf16: a 16-byte load where hd is a multiple of 8
-    if (hd % kV == 0) {
-      for (int e = tid; e < kRows * HD / kV; e += kThreads) {
-        const int r = e / (HD / kV), c = e % (HD / kV);
-        const int row = row0 + r;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (row < rows && c * kV < hd)
-          v = *reinterpret_cast<const uint4*>(q + out_row_of(b, row, rep, n, s, nh) * hd + c * kV);
-        *reinterpret_cast<uint4*>(q_s + r * S::kQRow + c * kV) = v;
+  // the query tile's columns c0 .. c0 + HD (rows past rep * s and columns
+  // past hd are zero)
+  auto load_q = [&](int c0) {
+    const int q_hd = hd - c0;
+    if constexpr (S::kMma) {
+      constexpr int kV = 8;  // bf16: a 16-byte load where hd is a multiple of 8
+      if (hd % kV == 0) {
+        for (int e = tid; e < kRows * HD / kV; e += kThreads) {
+          const int r = e / (HD / kV), c = e % (HD / kV);
+          const int row = row0 + r;
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (row < rows && c * kV < q_hd)
+            v = *reinterpret_cast<const uint4*>(q + out_row_of(b, row, rep, n, s, nh) * hd + c0 +
+                                                c * kV);
+          *reinterpret_cast<uint4*>(q_s + r * S::kQRow + c * kV) = v;
+        }
+      } else {  // element by element, as raw 16-bit words
+        const uint16_t* qw = reinterpret_cast<const uint16_t*>(q);
+        uint16_t* qs = reinterpret_cast<uint16_t*>(q_s);
+        for (int e = tid; e < kRows * HD; e += kThreads) {
+          const int r = e / HD, d = e % HD;
+          const int row = row0 + r;
+          qs[r * S::kQRow + d] =
+              row < rows && d < q_hd ? qw[out_row_of(b, row, rep, n, s, nh) * hd + c0 + d] : 0;
+        }
       }
-    } else {  // element by element, as raw 16-bit words
-      const uint16_t* qw = reinterpret_cast<const uint16_t*>(q);
-      uint16_t* qs = reinterpret_cast<uint16_t*>(q_s);
+    } else {
+      // scaled once by 1/sqrt(hd), as the plain version folds it into q
+      const float root = sqrtf(static_cast<float>(hd));
       for (int e = tid; e < kRows * HD; e += kThreads) {
         const int r = e / HD, d = e % HD;
         const int row = row0 + r;
-        qs[r * S::kQRow + d] =
-            row < rows && d < hd ? qw[out_row_of(b, row, rep, n, s, nh) * hd + d] : 0;
+        float x = 0.f;
+        if (row < rows && d < q_hd)
+          x = to_f32(q[out_row_of(b, row, rep, n, s, nh) * hd + c0 + d]) / root;
+        q_s[r * S::kQRow + d] = x;
       }
     }
-  } else {
-    // scaled once by 1/sqrt(hd), as the plain version folds it into q
-    const float root = sqrtf(static_cast<float>(hd));
-    for (int e = tid; e < kRows * HD; e += kThreads) {
-      const int r = e / HD, d = e % HD;
-      const int row = row0 + r;
-      float x = 0.f;
-      if (row < rows && d < hd) x = to_f32(q[out_row_of(b, row, rep, n, s, nh) * hd + d]) / root;
-      q_s[r * S::kQRow + d] = x;
-    }
-  }
+  };
+  if constexpr (!kCols) load_q(0);
   __syncthreads();  // tab_s and q_s are written
 
   const int n_tiles = (k_hi - k_lo + kStageKeys - 1) / kStageKeys;
@@ -662,7 +728,10 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
   // KT's bytes as one unsigned word, for the element path
   using W = std::conditional_t<sizeof(KT) == 4, uint32_t,
                                std::conditional_t<sizeof(KT) == 2, uint16_t, uint8_t>>;
-  auto load_stage = [&](int t) {
+  // stage t's K rows at columns kc .. kc + HD and V rows at vc .. vc + HD
+  // (kCols: K for one column chunk, V, once a tile, for column block cb),
+  // with the scales where with_scales
+  auto load_cols = [&](int t, int kc, int vc, bool with_v, bool with_scales) {
     char* kdst = smem + (t % kStages) * S::kStageBytes;
     char* vdst = kdst + kStageKeys * T::kRowBytes;
     const int k0 = k_lo + t * kStageKeys;
@@ -675,14 +744,15 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
         int64_t off = 0;
         if (valid)
           off = ((static_cast<int64_t>(tab_s[p / bs - page_lo]) * bs + p % bs) * n_kv + n) * hd;
-        const W* kw = reinterpret_cast<const W*>(k_pages) + off;
-        const W* vw = reinterpret_cast<const W*>(v_pages) + off;
+        const W* kw = reinterpret_cast<const W*>(k_pages) + off + kc;
+        const W* vw = reinterpret_cast<const W*>(v_pages) + off + vc;
         const int so = T::off(key, e0);
 #pragma unroll
         for (int i = 0; i < T::kVec; ++i) {
-          const bool ok = valid && e0 + i < hd;
-          *reinterpret_cast<W*>(kdst + so + i * sizeof(KT)) = ok ? kw[e0 + i] : W(0);
-          *reinterpret_cast<W*>(vdst + so + i * sizeof(KT)) = ok ? vw[e0 + i] : W(0);
+          const bool k_ok = valid && kc + e0 + i < hd;
+          *reinterpret_cast<W*>(kdst + so + i * sizeof(KT)) = k_ok ? kw[e0 + i] : W(0);
+          const bool v_ok = valid && vc + e0 + i < hd;
+          if (with_v) *reinterpret_cast<W*>(vdst + so + i * sizeof(KT)) = v_ok ? vw[e0 + i] : W(0);
         }
       }
     } else {
@@ -698,17 +768,19 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int e = e0 + kHalf * h;
-            cp_async8(smem_u32(kdst + so + 8 * h), k_pages + off + e, valid && e < hd);
-            cp_async8(smem_u32(vdst + so + 8 * h), v_pages + off + e, valid && e < hd);
+            cp_async8(smem_u32(kdst + so + 8 * h), k_pages + off + kc + e, valid && kc + e < hd);
+            if (with_v)
+              cp_async8(smem_u32(vdst + so + 8 * h), v_pages + off + vc + e, valid && vc + e < hd);
           }
         } else {
-          cp_async16(smem_u32(kdst + so), k_pages + off + e0, valid && e0 < hd);
-          cp_async16(smem_u32(vdst + so), v_pages + off + e0, valid && e0 < hd);
+          cp_async16(smem_u32(kdst + so), k_pages + off + kc + e0, valid && kc + e0 < hd);
+          if (with_v)
+            cp_async16(smem_u32(vdst + so), v_pages + off + vc + e0, valid && vc + e0 < hd);
         }
       }
     }
     if constexpr (kQuant) {
-      if (tid < kStageKeys) {
+      if (with_scales && tid < kStageKeys) {
         float* sc = scale_s + (t % kStages) * 2 * kStageKeys;
         const int p = k0 + tid;
         const bool valid = p < k_hi;
@@ -719,6 +791,7 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
       }
     }
   };
+  auto load_stage = [&](int t) { load_cols(t, 0, 0, true, true); };
 
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
@@ -731,6 +804,31 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
          row0, rows, rep, start, hd);
   const int last_pos = start + (min(row0 + kRows, rows) - 1) / rep;  // the tile's last query
   for (int t = 0; t < n_tiles; ++t) {
+    if constexpr (kCols) {
+      // the scores need every column: stage the query's and K's column
+      // chunks in turn, adding each chunk's product into the scores; V is
+      // staged once, at column block cb, with the first chunk
+      const char* kt = smem;
+      const float* sc = scale_s;
+      const int wkey = warp * kWarpKeys;
+      const int pos0 = k_lo + t * kStageKeys + wkey;
+      const bool live = pos0 < k_hi && pos0 <= last_pos;  // warp-uniform
+      typename Warp::Scores acc_s;
+      Warp::zero(acc_s);
+      for (int c0 = 0; c0 < hd; c0 += HD) {
+        __syncthreads();  // the previous chunk (and tile) is consumed
+        load_q(c0);
+        load_cols(t, c0, c_lo, c0 == 0, c0 == 0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();  // every thread's copies and stores have landed
+        if (live) w.scores(acc_s, kt, wkey, lane);
+      }
+      if (live)
+        w.finish(acc_s, kt + kStageKeys * T::kRowBytes, sc, sc + kStageKeys, wkey, pos0, k_hi,
+                 lane);
+      continue;
+    }
     if constexpr (kStages == 1) {
       __syncthreads();  // tile t - 1 is consumed
       load_stage(t);
@@ -761,10 +859,11 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
   __syncthreads();
 
   // merge the warps in warp order; one split in use writes the output (the
-  // first hd columns)
+  // first hd columns, or column block cb's)
   const int rows_here = min(kRows, rows - row0);
-  for (int e = tid; e < rows_here * hd; e += kThreads) {
-    const int r = e / hd, d = e % hd;
+  const int cols = kCols ? min(HD, hd - c_lo) : hd;
+  for (int e = tid; e < rows_here * cols; e += kThreads) {
+    const int r = e / cols, d = e % cols;
     float m_all = -FLT_MAX;
 #pragma unroll
     for (int i = 0; i < kWarps; ++i) m_all = fmaxf(m_all, mm[i * kRows + r]);
@@ -777,11 +876,12 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
     }
     const int64_t out_row = out_row_of(b, row0 + r, rep, n, s, nh);
     if (used == 1) {
-      store_as(out + out_row * hd + d, o / fmaxf(l_all, 1e-30f));
+      store_as(out + out_row * hd + c_lo + d, o / fmaxf(l_all, 1e-30f));
     } else {
       const int64_t part = out_row * splits + split;
-      part_acc[part * hd + d] = o;
-      if (d == 0) {
+      part_acc[part * hd + c_lo + d] = o;
+      // every column block computes the same (m, l): block 0 writes them
+      if (d == 0 && cb == 0) {
         part_ml[2 * part] = m_all;
         part_ml[2 * part + 1] = l_all;
       }
@@ -790,17 +890,17 @@ paged_attention_kernel(const QT* __restrict__ q, const KT* __restrict__ k_pages,
 }
 
 // Merge the splits of each query row, in split order: one block per (b, qj,
-// head), one thread per output dim (HD, the staged width, threads; those
-// past hd leave). Only the splits the row used are read; a row that used one
-// split was written by the split kernel.
-template <int HD, typename QT>
+// head) and, past HD, column block (grid y), one thread per output dim (HD,
+// the staged width, threads; those past hd leave). Only the splits the row
+// used are read; a row that used one split was written by the split kernel.
+template <int HD, typename QT, bool kCols>
 __global__ void __launch_bounds__(HD)
 combine_splits_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
                       const int* __restrict__ idx, QT* __restrict__ out, int s, int nh, int hd,
                       int bs, int mb, int splits) {
   const int64_t out_row = blockIdx.x;
   const int b = static_cast<int>(out_row / (static_cast<int64_t>(s) * nh));
-  const int d = threadIdx.x;
+  const int d = (kCols ? blockIdx.y * HD : 0) + threadIdx.x;
   if (d >= hd) return;
   int used, lo, hi;
   split_range(min(idx[b] + s, mb * bs), splits, 0, used, lo, hi);
@@ -844,27 +944,28 @@ int table_cap(int span, int bs, int mb, int splits) {
 
 // Above 48 KB a kernel needs an opt-in for dynamic shared memory; once per
 // kernel instance and process.
-template <int HD, typename QT, typename KT, bool kQuant>
+template <int HD, typename QT, typename KT, bool kQuant, bool kCols>
 cudaError_t opt_in() {
   static bool done = false;
   if (done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<HD, QT, KT, kQuant>,
+  const cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<HD, QT, KT, kQuant, kCols>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                kMaxSmem);
   done = err == cudaSuccess;
   return err;
 }
 
-template <int HD, typename QT, typename KT, bool kQuant>
+template <int HD, typename QT, typename KT, bool kQuant, bool kCols>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int bytes =
-      Smem<HD, QT, KT, kQuant>::bytes(table_cap(a.mb * a.bs, a.bs, a.mb, a.splits));
+      Smem<HD, QT, KT, kQuant, kCols>::bytes(table_cap(a.mb * a.bs, a.bs, a.mb, a.splits));
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = opt_in<HD, QT, KT, kQuant>();
+  cudaError_t err = opt_in<HD, QT, KT, kQuant, kCols>();
   if (err != cudaSuccess) return err;
   const int rows = (a.nh / a.n_kv) * a.s;
-  const dim3 grid(a.splits, a.n_kv * ((rows + kRows - 1) / kRows), a.b);
-  paged_attention_kernel<HD, QT, KT, kQuant><<<grid, kThreads, bytes, stream>>>(
+  const int n_cb = kCols ? (a.hd + HD - 1) / HD : 1;
+  const dim3 grid(a.splits * n_cb, a.n_kv * ((rows + kRows - 1) / kRows), a.b);
+  paged_attention_kernel<HD, QT, KT, kQuant, kCols><<<grid, kThreads, bytes, stream>>>(
       static_cast<const QT*>(a.q), static_cast<const KT*>(a.k_pages),
       static_cast<const KT*>(a.v_pages), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), static_cast<const int*>(a.block_tables),
@@ -872,7 +973,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       a.nh, a.n_kv, a.hd, a.nb, a.bs, a.mb, a.splits);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return err;
-  combine_splits_kernel<HD, QT><<<a.b * a.s * a.nh, HD, 0, stream>>>(
+  combine_splits_kernel<HD, QT, kCols><<<dim3(a.b * a.s * a.nh, n_cb), HD, 0, stream>>>(
       a.part_acc, a.part_ml, static_cast<const int*>(a.idx), static_cast<QT*>(a.out), a.s,
       a.nh, a.hd, a.bs, a.mb, a.splits);
   return cudaGetLastError();
@@ -880,22 +981,22 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 // dtype codes shared with the Python wrapper: q 0 = f32, 1 = bf16;
 // pools 0 = f32, 1 = bf16, 2 = int8, 3 = fp8 e4m3 (2 and 3 carry scales)
-template <int HD, typename QT>
+template <int HD, typename QT, bool kCols>
 cudaError_t by_pool(const Args& a, int kv_dtype, cudaStream_t stream) {
   switch (kv_dtype) {
-    case 0: return launch<HD, QT, float, false>(a, stream);
-    case 1: return launch<HD, QT, __nv_bfloat16, false>(a, stream);
-    case 2: return launch<HD, QT, int8_t, true>(a, stream);
-    case 3: return launch<HD, QT, __nv_fp8_e4m3, true>(a, stream);
+    case 0: return launch<HD, QT, float, false, kCols>(a, stream);
+    case 1: return launch<HD, QT, __nv_bfloat16, false, kCols>(a, stream);
+    case 2: return launch<HD, QT, int8_t, true, kCols>(a, stream);
+    case 3: return launch<HD, QT, __nv_fp8_e4m3, true, kCols>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int HD>
+template <int HD, bool kCols = false>
 cudaError_t by_query(const Args& a, int q_dtype, int kv_dtype, cudaStream_t stream) {
   switch (q_dtype) {
-    case 0: return by_pool<HD, float>(a, kv_dtype, stream);
-    case 1: return by_pool<HD, __nv_bfloat16>(a, kv_dtype, stream);
+    case 0: return by_pool<HD, float, kCols>(a, kv_dtype, stream);
+    case 1: return by_pool<HD, __nv_bfloat16, kCols>(a, kv_dtype, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -905,7 +1006,8 @@ cudaError_t by_query(const Args& a, int q_dtype, int kv_dtype, cudaStream_t stre
 // part_acc [b, s, nh, splits, hd] and part_ml [b, s, nh, splits, 2] (f32)
 // are scratch the wrapper allocates when splits > 1, else null. splits is
 // the wrapper's plan: at least ceil(mb * bs / 4096), at most the
-// table's 64-key tiles. hd is any head dim from 1 to 256.
+// table's 64-key tiles. hd is any head dim from 1 (past 256 grid x holds
+// splits times ceil(hd / 256) blocks, at most 2^31 - 1).
 extern "C" int paged_attention_forward(const void* q, const void* k_pages, const void* v_pages,
                                        const void* k_scale, const void* v_scale,
                                        const void* block_tables, const void* idx, void* out,
@@ -915,7 +1017,8 @@ extern "C" int paged_attention_forward(const void* q, const void* k_pages, const
   (void)cudaGetLastError();  // report this launch's error, not a stale one
   const int64_t span = static_cast<int64_t>(mb) * bs;
   if (b < 1 || s < 1 || n_kv < 1 || nh % n_kv != 0 || nb < 1 || bs < 1 || mb < 1 ||
-      span > (int64_t{1} << 30) || splits < 1 || hd < 1 || hd > 256 ||
+      span > (int64_t{1} << 30) || splits < 1 || hd < 1 ||
+      static_cast<int64_t>(splits) * ((hd + 255) / 256) > INT32_MAX ||
       splits > (span + kStageKeys - 1) / kStageKeys ||
       splits < (span + kMaxSplitKeys - 1) / kMaxSplitKeys ||
       (splits > 1 && (part_acc == nullptr || part_ml == nullptr)))
@@ -929,7 +1032,8 @@ extern "C" int paged_attention_forward(const void* q, const void* k_pages, const
   if (hd <= 32) return by_query<32>(a, q_dtype, kv_dtype, st);
   if (hd <= 64) return by_query<64>(a, q_dtype, kv_dtype, st);
   if (hd <= 128) return by_query<128>(a, q_dtype, kv_dtype, st);
-  return by_query<256>(a, q_dtype, kv_dtype, st);
+  if (hd <= 256) return by_query<256>(a, q_dtype, kv_dtype, st);
+  return by_query<256, true>(a, q_dtype, kv_dtype, st);  // column blocks of 256
 }
 
 // Resident blocks an SM holds of the split kernel and of the combine kernel
@@ -937,24 +1041,26 @@ extern "C" int paged_attention_forward(const void* q, const void* k_pages, const
 // slots at context 1024: a 64-entry table of 16-key pages in 2 splits), by
 // the runtime's occupancy calculator for this device, and the split
 // kernel's dynamic shared memory there.
-template <int HD>
+template <int HD, bool kCols = false>
 cudaError_t blocks_per_sm(int* split, int* combine, int* smem_bytes) {
-  using S = Smem<HD, __nv_bfloat16, __nv_bfloat16, false>;
-  cudaError_t err = opt_in<HD, __nv_bfloat16, __nv_bfloat16, false>();
+  using S = Smem<HD, __nv_bfloat16, __nv_bfloat16, false, kCols>;
+  cudaError_t err = opt_in<HD, __nv_bfloat16, __nv_bfloat16, false, kCols>();
   if (err != cudaSuccess) return err;
   *smem_bytes = S::bytes(table_cap(64 * 16, 16, 64, 2));
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      split, paged_attention_kernel<HD, __nv_bfloat16, __nv_bfloat16, false>, kThreads,
+      split, paged_attention_kernel<HD, __nv_bfloat16, __nv_bfloat16, false, kCols>, kThreads,
       *smem_bytes);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      combine, combine_splits_kernel<HD, __nv_bfloat16>, HD, 0);
+      combine, combine_splits_kernel<HD, __nv_bfloat16, kCols>, HD, 0);
 }
 
+// hd 128, 256 or, for the column-block instance, any hd past 256
 extern "C" int paged_attention_blocks_per_sm(int hd, int* split, int* combine, int* smem_bytes) {
   (void)cudaGetLastError();
   if (hd == 128) return blocks_per_sm<128>(split, combine, smem_bytes);
   if (hd == 256) return blocks_per_sm<256>(split, combine, smem_bytes);
+  if (hd > 256) return blocks_per_sm<256, true>(split, combine, smem_bytes);
   return cudaErrorInvalidValue;
 }
 

@@ -12,7 +12,8 @@ backward is :func:`flash_bwd`:
   ``flash_bwd_dq_*`` ``_bwd_dq_kernel`` and ``flash_bwd_dkv_*``
   ``_bwd_dkv_kernel``; bf16 inputs up to head dim 128 run their products
   on the tensor cores (``wgmma`` fed by a TMA ring), f32 inputs and every
-  head dim past 128 on the FMA units (no TF32). Taken for CUDA tensors,
+  head dim past 128 on the FMA units (no TF32; past 256 in column blocks
+  of 256). Taken for CUDA tensors,
   and only the kernels: a build or launch failure raises;
 * the **plain** PyTorch versions :func:`_flash_fwd_plain` and
   :func:`_flash_bwd_plain` — the kernels' math as a loop over key tiles,
@@ -48,17 +49,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the head dims every hand-written attention kernel takes (B1-B3 here, B4 in
 #: :mod:`.paged_attention`; the training entry point refuses others on the
 #: card before any step: ``accelerator.check_kernel_head_dim``). The kernels
-#: stage a head dim as zero-padded tiles of a wider built width; B1-B3 are
-#: handed q, k, v (and dO) zero-padded to a multiple of 8 (TMA's 16-byte
-#: strides), B4 reads the pool at its real width
-HEAD_DIM_RULE = "any head dim from 1 to 256"
-#: the widest head dim the kernels take
-MAX_HEAD_DIM = 256
+#: stage a head dim as zero-padded tiles of a wider built width, and past
+#: 256 as column blocks of 256; B1-B3 are handed q, k, v (and dO)
+#: zero-padded to a multiple of 8 (TMA's 16-byte strides), B4 reads the pool
+#: at its real width. What they compute does not depend on the head dim, as
+#: the JAX kernels' does not
+HEAD_DIM_RULE = "any head dim of at least 1"
 
 
 def takes_head_dim(hd: int) -> bool:
     """True for a head dim the CUDA kernels take (:data:`HEAD_DIM_RULE`)."""
-    return 1 <= hd <= MAX_HEAD_DIM
+    return hd >= 1
 
 #: key tile of the plain forward: the bf16 forward kernel's (``kFwdTileKeys``
 #: in ``csrc/flash_attention.cu``), where P is rounded at each tile's running max
@@ -311,7 +312,7 @@ def _validate(q, k, v, segment_mask, *extra):
     _, skv, n_kv, hd_k = k.shape
     _check(k.shape[0] == b and hd_k == hd, "q and k/v shapes disagree")
     _check(hd % 8 == 0 and takes_head_dim(hd),
-           f"head_dim {hd}: the kernels take a multiple of 8 up to {MAX_HEAD_DIM} "
+           f"head_dim {hd}: the kernels take a multiple of 8 "
            "(flash_fwd / flash_bwd pad any other)")
     _check(nh % n_kv == 0, f"n_heads {nh} is not a multiple of n_kv {n_kv}")
     _check(q.dtype in _DTYPE_CODES and k.dtype == q.dtype and v.dtype == q.dtype,

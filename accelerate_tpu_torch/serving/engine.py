@@ -251,6 +251,11 @@ class EngineConfig:
     #: counters, the usage snapshot) every this many iterations while a
     #: telemetry recorder is active (0 disables)
     stats_interval: int = 32
+    #: device-memory budget in GiB: when set, the SP004 pre-flight
+    #: (:func:`~accelerate_tpu_torch.analysis.shardplan.engine_preflight`)
+    #: prices params + pools from shapes and refuses to start over budget,
+    #: BEFORE any pool or swap buffer allocates (``serve --hbm-gb``)
+    hbm_budget_gb: float | None = None
 
     @property
     def blocks_per_slot(self) -> int:
@@ -537,6 +542,11 @@ class InferenceEngine:
 
         #: max-length requests the pool holds at once
         self.kv_slot_capacity = (num_blocks - 1) // cfg.blocks_per_slot
+        shape = (mcfg.num_hidden_layers, num_blocks, cfg.block_size, n_kv, mcfg.head_dim)
+        #: the SP004 pre-flight's report (None without ``hbm_budget_gb``)
+        self.hbm_preflight: dict | None = None
+        if cfg.hbm_budget_gb is not None:
+            self._hbm_preflight(shape, store_dtype)
         self.allocator = BlockAllocator(num_blocks)
         self.radix = RadixCache(self.allocator, cfg.block_size) if cfg.prefix_cache else None
         dev = self.device
@@ -558,7 +568,6 @@ class InferenceEngine:
             usage=self.usage,
         )
         self._cow_copies = 0
-        shape = (mcfg.num_hidden_layers, num_blocks, cfg.block_size, n_kv, mcfg.head_dim)
         # never reassigned: the graphs hold these pointers
         self._pages = {
             "k": torch.zeros(shape, dtype=store_dtype, device=dev),
@@ -568,6 +577,12 @@ class InferenceEngine:
             # all-ones init: a never-written row dequantizes to exactly 0
             self._pages["k_scale"] = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
             self._pages["v_scale"] = torch.ones(shape[:-1], dtype=torch.float32, device=dev)
+        #: params + pools, the static model of what the engine holds on the
+        #: device (``stats()``'s watermarks where the device reports none)
+        self._static_hbm_bytes = int(
+            sum(t.numel() * t.element_size() for t in model.state_dict().values())
+            + sum(t.numel() * t.element_size() for t in self._pages.values())
+        )
 
         # host mirrors the dispatches stage from
         self._block_tables = np.zeros((cfg.num_slots, mb), np.int32)
@@ -1146,6 +1161,57 @@ class InferenceEngine:
             "decode": eager_decode + sum(p.replays * p.decode_launches_captured for p in progs),
         }
 
+    def _hbm_preflight(self, pool_shape, pool_dtype) -> None:
+        """SP004 at the serving seam: predicted bytes of the params plus both
+        paged pools (the speculative draft adds none: it runs the target's
+        own layers in place), refused against ``hbm_budget_gb`` BEFORE a
+        single pool or swap buffer allocates."""
+        from ..analysis.shardplan import engine_preflight
+
+        cfg = self.config
+        report = engine_preflight(
+            self.model, None, None, pool_shape, pool_dtype, cfg.hbm_budget_gb,
+            swap_gb=cfg.swap_gb or None,
+            draft_layers=self._spec.layers if self._spec else None,
+        )
+        self.hbm_preflight = report
+        if report["over"]:
+            gib = 1 << 30
+            raise ValueError(
+                f"SP004: engine refuses to start — predicted "
+                f"{report['total_bytes'] / gib:.3f} GiB/device "
+                f"(params {report['params_bytes'] / gib:.3f} + "
+                f"kv pools {report['pool_bytes'] / gib:.3f}) exceeds the "
+                f"{cfg.hbm_budget_gb:.3f} GiB budget. Lower "
+                f"num_blocks/max_seq_len (or use serve --auto-blocks), "
+                f"or raise the budget"
+            )
+
+    def _hbm_watermarks(self) -> dict:
+        """Device-memory watermarks: on the card PyTorch's allocator counts
+        (``torch.cuda.memory_allocated`` / ``max_memory_allocated``,
+        ``hbm_bytes_source`` ``"memory_stats"``), on the CPU the static
+        params + pools model the pre-flight prices, labelled ``"estimate"``
+        so a CPU reading is never taken for a device high-water mark.
+        Headroom appears against the card's total memory or, without a
+        card, the configured ``hbm_budget_gb``."""
+        limit = None
+        if self.device.type == "cuda":
+            used = int(torch.cuda.memory_allocated(self.device))
+            peak = int(torch.cuda.max_memory_allocated(self.device))
+            limit = int(torch.cuda.get_device_properties(self.device).total_memory)
+            source = "memory_stats"
+        else:
+            used = peak = self._static_hbm_bytes
+            source = "estimate"
+        if limit is None and self.config.hbm_budget_gb is not None:
+            limit = int(self.config.hbm_budget_gb * (1 << 30))
+        out = {"hbm_used_bytes": used, "hbm_peak_bytes": peak, "hbm_bytes_source": source}
+        if limit is not None:
+            out["hbm_limit_bytes"] = limit
+            out["hbm_headroom_bytes"] = limit - used
+        return out
+
     def _spec_stats(self) -> dict:
         """Speculative health (JAX ``_spec_stats``; the accept rate is the
         TPOT lever: each round costs one dispatch and emits accept+1
@@ -1244,6 +1310,9 @@ class InferenceEngine:
         }
         out.update(self._spec_stats())
         out.update(self._sampling_stats())
+        out.update(self._hbm_watermarks())
+        if self.hbm_preflight is not None:
+            out["hbm_preflight"] = self.hbm_preflight
         if self.usage is not None:
             # totals, capped by_tenant, heavy hitters and the conservation
             # partner totals (device_wait_seconds / pool_block_seconds)
@@ -1932,6 +2001,7 @@ class InferenceEngine:
                 deadline_expired_total=self._deadline_expired,
                 **self._spec_stats(),
                 **self._sampling_stats(),
+                **self._hbm_watermarks(),
                 **(self._flight.telemetry_fields() if self._flight is not None else {}),
                 **({"usage": self.usage.snapshot()} if self.usage is not None else {}),
             )

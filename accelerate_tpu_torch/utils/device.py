@@ -18,3 +18,20 @@ def resolve_device(device=None) -> torch.device:
             "--device cpu) to run the plain PyTorch paths on the CPU"
         )
     return device
+
+
+def device_hbm_bytes(device=None) -> int | None:
+    """The card's total memory in bytes (``torch.cuda.mem_get_info``), or
+    ``None`` on the CPU, which reports no device memory limit (port of
+    ``accelerate_tpu/mesh.py:device_hbm_bytes``): the default budget of
+    ``serve --auto-blocks``. ``device`` defaults to the current CUDA device
+    when there is one."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    _free, total = torch.cuda.mem_get_info(device)
+    return int(total)

@@ -35,6 +35,9 @@ failure, so the script exits non-zero and prints no result):
    (and a bf16 pool under f32 queries) ``atol=rtol=1e-4`` on the same
    stored bytes. Each case launches twice and requires bit-identical
    outputs;
+3d. C4c: head dims 264, 300 and 512 (past 256 the kernel walks column
+   blocks of 256) in every pool with f32 and bf16 queries, decode and
+   s = 5, and the mixed-length batch at hd 512, under phase 3's gates;
 4. the flagship llama's paged step in f32, kernel against plain: one
    64-token prefill chunk then 8 decode steps, max |Δ logits| <= 1e-3;
 5. the main path: ``python -m accelerate_tpu_torch serve --preset flagship
@@ -94,6 +97,26 @@ failure, so the script exits non-zero and prints no result):
 5f. workload replay: ``serve --trace bursty-diurnal:7:4:8`` (stdin mode)
    on the flagship answers every scheduled request with its budget, and
    ``WORKLOAD.json``'s digest equals a recomputation;
+5g. the fleet: ``python -m accelerate_tpu_torch route --replicas 2`` over
+   two ``serve --http`` replicas of the flagship on the one card (phase 5's
+   flags, ``--respawn``, ``--chaos-spec r0:kill@7``, ``--http PORT``):
+   phase 5's 12 requests as greedy SSE through the router's OpenAI door,
+   then the same 12 prompts as JSONL rows on route's stdin (the replicas'
+   ``POST /generate``), replica 0 killed at its 7th request mid graph
+   replay. Every request answered exactly once, greedy tokens equal phase
+   5's or parting within 5b's margin rule, replica 0 respawned once (dead
+   to ready timed), replica 1's and the respawned replica 0's ``/stats``
+   one capture of each program and B4's launches = eager + replays ×
+   captured; then replica 1 SIGSTOPped with a request decoding on it: the
+   router's wedge verdict rescues it to replica 0 (whose own request's TPOT
+   is printed beside phase 5's), kills and respawns replica 1; SIGTERM to
+   route drains, exit 0, no fleet process alive and ``nvidia-smi``'s
+   compute apps back to the list before the fleet.
+   Tok/s, client TTFT and TPOT printed beside phase 5e's single replica;
+5h. the HBM pre-flight: ``serve --auto-blocks`` on the flagship (the chosen
+   ``num_blocks`` printed; predicted params + pool bytes equal the tensors
+   on the card), and ``--hbm-gb 1``: SP004 before any pool allocates
+   (``torch.cuda.memory_allocated`` shows the weights only), serve exit 2;
 5d. speculative decoding (``spec_k`` 4, ``early_exit:2``) on the flagship:
    the 12 requests greedy against 5b's plain tokens under 5b's margin rule
    (a divergence's logits from an eager prefill of the shared prefix), one
@@ -108,8 +131,8 @@ failure, so the script exits non-zero and prints no result):
    layers' pools rotated so L2 does not hold them), at context 1024 (the
    table's ``mb · bs``), and at the prefill chunk (b 1, s 32, the chunk's
    last query at context 512 and 896), at the spec verify (8 slots, s = 5,
-   context 512) and at decode with head dims 80 and 24 (12 heads) and 256
-   (8 heads, C4b): the
+   context 512) and at decode with head dims 80 and 24 (12 heads), 256
+   (8 heads, C4b) and 512 (4 heads, C4c): the
    kernel (CUDA events around the
    Python wrapper), the device time a launch of its split kernel and of its
    combine kernel under ``torch.profiler``, the plain version,
@@ -159,6 +182,13 @@ failure, so the script exits non-zero and prints no result):
 8c. C4b: a tiny llama with four 256-wide heads (hidden 1024) trained the
    same way (finite, falling loss, each kernel once a layer a step); B1-B3
    at hd 256 (b 8, s 1024, 8 heads, bf16, causal) timed as in 8b;
+8d. C4c: B1-B3 at head dims 264, 300 and 512 (column blocks of 256) at
+   s = 129, at 1000 left-padded and at 200 not causal, f32 and bf16, under
+   phase 8's gates and launched twice; a tiny llama with two 512-wide heads
+   (hidden 1024) trained 20 steps (finite, falling loss, each kernel once a
+   layer a step) and its f32 paged step kernel against plain as in phase
+   4; B1-B3 timed at hd 512 (b 8, s 1024, 8 heads, bf16, causal) beside
+   sdpa, whose backend is named (PyTorch's flash backend stops at 256);
 9. one training forward and backward at flagship width (2 layers, b 2,
    s 512, one left-padded row), attention through the kernels against the
    plain autograd.Function, in f32 (loss within 1e-5 relative, every
@@ -198,6 +228,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -213,6 +244,14 @@ SERVE_TIMEOUT_S = 600
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: when main() started: each phase's heading carries the seconds since
+_T0 = [time.perf_counter()]
+
+
+def log_phase(msg: str) -> None:
+    log(f"{msg} [{time.perf_counter() - _T0[0]:.1f} s]")
 
 
 def kernel_key(mangled: str):
@@ -249,13 +288,19 @@ def ptxas_report(log: str) -> dict:
 #: the head dims B1-B3 are built at (a head dim runs at the first that holds it)
 FLASH_BUILT_HDS = (16, 32, 48, 64, 80, 96, 112, 128)
 #: B4's instances at the timed decode shape (hd 128, bf16 queries and pool)
-PAGED_TIMED = ("paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false>",
-               "combine_splits_kernel<128, __nv_bfloat16>")
+PAGED_TIMED = ("paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false, false>",
+               "combine_splits_kernel<128, __nv_bfloat16, false>")
 #: B4's instances at head dim 256 (C4b), bf16 queries and pool
-PAGED_WIDE = ("paged_attention_kernel<256, __nv_bfloat16, __nv_bfloat16, false>",
-              "combine_splits_kernel<256, __nv_bfloat16>")
+PAGED_WIDE = ("paged_attention_kernel<256, __nv_bfloat16, __nv_bfloat16, false, false>",
+              "combine_splits_kernel<256, __nv_bfloat16, false>")
+#: B4's column-block instances past head dim 256 (C4c), bf16 queries and pool
+PAGED_COLS = ("paged_attention_kernel<256, __nv_bfloat16, __nv_bfloat16, false, true>",
+              "combine_splits_kernel<256, __nv_bfloat16, true>")
 #: B1-B3's bf16 instances past head dim 128 (C4b): the wide FMA kernels
-FLASH_WIDE = tuple(f"{name}_kernel<256, 32, __nv_bfloat16>" for name in
+FLASH_WIDE = tuple(f"{name}_kernel<256, 32, __nv_bfloat16, false>" for name in
+                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+#: and past 256 (C4c): their column-block instances
+FLASH_COLS = tuple(f"{name}_kernel<256, 32, __nv_bfloat16, true>" for name in
                    ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
 
 
@@ -277,12 +322,13 @@ def occupancy_report() -> tuple[dict, dict]:
             if flash.flash_attention_blocks_per_sm(which, hd, ctypes.byref(blocks)):
                 raise AssertionError(f"the occupancy query failed for {name} at hd {hd}")
             out[f"{name}_wgmma_kernel<{hd}>"] = blocks.value
-        if flash.flash_attention_blocks_per_sm(which, 256, ctypes.byref(blocks)):
-            raise AssertionError(f"the occupancy query failed for {name} at hd 256")
-        out[FLASH_WIDE[which]] = blocks.value
+        for hd, names in ((256, FLASH_WIDE), (512, FLASH_COLS)):
+            if flash.flash_attention_blocks_per_sm(which, hd, ctypes.byref(blocks)):
+                raise AssertionError(f"the occupancy query failed for {name} at hd {hd}")
+            out[names[which]] = blocks.value
     paged = _build.load("paged_attention.cu")
     smem_bytes = {}
-    for hd, names in ((128, PAGED_TIMED), (256, PAGED_WIDE)):
+    for hd, names in ((128, PAGED_TIMED), (256, PAGED_WIDE), (512, PAGED_COLS)):
         if paged.paged_attention_blocks_per_sm(hd, ctypes.byref(blocks), ctypes.byref(combine),
                                                ctypes.byref(smem)):
             raise AssertionError(f"the occupancy query failed for the paged kernels at hd {hd}")
@@ -435,6 +481,23 @@ def c4b_kernel_cases():
     return cases
 
 
+def c4c_kernel_cases():
+    """C4c: head dims past 256, walked in column blocks of 256: 264 (a
+    ragged 8-column last block; an int8/fp8 row of 264 bytes goes as 8-byte
+    copies), 300 (an odd multiple of 4: a bf16 row of 600 bytes as 8-byte
+    copies, an int8 row element by element, the bf16 query tile element by
+    element) and 512 (two whole blocks) in every pool with f32 and bf16
+    queries, decode and s = 5; then the mixed-length batch at hd 512."""
+    mixed = (0, 126, 127, 128, 999)
+    cases = [(pool, q, s, nh, n_kv, hd, 16, 8, tuple(i for i in EDGE_IDX if i + s <= 128))
+             for hd, nh, n_kv in ((264, 4, 2), (300, 4, 2), (512, 4, 2))
+             for pool in ("f32", "bf16", "int8", "fp8") for q in ("f32", "bf16")
+             for s in (1, 5)]
+    cases += [(pool, q, 1, 4, 4, 512, 16, 64, mixed)
+              for pool, q in (("bf16", "bf16"), ("f32", "f32"), ("int8", "bf16"))]
+    return cases
+
+
 def check_kernel_vs_plain(dev, cases=None) -> dict:
     """Gates: f32 ``atol=rtol=1e-5``; a bf16 output (bf16 queries) ``atol=2e-2``
     compared in f32; int8 / fp8 pools ``atol=rtol=1e-4`` on the same
@@ -478,10 +541,12 @@ def check_kernel_vs_plain(dev, cases=None) -> dict:
 # -- phase 4 ----------------------------------------------------------------
 
 
-def check_flagship_forward(dev) -> float:
+def check_flagship_forward(dev, cfg=None) -> float:
+    """The paged step of ``cfg`` (the flagship by default) in f32, kernel
+    against plain: a 64-token prefill chunk then 8 decode steps."""
     from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 
-    cfg = LlamaConfig.flagship_700m()
+    cfg = cfg or LlamaConfig.flagship_700m()
     model = LlamaForCausalLM.from_config(cfg, seed=0, dtype=torch.float32, device=dev)
     bs, mb, chunk, steps = 16, 64, 64, 8
     nb = mb + 1
@@ -504,14 +569,15 @@ def check_flagship_forward(dev) -> float:
         logits[impl] = seq
     torch.cuda.synchronize()
     diff = max((a - b).abs().max().item() for a, b in zip(logits[None], logits["plain"]))
+    what = f"{cfg.num_hidden_layers} layers, head dim {cfg.head_dim}"
     if not all(torch.isfinite(x).all() for x in logits[None]):
-        raise AssertionError("flagship logits not finite")
+        raise AssertionError(f"paged-step logits not finite ({what})")
     if logits[None][0].shape != (chunk, cfg.vocab_size):
-        raise AssertionError(f"flagship prefill logits shape {tuple(logits[None][0].shape)}")
-    log(f"  flagship f32 paged step ({chunk}-token prefill + {steps} decode steps): "
+        raise AssertionError(f"prefill logits shape {tuple(logits[None][0].shape)} ({what})")
+    log(f"  f32 paged step ({what}; {chunk}-token prefill + {steps} decode steps): "
         f"max |Δ logits| kernel vs plain = {diff:.3e}")
     if not diff <= 1e-3:
-        raise AssertionError("flagship logits: kernel and plain disagree beyond 1e-3")
+        raise AssertionError(f"paged-step logits: kernel and plain disagree beyond 1e-3 ({what})")
     return diff
 
 
@@ -1633,6 +1699,412 @@ def run_workload_replay() -> dict:
             "schedule_sha256": manifest["schedule_sha256"], "launches": launches}
 
 
+# -- phase 5g, 5h -------------------------------------------------------------
+
+#: phase 5g: the fleet over two flagship replicas on the one card, replica 0
+#: killed (SIGKILL, mid graph replay) at its 7th request
+FLEET_ARGS = ["route", "--replicas", "2", "--preset", "flagship", "--dtype", "bf16",
+              "--num-slots", "8", "--max-seq-len", "1024", "--respawn",
+              "--health-interval", "0.2", "--chaos-spec", "r0:kill@7"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _fleet_trail(logging_dir: str) -> list:
+    path = os.path.join(logging_dir, "router", "replicas.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _latest_replicas(rows: list) -> dict:
+    latest = {}
+    for r in rows:
+        if r.get("replica_id") is not None:
+            latest[r["replica_id"]] = r
+    return latest
+
+
+def _wait_for(cond, what: str, timeout: float = HTTP_TIMEOUT_S, poll: float = 0.1):
+    deadline = time.perf_counter() + timeout
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(poll)
+
+
+def _gpu_pids() -> list:
+    """The pids ``nvidia-smi`` lists as compute processes on the card, one
+    entry a process (a sandbox's pid namespace may show them under other
+    pids than its own: the count is compared too)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return sorted(int(x) for x in out.split() if x.strip().isdigit())
+
+
+def _check_greedy(model, cfg, reqs, answers, ref, what: str) -> list:
+    """Each answer's tokens equal phase 5's for its prompt, or part from them
+    only within bf16 noise (5b's margin rule); the divergences."""
+    diverged = []
+    for r, got in zip(reqs, answers):
+        d = _divergence(model, r["prompt"], got, ref[r["ref"]], cfg)
+        if d is None:
+            continue
+        diverged.append({"id": r["id"], **d})
+        log(f"  {what} request {r['id']} parts from phase 5 at token {d['token']}: "
+            f"gap {d['gap']:.4e}, bf16 noise {d['noise']:.4e}")
+        if d["gap"] > d["noise"]:
+            raise AssertionError(f"{what} request {r['id']}: a divergence above bf16 noise")
+    return diverged
+
+
+def run_fleet(model, phase5: dict, front_door: dict) -> dict:
+    """``route --replicas 2`` over two ``serve --http`` flagship replicas on
+    the card, chaos ``r0:kill@7``, driven as clients drive it: phase 5's 12
+    requests as greedy SSE through the router's OpenAI door, then the same
+    12 prompts again as JSONL rows on route's stdin (dispatched to the
+    replicas' ``POST /generate``; replica 0's 7th request kills it mid graph
+    replay and the requests it held are rescued to replica 1). Gates: every
+    request answered exactly once; greedy tokens equal phase 5's or part
+    within 5b's margin rule; replica 0 respawned once and the fleet back to
+    two ready (spawn to ready timed); replica 1's ``/stats`` (then the
+    respawned replica 0's) one capture of each program and B4's launches
+    = eager + replays × captured. Then, the survivor steady, a SIGSTOP of
+    replica 1 with a request decoding on it (prefix affinity placed it
+    there; a fresh one decodes on replica 0): the router's wedge verdict
+    rescues it to replica 0 (the stopped process is killed and respawned),
+    while replica 0's own request's TPOT is printed beside phase 5's. Last,
+    SIGTERM to route: drained, exit 0, no fleet process alive and
+    ``nvidia-smi``'s compute apps as before the fleet. Tok/s, client TTFT
+    and TPOT p50/p99 printed beside phase 5e's single replica."""
+    import signal
+    import threading
+
+    from accelerate_tpu_torch.serving import EngineConfig
+
+    cfg = EngineConfig(num_slots=8, max_seq_len=1024)
+    logging_dir = os.path.join(REPO, "build", "fleet")
+    shutil.rmtree(logging_dir, ignore_errors=True)  # the trail appends: start it empty
+    os.makedirs(logging_dir)
+    port = _free_port()
+    stderr_path = os.path.join(logging_dir, "route.stderr")
+    ref = {r["id"]: r["tokens"] for r in phase5["rows"]}
+    reqs = _requests(12, seed=0)
+    gpu_before = _gpu_pids()
+    t_spawn = time.perf_counter()
+    with open(stderr_path, "w") as stderr_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "accelerate_tpu_torch", *FLEET_ARGS, "--http", str(port),
+             "--logging-dir", logging_dir],
+            cwd=REPO, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=stderr_file,
+            text=True)
+    rows_out: list = []
+    threading.Thread(target=lambda: rows_out.extend(json.loads(line) for line in proc.stdout
+                                                    if line.strip()), daemon=True).start()
+
+    def stderr_text():
+        with open(stderr_path) as f:
+            return f.read()
+
+    def stdin_rows(payloads):
+        for p in payloads:
+            proc.stdin.write(json.dumps(p) + "\n")
+        proc.stdin.flush()
+
+    def answered(ids):
+        return {r.get("id") for r in rows_out} >= set(ids)
+
+    try:
+        _wait_for(lambda: "route: fleet ready" in stderr_text() or proc.poll() is not None,
+                  "the fleet to report ready")
+        if proc.poll() is not None:
+            raise AssertionError(f"route exited {proc.returncode}:\n{stderr_text()[-3000:]}")
+        ready_s = time.perf_counter() - t_spawn
+        base = f"http://127.0.0.1:{port}"
+        def door_up():  # route mounts its OpenAI door after the fleet is ready
+            try:
+                return _http(base, "/healthz")[0] == 200
+            except OSError:
+                return False
+
+        _wait_for(door_up, "the router's door")
+        first = _latest_replicas(_fleet_trail(logging_dir))
+        pids0 = {r: row["pid"] for r, row in first.items()}
+        urls = {r: row["base_url"] for r, row in first.items()}
+
+        # wave A: phase 5's 12 as greedy SSE through the router's door (the
+        # router answers whole completions: TTFT on the client is the
+        # request's latency)
+        wave_a = _timed_sse_batch(base, reqs)
+        for r, a in zip(reqs, wave_a["answers"]):
+            if not _splits(a["deltas"], ref[r["id"]]) or a["tokens"] != len(ref[r["id"]]):
+                raise AssertionError(f"fleet SSE answer {r['id']} differs from phase 5's tokens")
+
+        # wave B: the same 12 prompts as /generate rows (prefix affinity sends
+        # each back to the replica that served it; replica 0's 7th kills it)
+        wave_b = [{"id": 100 + r["id"], "prompt": r["prompt"], "max_new_tokens": 64,
+                   "ref": r["id"]} for r in reqs]
+        t_b = time.perf_counter()
+        stdin_rows({k: v for k, v in p.items() if k != "ref"} for p in wave_b)
+        _wait_for(lambda: answered(p["id"] for p in wave_b) or proc.poll() is not None,
+                  "wave B's answers")
+        wave_b_wall = time.perf_counter() - t_b
+        by_id = {r["id"]: r for r in rows_out}
+        errors = [by_id[p["id"]] for p in wave_b if "error" in by_id[p["id"]]]
+        if errors:
+            raise AssertionError(f"wave B lost requests to the kill: {errors}")
+        diverged = _check_greedy(model, cfg, wave_b, [by_id[p["id"]]["tokens"] for p in wave_b],
+                                 ref, "fleet /generate")
+
+        # replica 0 respawned once, the fleet back to two ready
+        def recovered():
+            latest = _latest_replicas(_fleet_trail(logging_dir))
+            return (len(latest) == 2 and all(r["state"] == "ready" for r in latest.values())
+                    and latest[0].get("restarts") == 1 and latest)
+        latest = _wait_for(recovered, "replica 0's respawn to report ready")
+        gpu_during = _gpu_pids()
+        trail = _fleet_trail(logging_dir)
+        dead_ts = next(r["ts"] for r in trail if r.get("replica_id") == 0
+                       and r["state"] == "dead")
+        ready_ts = next(r["ts"] for r in trail if r.get("replica_id") == 0
+                        and r.get("restarts") == 1 and r["state"] == "ready")
+        respawn_ready_s = ready_ts - dead_ts
+        urls[0] = latest[0]["base_url"]
+        stats_r1 = _json(urls[1], "/stats")
+        launches_r1 = check_graph_counts(stats_r1, 16, 8, "fleet replica 1")
+
+        # the stop scenario: one request that shares a wave prompt's leading
+        # block (only replica 1 is warm for it: prefix affinity places it
+        # there) and one fresh prompt (least-loaded: the respawned replica
+        # 0), 400 new tokens each; replica 1 stopped with its request
+        # decoding, so the router's wedge verdict must rescue it
+        fresh = _requests(4, seed=7)[1]["prompt"]  # 310 ids: with 400 new, under 1024
+        stop_reqs = [{"id": 200, "prompt": reqs[5]["prompt"][:32] + fresh[32:64],
+                      "max_new_tokens": 400},
+                     {"id": 201, "prompt": fresh, "max_new_tokens": 400}]
+        stdin_rows(stop_reqs)
+
+        def both_decoding():
+            refused = [r for r in rows_out if r.get("id") in (200, 201) and "error" in r]
+            if refused:
+                raise AssertionError(f"the stop scenario's requests were refused: {refused}")
+            return all(_json(urls[i], "/healthz")["active_slots"] > 0 for i in (0, 1))
+
+        _wait_for(both_decoding, "both replicas to decode a stop-scenario request", timeout=120,
+                  poll=0.005)
+        requeues_before = [r for r in _fleet_trail(logging_dir)
+                           if r.get("kind") == "router"][-1]["requeues"]
+        os.kill(latest[1]["pid"], signal.SIGSTOP)
+        t_stop = time.perf_counter()
+        _wait_for(lambda: answered(p["id"] for p in stop_reqs), "the stopped replica's rescue")
+        rescue_s = time.perf_counter() - t_stop
+        by_id = {r["id"]: r for r in rows_out}
+        stop_rows = [by_id[p["id"]] for p in stop_reqs]
+        if any("error" in r or len(r["tokens"]) != 400 for r in stop_rows):
+            raise AssertionError(f"the stop scenario lost requests: {stop_rows}")
+        requeues_after = [r for r in _fleet_trail(logging_dir)
+                          if r.get("kind") == "router"][-1]["requeues"]
+        if requeues_after <= requeues_before:
+            raise AssertionError("the stopped replica's request was answered without a rescue "
+                                 f"(requeues {requeues_before} -> {requeues_after})")
+        stats_r0 = _json(urls[0], "/stats")
+        launches_r0 = check_graph_counts(stats_r0, 16, 8, "fleet replica 0 (respawned)")
+
+        def second_respawn():
+            latest = _latest_replicas(_fleet_trail(logging_dir))
+            return (all(r["state"] == "ready" for r in latest.values())
+                    and latest[1].get("restarts") == 1 and latest)
+        _wait_for(second_respawn, "replica 1's respawn after the wedge")
+
+        # SIGTERM: drain, exit 0
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=HTTP_TIMEOUT_S)
+        drain_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:  # a failed gate: drain, then make sure
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+            for row in _fleet_trail(logging_dir):
+                if row.get("pid") and row.get("replica_id") is not None:
+                    try:
+                        os.kill(row["pid"], signal.SIGKILL)
+                    except OSError:
+                        pass
+    trail = _fleet_trail(logging_dir)
+    fleet_pids = {r["pid"] for r in trail if r.get("pid") and r.get("replica_id") is not None}
+    if rc != 0:
+        raise AssertionError(f"route exited {rc} on SIGTERM:\n{stderr_text()[-3000:]}")
+    ids = sorted(r.get("id") for r in rows_out)
+    expect = sorted([p["id"] for p in wave_b] + [p["id"] for p in stop_reqs])
+    if ids != expect:
+        raise AssertionError(f"the fleet's stdin answers {ids} are not one each of {expect}")
+    totals = [r for r in trail if r.get("kind") == "router"][-1]
+    restarts = {rid: r.get("restarts") for rid, r in _latest_replicas(trail).items()}
+    if totals.get("respawns") != 2 or restarts != {0: 1, 1: 1}:
+        raise AssertionError(f"respawns {totals.get('respawns')}, restarts {restarts}: each "
+                             "replica must be respawned exactly once")
+    def alive(pid):
+        try:
+            os.kill(pid, 0)
+            return True
+        except OSError:
+            return False
+
+    _wait_for(lambda: not any(alive(p) for p in fleet_pids), "the fleet's processes to exit",
+              timeout=30)
+    _wait_for(lambda: _gpu_pids() == gpu_before, "nvidia-smi to list what it listed before "
+              "the fleet", timeout=30)
+    gpu_after = _gpu_pids()
+    if (fleet_pids | {proc.pid}) & set(gpu_after):
+        raise AssertionError(f"fleet processes still on the card: {gpu_after}")
+    survivor_tpot, rescued_tpot = stop_rows[1]["tpot_s"], stop_rows[0]["tpot_s"]
+    engine_b = [by_id[p["id"]] for p in wave_b]
+    out = {
+        "chaos": "r0:kill@7", "ready_s": ready_s, "respawn_dead_to_ready_s": respawn_ready_s,
+        "first_pids": pids0,
+        "wave_a_sse": {k: wave_a[k] for k in ("wall_s", "tokens_per_sec", "ttft_s", "tpot_s")},
+        "wave_b_generate": {
+            "wall_s": wave_b_wall,
+            "tokens_per_sec": sum(len(r["tokens"]) for r in engine_b) / wave_b_wall,
+            "engine_ttft_s": {"p50": _pct([r["ttft_s"] for r in engine_b], 50),
+                              "p99": _pct([r["ttft_s"] for r in engine_b], 99)},
+            "engine_tpot_s": {"p50": _pct([r["tpot_s"] for r in engine_b], 50),
+                              "p99": _pct([r["tpot_s"] for r in engine_b], 99)}},
+        "diverged": diverged,
+        "stop": {"rescue_s": rescue_s, "survivor_tpot_s": survivor_tpot,
+                 "rescued_tpot_s": rescued_tpot, "phase5_tpot_p50_s": phase5["tpot_s"]["p50"],
+                 "requeues": [requeues_before, requeues_after]},
+        "launches_replica1": launches_r1, "launches_replica0_respawned": launches_r0,
+        "launches": {"total": launches_r1["total"] + launches_r0["total"],
+                     "decode": launches_r1["decode"] + launches_r0["decode"]},
+        "respawns": totals.get("respawns"), "requeues": totals.get("requeues"),
+        "drain_s": drain_s, "gpu_pids_before": gpu_before,
+        "gpu_pids_during": gpu_during, "gpu_pids_after": gpu_after,
+        "fleet_pids": sorted(fleet_pids),
+        "single_replica_5e": {k: front_door["client"][k] for k in ("tokens_per_sec", "ttft_s",
+                                                                   "tpot_s")},
+    }
+    log(f"  route: 2 replicas ready in {ready_s:.1f} s; wave A 12 SSE "
+        f"{wave_a['tokens_per_sec']:.1f} tok/s, client TTFT p50/p99 "
+        f"{wave_a['ttft_s']['p50'] * 1e3:.1f}/{wave_a['ttft_s']['p99'] * 1e3:.1f} ms, TPOT "
+        f"{wave_a['tpot_s']['p50'] * 1e3:.2f}/{wave_a['tpot_s']['p99'] * 1e3:.2f} ms (phase 5e "
+        f"one replica {front_door['client']['tokens_per_sec']:.1f} tok/s, TTFT p50 "
+        f"{front_door['client']['ttft_s']['p50'] * 1e3:.1f} ms); wave B 12 /generate through "
+        f"r0:kill@7 {out['wave_b_generate']['tokens_per_sec']:.1f} tok/s, engine TTFT p50/p99 "
+        f"{out['wave_b_generate']['engine_ttft_s']['p50'] * 1e3:.1f}/"
+        f"{out['wave_b_generate']['engine_ttft_s']['p99'] * 1e3:.1f} ms, TPOT "
+        f"{out['wave_b_generate']['engine_tpot_s']['p50'] * 1e3:.2f}/"
+        f"{out['wave_b_generate']['engine_tpot_s']['p99'] * 1e3:.2f} ms; {len(diverged)} part "
+        f"from phase 5 within noise; replica 0 dead to ready again {respawn_ready_s:.1f} s; "
+        f"SIGSTOP of replica 1 rescued in {rescue_s:.1f} s, the survivor's own request's TPOT "
+        f"{survivor_tpot * 1e3:.2f} ms while replica 1 was stopped, the rescued one's "
+        f"{rescued_tpot * 1e3:.2f} ms (phase 5 p50 {phase5['tpot_s']['p50'] * 1e3:.2f} ms); "
+        f"B4 launches replica 1 {launches_r1}, "
+        f"respawned replica 0 {launches_r0}; {totals.get('respawns')} respawns, "
+        f"{totals.get('requeues')} requeues; SIGTERM drained in {drain_s:.2f} s, exit {rc}; "
+        f"nvidia-smi compute apps {len(gpu_before)} before, {len(gpu_during)} with the fleet "
+        f"up, {len(gpu_after)} after; no fleet process alive")
+    return out
+
+
+def run_preflight(dev) -> dict:
+    """Phase 5h: ``serve --auto-blocks`` on the flagship sizes the pool
+    against the card (the chosen ``num_blocks`` printed), and the
+    pre-flight's predicted params + pool bytes equal the bytes of those
+    tensors on the card; with ``--hbm-gb 1`` the engine refuses SP004 before
+    any pool allocates (``torch.cuda.memory_allocated`` shows only the
+    weights), and the entry point exits 2 with the error row."""
+    import contextlib
+    import io
+
+    from accelerate_tpu_torch.analysis.shardplan import plan_kv_pool, plan_params
+    from accelerate_tpu_torch.commands import serve
+    from accelerate_tpu_torch.commands.accelerate_cli import build_parser
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from accelerate_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = build_parser().parse_args([*SERVE_ARGS, "--auto-blocks"])
+    err = io.StringIO()
+    m0 = torch.cuda.memory_allocated()
+    with contextlib.redirect_stderr(err):
+        engine = serve._make_engine(args)
+    auto_line = err.getvalue().strip().splitlines()[-1]
+    m_engine = torch.cuda.memory_allocated() - m0
+    mc = engine.model.config
+    num_blocks = engine.allocator.num_blocks
+    predicted_params = sum(p.bytes_per_device for p in plan_params(engine.model))
+    predicted_pool = sum(p.bytes_per_device for p in plan_kv_pool(
+        num_layers=mc.num_hidden_layers, num_kv_heads=mc.num_key_value_heads,
+        head_dim=mc.head_dim, num_slots=1, block_size=args.block_size,
+        max_seq_len=args.max_seq_len, num_blocks=num_blocks, dtype="bfloat16"))
+    actual_params = sum(t.numel() * t.element_size() for t in engine.model.state_dict().values())
+    actual_pool = sum(t.numel() * t.element_size() for t in engine._pages.values())
+    if (predicted_params, predicted_pool) != (actual_params, actual_pool):
+        raise AssertionError(f"pre-flight predicted params {predicted_params} + pools "
+                             f"{predicted_pool}, the card holds {actual_params} + {actual_pool}")
+    log(f"  {auto_line}")
+    log(f"  --auto-blocks: num_blocks {num_blocks}; predicted params {predicted_params} + pools "
+        f"{predicted_pool} B = the tensors on the card; memory_allocated grew "
+        f"{m_engine} B (the rest: operand and output buffers)")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    m_empty = torch.cuda.memory_allocated()
+    model = LlamaForCausalLM.from_config(LlamaConfig.flagship_700m(), seed=0,
+                                         dtype=torch.bfloat16, device=dev)
+    m_weights = torch.cuda.memory_allocated()
+    weights = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    try:
+        InferenceEngine(model, EngineConfig(num_slots=8, max_seq_len=1024, hbm_budget_gb=1.0),
+                        device=dev)
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("the flagship engine started under a 1 GiB budget")
+    m_refused = torch.cuda.memory_allocated()
+    if "SP004" not in refusal or m_refused != m_weights or m_weights - m_empty < weights:
+        raise AssertionError(f"SP004 refusal {refusal!r}: memory_allocated {m_empty} -> "
+                             f"{m_weights} (weights {weights}) -> {m_refused}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = build_parser().parse_args([*SERVE_ARGS, "--hbm-gb", "1"])
+    out_buf = io.StringIO()
+    with contextlib.redirect_stdout(out_buf), contextlib.redirect_stderr(io.StringIO()):
+        rc = serve.serve_command(args)
+    row = json.loads(out_buf.getvalue().strip().splitlines()[-1])
+    if rc != 2 or "SP004" not in row.get("error", ""):
+        raise AssertionError(f"serve --hbm-gb 1 exited {rc} with {row}")
+    log(f"  --hbm-gb 1: refused before any pool ({refusal[:120]}...); memory_allocated "
+        f"{m_weights - m_empty} B after the weights ({weights} B), {m_refused - m_empty} B after "
+        f"the refusal; serve exit {rc}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"auto_blocks": num_blocks, "auto_line": auto_line,
+            "predicted_params_bytes": predicted_params, "predicted_pool_bytes": predicted_pool,
+            "memory_allocated_engine_bytes": m_engine, "refusal": refusal,
+            "allocated_after_refusal_bytes": m_refused - m_empty, "weights_bytes": weights,
+            "serve_exit": rc}
+
+
 # -- phase 6 ----------------------------------------------------------------
 
 
@@ -1680,31 +2152,44 @@ def _profiled_rows(fn, calls: int) -> list:
     return _kernel_rows(prof)
 
 
-def _profiled_ms_per_call(fn, calls: int) -> float:
-    """Device time a call of ``fn``: every kernel it runs, without the host
-    time between them (a library call whose host cost exceeds its kernels'
-    time shows more by events than here). A window in which the profiler
-    saw no kernel row is taken once more, then raises: a time of 0.0 is
-    never returned."""
-    for _ in range(2):
+#: profiler windows a measurement takes before it gives up: a window in
+#: which the profiler saw no kernel row at all (it happens, rarely, over a
+#: long run of windows in one process) is taken again
+PROFILER_TRIES = 4
+
+
+def _library_rows(fn, calls: int) -> list:
+    """The kernel rows of ``calls`` calls of ``fn`` from the first of
+    :data:`PROFILER_TRIES` windows that saw any; raises if none did."""
+    for _ in range(PROFILER_TRIES):
         rows = _profiled_rows(fn, calls)
         if rows:
-            return sum(e.self_device_time_total for e in rows) / 1e3 / calls
-    raise AssertionError("the profiler saw no kernel row in two windows of the library call")
+            return rows
+    raise AssertionError(f"the profiler saw no kernel row in {PROFILER_TRIES} windows of the "
+                         "library call")
+
+
+def _profiled_ms_per_call(fn, calls: int, rows=None) -> float:
+    """Device time a call of ``fn``: every kernel it runs, without the host
+    time between them (a library call whose host cost exceeds its kernels'
+    time shows more by events than here), from ``rows`` when given (a window
+    already taken) or a new window. A time of 0.0 is never returned."""
+    rows = rows or _library_rows(fn, calls)
+    return sum(e.self_device_time_total for e in rows) / 1e3 / calls
 
 
 def _profiled_ms_per_launch(fn, calls: int, names) -> dict:
     """Device time a launch of each kernel in ``names`` over ``calls`` calls
-    of ``fn`` under ``torch.profiler`` (kernel rows whose name holds it)."""
-    rows = _profiled_rows(fn, calls)
-    out = {}
-    for name in names:
-        hits = [e for e in rows if name in e.key]
-        launches = sum(e.count for e in hits)
-        if not launches:
-            raise AssertionError(f"the profiler saw no {name} launch")
-        out[name] = sum(e.self_device_time_total for e in hits) / 1e3 / launches
-    return out
+    of ``fn`` under ``torch.profiler`` (kernel rows whose name holds it),
+    from the first of :data:`PROFILER_TRIES` windows that saw them all."""
+    for _ in range(PROFILER_TRIES):
+        rows = _profiled_rows(fn, calls)
+        hits = {name: [e for e in rows if name in e.key] for name in names}
+        if all(sum(e.count for e in h) for h in hits.values()):
+            return {name: sum(e.self_device_time_total for e in h) / 1e3 / sum(e.count for e in h)
+                    for name, h in hits.items()}
+    raise AssertionError(f"the profiler saw no launch of some of {list(names)} in "
+                         f"{PROFILER_TRIES} windows")
 
 
 def time_paged_shape(dev, b: int = 8, s: int = 1, ctx: int = 512, hd: int = 128,
@@ -2031,6 +2516,19 @@ def c4b_flash_cases():
     ]
 
 
+def c4c_flash_cases():
+    """C4c: head dims 264 and 300 (a ragged last column block of 256; 300
+    handed to the kernels zero-padded to 304) and 512 (two whole column
+    blocks), f32 and bf16, at s = 129, at 1000 left-padded and at 200 not
+    causal (launched twice)."""
+    return [
+        (2, s, nh, n_kv, hd, causal, pad, dtype)
+        for hd, nh, n_kv in ((264, 4, 2), (300, 4, 4), (512, 4, 2))
+        for dtype in (torch.float32, torch.bfloat16)
+        for s, causal, pad in ((129, True, 0), (1000, True, 77), (200, False, 0))
+    ]
+
+
 def _flash_inputs(rng, b, s, nh, n_kv, hd, pad, dtype, dev):
     def draw(*shape):
         return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev).to(dtype)
@@ -2111,10 +2609,11 @@ def check_flash_vs_plain(dev, cases=None) -> dict:
     return {"by_dtype": errs, "autograd_grad_err_f32": autograd_err}
 
 
-def run_tiny_train(hidden_size: int | None = None) -> dict:
-    """``LlamaConfig.tiny()`` (head dim 16; with ``hidden_size`` its four
-    heads are ``hidden_size / 4`` wide: 1024 gives the 256-wide heads of
-    C4b) trained through the 5-line loop with
+def run_tiny_train(hidden_size: int | None = None, heads: int = 4) -> dict:
+    """``LlamaConfig.tiny()`` (head dim 16; with ``hidden_size`` its
+    ``heads`` heads are ``hidden_size / heads`` wide: 1024 over 4 gives the
+    256-wide heads of C4b, over 2 the 512-wide heads of C4c) trained
+    through the 5-line loop with
     ``Accelerator(mixed_precision="bf16")``: 20 steps on a fixed batch of 8
     × 128 ids, finite and falling loss, the flash counters set to 0 just
     before and read just after (each kernel 2 launches a step, one a
@@ -2123,7 +2622,8 @@ def run_tiny_train(hidden_size: int | None = None) -> dict:
     from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
 
-    cfg = LlamaConfig.tiny() if hidden_size is None else LlamaConfig.tiny(hidden_size=hidden_size)
+    cfg = (LlamaConfig.tiny() if hidden_size is None
+           else LlamaConfig.tiny(hidden_size=hidden_size, heads=heads))
     accelerator = Accelerator(mixed_precision="bf16")
     module = LlamaForCausalLM.from_config(cfg, seed=0, device=accelerator.device)
     model, opt = accelerator.prepare(module, torch.optim.AdamW(module.parameters(), lr=1e-3))
@@ -2496,9 +2996,11 @@ def time_flash_at(dev, b: int, s: int, nh: int, head_dims) -> dict:
         lq, lk, lv, ldo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
         gq, gk, gv = (t.detach().clone().requires_grad_() for t in (lq, lk, lv))
         lib_out = F.scaled_dot_product_attention(gq, gk, gv, is_causal=True)
+        fwd_rows = _library_rows(
+            lambda i: F.scaled_dot_product_attention(lq, lk, lv, is_causal=True), 20)
+        backend = _sdpa_backend(fwd_rows)
         library = {
-            "fwd": _profiled_ms_per_call(
-                lambda i: F.scaled_dot_product_attention(lq, lk, lv, is_causal=True), 20),
+            "fwd": _profiled_ms_per_call(None, 20, rows=fwd_rows),
             "bwd": _profiled_ms_per_call(
                 lambda i: torch.autograd.grad(lib_out, (gq, gk, gv), ldo, retain_graph=True), 20),
         }
@@ -2514,14 +3016,14 @@ def time_flash_at(dev, b: int, s: int, nh: int, head_dims) -> dict:
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             spread = _time_spread(fn, 20, 5)
             pattern = re.compile(flash_kernel_pattern(name))
-            for _ in range(2):  # a window with no kernel row is taken once more
+            for _ in range(PROFILER_TRIES):  # a window with no kernel row is taken again
                 rows_ = [e for e in _profiled_rows(fn, 20) if pattern.search(e.key)]
                 launches = sum(e.count for e in rows_)
                 if launches:
                     break
             else:
-                raise AssertionError(f"the profiler saw no {name} launch at hd {hd} in two "
-                                     "windows")
+                raise AssertionError(f"the profiler saw no {name} launch at hd {hd} in "
+                                     f"{PROFILER_TRIES} windows")
             entry = {
                 "shape": {"batch": b, "seq": s, "n_heads": nh, "head_dim": hd, "dtype": "bf16",
                           "causal": True},
@@ -2531,6 +3033,7 @@ def time_flash_at(dev, b: int, s: int, nh: int, head_dims) -> dict:
                 "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "library_ms": library["fwd" if name == "flash_fwd" else "bwd"],
+                "library_backend": backend,
                 "plain_ms": plain["flash_fwd" if name == "flash_fwd" else "bwd"],
             }
             out.setdefault(name, {})[f"head_dim_{hd}"] = entry
@@ -2538,10 +3041,26 @@ def time_flash_at(dev, b: int, s: int, nh: int, head_dims) -> dict:
                 f"{entry['ms']:.4f} ms by events, {entry['profiler_ms']:.4f} ms a launch by the "
                 f"profiler, bound {entry['bound_ms']:.6f} ms ({entry['bound_by']}), sdpa "
                 f"{'forward' if name == 'flash_fwd' else 'backward (the pair)'} "
-                f"{entry['library_ms']:.4f} ms, plain {entry['plain_ms']:.3f} ms")
+                f"{entry['library_ms']:.4f} ms ({backend}), plain {entry['plain_ms']:.3f} ms")
         del q, k, v, do, o, lse, delta, lq, lk, lv, ldo, gq, gk, gv, lib_out
         torch.cuda.empty_cache()
     return out
+
+
+def _sdpa_backend(rows) -> str:
+    """Which of sdpa's backends ran, from the names of its kernels' profiler
+    ``rows`` (PyTorch's flash backend takes head dims up to 256; past that
+    the dispatcher picks another): ``flash``, ``efficient``, ``cudnn`` or
+    ``math``, with the heaviest kernel's name."""
+    rows = sorted(rows, key=lambda e: -e.self_device_time_total)
+    names = " ".join(e.key for e in rows).lower()
+    for backend, marks in (("flash", ("flash",)), ("efficient", ("fmha", "mem_eff", "cutlass")),
+                           ("cudnn", ("cudnn",))):
+        if any(m in names for m in marks):
+            break
+    else:
+        backend = "math"
+    return f"{backend} ({rows[0].key[:80]})" if rows else backend
 
 
 def main() -> int:
@@ -2555,15 +3074,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    t_start = time.perf_counter()
+    t_start = _T0[0] = time.perf_counter()
 
-    log("phase 1: device")
+    log_phase("phase 1: device")
     smi = nvidia_smi()
     log(smi)
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
-    log("phase 2: build")
+    log_phase("phase 2: build")
     t0 = time.perf_counter()
     built = _build.build_all()
     build_s = time.perf_counter() - t0
@@ -2593,14 +3112,18 @@ def main() -> int:
     if b4["spill_stores"] or b4["spill_loads"]:
         raise AssertionError(f"B4's bf16 hd-128 instance must build without spills: {b4}")
 
-    log("phase 3: paged_attention kernel against its plain version")
+    log_phase("phase 3: paged_attention kernel against its plain version")
     errs = check_kernel_vs_plain(dev)
+    log_phase("phase 3d: C4c — the paged kernel at head dims 264, 300 and 512 (column blocks of 256)")
+    errs_c4c = check_kernel_vs_plain(dev, c4c_kernel_cases())
+    for key, err in errs_c4c.items():
+        errs[key] = max(errs.get(key, 0.0), err)
 
-    log("phase 4: flagship paged step, kernel against plain")
+    log_phase("phase 4: flagship paged step, kernel against plain")
     logits_diff = check_flagship_forward(dev)
     torch.cuda.empty_cache()
 
-    log("phase 5: serve through the entry point")
+    log_phase("phase 5: serve through the entry point")
     serve_run = run_serve_subprocess()
     launches = serve_run["launches"]
     launches_int8 = run_serve_int8_inprocess()
@@ -2610,26 +3133,31 @@ def main() -> int:
 
     flagship = LlamaForCausalLM.from_config(LlamaConfig.flagship_700m(), seed=0,
                                             dtype=torch.bfloat16, device=dev)
-    log("phase 5b: the graph engine, async and sync, against an eager reference")
+    log_phase("phase 5b: the graph engine, async and sync, against an eager reference")
     parity, greedy = check_graph_engine_parity(flagship)
-    log("phase 5: the mixed batch through the lane burst (sampling, grammars, stop, "
+    log_phase("phase 5: the mixed batch through the lane burst (sampling, grammars, stop, "
         "min_tokens, logprobs)")
     lane_batch, (eos, lane_sampled) = check_lane_batch(flagship, greedy)
-    log("phase 5b: greedy through the lane burst; sampled requests in reverse order; the "
+    log_phase("phase 5b: greedy through the lane burst; sampled requests in reverse order; the "
         "prefix cache on a shared-prefix batch")
     lane_parity = check_lane_parity(flagship, greedy, eos, lane_sampled)
     prefix = check_prefix_cache(flagship)
-    log("phase 5c: sampled graph engines with one seed, in two admission orders")
+    log_phase("phase 5c: sampled graph engines with one seed, in two admission orders")
     sampled = check_sampled_pair(flagship)
-    log("phase 5d: speculative decoding, swap preemption, a deadline and the usage ledger")
+    log_phase("phase 5d: speculative decoding, swap preemption, a deadline and the usage ledger")
     spec_swap = check_spec_swap_deadline(flagship, greedy)
-    log("phase 5e: the front door — serve --http on the flagship (lifecycle, OpenAI and "
+    log_phase("phase 5e: the front door — serve --http on the flagship (lifecycle, OpenAI and "
         "/generate answers, SSE, /profile, /metrics, a SIGTERM drain)")
     front_door = run_front_door(serve_run)
-    log("phase 5f: workload replay — serve --trace on the flagship")
+    log_phase("phase 5f: workload replay — serve --trace on the flagship")
     workload = run_workload_replay()
+    log_phase("phase 5g: the fleet — route --replicas 2 over serve --http replicas of the flagship "
+        "(r0:kill@7, a SIGSTOP wedge, a SIGTERM drain)")
+    fleet = run_fleet(flagship, serve_run, front_door)
+    log_phase("phase 5h: the HBM pre-flight — serve --auto-blocks and --hbm-gb 1 on the flagship")
+    preflight = run_preflight(dev)
 
-    log("phase 6: times at the flagship decode shape and the prefill chunk")
+    log_phase("phase 6: times at the flagship decode shape and the prefill chunk")
     times = time_paged_shape(dev, ctx=512)
     times_1024 = time_paged_shape(dev, ctx=1024)
     prefill = {f"context_{ctx}": time_paged_shape(dev, b=1, s=32, ctx=ctx) for ctx in (512, 896)}
@@ -2637,49 +3165,64 @@ def main() -> int:
     paged_hd = {f"head_dim_{hd}": time_paged_shape(dev, ctx=512, hd=hd) for hd in (80, 24)}
     # C4b: 8 heads × 256 (hidden 2048, Gemma-style widths) at the decode shape
     paged_hd["head_dim_256"] = time_paged_shape(dev, ctx=512, hd=256, nh=8)
+    # C4c: 4 heads × 512 (hidden 2048) in column blocks of 256
+    paged_hd["head_dim_512"] = time_paged_shape(dev, ctx=512, hd=512, nh=4)
 
-    log("phase 7: where a decode step's time goes on the graph engine")
+    log_phase("phase 7: where a decode step's time goes on the graph engine")
     breakdown = serve_breakdown(flagship)
     del flagship
     gc.collect()
     torch.cuda.empty_cache()
-    log(json.dumps({"front_door": front_door, "workload": workload}))
+    log(json.dumps({"front_door": front_door, "workload": workload, "fleet": fleet,
+                    "preflight": preflight}))
     serve_run = {k: v for k, v in serve_run.items() if k != "rows"}
     log(json.dumps({"serve_breakdown": breakdown, "serve": serve_run, "parity": parity,
                     "lane_batch": lane_batch, "lane_parity": lane_parity,
                     "prefix_cache": prefix, "sampled_pair": sampled,
                     "spec_swap_deadline": spec_swap, "card": smi}))
 
-    log("phase 8: flash-attention kernels against their plain versions")
+    log_phase("phase 8: flash-attention kernels against their plain versions")
     flash_errs = check_flash_vs_plain(dev)
 
-    log("phase 8b: the tiny llama (head dim 16) trained on the card; B1-B3 timed at hd 16, "
+    log_phase("phase 8b: the tiny llama (head dim 16) trained on the card; B1-B3 timed at hd 16, "
         "32, 24 and 80")
     tiny_train = run_tiny_train()
     flash_narrow = time_flash_at(dev, 8, 128, 4, (16, 32, 24, 80))
-    log("phase 8c: C4b — a tiny llama with 256-wide heads trained on the card; B1-B3 timed "
+    log_phase("phase 8c: C4b — a tiny llama with 256-wide heads trained on the card; B1-B3 timed "
         "at hd 256 (b 8, s 1024, 8 heads, bf16, causal)")
     tiny_train_256 = run_tiny_train(hidden_size=1024)
     flash_wide = time_flash_at(dev, 8, 1024, 8, (256,))
+    log_phase("phase 8d: C4c — B1-B3 at head dims 264, 300 and 512; a tiny llama with two 512-wide "
+        "heads trained and its paged step kernel against plain; B1-B3 timed at hd 512")
+    flash_errs_c4c = check_flash_vs_plain(dev, c4c_flash_cases())
+    for name, by_dtype in flash_errs_c4c["by_dtype"].items():
+        for key, err in by_dtype.items():
+            flash_errs["by_dtype"][name][key] = max(flash_errs["by_dtype"][name][key], err)
+    tiny_train_512 = run_tiny_train(hidden_size=1024, heads=2)
+    from accelerate_tpu_torch.models import LlamaConfig as _Config
+    paged_512_diff = check_flagship_forward(dev, _Config.tiny(hidden_size=1024, heads=2))
+    flash_512 = time_flash_at(dev, 8, 1024, 8, (512,))
 
-    log("phase 9: a flagship-width train step, kernels against plain")
+    log_phase("phase 9: a flagship-width train step, kernels against plain")
     step_check = check_train_step_kernel_vs_plain(dev)
 
-    log("phase 10: the flagship train step through the 5-line Accelerator loop")
+    log_phase("phase 10: the flagship train step through the 5-line Accelerator loop")
     train, (step, *live) = run_train_loop()
 
-    log("phase 11: where a train step's time goes")
+    log_phase("phase 11: where a train step's time goes")
     train_bd = train_breakdown(step, train["step_ms"])
     log(json.dumps({"train_breakdown": train_bd}))
     del step, live
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 12: flash kernels timed at the flagship shape")
+    log_phase("phase 12: flash kernels timed at the flagship shape")
     flash_times = time_flash_kernels(dev, train_bd["flash_ms_per_launch"])
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "losses"},
                     "train_step_check": step_check, "tiny_train": tiny_train,
-                    "tiny_train_head_dim_256": tiny_train_256}))
+                    "tiny_train_head_dim_256": tiny_train_256,
+                    "tiny_train_head_dim_512": tiny_train_512,
+                    "paged_step_head_dim_512_logits_diff": paged_512_diff}))
 
     kernels = [{
         "name": "paged_attention",
@@ -2707,9 +3250,11 @@ def main() -> int:
                          for h, t in paged_hd.items()},
         "launches_spec_greedy_in_process": spec_swap["greedy"]["launches"],
         "launches_front_door": front_door["launches_after_drain"],
+        "launches_fleet": fleet["launches"],
         "launches_workload_replay": workload["launches"],
         "ptxas": {k: ptxas["paged_attention.cu"][k] for k in PAGED_TIMED},
         "ptxas_head_dim_256": {k: ptxas["paged_attention.cu"][k] for k in PAGED_WIDE},
+        "ptxas_head_dim_512": {k: ptxas["paged_attention.cu"][k] for k in PAGED_COLS},
         "ptxas_all_instances": ptxas["paged_attention.cu"],
         "plain_ms": times["plain_ms"],
         "bound_ms": times["bound_ms"],
@@ -2756,6 +3301,7 @@ def main() -> int:
                             "head_dim": 128, "dtype": "bf16", "causal": True},
             "at_narrow_heads": flash_narrow[name],
             "at_head_dim_256": flash_wide[name],
+            "at_head_dim_512": flash_512[name],
         })
     log(json.dumps({"kernels": kernels, "build_s": build_s, "serve_wall_s": serve_run["wall_s"],
                     "total_s": time.perf_counter() - t_start, "card": smi}))

@@ -21,6 +21,7 @@ and double-buffered dispatch, held against the JAX engine.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -310,27 +311,31 @@ def test_serve_sync_engine_flag_and_env_reach_the_engine(monkeypatch):
 
 
 def test_training_refuses_head_dims_the_flash_kernels_do_not_take():
-    """C4b closed: on the card, ``prepare()`` passes every head dim B1-B4
-    take (any from 1 to 256: the tiny llama's 16, and 20, 24, 36, 80, 136,
-    200 and 256 among them) and still refuses a width past that rule before
-    any step, naming the rule; the CPU's plain attention takes any."""
+    """C4c closed: on the card, ``prepare()`` passes every head dim B1-B4
+    take, which is any head dim of at least 1 (the tiny llama's 16, and 20,
+    24, 36, 80, 136, 200, 256, 264 and 512 among them: past 256 the kernels
+    walk column blocks of 256). The rule has no upper bound, so nothing a
+    config can build is refused; a model whose config states a head dim
+    below 1 is refused on the card before any step, naming the rule, and
+    the CPU's plain attention never checks."""
     from accelerate_tpu_torch.accelerator import check_kernel_head_dim
     from accelerate_tpu_torch.ops.flash_attention import HEAD_DIM_RULE, takes_head_dim
 
-    assert HEAD_DIM_RULE == "any head dim from 1 to 256"
+    assert HEAD_DIM_RULE == "any head dim of at least 1"
     tiny = tllama.LlamaForCausalLM.from_config(tllama.LlamaConfig.tiny(), device="cpu")
     assert tiny.config.head_dim == 16
-    for hd in (16, 20, 24, 32, 36, 64, 80, 96, 128, 136, 200, 256):
+    for hd in (16, 20, 24, 32, 36, 64, 80, 96, 128, 136, 200, 256, 264, 512):
         assert takes_head_dim(hd)
         model = tllama.LlamaForCausalLM.from_config(
             tllama.LlamaConfig.tiny(hidden_size=4 * hd), device="cpu")
         assert model.config.head_dim == hd
         check_kernel_head_dim(model, torch.device("cuda"))
-    for hd in (264,):
-        assert not takes_head_dim(hd)
-        odd = tllama.LlamaForCausalLM.from_config(
-            tllama.LlamaConfig.tiny(hidden_size=4 * hd), device="cpu")
-        assert odd.config.head_dim == hd
-        with pytest.raises(ValueError, match=r"any head dim from 1 to 256"):
-            check_kernel_head_dim(odd, torch.device("cuda"))
-        check_kernel_head_dim(odd, torch.device("cpu"))
+        check_kernel_head_dim(model, torch.device("cpu"))
+    assert not takes_head_dim(0)
+
+    class _Zero(torch.nn.Module):
+        config = types.SimpleNamespace(head_dim=0)
+
+    with pytest.raises(ValueError, match=r"any head dim of at least 1"):
+        check_kernel_head_dim(_Zero(), torch.device("cuda"))
+    check_kernel_head_dim(_Zero(), torch.device("cpu"))

@@ -223,11 +223,11 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125flash_bwd_dq_wgmma_
 ptxas info    : Function properties for _ZN12_GLOBAL__N_125flash_bwd_dq_wgmma_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKhPKfS5_P13__nv_bfloat16iiiiifi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 160 registers, used 1 barriers, 448 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122paged_attention_kernelILi64E13__nv_bfloat16S1_Lb0EEEvPKT0_PKT1_S6_PKfS8_PKiSA_PS2_PfSC_iiiiii' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_122paged_attention_kernelILi64E13__nv_bfloat16S1_Lb0EEEvPKT0_PKT1_S6_PKfS8_PKiSA_PS2_PfSC_iiiiii
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122paged_attention_kernelILi64E13__nv_bfloat16S1_Lb0ELb0EEEvPKT0_PKT1_S6_PKfS8_PKiSA_PS2_PfSC_iiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122paged_attention_kernelILi64E13__nv_bfloat16S1_Lb0ELb0EEEvPKT0_PKT1_S6_PKfS8_PKiSA_PS2_PfSC_iiiiii
     16 bytes stack frame, 16 bytes spill stores, 32 bytes spill loads
 ptxas info    : Used 56 registers, used 1 barriers, 20608 bytes smem, 480 bytes cmem[0]
-ptxas info    : Function properties for _ZN12_GLOBAL__N_122paged_attention_kernelILi128EfaLb1EEEvPKT0_PKT1_S6_PKfS8_PKiSA_PS2_PfSC_iiiiii
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122paged_attention_kernelILi128EfaLb1ELb0EEEvPKT0_PKT1_S6_PKfS8_PKiSA_PS2_PfSC_iiiiii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 96 registers, used 1 barriers, 41088 bytes smem, 480 bytes cmem[0]
 ptxas info    : Function properties for __internal_accurate_fdividef
@@ -240,9 +240,9 @@ def test_chip_smoke_reads_registers_and_spills_from_ptxas():
     assert smoke.ptxas_report(PTXAS_LOG) == {
         "flash_bwd_dq_wgmma_kernel<128>":
             {"registers": 160, "spill_stores": 0, "spill_loads": 0, "static_smem": 0},
-        "paged_attention_kernel<64, __nv_bfloat16, __nv_bfloat16, false>":
+        "paged_attention_kernel<64, __nv_bfloat16, __nv_bfloat16, false, false>":
             {"registers": 56, "spill_stores": 16, "spill_loads": 32, "static_smem": 20608},
-        "paged_attention_kernel<128, float, signed char, true>":
+        "paged_attention_kernel<128, float, signed char, true, false>":
             {"registers": 96, "spill_stores": 0, "spill_loads": 0, "static_smem": 41088},
     }
     assert smoke.PAGED_TIMED[0] in smoke.ptxas_report(PTXAS_LOG.replace("ILi64E", "ILi128E"))

@@ -1,4 +1,4 @@
-"""C4b: every attention kernel of the port takes any head dim from 1 to 256.
+"""C4b and C4c: every attention kernel of the port takes any head dim.
 
 The plain versions of B1-B3 (``ops/flash_attention.py``) and of B4
 (``ops/paged_attention.py``) — what the CUDA kernels compute, which
@@ -6,7 +6,9 @@ The plain versions of B1-B3 (``ops/flash_attention.py``) and of B4
 JAX package on the same numpy inputs at head dims off every built width:
 20 and 36 (not multiples of 8: B1-B3 are handed zero-padded inputs, B4
 reads the pool at its real width) and 200 and 256 (past the tensor-core
-kernels' 128). JAX runs its Pallas kernels in interpret mode, as its own
+kernels' 128), and 264, 300 and 512 (past 256, where the kernels walk the
+head dim in column blocks of 256: 264 and 300 leave a ragged last block,
+512 two whole ones). JAX runs its Pallas kernels in interpret mode, as its own
 tests do. Gates, as the existing port tests state them: flash f32 output
 2e-5, lse 1e-5, gradients 2e-4 × max(|ref|, 1), bf16 output 3e-2 and
 gradients 5e-2 × max(|ref|, 1); paged f32 pools 1e-5, int8 pools 1e-4.
@@ -35,8 +37,9 @@ jfa = importlib.import_module("accelerate_tpu.ops.flash_attention")
 
 torch.set_num_threads(1)
 
-#: the head dims of C4b: two off a multiple of 8, two past 128
-HEAD_DIMS = (20, 36, 200, 256)
+#: the head dims of C4b (two off a multiple of 8, two past 128) and of C4c
+#: (past 256: a ragged last column block at 264 and 300, two whole at 512)
+HEAD_DIMS = (20, 36, 200, 256, 264, 300, 512)
 
 
 def _flash_inputs(hd, seed, b=1, s=40, h=2, n_kv=None):
@@ -89,7 +92,7 @@ def test_plain_flash_matches_jax_at_head_dims(hd, case):
         np.testing.assert_allclose(g, r, rtol=0, atol=2e-4 * max(float(np.abs(r).max()), 1.0))
 
 
-@pytest.mark.parametrize("hd", (20, 256))
+@pytest.mark.parametrize("hd", (20, 256, 300, 512))
 def test_plain_flash_bf16_matches_jax_at_head_dims(hd):
     q, k, v, do = _flash_inputs(hd, seed=3 + hd, h=4, n_kv=2)
     ref_o, ref_grads = _jax_flash(q, k, v, None, True, do, jnp.bfloat16)
@@ -155,15 +158,18 @@ def _plain_bwd_with_delta(q, k, v, mask, o, lse, delta, do, scale, causal):
 
 
 def test_takes_head_dim_is_the_one_rule():
-    assert tfa.HEAD_DIM_RULE == "any head dim from 1 to 256"
-    for hd in (1, 20, 256):
+    """C4c: no upper bound. Every head dim from 1 is taken, past 256 too;
+    only a head dim below 1 is refused, with the rule named, before any
+    build; the kernels run at the next multiple of 8."""
+    assert tfa.HEAD_DIM_RULE == "any head dim of at least 1"
+    for hd in (1, 20, 256, 257, 264, 300, 512, 1024, 4096):
         assert tfa.takes_head_dim(hd)
-    for hd in (0, 257):
+    for hd in (0, -8):
         assert not tfa.takes_head_dim(hd)
-    # over 256 the kernel routes refuse with the rule named, before any build
-    with pytest.raises(ValueError, match="any head dim from 1 to 256"):
-        tfa._kernel_head_dim(257)
-    assert [tfa._kernel_head_dim(hd) for hd in (1, 20, 36, 200, 256)] == [8, 24, 40, 200, 256]
+    with pytest.raises(ValueError, match="any head dim of at least 1"):
+        tfa._kernel_head_dim(0)
+    assert [tfa._kernel_head_dim(hd) for hd in (1, 20, 36, 200, 256, 257, 300, 512)] == [
+        8, 24, 40, 200, 256, 264, 304, 512]
 
 
 # -- B4 ----------------------------------------------------------------------
@@ -231,13 +237,18 @@ def test_plain_paged_attention_matches_jax_at_head_dims(hd, store):
 
 
 def test_paged_kernel_route_refuses_head_dims_past_256():
-    """Over 256 the CUDA route refuses with the rule named, from the shapes
-    alone (before any device check or build); 256 itself passes that check
-    and stops at the device check on these CPU tensors."""
+    """C4c: past 256 the CUDA route no longer refuses. Every head dim from 1
+    (256, 264, 300 and 512 among them) passes the head-dim check and stops
+    at the device check on these CPU tensors; a head dim of 0 is refused
+    with the rule named, from the shapes alone, before any device check or
+    build."""
     idx = torch.zeros(1, dtype=torch.int32)
     table = torch.zeros((1, 2), dtype=torch.int32)
-    for hd, message in ((264, "any head dim from 1 to 256"),
-                        (256, "every tensor must lie on q's CUDA device")):
+    for hd, message in ((0, "any head dim of at least 1"),
+                        (256, "every tensor must lie on q's CUDA device"),
+                        (264, "every tensor must lie on q's CUDA device"),
+                        (300, "every tensor must lie on q's CUDA device"),
+                        (512, "every tensor must lie on q's CUDA device")):
         q = torch.zeros((1, 1, 2, hd))
         pool = torch.zeros((3, 4, 2, hd))
         with pytest.raises(ValueError, match=message):

@@ -54,7 +54,11 @@ def test_every_module_imports_without_jax_or_triton():
                  "commands.serve", "serving.openai_api", "serving.workload",
                  "metrics.registry", "metrics.openmetrics", "metrics.ingest",
                  "diagnostics.tracing", "telemetry", "resilience.preemption",
-                 "analysis.lockwatch"):
+                 "analysis.lockwatch",
+                 # the fleet and the pre-flight: copies, never imports, too
+                 "commands.route", "serving.router", "serving.replica",
+                 "serving.supervisor", "serving.chaos", "analysis.shardplan",
+                 "utils.device"):
         assert f"accelerate_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 
