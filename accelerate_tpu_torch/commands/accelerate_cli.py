@@ -1,13 +1,14 @@
 """CLI root of the port: ``accelerate-tpu-torch <command>`` (port of
-``accelerate_tpu/commands/accelerate_cli.py``; ``serve`` and ``route`` so
-far)."""
+``accelerate_tpu/commands/accelerate_cli.py``; ``serve``, ``route`` and
+the observability commands ``monitor``/``trace``, ``metrics``, ``slo`` and
+``usage`` so far)."""
 
 from __future__ import annotations
 
 import argparse
 import sys
 
-from . import route, serve
+from . import metrics, monitor, route, serve, slo, usage
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -17,7 +18,7 @@ def build_parser() -> argparse.ArgumentParser:
         allow_abbrev=False,
     )
     subparsers = parser.add_subparsers(dest="command")
-    for module in (serve, route):
+    for module in (serve, route, metrics, monitor, slo, usage):
         module.add_parser(subparsers)
     return parser
 

@@ -20,8 +20,9 @@ spawns, so the replicas load the built libraries instead of each running
 ``nvcc`` on a fresh checkout. Several replicas share one card: each holds
 its own context, weights, pools and graph memory, and the card time-slices
 them. ``--mesh`` (one engine sharded over a mesh of cards) is ROADMAP item
-18, and SLO-driven scaling (an armed ``ACCELERATE_SLO_*`` objective with
-``--logging-dir`` under supervision) item 20: both refuse to start.
+18 and refuses to start. Under supervision with ``--logging-dir``, an armed
+``ACCELERATE_SLO_*`` objective makes the scaling SLO-driven
+(:func:`slo_policy_fn`), as in JAX.
 
 SIGTERM drains: admission stops (late submissions are *answered* with an
 error row, never dropped), in-flight requests finish, every spawned
@@ -55,20 +56,6 @@ _ENGINE_FLAGS = (
     ("--spec-k", "spec_k"), ("--draft", "draft"),
     ("--logprobs-topn", "logprobs_topn"),
 )
-
-
-#: the SLO objectives' threshold variables (``accelerate_tpu/metrics/slo.py``):
-#: one that is set arms the supervisor's SLO policy there
-SLO_ENVS = (
-    "ACCELERATE_SLO_MIN_GOODPUT_PCT", "ACCELERATE_SLO_MAX_TTFT_P99_S",
-    "ACCELERATE_SLO_MAX_TPOT_P99_S", "ACCELERATE_SLO_MAX_ERROR_RATE",
-    "ACCELERATE_SLO_MAX_RECOMPILES_PER_HOUR",
-)
-
-
-def armed_slo_objectives() -> list[str]:
-    """The SLO threshold variables set in the environment."""
-    return [env for env in SLO_ENVS if os.environ.get(env)]
 
 
 def _serve_args(args) -> list[str]:
@@ -184,13 +171,36 @@ def _refusal(args) -> str | None:
     if args.mesh:
         return ("--mesh is not yet ported (ROADMAP item 18): one engine sharded "
                 "over a mesh of cards is tensor parallelism across cards")
-    supervised = args.respawn or args.min_replicas is not None or args.max_replicas is not None
-    armed = armed_slo_objectives()
-    if supervised and not args.attach and args.logging_dir and armed:
-        return ("SLO-driven scaling is not yet ported (ROADMAP item 20: metrics/slo.py, "
-                f"goodput.py, diagnostics/monitor.py); armed: {', '.join(armed)} — unset "
-                "them, or run without --logging-dir for queue-depth scaling")
     return None
+
+
+def slo_policy_fn(logging_dir):
+    """SLO-driven scaling: when the fleet has a logging dir and any
+    ``ACCELERATE_SLO_*`` objective is armed, the supervisor's policy reads
+    the windowed verdict (:func:`~..metrics.slo.evaluate_from_dir`,
+    throttled to one evaluation every 2 s: it is file reads over the
+    fleet's own trails). ``None`` when nothing is armed."""
+    if not logging_dir:
+        return None
+    from ..metrics.slo import configured_objectives, evaluate_from_dir
+
+    if not configured_objectives():
+        return None
+    slo_cache = {"ts": 0.0, "verdict": None}
+
+    def slo_fn():
+        now = time.monotonic()
+        if now - slo_cache["ts"] >= 2.0:
+            slo_cache["ts"] = now
+            slo_cache["verdict"] = evaluate_from_dir(logging_dir)
+        return slo_cache["verdict"]
+
+    print(
+        "route: SLO scaling policy armed "
+        f"({', '.join(configured_objectives())})",
+        file=sys.stderr,
+    )
+    return slo_fn
 
 
 def route_command(args) -> int:
@@ -305,8 +315,7 @@ def route_command(args) -> int:
         else:
             from ..serving.supervisor import ReplicaSupervisor, SupervisorConfig
 
-            # queue-depth scaling only: the SLO verdict that would feed
-            # slo_fn is ROADMAP item 20 (an armed objective refused above)
+            slo_fn = slo_policy_fn(args.logging_dir)
 
             # explicit is-None tests: --min-replicas 0 (scale-to-zero floor)
             # must not be rewritten to --replicas
@@ -325,6 +334,7 @@ def route_command(args) -> int:
                     ready_timeout=args.ready_timeout,
                     seed=args.seed,
                 ),
+                slo_fn=slo_fn,
             )
     print(
         f"route: waiting for {len(replicas)} replica(s) to report ready...",

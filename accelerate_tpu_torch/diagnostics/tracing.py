@@ -2,8 +2,8 @@
 request-scoped half of ``accelerate_tpu/diagnostics/tracing.py``: trace
 ids, the :class:`Tracer` with its spans, instants, counters, request
 events and flow arrows, the process-wide active tracer and
-:func:`trace_span`; the hang watchdog and the merge/tail readers are not
-ported).
+:func:`trace_span`, and the readers ``trace merge``, ``trace tail`` and the
+goodput ledger parse with; the hang watchdog is not ported).
 
 The on-disk format is the JAX package's, so its ``accelerate-tpu trace
 merge`` reads a trace this module wrote:
@@ -27,6 +27,7 @@ captured CUDA graph.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 import threading
@@ -34,7 +35,6 @@ import time
 import uuid
 from typing import Any
 
-import logging
 from ..metrics.ingest import observe_span as _observe_metrics_span
 from ..metrics.registry import get_active_registry as _get_metrics_registry
 
@@ -78,6 +78,14 @@ def ensure_trace_id(trace_id) -> str:
 #: counterpart of ``telemetry.SCHEMA_VERSION``): readers skip-with-warning
 #: events from a NEWER writer; events with no field are legacy = accepted
 TRACE_SCHEMA_VERSION = 1
+
+
+def _trace_schema_compatible(event: dict) -> bool:
+    version = event.get("schema", 0)
+    try:
+        return int(version) <= TRACE_SCHEMA_VERSION
+    except (TypeError, ValueError):
+        return False
 
 
 def _host_index() -> int:
@@ -435,3 +443,273 @@ def trace_span(name: str, **attrs):
 
 def trace_instant(name: str, **attrs):
     _ACTIVE_TRACER.instant(name, **attrs)
+
+
+# ---------------------------------------------------------------------------
+# readers: `trace merge`, `trace tail` and the goodput ledger (copies of the
+# JAX package's; pure file reads)
+# ---------------------------------------------------------------------------
+
+
+def parse_trace_file(path: str) -> list[dict]:
+    """Lenient line-oriented parse of the append-format trace file: skips
+    the ``[``/``]`` bracket lines, any torn tail line a crash left, and —
+    with a warning — events stamped with a newer ``schema`` version than
+    this reader understands."""
+    events: list[dict] = []
+    skipped_schema = 0
+    try:
+        with open(path) as f:
+            for line in f:
+                line = line.strip().rstrip(",")
+                if not line or line in ("[", "]"):
+                    continue
+                try:
+                    event = json.loads(line)
+                except json.JSONDecodeError:
+                    continue  # torn tail from a crash mid-write
+                if not isinstance(event, dict):
+                    continue
+                if not _trace_schema_compatible(event):
+                    skipped_schema += 1
+                    continue
+                events.append(event)
+    except OSError:
+        pass
+    if skipped_schema:
+        logger.warning(
+            "%s: skipped %d events with an unknown schema version (> %d) — "
+            "upgrade this reader", path, skipped_schema, TRACE_SCHEMA_VERSION,
+        )
+    return events
+
+
+def discover_trace_files(logging_dir: str) -> list[str]:
+    """Every per-process trace file a run (or a routed fleet) left under
+    ``logging_dir``: the host files in ``traces/`` plus — for a fleet —
+    each replica's own ``replica_*/traces/`` files, so one merge shows a
+    request hopping router → replica."""
+    import glob as _glob
+
+    pats = (
+        os.path.join(logging_dir, TRACE_SUBDIR, "host_*.trace.json"),
+        os.path.join(logging_dir, "host_*.trace.json"),
+        os.path.join(logging_dir, "replica_*", TRACE_SUBDIR, "host_*.trace.json"),
+    )
+    seen: list[str] = []
+    for pat in pats:
+        for path in sorted(_glob.glob(pat)):
+            if path not in seen:
+                seen.append(path)
+    return seen
+
+
+def discover_profile_artifacts(logging_dir: str) -> list[str]:
+    """Every on-demand profiler capture directory a run (or fleet) left
+    under ``logging_dir`` — the ``profiles/profile_<stamp>_<pid>/`` dirs
+    :class:`accelerate_tpu_torch.serving.flight.ProfileWindow` writes,
+    per replica for a fleet — so ``trace merge`` can point the operator
+    at the profiler artifacts riding beside the merged timeline."""
+    import glob as _glob
+
+    pats = (
+        os.path.join(logging_dir, "profiles", "profile_*"),
+        os.path.join(logging_dir, "replica_*", "profiles", "profile_*"),
+    )
+    seen: list[str] = []
+    for pat in pats:
+        for path in sorted(_glob.glob(pat)):
+            if os.path.isdir(path) and path not in seen:
+                seen.append(path)
+    return seen
+
+
+def iter_offset_events(events):
+    """Yield ``(event, offset_us)`` pairs where ``offset_us`` is the most
+    recent ``clock_sync``'s wall-minus-monotonic offset — applied
+    SEQUENTIALLY, because one file can hold several monotonic epochs (the
+    tracer appends across restarts, each with a fresh ``perf_counter``
+    origin). The single source of the offset arithmetic shared by
+    :func:`merge_traces` and the reqtrace reader, so ``trace merge`` and
+    ``trace tail`` can never disagree about a file's wall timestamps.
+    ``clock_sync`` rows are yielded too (with the offset they establish)
+    so callers can record per-host offsets and warn on torn payloads."""
+    offset_us = 0.0
+    for e in events:
+        if e.get("ph") == "M" and e.get("name") == "clock_sync":
+            wall_minus_mono = (e.get("args") or {}).get("wall_minus_mono_s")
+            if wall_minus_mono is not None:
+                offset_us = float(wall_minus_mono) * 1e6
+        yield e, offset_us
+
+
+def _stitch_request_flows(merged: list[dict]) -> dict:
+    """Cross-process request accounting over the merged (clock-corrected)
+    timeline: for every trace id, which processes it touched and whether
+    its flow arrows pair up. ``orphan_flows`` counts ``s`` events with no
+    ``f`` (or vice versa) — the smoke harness's zero-orphans bar."""
+    by_id: dict[str, dict] = {}
+    for e in merged:
+        if e.get("cat") != REQUEST_CATEGORY or "id" not in e:
+            continue
+        info = by_id.setdefault(e["id"], {"pids": set(), "s": 0, "f": 0})
+        info["pids"].add(e.get("pid"))
+        ph = e.get("ph")
+        if ph == "s":
+            info["s"] += 1
+        elif ph == "f":
+            info["f"] += 1
+    orphans = sum(abs(i["s"] - i["f"]) for i in by_id.values())
+    return {
+        "trace_ids": len(by_id),
+        "cross_process": sum(1 for i in by_id.values() if len(i["pids"]) > 1),
+        "orphan_flows": orphans,
+    }
+
+
+def merge_traces(
+    trace_dir: str | None = None,
+    output_path: str | None = None,
+    paths: list[str] | None = None,
+) -> dict:
+    """Fuse ``host_*.trace.json`` files into ONE Perfetto-loadable timeline.
+
+    Every host's events carry monotonic timestamps with an arbitrary origin;
+    each file's ``clock_sync`` metadata records that host's wall-minus-
+    monotonic offset. The merge shifts every host onto the wall clock
+    (``ts + offset``), then rebases the union so the earliest event sits at
+    t=0 — cross-host skew is then exactly the wall-clock skew between
+    hosts, which is what a straggler investigation wants to see.
+
+    ``paths`` (instead of a directory) merges an explicit file list — the
+    ``trace merge``/``trace tail`` CLIs pass a whole fleet's files (router
+    + every replica) through :func:`discover_trace_files`. Two *files*
+    claiming the same pid (a router and a replica each being host 0 of
+    their own process) are disambiguated by remapping the later file onto
+    a fresh pid, so the merged view keeps one track per process. Request-
+    scoped events (``cat="request"``) are stitched by trace id and the
+    tally lands in ``metadata.request_flows``.
+
+    Returns the merged trace dict (``{"traceEvents": [...]}``); when
+    ``output_path`` is given it is also written there as well-formed JSON.
+    """
+    import glob as _glob
+
+    if paths is None:
+        paths = sorted(_glob.glob(os.path.join(trace_dir, "host_*.trace.json")))
+    if not paths:
+        raise FileNotFoundError(f"no host_*.trace.json under {trace_dir}")
+
+    merged: list[dict] = []
+    offsets: dict[int, float] = {}
+    used_pids: set[int] = set()
+    for path in paths:
+        events = parse_trace_file(path)
+        # pid disambiguation across FILES: each process writes its own file
+        # with its own host index as pid, and two independent processes
+        # (router + replica, or two replicas' own host 0) may collide —
+        # remap this file's colliding pids onto fresh ones so each file
+        # stays one distinct track in the merged timeline
+        file_pids = sorted(
+            {e["pid"] for e in events if isinstance(e.get("pid"), int)}
+        )
+        pid_map: dict[int, int] = {}
+        for pid in file_pids:
+            if pid in used_pids:
+                new = (max(used_pids | set(pid_map.values())) + 1) if used_pids else 0
+                pid_map[pid] = new
+                used_pids.add(new)
+            else:
+                used_pids.add(pid)
+        if pid_map:
+            remapped = []
+            for e in events:
+                if isinstance(e.get("pid"), int) and e["pid"] in pid_map:
+                    e = dict(e)
+                    e["pid"] = pid_map[e["pid"]]
+                remapped.append(e)
+            events = remapped
+        # offsets apply SEQUENTIALLY via iter_offset_events — every event
+        # uses the most recent clock_sync above it, so a resumed run's
+        # spans land at their true wall-clock position, not the dead
+        # process's (a file holds one epoch per restart)
+        saw_clock_sync = False
+        for e, offset_us in iter_offset_events(events):
+            if e.get("ph") == "M":
+                if e.get("name") == "clock_sync":
+                    # a partial/killed host can leave a clock_sync with a
+                    # torn/missing args payload: warn and keep the previous
+                    # offset (zero before the first good one) instead of
+                    # crashing the whole merge on one casualty's file
+                    wall_minus_mono = (e.get("args") or {}).get("wall_minus_mono_s")
+                    if wall_minus_mono is None:
+                        logger.warning(
+                            "%s: clock_sync without wall_minus_mono_s "
+                            "(partial/killed host?) — assuming zero offset", path,
+                        )
+                    else:
+                        saw_clock_sync = True
+                    host = e.get("pid")
+                    if host is not None:
+                        offsets[int(host)] = offset_us / 1e6  # last epoch wins
+                    continue  # consumed; per-host process_name survives
+                merged.append(e)
+                continue
+            e = dict(e)
+            if "ts" in e:
+                e["ts"] = float(e["ts"]) + offset_us
+            merged.append(e)
+        if not saw_clock_sync:
+            # the host still lands on the merged timeline (at its raw
+            # monotonic positions) and is still counted in merged_hosts —
+            # its cross-host skew is simply unknown
+            logger.warning(
+                "%s: no clock_sync metadata (partial/killed host?) — events "
+                "merged with zero clock offset", path,
+            )
+            base = os.path.basename(path)
+            try:
+                host_id = int(base.split("_")[1].split(".")[0])
+                offsets.setdefault(host_id, 0.0)
+            except (IndexError, ValueError):
+                pass
+
+    timed = [e for e in merged if "ts" in e]
+    t0 = min((float(e["ts"]) for e in timed), default=0.0)
+    for e in timed:
+        e["ts"] = float(e["ts"]) - t0
+    merged.sort(key=lambda e: float(e.get("ts", 0.0)))
+
+    trace = {
+        "traceEvents": merged,
+        "displayTimeUnit": "ms",
+        "metadata": {
+            "merged_hosts": sorted(offsets),
+            "clock_offsets_s": {str(h): o for h, o in sorted(offsets.items())},
+            "t0_wall_s": t0 / 1e6,
+            "request_flows": _stitch_request_flows(merged),
+        },
+    }
+    if output_path is not None:
+        tmp = output_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(trace, f)
+        os.replace(tmp, output_path)
+    return trace
+
+
+def validate_chrome_trace(trace: dict | list) -> None:
+    """Raise ValueError unless ``trace`` is loadable by Perfetto /
+    ``chrome://tracing`` (schema check used by tests and trace-smoke)."""
+    events = trace.get("traceEvents") if isinstance(trace, dict) else trace
+    if not isinstance(events, list) or not events:
+        raise ValueError("trace has no traceEvents")
+    for e in events:
+        if not isinstance(e, dict):
+            raise ValueError(f"non-object event: {e!r}")
+        if "ph" not in e or "name" not in e:
+            raise ValueError(f"event missing ph/name: {e!r}")
+        if e["ph"] in ("X", "B", "E", "i", "C") and "ts" not in e:
+            raise ValueError(f"timed event missing ts: {e!r}")
+        if e["ph"] == "X" and "dur" not in e:
+            raise ValueError(f"complete event missing dur: {e!r}")

@@ -1,14 +1,14 @@
 """Record → metric mapping: ONE translation from the telemetry record
 stream (and the tracer's span exits / the serving engine's stats dict) into
-registry updates (a copy of ``accelerate_tpu/metrics/ingest.py`` without
-the router's fleet-trail rows, which arrive with the router):
+registry updates, shared by two consumers:
 
 * **in-process**: ``TelemetryRecorder._emit`` calls :func:`observe_record`
   on every record when a registry is active, so a serving job's
   ``GET /metrics`` reflects the live process;
-* **sidecar** (the JAX package's exporter, which tails the telemetry JSONL
-  segments and replays each row through the same mapping): the port writes
-  the same rows, so both surfaces agree on names and semantics.
+* **sidecar**: :class:`~.exporter.LoggingDirExporter` tails the telemetry
+  JSONL segments and replays each new row through the same function, so a
+  training job gets scraped without embedding an HTTP server in the train
+  loop — both surfaces agree on names and semantics by construction.
 
 Counters increment per row (both consumers see each row exactly once);
 run-cumulative *fields* on rows (``recompiles``, ``optimizer_steps``)
@@ -26,6 +26,7 @@ __all__ = [
     "observe_engine_stats",
     "observe_flight",
     "observe_hang",
+    "observe_router_row",
 ]
 
 #: tighter buckets for per-token latencies (TTFT/TPOT)
@@ -333,6 +334,85 @@ def _observe_serving(registry, record: dict) -> None:
                 registry.counter(name, help).set_total(record[field])
         _observe_usage(registry, record.get("usage"))
         _observe_sampling(registry, record)
+
+
+#: router-level robustness counters — fed from the fleet trail's aggregate
+#: ``kind: "router"`` rows (written once per health tick) by the sidecar
+#: exporter, the same one-table-two-surfaces rule as the engine counters.
+#: Counter names render with the OpenMetrics ``_total`` suffix, giving the
+#: documented ``serving_router_{respawns,shed,deadline_expired}_total``.
+_ROUTER_COUNTERS = (
+    ("respawns", "serving_router_respawns",
+     "Dead replicas respawned by the fleet supervisor"),
+    ("shed", "serving_router_shed",
+     "Requests shed by bounded-queue admission control"),
+    ("deadline_expired", "serving_router_deadline_expired",
+     "Requests answered with a deadline-exceeded error row by the router"),
+    ("requeues", "serving_router_requeues",
+     "Dispatches requeued after a replica failure or timeout"),
+    ("rejected", "serving_router_rejected",
+     "Submissions answered with an admission error row"),
+    ("delivered", "serving_router_delivered",
+     "Requests delivered exactly once by the router"),
+    ("scale_ups", "serving_router_scale_ups",
+     "Replicas spawned by queue-pressure autoscaling"),
+    ("scale_downs", "serving_router_scale_downs",
+     "Replicas drained by idle-fleet autoscaling"),
+)
+_ROUTER_GAUGES = (
+    ("queue_depth", "serving_router_queue_depth",
+     "Requests waiting in the router queue"),
+    ("outstanding", "serving_router_outstanding",
+     "Requests submitted but not yet delivered"),
+    ("quarantined", "serving_router_quarantined",
+     "Replicas currently under crash-loop quarantine"),
+    ("pending_respawns", "serving_router_pending_respawns",
+     "Dead replicas waiting out their respawn backoff"),
+)
+
+
+def observe_router_row(registry, row: dict) -> None:
+    """One fleet-trail row → registry updates. Aggregate ``kind="router"``
+    rows ratchet the router counters; per-replica rows refresh a restart
+    gauge. Never raises on malformed rows (the exporter tails files other
+    processes wrote)."""
+    if row.get("kind") == "router":
+        for field, name, help in _ROUTER_COUNTERS:
+            if _num(row.get(field)) is not None:
+                registry.counter(name, help).set_total(row[field])
+        for field, name, help in _ROUTER_GAUGES:
+            if _num(row.get(field)) is not None:
+                registry.gauge(name, help).set(row[field])
+        tenants = row.get("by_tenant")
+        if isinstance(tenants, dict):
+            # Tenant-labeled views of the delivery counters. Cardinality is
+            # capped at the producer (router folds beyond-top-K tenants into
+            # ``other``); the by_tenant field ``requeued`` feeds the same
+            # ``serving_router_requeues`` family as the aggregate row.
+            for tenant, trow in tenants.items():
+                if not isinstance(trow, dict):
+                    continue
+                for field, name, help in (
+                    ("delivered", "serving_router_delivered",
+                     "Requests delivered exactly once by the router"),
+                    ("shed", "serving_router_shed",
+                     "Requests shed by bounded-queue admission control"),
+                    ("deadline_expired", "serving_router_deadline_expired",
+                     "Requests answered with a deadline-exceeded error row "
+                     "by the router"),
+                    ("requeued", "serving_router_requeues",
+                     "Dispatches requeued after a replica failure or timeout"),
+                ):
+                    if _num(trow.get(field)) is not None:
+                        registry.counter(name, help).set_total(
+                            trow[field], tenant=str(tenant)[:64]
+                        )
+        return
+    rid = row.get("replica_id")
+    if rid is not None and _num(row.get("restarts")) is not None:
+        registry.gauge(
+            "serving_replica_restarts", "Respawn count per replica identity"
+        ).set(row["restarts"], replica=str(rid))
 
 
 def observe_span(registry, name: str, seconds: float) -> None:

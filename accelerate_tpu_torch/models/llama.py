@@ -7,11 +7,13 @@ here each layer is its own submodule (``nn.Linear(bias=False)`` stores
 is a Python loop. Ported: :class:`LlamaConfig`, :func:`init_llama_params`,
 :func:`params_from_jax`, the training/eval forward
 (:meth:`LlamaForCausalLM.forward`, the port of ``llama_apply``'s default
-mode and ``llama_layer_apply``) and the paged step the serving engine runs
-(:meth:`LlamaForCausalLM.paged_step`, the port of ``_llama_paged_step``)
-with its early-exit draft for speculative decoding
-(:func:`llama_early_exit_apply`). The dense KV-cache decode and the
-streaming segments are later slices.
+mode and ``llama_layer_apply``), its prefill mode (``use_cache=True``) and
+dense KV-cache decode (:meth:`LlamaForCausalLM.cached_step`, the port of
+``_llama_decode_step``), which ``generate()`` runs, and the paged step the
+serving engine runs (:meth:`LlamaForCausalLM.paged_step`, the port of
+``_llama_paged_step``) with its early-exit draft for speculative decoding
+(:func:`llama_early_exit_apply`). The streaming segments and the pipelined
+stacks are later slices.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ..ops.layers import (
     fused_cross_entropy,
     rms_norm,
     rope_frequencies,
+    rope_cached_attention_block,
     rope_paged_attention_block,
     shift_labels,
 )
@@ -185,11 +188,13 @@ class LlamaDecoderLayer(nn.Module):
         return w
 
 
-def llama_layer_apply(config: LlamaConfig, w: dict, x, cos, sin, positions, attention_mask):
+def llama_layer_apply(config: LlamaConfig, w: dict, x, cos, sin, positions, attention_mask,
+                      return_kv: bool = False):
     """One transformer block on a layer's weight dict (port of
     ``llama_layer_apply``): RMSNorm → q/k/v → RoPE → :func:`ops.attention.attention`
     (causal, ``attention_mask [b, s]`` as the key mask) → output projection
-    residual → RMSNorm → SwiGLU MLP residual."""
+    residual → RMSNorm → SwiGLU MLP residual. ``return_kv`` also returns
+    the block's roped K and V ``[b, s, n_kv, hd]`` (the prefill's cache)."""
     c = config
     nh, nkv, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
     b, s, _ = x.shape
@@ -201,7 +206,8 @@ def llama_layer_apply(config: LlamaConfig, w: dict, x, cos, sin, positions, atte
     x = x + F.linear(attn.reshape(b, s, nh * hd), w["wo"])
     y = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
     gated = F.silu(F.linear(y, w["w_gate"])) * F.linear(y, w["w_up"])
-    return x + F.linear(gated, w["w_down"])
+    x = x + F.linear(gated, w["w_down"])
+    return (x, (k, v)) if return_kv else x
 
 
 _LAYER_KEYS = _LINEARS + _NORMS
@@ -216,12 +222,13 @@ def _remat_layer(config, x, cos, sin, positions, attention_mask, *weights):
 
 
 class LlamaForCausalLM(nn.Module):
-    """Llama: the training forward and the serving engine's block-paged KV
-    step. Build one with
+    """Llama: the training forward, the dense KV-cache prefill and decode
+    ``generate()`` runs, and the serving engine's block-paged KV step. Build one with
     :meth:`from_config` (random weights from a seed) or construct it and
     ``load_state_dict`` (e.g. :func:`params_from_jax`): the constructor
     leaves the weights uninitialised."""
 
+    supports_kv_cache = True
     supports_paged_kv = True
 
     def __init__(self, config: LlamaConfig, dtype=torch.float32, device=None):
@@ -267,13 +274,21 @@ class LlamaForCausalLM(nn.Module):
         return self.embed_tokens.weight if self.lm_head is None else self.lm_head.weight
 
     def forward(self, input_ids, attention_mask=None, labels=None, positions=None,
-                return_logits: bool = False) -> ModelOutput:
+                return_logits: bool = False, use_cache: bool = False,
+                max_cache_len: int | None = None, kv_cache=None,
+                cache_index=None, spare_slot: bool = False) -> ModelOutput:
         """Training / eval forward over ``input_ids [b, s]`` with full causal
         attention; ``attention_mask [b, s]`` (1 = real token) masks keys.
         With ``labels [b, s]`` (-100 ignored) the loss is the next-token CE
         computed from the pre-head hidden states by
         :func:`ops.layers.fused_cross_entropy`, one sequence chunk of logits
         at a time.
+
+        **Prefill** (``use_cache=True``): the same forward, plus each layer's
+        K/V in ``out.kv_cache`` ``{"k", "v"}: [L, b, max_cache_len, n_kv,
+        hd]`` (zeros past ``s``; ``max_cache_len`` defaults to
+        ``max_position_embeddings``). **Decode** (``kv_cache=`` with
+        ``cache_index=``, and ``spare_slot``): :meth:`cached_step`.
 
         Deviation from the JAX model: there, XLA drops the unused ``[b, s,
         vocab]`` logits when a step forces only the loss; eager PyTorch
@@ -282,19 +297,32 @@ class LlamaForCausalLM(nn.Module):
         unless ``return_logits=True``."""
         c = self.config
         b, s = input_ids.shape
-        if s > c.max_position_embeddings:
-            raise ValueError(
-                f"sequence length {s} exceeds max_position_embeddings "
-                f"{c.max_position_embeddings}: RoPE position tables would be "
-                "indexed out of range"
-            )
+        self._check_length(s)
+        if kv_cache is not None:
+            return self.cached_step(input_ids, kv_cache, cache_index, spare_slot)
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
         x = self.embed_tokens(input_ids.long())
         rope = (self.rope_cos, self.rope_sin)
-        for layer in self.layers:
+        caches = None
+        if use_cache:
+            max_cache = int(max_cache_len or c.max_position_embeddings)
+            if not s <= max_cache <= c.max_position_embeddings:
+                raise ValueError(
+                    f"max_cache_len {max_cache} must be in [{s} (prompt length), "
+                    f"{c.max_position_embeddings} (max_position_embeddings)] — "
+                    "above it RoPE tables would silently clamp"
+                )
+            shape = (c.num_hidden_layers, b, max_cache, c.num_key_value_heads, c.head_dim)
+            caches = {n: torch.zeros(shape, dtype=x.dtype, device=x.device) for n in "kv"}
+        for i, layer in enumerate(self.layers):
             w = layer.weights()
-            if c.remat:
+            if caches is not None:
+                x, (k, v) = llama_layer_apply(c, w, x, *rope, positions, attention_mask,
+                                              return_kv=True)
+                caches["k"][i, :, :s] = k
+                caches["v"][i, :, :s] = v
+            elif c.remat:
                 x = checkpoint(_remat_layer, c, x, *rope, positions, attention_mask,
                                *(w[n] for n in _LAYER_KEYS), use_reentrant=False)
             else:
@@ -304,9 +332,48 @@ class LlamaForCausalLM(nn.Module):
         out = ModelOutput()
         if labels is None or return_logits:
             out["logits"] = F.linear(x, head)
+        if caches is not None:
+            out["kv_cache"] = caches
         if labels is not None:
             out["loss"] = fused_cross_entropy(x, head.t(), shift_labels(labels))
         return out
+
+    def _check_length(self, s: int) -> None:
+        if s > self.config.max_position_embeddings:
+            raise ValueError(
+                f"sequence length {s} exceeds max_position_embeddings "
+                f"{self.config.max_position_embeddings}: RoPE position tables would be "
+                "indexed out of range"
+            )
+
+    @torch.no_grad()
+    def cached_step(self, input_ids, kv_cache, cache_index,
+                    spare_slot: bool = False) -> ModelOutput:
+        """One dense KV-cache decode step (port of ``_llama_decode_step``):
+        ``input_ids [b, s]`` (``s == 1`` a decode token, ``s > 1`` a
+        speculative verify chunk) at each row's own cache position
+        ``cache_index [b]``. ``kv_cache`` ``{"k", "v"}: [L, b, max_cache,
+        n_kv, hd]`` is **updated in place** (positions past its end are
+        dropped: :func:`ops.layers.write_kv_cache`, into the cache's last
+        slot when ``spare_slot``), and attention runs
+        against each row's prefix (:func:`ops.layers.cached_attention`, plain
+        PyTorch, as JAX computes it outside any Pallas kernel). Returns
+        ``ModelOutput(logits [b, s, vocab], kv_cache)``."""
+        c = self.config
+        b, s = input_ids.shape
+        self._check_length(s)
+        idx = cache_index.reshape(b)
+        x = self.embed_tokens(input_ids.long())
+        for i, layer in enumerate(self.layers):
+            x, _, _ = rope_cached_attention_block(
+                layer, x, kv_cache["k"][i], kv_cache["v"][i], self.rope_cos, self.rope_sin,
+                idx, c.num_attention_heads, c.num_key_value_heads, c.head_dim, c.rms_norm_eps,
+                spare_slot,
+            )
+            y = rms_norm(x, layer.mlp_norm, c.rms_norm_eps)
+            x = x + layer.w_down(F.silu(layer.w_gate(y)) * layer.w_up(y))
+        x = rms_norm(x, self.norm, c.rms_norm_eps)
+        return ModelOutput(logits=F.linear(x, self._head()), kv_cache=kv_cache)
 
     def early_exit_apply(self, draft_layers: int):
         """The early-exit draft of this model: :func:`llama_early_exit_apply`."""
@@ -329,12 +396,7 @@ class LlamaForCausalLM(nn.Module):
         draft."""
         c = self.config
         b, s = input_ids.shape
-        if s > c.max_position_embeddings:
-            raise ValueError(
-                f"sequence length {s} exceeds max_position_embeddings "
-                f"{c.max_position_embeddings}: RoPE position tables would be "
-                "indexed out of range"
-            )
+        self._check_length(s)
         idx = cache_positions.reshape(b).to(torch.int32).contiguous()
         bt = block_tables.to(torch.int32).contiguous()
         quantized = "k_scale" in paged_kv

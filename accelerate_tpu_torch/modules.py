@@ -62,7 +62,9 @@ class PreparedModel:
     bf16 outputs come back as f32. The casts are differentiable, so the
     gradients land on the f32 masters in f32. (``torch.autocast`` would
     keep the residual stream in f32 and round elsewhere, so it is not
-    used.) Attributes not found here are read from the module."""
+    used.) Attributes not found here are read from the module.
+    ``generate()`` casts the weights once a call into one kept copy a
+    dtype (``generation._cache_backend``), not once a token."""
 
     def __init__(self, module: torch.nn.Module, compute_dtype: torch.dtype | None = None):
         self.module = module

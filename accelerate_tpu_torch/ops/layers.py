@@ -1,7 +1,7 @@
 """Core transformer ops (port of ``accelerate_tpu/ops/layers.py``): the
 norm, RoPE, the reference attention and the losses the training step runs,
-and the cached attention and block-paged KV cache ops the serving path
-runs.
+the dense KV cache ops ``generate()`` runs, and the block-paged KV cache
+ops the serving path runs.
 
 Layouts follow the JAX package at every public function (``[b, s, heads,
 head_dim]`` activations, ``[num_blocks, block_size, n_kv, head_dim]``
@@ -158,6 +158,78 @@ def fused_cross_entropy(x, head, labels, ignore_index: int = -100, chunk_tokens:
     return nll / torch.clamp(count, min=1)
 
 
+def write_kv_cache(k_cache_l, v_cache_l, k, v, idx, spare_slot: bool = False):
+    """Append a chunk's K/V (``[b, s, n_kv, hd]``, ``s >= 1``) **in place**
+    at each row's own cache positions ``idx[b] .. idx[b]+s-1`` of the dense
+    caches ``[b, max_cache, n_kv, hd]`` (port of JAX ``write_kv_cache``;
+    ``s == 1`` is the per-token decode, ``s > 1`` the speculative verify
+    chunk). The caches are returned for symmetry.
+
+    A position past the cache end is **dropped**, as JAX's ``mode="drop"``
+    scatter drops it: a verify chunk near an exact-fit budget overshoots
+    the cache, and those tokens are never emitted. PyTorch's scatters have
+    no drop mode (an out-of-range index raises on the CPU and faults on the
+    card), so a dropped lane is routed to a slot no query reads:
+
+    * ``spare_slot=True``: the cache's last slot holds no position (the
+      caches :func:`~accelerate_tpu_torch.generation.generate` keeps carry
+      it), so positions run to ``max_cache - 2`` and a dropped lane writes
+      there, no read-back needed; :func:`cached_attention` never lets a
+      kept query reach it, since a kept query's position is below it;
+    * else (JAX's exact layout): slot ``min(idx[b], max_cache) - 1``, which
+      is written back with the value it already holds: no lane of this
+      chunk writes there (a row's kept lanes start at ``idx[b]``), and every
+      lane routed to it writes the same bytes. Overshoot implies ``idx[b] >=
+      1`` because ``s <= max_cache``.
+
+    Fixed shapes, no host sync: a CUDA graph captures it."""
+    b, s = k.shape[0], k.shape[1]
+    max_cache = k_cache_l.shape[1]
+    live = max_cache - 1 if spare_slot else max_cache
+    if s > live:
+        raise ValueError(f"a chunk of {s} tokens does not fit a cache of {live}")
+    idx = idx.reshape(b).long()
+    pos = idx[:, None] + torch.arange(s, device=k.device)[None, :]  # [b, s]
+    keep = pos < live
+    if spare_slot:
+        target = torch.where(keep, pos, live)
+    else:
+        target = torch.where(keep, pos, (idx - 1).clamp(0, max_cache - 1)[:, None])
+    rows = torch.arange(b, device=k.device)[:, None]
+    flat = (rows * max_cache + target).reshape(b * s)
+    keep = keep.reshape(b * s, 1, 1)
+    for cache, new in ((k_cache_l, k), (v_cache_l, v)):
+        dst = cache.view(b * max_cache, *cache.shape[2:])
+        src = new.reshape(b * s, *cache.shape[2:]).to(cache.dtype)
+        if not spare_slot:
+            src = torch.where(keep, src, dst.index_select(0, flat))
+        dst.index_copy_(0, flat, src)
+    return k_cache_l, v_cache_l
+
+
+def rope_cached_attention_block(layer, x, k_cache_l, v_cache_l, cos, sin, idx,
+                                n_heads: int, n_kv_heads: int, head_dim: int, eps: float,
+                                spare_slot: bool = False):
+    """The decode-step attention sub-block (port of JAX
+    ``rope_cached_attention_block``): RMSNorm → q/k/v projections → RoPE at
+    each row's cache position → :func:`write_kv_cache` (in place) →
+    :func:`cached_attention` → output projection residual. ``layer`` carries
+    the ``wq``/``wk``/``wv``/``wo`` projections and the ``attn_norm`` weight;
+    ``spare_slot`` is :func:`write_kv_cache`'s. Returns ``(x + attn_out,
+    k_cache_l, v_cache_l)``."""
+    b, s, _ = x.shape
+    idx = idx.reshape(b)
+    positions = idx[:, None].long() + torch.arange(s, device=x.device)[None, :]
+    y = rms_norm(x, layer.attn_norm, eps)
+    q = apply_rope(layer.wq(y).reshape(b, s, n_heads, head_dim), cos, sin, positions)
+    k = apply_rope(layer.wk(y).reshape(b, s, n_kv_heads, head_dim), cos, sin, positions)
+    v = layer.wv(y).reshape(b, s, n_kv_heads, head_dim)
+    write_kv_cache(k_cache_l, v_cache_l, k, v, idx, spare_slot)
+    attn = cached_attention(q, k_cache_l, v_cache_l, idx)
+    x = x + layer.wo(attn.reshape(b, s, n_heads * head_dim))
+    return x, k_cache_l, v_cache_l
+
+
 def cached_attention(q, k_cache, v_cache, idx):
     """Chunked attention against a KV cache with a per-row valid prefix.
 
@@ -176,10 +248,9 @@ def cached_attention(q, k_cache, v_cache, idx):
         torch.arange(max_cache, device=q.device)[None, None, :] <= q_pos[:, :, None]
     )  # [b, s, max]
     scores = torch.einsum("bqnrd,bknd->bnrqk", qg, k_cache.float()) / np.sqrt(float(hd))
-    scores = torch.where(
-        valid[:, None, None, :, :], scores,
-        torch.tensor(torch.finfo(torch.float32).min, device=q.device),
-    )
+    # masked_fill with a Python scalar: no host tensor is made, so a CUDA
+    # graph can capture it
+    scores = scores.masked_fill(~valid[:, None, None, :, :], torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bnrqk,bknd->bqnrd", probs, v_cache.float())
     return out.reshape(b, s, nh, hd).to(q.dtype)

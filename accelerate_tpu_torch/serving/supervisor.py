@@ -34,10 +34,9 @@ whose dominant tail phase is ``queued`` scales up, a device-/swap-bound
 breach holds with a ``WRONG_REMEDY`` decision row (capacity is not the
 fix), and scale-down requires the error budget to be intact — with every
 verdict logged as a ``kind:"scale_decision"`` fleet-trail row carrying the
-evidence. The policy is here, held to the JAX package's decisions by the
-tests; what feeds it from the fleet's trails (``metrics/slo.py``,
-``goodput.py``, ``diagnostics/monitor.py``) is ROADMAP item 20, so
-``route`` wires no ``slo_fn`` yet and refuses an armed objective.
+evidence. ``route`` wires ``slo_fn`` to a throttled
+:func:`~..metrics.slo.evaluate_from_dir` over the fleet's logging dir when
+an ``ACCELERATE_SLO_*`` objective is armed.
 
 Pure stdlib like the rest of the router side. Disabled
 (``Router(supervisor=None)``, the default) the router behaves exactly as
@@ -53,14 +52,9 @@ import time
 from dataclasses import dataclass
 
 from ..analysis.lockwatch import maybe_watch
+from ..metrics.slo import NON_SCALABLE_PHASES
 
 logger = logging.getLogger(__name__)
-
-#: tail phases more replicas do not shorten (the device and the swap tier
-#: are per replica): a breach dominated by one holds with WRONG_REMEDY. A
-#: copy of ``accelerate_tpu/metrics/slo.py``'s constant, whose module is
-#: ROADMAP item 20
-NON_SCALABLE_PHASES = ("device_wait", "swap", "swap_in", "harvest", "dispatch")
 
 
 @dataclass

@@ -13,6 +13,8 @@ monitor`` and metrics exporter read a trail this module wrote. Rows:
 * ``{"type": "compile", "label": <program>, ...}`` one a CUDA-graph capture
   (:meth:`record_capture`): the port's counterpart of the JAX package's
   one row an XLA compile (it has no lazy compile cache to hook);
+* ``{"type": "generate", "mode": ...}`` one a ``generate()`` call
+  (:meth:`record_generation`);
 * ``{"type": "event", "kind": ...}`` (:meth:`record_event`).
 
 Every row also passes through :func:`~.metrics.ingest.observe_record` into
@@ -41,6 +43,40 @@ logger = logging.getLogger(__name__)
 SCHEMA_VERSION = 1
 
 
+def schema_compatible(row: dict) -> bool:
+    """True when this reader understands ``row``'s schema version (missing
+    field = legacy = compatible; garbage values are incompatible)."""
+    version = row.get("schema", 0)
+    try:
+        return int(version) <= SCHEMA_VERSION
+    except (TypeError, ValueError):
+        return False
+
+
+def telemetry_segments(jsonl_path: str) -> list[str]:
+    """Existing JSONL segments for a trail, oldest → newest: rotated
+    ``telemetry.jsonl.N`` … ``telemetry.jsonl.1`` then the live file.
+    Readers (``monitor``'s tail, the metrics exporter) iterate this instead
+    of assuming one unbounded file."""
+    segments: list[str] = []
+    suffixes = []
+    try:
+        directory = os.path.dirname(jsonl_path) or "."
+        base = os.path.basename(jsonl_path)
+        for name in os.listdir(directory):
+            if name.startswith(base + "."):
+                tail = name[len(base) + 1:]
+                if tail.isdigit():
+                    suffixes.append(int(tail))
+    except OSError:
+        pass
+    for n in sorted(suffixes, reverse=True):
+        segments.append(f"{jsonl_path}.{n}")
+    if os.path.exists(jsonl_path):
+        segments.append(jsonl_path)
+    return segments
+
+
 class _NullTelemetry:
     """The disabled recorder: every method is a no-op and ``bool()`` is
     False, so an instrumentation point is one truthiness test."""
@@ -52,6 +88,9 @@ class _NullTelemetry:
         pass
 
     def record_capture(self, *a, **k):
+        pass
+
+    def record_generation(self, *a, **k):
         pass
 
     def record_event(self, *a, **k):
@@ -191,6 +230,26 @@ class TelemetryRecorder:
             "recompiles": self.recompile_count,
             **facts,
         })
+
+    def record_generation(self, mode: str, new_tokens: int, seconds: float,
+                          accept_rate: float | None = None,
+                          verify_rounds: int | None = None) -> None:
+        """One ``generate()`` call: its path (``"kv_cache"``,
+        ``"full_forward"`` or ``"speculative"``), the tokens it emitted and
+        its wall time; a speculative call adds its acceptance and verify
+        rounds."""
+        record = {
+            "type": "generate",
+            "mode": mode,
+            "new_tokens": int(new_tokens),
+            "seconds": float(seconds),
+            "tokens_per_sec": (new_tokens / seconds) if seconds > 0 else None,
+        }
+        if accept_rate is not None:
+            record["accept_rate"] = float(accept_rate)
+        if verify_rounds is not None:
+            record["verify_rounds"] = int(verify_rounds)
+        self._emit(record)
 
     def record_event(self, kind: str, **fields) -> None:
         self._emit({"type": "event", "kind": kind, **fields})

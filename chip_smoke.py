@@ -117,6 +117,13 @@ failure, so the script exits non-zero and prints no result):
    ``num_blocks`` printed; predicted params + pool bytes equal the tensors
    on the card), and ``--hbm-gb 1``: SP004 before any pool allocates
    (``torch.cuda.memory_allocated`` shows the weights only), serve exit 2;
+5i. the fleet with an armed SLO objective: ``route --replicas 1 --respawn
+   --max-replicas 2 --logging-dir`` over the tiny llama on the card with
+   ``ACCELERATE_SLO_MAX_ERROR_RATE=0.01``; route prints that the policy is
+   armed, three of six requests carry a 1 ms deadline, the supervisor
+   writes a ``scale_decision`` row whose evidence names a dominant phase,
+   SIGTERM drains (exit 0), and ``slo report`` and ``monitor --once`` read
+   the fleet's directory and exit 0;
 5d. speculative decoding (``spec_k`` 4, ``early_exit:2``) on the flagship:
    the 12 requests greedy against 5b's plain tokens under 5b's margin rule
    (a divergence's logits from an eager prefill of the shared prefix), one
@@ -154,6 +161,26 @@ failure, so the script exits non-zero and prints no result):
    per step); then one paged step eager against the same step replayed
    from a CUDA graph. Printed as one ``{"serve_breakdown": {...}}`` line
    with phase 5's serve numbers and phases 5b-5c;
+7b. ``generate()`` on the flagship at bf16 for time, at ``bench.py``'s decode
+   shape (8 × 128 random ids, ``use_cache=True``, 8 and 136 new tokens):
+   the first call of a length captures the decode step and the second
+   captures nothing; replays one a token; B1 launched once a layer a call
+   (the prefill); decode tok/s by difference, a step's wall and device
+   time (the profiler over replays of the captured step); sampling twice
+   with one seed gives the same tokens; a speculative call (k 4, a 4-layer
+   draft) timed a round;
+7c. ``generate()`` on the flagship at f32 for equality: 8 prompts
+   right-padded to 128 ids (lengths 17-128), 32 new tokens; greedy tokens
+   identical through the cached path with the kernels, with
+   ``flash_impl="plain"``, the full-forward loop and speculative decoding
+   (k 4, a 4-layer draft on its own weights); an eos that stops a row
+   mid-chunk; the prefill's logits, B1 against plain, within 2e-5 × the
+   largest |logit|;
+7d. B1 against its plain forward at ``generate()``'s shapes (causal,
+   right-padded key masks, s 128, 137 and 160, f32 and bf16, GQA), phase
+   8's gates, each launched twice and bit-identical; B1 timed at the
+   prefill shape (b 8, s 128, 12 × 128, bf16, the key mask) beside its
+   plain version, sdpa with the same mask and the bound;
 8. the flash-attention kernels (forward, backward dq, backward dk/dv)
    against their plain versions on the card, on seeded numpy inputs: the
    flagship shape (b 8, s 1024, 12 × 128) and GQA 32/8 at hd 64 and 128,
@@ -1780,8 +1807,8 @@ def run_fleet(model, phase5: dict, front_door: dict) -> dict:
     two ready (spawn to ready timed); replica 1's ``/stats`` (then the
     respawned replica 0's) one capture of each program and B4's launches
     = eager + replays × captured. Then, the survivor steady, a SIGSTOP of
-    replica 1 with a request decoding on it (prefix affinity placed it
-    there; a fresh one decodes on replica 0): the router's wedge verdict
+    replica 1 with a request decoding on it (sent once a fresh one decodes
+    on replica 0; prefix affinity or load placed it): the router's wedge verdict
     rescues it to replica 0 (the stopped process is killed and respawned),
     while replica 0's own request's TPOT is printed beside phase 5's. Last,
     SIGTERM to route: drained, exit 0, no fleet process alive and
@@ -1883,25 +1910,40 @@ def run_fleet(model, phase5: dict, front_door: dict) -> dict:
         stats_r1 = _json(urls[1], "/stats")
         launches_r1 = check_graph_counts(stats_r1, 16, 8, "fleet replica 1")
 
-        # the stop scenario: one request that shares a wave prompt's leading
-        # block (only replica 1 is warm for it: prefix affinity places it
-        # there) and one fresh prompt (least-loaded: the respawned replica
-        # 0), 400 new tokens each; replica 1 stopped with its request
-        # decoding, so the router's wedge verdict must rescue it
+        # the stop scenario: one fresh prompt (the fleet idle, least-loaded
+        # picks the respawned replica 0), then, once replica 0 holds it, one
+        # request that shares a wave prompt's leading block (replica 1: warm
+        # for it by prefix affinity, or else the least loaded), 400 new
+        # tokens each; replica 1 stopped with its request decoding, so the
+        # router's wedge verdict must rescue it. Replica 0 gets its request
+        # first because its first request captures its graphs: sent
+        # together, replica 1 could finish before replica 0 decodes
         fresh = _requests(4, seed=7)[1]["prompt"]  # 310 ids: with 400 new, under 1024
         stop_reqs = [{"id": 200, "prompt": reqs[5]["prompt"][:32] + fresh[32:64],
                       "max_new_tokens": 400},
                      {"id": 201, "prompt": fresh, "max_new_tokens": 400}]
-        stdin_rows(stop_reqs)
+        seen = {}
 
-        def both_decoding():
+        def decoding(replicas):
             refused = [r for r in rows_out if r.get("id") in (200, 201) and "error" in r]
             if refused:
                 raise AssertionError(f"the stop scenario's requests were refused: {refused}")
-            return all(_json(urls[i], "/healthz")["active_slots"] > 0 for i in (0, 1))
+            for i in (0, 1):
+                seen[i] = _json(urls[i], "/healthz")["active_slots"]
+            return all(seen[i] > 0 for i in replicas)
 
-        _wait_for(both_decoding, "both replicas to decode a stop-scenario request", timeout=120,
-                  poll=0.005)
+        def wait_decoding(replicas, what):
+            try:
+                _wait_for(lambda: decoding(replicas), what, timeout=120, poll=0.005)
+            except AssertionError as e:
+                raise AssertionError(f"{e}: active slots {seen}, answered "
+                                     f"{[r.get('id') for r in rows_out if r.get('id') in (200, 201)]}"
+                                     f"\n{stderr_text()[-2000:]}") from None
+
+        stdin_rows(stop_reqs[1:])
+        wait_decoding((0,), "the respawned replica 0 to take the fresh stop-scenario request")
+        stdin_rows(stop_reqs[:1])
+        wait_decoding((0, 1), "both replicas to decode a stop-scenario request")
         requeues_before = [r for r in _fleet_trail(logging_dir)
                            if r.get("kind") == "router"][-1]["requeues"]
         os.kill(latest[1]["pid"], signal.SIGSTOP)
@@ -2450,6 +2492,517 @@ def serve_breakdown(model) -> dict:
     del graph, engine
     torch.cuda.empty_cache()
     return {"legs": legs, "eager_step_ms": eager_ms, "graph_replay_step_ms": graph_ms}
+
+
+# -- phase 7b, 7c, 7d: generate() -------------------------------------------
+
+#: bench.py's decode shape (``_mode_decode``): batch, prompt, the short and
+#: the long generation whose difference gives decode tokens/s
+DECODE_BATCH, DECODE_PROMPT, DECODE_SHORT, DECODE_LONG = 8, 128, 8, 136
+#: phase 7c: 8 prompts right-padded to 128 ids, real lengths 17-128
+GEN_LENGTHS = (17, 33, 50, 64, 81, 100, 115, 128)
+GEN_NEW = 32
+
+
+def _generation_counts() -> tuple:
+    from accelerate_tpu_torch import generation
+
+    return generation.captures, generation.replays
+
+
+def _ragged_prompts(vocab: int, seed: int, lengths=GEN_LENGTHS, width: int = 128):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, vocab, size=(len(lengths), width)).astype(np.int32)
+    mask = (np.arange(width)[None, :] < np.asarray(lengths)[:, None]).astype(np.int32)
+    ids[mask == 0] = 0
+    return ids, mask
+
+
+def _decode_program(model, total: int):
+    """The decode program ``generate()`` keeps on ``model`` for a cache of
+    ``total`` positions."""
+    for key, prog in model.__dict__["_generation_programs"].items():
+        if key[0] == "decode" and key[2] == total:
+            return prog
+    raise AssertionError(f"no decode program of cache length {total} on the model")
+
+
+def time_generate(model) -> dict:
+    """``generate()`` on the flagship at bf16 for time, at bench.py's decode
+    shape (8 × 128 random ids, ``use_cache=True``): each length called
+    twice (the first captures the decode step, the second must not), then
+    timed; decode tok/s by differencing 8 and 136 new tokens; B1's launches
+    a call; a decode step's wall (replays back to back) and device time
+    (the profiler over replays of the captured step). Then sampling twice
+    with one seed (the tokens must be identical), and a greedy speculative
+    call (``num_draft_tokens`` 4, a 4-layer draft of the flagship's widths
+    on its own weights) whose tokens must equal plain greedy decoding: its
+    time a round."""
+    from accelerate_tpu_torch.generation import generate
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    cfg = model.config
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, size=(DECODE_BATCH, DECODE_PROMPT)).astype(np.int32)
+    out = {"shape": {"batch": DECODE_BATCH, "prompt": DECODE_PROMPT, "short": DECODE_SHORT,
+                     "long": DECODE_LONG, "dtype": "bf16"}}
+    walls, tokens = {}, {}
+    for n_new in (DECODE_SHORT, DECODE_LONG):
+        calls = []
+        for call in range(2):
+            before = _generation_counts()
+            _zero_flash_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = generate(model, ids, max_new_tokens=n_new, use_cache=True)
+            wall = time.perf_counter() - t0
+            after = _generation_counts()
+            calls.append({"wall_s": wall, "captures": after[0] - before[0],
+                          "replays": after[1] - before[1],
+                          "flash_fwd_launches": fa.fwd_launches})
+            if got.shape != (DECODE_BATCH, DECODE_PROMPT + n_new):
+                raise AssertionError(f"generate() returned {tuple(got.shape)}")
+            tokens.setdefault(n_new, got)
+            if not torch.equal(got, tokens[n_new]):
+                raise AssertionError("two greedy generate() calls gave different tokens")
+        if [c["captures"] for c in calls] != [1, 0]:
+            raise AssertionError(f"captures {[c['captures'] for c in calls]}: the first call "
+                                 "must capture the decode step once and the second not at all")
+        if any(c["flash_fwd_launches"] != cfg.num_hidden_layers for c in calls):
+            raise AssertionError(f"B1 launches a generate() call {calls}: one a layer (the "
+                                 "prefill) expected")
+        if any(c["replays"] != n_new - 1 for c in calls):
+            raise AssertionError(f"replays {calls}: one a decoded token after the first")
+        timed = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate(model, ids, max_new_tokens=n_new, use_cache=True)
+            timed.append(time.perf_counter() - t0)
+        walls[n_new] = sorted(timed)[1]
+        out[f"new_{n_new}"] = {"calls": calls, "timed_wall_s": timed}
+    step_s = (walls[DECODE_LONG] - walls[DECODE_SHORT]) / (DECODE_LONG - DECODE_SHORT)
+    out["decode_tok_s"] = DECODE_BATCH / step_s
+    out["wall_short_s"], out["wall_long_s"] = walls[DECODE_SHORT], walls[DECODE_LONG]
+    out["step_wall_ms"] = step_s * 1e3
+
+    # the captured step alone: replays back to back (wall), and the
+    # profiler's kernel time a replay (device); the program's step counter
+    # and positions are set back so these replays stay inside the cache
+    prog = _decode_program(model, DECODE_PROMPT + DECODE_LONG)
+    graph = prog.program.graph
+    reps = 20
+
+    def replay(i):
+        graph.replay()
+
+    def rewind():
+        prog.step.zero_()
+        prog.pos.fill_(DECODE_PROMPT)
+
+    rewind()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        replay(i)
+    torch.cuda.synchronize()
+    out["replay_wall_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+    rewind()
+    rows = _library_rows(replay, reps)
+    rewind()
+    out["step_device_ms"] = sum(e.self_device_time_total for e in rows) / 1e3 / reps
+    out["kernels_per_step"] = sum(e.count for e in rows) / reps
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+    out["top_kernels_ms_per_step"] = {e.key[:80]: e.self_device_time_total / 1e3 / reps
+                                      for e in top}
+    out["top_kernels_launches_per_step"] = {e.key[:80]: e.count / reps for e in top}
+    log(f"  generate() bf16, {DECODE_BATCH} × {DECODE_PROMPT} ids: {DECODE_SHORT} new tokens "
+        f"{walls[DECODE_SHORT]:.4f} s, {DECODE_LONG} new tokens {walls[DECODE_LONG]:.4f} s → "
+        f"decode {out['decode_tok_s']:.1f} tok/s, {out['step_wall_ms']:.3f} ms a step by "
+        f"difference; captures {[c['captures'] for c in out[f'new_{DECODE_LONG}']['calls']]}, "
+        f"replays {[c['replays'] for c in out[f'new_{DECODE_LONG}']['calls']]}, B1 launches a "
+        f"call {out[f'new_{DECODE_LONG}']['calls'][0]['flash_fwd_launches']}; the captured step: "
+        f"{out['replay_wall_ms']:.3f} ms wall a replay back to back, {out['step_device_ms']:.3f} "
+        f"ms device, {out['kernels_per_step']:.0f} kernels; top kernels ms a step "
+        f"{json.dumps({k: round(v, 4) for k, v in out['top_kernels_ms_per_step'].items()})}")
+
+    # sampling: one seed, two calls, the same tokens
+    kw = dict(max_new_tokens=GEN_NEW, use_cache=True, do_sample=True, temperature=0.8, seed=5)
+    a = generate(model, ids, **kw)
+    b = generate(model, ids, **kw)
+    if not torch.equal(a, b):
+        raise AssertionError("sampling with one seed gave different tokens on two calls")
+    if torch.equal(a, tokens[DECODE_LONG][:, :DECODE_PROMPT + GEN_NEW]):
+        raise AssertionError("sampled tokens equal the greedy ones: the draw had no effect")
+    out["sampled_equal_on_two_calls"] = True
+
+    # speculative decoding at bf16: its tokens and its time a round
+    draft = LlamaForCausalLM.from_config(LlamaConfig(**{**cfg.__dict__, "num_hidden_layers": 4}),
+                                         seed=1, dtype=torch.bfloat16, device=model.device)
+    spec_kw = dict(max_new_tokens=DECODE_LONG, draft_model=draft, num_draft_tokens=4)
+    generate(model, ids, **spec_kw)  # captures the round
+    before = _generation_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec = generate(model, ids, **spec_kw)
+    spec_wall = time.perf_counter() - t0
+    rounds = _generation_counts()[1] - before[1]
+    divergences = _spec_divergences(model, spec, tokens[DECODE_LONG])
+    out["spec"] = {"wall_s": spec_wall, "rounds": rounds, "round_ms": spec_wall * 1e3 / rounds,
+                   "rows_parting_from_plain_greedy": len(divergences), "num_draft_tokens": 4,
+                   "draft_layers": 4, "divergences": divergences}
+    log(f"  speculative generate() bf16 (k 4, 4-layer draft): {spec_wall:.4f} s for "
+        f"{DECODE_LONG} new tokens, {rounds} rounds, {out['spec']['round_ms']:.3f} ms a round "
+        f"(prefills included); rows parting from plain greedy at bf16: {len(divergences)}, "
+        "each within bf16 noise (5b's margin rule)")
+    del draft
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spec_divergences(model, spec, plain) -> list:
+    """5b's margin rule for each row where bf16 speculative output parts
+    from plain greedy: the logits at the first parting position by an eager
+    forward of the shared prefix (no cache), their top-2 margin, and the gap
+    between the two picks there, which must lie within ``BF16_NOISE`` × the
+    largest |logit|. A fault that shows only at bf16 in the verify chunk or
+    the cache's cast would part by more."""
+    out = []
+    for r in torch.nonzero((spec != plain).any(dim=1)).flatten().tolist():
+        t = int(torch.nonzero(spec[r] != plain[r])[0])
+        got, ref = int(spec[r, t]), int(plain[r, t])
+        with torch.no_grad():
+            logits = model(input_ids=plain[r:r + 1, :t].long().to(model.device)).logits
+        logits = logits[0, -1].float()
+        top = torch.topk(logits, 2).values
+        d = {"row": r, "position": t, "spec": got, "plain": ref,
+             "top2_margin": float(top[0] - top[1]),
+             "gap": abs(float(logits[ref] - logits[got])),
+             "noise": BF16_NOISE * float(logits.abs().max())}
+        out.append(d)
+        log(f"  row {r} parts from plain greedy at position {t}: speculative {got} vs plain "
+            f"{ref}; eager top-2 margin {d['top2_margin']:.4e}, gap {d['gap']:.4e}, bf16 noise "
+            f"{d['noise']:.4e}")
+        if d["gap"] > d["noise"]:
+            raise AssertionError(f"speculative row {r}: a divergence above bf16 noise")
+    return out
+
+
+def check_generate_f32(dev) -> dict:
+    """``generate()`` on the flagship at f32 for equality (random weights
+    from seed 0): greedy tokens identical through the cached path with the
+    kernels, the same path with ``flash_impl="plain"`` and the full-forward
+    loop, on 8 prompts right-padded to 128 ids (real lengths 17-128) with
+    32 new tokens; one row with an eos that stops it mid-chunk; the
+    prefill's logits with B1 against plain; greedy speculative decoding
+    (``num_draft_tokens`` 4, a 4-layer draft on its own weights) equal to
+    plain greedy. The flash counters are set to 0 just before the cached
+    call and read just after: the prefill launched B1 once a layer."""
+    from accelerate_tpu_torch.generation import generate
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops.attention import attention_context
+
+    cfg = LlamaConfig.flagship_700m()
+    model = LlamaForCausalLM.from_config(cfg, seed=0, dtype=torch.float32, device=dev)
+    ids, mask = _ragged_prompts(cfg.vocab_size, seed=3)
+    kw = dict(max_new_tokens=GEN_NEW, attention_mask=mask)
+    _zero_flash_counts()
+    cached = generate(model, ids, use_cache=True, **kw)
+    launches = fa.fwd_launches
+    if launches != cfg.num_hidden_layers:
+        raise AssertionError(f"B1 launched {launches} times in a cached generate(): one a layer")
+    with attention_context(flash_impl="plain"):
+        plain = generate(model, ids, use_cache=True, **kw)
+    if fa.fwd_launches != launches:
+        raise AssertionError("flash_impl='plain' launched the kernel")
+    _zero_flash_counts()
+    full = generate(model, ids, **kw)
+    full_launches = fa.fwd_launches
+    if full_launches != cfg.num_hidden_layers * GEN_NEW:
+        raise AssertionError(f"the full-forward loop launched B1 {full_launches} times")
+    lengths = mask.sum(axis=1)
+    for what, other in (("flash_impl='plain'", plain), ("the full-forward loop", full)):
+        if not torch.equal(cached, other):
+            rows = [int(r) for r in torch.nonzero((cached != other).any(dim=1)).flatten()]
+            raise AssertionError(f"greedy tokens of the cached path differ from {what} in "
+                                 f"rows {rows}")
+    for r, length in enumerate(lengths):
+        if cached[r, length:length + GEN_NEW].numel() != GEN_NEW:
+            raise AssertionError(f"row {r}: {GEN_NEW} new tokens expected")
+
+    # eos mid-chunk: row 0's 10th greedy token ends it
+    row0 = ids[:1, :lengths[0]]
+    eos = int(cached[0, lengths[0] + 9])
+    eos_out = {}
+    for name, use_cache, ctx in (("cached", True, None), ("plain", True, "plain"),
+                                 ("full_forward", False, None)):
+        with attention_context(flash_impl=ctx):
+            eos_out[name] = generate(model, row0, max_new_tokens=GEN_NEW, eos_token_id=eos,
+                                     use_cache=use_cache)
+    first = int(np.argmax(cached[0, lengths[0]:].cpu().numpy() == eos))
+    want = lengths[0] + first + 1
+    for name, got in eos_out.items():
+        if got.shape != (1, want) or not torch.equal(got, eos_out["cached"]):
+            raise AssertionError(f"eos case ({name}): shape {tuple(got.shape)}, {want} expected")
+
+    # the prefill's logits, B1 against plain
+    ids_t, mask_t = torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
+    with torch.no_grad():
+        ref = model(input_ids=ids_t, attention_mask=mask_t, use_cache=True,
+                    max_cache_len=128 + GEN_NEW)
+        with attention_context(flash_impl="plain"):
+            pl = model(input_ids=ids_t, attention_mask=mask_t, use_cache=True,
+                       max_cache_len=128 + GEN_NEW)
+    valid = mask_t.bool()
+    logits_err = (ref.logits - pl.logits).abs()[valid].max().item()
+    cache_err = max((ref.kv_cache[n] - pl.kv_cache[n]).abs().max().item() for n in "kv")
+    scale = max(pl.logits[valid].abs().max().item(), 1.0)
+    log(f"  f32 prefill (b 8, s 128, right-padded): max |Δ logits| B1 vs plain {logits_err:.3e} "
+        f"(max |logit| {scale:.3f}), |Δ kv_cache| {cache_err:.3e}")
+    if not logits_err <= 2e-5 * scale:
+        raise AssertionError(f"prefill logits: B1 and plain disagree beyond 2e-5 × {scale:.3f}")
+    del ref, pl
+
+    # speculative decoding at f32 equals plain greedy
+    draft = LlamaForCausalLM.from_config(LlamaConfig(**{**cfg.__dict__, "num_hidden_layers": 4}),
+                                         seed=1, dtype=torch.float32, device=dev)
+    spec = generate(model, ids, draft_model=draft, num_draft_tokens=4, **kw)
+    if not torch.equal(spec, cached):
+        rows = [int(r) for r in torch.nonzero((spec != cached).any(dim=1)).flatten()]
+        raise AssertionError(f"speculative tokens differ from plain greedy in rows {rows}")
+    log(f"  f32 greedy generate() on {len(GEN_LENGTHS)} right-padded prompts (lengths "
+        f"{GEN_LENGTHS[0]}-{GEN_LENGTHS[-1]}), {GEN_NEW} new tokens: cached with the kernels = "
+        f"flash_impl='plain' = the full-forward loop = speculative (k 4, 4-layer draft); eos "
+        f"{eos} stops row 0 after {first + 1} tokens in every path; B1 launches: {launches} a "
+        f"cached call, {full_launches} in the full-forward loop")
+    del model, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_fwd_launches_cached_call": launches,
+            "flash_fwd_launches_full_forward": full_launches,
+            "prefill_logits_max_abs_diff": logits_err, "prefill_kv_cache_max_abs_diff": cache_err,
+            "eos_stop_after": first + 1, "tokens_identical": True}
+
+
+def _generate_flash_cases():
+    """(b, s, nh, n_kv, hd, row lengths, dtype): B1 as ``generate()`` calls
+    it, causal with a right-padded key mask: the prefill (s 128, rows 17 to
+    128 long), the full-forward loop's buffer (s = 128 + 32 with a padded
+    tail), a prompt length that is no tile multiple, and GQA."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [(8, s, 12, 12, 128, lengths, dtype)
+            for s, lengths in ((128, GEN_LENGTHS), (160, tuple(n + 7 for n in GEN_LENGTHS)),
+                               (137, (1, 9, 64, 100, 128, 129, 136, 137)))
+            for dtype in (f32, bf16)] + [
+        (2, 200, 32, 8, 128, (77, 200), bf16), (2, 200, 32, 8, 64, (130, 5), f32)]
+
+
+def check_flash_generate_shapes(dev) -> dict:
+    """B1 against its plain forward at ``generate()``'s shapes (phase 8's
+    gates: output 2e-5 f32 / 3e-2 bf16, lse 1e-5), forward only, each case
+    launched twice and required bit-identical."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(13)
+    errs = {"f32": 0.0, "bf16": 0.0}
+    for b, s, nh, n_kv, hd, lengths, dtype in _generate_flash_cases():
+        q, k, v, _, _ = _flash_inputs(rng, b, s, nh, n_kv, hd, 0, dtype, dev)
+        mask = torch.as_tensor(np.arange(s)[None, :] < np.asarray(lengths)[:, None], device=dev)
+        o, lse = fa.flash_fwd(q, k, v, mask, causal=True, impl="cuda")
+        o2, lse2 = fa.flash_fwd(q, k, v, mask, causal=True, impl="cuda")
+        ro, rlse = fa.flash_fwd(q, k, v, mask, causal=True, impl="plain")
+        f32 = dtype == torch.float32
+        what = (f"b={b} s={s} nh={nh} n_kv={n_kv} hd={hd} lengths={lengths} "
+                f"{'f32' if f32 else 'bf16'}")
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"B1: two launches differ ({what})")
+        if not torch.isfinite(o.float()).all():
+            raise AssertionError(f"B1 output not finite ({what})")
+        o_err = (o.float() - ro.float()).abs().max().item()
+        lse_err = (lse - rlse).abs().max().item()
+        ok = o_err <= (2e-5 if f32 else 3e-2) and lse_err <= 1e-5
+        log(f"  B1 {what}: |o| {o_err:.2e} |lse| {lse_err:.2e}" + (" ok" if ok else " FAIL"))
+        if not ok:
+            raise AssertionError(f"B1 disagrees with its plain version ({what})")
+        key = "f32" if f32 else "bf16"
+        errs[key] = max(errs[key], o_err)
+    return errs
+
+
+def time_flash_prefill(dev) -> dict:
+    """B1 at ``generate()``'s prefill shape (b 8, s 128, 12 × 128, bf16,
+    causal, a right-padded key mask of lengths 17-128): events around the
+    wrapper, the profiler's device time a launch, the plain version, and
+    sdpa with the same boolean mask (its kernels' device time a call); the
+    bound counts the (query, key) pairs this mask leaves, and of K and V
+    only the rows it leaves (a row's first ``length`` keys)."""
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    b, s, nh, hd = DECODE_BATCH, DECODE_PROMPT, 12, 128
+    rng = np.random.default_rng(14)
+    q, k, v, _, _ = _flash_inputs(rng, b, s, nh, nh, hd, 0, torch.bfloat16, dev)
+    lengths = np.asarray(GEN_LENGTHS)
+    mask = torch.as_tensor(np.arange(s)[None, :] < lengths[:, None], device=dev)
+    scale = 1.0 / float(np.sqrt(hd))
+    fn = lambda i: fa._flash_fwd_cuda(q, k, v, mask, scale, True)  # noqa: E731
+    spread = _time_spread(fn, 20, 5)
+    pattern = re.compile(flash_kernel_pattern("flash_fwd"))
+    for _ in range(PROFILER_TRIES):
+        rows_ = [e for e in _profiled_rows(fn, 20) if pattern.search(e.key)]
+        launches = sum(e.count for e in rows_)
+        if launches:
+            break
+    else:
+        raise AssertionError("the profiler saw no B1 launch at the prefill shape")
+    plain_ms = _time_ms(lambda i: fa._flash_fwd_plain(q, k, v, mask, scale, True), 3, 3)
+    lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    allowed = torch.tril(torch.ones(s, s, dtype=torch.bool, device=dev))[None, None] \
+        & mask[:, None, None, :]
+    lib = lambda i: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=allowed)  # noqa: E731
+    lib_rows = _library_rows(lib, 20)
+    o, _ = fa.flash_fwd(q, k, v, mask, causal=True, impl="cuda")
+    lib_err = (lib(0).transpose(1, 2).float() - o.float()).abs().max().item()
+    # the pairs this mask leaves: query i of a row of length L reads keys
+    # 0..min(i, L-1)
+    pairs = float(sum(np.minimum(np.arange(s) + 1, n).sum() for n in lengths)) * nh
+    flops = 2 * 2 * pairs * hd
+    # q and o in full, k and v up to each row's length (no query reads a key
+    # past it), lse, the mask
+    nbytes = (2 * b * s + 2 * int(lengths.sum())) * nh * hd * 2 + b * nh * s * 4 + b * s
+    ops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    out = {
+        "shape": {"batch": b, "seq": s, "n_heads": nh, "head_dim": hd, "dtype": "bf16",
+                  "causal": True, "key_mask_lengths": list(GEN_LENGTHS)},
+        "ms": spread[1], "ms_spread": spread,
+        "profiler_ms": sum(e.self_device_time_total for e in rows_) / 1e3 / launches,
+        "plain_ms": plain_ms,
+        "library_ms": _profiled_ms_per_call(None, 20, rows=lib_rows),
+        "library_backend": _sdpa_backend(lib_rows),
+        "library_max_abs_diff": lib_err,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "flops": flops, "bytes": nbytes,
+    }
+    log(f"  B1 at the prefill shape (b {b}, s {s}, {nh} × {hd}, bf16, causal, key mask of "
+        f"lengths {GEN_LENGTHS[0]}-{GEN_LENGTHS[-1]}): {out['ms']:.4f} ms by events, "
+        f"{out['profiler_ms']:.4f} ms a launch by the profiler, bound {out['bound_ms']:.6f} ms "
+        f"({out['bound_by']}), plain {plain_ms:.3f} ms, sdpa with the mask "
+        f"{out['library_ms']:.4f} ms ({out['library_backend']}; |Δ| {lib_err:.2e})")
+    return out
+
+
+# -- phase 5i: the fleet with an armed objective -------------------------------
+
+#: phase 5i: one supervised replica of the tiny llama on the card under an
+#: error-rate objective that its requests with a 1 ms deadline break
+SLO_FLEET_ENV = {"ACCELERATE_SLO_MAX_ERROR_RATE": "0.01"}
+
+
+def run_fleet_slo(device: str = "cuda") -> dict:
+    """``route --replicas 1 --respawn --max-replicas 2 --logging-dir`` with
+    an armed ``ACCELERATE_SLO_*`` objective: route prints that the policy
+    is armed; six requests go through the replica, three with a deadline of
+    1 ms (answered with an error row each, which breaks the error-rate
+    objective); the supervisor writes a ``scale_decision`` row whose
+    evidence names a dominant phase; SIGTERM drains (exit 0); then ``slo
+    report`` and ``monitor --once`` read the fleet's directory and exit 0."""
+    import signal
+    import threading
+
+    logging_dir = os.path.join(REPO, "build", "fleet_slo")
+    shutil.rmtree(logging_dir, ignore_errors=True)
+    os.makedirs(logging_dir)
+    stderr_path = os.path.join(logging_dir, "route.stderr")
+    env = {**os.environ, **SLO_FLEET_ENV}
+    args = ["route", "--replicas", "1", "--respawn", "--max-replicas", "2", "--preset", "tiny",
+            "--max-seq-len", "256", "--device", device, "--health-interval", "0.2",
+            "--logging-dir", logging_dir]
+    t0 = time.perf_counter()
+    with open(stderr_path, "w") as stderr_file:
+        proc = subprocess.Popen([sys.executable, "-m", "accelerate_tpu_torch", *args], cwd=REPO,
+                                env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                stderr=stderr_file, text=True)
+
+    answers: list = []
+    threading.Thread(target=lambda: answers.extend(json.loads(line) for line in proc.stdout
+                                                   if line.strip()), daemon=True).start()
+
+    def stderr_text():
+        with open(stderr_path) as f:
+            return f.read()
+
+    try:
+        _wait_for(lambda: "route: fleet ready" in stderr_text() or proc.poll() is not None,
+                  "the fleet to report ready")
+        if proc.poll() is not None:
+            raise AssertionError(f"route exited {proc.returncode}:\n{stderr_text()[-3000:]}")
+        ready_s = time.perf_counter() - t0
+        if "route: SLO scaling policy armed (max_error_rate)" not in stderr_text():
+            raise AssertionError("route did not arm the SLO policy:\n" + stderr_text()[-3000:])
+        rng = np.random.default_rng(4)  # the tiny llama's vocabulary is 256 ids
+        reqs = [{"id": i, "prompt": rng.integers(1, 256, size=8 + 9 * i).tolist(),
+                 "max_new_tokens": 16} for i in range(6)]
+        for r in reqs[::2]:
+            r["deadline_ms"] = 1
+        for r in reqs:
+            proc.stdin.write(json.dumps(r) + "\n")
+        proc.stdin.flush()
+
+        def decided():
+            rows = [r for r in _fleet_trail(logging_dir) if r.get("kind") == "scale_decision"]
+            return [r for r in rows if r.get("dominant_phase")]
+
+        _wait_for(lambda: len(answers) >= len(reqs), "the answers")
+        decisions = _wait_for(decided, "a scale_decision row with a dominant phase", timeout=120)
+        decided_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:  # a failed gate: drain, then make sure
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+            for row in _fleet_trail(logging_dir):
+                if row.get("pid") and row.get("replica_id") is not None:
+                    try:
+                        os.kill(row["pid"], signal.SIGKILL)
+                    except OSError:
+                        pass
+    if rc != 0:
+        raise AssertionError(f"route exited {rc} after SIGTERM:\n{stderr_text()[-3000:]}")
+    if sorted(a.get("id") for a in answers) != sorted(r["id"] for r in reqs):
+        raise AssertionError(f"the fleet did not answer every request once: {answers}")
+    expired = sorted(a["id"] for a in answers if "error" in a)
+    if any("error" in a for a in answers if a["id"] % 2):
+        raise AssertionError(f"a request without a deadline failed: {answers}")
+    readers = {}
+    for argv in (["slo", "report", logging_dir], ["monitor", logging_dir, "--once"]):
+        quiet = {k: v for k, v in os.environ.items() if not k.startswith("ACCELERATE_SLO_")}
+        done = subprocess.run([sys.executable, "-m", "accelerate_tpu_torch", *argv], cwd=REPO,
+                              env=quiet, capture_output=True, text=True, timeout=120)
+        if done.returncode != 0:
+            raise AssertionError(f"{' '.join(argv[:2])} exited {done.returncode}:\n"
+                                 f"{done.stdout[-2000:]}{done.stderr[-2000:]}")
+        readers[argv[0]] = done.stdout
+    if "fleet" not in readers["monitor"]:
+        raise AssertionError("monitor --once shows no fleet panel:\n" + readers["monitor"])
+    first = decisions[0]
+    log(f"  route with {SLO_FLEET_ENV}: ready {ready_s:.1f} s, policy armed; "
+        f"{len(decisions)} scale_decision row(s) with a dominant phase, the first "
+        f"{decided_s:.1f} s after spawn: action {first.get('action')}, reason "
+        f"{first.get('reason')}, objective {first.get('objective')}, burn "
+        f"{first.get('burn_rate')}, phase {first.get('dominant_phase')}; drained, exit 0; "
+        f"slo report and monitor --once exit 0")
+    return {"ready_s": ready_s, "decided_s": decided_s, "decisions": decisions[:4],
+            "answered": len(answers), "expired": expired}
 
 
 # -- phase 8 ----------------------------------------------------------------
@@ -3156,6 +3709,9 @@ def main() -> int:
     fleet = run_fleet(flagship, serve_run, front_door)
     log_phase("phase 5h: the HBM pre-flight — serve --auto-blocks and --hbm-gb 1 on the flagship")
     preflight = run_preflight(dev)
+    log_phase("phase 5i: the fleet with an armed SLO objective — route --respawn --logging-dir, "
+              "a scale_decision row with a dominant phase, slo report and monitor --once")
+    fleet_slo = run_fleet_slo()
 
     log_phase("phase 6: times at the flagship decode shape and the prefill chunk")
     times = time_paged_shape(dev, ctx=512)
@@ -3170,9 +3726,24 @@ def main() -> int:
 
     log_phase("phase 7: where a decode step's time goes on the graph engine")
     breakdown = serve_breakdown(flagship)
+    log_phase("phase 7b: generate() on the flagship at bf16 for time (bench.py's decode shape), "
+              "sampling with one seed twice, a speculative round")
+    gen_time = time_generate(flagship)
     del flagship
     gc.collect()
     torch.cuda.empty_cache()
+    log_phase("phase 7c: generate() on the flagship at f32 for equality (cached with the "
+              "kernels = plain = full-forward = speculative; eos; the prefill's logits)")
+    _zero_flash_counts()
+    gen_f32 = check_generate_f32(dev)
+    log_phase("phase 7d: B1 against its plain version at generate()'s shapes; B1 timed at the "
+              "prefill shape")
+    gen_flash_errs = check_flash_generate_shapes(dev)
+    flash_prefill = time_flash_prefill(dev)
+    log(json.dumps({"generate": gen_time, "generate_f32": gen_f32,
+                    "flash_fwd_generate_shapes_max_abs_err": gen_flash_errs,
+                    "flash_fwd_at_generate_prefill": flash_prefill, "fleet_slo": fleet_slo,
+                    "card": smi}))
     log(json.dumps({"front_door": front_door, "workload": workload, "fleet": fleet,
                     "preflight": preflight}))
     serve_run = {k: v for k, v in serve_run.items() if k != "rows"}
@@ -3299,6 +3870,13 @@ def main() -> int:
                              "flash_bwd_dkv"),
             "timed_shape": {"batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "n_heads": 12, "n_kv": 12,
                             "head_dim": 128, "dtype": "bf16", "causal": True},
+            **({"launches_generate": {
+                "cached_call_f32": gen_f32["flash_fwd_launches_cached_call"],
+                "full_forward_call_f32": gen_f32["flash_fwd_launches_full_forward"],
+                "cached_call_bf16": gen_time[f"new_{DECODE_LONG}"]["calls"][0][
+                    "flash_fwd_launches"]},
+                "max_abs_err_generate_shapes": gen_flash_errs,
+                "at_generate_prefill": flash_prefill} if name == "flash_fwd" else {}),
             "at_narrow_heads": flash_narrow[name],
             "at_head_dim_256": flash_wide[name],
             "at_head_dim_512": flash_512[name],

@@ -332,8 +332,8 @@ def test_supervisor_decisions_equal_on_a_driven_clock(monkeypatch):
 def test_supervisor_slo_policy_decisions_equal(monkeypatch):
     """The SLO policy (scale up on a queued breach, WRONG_REMEDY on a
     device-bound one, hold at max, no scale-down with the budget spent)
-    decides the same on the same verdicts; ``route`` does not wire it yet
-    (ROADMAP item 20), but the policy is ported and held here."""
+    decides the same on the same verdicts (``route`` wires it to the
+    fleet's windowed SLO verdict)."""
     queued = {"firing": [{"objective": "max_ttft_p99_s", "burn_rate": 3.0,
                           "dominant_phase": "queued", "budget_remaining": 0.4}]}
     device = {"firing": [{"objective": "max_tpot_p99_s", "burn_rate": 2.0,

@@ -58,7 +58,11 @@ def test_every_module_imports_without_jax_or_triton():
                  # the fleet and the pre-flight: copies, never imports, too
                  "commands.route", "serving.router", "serving.replica",
                  "serving.supervisor", "serving.chaos", "analysis.shardplan",
-                 "utils.device"):
+                 "utils.device",
+                 # generate() and the SLO, goodput, alerts and monitor copies
+                 "generation", "metrics.alerts", "metrics.goodput", "metrics.slo",
+                 "metrics.exporter", "diagnostics.reqtrace", "diagnostics.monitor",
+                 "commands.slo", "commands.metrics", "commands.monitor", "commands.usage"):
         assert f"accelerate_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 

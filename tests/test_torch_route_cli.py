@@ -262,12 +262,25 @@ def test_mesh_is_not_yet_ported(command, capsys):
 
 
 def test_armed_slo_objective_is_not_yet_ported(tmp_path, capsys, monkeypatch):
-    """An armed ``ACCELERATE_SLO_*`` objective with ``--logging-dir`` under
-    supervision refuses (the JAX route would wire SLO-driven scaling); it
-    never scales as if no objective were set."""
+    """(Kept name: the refusal this pinned is gone.) An armed
+    ``ACCELERATE_SLO_*`` objective with ``--logging-dir`` under supervision
+    is wired as in JAX: ``route`` prints the "armed" line, refuses nothing,
+    and the supervisor's ``slo_fn`` is a throttled ``evaluate_from_dir``
+    over the fleet's logging dir; with nothing armed there is no policy."""
+    from accelerate_tpu_torch.commands import route as troute
+    from accelerate_tpu_torch.commands.accelerate_cli import build_parser
+
     monkeypatch.setenv("ACCELERATE_SLO_MAX_TTFT_P99_S", "0.5")
-    rc, error = _refusal(capsys, "route", "--respawn", "--logging-dir", str(tmp_path),
-                         *_TINY_ARGS)
-    assert rc == 2 and "not yet ported" in error and "ROADMAP item 20" in error
-    assert "ACCELERATE_SLO_MAX_TTFT_P99_S" in error
+    args = build_parser().parse_args(["route", "--respawn", "--logging-dir", str(tmp_path),
+                                      *_TINY_ARGS])
+    assert troute._refusal(args) is None
+    slo_fn = troute.slo_policy_fn(args.logging_dir)
+    err = capsys.readouterr().err
+    assert "route: SLO scaling policy armed (max_ttft_p99_s)" in err
+    assert "not yet ported" not in err
+    verdict = slo_fn()
+    assert set(verdict["objectives"]) == {"max_ttft_p99_s"} and verdict["firing"] == []
+    assert slo_fn() is verdict  # throttled: one evaluation every 2 s
+    monkeypatch.delenv("ACCELERATE_SLO_MAX_TTFT_P99_S")
+    assert troute.slo_policy_fn(args.logging_dir) is None
     assert not (tmp_path / "router").exists()

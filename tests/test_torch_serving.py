@@ -362,7 +362,7 @@ def test_pick_next_token_matches_jax_greedy_and_eos():
     finished = np.asarray([False, True, False])
     jtok, _, jfin = jgen.pick_next_token(jax.numpy.asarray(logits), jax.random.PRNGKey(0),
                                          finished, 3, 1.0, False, True)
-    ttok, tfin = tgen.pick_next_token(torch.from_numpy(logits), torch.Generator(),
+    ttok, tfin = tgen.pick_next_token(torch.from_numpy(logits), None,
                                       torch.from_numpy(finished), 3, 1.0, False, True)
     assert ttok.dtype == torch.int32
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
