@@ -9,7 +9,10 @@ Ported so far:
 
 * the training path — the 5-line ``Accelerator`` loop over the llama
   forward, with the flash-attention forward and backward written by hand in
-  CUDA for ``sm_90a`` (``csrc/flash_attention.cu``);
+  CUDA for ``sm_90a`` (``csrc/flash_attention.cu``), data-parallel under a
+  process group (NCCL on the card, gloo on the CPU) with the prepared
+  ``DataLoader`` and the collectives (``operations``, ``data_loader``,
+  ``mesh``, ``launchers``);
 * ``generate()`` — the llama's dense KV cache (its prefill through the
   flash forward kernel) and greedy speculative decoding;
 * the serving path — the paged llama step, the continuous-batching engine
@@ -24,22 +27,56 @@ first reaches it.
 """
 
 from .accelerator import Accelerator
+from .data_loader import prepare_data_loader, skip_first_batches
 from .generation import generate
+from .launchers import debug_launcher, notebook_launcher
+from .logging import get_logger
+from .operations import (
+    broadcast,
+    broadcast_object_list,
+    gather,
+    gather_object,
+    pad_across_processes,
+    reduce,
+    send_to_device,
+)
 from .state import AcceleratorState, GradientState, PartialState
-from .utils.dataclasses import GradientAccumulationPlugin
+from .utils.dataclasses import (
+    DataLoaderConfiguration,
+    DistributedType,
+    GradientAccumulationPlugin,
+    MeshPlugin,
+)
 from .utils.device import resolve_device
-from .utils.random import set_seed
+from .utils.random import set_seed, synchronize_rng_state, synchronize_rng_states
 
 __version__ = "0.2.0"
 
 __all__ = [
     "Accelerator",
     "AcceleratorState",
+    "DataLoaderConfiguration",
+    "DistributedType",
     "GradientAccumulationPlugin",
     "GradientState",
+    "MeshPlugin",
     "PartialState",
+    "broadcast",
+    "broadcast_object_list",
+    "debug_launcher",
+    "gather",
+    "gather_object",
     "generate",
+    "get_logger",
+    "notebook_launcher",
+    "pad_across_processes",
+    "prepare_data_loader",
+    "reduce",
     "resolve_device",
+    "send_to_device",
     "set_seed",
+    "skip_first_batches",
+    "synchronize_rng_state",
+    "synchronize_rng_states",
 ]
 

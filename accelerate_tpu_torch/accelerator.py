@@ -1,15 +1,23 @@
 """The ``Accelerator`` (port of the subset of ``accelerate_tpu/accelerator.py``
-that the 5-line training loop uses)::
+that the 5-line training loop and its evaluation use)::
 
     accelerator = Accelerator(mixed_precision="bf16")
-    model, opt = accelerator.prepare(model, torch.optim.AdamW(model.parameters(), ...))
-    out = model(**batch); accelerator.backward(out.loss); opt.step(); opt.zero_grad()
+    model, opt, train_dl, eval_dl, sched = accelerator.prepare(model, opt, train_dl, eval_dl, sched)
+    for batch in train_dl:
+        with accelerator.accumulate(model):
+            loss = model(**batch).loss; accelerator.backward(loss); opt.step(); sched.step(); opt.zero_grad()
+    for batch in eval_dl:
+        preds = accelerator.gather_for_metrics(model(**batch).logits.argmax(-1))
 
-One process on one device: the card unless ``cpu=True``. The JAX
+One process a device: the card unless ``cpu=True``. Under a launch
+environment the state brings a process group up (NCCL on the card, gloo on
+the CPU) and the loop is data-parallel: each process reads its shard of
+every loader, and ``backward`` averages the gradients across the group at
+each sync step (:meth:`Accelerator._all_reduce_gradients`). The JAX
 package's deferred graph (``lazy.py``) is replaced by eager autograd with
 the same contract (see :mod:`.optimizer`). The plugins (FSDP, DeepSpeed,
-Megatron-LM, mesh, context parallel), fp16 and fp8 are not ported yet and
-raise; data loaders, collectives and checkpointing are later slices.
+Megatron-LM, context parallel), a mesh with axes other than ``dp``, fp16
+and fp8 are not ported yet and raise; checkpointing is a later slice.
 """
 
 from __future__ import annotations
@@ -18,13 +26,17 @@ import contextlib
 import os
 
 import torch
+import torch.distributed as dist
 
+from . import operations as ops
+from .data_loader import DataLoaderShard, prepare_data_loader, skip_first_batches
+from .diagnostics.tracing import trace_span
 from .modules import PreparedModel, extract_model_from_parallel
 from .ops.flash_attention import HEAD_DIM_RULE, takes_head_dim
 from .optimizer import AcceleratedOptimizer
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
-from .utils.dataclasses import GradientAccumulationPlugin
+from .utils.dataclasses import DataLoaderConfiguration, GradientAccumulationPlugin, MeshPlugin
 
 _COMPUTE_DTYPES = {"bf16": torch.bfloat16}
 
@@ -53,41 +65,52 @@ class Accelerator:
         mixed_precision: str | None = None,
         gradient_accumulation_steps: int = 1,
         cpu: bool = False,
+        dataloader_config: DataLoaderConfiguration | None = None,
         deepspeed_plugin=None,
         fsdp_plugin=None,
         megatron_lm_plugin=None,
-        mesh_plugin=None,
+        mesh_plugin: MeshPlugin | None = None,
         context_parallel_plugin=None,
+        rng_types: list[str] | None = None,
         gradient_accumulation_plugin: GradientAccumulationPlugin | None = None,
         step_scheduler_with_optimizer: bool = True,
+        even_batches: bool = True,
+        use_seedable_sampler: bool = False,
     ):
         plugins = {
             "deepspeed_plugin": deepspeed_plugin,
             "fsdp_plugin": fsdp_plugin,
             "megatron_lm_plugin": megatron_lm_plugin,
-            "mesh_plugin": mesh_plugin,
             "context_parallel_plugin": context_parallel_plugin,
         }
         for name, plugin in plugins.items():
             if plugin is not None:
-                raise ValueError(f"{name} is not yet ported: the port runs one process on "
-                                 "one device")
+                raise ValueError(f"{name} is not yet ported: the port runs data parallelism "
+                                 "only (ROADMAP item 18)")
+        if mesh_plugin is not None and not isinstance(mesh_plugin, MeshPlugin):
+            raise ValueError(f"mesh_plugin of type {type(mesh_plugin).__name__} is not yet "
+                             "ported: pass a MeshPlugin with a dp axis only")
         if gradient_accumulation_plugin is not None and gradient_accumulation_steps != 1:
             raise ValueError("pass gradient_accumulation_steps or a "
                              "gradient_accumulation_plugin, not both")
-        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu)
+        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
+                                      mesh_plugin=mesh_plugin)
+        self.dataloader_config = dataloader_config or DataLoaderConfiguration(
+            split_batches=split_batches, even_batches=even_batches,
+            use_seedable_sampler=use_seedable_sampler)
+        self.rng_types = rng_types
         if gradient_accumulation_plugin is None:
             env_steps = int(os.environ.get("ACCELERATE_GRADIENT_ACCUMULATION_STEPS", 1))
             steps = gradient_accumulation_steps if gradient_accumulation_steps > 1 else env_steps
             gradient_accumulation_plugin = GradientAccumulationPlugin(num_steps=steps)
         self.gradient_state = GradientState(gradient_accumulation_plugin=gradient_accumulation_plugin)
         self.device_placement = device_placement
-        self.split_batches = split_batches
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         self.step = 0
         self._models: list[PreparedModel] = []
         self._optimizers: list[AcceleratedOptimizer] = []
         self._schedulers: list[AcceleratedScheduler] = []
+        self._dataloaders: list[DataLoaderShard] = []
 
     # -- state views ---------------------------------------------------------
 
@@ -108,8 +131,48 @@ class Accelerator:
         return self.state.process_index
 
     @property
+    def local_process_index(self) -> int:
+        return self.state.local_process_index
+
+    @property
     def is_main_process(self) -> bool:
         return self.state.is_main_process
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.state.is_local_main_process
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.state.is_last_process
+
+    @property
+    def use_distributed(self) -> bool:
+        return self.state.use_distributed
+
+    @property
+    def mesh(self):
+        return self.state.mesh
+
+    @property
+    def split_batches(self) -> bool:
+        return self.dataloader_config.split_batches
+
+    @property
+    def even_batches(self) -> bool:
+        return self.dataloader_config.even_batches
+
+    @even_batches.setter
+    def even_batches(self, value: bool):
+        self.dataloader_config.even_batches = value
+
+    @property
+    def use_seedable_sampler(self) -> bool:
+        return self.dataloader_config.use_seedable_sampler
+
+    @property
+    def non_blocking(self) -> bool:
+        return self.dataloader_config.non_blocking
 
     @property
     def mixed_precision(self) -> str:
@@ -137,12 +200,40 @@ class Accelerator:
     def print(self, *args, **kwargs):
         self.state.print(*args, **kwargs)
 
+    def on_main_process(self, function):
+        return self.state.on_main_process(function)
+
+    def on_local_main_process(self, function):
+        return self.state.on_local_main_process(function)
+
+    def on_last_process(self, function):
+        return self.state.on_last_process(function)
+
+    def on_process(self, function=None, process_index=None):
+        return self.state.on_process(function, process_index)
+
+    def on_local_process(self, function=None, local_process_index=None):
+        return self.state.on_local_process(function, local_process_index)
+
+    @contextlib.contextmanager
+    def main_process_first(self):
+        with self.state.main_process_first():
+            yield
+
+    @contextlib.contextmanager
+    def local_main_process_first(self):
+        with self.state.local_main_process_first():
+            yield
+
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        return self.state.split_between_processes(inputs, apply_padding=apply_padding)
+
     # -- prepare -------------------------------------------------------------
 
     def prepare(self, *args, device_placement: list[bool] | None = None):
-        """Wrap models, then optimizers, then schedulers (a scheduler needs
-        the prepared optimizers); anything else passes through. Order is
-        preserved."""
+        """Wrap models, optimizers and data loaders, then schedulers (a
+        scheduler needs the prepared optimizers); anything else passes
+        through. Order is preserved."""
         if device_placement is None:
             device_placement = [None] * len(args)
         prepared = []
@@ -151,6 +242,8 @@ class Accelerator:
                 obj = self.prepare_model(obj, device_placement=placement)
             elif isinstance(obj, (torch.optim.Optimizer, AcceleratedOptimizer)):
                 obj = self.prepare_optimizer(obj)
+            elif isinstance(obj, torch.utils.data.DataLoader):
+                obj = self.prepare_data_loader(obj, device_placement=placement)
             prepared.append(obj)
         result = [
             self.prepare_scheduler(obj)
@@ -164,13 +257,18 @@ class Accelerator:
                       evaluation_mode: bool = False) -> PreparedModel:
         """The module moved to :attr:`device` (in place, so an optimizer
         built on its parameters keeps them) and wrapped with the compute
-        dtype. On the card a head dim the flash kernels do not take raises
-        here (:func:`check_kernel_head_dim`)."""
+        dtype. While a process group is up, every process's parameters and
+        buffers are replaced by the main process's, once. On the card a
+        head dim the flash kernels do not take raises here
+        (:func:`check_kernel_head_dim`)."""
         if isinstance(model, PreparedModel):
             return model
         check_kernel_head_dim(model, self.device)
         if device_placement if device_placement is not None else self.device_placement:
             model.to(self.device)
+        if self.state.backend is not None:
+            with torch.no_grad():
+                ops.broadcast([t.data for t in model.parameters()] + list(model.buffers()))
         prepared = PreparedModel(model, compute_dtype=self.compute_dtype)
         prepared.train(not evaluation_mode)
         self._models.append(prepared)
@@ -182,6 +280,30 @@ class Accelerator:
         wrapped = AcceleratedOptimizer(optimizer)
         self._optimizers.append(wrapped)
         return wrapped
+
+    def prepare_data_loader(self, data_loader, device_placement: bool | None = None,
+                            slice_fn_for_dispatch=None) -> DataLoaderShard:
+        """The loader rebuilt over this process's shard, its batches placed
+        on :attr:`device` (:func:`.data_loader.prepare_data_loader`)."""
+        if isinstance(data_loader, DataLoaderShard):
+            return data_loader
+        config = self.dataloader_config
+        prepared = prepare_data_loader(
+            data_loader,
+            num_processes=self.num_processes,
+            process_index=self.process_index,
+            split_batches=config.split_batches,
+            put_on_device=device_placement if device_placement is not None else self.device_placement,
+            rng_types=self.rng_types,
+            dispatch_batches=config.dispatch_batches,
+            even_batches=config.even_batches,
+            slice_fn_for_dispatch=slice_fn_for_dispatch,
+            use_seedable_sampler=config.use_seedable_sampler,
+            non_blocking=config.non_blocking,
+            prefetch_batches=config.prefetch_batches,
+        )
+        self._dataloaders.append(prepared)
+        return prepared
 
     def prepare_scheduler(self, scheduler) -> AcceleratedScheduler:
         if isinstance(scheduler, AcceleratedScheduler):
@@ -198,7 +320,10 @@ class Accelerator:
 
     def backward(self, loss, **kwargs):
         """``(loss / gradient_accumulation_steps).backward()``: gradients
-        accumulate into ``.grad`` of the f32 master weights."""
+        accumulate into ``.grad`` of the f32 master weights. At a sync step
+        with a process group up, the gradients are then averaged across the
+        group, so the clip, the optimizer step and ``zero_grad`` after it
+        see synced gradients."""
         if not isinstance(loss, torch.Tensor):
             raise TypeError(
                 "backward() expects the loss tensor produced by a prepared model "
@@ -206,6 +331,31 @@ class Accelerator:
                 "outputs (e.g. model(**batch).loss)."
             )
         (loss / self.gradient_accumulation_steps).backward(**kwargs)
+        if self.sync_gradients and self.state.backend is not None:
+            self._all_reduce_gradients()
+
+    def _all_reduce_gradients(self):
+        """Average every prepared model's gradients across the group, one
+        in-place all-reduce a gradient (each follows its contiguous
+        parameter's layout). NCCL averages in the all-reduce (``AVG``,
+        which launches its kernel at world size 1 too); gloo sums and the
+        gradients are divided by the world size. Called by every process at
+        the same point, and every process must hold the same gradients
+        (``None`` on all or on none). An explicit all-reduce, not DDP:
+        ``PreparedModel`` calls the module through ``functional_call``,
+        which would skip DDP's ``forward``."""
+        world = self.num_processes
+        nccl = self.state.backend == "nccl"
+        op = dist.ReduceOp.AVG if nccl else dist.ReduceOp.SUM
+        grads = [p.grad for m in self._models for p in m.module.parameters() if p.grad is not None]
+        # the span for the trace files; the profiler range so a profile
+        # attributes the all-reduce's kernels to it
+        with trace_span("collective/all_reduce_gradients", tensors=len(grads)), \
+                torch.profiler.record_function("collective/all_reduce_gradients"):
+            for g in grads:
+                dist.all_reduce(g, op=op)
+            if not nccl and world > 1 and grads:
+                torch._foreach_div_(grads, world)
 
     def _do_sync(self):
         if self.gradient_state.sync_with_dataloader and self.gradient_state.end_of_dataloader:
@@ -230,15 +380,59 @@ class Accelerator:
 
     @contextlib.contextmanager
     def no_sync(self, model):
-        """Marks the step as not syncing. With one process there is no
-        gradient all-reduce to suppress; the context keeps the API and the
-        ``sync_gradients`` bookkeeping."""
+        """No gradient all-reduce inside the context: gradients accumulate
+        locally, and the next sync step's ``backward`` averages the sum."""
         old = self.gradient_state.sync_gradients
         self.gradient_state._set_sync_gradients(False)
         try:
             yield
         finally:
             self.gradient_state._set_sync_gradients(old)
+
+    @contextlib.contextmanager
+    def join_uneven_inputs(self, joinables, even_batches=None):
+        """Even batches are the data contract here (every process takes the
+        same number of steps); the context only sets ``even_batches`` for the
+        loaders prepared inside it."""
+        if even_batches is None:
+            yield
+            return
+        old = self.even_batches
+        self.even_batches = even_batches
+        try:
+            yield
+        finally:
+            self.even_batches = old
+
+    # -- collectives ---------------------------------------------------------
+
+    def gather(self, tensor):
+        """Every process's tensors concatenated on dim 0 (:func:`.operations.gather`)."""
+        return ops.gather(tensor)
+
+    def gather_for_metrics(self, input_data, use_gather_object: bool = False):
+        """:meth:`gather`, with the rows the last batch repeated to even out
+        the processes dropped (``GradientState.remainder``), so an eval loop
+        sees each sample once. Objects without a batch dimension go through
+        ``gather_object``."""
+        if use_gather_object or ops.find_batch_size(input_data) is None:
+            return ops.gather_object(input_data if isinstance(input_data, list) else [input_data])
+        data = ops.gather(input_data)
+        remainder = self.gradient_state.remainder
+        if self.gradient_state.end_of_dataloader and remainder > 0:
+            data = ops.recursively_apply(lambda t: t[:remainder] if t.ndim > 0 else t, data)
+        return data
+
+    def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
+        return ops.reduce(tensor, reduction=reduction, scale=scale)
+
+    def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0,
+                             pad_first: bool = False):
+        return ops.pad_across_processes(tensor, dim=dim, pad_index=pad_index,
+                                        pad_first=pad_first)
+
+    def skip_first_batches(self, dataloader, num_batches: int = 0):
+        return skip_first_batches(dataloader, num_batches)
 
     def _parameters(self, parameters) -> list[torch.Tensor]:
         if isinstance(parameters, PreparedModel):
@@ -264,4 +458,5 @@ class Accelerator:
         return extract_model_from_parallel(model, keep_fp32_wrapper)
 
     def __repr__(self):
-        return f"Accelerator(device={self.device}, mixed_precision={self.mixed_precision!r})"
+        return (f"Accelerator(device={self.device}, mixed_precision={self.mixed_precision!r}, "
+                f"num_processes={self.num_processes})")

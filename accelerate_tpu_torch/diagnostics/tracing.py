@@ -445,6 +445,25 @@ def trace_instant(name: str, **attrs):
     _ACTIVE_TRACER.instant(name, **attrs)
 
 
+def traced(name: str | None = None):
+    """Decorator form of :func:`trace_span`: every call to the function runs
+    in a span named ``name`` (default: the function's name). The eager
+    collectives wear it as ``collective/<name>``."""
+    import functools
+
+    def deco(fn):
+        span_name = name or fn.__name__
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with trace_span(span_name):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco
+
+
 # ---------------------------------------------------------------------------
 # readers: `trace merge`, `trace tail` and the goodput ledger (copies of the
 # JAX package's; pure file reads)

@@ -269,6 +269,16 @@ class LlamaForCausalLM(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.norm.dtype
 
+    def _token_ids(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The rows of ``embed_tokens`` that JAX's gather
+        (``params["embed_tokens"][input_ids]``) reads: a negative id counts
+        from the end once, then every id is clamped into ``[0, vocab)``, so
+        an out-of-vocabulary prompt id answers instead of raising. No host
+        sync: the decode steps that call it are replayed from CUDA graphs."""
+        v = self.config.vocab_size
+        ids = input_ids.long()
+        return torch.where(ids < 0, ids + v, ids).clamp_(0, v - 1)
+
     def _head(self) -> torch.Tensor:
         """The LM head ``[vocab, h]`` (the embeddings when tied)."""
         return self.embed_tokens.weight if self.lm_head is None else self.lm_head.weight
@@ -302,7 +312,7 @@ class LlamaForCausalLM(nn.Module):
             return self.cached_step(input_ids, kv_cache, cache_index, spare_slot)
         if positions is None:
             positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
-        x = self.embed_tokens(input_ids.long())
+        x = self.embed_tokens(self._token_ids(input_ids))
         rope = (self.rope_cos, self.rope_sin)
         caches = None
         if use_cache:
@@ -363,7 +373,7 @@ class LlamaForCausalLM(nn.Module):
         b, s = input_ids.shape
         self._check_length(s)
         idx = cache_index.reshape(b)
-        x = self.embed_tokens(input_ids.long())
+        x = self.embed_tokens(self._token_ids(input_ids))
         for i, layer in enumerate(self.layers):
             x, _, _ = rope_cached_attention_block(
                 layer, x, kv_cache["k"][i], kv_cache["v"][i], self.rope_cos, self.rope_sin,
@@ -400,7 +410,7 @@ class LlamaForCausalLM(nn.Module):
         idx = cache_positions.reshape(b).to(torch.int32).contiguous()
         bt = block_tables.to(torch.int32).contiguous()
         quantized = "k_scale" in paged_kv
-        x = self.embed_tokens(input_ids.long())
+        x = self.embed_tokens(self._token_ids(input_ids))
         layers = self.layers if num_layers is None else self.layers[:num_layers]
         for i, layer in enumerate(layers):
             x = rope_paged_attention_block(

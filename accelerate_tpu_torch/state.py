@@ -1,50 +1,80 @@
 """Process / accelerator state singletons (port of
-``accelerate_tpu/state.py``, single process).
+``accelerate_tpu/state.py``).
 
 Same Borg contract as the JAX package: every instance of a class shares one
 ``__dict__``, so library helpers see the state without a handle, and
 ``_reset_state`` clears it between independent setups (the tests need
-this). One process drives one device here: the card unless the caller asks
-for the CPU. Process groups and NCCL (``mesh.py:initialize_distributed``)
-are a later slice.
+this). Each process drives one device: the card unless the caller asks for
+the CPU. Under a launch environment (``ACCELERATE_COORDINATOR_ADDR`` and
+friends, or torchrun's) the constructor brings a process group up
+(:func:`.mesh.initialize_distributed`): NCCL on the card, gloo on the CPU.
+``_reset_state`` destroys the group, so the singleton and the group never
+disagree.
 """
 
 from __future__ import annotations
 
-import os
-from typing import Any
+import contextlib
+import functools
+import math
+from typing import Any, Callable
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
-from .utils.dataclasses import DistributedType, GradientAccumulationPlugin, validate_mixed_precision
-
-
-def _env_flag(name: str) -> bool:
-    return os.environ.get(name, "").lower() in ("1", "true", "yes", "on")
+from .mesh import build_mesh, device_topology, initialize_distributed
+from .utils.dataclasses import (
+    DistributedType,
+    GradientAccumulationPlugin,
+    MeshPlugin,
+    validate_mixed_precision,
+)
+from .utils.environment import parse_choice_from_env, parse_flag_from_env
 
 
 class PartialState:
-    """The device and the process-control primitives."""
+    """The device, the process group and the process-control primitives."""
 
     _shared_state: dict[str, Any] = {}
 
-    def __init__(self, cpu: bool = False):
+    def __init__(self, cpu: bool = False, mesh_plugin: MeshPlugin | None = None, **kwargs):
         self.__dict__ = self._shared_state
         if self.initialized:
             return
-        if cpu or _env_flag("ACCELERATE_USE_CPU"):
-            self.device = torch.device("cpu")
-        elif torch.cuda.is_available():
-            self.device = torch.device("cuda", torch.cuda.current_device())
-        else:
+        cpu = cpu or parse_flag_from_env("ACCELERATE_USE_CPU")
+        if not cpu and not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available: pass Accelerator(cpu=True) to train "
                 "on the CPU through the plain PyTorch paths"
             )
-        self.num_processes = 1
-        self.process_index = 0
-        self.local_process_index = 0
-        self.distributed_type = DistributedType.NO
+        self.debug = parse_flag_from_env("ACCELERATE_DEBUG_MODE")
+        #: "nccl" or "gloo" while a process group is up, else None
+        self.backend = initialize_distributed(
+            coordinator_address=kwargs.pop("coordinator_address", None),
+            num_processes=kwargs.pop("num_processes", None),
+            process_id=kwargs.pop("process_id", None),
+            cpu=cpu,
+        )
+        topo = device_topology()
+        self.num_processes = topo["process_count"]
+        self.process_index = topo["process_index"]
+        if cpu:
+            self.device = torch.device("cpu")
+            self.local_process_index = self.process_index  # the ranks share one host
+        else:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+            # under a group, the card initialize_distributed set is the local rank's
+            self.local_process_index = self.device.index if self.backend else 0
+        self.mesh_plugin = mesh_plugin or MeshPlugin()
+        self.mesh_plugin.axis_sizes(self.num_processes)  # a fixed dp must match
+        self.mesh = build_mesh(self.mesh_plugin, self.device.type) if self.backend else None
+        if self.num_processes == 1:
+            self.distributed_type = DistributedType.NO
+        else:
+            self.distributed_type = DistributedType.MULTI_CPU if cpu else DistributedType.MULTI_GPU
+
+    # -- lifecycle -----------------------------------------------------------
 
     @property
     def initialized(self) -> bool:
@@ -52,7 +82,15 @@ class PartialState:
 
     @classmethod
     def _reset_state(cls):
+        """Clear the shared state and destroy the process group, if one is up."""
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
         cls._shared_state.clear()
+
+    def destroy_process_group(self):
+        self._reset_state()
+
+    # -- identity ------------------------------------------------------------
 
     @property
     def use_distributed(self) -> bool:
@@ -70,8 +108,106 @@ class PartialState:
     def is_last_process(self) -> bool:
         return self.process_index == self.num_processes - 1
 
+    # -- process control -----------------------------------------------------
+
     def wait_for_everyone(self):
-        """A barrier across processes: with one process, nothing to wait for."""
+        """A barrier across the group (``dist.barrier``); nothing without one."""
+        if self.backend is not None:
+            dist.barrier()
+
+    def consensus_any(self, flag: bool) -> bool:
+        """Does ANY process assert ``flag``? One all-reduce (MAX) of one int.
+        A collective while a group is up: every process must call it at the
+        same point."""
+        if self.backend is None:
+            return bool(flag)
+        t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return bool(t.item())
+
+    @contextlib.contextmanager
+    def main_process_first(self):
+        """The main process runs the body before the others (the
+        download-then-load idiom)."""
+        if not self.is_main_process:
+            self.wait_for_everyone()
+        yield
+        if self.is_main_process:
+            self.wait_for_everyone()
+
+    @contextlib.contextmanager
+    def local_main_process_first(self):
+        """The local main process of each host runs the body first; the
+        processes of one host share it."""
+        if not self.is_local_main_process:
+            self.wait_for_everyone()
+        yield
+        if self.is_local_main_process:
+            self.wait_for_everyone()
+
+    def _on(self, predicate: Callable[[], bool], function: Callable):
+        @functools.wraps(function)
+        def inner(*args, **kwargs):
+            if predicate():
+                return function(*args, **kwargs)
+
+        return inner
+
+    def on_main_process(self, function: Callable = None):
+        if function is None:
+            return self.on_main_process
+        return self._on(lambda: self.is_main_process, function)
+
+    def on_local_main_process(self, function: Callable = None):
+        if function is None:
+            return self.on_local_main_process
+        return self._on(lambda: self.is_local_main_process, function)
+
+    def on_last_process(self, function: Callable):
+        return self._on(lambda: self.is_last_process, function)
+
+    def on_process(self, function: Callable = None, process_index: int = None):
+        if function is None:
+            return functools.partial(self.on_process, process_index=process_index)
+        return self._on(lambda: self.process_index == process_index, function)
+
+    def on_local_process(self, function: Callable = None, local_process_index: int = None):
+        if function is None:
+            return functools.partial(self.on_local_process,
+                                     local_process_index=local_process_index)
+        return self._on(lambda: self.local_process_index == local_process_index, function)
+
+    @contextlib.contextmanager
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        """This process's contiguous share of a list, tuple, dict of those,
+        numpy array or tensor: ``ceil(len / num_processes)`` items each, the
+        last share short unless ``apply_padding`` repeats the last item."""
+        if self.num_processes == 1:
+            yield inputs
+            return
+        length = len(inputs)
+        num_per = math.ceil(length / self.num_processes)
+        start = self.process_index * num_per
+        end = min(start + num_per, length)
+
+        def _slice(obj):
+            sliced = obj[start:end]
+            if apply_padding and len(sliced) < num_per and len(obj) > 0:
+                pad = [obj[-1]] * (num_per - len(sliced))
+                if isinstance(sliced, list):
+                    sliced = sliced + pad
+                elif isinstance(sliced, tuple):
+                    sliced = sliced + tuple(pad)
+                elif isinstance(sliced, torch.Tensor):
+                    sliced = torch.cat([sliced, torch.stack(pad)])
+                else:
+                    sliced = np.concatenate([sliced, np.stack(pad)])
+            return sliced
+
+        if isinstance(inputs, dict):
+            yield {k: _slice(v) for k, v in inputs.items()}
+        else:
+            yield _slice(inputs)
 
     def print(self, *args, **kwargs):
         if self.is_main_process:
@@ -80,6 +216,7 @@ class PartialState:
     def __repr__(self) -> str:
         return (
             f"Distributed environment: {self.distributed_type}\n"
+            f"Backend: {self.backend}\n"
             f"Num processes: {self.num_processes}\n"
             f"Process index: {self.process_index}\n"
             f"Local process index: {self.local_process_index}\n"
@@ -92,7 +229,8 @@ class AcceleratorState:
 
     _shared_state: dict[str, Any] = {}
 
-    def __init__(self, mixed_precision: str | None = None, cpu: bool = False):
+    def __init__(self, mixed_precision: str | None = None, cpu: bool = False,
+                 mesh_plugin: MeshPlugin | None = None, **kwargs):
         self.__dict__ = self._shared_state
         if self.initialized:
             if mixed_precision is not None and mixed_precision != self._mixed_precision:
@@ -103,9 +241,9 @@ class AcceleratorState:
                 )
             return
         if mixed_precision is None:
-            mixed_precision = os.environ.get("ACCELERATE_MIXED_PRECISION", "no")
+            mixed_precision = parse_choice_from_env("ACCELERATE_MIXED_PRECISION", "no")
         self._mixed_precision = validate_mixed_precision(mixed_precision)
-        self._partial = PartialState(cpu=cpu)
+        self._partial = PartialState(cpu=cpu, mesh_plugin=mesh_plugin, **kwargs)
 
     @property
     def initialized(self) -> bool:
@@ -138,9 +276,9 @@ class AcceleratorState:
 
 
 class GradientState:
-    """Gradient-accumulation bookkeeping shared by the Accelerator and the
-    optimizer and scheduler wrappers: ``sync_gradients``, ``num_steps``,
-    ``end_of_dataloader``."""
+    """Gradient-accumulation bookkeeping shared by the Accelerator, the
+    prepared data loaders and the optimizer and scheduler wrappers:
+    ``sync_gradients``, ``num_steps``, ``end_of_dataloader``, ``remainder``."""
 
     _shared_state: dict[str, Any] = {}
 
@@ -149,6 +287,7 @@ class GradientState:
         if not self.initialized:
             self.sync_gradients = True
             self.active_dataloader = None
+            self.dataloader_references = [None]
             self.plugin_kwargs = (
                 gradient_accumulation_plugin.to_dict()
                 if gradient_accumulation_plugin is not None
@@ -184,18 +323,35 @@ class GradientState:
 
     @property
     def end_of_dataloader(self) -> bool:
-        """The prepared data loader is a later slice, so no loop runs
-        inside one yet."""
+        """The active prepared loader is on its last batch."""
         if not self.in_dataloader:
             return False
         return self.active_dataloader.end_of_dataloader
 
+    @property
+    def remainder(self) -> int:
+        """Samples of the global last batch that are real (the rest repeat
+        the epoch's first samples); -1 outside a loader."""
+        if not self.in_dataloader:
+            return -1
+        return self.active_dataloader.remainder
+
     def _set_sync_gradients(self, sync_gradients: bool):
         self.sync_gradients = sync_gradients
+
+    def _add_dataloader(self, dataloader):
+        self.active_dataloader = dataloader
+        self.dataloader_references.append(dataloader)
+
+    def _remove_dataloader(self, dataloader):
+        if dataloader in self.dataloader_references:
+            self.dataloader_references.remove(dataloader)
+        self.active_dataloader = self.dataloader_references[-1]
 
     def __repr__(self):
         return (
             f"Sync gradients: {self.sync_gradients}\n"
             f"At end of current dataloader: {self.end_of_dataloader}\n"
+            f"Extra samples added: {self.remainder}\n"
             f"Gradient accumulation plugin: {self.plugin_kwargs}\n"
         )

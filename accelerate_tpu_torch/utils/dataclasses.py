@@ -1,13 +1,17 @@
 """Enums and plugins the training loop reads (port of the subset of
-``accelerate_tpu/utils/dataclasses.py`` that slice 2 needs). The other
-plugins and launch configs are later slices; passing one to
-``Accelerator`` raises "not yet ported"."""
+``accelerate_tpu/utils/dataclasses.py`` that the port runs: precision,
+gradient accumulation, the data loader's configuration and a
+data-parallel mesh). The other plugins and launch configs are later
+slices; passing one to ``Accelerator`` raises "not yet ported"."""
 
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, fields
 from typing import Any
+
+from .environment import str_to_bool
 
 
 class BaseEnum(str, enum.Enum):
@@ -20,11 +24,29 @@ class BaseEnum(str, enum.Enum):
 
 
 class DistributedType(BaseEnum):
-    """Execution environment. One process on one device is all the port
-    runs yet; process groups (NCCL on the card, gloo on the CPU) are a
-    later slice."""
+    """Execution environment, decided by the device count as the JAX
+    package decides it (``accelerate_tpu/state.py``): ``NO`` for one
+    device, whether or not a process group is up. The JAX values map so:
+
+    * ``TPU`` (one process driving several chips through a mesh) and
+      ``MULTI_HOST_TPU`` (``jax.distributed`` across hosts) become
+      ``MULTI_GPU``: one process a card, an NCCL process group;
+    * ``CPU_MESH`` (a forced host-platform mesh for tests) becomes
+      ``MULTI_CPU``: several CPU processes under a gloo process group.
+    """
 
     NO = "NO"
+    MULTI_GPU = "MULTI_GPU"
+    MULTI_CPU = "MULTI_CPU"
+
+
+class RNGType(BaseEnum):
+    """The host generators ``synchronize_rng_state`` can broadcast."""
+
+    TORCH = "torch"
+    NUMPY = "numpy"
+    PYTHON = "python"
+    GENERATOR = "generator"
 
 
 class PrecisionType(BaseEnum):
@@ -79,3 +101,77 @@ class GradientAccumulationPlugin(KwargsHandler):
             raise ValueError(f"num_steps must be >= 1, got {self.num_steps}")
         if self.fuse_in_step:
             raise ValueError("GradientAccumulationPlugin(fuse_in_step=True) is not yet ported")
+
+
+#: the mesh axes of the JAX package (``MESH_AXIS_ORDER``); the port runs a
+#: ``dp`` axis only
+MESH_AXIS_ORDER = ("dp", "pp", "fsdp", "ep", "cp", "tp")
+
+
+@dataclass
+class MeshPlugin(KwargsHandler):
+    """The mesh's shape (port of ``MeshPlugin``). The port takes the data
+    axis only: ``dp`` is the process count (``-1``: every process); any
+    other axis above 1 raises, since sharded and pipelined parallelism are
+    ROADMAP item 18. ``ACCELERATE_MESH_<AXIS>`` overrides a field, as in
+    the JAX package."""
+
+    dp: int = -1
+    pp: int = 1
+    fsdp: int = 1
+    ep: int = 1
+    cp: int = 1
+    tp: int = 1
+    devices: Any = None
+    allow_split_physical_axes: bool = False
+
+    def __post_init__(self):
+        for ax in MESH_AXIS_ORDER:
+            env = os.environ.get(f"ACCELERATE_MESH_{ax.upper()}")
+            if env is not None:
+                setattr(self, ax, int(env))
+        wide = {ax: getattr(self, ax) for ax in MESH_AXIS_ORDER[1:] if getattr(self, ax) != 1}
+        if wide:
+            raise ValueError(
+                f"MeshPlugin axes {wide} are not yet ported: the port runs a data-parallel "
+                "'dp' axis only (sharded and pipelined meshes are ROADMAP item 18)"
+            )
+        if self.devices is not None:
+            raise ValueError("MeshPlugin(devices=...) is not yet ported: the port's mesh "
+                             "is one card a process")
+
+    def axis_sizes(self, num_devices: int) -> dict[str, int]:
+        """``{"dp": num_devices}``; a fixed ``dp`` must equal the count."""
+        if self.dp not in (-1, num_devices):
+            raise ValueError(f"mesh shape dp={self.dp} != device count {num_devices}")
+        return {ax: (num_devices if ax == "dp" else 1) for ax in MESH_AXIS_ORDER}
+
+
+@dataclass
+class DataLoaderConfiguration(KwargsHandler):
+    """How ``Accelerator.prepare`` rebuilds a data loader (port of
+    ``DataLoaderConfiguration``). Every flag is also reachable as
+    ``ACCELERATE_<NAME>``; an explicit non-default argument wins over the
+    environment. ``use_stateful_dataloader`` is kept for the API: every
+    prepared loader has ``state_dict`` and ``load_state_dict``."""
+
+    split_batches: bool = False
+    dispatch_batches: bool | None = None
+    even_batches: bool = True
+    use_seedable_sampler: bool = False
+    non_blocking: bool = False
+    use_stateful_dataloader: bool = False
+    #: batches collated ahead on a host thread; 0 (the default, unlike the
+    #: JAX package's 2) collates on the loop's thread, as fast on the card
+    prefetch_batches: int = 0
+
+    def __post_init__(self):
+        defaults = {f.name: f.default for f in fields(self)}
+        for name in ("split_batches", "even_batches", "use_seedable_sampler",
+                     "non_blocking", "use_stateful_dataloader", "dispatch_batches"):
+            env = os.environ.get(f"ACCELERATE_{name.upper()}")
+            if env is not None and getattr(self, name) == defaults[name]:
+                setattr(self, name, bool(str_to_bool(env)))
+        env = os.environ.get("ACCELERATE_PREFETCH_BATCHES")
+        if env is not None and self.prefetch_batches == defaults["prefetch_batches"]:
+            self.prefetch_batches = int(env)

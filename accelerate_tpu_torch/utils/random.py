@@ -1,4 +1,5 @@
-"""RNG control (port of ``set_seed`` from ``accelerate_tpu/utils/random.py``).
+"""RNG control (port of ``set_seed`` and ``synchronize_rng_state(s)`` from
+``accelerate_tpu/utils/random.py``).
 The port draws from explicit ``torch.Generator``s; ``set_seed`` seeds the
 global generators that user code and PyTorch's own initialisers read."""
 
@@ -27,3 +28,35 @@ def set_seed(seed: int, device_specific: bool = False, deterministic: bool = Fal
     if deterministic:
         torch.use_deterministic_algorithms(True)
     return seed
+
+
+def synchronize_rng_state(rng_type: str | None = None, generator=None) -> None:
+    """Give every process the main process's host RNG state (port of
+    ``synchronize_rng_state``): ``"torch"`` (the CPU generator), ``"numpy"``,
+    ``"python"``, or ``"generator"`` (``generator``, e.g. a sampler's
+    ``torch.Generator``). A collective when a process group is up: every
+    process must call it at the same point."""
+    from ..operations import broadcast_object_list
+    from ..state import PartialState
+    from .dataclasses import RNGType
+
+    if PartialState().num_processes == 1 or rng_type is None:
+        return
+    rng_type = RNGType(rng_type)
+    if rng_type == RNGType.TORCH:
+        get, put = torch.get_rng_state, torch.set_rng_state
+    elif rng_type == RNGType.NUMPY:
+        get, put = np.random.get_state, np.random.set_state
+    elif rng_type == RNGType.PYTHON:
+        get, put = random.getstate, random.setstate
+    elif generator is not None:
+        get, put = generator.get_state, generator.set_state
+    else:
+        return
+    payload = broadcast_object_list([get()])
+    put(payload[0])
+
+
+def synchronize_rng_states(rng_types, generator=None) -> None:
+    for rng_type in rng_types:
+        synchronize_rng_state(rng_type=rng_type, generator=generator)

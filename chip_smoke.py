@@ -245,6 +245,28 @@ failure, so the script exits non-zero and prints no result):
     (``library_ms``: as a Python call its host cost can exceed its
     kernels'), and by events (min, median and max).
 
+13. the data-parallel loop as users write it, in a process of its own
+    (this script with ``--ddp-loop``) under the launch environment
+    (``ACCELERATE_COORDINATOR_ADDR``, a ``file://`` store of its own,
+    ``ACCELERATE_NUM_PROCESSES=1``, ``ACCELERATE_PROCESS_ID=0``):
+    ``prepare(model, opt, train_dl, eval_dl,
+    sched)`` on the flagship (bf16 over f32 masters, 8 × 1024 ids a step
+    from a ``torch.utils.data.DataLoader``), ``accumulate``, ``backward``
+    (whose gradient all-reduce runs under the NCCL group at world size 1),
+    2 warm-up, 6 timed and 1 profiled step; then an eval pass of 37 rows, 4
+    a batch, through ``gather_for_metrics`` (B1 at those shapes is held
+    against its plain version in phase 8). The loop runs with the loader's
+    default (no prefetch thread) and again with the thread
+    (``prefetch_batches=2``). It
+    fails unless the group is NCCL, an NCCL kernel ran in the profiled
+    step, each flash kernel launched 16 times a step (counters set to 0
+    just before, read just after), ``gather_for_metrics`` returned the 37
+    rows in order, and the losses (1e-5 relative; bitwise expected) and
+    the eval predictions (exactly) equal those of the same loop on the
+    same batches in the same process after ``_reset_state`` took the group
+    down. Prints tokens/s, MFU, the all-reduce's device ms and the
+    loader's fetch ms with and without the thread.
+
 The ``{"kernels": [...]}`` line lists all four kernels. The last line of
 standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -258,6 +280,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -3042,6 +3065,8 @@ def _flash_cases():
         (2, 200, 32, 8, 64, True, 130, bf16),      # query tile 0 (rows 0..127) fully masked
         (2, 1000, 32, 8, 128, True, 0, bf16),      # GQA at flagship width, no tile multiple
         (2, 200, 32, 8, 128, False, 130, bf16),    # keys 128, 129 masked in key tile 128..191
+        (4, 256, 12, 12, 128, True, 0, bf16),      # phase 13's eval batches (the last: b 1)
+        (1, 256, 12, 12, 128, True, 0, bf16),
     ] + [  # the narrow heads, staged as zero-padded 64-column tiles (launched twice)
         (4, s, nh, n_kv, hd, causal, pad, dtype)
         for hd, nh, n_kv in ((16, 4, 4), (32, 8, 2))
@@ -3616,12 +3641,297 @@ def _sdpa_backend(rows) -> str:
     return f"{backend} ({rows[0].key[:80]})" if rows else backend
 
 
+
+# -- phase 13 ---------------------------------------------------------------
+
+#: phase 13: 2 warm-up, 6 timed and 1 profiled train step; 37 eval rows of
+#: 256 ids, 4 a batch
+DDP_WARMUP, DDP_TIMED, DDP_EVAL_ROWS, DDP_EVAL_SEQ, DDP_EVAL_BATCH = 2, 6, 37, 256, 4
+#: the launch environment phase 13's child reads
+DDP_ENV = ("ACCELERATE_COORDINATOR_ADDR", "ACCELERATE_NUM_PROCESSES", "ACCELERATE_PROCESS_ID")
+
+
+class _TokenRows(torch.utils.data.Dataset):
+    """``{"input_ids", "labels"}`` rows of an id matrix (eval rows carry
+    ``idx`` instead of labels)."""
+
+    def __init__(self, ids, eval_rows: bool = False):
+        self.ids = torch.as_tensor(ids)
+        self.eval_rows = eval_rows
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        if self.eval_rows:
+            return {"input_ids": self.ids[i], "idx": torch.tensor(i)}
+        return {"input_ids": self.ids[i], "labels": self.ids[i]}
+
+
+def _ddp_loop(trace_dir: str | None, prefetch_batches: int | None = None,
+              profiled: bool = False) -> dict:
+    """The user's loop once: a fresh ``Accelerator(mixed_precision="bf16")``,
+    the flagship from seed 0, the 9 train batches and the eval pass. With
+    ``trace_dir`` the port's tracer writes the loader's and the
+    all-reduce's spans there; ``profiled`` profiles the step after the
+    timed ones; ``prefetch_batches`` overrides the loader's default."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch import Accelerator, DataLoaderConfiguration
+    from accelerate_tpu_torch.diagnostics import tracing
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.flagship_700m(max_position_embeddings=1024)
+    config = (DataLoaderConfiguration() if prefetch_batches is None
+              else DataLoaderConfiguration(prefetch_batches=prefetch_batches))
+    accelerator = Accelerator(mixed_precision="bf16", dataloader_config=config)
+    module = LlamaForCausalLM.from_config(cfg, seed=0, device=accelerator.device)
+    adamw = dict(lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    opt = torch.optim.AdamW(module.parameters(), **adamw)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda step: 1.0)
+    rng = np.random.default_rng(13)
+    steps = DDP_WARMUP + DDP_TIMED + 1
+    train_ids = rng.integers(0, cfg.vocab_size, size=(steps * TRAIN_BATCH, TRAIN_SEQ))
+    eval_ids = rng.integers(0, cfg.vocab_size, size=(DDP_EVAL_ROWS, DDP_EVAL_SEQ))
+    train_dl = torch.utils.data.DataLoader(_TokenRows(train_ids), batch_size=TRAIN_BATCH,
+                                           pin_memory=True)
+    eval_dl = torch.utils.data.DataLoader(_TokenRows(eval_ids, eval_rows=True),
+                                          batch_size=DDP_EVAL_BATCH, pin_memory=True)
+    model, opt, train_dl, eval_dl, sched = accelerator.prepare(module, opt, train_dl, eval_dl,
+                                                               sched)
+    tracer = tracing.Tracer(logging_dir=trace_dir) if trace_dir else None
+    tracing.set_active_tracer(tracer)
+    losses, per_step, prof = [], [], None
+    _zero_flash_counts()
+    t0 = t1 = None
+    for i, batch in enumerate(train_dl):
+        if i == DDP_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if i == DDP_WARMUP + DDP_TIMED:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if profiled:
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                prof.__enter__()
+        with accelerator.accumulate(model):
+            loss = model(**batch).loss
+            accelerator.backward(loss)
+            opt.step()
+            sched.step()
+            opt.zero_grad()
+        losses.append(loss.detach())
+        per_step.append(_flash_counts())
+    torch.cuda.synchronize()
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    train_counts = _flash_counts()
+    rows, preds = [], []
+    for batch in eval_dl:
+        with torch.no_grad():
+            logits = model(input_ids=batch["input_ids"]).logits
+        preds.append(accelerator.gather_for_metrics(logits.argmax(-1)))
+        rows.append(accelerator.gather_for_metrics(batch["idx"]))
+    counts = _flash_counts()
+    tracing.set_active_tracer(None)
+    if tracer is not None:
+        tracer.close()
+    out = {
+        "backend": accelerator.state.backend,
+        "prefetch_batches": config.prefetch_batches,
+        "distributed_type": str(accelerator.distributed_type),
+        "num_processes": accelerator.num_processes,
+        "losses": [x.item() for x in losses],
+        "step_ms": (t1 - t0) * 1e3 / DDP_TIMED,
+        "launches_per_step": [{k: c[k] - (per_step[i - 1][k] if i else 0) for k in c}
+                              for i, c in enumerate(per_step)],
+        "launches_train": train_counts,
+        "launches": counts,
+        "eval_rows": torch.cat(rows).tolist(),
+        "eval_preds_shape": list(torch.cat(preds).shape),
+        "eval_preds": torch.cat(preds).tolist(),
+        "n_params": sum(p.numel() for p in module.parameters()),
+        "scheduler_steps": sched.scheduler.last_epoch,
+    }
+    if prof is not None:
+        kernels = _kernel_rows(prof)
+        nccl = [e for e in kernels if re.search(r"(?i)nccl|onerankreduce", e.key)]
+        ranges = [e for e in prof.key_averages() if e.key == "collective/all_reduce_gradients"]
+        out["profiled_step_device_ms"] = sum(e.self_device_time_total for e in kernels) / 1e3
+        out["nccl_kernels"] = {e.key[:100]: {"count": e.count,
+                                             "device_ms": e.self_device_time_total / 1e3}
+                               for e in nccl}
+        out["all_reduce_device_ms"] = (max(e.device_time_total for e in ranges) / 1e3
+                                       if ranges else None)
+        out["all_reduce_kernels"] = sorted({e.key[:80] for e in kernels
+                                            if "all_reduce" in e.key or "copy" in e.key.lower()
+                                            or "nccl" in e.key.lower()})[:12]
+    del model, opt, sched, module, train_dl, eval_dl
+    return out
+
+
+def _spans(trace_dir: str, name: str) -> list:
+    """The durations (ms) of the spans named ``name`` the port's tracer wrote."""
+    from accelerate_tpu_torch.diagnostics import tracing
+
+    events = []
+    for path in tracing.discover_trace_files(trace_dir):
+        events += tracing.parse_trace_file(path)
+    return [e["dur"] / 1e3 for e in events if e.get("name") == name and e.get("ph") == "X"]
+
+
+def ddp_loop_child(out_path: str) -> int:
+    """Phase 13's process: the loop under the launch environment (NCCL at
+    world size 1), with the loader's default (profiled) and with its
+    prefetch thread; then, after ``_reset_state`` took the group down and
+    without the launch environment, the same loop on the same batches."""
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch import AcceleratorState, GradientState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    trace_dir = os.path.join(os.path.dirname(out_path), "trace")
+    thread_dir = os.path.join(os.path.dirname(out_path), "trace_thread")
+    for d in (trace_dir, thread_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    grouped = _ddp_loop(trace_dir, profiled=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    thread = _ddp_loop(thread_dir, prefetch_batches=2)
+    if not (dist.is_initialized() and dist.get_backend() == "nccl"):
+        raise AssertionError(f"the launched loop ran without an NCCL group: {grouped['backend']}")
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    if dist.is_initialized():
+        raise AssertionError("_reset_state left the process group up")
+    for key in DDP_ENV:
+        os.environ.pop(key)
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = _ddp_loop(None)
+    if plain["backend"] is not None:
+        raise AssertionError(f"the group-less loop brought a group up: {plain['backend']}")
+    for run, d in ((grouped, trace_dir), (thread, thread_dir)):
+        run["fetch_ms"] = _spans(d, "dataloader/fetch")
+        run["all_reduce_host_ms"] = _spans(d, "collective/all_reduce_gradients")
+    with open(out_path, "w") as f:
+        json.dump({"grouped": grouped, "thread": thread, "plain": plain}, f)
+    return 0
+
+
+def run_ddp_loop() -> dict:
+    """Phase 13 from the parent: the child under the launch environment,
+    its result checked here."""
+    out_dir = os.path.join(REPO, "build", "ddp_loop")
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, "result.json")
+    # the rank meets its group over a FileStore of its own: no port to race for
+    store_dir = tempfile.mkdtemp(prefix="ddp_store_")
+    env = dict(os.environ, ACCELERATE_COORDINATOR_ADDR=f"file://{store_dir}/store",
+               ACCELERATE_NUM_PROCESSES="1", ACCELERATE_PROCESS_ID="0")
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--ddp-loop", out_path],
+                              env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(store_dir, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stderr[-6000:])
+        raise AssertionError(f"the data-parallel loop's process exited {proc.returncode}")
+    with open(out_path) as f:
+        res = json.load(f)
+    grouped, thread, plain = res["grouped"], res["thread"], res["plain"]
+    if (grouped["backend"], grouped["num_processes"], grouped["distributed_type"]) != ("nccl", 1, "NO"):
+        raise AssertionError(f"expected NCCL at world size 1: {grouped['backend']}, "
+                             f"{grouped['num_processes']}, {grouped['distributed_type']}")
+    nccl = grouped["nccl_kernels"]
+    if not nccl or not all(v["device_ms"] > 0 for v in nccl.values()):
+        raise AssertionError(f"no NCCL kernel ran in the profiled step: "
+                             f"{grouped['all_reduce_kernels']}")
+    losses, ref = grouped["losses"], plain["losses"]
+    rel = 0.0
+    for run in (grouped, thread):
+        got = run["losses"]
+        if len(got) != len(ref) or not all(np.isfinite(got)):
+            raise AssertionError(f"grouped losses {got} differ from the group-less {ref}")
+        rel = max(rel, *(abs(a - b) / abs(b) for a, b in zip(got, ref)))
+        if not rel <= 1e-5:
+            raise AssertionError(f"grouped losses {got} differ from the group-less {ref}")
+        # the same weights give the same argmax over the 37 eval rows
+        if run["eval_preds"] != plain["eval_preds"]:
+            diff = int((np.array(run["eval_preds"]) != np.array(plain["eval_preds"])).sum())
+            raise AssertionError(f"gather_for_metrics' predictions differ from the group-less "
+                                 f"loop's at {diff} of {DDP_EVAL_ROWS * DDP_EVAL_SEQ} ids "
+                                 f"(prefetch_batches {run['prefetch_batches']})")
+    for run in (grouped, thread, plain):
+        if run["eval_rows"] != list(range(DDP_EVAL_ROWS)) or run["eval_preds_shape"] != [
+                DDP_EVAL_ROWS, DDP_EVAL_SEQ]:
+            raise AssertionError(f"gather_for_metrics gave rows {run['eval_rows']} and "
+                                 f"predictions {run['eval_preds_shape']}")
+        layers = 16
+        if any(d[k] != layers for d in run["launches_per_step"] for k in FLASH_KERNELS):
+            raise AssertionError(f"each flash kernel must launch {layers} times a step: "
+                                 f"{run['launches_per_step']}")
+    cfg_tokens = TRAIN_BATCH * TRAIN_SEQ
+    from accelerate_tpu_torch.models import LlamaConfig
+
+    flops = _train_flops_per_step(grouped["n_params"],
+                                  LlamaConfig.flagship_700m(max_position_embeddings=1024),
+                                  TRAIN_BATCH, TRAIN_SEQ)
+    fetch, fetch_thread = grouped["fetch_ms"], thread["fetch_ms"]
+    timed = slice(DDP_WARMUP, DDP_WARMUP + DDP_TIMED)
+    out = {
+        "wall_s": wall_s,
+        "backend": grouped["backend"],
+        "step_ms": grouped["step_ms"],
+        "step_ms_group_less": plain["step_ms"],
+        "step_ms_prefetch_thread": thread["step_ms"],
+        "prefetch_batches": grouped["prefetch_batches"],
+        "tokens_per_s": cfg_tokens / (grouped["step_ms"] / 1e3),
+        "tokens_per_s_group_less": cfg_tokens / (plain["step_ms"] / 1e3),
+        "mfu": flops / (grouped["step_ms"] / 1e3) / BF16_FLOPS_PER_S,
+        "losses": losses,
+        "max_rel_loss_diff_vs_group_less": rel,
+        "bitwise_equal_losses": losses == ref and thread["losses"] == ref,
+        "eval_preds_equal_group_less": True,
+        "nccl_kernels": nccl,
+        "all_reduce_device_ms": grouped["all_reduce_device_ms"],
+        "all_reduce_host_ms": grouped["all_reduce_host_ms"],
+        "all_reduce_host_ms_prefetch_thread": thread["all_reduce_host_ms"],
+        "profiled_step_device_ms": grouped["profiled_step_device_ms"],
+        "fetch_ms_per_batch": fetch,
+        "fetch_ms_mean_timed": float(np.mean(fetch[timed])),
+        "fetch_ms_per_batch_prefetch_thread": fetch_thread,
+        "fetch_ms_mean_timed_prefetch_thread": float(np.mean(fetch_thread[timed])),
+        "eval_rows": len(grouped["eval_rows"]),
+        "scheduler_steps": grouped["scheduler_steps"],
+        "launches": grouped["launches_train"],
+        "launches_with_eval": grouped["launches"],
+        "launches_per_step": grouped["launches_per_step"][0],
+    }
+    log(f"  NCCL at world size 1; step {out['step_ms']:.2f} ms (group-less "
+        f"{out['step_ms_group_less']:.2f}, the loader's prefetch thread on "
+        f"{out['step_ms_prefetch_thread']:.2f}), {out['tokens_per_s']:.0f} tokens/s "
+        f"(group-less {out['tokens_per_s_group_less']:.0f}), MFU {out['mfu']:.4f}; "
+        f"all-reduce {out['all_reduce_device_ms']} ms of device time in the profiled step "
+        f"(NCCL kernels {json.dumps(nccl)}), host {['%.2f' % x for x in out['all_reduce_host_ms']]} "
+        f"ms; loader fetch ms {['%.3f' % x for x in fetch]} (with the thread "
+        f"{['%.3f' % x for x in fetch_thread]}); losses and eval predictions equal to the group-less "
+        f"loop's (max rel {rel:.2e}, bitwise {out['bitwise_equal_losses']}); "
+        f"gather_for_metrics {out['eval_rows']} rows; {wall_s:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this run needs one GPU",
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if sys.argv[1:2] == ["--ddp-loop"]:
+        return ddp_loop_child(sys.argv[2])
     from accelerate_tpu_torch import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3789,6 +4099,12 @@ def main() -> int:
 
     log_phase("phase 12: flash kernels timed at the flagship shape")
     flash_times = time_flash_kernels(dev, train_bd["flash_ms_per_launch"])
+    log_phase("phase 13: the data-parallel loop as users write it — prepare(model, opt, "
+              "train_dl, eval_dl, sched) under the launch environment, NCCL at world size 1")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ddp = run_ddp_loop()
+    log(json.dumps({"ddp_loop": ddp, "card": smi}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "losses"},
                     "train_step_check": step_check, "tiny_train": tiny_train,
                     "tiny_train_head_dim_256": tiny_train_256,
@@ -3849,6 +4165,7 @@ def main() -> int:
             "replaces_function": replaces[name][1],
             "launches": train["launches"][name],
             "launches_per_train_step": train["launches_per_step"][name],
+            "launches_ddp_loop": ddp["launches"][name],
             "max_abs_err": max(by_dtype.values()),
             "max_abs_err_by_dtype": by_dtype,
             "ms": t["kernel_ms"],

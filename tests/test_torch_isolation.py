@@ -62,7 +62,10 @@ def test_every_module_imports_without_jax_or_triton():
                  # generate() and the SLO, goodput, alerts and monitor copies
                  "generation", "metrics.alerts", "metrics.goodput", "metrics.slo",
                  "metrics.exporter", "diagnostics.reqtrace", "diagnostics.monitor",
-                 "commands.slo", "commands.metrics", "commands.monitor", "commands.usage"):
+                 "commands.slo", "commands.metrics", "commands.monitor", "commands.usage",
+                 # process groups, collectives and the prepared loader
+                 "operations", "data_loader", "mesh", "launchers", "logging",
+                 "utils.environment"):
         assert f"accelerate_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 
