@@ -9,7 +9,10 @@ Ported so far:
 
 * the training path — the 5-line ``Accelerator`` loop over the llama
   forward, with the flash-attention forward and backward written by hand in
-  CUDA for ``sm_90a`` (``csrc/flash_attention.cu``), data-parallel under a
+  CUDA for ``sm_90a`` (``csrc/flash_attention.cu``; f32, bf16 and f16), its
+  precision policies (bf16; fp16 with the dynamic loss scaler; fp8
+  projections on the card's fp8 tensor cores; ``autocast`` islands), named
+  selective remat and the HF llama loader, data-parallel under a
   process group (NCCL on the card, gloo on the CPU) with the prepared
   ``DataLoader`` and the collectives (``operations``, ``data_loader``,
   ``mesh``, ``launchers``);
@@ -40,11 +43,16 @@ from .operations import (
     reduce,
     send_to_device,
 )
+from .ops.fp8 import FP8RecipeKwargs
+from .optimizer import LossScaler
 from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
+    AutocastKwargs,
     DataLoaderConfiguration,
     DistributedType,
     GradientAccumulationPlugin,
+    GradScalerKwargs,
+    InitProcessGroupKwargs,
     MeshPlugin,
 )
 from .utils.device import resolve_device
@@ -55,10 +63,15 @@ __version__ = "0.2.0"
 __all__ = [
     "Accelerator",
     "AcceleratorState",
+    "AutocastKwargs",
     "DataLoaderConfiguration",
     "DistributedType",
+    "FP8RecipeKwargs",
+    "GradScalerKwargs",
     "GradientAccumulationPlugin",
     "GradientState",
+    "InitProcessGroupKwargs",
+    "LossScaler",
     "MeshPlugin",
     "PartialState",
     "broadcast",

@@ -15,9 +15,14 @@ the CPU) and the loop is data-parallel: each process reads its shard of
 every loader, and ``backward`` averages the gradients across the group at
 each sync step (:meth:`Accelerator._all_reduce_gradients`). The JAX
 package's deferred graph (``lazy.py``) is replaced by eager autograd with
-the same contract (see :mod:`.optimizer`). The plugins (FSDP, DeepSpeed,
-Megatron-LM, context parallel), a mesh with axes other than ``dp``, fp16
-and fp8 are not ported yet and raise; checkpointing is a later slice.
+the same contract (see :mod:`.optimizer`). Precision: ``"bf16"`` and
+``"fp16"`` run the model in that dtype over f32 master weights, fp16 with
+the dynamic loss scaler (:attr:`Accelerator.scaler`; ``GradScalerKwargs``
+in ``kwargs_handlers``); ``"fp8"`` runs bf16 with scaled-fp8 projections
+(``FP8RecipeKwargs``); :meth:`Accelerator.autocast` opens a full-precision
+island. The plugins (FSDP, DeepSpeed, Megatron-LM, context parallel), a
+mesh with axes other than ``dp`` and the profiling and DDP handlers are not
+ported yet and raise; checkpointing is a later slice.
 """
 
 from __future__ import annotations
@@ -33,12 +38,27 @@ from .data_loader import DataLoaderShard, prepare_data_loader, skip_first_batche
 from .diagnostics.tracing import trace_span
 from .modules import PreparedModel, extract_model_from_parallel
 from .ops.flash_attention import HEAD_DIM_RULE, takes_head_dim
-from .optimizer import AcceleratedOptimizer
+from .ops.fp8 import FP8RecipeKwargs
+from .optimizer import AcceleratedOptimizer, LossScaler
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
-from .utils.dataclasses import DataLoaderConfiguration, GradientAccumulationPlugin, MeshPlugin
+from .utils.dataclasses import (
+    AutocastKwargs,
+    DataLoaderConfiguration,
+    GradientAccumulationPlugin,
+    GradScalerKwargs,
+    InitProcessGroupKwargs,
+    MeshPlugin,
+)
 
-_COMPUTE_DTYPES = {"bf16": torch.bfloat16}
+#: fp8 keeps bf16 for everything but the projections, which
+#: ``ops.fp8.dense`` runs as fp8 products under the model's recipe; int8 has
+#: no entry (f32 compute), as in the JAX package
+_COMPUTE_DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16, "fp8": torch.bfloat16}
+
+#: the kwargs handlers of the JAX package the port has no counterpart of
+#: yet, by the ROADMAP item that brings them
+_UNPORTED_HANDLERS = {"ProfileKwargs": 23, "DistributedDataParallelKwargs": 18}
 
 
 def check_kernel_head_dim(model, device: torch.device) -> None:
@@ -76,6 +96,7 @@ class Accelerator:
         step_scheduler_with_optimizer: bool = True,
         even_batches: bool = True,
         use_seedable_sampler: bool = False,
+        kwargs_handlers: list | None = None,
     ):
         plugins = {
             "deepspeed_plugin": deepspeed_plugin,
@@ -93,8 +114,28 @@ class Accelerator:
         if gradient_accumulation_plugin is not None and gradient_accumulation_steps != 1:
             raise ValueError("pass gradient_accumulation_steps or a "
                              "gradient_accumulation_plugin, not both")
+        self.scaler_handler = None
+        self.init_handler = None
+        self.fp8_recipe_handler = None
+        for handler in kwargs_handlers or []:
+            if isinstance(handler, GradScalerKwargs):
+                self.scaler_handler = handler
+            elif isinstance(handler, InitProcessGroupKwargs):
+                self.init_handler = handler
+            elif isinstance(handler, FP8RecipeKwargs):
+                self.fp8_recipe_handler = handler
+            elif isinstance(handler, AutocastKwargs):
+                pass  # read by autocast(autocast_handler=...), as in the JAX package
+            else:
+                name = type(handler).__name__
+                item = _UNPORTED_HANDLERS.get(name)
+                raise ValueError(f"kwargs handler {name} is not yet ported"
+                                 + (f" (ROADMAP item {item})" if item else ""))
+        # only the fields set away from their defaults, as in the JAX package:
+        # the default timeout leaves mesh.PROCESS_GROUP_TIMEOUT in force
+        init_kwargs = self.init_handler.to_kwargs() if self.init_handler else {}
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu,
-                                      mesh_plugin=mesh_plugin)
+                                      mesh_plugin=mesh_plugin, **init_kwargs)
         self.dataloader_config = dataloader_config or DataLoaderConfiguration(
             split_batches=split_batches, even_batches=even_batches,
             use_seedable_sampler=use_seedable_sampler)
@@ -106,6 +147,15 @@ class Accelerator:
         self.gradient_state = GradientState(gradient_accumulation_plugin=gradient_accumulation_plugin)
         self.device_placement = device_placement
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
+        # fp16: the dynamic loss scaler, shared by every prepared optimizer;
+        # GradScalerKwargs(enabled=False) opts out
+        self._loss_scale = None
+        if self.mixed_precision == "fp16" and (self.scaler_handler is None
+                                               or self.scaler_handler.enabled):
+            h = self.scaler_handler or GradScalerKwargs()
+            self._loss_scale = LossScaler(init_scale=h.init_scale, growth_factor=h.growth_factor,
+                                          backoff_factor=h.backoff_factor,
+                                          growth_interval=h.growth_interval, device=self.device)
         self.step = 0
         self._models: list[PreparedModel] = []
         self._optimizers: list[AcceleratedOptimizer] = []
@@ -181,6 +231,11 @@ class Accelerator:
     @property
     def compute_dtype(self) -> torch.dtype | None:
         return _COMPUTE_DTYPES.get(self.mixed_precision)
+
+    @property
+    def scaler(self) -> LossScaler | None:
+        """The fp16 :class:`~.optimizer.LossScaler` (None outside fp16)."""
+        return self._loss_scale
 
     @property
     def sync_gradients(self) -> bool:
@@ -270,6 +325,8 @@ class Accelerator:
             with torch.no_grad():
                 ops.broadcast([t.data for t in model.parameters()] + list(model.buffers()))
         prepared = PreparedModel(model, compute_dtype=self.compute_dtype)
+        if self.mixed_precision == "fp8":
+            prepared.fp8_recipe = self.fp8_recipe_handler or FP8RecipeKwargs()
         prepared.train(not evaluation_mode)
         self._models.append(prepared)
         return prepared
@@ -277,7 +334,7 @@ class Accelerator:
     def prepare_optimizer(self, optimizer) -> AcceleratedOptimizer:
         if isinstance(optimizer, AcceleratedOptimizer):
             return optimizer
-        wrapped = AcceleratedOptimizer(optimizer)
+        wrapped = AcceleratedOptimizer(optimizer, scaler=self._loss_scale)
         self._optimizers.append(wrapped)
         return wrapped
 
@@ -320,19 +377,42 @@ class Accelerator:
 
     def backward(self, loss, **kwargs):
         """``(loss / gradient_accumulation_steps).backward()``: gradients
-        accumulate into ``.grad`` of the f32 master weights. At a sync step
-        with a process group up, the gradients are then averaged across the
-        group, so the clip, the optimizer step and ``zero_grad`` after it
-        see synced gradients."""
+        accumulate into ``.grad`` of the f32 master weights. Under fp16 the
+        loss is first multiplied by the scaler's scale (the ``loss`` the
+        caller holds stays unscaled), and where a clip already unscaled the
+        gradients mid-accumulation, this micro-batch's scaled contribution is
+        unscaled before it is added, as JAX's ``_accumulate_grads`` does. At
+        a sync step with a process group up, the gradients are then averaged
+        across the group (still scaled, as in JAX: the unscale comes after),
+        so the clip, the optimizer step and ``zero_grad`` after it see
+        synced gradients."""
         if not isinstance(loss, torch.Tensor):
             raise TypeError(
                 "backward() expects the loss tensor produced by a prepared model "
                 f"call; got {type(loss).__name__}. Compute the loss from model "
                 "outputs (e.g. model(**batch).loss)."
             )
-        (loss / self.gradient_accumulation_steps).backward(**kwargs)
+        if self._loss_scale is None:
+            (loss / self.gradient_accumulation_steps).backward(**kwargs)
+        else:
+            self._backward_scaled(loss, **kwargs)
         if self.sync_gradients and self.state.backend is not None:
             self._all_reduce_gradients()
+
+    def _backward_scaled(self, loss, **kwargs):
+        unscaled = [o for o in self._optimizers if o._found_inf is not None]
+        held = [[p.grad for p in o.parameters()] for o in unscaled]
+        for o in unscaled:
+            for p in o.parameters():
+                p.grad = None
+        ((loss / self.gradient_accumulation_steps) * self._loss_scale.scale).backward(**kwargs)
+        for o, old in zip(unscaled, held):
+            params = o.parameters()
+            # the new contribution is unscaled and checked into the same flag
+            o._unscale([p.grad for p in params if p.grad is not None])
+            for p, g in zip(params, old):
+                if g is not None:
+                    p.grad = g if p.grad is None else g.add_(p.grad)
 
     def _all_reduce_gradients(self):
         """Average every prepared model's gradients across the group, one
@@ -356,6 +436,11 @@ class Accelerator:
                 dist.all_reduce(g, op=op)
             if not nccl and world > 1 and grads:
                 torch._foreach_div_(grads, world)
+            # a clip mid-accumulation checked this process's gradients
+            # before the average: every process takes any one's flag
+            for o in self._optimizers:
+                if o._found_inf is not None:
+                    dist.all_reduce(o._found_inf, op=dist.ReduceOp.MAX)
 
     def _do_sync(self):
         if self.gradient_state.sync_with_dataloader and self.gradient_state.end_of_dataloader:
@@ -445,14 +530,54 @@ class Accelerator:
             return [parameters]
         return list(parameters)
 
+    def _optimizers_of(self, params: list[torch.Tensor]) -> list[AcceleratedOptimizer]:
+        ids = {id(p) for p in params}
+        return [o for o in self._optimizers if any(id(p) in ids for p in o.parameters())]
+
     def clip_grad_norm_(self, parameters, max_norm, norm_type=2):
         """Scale the gradients by ``min(1, max_norm / (norm + 1e-6))`` and
-        return the pre-clip global norm as a tensor (no host sync)."""
-        return torch.nn.utils.clip_grad_norm_(self._parameters(parameters), max_norm,
-                                              norm_type=norm_type)
+        return the pre-clip global norm as a tensor (no host sync). Under
+        fp16 the gradients are unscaled first, so the clip and the norm are
+        in true gradient units."""
+        params = self._parameters(parameters)
+        for opt in self._optimizers_of(params):
+            opt.unscale_gradients()
+        return torch.nn.utils.clip_grad_norm_(params, max_norm, norm_type=norm_type)
 
     def clip_grad_value_(self, parameters, clip_value):
-        torch.nn.utils.clip_grad_value_(self._parameters(parameters), clip_value)
+        """Clamp every gradient into ``[-clip_value, clip_value]``, unscaled
+        first under fp16."""
+        params = self._parameters(parameters)
+        for opt in self._optimizers_of(params):
+            opt.unscale_gradients()
+        torch.nn.utils.clip_grad_value_(params, clip_value)
+
+    def unscale_gradients(self, optimizer=None):
+        """Unscale the fp16 gradients of ``optimizer`` (every prepared
+        optimizer by default) in place; idempotent until the next step."""
+        for opt in [optimizer] if optimizer is not None else self._optimizers:
+            opt.unscale_gradients()
+
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler: AutocastKwargs | None = None):
+        """With ``AutocastKwargs(enabled=False)``, suspend both precision
+        policies of every prepared model, the compute dtype and the fp8
+        recipe, for the context: a full-precision island inside a
+        mixed-precision run. Calls made inside it run at f32; the policies
+        are read when a model is called, so the island binds there."""
+        if autocast_handler is None or getattr(autocast_handler, "enabled", True):
+            yield
+            return
+        saved = [(m, m.compute_dtype, m.fp8_recipe) for m in self._models]
+        for m, _, _ in saved:
+            m.compute_dtype = None
+            m.fp8_recipe = None
+        try:
+            yield
+        finally:
+            for m, dtype, recipe in saved:
+                m.compute_dtype = dtype
+                m.fp8_recipe = recipe
 
     def unwrap_model(self, model, keep_fp32_wrapper: bool = True):
         return extract_model_from_parallel(model, keep_fp32_wrapper)

@@ -14,6 +14,10 @@
 // delta = rowsum(dO * O) in f32 is computed by the caller, as the JAX
 // package computes it outside Pallas. The mask gets no gradient.
 //
+// Inputs are f32, bf16 or f16 (f16 under fp16 mixed precision: the JAX
+// kernels run in q's dtype, so they take all three); one templated source
+// path serves both 16-bit types, which differ only in the rounding helpers,
+// the wgmma operand type (.bf16 / .f16) and the TMA element type.
 // Tensors are read in the model layout [b, s, heads, hd] (contiguous) by
 // strides: no transposed or padded copies. Every kernel takes any head dim
 // hd that is a multiple of 8 (the Python wrapper zero-pads any other head
@@ -47,22 +51,25 @@
 //    block needs no atomics and keeps dK/dV deterministic.
 //  * Rows past a sequence's end are zero and masked, so any length works.
 //  * Rounding points follow the TPU kernels, so the kernels and the plain
-//    version agree in bf16: P is rounded to the value dtype before P V, P to
-//    dO's dtype before P^T dO, dS to K's / Q's dtype before dS K and dS^T Q.
-//    Every accumulator is f32.
+//    version agree in bf16 and f16: P is rounded to the value dtype before
+//    P V, P to dO's dtype before P^T dO, dS to K's / Q's dtype before dS K
+//    and dS^T Q. Every accumulator is f32. In f16 a loss-scaled dS past
+//    65504 rounds to inf there, as JAX's astype does, so the loss scaler
+//    sees the overflow JAX sees.
 // The families:
 //  * f32 inputs run every product on the FMA units (67 TFLOP/s peak), with
 //    no TF32, so they meet the JAX gates (2e-5) against the plain version:
 //    64-row tiles, 256 threads form a 16 x 16 grid over a 64 x 64 score
 //    tile, tiles staged as f32 with rows padded by one float; expf, logf.
-//  * Head dims past 128, f32 or bf16 (C4b): the same FMA kernels with
+//  * Head dims past 128, f32, bf16 or f16 (C4b): the same FMA kernels with
 //    32-row tiles at HD 256 (a 64-row tile of 256 f32 columns is 64 KB, and
 //    dq's and dk/dv's four of them exceed the 227 KB of shared memory), bf16
-//    widened to f32 as it is staged and rounded where the TPU kernels round.
+//    and f16 widened to f32 as they are staged and rounded where the TPU
+//    kernels round.
 //    A 64-row wgmma accumulator over 256 columns is 128 f32 registers a
 //    thread for O, and for each of dK and dV, which B3's budget cannot hold:
 //    a tensor-core kernel for these widths is later work (PERF.md §7).
-//  * Head dims past 256, f32 or bf16 (C4c): the wide kernels at kCols. The
+//  * Head dims past 256, f32, bf16 or f16 (C4c): the wide kernels at kCols. The
 //    head dim is cut into column blocks of 256 and a block owns one column
 //    block of its output, folded into grid x. S = Q K^T (and dP = dO V^T)
 //    need every column: the block stages 256-column chunks of Q and K (dO
@@ -72,9 +79,10 @@
 //    the same order, so about ceil(hd / 256) times the Q K^T work; lse is
 //    written by column block 0. delta (rowsum(dO * O) over the whole head
 //    dim) comes from the caller as before.
-//  * bf16 forward (B1), dq (B2) and dk/dv (B3): wgmma fed by a ring of TMA
-//    copies with mbarriers, two warpgroups of products (section "bf16
-//    forward (B1), dq (B2) and dk/dv (B3) for Hopper"). B1 takes 128
+//  * bf16 and f16 forward (B1), dq (B2) and dk/dv (B3): wgmma fed by a ring
+//    of TMA copies with mbarriers, two warpgroups of products (section "bf16
+//    forward (B1), dq (B2) and dk/dv (B3) for Hopper"; each kernel is a
+//    template over the 16-bit type). B1 takes 128
 //    query rows a block, with a producer warp in a third
 //    warpgroup, and streams K/V tiles of 128 keys through three stages, so
 //    the next tiles' loads overlap this tile's products; it applies the
@@ -98,6 +106,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -111,6 +120,7 @@ constexpr float kNegInf = -FLT_MAX;
 constexpr unsigned kFull = 0xffffffffu;
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 // reductions over the 16 threads that share a tile row (one half-warp)
 __device__ __forceinline__ float row_max(float x) {
@@ -126,21 +136,29 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // An f32 value stored as T, and rounded to T's precision (round to nearest
-// even, as PyTorch's .to(torch.bfloat16)); identities for f32.
+// even, as PyTorch's .to(torch.bfloat16) and .to(torch.float16); an f16
+// past 65504 becomes inf, as JAX's astype makes it); identities for f32.
 template <typename T>
 __device__ __forceinline__ T from_f32(float x) {
   if constexpr (std::is_same_v<T, bf16>) return __float2bfloat16_rn(x);
+  else if constexpr (std::is_same_v<T, f16>) return __float2half_rn(x);
+  else return x;
+}
+
+template <typename T>
+__device__ __forceinline__ float to_f32(T x) {
+  if constexpr (std::is_same_v<T, bf16>) return __bfloat162float(x);
+  else if constexpr (std::is_same_v<T, f16>) return __half2float(x);
   else return x;
 }
 
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
-  if constexpr (std::is_same_v<T, bf16>) return __bfloat162float(__float2bfloat16_rn(x));
-  else return x;
+  return to_f32<T>(from_f32<T>(x));
 }
 
 // Stage rows [row0, row0 + BLK) of one head of a [b, s, heads, hd] tensor
-// (f32 or bf16) into dst as f32 (HD columns, row stride HD + 1), one
+// (f32, bf16 or f16) into dst as f32 (HD columns, row stride HD + 1), one
 // 16-byte load a thread at a time. `src` points at (b, row 0, head, 0),
 // `pitch` = heads * hd; rows >= n_rows and columns >= hd (a multiple of 8)
 // are zero.
@@ -164,9 +182,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
     } else {
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
       if (row < n_rows && c < hd) x = __ldg(reinterpret_cast<const uint4*>(src + row * pitch + c));
-      const bf16* h = reinterpret_cast<const bf16*>(&x);
+      const T* h = reinterpret_cast<const T*>(&x);
 #pragma unroll
-      for (int i = 0; i < kV; ++i) d[i] = __bfloat162float(h[i]);
+      for (int i = 0; i < kV; ++i) d[i] = to_f32<T>(h[i]);
     }
   }
 }
@@ -220,9 +238,9 @@ __device__ __forceinline__ bool key_valid(const uint8_t* __restrict__ mask_b, in
 }
 
 // The FMA kernels, at (HD, BLK, T) = (16..128, 64, f32) for f32 inputs up to
-// hd 128 and (256, 32, f32 or bf16) for every input past it. Inputs are
-// staged as f32, every product runs on the FMA units in f32, and a bf16
-// instance rounds where the TPU kernels round: P to V's dtype before P V
+// hd 128 and (256, 32, f32, bf16 or f16) for every input past it. Inputs are
+// staged as f32, every product runs on the FMA units in f32, and a bf16 or
+// f16 instance rounds where the TPU kernels round: P to V's dtype before P V
 // (forward), dS to K's dtype before dS K (dq), P to dO's and dS to Q's
 // dtype before P^T dO and dS^T Q (dk/dv); outputs are stored in T.
 template <int HD, int BLK, typename T, bool kCols>
@@ -564,13 +582,20 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 // ---------------------------------------------------------------------------
-// bf16 helpers shared by the tensor-core kernels
+// 16-bit helpers shared by the tensor-core kernels
 // ---------------------------------------------------------------------------
 
-// two f32 values rounded to bf16, the lower column in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two f32 values rounded to T (bf16 or f16), the lower column in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    static_assert(std::is_same_v<T, f16>, "pack2 takes bf16 or f16");
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -610,7 +635,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 //    160 registers a thread at hd 128 (the dQ accumulator is 64 of them).
 //
 // Operand tiles live in shared memory exactly as TMA writes them with the
-// 128-byte swizzle: rows of 64 bf16 (128 bytes), a head of 128 split into
+// 128-byte swizzle: rows of 64 bf16 or f16 (128 bytes), a head of 128 split into
 // two such halves, each half 1024-byte aligned; a head dim up to 64 is staged
 // as one zero-padded half, one past 64 as two (staged_hd). A wgmma descriptor reads
 // them K-major (a 16-wide K step is 32 bytes into the row, walking across
@@ -620,8 +645,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 //
 // Score accumulators stay in registers: the wgmma accumulator layout of a
 // 64 x 16 slice is the register A layout of the next wgmma, so P (forward)
-// P^T, dS^T (dk/dv) and dS (dq) are rounded to bf16 where the TPU kernels
-// round them and fed to register-A wgmmas against V, dO, Q and K.
+// P^T, dS^T (dk/dv) and dS (dq) are rounded to bf16 or f16 where the TPU
+// kernels round them and fed to register-A wgmmas against V, dO, Q and K.
 // ---------------------------------------------------------------------------
 
 constexpr int kWgThreads = 128;                  // one warpgroup
@@ -769,108 +794,140 @@ __device__ __forceinline__ void settle(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// wgmma m64nNk16, bf16 in, f32 accumulators. ss: d = A B (+ d if
-// accumulate), A and B K-major in shared memory. rs: d += A B, A in
-// registers (the accumulator layout), B MN-major in shared memory.
+// wgmma m64nNk16, 16-bit operands (T: bf16 or f16, the PTX types .bf16 and
+// .f16), f32 accumulators. ss: d = A B (+ d if accumulate), A and B K-major
+// in shared memory. rs: d += A B, A in registers (the accumulator layout),
+// B MN-major in shared memory. The instruction names its operand type in
+// its text, so each wrapper's asm is written once, as a macro over the type
+// string, and instantiated for each type.
+#define WGMMA_SS_N128_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+        "+f"(d[62]), "+f"(d[63]) \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                               int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (std::is_same_v<T, bf16>)
+    WGMMA_SS_N128_ASM("bf16");
+  else
+    WGMMA_SS_N128_ASM("f16");
 }
 
+#define WGMMA_SS_N64_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (std::is_same_v<T, bf16>)
+    WGMMA_SS_N64_ASM("bf16");
+  else
+    WGMMA_SS_N64_ASM("f16");
 }
 
+#define WGMMA_RS_N128_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63" \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+        "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
                                               uint32_t a3, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+  if constexpr (std::is_same_v<T, bf16>)
+    WGMMA_RS_N128_ASM("bf16");
+  else
+    WGMMA_RS_N128_ASM("f16");
 }
 
+#define WGMMA_RS_N64_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1))
+
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
                                              uint32_t a3, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+  if constexpr (std::is_same_v<T, bf16>)
+    WGMMA_RS_N64_ASM("bf16");
+  else
+    WGMMA_RS_N64_ASM("f16");
 }
 
 // d (64 x HD) += A B over 16 K-rows: A is register fragment kk of `a`, B the
 // MN-major tile at `b_addr` (K-rows of 128 bytes, halves `half` bytes apart)
-template <int HD, int NA>
+template <typename T, int HD, int NA>
 __device__ __forceinline__ void wgmma_rs_hd(float (&d)[HD / 2], const uint32_t (&a)[NA], int kk,
                                             uint32_t b_addr, uint32_t half) {
   const uint64_t desc = smem_desc(b_addr, half, 1024);
   if constexpr (HD == 128)
-    wgmma_rs_n128(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3], desc);
+    wgmma_rs_n128<T>(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3], desc);
   else
-    wgmma_rs_n64(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3], desc);
+    wgmma_rs_n64<T>(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3], desc);
 }
 
 // Accumulators (64 x 16*KSTEPS, element i of a thread: row +8 if bit 1,
-// column 8 * (i / 4) + 2 * (lane % 4) + bit 0) rounded to bf16 as the A
-// fragments of the next wgmma, 16 columns per K step.
-template <int KSTEPS>
+// column 8 * (i / 4) + 2 * (lane % 4) + bit 0) rounded to T (bf16 or f16)
+// as the A fragments of the next wgmma, 16 columns per K step (the two
+// types share the fragment layout).
+template <typename T, int KSTEPS>
 __device__ __forceinline__ void pack_a(uint32_t (&a)[4 * KSTEPS], const float (&s)[8 * KSTEPS]) {
 #pragma unroll
-  for (int i = 0; i < 4 * KSTEPS; ++i) a[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+  for (int i = 0; i < 4 * KSTEPS; ++i) a[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
 }
 
 template <int HD>
@@ -889,12 +946,12 @@ struct FwdSmem {
   static constexpr uint32_t kBytes = kNeed + kFwdStages * 4 + 1024;  // + alignment slack
 };
 
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
-                       const uint8_t* __restrict__ mask, bf16* __restrict__ o,
+                       const uint8_t* __restrict__ mask, T* __restrict__ o,
                        float* __restrict__ lse, int sq, int skv, int nh, int n_kv, int hd,
                        float scale, int causal) {
   constexpr int HDT = staged_hd(HD);
@@ -995,7 +1052,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;
-        wgmma_ss_n128(sc, desc_kmajor(q_wg + (kk / 4) * L::kQHalf + off),
+        wgmma_ss_n128<T>(sc, desc_kmajor(q_wg + (kk / 4) * L::kQHalf + off),
                       desc_kmajor(k_s + (kk / 4) * L::kKVHalf + off), kk > 0);
       }
       wgmma_commit();
@@ -1042,12 +1099,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int i = 0; i < HDT / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 
       uint32_t pa[kFwdTileKeys / 4];  // P rounded to V's dtype
-      pack_a<kFwdTileKeys / 16>(pa, sc);
+      pack_a<T, kFwdTileKeys / 16>(pa, sc);
       mbar_wait(bar_v + 8 * s, phase);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kFwdTileKeys / 16; ++kk)
-        wgmma_rs_hd<HDT>(acc, pa, kk, v_s + kk * 16 * kSwizzleRow, L::kKVHalf);
+        wgmma_rs_hd<T, HDT>(acc, pa, kk, v_s + kk * 16 * kSwizzleRow, L::kKVHalf);
       wgmma_commit();
       wgmma_wait_all();
       settle(acc);
@@ -1065,12 +1122,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         if (rows[r] >= sq) continue;
         const bool empty = l[r] == 0.f;
         const float den = empty ? 1.f : l[r];
-        bf16* o_row = o + ((static_cast<int64_t>(b) * sq + rows[r]) * nh + h) * w;
+        T* o_row = o + ((static_cast<int64_t>(b) * sq + rows[r]) * nh + h) * w;
 #pragma unroll
         for (int c8 = 0; c8 < HD / 8; ++c8)
           if (c8 < w / 8)
             *reinterpret_cast<uint32_t*>(o_row + 8 * c8 + 2 * tg) =
-                pack_bf16(acc[4 * c8 + 2 * r] / den, acc[4 * c8 + 2 * r + 1] / den);
+                pack2<T>(acc[4 * c8 + 2 * r] / den, acc[4 * c8 + 2 * r + 1] / den);
         if (tg == 0)
           lse[(static_cast<int64_t>(b) * nh + h) * sq + rows[r]] =
               empty ? kNegInf : m[r] * scale + logf(den);
@@ -1100,15 +1157,15 @@ struct DkvSmem {
   static constexpr uint32_t kBytes = kBars + (1 + 2 * kDkvStages) * 8 + 1024;
 };
 
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kDkvThreads, 1)
 flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
                            const __grid_constant__ CUtensorMap v_map,
                            const __grid_constant__ CUtensorMap do_map,
                            const uint8_t* __restrict__ mask, const float* __restrict__ lse,
-                           const float* __restrict__ delta, bf16* __restrict__ dk,
-                           bf16* __restrict__ dv, int sq, int skv, int nh, int n_kv, int hd,
+                           const float* __restrict__ delta, T* __restrict__ dk,
+                           T* __restrict__ dv, int sq, int skv, int nh, int n_kv, int hd,
                            float scale, int causal) {
   constexpr int HDT = staged_hd(HD);
   using L = DkvSmem<HDT>;
@@ -1209,13 +1266,13 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_n64(st, desc_kmajor(k_wg + (kk / 4) * L::kKVHalf + off),
+      wgmma_ss_n64<T>(st, desc_kmajor(k_wg + (kk / 4) * L::kKVHalf + off),
                    desc_kmajor(q_s + (kk / 4) * L::kQHalf + off), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_n64(dpt, desc_kmajor(v_wg + (kk / 4) * L::kKVHalf + off),
+      wgmma_ss_n64<T>(dpt, desc_kmajor(v_wg + (kk / 4) * L::kKVHalf + off),
                    desc_kmajor(do_s + (kk / 4) * L::kQHalf + off), kk > 0);
     }
     wgmma_commit();
@@ -1239,15 +1296,15 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       st[i] = p;                                // P^T
     }
     uint32_t pp[kDkvQRows / 4], pd[kDkvQRows / 4];
-    pack_a<kDkvQRows / 16>(pp, st);   // P rounded to dO's dtype
-    pack_a<kDkvQRows / 16>(pd, dpt);  // dS rounded to Q's dtype
+    pack_a<T, kDkvQRows / 16>(pp, st);   // P rounded to dO's dtype
+    pack_a<T, kDkvQRows / 16>(pd, dpt);  // dS rounded to Q's dtype
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDkvQRows / 16; ++kk)
-      wgmma_rs_hd<HDT>(dv_acc, pp, kk, do_s + kk * 16 * kSwizzleRow, L::kQHalf);
+      wgmma_rs_hd<T, HDT>(dv_acc, pp, kk, do_s + kk * 16 * kSwizzleRow, L::kQHalf);
 #pragma unroll
     for (int kk = 0; kk < kDkvQRows / 16; ++kk)
-      wgmma_rs_hd<HDT>(dk_acc, pd, kk, q_s + kk * 16 * kSwizzleRow, L::kQHalf);
+      wgmma_rs_hd<T, HDT>(dk_acc, pd, kk, q_s + kk * 16 * kSwizzleRow, L::kQHalf);
     wgmma_commit();
     wgmma_wait_all();
     settle(dv_acc);
@@ -1265,9 +1322,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int c8 = 0; c8 < HD / 8; ++c8) {
       if (c8 >= hd / 8) continue;
       *reinterpret_cast<uint32_t*>(dk + row + 8 * c8 + 2 * tg) =
-          pack_bf16(dk_acc[4 * c8 + 2 * i], dk_acc[4 * c8 + 2 * i + 1]);
+          pack2<T>(dk_acc[4 * c8 + 2 * i], dk_acc[4 * c8 + 2 * i + 1]);
       *reinterpret_cast<uint32_t*>(dv + row + 8 * c8 + 2 * tg) =
-          pack_bf16(dv_acc[4 * c8 + 2 * i], dv_acc[4 * c8 + 2 * i + 1]);
+          pack2<T>(dv_acc[4 * c8 + 2 * i], dv_acc[4 * c8 + 2 * i + 1]);
     }
   }
 }
@@ -1290,14 +1347,14 @@ struct DqSmem {
   static constexpr uint32_t kBytes = kBars + (1 + 2 * kDqStages) * 8 + 1024;
 };
 
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kDqThreads, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
                           const __grid_constant__ CUtensorMap do_map,
                           const uint8_t* __restrict__ mask, const float* __restrict__ lse,
-                          const float* __restrict__ delta, bf16* __restrict__ dq, int sq,
+                          const float* __restrict__ delta, T* __restrict__ dq, int sq,
                           int skv, int nh, int n_kv, int hd, float scale, int causal) {
   constexpr int HDT = staged_hd(HD);
   using L = DqSmem<HDT>;
@@ -1413,13 +1470,13 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_n64(sc, desc_kmajor(q_wg + (kk / 4) * L::kQHalf + off),
+      wgmma_ss_n64<T>(sc, desc_kmajor(q_wg + (kk / 4) * L::kQHalf + off),
                    desc_kmajor(k_s + (kk / 4) * L::kKVHalf + off), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_n64(dp, desc_kmajor(do_wg + (kk / 4) * L::kQHalf + off),
+      wgmma_ss_n64<T>(dp, desc_kmajor(do_wg + (kk / 4) * L::kQHalf + off),
                    desc_kmajor(v_s + (kk / 4) * L::kKVHalf + off), kk > 0);
     }
     wgmma_commit();
@@ -1443,11 +1500,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       sc[i] = p * (dp[i] - dl[r]) * scale;  // dS
     }
     uint32_t pd[kDqTileKeys / 4];
-    pack_a<kDqTileKeys / 16>(pd, sc);  // dS rounded to K's dtype
+    pack_a<T, kDqTileKeys / 16>(pd, sc);  // dS rounded to K's dtype
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDqTileKeys / 16; ++kk)  // dQ += dS K, K read MN-major
-      wgmma_rs_hd<HDT>(acc, pd, kk, k_s + kk * 16 * kSwizzleRow, L::kKVHalf);
+      wgmma_rs_hd<T, HDT>(acc, pd, kk, k_s + kk * 16 * kSwizzleRow, L::kKVHalf);
     wgmma_commit();
     wgmma_wait_all();
     settle(acc);
@@ -1458,12 +1515,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= sq) continue;
-    bf16* row = dq + ((static_cast<int64_t>(b) * sq + rows[r]) * nh + h) * hd;
+    T* row = dq + ((static_cast<int64_t>(b) * sq + rows[r]) * nh + h) * hd;
 #pragma unroll
     for (int c8 = 0; c8 < HD / 8; ++c8)
       if (c8 < hd / 8)
         *reinterpret_cast<uint32_t*>(row + 8 * c8 + 2 * tg) =
-          pack_bf16(acc[4 * c8 + 2 * r], acc[4 * c8 + 2 * r + 1]);
+          pack2<T>(acc[4 * c8 + 2 * r], acc[4 * c8 + 2 * r + 1]);
   }
 }
 
@@ -1539,12 +1596,15 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D TMA map over a bf16 [b, s, heads, hd] tensor, innermost first
-// (hd, heads, s, b). A box is 64 columns (128 bytes, one swizzled row) by
+// A 4-D TMA map over a bf16 or f16 [b, s, heads, hd] tensor (T), innermost
+// first (hd, heads, s, b). A box is 64 columns (128 bytes, one swizzled row) by
 // `rows` rows of one head; rows past the sequence's end, and the columns
 // past hd, load as zeros. hd * 2 bytes is a multiple of 16 (hd a multiple
 // of 8), as TMA needs of every stride.
+template <typename T>
 cudaError_t tma_map(CUtensorMap* map, const void* ptr, int hd, int heads, int s, int b, int rows) {
+  constexpr CUtensorMapDataType kType = std::is_same_v<T, bf16> ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                                : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
@@ -1553,7 +1613,7 @@ cudaError_t tma_map(CUtensorMap* map, const void* ptr, int hd, int heads, int s,
   const cuuint64_t strides[3] = {row_bytes, row_bytes * heads, row_bytes * heads * s};
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+  const CUresult r = encode(map, kType, 4, const_cast<void*>(ptr), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1618,83 +1678,125 @@ cudaError_t launch_fma_dkv(const void* q, const void* k, const void* v, const ui
   return cudaGetLastError();
 }
 
-// Up to hd 128: dtype 0 (f32) takes the FMA kernels, dtype 1 (bf16) the
-// tensor-core ones
-template <int HD>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* o,
-                       float* lse, const Shape& a, int dtype, cudaStream_t stream) {
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
+// Up to hd 128: dtype 0 (f32) takes the FMA kernels, dtypes 1 (bf16) and 2
+// (f16) the tensor-core ones, one template instance a type (T)
+template <int HD, typename T>
+cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const uint8_t* m, void* o,
+                          float* lse, const Shape& a, cudaStream_t stream) {
+  static bool ready = false, pool = false;
+  constexpr int bytes = FwdSmem<staged_hd(HD)>::kBytes;
   cudaError_t err;
-  if (dtype == 0) {
-    return launch_fma_fwd<HD, kBlock, float>(q, k, v, m, o, lse, a, stream);
-  } else {
-    static bool ready = false, pool = false;
-    constexpr int bytes = FwdSmem<staged_hd(HD)>::kBytes;
-    CUtensorMap q_map, k_map, v_map;
-    if ((err = tma_map(&q_map, q, a.hd, a.nh, a.sq, a.b, kFwdRows)) != cudaSuccess ||
-        (err = tma_map(&k_map, k, a.hd, a.n_kv, a.skv, a.b, kFwdTileKeys)) != cudaSuccess ||
-        (err = tma_map(&v_map, v, a.hd, a.n_kv, a.skv, a.b, kFwdTileKeys)) != cudaSuccess ||
-        (err = allow_smem(flash_fwd_wgmma_kernel<HD>, bytes, ready)) != cudaSuccess ||
-        (err = check_register_pool(flash_fwd_wgmma_kernel<HD>, pool)) != cudaSuccess)
-      return err;
-    const dim3 grid(a.nh, a.b, (a.sq + kFwdRows - 1) / kFwdRows);
-    flash_fwd_wgmma_kernel<HD><<<grid, kFwdThreads, bytes, stream>>>(
-        q_map, k_map, v_map, m, static_cast<bf16*>(o), lse, a.sq, a.skv, a.nh, a.n_kv, a.hd,
-        a.scale, a.causal);
-  }
+  CUtensorMap q_map, k_map, v_map;
+  if ((err = tma_map<T>(&q_map, q, a.hd, a.nh, a.sq, a.b, kFwdRows)) != cudaSuccess ||
+      (err = tma_map<T>(&k_map, k, a.hd, a.n_kv, a.skv, a.b, kFwdTileKeys)) != cudaSuccess ||
+      (err = tma_map<T>(&v_map, v, a.hd, a.n_kv, a.skv, a.b, kFwdTileKeys)) != cudaSuccess ||
+      (err = allow_smem(flash_fwd_wgmma_kernel<HD, T>, bytes, ready)) != cudaSuccess ||
+      (err = check_register_pool(flash_fwd_wgmma_kernel<HD, T>, pool)) != cudaSuccess)
+    return err;
+  const dim3 grid(a.nh, a.b, (a.sq + kFwdRows - 1) / kFwdRows);
+  flash_fwd_wgmma_kernel<HD, T><<<grid, kFwdThreads, bytes, stream>>>(
+      q_map, k_map, v_map, m, static_cast<T*>(o), lse, a.sq, a.skv, a.nh, a.n_kv, a.hd, a.scale,
+      a.causal);
   return cudaGetLastError();
 }
 
+template <int HD, typename T>
+cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const uint8_t* m,
+                         const void* dout, const float* lse, const float* delta, void* dq,
+                         const Shape& a, cudaStream_t stream) {
+  static bool ready = false;
+  constexpr int bytes = DqSmem<staged_hd(HD)>::kBytes;
+  cudaError_t err;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  if ((err = tma_map<T>(&q_map, q, a.hd, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
+      (err = tma_map<T>(&do_map, dout, a.hd, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
+      (err = tma_map<T>(&k_map, k, a.hd, a.n_kv, a.skv, a.b, kDqTileKeys)) != cudaSuccess ||
+      (err = tma_map<T>(&v_map, v, a.hd, a.n_kv, a.skv, a.b, kDqTileKeys)) != cudaSuccess ||
+      (err = allow_smem(flash_bwd_dq_wgmma_kernel<HD, T>, bytes, ready)) != cudaSuccess)
+    return err;
+  const dim3 grid(a.nh, a.b, (a.sq + kDqRows - 1) / kDqRows);
+  flash_bwd_dq_wgmma_kernel<HD, T><<<grid, kDqThreads, bytes, stream>>>(
+      q_map, k_map, v_map, do_map, m, lse, delta, static_cast<T*>(dq), a.sq, a.skv, a.nh, a.n_kv,
+      a.hd, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int HD, typename T>
+cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const uint8_t* m,
+                          const void* dout, const float* lse, const float* delta, void* dk,
+                          void* dv, const Shape& a, cudaStream_t stream) {
+  static bool ready = false;
+  constexpr int bytes = DkvSmem<staged_hd(HD)>::kBytes;
+  cudaError_t err;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  if ((err = tma_map<T>(&q_map, q, a.hd, a.nh, a.sq, a.b, kDkvQRows)) != cudaSuccess ||
+      (err = tma_map<T>(&do_map, dout, a.hd, a.nh, a.sq, a.b, kDkvQRows)) != cudaSuccess ||
+      (err = tma_map<T>(&k_map, k, a.hd, a.n_kv, a.skv, a.b, kDkvKeys)) != cudaSuccess ||
+      (err = tma_map<T>(&v_map, v, a.hd, a.n_kv, a.skv, a.b, kDkvKeys)) != cudaSuccess ||
+      (err = allow_smem(flash_bwd_dkv_wgmma_kernel<HD, T>, bytes, ready)) != cudaSuccess)
+    return err;
+  const dim3 grid(a.n_kv, a.b, (a.skv + kDkvKeys - 1) / kDkvKeys);
+  flash_bwd_dkv_wgmma_kernel<HD, T><<<grid, kDkvThreads, bytes, stream>>>(
+      q_map, k_map, v_map, do_map, m, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), a.sq,
+      a.skv, a.nh, a.n_kv, a.hd, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// fn(Tag<T>{}) with T the storage type of dtype code 0 (f32), 1 (bf16) or
+// 2 (f16)
+template <typename Fn>
+cudaError_t by_dtype(int dtype, Fn&& fn) {
+  switch (dtype) {
+    case 0: return fn(Tag<float>{});
+    case 1: return fn(Tag<bf16>{});
+    case 2: return fn(Tag<f16>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Up to hd 128 at HD (hd rounded up to 16): f32 on the FMA units, bf16 and
+// f16 on the tensor cores
 template <int HD>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* mask,
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, const uint8_t* m, void* o,
+                       float* lse, const Shape& a, int dtype, cudaStream_t stream) {
+  return by_dtype(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    if constexpr (std::is_same_v<T, float>)
+      return launch_fma_fwd<HD, kBlock, float>(q, k, v, m, o, lse, a, stream);
+    else
+      return launch_fwd_tc<HD, T>(q, k, v, m, o, lse, a, stream);
+  });
+}
+
+template <int HD>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const uint8_t* m,
                       const void* dout, const float* lse, const float* delta, void* dq,
                       const Shape& a, int dtype, cudaStream_t stream) {
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  cudaError_t err;
-  if (dtype == 0) {
-    return launch_fma_dq<HD, kBlock, float>(q, k, v, m, dout, lse, delta, dq, a, stream);
-  } else {
-    static bool ready = false;
-    constexpr int bytes = DqSmem<staged_hd(HD)>::kBytes;
-    CUtensorMap q_map, k_map, v_map, do_map;
-    if ((err = tma_map(&q_map, q, a.hd, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
-        (err = tma_map(&do_map, dout, a.hd, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
-        (err = tma_map(&k_map, k, a.hd, a.n_kv, a.skv, a.b, kDqTileKeys)) != cudaSuccess ||
-        (err = tma_map(&v_map, v, a.hd, a.n_kv, a.skv, a.b, kDqTileKeys)) != cudaSuccess ||
-        (err = allow_smem(flash_bwd_dq_wgmma_kernel<HD>, bytes, ready)) != cudaSuccess)
-      return err;
-    const dim3 grid(a.nh, a.b, (a.sq + kDqRows - 1) / kDqRows);
-    flash_bwd_dq_wgmma_kernel<HD><<<grid, kDqThreads, bytes, stream>>>(
-        q_map, k_map, v_map, do_map, m, lse, delta, static_cast<bf16*>(dq), a.sq, a.skv, a.nh,
-        a.n_kv, a.hd, a.scale, a.causal);
-  }
-  return cudaGetLastError();
+  return by_dtype(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    if constexpr (std::is_same_v<T, float>)
+      return launch_fma_dq<HD, kBlock, float>(q, k, v, m, dout, lse, delta, dq, a, stream);
+    else
+      return launch_dq_tc<HD, T>(q, k, v, m, dout, lse, delta, dq, a, stream);
+  });
 }
 
 template <int HD>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* mask,
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const uint8_t* m,
                        const void* dout, const float* lse, const float* delta, void* dk,
                        void* dv, const Shape& a, int dtype, cudaStream_t stream) {
-  const uint8_t* m = static_cast<const uint8_t*>(mask);
-  cudaError_t err;
-  if (dtype == 0) {
-    return launch_fma_dkv<HD, kBlock, float>(q, k, v, m, dout, lse, delta, dk, dv, a, stream);
-  } else {
-    static bool ready = false;
-    constexpr int bytes = DkvSmem<staged_hd(HD)>::kBytes;
-    CUtensorMap q_map, k_map, v_map, do_map;
-    if ((err = tma_map(&q_map, q, a.hd, a.nh, a.sq, a.b, kDkvQRows)) != cudaSuccess ||
-        (err = tma_map(&do_map, dout, a.hd, a.nh, a.sq, a.b, kDkvQRows)) != cudaSuccess ||
-        (err = tma_map(&k_map, k, a.hd, a.n_kv, a.skv, a.b, kDkvKeys)) != cudaSuccess ||
-        (err = tma_map(&v_map, v, a.hd, a.n_kv, a.skv, a.b, kDkvKeys)) != cudaSuccess ||
-        (err = allow_smem(flash_bwd_dkv_wgmma_kernel<HD>, bytes, ready)) != cudaSuccess)
-      return err;
-    const dim3 grid(a.n_kv, a.b, (a.skv + kDkvKeys - 1) / kDkvKeys);
-    flash_bwd_dkv_wgmma_kernel<HD><<<grid, kDkvThreads, bytes, stream>>>(
-        q_map, k_map, v_map, do_map, m, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-        a.sq, a.skv, a.nh, a.n_kv, a.hd, a.scale, a.causal);
-  }
-  return cudaGetLastError();
+  return by_dtype(dtype, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    if constexpr (std::is_same_v<T, float>)
+      return launch_fma_dkv<HD, kBlock, float>(q, k, v, m, dout, lse, delta, dk, dv, a, stream);
+    else
+      return launch_dkv_tc<HD, T>(q, k, v, m, dout, lse, delta, dk, dv, a, stream);
+  });
 }
 
 // the head dims the kernels take: any multiple of 8 (the wrapper zero-pads
@@ -1707,7 +1809,7 @@ bool valid_shape(const Shape& a, int dtype) {
   const int64_t cols = (a.hd + kWideHD - 1) / kWideHD;
   const int64_t tiles = (std::max(a.sq, a.skv) + kWideBlock - 1) / kWideBlock;
   return a.b >= 1 && a.sq >= 1 && a.skv >= 1 && a.n_kv >= 1 && a.nh >= a.n_kv &&
-         a.nh % a.n_kv == 0 && valid_head_dim(a.hd) && (dtype == 0 || dtype == 1) &&
+         a.nh % a.n_kv == 0 && valid_head_dim(a.hd) && dtype >= 0 && dtype <= 2 &&
          a.b <= 65535 && a.nh <= 65535 && tiles * cols <= INT32_MAX;
 }
 
@@ -1744,13 +1846,13 @@ template <int HD>
 cudaError_t wgmma_blocks_per_sm(int which, int* blocks) {
   switch (which) {
     case 0:
-      return occupancy(flash_fwd_wgmma_kernel<HD>, kFwdThreads, FwdSmem<staged_hd(HD)>::kBytes,
+      return occupancy(flash_fwd_wgmma_kernel<HD, bf16>, kFwdThreads, FwdSmem<staged_hd(HD)>::kBytes,
                        blocks);
     case 1:
-      return occupancy(flash_bwd_dq_wgmma_kernel<HD>, kDqThreads, DqSmem<staged_hd(HD)>::kBytes,
+      return occupancy(flash_bwd_dq_wgmma_kernel<HD, bf16>, kDqThreads, DqSmem<staged_hd(HD)>::kBytes,
                        blocks);
     case 2:
-      return occupancy(flash_bwd_dkv_wgmma_kernel<HD>, kDkvThreads,
+      return occupancy(flash_bwd_dkv_wgmma_kernel<HD, bf16>, kDkvThreads,
                        DkvSmem<staged_hd(HD)>::kBytes, blocks);
     default: return cudaErrorInvalidValue;
   }
@@ -1774,8 +1876,10 @@ cudaError_t wide_blocks_per_sm(int which, int* blocks) {
 
 }  // namespace
 
-// dtype codes shared with the Python wrapper: 0 = f32, 1 = bf16 (q, k, v, o,
-// dO and the gradients all share it). mask is null or [b, skv] bytes.
+// dtype codes shared with the Python wrapper: 0 = f32, 1 = bf16, 2 = f16 (q,
+// k, v, o, dO and the gradients all share it). mask is null or [b, skv]
+// bytes. Past hd 128 every dtype takes the wide FMA instance of its type
+// (past 256 its column-block instance).
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
                                    void* o, void* lse, int b, int sq, int skv, int nh, int n_kv,
@@ -1786,14 +1890,14 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  if (hd > kWideHD)
-    return dtype == 0 ? launch_fma_fwd<kWideHD, kWideBlock, float, true>(q, k, v, m, o, l, a, st)
-                      : launch_fma_fwd<kWideHD, kWideBlock, bf16, true>(q, k, v, m, o, l, a, st);
   if (hd > 128)
-    return dtype == 0 ? launch_fma_fwd<kWideHD, kWideBlock, float>(q, k, v, m, o, l, a, st)
-                      : launch_fma_fwd<kWideHD, kWideBlock, bf16>(q, k, v, m, o, l, a, st);
+    return by_dtype(dtype, [&](auto tag) {
+      using T = typename decltype(tag)::type;
+      return hd > kWideHD ? launch_fma_fwd<kWideHD, kWideBlock, T, true>(q, k, v, m, o, l, a, st)
+                          : launch_fma_fwd<kWideHD, kWideBlock, T>(q, k, v, m, o, l, a, st);
+    });
   return by_head_dim(hd, [&](auto c) {
-    return launch_fwd<decltype(c)::value>(q, k, v, mask, o, l, a, dtype, st);
+    return launch_fwd<decltype(c)::value>(q, k, v, m, o, l, a, dtype, st);
   });
 }
 
@@ -1809,16 +1913,15 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  if (hd > kWideHD)
-    return dtype == 0
-               ? launch_fma_dq<kWideHD, kWideBlock, float, true>(q, k, v, m, dout, l, d, dq, a, st)
-               : launch_fma_dq<kWideHD, kWideBlock, bf16, true>(q, k, v, m, dout, l, d, dq, a, st);
   if (hd > 128)
-    return dtype == 0
-               ? launch_fma_dq<kWideHD, kWideBlock, float>(q, k, v, m, dout, l, d, dq, a, st)
-               : launch_fma_dq<kWideHD, kWideBlock, bf16>(q, k, v, m, dout, l, d, dq, a, st);
+    return by_dtype(dtype, [&](auto tag) {
+      using T = typename decltype(tag)::type;
+      return hd > kWideHD
+                 ? launch_fma_dq<kWideHD, kWideBlock, T, true>(q, k, v, m, dout, l, d, dq, a, st)
+                 : launch_fma_dq<kWideHD, kWideBlock, T>(q, k, v, m, dout, l, d, dq, a, st);
+    });
   return by_head_dim(hd, [&](auto c) {
-    return launch_dq<decltype(c)::value>(q, k, v, mask, dout, l, d, dq, a, dtype, st);
+    return launch_dq<decltype(c)::value>(q, k, v, m, dout, l, d, dq, a, dtype, st);
   });
 }
 
@@ -1834,18 +1937,16 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(delta);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  if (hd > kWideHD)
-    return dtype == 0 ? launch_fma_dkv<kWideHD, kWideBlock, float, true>(q, k, v, m, dout, l, d,
-                                                                        dk, dv, a, st)
-                      : launch_fma_dkv<kWideHD, kWideBlock, bf16, true>(q, k, v, m, dout, l, d,
-                                                                       dk, dv, a, st);
   if (hd > 128)
-    return dtype == 0 ? launch_fma_dkv<kWideHD, kWideBlock, float>(q, k, v, m, dout, l, d, dk,
-                                                                  dv, a, st)
-                      : launch_fma_dkv<kWideHD, kWideBlock, bf16>(q, k, v, m, dout, l, d, dk,
-                                                                 dv, a, st);
+    return by_dtype(dtype, [&](auto tag) {
+      using T = typename decltype(tag)::type;
+      return hd > kWideHD ? launch_fma_dkv<kWideHD, kWideBlock, T, true>(q, k, v, m, dout, l, d,
+                                                                         dk, dv, a, st)
+                          : launch_fma_dkv<kWideHD, kWideBlock, T>(q, k, v, m, dout, l, d, dk,
+                                                                   dv, a, st);
+    });
   return by_head_dim(hd, [&](auto c) {
-    return launch_dkv<decltype(c)::value>(q, k, v, mask, dout, l, d, dk, dv, a, dtype, st);
+    return launch_dkv<decltype(c)::value>(q, k, v, m, dout, l, d, dk, dv, a, dtype, st);
   });
 }
 

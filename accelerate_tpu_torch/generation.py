@@ -30,12 +30,19 @@ on every call, and the cached and full-forward paths draw alike. The port
 cannot reproduce JAX's sampled bits; greedy decoding equals JAX's token for
 token.
 
-Not ported yet: the seq2seq loop (t5, ROADMAP item 17), the streaming
-``DispatchedModel`` path (item 19), and the autocast islands (item 13).
+A prepared model runs under the precision policy in force when
+:func:`generate` is called: its compute dtype and its fp8 recipe, both of
+which an ``Accelerator.autocast`` island suspends. Each policy keys its
+own programs (the key carries the dtype and the recipe's format), so an
+island neither replays a bf16 graph nor captures anew on every call.
+
+Not ported yet: the seq2seq loop (t5, ROADMAP item 17) and the streaming
+``DispatchedModel`` path (item 19).
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import OrderedDict
 
@@ -144,20 +151,30 @@ class _Backend:
     kv_cache=..., cache_index=...)`` a decode step. ``owner`` keeps the
     captured programs; ``weights`` (a prepared model's compute-dtype copies,
     refreshed once a :func:`generate` call) replace the module's parameters,
-    or ``None`` runs the module's own."""
+    or ``None`` runs the module's own; ``fp8`` is the fp8 recipe's format
+    (``"HYBRID"`` or ``"E4M3"``) the projections run under, or ``None``."""
 
-    def __init__(self, owner, module, weights, dtype):
+    def __init__(self, owner, module, weights, dtype, fp8=None):
         self.owner = owner
         self.module = module
         self.weights = weights
         self.dtype = dtype
+        self.fp8 = fp8
         self.device = module.device
         self.config = module.config
 
+    @property
+    def policy(self) -> tuple:
+        """What a kept program is keyed by besides its shapes."""
+        return self.dtype, self.fp8
+
     def __call__(self, **kw):
-        if self.weights is None:
-            return self.module(**kw)
-        return torch.func.functional_call(self.module, self.weights, (), kw)
+        from .ops.fp8 import fp8_autocast
+
+        with fp8_autocast(fp8_format=self.fp8) if self.fp8 else contextlib.nullcontext():
+            if self.weights is None:
+                return self.module(**kw)
+            return torch.func.functional_call(self.module, self.weights, (), kw)
 
     def storage(self) -> tuple:
         """Where the tensors a captured graph reads in place lie: the
@@ -172,10 +189,10 @@ def _cache_backend(model):
     decode path (``supports_kv_cache``), else ``None``.
 
     A :class:`~.modules.PreparedModel` runs at its current
-    ``compute_dtype``: its floating parameters are cast into one persistent
-    copy a dtype, once a call (the weights cannot change inside a call, and
-    a cast a token would cost more than the step), and a captured graph
-    reads that copy in place."""
+    ``compute_dtype`` and ``fp8_recipe``, read here, once a call: its
+    floating parameters are cast into one persistent copy a dtype (the
+    weights cannot change inside a call, and a cast a token would cost more
+    than the step), and a captured graph reads that copy in place."""
     from .modules import PreparedModel
 
     if isinstance(model, PreparedModel):
@@ -183,8 +200,9 @@ def _cache_backend(model):
         if not getattr(inner, "supports_kv_cache", False):
             return None
         dtype = model.compute_dtype
+        fp8 = model.fp8_recipe.fp8_format.upper() if model.fp8_recipe is not None else None
         if dtype is None:
-            return _Backend(model, inner, None, inner.dtype)
+            return _Backend(model, inner, None, inner.dtype, fp8)
         store = model.__dict__.setdefault("_generation_weights", {})
         params = [(n, p) for n, p in inner.named_parameters() if p.is_floating_point()]
         weights = store.get(dtype)
@@ -193,7 +211,7 @@ def _cache_backend(model):
         with torch.no_grad():
             for n, p in params:
                 weights[n].copy_(p)
-        return _Backend(model, inner, weights, dtype)
+        return _Backend(model, inner, weights, dtype, fp8)
     if isinstance(model, torch.nn.Module) and getattr(model, "supports_kv_cache", False):
         return _Backend(model, model, None, model.dtype)
     return None
@@ -281,7 +299,7 @@ class _DecodeProgram(_StaticProgram):
 
 
 def _scan_decode_for(backend, b, total, do_sample, has_eos) -> _DecodeProgram:
-    key = ("decode", b, total, bool(do_sample), bool(has_eos), backend.dtype)
+    key = ("decode", b, total, bool(do_sample), bool(has_eos), backend.policy)
     return _program_for(backend.owner, key,
                         lambda: _DecodeProgram(backend, b, total, do_sample, has_eos),
                         backend.storage())
@@ -609,8 +627,8 @@ class _SpecProgram(_StaticProgram):
 
 
 def _spec_loop_for(target, draft, b, total, cache_len, k, has_eos) -> _SpecProgram:
-    key = ("spec", b, total, cache_len, k, bool(has_eos), target.dtype, id(draft.owner),
-           draft.dtype)
+    key = ("spec", b, total, cache_len, k, bool(has_eos), target.policy, id(draft.owner),
+           draft.policy)
     return _program_for(target.owner, key,
                         lambda: _SpecProgram(target, draft, b, total, cache_len, k, has_eos),
                         target.storage() + draft.storage())

@@ -31,7 +31,8 @@ __all__ = [
     "initialize_distributed",
 ]
 
-#: how long a collective may wait for its peers before the group fails it
+#: how long a collective may wait for its peers before the group fails it,
+#: unless ``InitProcessGroupKwargs(timeout=...)`` names another
 PROCESS_GROUP_TIMEOUT = datetime.timedelta(minutes=10)
 
 

@@ -12,8 +12,13 @@ dense KV-cache decode (:meth:`LlamaForCausalLM.cached_step`, the port of
 ``_llama_decode_step``), which ``generate()`` runs, and the paged step the
 serving engine runs (:meth:`LlamaForCausalLM.paged_step`, the port of
 ``_llama_paged_step``) with its early-exit draft for speculative decoding
-(:func:`llama_early_exit_apply`). The streaming segments and the pipelined
-stacks are later slices.
+(:func:`llama_early_exit_apply`). Every projection JAX routes through
+``dense`` goes through the port's :func:`~..ops.fp8.dense` in ``forward``
+and ``cached_step`` (so an fp8 recipe reaches training and ``generate()``
+alike); ``paged_step`` keeps plain products, since serving has no
+precision policy. :func:`convert_hf_llama_state_dict` loads an HF-layout
+checkpoint. The streaming segments and the pipelined stacks are later
+slices.
 """
 
 from __future__ import annotations
@@ -24,10 +29,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..modules import ModelOutput
 from ..ops.attention import attention
+from ..ops.fp8 import dense
 from ..ops.layers import (
     apply_rope,
     fused_cross_entropy,
@@ -37,6 +42,7 @@ from ..ops.layers import (
     rope_paged_attention_block,
     shift_labels,
 )
+from ..parallel.pipeline import remat_policy, remat_wrap
 from ..utils.device import resolve_device
 
 
@@ -52,16 +58,13 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_norm_eps: float = 1e-5
     tie_word_embeddings: bool = False
-    #: recompute each layer in the backward (``torch.utils.checkpoint``);
-    #: the JAX ``jax.checkpoint_policies`` names are not ported
-    remat: bool = False
+    #: rematerialisation of each layer in the backward: False, True (the
+    #: whole layer) or a ``jax.checkpoint_policies`` name such as
+    #: ``"dots_saveable"`` (:func:`~..parallel.pipeline.remat_wrap`)
+    remat: bool | str = False
 
     def __post_init__(self):
-        if not isinstance(self.remat, bool):
-            raise ValueError(
-                f"remat policy {self.remat!r} is not yet ported: use True (recompute "
-                "each layer) or False"
-            )
+        remat_policy(self.remat)  # an unknown name raises JAX's message
 
     @property
     def head_dim(self) -> int:
@@ -72,7 +75,7 @@ class LlamaConfig:
         return cls(remat=True)
 
     @classmethod
-    def flagship_700m(cls, max_position_embeddings: int = 1024, remat: bool = False):
+    def flagship_700m(cls, max_position_embeddings: int = 1024, remat: bool | str = False):
         """The ~700M flagship (hidden 1536, 12 heads × 128, ff 4h, 16
         layers): the train step ``chip_smoke.py`` drives and the serve
         CLI's ``--preset flagship``."""
@@ -193,20 +196,21 @@ def llama_layer_apply(config: LlamaConfig, w: dict, x, cos, sin, positions, atte
     """One transformer block on a layer's weight dict (port of
     ``llama_layer_apply``): RMSNorm → q/k/v → RoPE → :func:`ops.attention.attention`
     (causal, ``attention_mask [b, s]`` as the key mask) → output projection
-    residual → RMSNorm → SwiGLU MLP residual. ``return_kv`` also returns
-    the block's roped K and V ``[b, s, n_kv, hd]`` (the prefill's cache)."""
+    residual → RMSNorm → SwiGLU MLP residual, each projection through
+    :func:`~..ops.fp8.dense`. ``return_kv`` also returns the block's roped K
+    and V ``[b, s, n_kv, hd]`` (the prefill's cache)."""
     c = config
     nh, nkv, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
     b, s, _ = x.shape
     y = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
-    q = apply_rope(F.linear(y, w["wq"]).reshape(b, s, nh, hd), cos, sin, positions)
-    k = apply_rope(F.linear(y, w["wk"]).reshape(b, s, nkv, hd), cos, sin, positions)
-    v = F.linear(y, w["wv"]).reshape(b, s, nkv, hd)
+    q = apply_rope(dense(y, w["wq"]).reshape(b, s, nh, hd), cos, sin, positions)
+    k = apply_rope(dense(y, w["wk"]).reshape(b, s, nkv, hd), cos, sin, positions)
+    v = dense(y, w["wv"]).reshape(b, s, nkv, hd)
     attn = attention(q, k, v, segment_mask=attention_mask, causal=True)
-    x = x + F.linear(attn.reshape(b, s, nh * hd), w["wo"])
+    x = x + dense(attn.reshape(b, s, nh * hd), w["wo"])
     y = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
-    gated = F.silu(F.linear(y, w["w_gate"])) * F.linear(y, w["w_up"])
-    x = x + F.linear(gated, w["w_down"])
+    gated = F.silu(dense(y, w["w_gate"])) * dense(y, w["w_up"])
+    x = x + dense(gated, w["w_down"])
     return (x, (k, v)) if return_kv else x
 
 
@@ -219,6 +223,47 @@ def _remat_layer(config, x, cos, sin, positions, attention_mask, *weights):
     compute-dtype copies under mixed precision) for the recompute."""
     return llama_layer_apply(config, dict(zip(_LAYER_KEYS, weights)), x, cos, sin, positions,
                              attention_mask)
+
+
+#: the HF transformers names of a llama layer's tensors, by this model's
+_HF_LAYER_NAMES = {
+    "wq": "self_attn.q_proj.weight",
+    "wk": "self_attn.k_proj.weight",
+    "wv": "self_attn.v_proj.weight",
+    "wo": "self_attn.o_proj.weight",
+    "w_gate": "mlp.gate_proj.weight",
+    "w_up": "mlp.up_proj.weight",
+    "w_down": "mlp.down_proj.weight",
+    "attn_norm": "input_layernorm.weight",
+    "mlp_norm": "post_attention_layernorm.weight",
+}
+
+
+def convert_hf_llama_state_dict(flat: dict, config: LlamaConfig) -> dict[str, torch.Tensor]:
+    """An HF transformers llama state dict (``model.layers.{i}.self_attn.q_proj.weight``,
+    ..., with or without the ``model.`` prefix; tensors or numpy arrays) →
+    this model's state dict (port of JAX ``convert_hf_llama_state_dict``).
+    No transposes: HF's ``nn.Linear`` weights and this model's share the
+    ``[out, in]`` layout (JAX transposes to its ``[in, out]`` and stacks
+    the layers). Tied embeddings take no ``lm_head``."""
+
+    def tensor(x):
+        return x.detach().clone() if isinstance(x, torch.Tensor) else _as_tensor(x)
+
+    def get(name):
+        for prefix in ("model.", ""):
+            if prefix + name in flat:
+                return tensor(flat[prefix + name])
+        raise KeyError(name)
+
+    sd = {"embed_tokens.weight": get("embed_tokens.weight"), "norm": get("norm.weight")}
+    for i in range(config.num_hidden_layers):
+        for ours, theirs in _HF_LAYER_NAMES.items():
+            suffix = "" if ours in _NORMS else ".weight"
+            sd[f"layers.{i}.{ours}{suffix}"] = get(f"layers.{i}.{theirs}")
+    if not config.tie_word_embeddings:
+        sd["lm_head.weight"] = tensor(flat["lm_head.weight"])
+    return sd
 
 
 class LlamaForCausalLM(nn.Module):
@@ -314,6 +359,7 @@ class LlamaForCausalLM(nn.Module):
             positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
         x = self.embed_tokens(self._token_ids(input_ids))
         rope = (self.rope_cos, self.rope_sin)
+        remat_layer = remat_wrap(_remat_layer, c.remat)
         caches = None
         if use_cache:
             max_cache = int(max_cache_len or c.max_position_embeddings)
@@ -333,20 +379,25 @@ class LlamaForCausalLM(nn.Module):
                 caches["k"][i, :, :s] = k
                 caches["v"][i, :, :s] = v
             elif c.remat:
-                x = checkpoint(_remat_layer, c, x, *rope, positions, attention_mask,
-                               *(w[n] for n in _LAYER_KEYS), use_reentrant=False)
+                x = remat_layer(c, x, *rope, positions, attention_mask,
+                                *(w[n] for n in _LAYER_KEYS))
             else:
                 x = llama_layer_apply(c, w, x, *rope, positions, attention_mask)
         x = rms_norm(x, self.norm, c.rms_norm_eps)
         head = self._head()
         out = ModelOutput()
         if labels is None or return_logits:
-            out["logits"] = F.linear(x, head)
+            out["logits"] = dense(x, head)
         if caches is not None:
             out["kv_cache"] = caches
         if labels is not None:
             out["loss"] = fused_cross_entropy(x, head.t(), shift_labels(labels))
         return out
+
+    def convert_state_dict(self, flat: dict) -> dict[str, torch.Tensor]:
+        """An HF-layout state dict as this model's
+        (:func:`convert_hf_llama_state_dict`), for ``load_state_dict``."""
+        return convert_hf_llama_state_dict(flat, self.config)
 
     def _check_length(self, s: int) -> None:
         if s > self.config.max_position_embeddings:
@@ -381,9 +432,10 @@ class LlamaForCausalLM(nn.Module):
                 spare_slot,
             )
             y = rms_norm(x, layer.mlp_norm, c.rms_norm_eps)
-            x = x + layer.w_down(F.silu(layer.w_gate(y)) * layer.w_up(y))
+            gated = F.silu(dense(y, layer.w_gate.weight)) * dense(y, layer.w_up.weight)
+            x = x + dense(gated, layer.w_down.weight)
         x = rms_norm(x, self.norm, c.rms_norm_eps)
-        return ModelOutput(logits=F.linear(x, self._head()), kv_cache=kv_cache)
+        return ModelOutput(logits=dense(x, self._head()), kv_cache=kv_cache)
 
     def early_exit_apply(self, draft_layers: int):
         """The early-exit draft of this model: :func:`llama_early_exit_apply`."""

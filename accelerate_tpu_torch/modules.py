@@ -8,6 +8,8 @@ The JAX ``Model`` / ``Model.from_flax`` have no PyTorch meaning: an
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.func import functional_call
 
@@ -55,34 +57,51 @@ class PreparedModel:
     ``PreparedModel``'s mixed-precision contract).
 
     The module keeps f32 master weights, which the optimizer updates. Under
-    a compute dtype (``"bf16"``) each call runs
-    ``torch.func.functional_call`` with every floating parameter and every
-    floating input cast to it, so the whole model runs in bf16 — residual
-    stream and norm outputs included, as the JAX package runs it — and
-    bf16 outputs come back as f32. The casts are differentiable, so the
-    gradients land on the f32 masters in f32. (``torch.autocast`` would
-    keep the residual stream in f32 and round elsewhere, so it is not
-    used.) Attributes not found here are read from the module.
+    a compute dtype (bf16 for ``"bf16"`` and ``"fp8"``, f16 for ``"fp16"``)
+    each call runs ``torch.func.functional_call`` with every floating
+    parameter and every floating input cast to it, so the whole model runs
+    in that dtype — residual stream and norm outputs included, as the JAX
+    package runs it — and bf16 / f16 outputs come back as f32. The casts
+    are differentiable, so the gradients land on the f32 masters in f32.
+    (``torch.autocast`` would keep the residual stream in f32 and round
+    elsewhere, so it is not used.) With an ``fp8_recipe``
+    (:class:`~.ops.fp8.FP8RecipeKwargs`, attached under ``"fp8"``) the call
+    runs inside :func:`~.ops.fp8.fp8_autocast`, so the projections become
+    scaled-fp8 products. Both policies are read when the model is called:
+    an ``Accelerator.autocast`` island that clears them holds for the calls
+    made inside it. Attributes not found here are read from the module.
     ``generate()`` casts the weights once a call into one kept copy a
     dtype (``generation._cache_backend``), not once a token."""
 
-    def __init__(self, module: torch.nn.Module, compute_dtype: torch.dtype | None = None):
+    def __init__(self, module: torch.nn.Module, compute_dtype: torch.dtype | None = None,
+                 fp8_recipe=None):
         self.module = module
         self.compute_dtype = compute_dtype
+        self.fp8_recipe = fp8_recipe
 
     def __getattr__(self, name):
-        if name == "module":  # not set yet (e.g. during unpickling)
+        if name in ("module", "compute_dtype", "fp8_recipe"):  # not set yet (e.g. during unpickling)
             raise AttributeError(name)
         return getattr(self.module, name)
 
     def __call__(self, *args, **kwargs):
-        if self.compute_dtype is None:
-            return self.module(*args, **kwargs)
-        params = {name: p.to(self.compute_dtype)
-                  for name, p in self.module.named_parameters() if p.is_floating_point()}
-        args = _cast_floats(args, self.compute_dtype)
-        kwargs = _cast_floats(kwargs, self.compute_dtype)
-        return _upcast_half(functional_call(self.module, params, args, kwargs))
+        with self.fp8_context():
+            if self.compute_dtype is None:
+                return self.module(*args, **kwargs)
+            params = {name: p.to(self.compute_dtype)
+                      for name, p in self.module.named_parameters() if p.is_floating_point()}
+            args = _cast_floats(args, self.compute_dtype)
+            kwargs = _cast_floats(kwargs, self.compute_dtype)
+            return _upcast_half(functional_call(self.module, params, args, kwargs))
+
+    def fp8_context(self):
+        """:func:`~.ops.fp8.fp8_autocast` under the model's fp8 recipe, or a
+        no-op context without one."""
+        if self.fp8_recipe is None:
+            return contextlib.nullcontext()
+        from .ops.fp8 import fp8_autocast
+
+        return fp8_autocast(enabled=True, fp8_format=self.fp8_recipe.fp8_format)
 
     forward = __call__
 

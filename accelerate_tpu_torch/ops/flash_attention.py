@@ -10,10 +10,10 @@ backward is :func:`flash_bwd`:
 * the **CUDA kernels** ``csrc/flash_attention.cu`` (hand-written for
   ``sm_90a``): ``flash_fwd_*`` replaces the TPU kernel ``_fwd_kernel``,
   ``flash_bwd_dq_*`` ``_bwd_dq_kernel`` and ``flash_bwd_dkv_*``
-  ``_bwd_dkv_kernel``; bf16 inputs up to head dim 128 run their products
-  on the tensor cores (``wgmma`` fed by a TMA ring), f32 inputs and every
-  head dim past 128 on the FMA units (no TF32; past 256 in column blocks
-  of 256). Taken for CUDA tensors,
+  ``_bwd_dkv_kernel``; bf16 and f16 inputs up to head dim 128 run their
+  products on the tensor cores (``wgmma`` fed by a TMA ring), f32 inputs
+  and every head dim past 128 on the FMA units (no TF32; past 256 in
+  column blocks of 256). Taken for CUDA tensors,
   and only the kernels: a build or launch failure raises;
 * the **plain** PyTorch versions :func:`_flash_fwd_plain` and
   :func:`_flash_bwd_plain` — the kernels' math as a loop over key tiles,
@@ -45,7 +45,11 @@ fwd_launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the dtypes the kernels take, by the code the C entry points dispatch on:
+#: f32, bf16 and f16, the three JAX's Pallas kernels run in (f16 under
+#: ``mixed_precision="fp16"``, where P and dS round to f16 and a loss-scaled
+#: dS may overflow to inf as JAX's does)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the head dims every hand-written attention kernel takes (B1-B3 here, B4 in
 #: :mod:`.paged_attention`; the training entry point refuses others on the
 #: card before any step: ``accelerator.check_kernel_head_dim``). The kernels

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .fp8 import checkpoint_contexts, dense, quantize_kv_rows
+
 #: pool index of the reserved null block: free slots and the unfilled tail
 #: of every block table point at it, dropped writes land in it, and it is
 #: never attended
@@ -118,9 +120,10 @@ def shift_labels(labels, ignore_index: int = -100):
 
 
 def _chunk_nll(x_i, head, l_i, ignore_index: int):
-    """One chunk's summed NLL and valid count; the head product runs in the
-    compute dtype and is cast to f32 before the log-softmax."""
-    logits = torch.matmul(x_i, head).float()  # [b, s/C, V]
+    """One chunk's summed NLL and valid count; the head product
+    (:func:`~.fp8.dense`) runs in the compute dtype and is cast to f32
+    before the log-softmax."""
+    logits = dense(x_i, head.t()).float()  # [b, s/C, V]
     valid = l_i != ignore_index
     safe = torch.where(valid, l_i, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -134,8 +137,10 @@ def fused_cross_entropy(x, head, labels, ignore_index: int = -100, chunk_tokens:
     splits into ``C`` chunks, the largest divisor of ``s`` with ``s // C >=
     chunk_tokens // b`` (``C == 1`` is the plain loss), and each chunk runs
     under ``torch.utils.checkpoint`` so the backward recomputes its logits
-    (the JAX ``jax.checkpoint`` inside ``lax.scan``). Equal to
-    ``cross_entropy_loss(x @ head, labels)``."""
+    (the JAX ``jax.checkpoint`` inside ``lax.scan``), under the fp8 state of
+    the forward. Equal to ``cross_entropy_loss(x @ head, labels)``; the
+    head product is :func:`~.fp8.dense`'s, so it runs in fp8 inside
+    ``fp8_autocast``."""
     b, s, _ = x.shape
     rows = max(1, chunk_tokens // b)
     C = 1
@@ -143,7 +148,7 @@ def fused_cross_entropy(x, head, labels, ignore_index: int = -100, chunk_tokens:
         if s % c == 0 and s // c >= rows:
             C = c
     if C == 1:
-        return cross_entropy_loss(torch.matmul(x, head), labels, ignore_index)
+        return cross_entropy_loss(dense(x, head.t()), labels, ignore_index)
     from torch.utils.checkpoint import checkpoint
 
     n = s // C
@@ -152,7 +157,7 @@ def fused_cross_entropy(x, head, labels, ignore_index: int = -100, chunk_tokens:
     for i in range(C):
         d_nll, d_cnt = checkpoint(_chunk_nll, x[:, i * n:(i + 1) * n], head,
                                   labels[:, i * n:(i + 1) * n], ignore_index,
-                                  use_reentrant=False)
+                                  use_reentrant=False, context_fn=checkpoint_contexts)
         nll = nll + d_nll
         count = count + d_cnt
     return nll / torch.clamp(count, min=1)
@@ -215,18 +220,21 @@ def rope_cached_attention_block(layer, x, k_cache_l, v_cache_l, cos, sin, idx,
     each row's cache position → :func:`write_kv_cache` (in place) →
     :func:`cached_attention` → output projection residual. ``layer`` carries
     the ``wq``/``wk``/``wv``/``wo`` projections and the ``attn_norm`` weight;
-    ``spare_slot`` is :func:`write_kv_cache`'s. Returns ``(x + attn_out,
-    k_cache_l, v_cache_l)``."""
+    ``spare_slot`` is :func:`write_kv_cache`'s. The projections run through
+    :func:`~.fp8.dense`, so in fp8 inside ``fp8_autocast``. Returns ``(x +
+    attn_out, k_cache_l, v_cache_l)``."""
     b, s, _ = x.shape
     idx = idx.reshape(b)
     positions = idx[:, None].long() + torch.arange(s, device=x.device)[None, :]
     y = rms_norm(x, layer.attn_norm, eps)
-    q = apply_rope(layer.wq(y).reshape(b, s, n_heads, head_dim), cos, sin, positions)
-    k = apply_rope(layer.wk(y).reshape(b, s, n_kv_heads, head_dim), cos, sin, positions)
-    v = layer.wv(y).reshape(b, s, n_kv_heads, head_dim)
+    q = apply_rope(dense(y, layer.wq.weight).reshape(b, s, n_heads, head_dim), cos, sin,
+                   positions)
+    k = apply_rope(dense(y, layer.wk.weight).reshape(b, s, n_kv_heads, head_dim), cos, sin,
+                   positions)
+    v = dense(y, layer.wv.weight).reshape(b, s, n_kv_heads, head_dim)
     write_kv_cache(k_cache_l, v_cache_l, k, v, idx, spare_slot)
     attn = cached_attention(q, k_cache_l, v_cache_l, idx)
-    x = x + layer.wo(attn.reshape(b, s, n_heads * head_dim))
+    x = x + dense(attn.reshape(b, s, n_heads * head_dim), layer.wo.weight)
     return x, k_cache_l, v_cache_l
 
 
@@ -297,7 +305,6 @@ def write_paged_kv(
     ``[num_blocks, bs, n_kv]`` f32): K/V are amax-quantized per row into the
     pool's storage dtype and each row's scale is scattered through the
     *same* flat indices, so payload and scale obey the same drop rules."""
-    from .fp8 import quantize_kv_rows
 
     nb, bs = k_pages_l.shape[0], k_pages_l.shape[1]
     b, s = k.shape[0], k.shape[1]

@@ -55,6 +55,7 @@ class PartialState:
             num_processes=kwargs.pop("num_processes", None),
             process_id=kwargs.pop("process_id", None),
             cpu=cpu,
+            **({"timeout": kwargs.pop("timeout")} if "timeout" in kwargs else {}),
         )
         topo = device_topology()
         self.num_processes = topo["process_count"]

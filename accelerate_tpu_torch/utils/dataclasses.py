@@ -1,14 +1,16 @@
 """Enums and plugins the training loop reads (port of the subset of
-``accelerate_tpu/utils/dataclasses.py`` that the port runs: precision,
-gradient accumulation, the data loader's configuration and a
-data-parallel mesh). The other plugins and launch configs are later
-slices; passing one to ``Accelerator`` raises "not yet ported"."""
+``accelerate_tpu/utils/dataclasses.py`` that the port runs: precision and
+its kwargs handlers, gradient accumulation, the data loader's
+configuration and a data-parallel mesh). The other plugins and launch
+configs are later slices; passing one to ``Accelerator`` raises "not yet
+ported"."""
 
 from __future__ import annotations
 
 import enum
 import os
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
+from datetime import timedelta
 from typing import Any
 
 from .environment import str_to_bool
@@ -58,15 +60,19 @@ class PrecisionType(BaseEnum):
     INT8 = "int8"
 
 
-#: precisions the port runs: "no"/"fp32" keep f32 compute, "bf16" runs the
-#: model in bf16 over f32 master weights
-PORTED_PRECISIONS = ("no", "fp32", "bf16")
+#: precisions the port runs: "no"/"fp32" keep f32 compute; "bf16" and
+#: "fp16" run the model in that dtype over f32 master weights (fp16 with the
+#: dynamic loss scaler, :class:`~accelerate_tpu_torch.optimizer.LossScaler`);
+#: "fp8" runs bf16 with the projections as scaled-fp8 products
+#: (:mod:`~accelerate_tpu_torch.ops.fp8`); "int8" runs at f32, as the JAX
+#: package runs it (its ``compute_dtype`` has no int8 entry: int8 is a
+#: loading format, not a compute dtype)
+PORTED_PRECISIONS = ("no", "fp32", "bf16", "fp16", "fp8", "int8")
 
 
 def validate_mixed_precision(mixed_precision: str) -> str:
     """The canonical precision name; raises ``ValueError`` for an unknown
-    name and for fp16 (its dynamic loss scaler), fp8 and int8, which are
-    not ported yet."""
+    name."""
     value = PrecisionType(mixed_precision).value
     if value not in PORTED_PRECISIONS:
         raise ValueError(
@@ -82,6 +88,52 @@ class KwargsHandler:
 
     def to_dict(self) -> dict[str, Any]:
         return dict(self.__dict__)
+
+    def to_kwargs(self) -> dict[str, Any]:
+        """The fields that differ from their defaults."""
+        default = self.__class__()
+        return {k: v for k, v in self.to_dict().items() if getattr(default, k) != v}
+
+
+@dataclass
+class AutocastKwargs(KwargsHandler):
+    """``enabled=False`` makes ``Accelerator.autocast(autocast_handler=...)``
+    suspend the compute dtype and the fp8 recipe for the context: a
+    full-precision island inside a mixed-precision run. ``cache_enabled``
+    belongs to ``torch.autocast`` and is accepted for parity; the port casts
+    weights itself (:class:`~accelerate_tpu_torch.modules.PreparedModel`)."""
+
+    enabled: bool = True
+    cache_enabled: bool | None = None
+
+
+@dataclass
+class InitProcessGroupKwargs(KwargsHandler):
+    """Process-group bring-up: ``coordinator_address``, ``num_processes``
+    and ``process_id`` as the launch environment names them, and
+    ``timeout``, how long a collective waits for its peers before the group
+    fails it (``torch.distributed.init_process_group``'s ``timeout``)."""
+
+    coordinator_address: str | None = None
+    num_processes: int | None = None
+    process_id: int | None = None
+    timeout: timedelta = field(default_factory=lambda: timedelta(seconds=1800))
+
+
+@dataclass
+class GradScalerKwargs(KwargsHandler):
+    """The fp16 dynamic loss scaler's schedule: the scale starts at
+    ``init_scale``, backs off by ``backoff_factor`` on a non-finite
+    gradient and grows by ``growth_factor`` after ``growth_interval``
+    consecutive finite steps (:class:`~accelerate_tpu_torch.optimizer.LossScaler`).
+    Read only under ``mixed_precision="fp16"``; ``enabled=False`` turns the
+    scaling off."""
+
+    init_scale: float = 65536.0
+    growth_factor: float = 2.0
+    backoff_factor: float = 0.5
+    growth_interval: int = 2000
+    enabled: bool = True
 
 
 @dataclass

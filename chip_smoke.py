@@ -267,6 +267,34 @@ failure, so the script exits non-zero and prints no result):
     down. Prints tokens/s, MFU, the all-reduce's device ms and the
     loader's fetch ms with and without the thread.
 
+14. the train step's precision and memory policies on the flagship (8 ×
+    1024 ids, f32 masters, AdamW, a clip on unscaled gradients, a
+    scheduler). 14a: B1-B3 at f16 against their plain versions (the
+    flagship shape, GQA with a fully masked query tile, hd 16, 80, 256, 264
+    and 512; gates o 4e-3, grads 8e-3 × max(|ref|, 1): bf16's scaled by
+    f16's finer mantissa), and timed at the flagship shape beside sdpa at
+    f16 (``max_abs_err_fp16`` and ``ms_fp16`` in the kernels line). 14b:
+    the fp16 loop (``GradScalerKwargs(init_scale=2**16)``), 2 warm-up, 6
+    timed and 1 profiled step: tokens/s, the scale after each step and the
+    skipped steps (``step_was_skipped`` on exactly the steps whose scale
+    backed off), 16 launches of each f16 flash kernel a step (counters and
+    profile), and the host read of the finite flag (the
+    ``step/finite_flag`` range); then a run from ``2**40`` that must back
+    off and then take 3 steps. 14c: ``fp8_matmul`` on the fp8 tensor cores
+    against its plain version at ``[8192, 1536] × [1536, 4096]`` and ``×
+    [1536, 32000]`` (forward and both gradients, bf16, within 1e-2 of max
+    |ref|) and timed beside bf16 ``torch.matmul``; the loop under fp8
+    (tokens/s, fp8 GEMMs a step, falling loss); an ``autocast`` island's
+    logits equal to the f32 module's; ``generate()`` under the fp8 policy
+    (one captured decode step with fp8 products in it) and inside an
+    island (the f32 module's tokens). 14d: the bf16 step at ``remat``
+    False, True and ``"dots_saveable"``: step ms, device ms of a profiled
+    step, peak memory (``max_memory_allocated``), every step's loss within
+    1e-3 of ``remat=False``'s. 14b opens with the same loop at bf16, the yardstick in the same
+    process.
+    ``python3 chip_smoke.py --phase14`` runs phases 1, 2 and 14 alone and
+    prints no verdict.
+
 The ``{"kernels": [...]}`` line lists all four kernels. The last line of
 standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -275,6 +303,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -289,6 +318,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+FP8_FLOPS_PER_S = 1979e12   # H100 SXM fp8 tensor cores, dense
 SERVE_TIMEOUT_S = 600
 
 
@@ -371,7 +401,7 @@ def occupancy_report() -> tuple[dict, dict]:
         for hd in FLASH_BUILT_HDS:
             if flash.flash_attention_blocks_per_sm(which, hd, ctypes.byref(blocks)):
                 raise AssertionError(f"the occupancy query failed for {name} at hd {hd}")
-            out[f"{name}_wgmma_kernel<{hd}>"] = blocks.value
+            out[f"{name}_wgmma_kernel<{hd}, __nv_bfloat16>"] = blocks.value
         for hd, names in ((256, FLASH_WIDE), (512, FLASH_COLS)):
             if flash.flash_attention_blocks_per_sm(which, hd, ctypes.byref(blocks)):
                 raise AssertionError(f"the occupancy query failed for {name} at hd {hd}")
@@ -3107,6 +3137,13 @@ def c4c_flash_cases():
     ]
 
 
+#: the dtypes the flash kernels take, by name, and their gates against the
+#: plain versions (output; grads × max(|ref|, 1)): the JAX tests' f32 and
+#: bf16 gates, and for f16 the bf16 ones scaled by its 8× finer mantissa
+FLASH_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+FLASH_GATES = {"f32": (2e-5, 2e-4), "bf16": (3e-2, 5e-2), "f16": (4e-3, 8e-3)}
+
+
 def _flash_inputs(rng, b, s, nh, n_kv, hd, pad, dtype, dev):
     def draw(*shape):
         return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev).to(dtype)
@@ -3130,7 +3167,7 @@ def check_flash_vs_plain(dev, cases=None) -> dict:
     from accelerate_tpu_torch.ops.layers import causal_attention, dot_product_attention
 
     rng = np.random.default_rng(8)
-    errs = {name: {"f32": 0.0, "bf16": 0.0} for name in FLASH_KERNELS}
+    errs = {name: {} for name in FLASH_KERNELS}
     autograd_err = 0.0
     for b, s, nh, n_kv, hd, causal, pad, dtype in cases or _flash_cases():
         q, k, v, do, mask = _flash_inputs(rng, b, s, nh, n_kv, hd, pad, dtype, dev)
@@ -3147,8 +3184,8 @@ def check_flash_vs_plain(dev, cases=None) -> dict:
         # the plain backward from the plain forward's (o, lse)
         rdq, rdk, rdv = fa.flash_bwd(q, k, v, mask, ro, rlse, do, causal=causal, impl="plain")
         torch.cuda.synchronize()
-        what = (f"b={b} s={s} nh={nh} n_kv={n_kv} hd={hd} causal={causal} pad={pad} "
-                f"{'f32' if f32 else 'bf16'}")
+        key = FLASH_DTYPE_NAMES[dtype]
+        what = f"b={b} s={s} nh={nh} n_kv={n_kv} hd={hd} causal={causal} pad={pad} {key}"
         outs = (o, lse, dq, dk, dv)
         if not all(torch.isfinite(t.float()).all() for t in outs):
             raise AssertionError(f"flash kernel output not finite ({what})")
@@ -3157,7 +3194,7 @@ def check_flash_vs_plain(dev, cases=None) -> dict:
         o_err = (o.float() - ro.float()).abs().max().item()
         lse_err = (lse - rlse).abs().max().item()
         g_errs = [_scaled_err(g, r) for g, r in ((dq, rdq), (dk, rdk), (dv, rdv))]
-        o_gate, g_gate = (2e-5, 2e-4) if f32 else (3e-2, 5e-2)
+        o_gate, g_gate = FLASH_GATES[key]
         ok = o_err <= o_gate and lse_err <= 1e-5 and max(g_errs) <= g_gate
         if pad and causal:  # rows with no valid key: output 0, dq 0
             ok = ok and o[:, :pad].abs().max().item() == 0.0 and dq[:, :pad].abs().max().item() == 0.0
@@ -3177,11 +3214,10 @@ def check_flash_vs_plain(dev, cases=None) -> dict:
         log(line + (" ok" if ok else " FAIL"))
         if not ok:
             raise AssertionError(f"flash kernels disagree with the plain versions ({what})")
-        key = "f32" if f32 else "bf16"
         g_abs = [(g.float() - r.float()).abs().max().item()
                  for g, r in ((dq, rdq), (dk, rdk), (dv, rdv))]
         for name, err in zip(FLASH_KERNELS, (o_err, g_abs[0], max(g_abs[1:]))):
-            errs[name][key] = max(errs[name][key], err)
+            errs[name][key] = max(errs[name].get(key, 0.0), err)
         del q, k, v, do, mask, o, lse, dq, dk, dv, ro, rlse, rdq, rdk, rdv
         torch.cuda.empty_cache()
     return {"by_dtype": errs, "autograd_grad_err_f32": autograd_err}
@@ -3541,14 +3577,15 @@ def time_flash_kernels(dev, per_launch_ms: dict) -> dict:
     return out
 
 
-def time_flash_at(dev, b: int, s: int, nh: int, head_dims) -> dict:
+def time_flash_at(dev, b: int, s: int, nh: int, head_dims, dtype=torch.bfloat16) -> dict:
     """B1-B3 at ``head_dims`` at one shape (b, s, nh heads, bf16, causal):
     CUDA events around the Python wrapper, the profiler's device time a
     launch, the plain version, sdpa's forward and its backward alone
     (``library_ms``: its kernels' device time a call), and the bound
     counted on the real head dim's work (the padded columns are waste, not
     work). Phase 8b: the tiny llama's training shape (b 8, s 128, 4 heads)
-    at hd 16, 32, 24 and 80; C4b: b 8, s 1024, 8 heads at hd 256."""
+    at hd 16, 32, 24 and 80; C4b: b 8, s 1024, 8 heads at hd 256; phase
+    14a: the flagship shape at f16 (``dtype``, sdpa at the same dtype)."""
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import flash_attention as fa
@@ -3556,7 +3593,7 @@ def time_flash_at(dev, b: int, s: int, nh: int, head_dims) -> dict:
     out = {}
     for hd in head_dims:
         rng = np.random.default_rng(15 + hd)
-        q, k, v, do, _ = _flash_inputs(rng, b, s, nh, nh, hd, 0, torch.bfloat16, dev)
+        q, k, v, do, _ = _flash_inputs(rng, b, s, nh, nh, hd, 0, dtype, dev)
         scale = 1.0 / float(np.sqrt(hd))
         o, lse = fa.flash_fwd(q, k, v, impl="cuda")
         delta = fa._delta(o, do)
@@ -3603,8 +3640,8 @@ def time_flash_at(dev, b: int, s: int, nh: int, head_dims) -> dict:
                 raise AssertionError(f"the profiler saw no {name} launch at hd {hd} in "
                                      f"{PROFILER_TRIES} windows")
             entry = {
-                "shape": {"batch": b, "seq": s, "n_heads": nh, "head_dim": hd, "dtype": "bf16",
-                          "causal": True},
+                "shape": {"batch": b, "seq": s, "n_heads": nh, "head_dim": hd,
+                          "dtype": FLASH_DTYPE_NAMES[dtype], "causal": True},
                 "ms": spread[1],
                 "ms_spread": spread,
                 "profiler_ms": sum(e.self_device_time_total for e in rows_) / 1e3 / launches,
@@ -3615,7 +3652,8 @@ def time_flash_at(dev, b: int, s: int, nh: int, head_dims) -> dict:
                 "plain_ms": plain["flash_fwd" if name == "flash_fwd" else "bwd"],
             }
             out.setdefault(name, {})[f"head_dim_{hd}"] = entry
-            log(f"  {name} hd {hd} (b {b}, s {s}, {nh} heads, bf16, causal): kernel "
+            log(f"  {name} hd {hd} (b {b}, s {s}, {nh} heads, {FLASH_DTYPE_NAMES[dtype]}, "
+                f"causal): kernel "
                 f"{entry['ms']:.4f} ms by events, {entry['profiler_ms']:.4f} ms a launch by the "
                 f"profiler, bound {entry['bound_ms']:.6f} ms ({entry['bound_by']}), sdpa "
                 f"{'forward' if name == 'flash_fwd' else 'backward (the pair)'} "
@@ -3924,6 +3962,369 @@ def run_ddp_loop() -> dict:
     return out
 
 
+# -- phase 14 ---------------------------------------------------------------
+
+#: phase 14's fp16, fp8 and remat loops: warm-up, timed and profiled steps
+P14_WARMUP, P14_TIMED = 2, 6
+#: the forced-overflow run's first scale and how many steps it may take to
+#: back off and take P14_TAKEN steps
+P14_FORCED_SCALE, P14_FORCED_STEPS, P14_TAKEN = 2.0 ** 40, 48, 3
+#: fp8_matmul against its plain version: bf16 outputs, relative to max |ref|
+#: (one bf16 ulp is 2^-8 of the largest; the two sum in other orders and
+#: cuBLASLt applies the inverse scales in its epilogue)
+FP8_GATE = 1e-2
+
+
+def f16_flash_cases():
+    """Phase 14a: B1-B3 at f16 — the flagship shape (the wgmma path), GQA
+    with a left pad (a fully masked query tile), hd 16 (staged at 64),
+    hd 80, hd 256 (the wide FMA path) and hd 264 and 512 (column blocks),
+    each past hd 64 and 128 launched twice."""
+    f16 = torch.float16
+    return [
+        (8, 1024, 12, 12, 128, True, 0, f16),
+        (2, 1000, 32, 8, 128, True, 0, f16),
+        (2, 200, 32, 8, 64, True, 130, f16),
+        (2, 200, 32, 8, 128, False, 130, f16),
+        (4, 129, 4, 4, 16, True, 0, f16),
+        (2, 1000, 8, 2, 80, True, 77, f16),
+        (2, 200, 4, 2, 256, False, 0, f16),
+        (2, 129, 4, 2, 264, True, 0, f16),
+        (2, 1000, 4, 2, 512, True, 77, f16),
+    ]
+
+
+def _p14_loop(mixed_precision: str, handlers=(), remat=False, steps: int = P14_TIMED,
+              warmup: int = P14_WARMUP, profiled: bool = True, until_taken: int | None = None,
+              island: bool = False) -> dict:
+    """The flagship (8 × 1024 ids a step, f32 masters, AdamW at optax's
+    adamw(1e-4)) through the loop as users write it under
+    ``mixed_precision``: backward, a clip on unscaled gradients, the
+    optimizer and the scheduler steps. ``warmup`` then ``steps`` timed
+    steps (the flash counters and the fp8 GEMM counter set to 0 just before
+    the timed ones, read just after), then one profiled step. With
+    ``until_taken`` it runs (up to ``steps``) until that many steps were
+    taken, untimed. ``island``: the logits of an ``autocast`` island on 2
+    rows, with the f32 module's own logits on them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch import Accelerator, AutocastKwargs, generate
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from accelerate_tpu_torch.ops import fp8
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig.flagship_700m(max_position_embeddings=1024, remat=remat)
+    accelerator = Accelerator(mixed_precision=mixed_precision, kwargs_handlers=list(handlers))
+    module = LlamaForCausalLM.from_config(cfg, seed=0, device=accelerator.device)
+    adamw = dict(lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    opt = torch.optim.AdamW(module.parameters(), **adamw)
+    model, opt, sched = accelerator.prepare(module, opt,
+                                            torch.optim.lr_scheduler.LambdaLR(opt, lambda i: 1.0))
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ))
+    ids = torch.as_tensor(ids, device=accelerator.device)
+    rows = []
+
+    def step():
+        out = model(input_ids=ids, labels=ids)
+        accelerator.backward(out.loss)
+        accelerator.clip_grad_norm_(model, 1.0)
+        opt.step()
+        sched.step()
+        opt.zero_grad()
+        scale = accelerator.scaler.scale.clone() if accelerator.scaler is not None else None
+        rows.append((out.loss.detach(), opt.step_was_skipped, scale))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if until_taken is not None:
+        for _ in range(steps):
+            step()
+            if sum(not r[1] for r in rows) >= until_taken:
+                break
+        torch.cuda.synchronize()
+        timed_ms, counts, gemms = None, None, None
+    else:
+        for _ in range(warmup):
+            step()
+        torch.cuda.synchronize()
+        _zero_flash_counts()
+        fp8.gemm_launches = 0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        timed_ms = (time.perf_counter() - t0) * 1e3 / steps
+        counts, gemms = _flash_counts(), fp8.gemm_launches
+    peak = torch.cuda.max_memory_allocated()
+    out = {
+        "mixed_precision": mixed_precision,
+        "remat": remat,
+        "losses": [float(r[0]) for r in rows],
+        "skipped": [bool(r[1]) for r in rows],
+        "scales": [float(r[2]) if r[2] is not None else None for r in rows],
+        "max_memory_allocated_bytes": peak,
+    }
+    if timed_ms is not None:
+        out.update({
+            "step_ms": timed_ms,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (timed_ms / 1e3),
+            "flash_launches_per_step": {k: v / steps for k, v in counts.items()},
+            "fp8_gemms_per_step": gemms / steps,
+        })
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        kernels = _kernel_rows(prof)
+        flash = {name: sum(e.count for e in kernels
+                           if re.search(flash_kernel_pattern(name), e.key))
+                 for name in FLASH_KERNELS}
+        averages = prof.key_averages()
+        flag = [e for e in averages if e.key == "step/finite_flag"]
+        # device time by the aten op that launched it (cuBLASLt's kernel
+        # names do not carry the fp8 types; the op does)
+        ops = sorted((e for e in averages if e.device_type != torch.autograd.DeviceType.CUDA
+                      and e.key.startswith("aten::") and e.self_device_time_total > 0),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        out["profiled_step"] = {
+            "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "kernels_launched": sum(e.count for e in kernels),
+            "flash_launches": flash,
+            "flash_kernel_names": sorted({e.key[:80] for e in kernels
+                                          if re.search(r"flash_\w+kernel", e.key)}),
+            "fp8_gemm_device_ms": sum(e.self_device_time_total for e in ops
+                                      if e.key == "aten::_scaled_mm") / 1e3,
+            "top_ops_device_ms": {e.key: e.self_device_time_total / 1e3 for e in ops[:12]},
+            "top_ops_launches": {e.key: e.count for e in ops[:12]},
+            "top_kernels_ms": {e.key[:70]: e.self_device_time_total / 1e3 for e in top},
+            # the fp16 step's one host read of the finite flag: the host
+            # waits there for the queued backward
+            "finite_flag_host_ms": (sum(e.cpu_time_total for e in flag) / 1e3) if flag else None,
+        }
+    if island:
+        rows2 = ids[:2]
+        with accelerator.autocast(autocast_handler=AutocastKwargs(enabled=False)):
+            with torch.no_grad():
+                inside = model(input_ids=rows2).logits
+        with torch.no_grad():
+            ref = module(input_ids=rows2).logits
+            policy = model(input_ids=rows2).logits
+        out["island_vs_f32_max_abs_diff"] = (inside - ref).abs().max().item()
+        out["policy_vs_f32_max_abs_diff"] = (policy - ref).abs().max().item()
+        del inside, ref, policy
+        # generate() under the policy (its decode step captured with the
+        # fp8 products in it) and inside an island (the f32 module's tokens)
+        from accelerate_tpu_torch import generation
+
+        prompts = ids[:2, :64]
+        before = (generation.captures, fp8.gemm_launches)
+        tokens = generate(model, prompts, max_new_tokens=8, use_cache=True)
+        captured = (generation.captures - before[0], fp8.gemm_launches - before[1])
+        with accelerator.autocast(autocast_handler=AutocastKwargs(enabled=False)):
+            island_tokens = generate(model, prompts, max_new_tokens=8, use_cache=True)
+        f32_tokens = generate(module, prompts, max_new_tokens=8, use_cache=True)
+        out["generate"] = {
+            "captures": captured[0], "fp8_gemms_in_the_call": captured[1],
+            "tokens_shape": list(tokens.shape),
+            "island_tokens_equal_f32": bool(torch.equal(island_tokens, f32_tokens)),
+            "policy_tokens_equal_f32": bool(torch.equal(tokens, f32_tokens)),
+        }
+        generation.clear_generation_cache(model)
+        generation.clear_generation_cache(module)
+    del model, opt, module, sched
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_scale_schedule(run: dict, what: str) -> None:
+    """Finite losses, a taken step, and ``step_was_skipped`` on exactly the
+    steps whose scale backed off."""
+    if not all(np.isfinite(run["losses"])):
+        raise AssertionError(f"{what}: a loss is not finite: {run['losses']}")
+    if all(run["skipped"]):
+        raise AssertionError(f"{what}: no step was taken: {run['skipped']}")
+    prev = None
+    for i, (skipped, scale) in enumerate(zip(run["skipped"], run["scales"])):
+        backed_off = prev is not None and scale < prev
+        if i > 0 and skipped != backed_off:
+            raise AssertionError(f"{what}: step {i} skipped={skipped} but the scale went "
+                                 f"{prev} -> {scale}")
+        prev = scale
+
+
+def check_fp8_matmul(dev) -> dict:
+    """Phase 14c: ``fp8_matmul`` on the fp8 tensor cores against its plain
+    version (the same f8 values multiplied in f32 on the card) at the
+    flagship's projection shapes, forward and both gradients under HYBRID,
+    bf16 operands; and both timed, with ``torch.matmul``'s bf16 product and
+    its two gradients beside them (events)."""
+    from accelerate_tpu_torch.ops import fp8
+
+    rng = np.random.default_rng(14)
+    out = {}
+    for m, k, n in ((TRAIN_BATCH * TRAIN_SEQ, 1536, 4096), (TRAIN_BATCH * TRAIN_SEQ, 1536, 32000)):
+        x = torch.as_tensor(rng.normal(size=(m, k)).astype(np.float32), device=dev).bfloat16()
+        w = torch.as_tensor((rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32),
+                            device=dev).bfloat16()
+        g = torch.as_tensor(rng.normal(size=(m, n)).astype(np.float32), device=dev).bfloat16()
+
+        def run(impl):
+            tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+            y = fp8.fp8_matmul(tx, tw, fp8_format="HYBRID", impl=impl)
+            y.backward(g)
+            return y.detach(), tx.grad, tw.grad
+
+        before = fp8.gemm_launches
+        got = run("cuda")
+        launches = fp8.gemm_launches - before
+        ref = run("plain")
+        torch.cuda.synchronize()
+        errs = {name: ((a.float() - r.float()).abs().max() / r.float().abs().max()).item()
+                for name, a, r in zip(("out", "dx", "dw"), got, ref)}
+        if launches != 3 or max(errs.values()) > FP8_GATE:
+            raise AssertionError(f"fp8_matmul [{m}, {k}] x [{k}, {n}]: {launches} fp8 GEMMs, "
+                                 f"errors {errs} (gate {FP8_GATE} of max |ref|)")
+        xw = x.clone().requires_grad_()
+        ww = w.clone().requires_grad_()
+
+        def fp8_call(i):
+            y = fp8.fp8_matmul(xw, ww, fp8_format="HYBRID")
+            torch.autograd.grad(y, (xw, ww), g)
+
+        def bf16_call(i):
+            y = torch.matmul(xw, ww)
+            torch.autograd.grad(y, (xw, ww), g)
+
+        fp8_ms = _time_spread(fp8_call, 5, 5)
+        bf16_ms = _time_spread(bf16_call, 5, 5)
+        flops = 3 * 2 * m * k * n
+        key = f"{m}x{k}x{n}"
+        out[key] = {"max_rel_err": errs, "fp8_gemms": launches, "fp8_ms_fwd_bwd": fp8_ms[1],
+                    "fp8_ms_spread": fp8_ms, "bf16_ms_fwd_bwd": bf16_ms[1],
+                    "bf16_ms_spread": bf16_ms, "flops": flops,
+                    "fp8_bound_ms": flops / FP8_FLOPS_PER_S * 1e3,
+                    "bf16_bound_ms": flops / BF16_FLOPS_PER_S * 1e3}
+        log(f"  fp8_matmul [{m}, {k}] x [{k}, {n}] (bf16, HYBRID): |out| {errs['out']:.2e} "
+            f"|dx| {errs['dx']:.2e} |dw| {errs['dw']:.2e} of max |ref|, {launches} fp8 GEMMs; "
+            f"forward + both grads {fp8_ms[1]:.3f} ms (quantize passes included) against bf16 "
+            f"torch.matmul {bf16_ms[1]:.3f} ms; bounds {out[key]['fp8_bound_ms']:.3f} / "
+            f"{out[key]['bf16_bound_ms']:.3f} ms")
+        del x, w, g, got, ref, xw, ww
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_phase14(dev) -> dict:
+    """Phase 14: the train step's precision and memory policies on the
+    flagship (see the module docstring)."""
+    log_phase("phase 14a: B1-B3 at f16 against their plain versions; timed at the flagship "
+              "shape beside sdpa at f16")
+    f16_errs = check_flash_vs_plain(dev, f16_flash_cases())
+    f16_times = time_flash_at(dev, TRAIN_BATCH, TRAIN_SEQ, 12, (128,), dtype=torch.float16)
+
+    log_phase("phase 14b: the fp16 loop (GradScalerKwargs(init_scale=2**16)) on the flagship; "
+              "a second run from 2**40 backs off, then steps")
+    from accelerate_tpu_torch import GradScalerKwargs
+
+    # the same loop at bf16 first, the yardstick in this process
+    bf16 = _p14_loop("bf16")
+    log(f"  bf16 (the same loop): step {bf16['step_ms']:.2f} ms, {bf16['tokens_per_s']:.0f} "
+        f"tokens/s; profiled step: device {bf16['profiled_step']['device_ms']:.2f} ms, "
+        f"{bf16['profiled_step']['kernels_launched']} kernels")
+    fp16 = _p14_loop("fp16", [GradScalerKwargs(init_scale=2.0 ** 16)])
+    _check_scale_schedule(fp16, "the fp16 loop")
+    flag = fp16["profiled_step"]["finite_flag_host_ms"]
+    log(f"  fp16: step {fp16['step_ms']:.2f} ms, {fp16['tokens_per_s']:.0f} tokens/s, losses "
+        f"{['%.4f' % x for x in fp16['losses']]}, skipped {fp16['skipped']}, scales "
+        f"{fp16['scales']}; profiled step: device {fp16['profiled_step']['device_ms']:.2f} ms, "
+        f"{fp16['profiled_step']['kernels_launched']} kernels, flash launches "
+        f"{fp16['profiled_step']['flash_launches']}, the finite flag's host read {flag} ms; "
+        f"peak memory {fp16['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
+    per_step = fp16["flash_launches_per_step"]
+    if any(per_step[k] != 16 for k in FLASH_KERNELS) or any(
+            v != 16 for v in fp16["profiled_step"]["flash_launches"].values()):
+        raise AssertionError(f"each flash kernel must launch 16 times a fp16 step: {per_step}, "
+                             f"{fp16['profiled_step']['flash_launches']}")
+    if not any("__half" in n for n in fp16["profiled_step"]["flash_kernel_names"]):
+        raise AssertionError(f"the fp16 step ran no f16 flash kernel: "
+                             f"{fp16['profiled_step']['flash_kernel_names']}")
+    if flag is None:
+        raise AssertionError("the profiled fp16 step shows no step/finite_flag range")
+    forced = _p14_loop("fp16", [GradScalerKwargs(init_scale=P14_FORCED_SCALE)],
+                       steps=P14_FORCED_STEPS, until_taken=P14_TAKEN, profiled=False)
+    _check_scale_schedule(forced, "the fp16 loop from 2**40")
+    taken = sum(not s for s in forced["skipped"])
+    log(f"  fp16 from 2**40: {len(forced['skipped'])} steps, "
+        f"{sum(forced['skipped'])} skipped, {taken} taken; scale "
+        f"{forced['scales'][0]} -> {forced['scales'][-1]}")
+    if not forced["skipped"][0] or taken < P14_TAKEN:
+        raise AssertionError(f"the run from 2**40 must back off, then take {P14_TAKEN} steps: "
+                             f"{forced['skipped']}")
+
+    log_phase("phase 14c: fp8 — fp8_matmul at the flagship's projection shapes; the flagship "
+              "loop under fp8; an autocast island")
+    fp8_mm = check_fp8_matmul(dev)
+    fp8_loop = _p14_loop("fp8", island=True)
+    log(f"  fp8: step {fp8_loop['step_ms']:.2f} ms, {fp8_loop['tokens_per_s']:.0f} tokens/s, "
+        f"{fp8_loop['fp8_gemms_per_step']:.0f} fp8 GEMMs a step, losses "
+        f"{['%.4f' % x for x in fp8_loop['losses']]}; profiled step: device "
+        f"{fp8_loop['profiled_step']['device_ms']:.2f} ms, "
+        f"{fp8_loop['profiled_step']['kernels_launched']} kernels, fp8 GEMMs "
+        f"{fp8_loop['profiled_step']['fp8_gemm_device_ms']:.2f} ms; device ms by op "
+        f"{ {k: round(v, 2) for k, v in fp8_loop['profiled_step']['top_ops_device_ms'].items()} }"
+        f"; island logits vs the f32 "
+        f"module {fp8_loop['island_vs_f32_max_abs_diff']:.3e} (policy "
+        f"{fp8_loop['policy_vs_f32_max_abs_diff']:.3e})")
+    if not all(np.isfinite(fp8_loop["losses"])) or not fp8_loop["losses"][-1] < fp8_loop["losses"][0]:
+        raise AssertionError(f"the fp8 loop's loss is not finite and falling: {fp8_loop['losses']}")
+    if not fp8_loop["fp8_gemms_per_step"] >= 16 * 7 * 3:
+        raise AssertionError(f"the fp8 step ran {fp8_loop['fp8_gemms_per_step']} fp8 GEMMs, fewer "
+                             "than 3 for each of the 16 × 7 projections")
+    if fp8_loop["island_vs_f32_max_abs_diff"] > 1e-5:
+        raise AssertionError("the autocast island's logits are not the f32 module's: "
+                             f"{fp8_loop['island_vs_f32_max_abs_diff']}")
+    gen = fp8_loop["generate"]
+    log(f"  generate() under fp8: {gen}")
+    if not (gen["captures"] == 1 and gen["fp8_gemms_in_the_call"] > 0
+            and gen["tokens_shape"] == [2, 72] and gen["island_tokens_equal_f32"]):
+        raise AssertionError(f"generate() under fp8 must capture one decode step with fp8 "
+                             f"products, and the island must give the f32 module's tokens: {gen}")
+
+    log_phase("phase 14d: remat on the flagship bf16 step: False, True, 'dots_saveable'")
+    remat = {}
+    for policy in (False, True, "dots_saveable"):
+        run = _p14_loop("bf16", remat=policy, steps=4)
+        remat[str(policy)] = run
+        log(f"  remat={policy!r}: step {run['step_ms']:.2f} ms, peak memory "
+            f"{run['max_memory_allocated_bytes'] / 2**30:.2f} GiB, first loss "
+            f"{run['losses'][0]:.6f}, flash launches a step {run['flash_launches_per_step']}; "
+            f"profiled step: device {run['profiled_step']['device_ms']:.2f} ms, "
+            f"{run['profiled_step']['kernels_launched']} kernels")
+    # every step's loss, not only the first forward's: steps 2 on are the
+    # first numbers a wrong recompute in the backward moves. The policies run
+    # the same kernels on the same inputs (bitwise equal losses measured);
+    # the gate is 1e-3 relative, under one bf16 ulp (2^-8)
+    ref = remat["False"]["losses"]
+    for name, run in remat.items():
+        if len(run["losses"]) != len(ref) or any(
+                not math.isfinite(x) or abs(x - r) > 1e-3 * abs(r)
+                for x, r in zip(run["losses"], ref)):
+            raise AssertionError(f"remat={name}'s losses {run['losses']} disagree with "
+                                 f"remat=False's {ref}")
+    log(f"  every policy's {len(ref)} losses within 1e-3 of remat=False's: {ref}")
+    return {"flash_f16_max_abs_err": f16_errs["by_dtype"], "flash_f16_times": f16_times,
+            "bf16": bf16, "fp16": fp16, "fp16_forced_overflow": forced, "fp8_matmul": fp8_mm,
+            "fp8": fp8_loop, "remat": remat}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this run needs one GPU",
@@ -3932,6 +4333,8 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:2] == ["--ddp-loop"]:
         return ddp_loop_child(sys.argv[2])
+    # phases 1, 2 and 14 alone, for work on the precision policies: no verdict
+    phase14_only = sys.argv[1:2] == ["--phase14"]
     from accelerate_tpu_torch import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3967,13 +4370,20 @@ def main() -> int:
             + (f", blocks a SM {rep['blocks_per_sm']}" if "blocks_per_sm" in rep else ""))
     flash_ptxas = ptxas["flash_attention.cu"]
     wgmma = {k: v for k, v in flash_ptxas.items() if "_wgmma_kernel<" in k}
-    if len(wgmma) != 3 * len(FLASH_BUILT_HDS) or any(v["spill_stores"] or v["spill_loads"]
-                                                      for v in wgmma.values()):
-        raise AssertionError(f"the wgmma flash kernels (3 at each of {FLASH_BUILT_HDS}) must "
+    # bf16 and f16 (fp16 training) instances of each
+    if len(wgmma) != 3 * 2 * len(FLASH_BUILT_HDS) or any(v["spill_stores"] or v["spill_loads"]
+                                                          for v in wgmma.values()):
+        raise AssertionError(f"the wgmma flash kernels (3 at each of {FLASH_BUILT_HDS}, bf16 "
+                             "and f16) must "
                              f"build without spills: {wgmma}")
     b4 = ptxas["paged_attention.cu"][PAGED_TIMED[0]]
     if b4["spill_stores"] or b4["spill_loads"]:
         raise AssertionError(f"B4's bf16 hd-128 instance must build without spills: {b4}")
+    if phase14_only:
+        p14 = run_phase14(dev)
+        log(json.dumps({"phase14": p14, "card": smi}))
+        log(f"phase 14 alone: {time.perf_counter() - t_start:.1f} s; no verdict")
+        return 0
 
     log_phase("phase 3: paged_attention kernel against its plain version")
     errs = check_kernel_vs_plain(dev)
@@ -4105,6 +4515,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     ddp = run_ddp_loop()
     log(json.dumps({"ddp_loop": ddp, "card": smi}))
+    p14 = run_phase14(dev)
+    log(json.dumps({"phase14": p14, "card": smi}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "losses"},
                     "train_step_check": step_check, "tiny_train": tiny_train,
                     "tiny_train_head_dim_256": tiny_train_256,
@@ -4194,6 +4606,11 @@ def main() -> int:
                     "flash_fwd_launches"]},
                 "max_abs_err_generate_shapes": gen_flash_errs,
                 "at_generate_prefill": flash_prefill} if name == "flash_fwd" else {}),
+            "max_abs_err_fp16": p14["flash_f16_max_abs_err"][name]["f16"],
+            "ms_fp16": p14["flash_f16_times"][name]["head_dim_128"]["ms"],
+            "profiler_ms_fp16": p14["flash_f16_times"][name]["head_dim_128"]["profiler_ms"],
+            "library_ms_fp16": p14["flash_f16_times"][name]["head_dim_128"]["library_ms"],
+            "launches_fp16_loop_per_step": p14["fp16"]["flash_launches_per_step"][name],
             "at_narrow_heads": flash_narrow[name],
             "at_head_dim_256": flash_wide[name],
             "at_head_dim_512": flash_512[name],

@@ -208,6 +208,17 @@ def test_debug_launcher_raises_on_a_failing_rank_and_on_its_deadline():
         debug_launcher(workers.sleep, (60,), num_processes=2, timeout=5)
 
 
+def test_fp16_overflow_on_one_rank_after_a_clip_skips_the_step_on_every_rank():
+    """A clip mid-accumulation checks each rank's gradients before the sync
+    step's average; the average then carries rank 1's overflow to rank 0.
+    The ranks share the flag, so both skip the step, back off the scale and
+    keep finite weights."""
+    ranks = debug_launcher(workers.fp16_overflow_after_a_clip, (), num_processes=2,
+                           timeout=120)
+    assert [r["skipped"] for r in ranks] == [True, True], ranks
+    assert all(r["finite"] and r["scale"] == 512.0 for r in ranks), ranks
+
+
 def test_reset_destroys_the_group_the_state_brought_up(tmp_path):
     """``_reset_state`` takes the group down with the singleton; one process
     under the launch environment brings a gloo group up at world size 1,

@@ -65,7 +65,11 @@ def test_every_module_imports_without_jax_or_triton():
                  "commands.slo", "commands.metrics", "commands.monitor", "commands.usage",
                  # process groups, collectives and the prepared loader
                  "operations", "data_loader", "mesh", "launchers", "logging",
-                 "utils.environment"):
+                 "utils.environment",
+                 # the precision and memory policies: the loss scaler, fp8
+                 # projections, autocast islands, named remat, the HF loader
+                 "modules", "ops.fp8", "ops.layers", "models.llama", "parallel",
+                 "parallel.pipeline"):
         assert f"accelerate_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 

@@ -325,13 +325,29 @@ def test_accelerator_needs_cuda_unless_asked_for_the_cpu():
     {"context_parallel_plugin": object()},
 ], ids=lambda kw: next(iter(kw)) + ("=" + kw["mixed_precision"] if "mixed_precision" in kw else ""))
 def test_features_not_yet_ported_raise(kwargs):
+    """Each plugin the port does not run yet raises "not yet ported". fp16
+    and fp8 are ported (ROADMAP items 13 and 14): their cases now check that
+    the precision is accepted, and that a kwargs handler still unported
+    under it (``ProfileKwargs``, item 23) raises."""
+    if "mixed_precision" in kwargs:
+        Accelerator(cpu=True, **kwargs)
+        AcceleratorState._reset_state(reset_partial_state=True)
+
+        class ProfileKwargs:
+            pass
+
+        with pytest.raises(ValueError, match="not yet ported"):
+            Accelerator(cpu=True, kwargs_handlers=[ProfileKwargs()], **kwargs)
+        return
     with pytest.raises(ValueError, match="not yet ported"):
         Accelerator(cpu=True, **kwargs)
 
 
 def test_other_unported_options_raise():
+    """Named remat policies are ported (ROADMAP item 15); the factories of
+    ``jax.checkpoint_policies`` over named residuals are not."""
     with pytest.raises(ValueError, match="not yet ported"):
-        tllama.LlamaConfig.tiny().__class__(remat="dots_saveable")
+        tllama.LlamaConfig.tiny().__class__(remat="save_only_these_names")
     with pytest.raises(ValueError, match="not yet ported"):
         GradientAccumulationPlugin(num_steps=2, fuse_in_step=True)
     with pytest.raises(ValueError, match="bogus"):

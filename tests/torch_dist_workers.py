@@ -242,3 +242,31 @@ def train_loops(init: dict, cfg_kwargs: dict, train_ids: np.ndarray, eval_ids: n
             loop["eval_logits"] = np.concatenate(logits)
         result[name] = loop
     return result
+
+
+def fp16_overflow_after_a_clip() -> dict:
+    """Two fp16 micro-batches a step on a ``Linear(4, 2)``, clipped after
+    each: the first clip unscales and checks this rank's gradients before
+    the sync step's all-reduce. Rank 1's second micro-batch overflows (an
+    inf loss factor), so its gradients are non-finite before the average
+    and every rank's after it. Returns this rank's ``step_was_skipped``,
+    whether its weights stayed finite, and the scale after the step."""
+    from accelerate_tpu_torch import Accelerator, GradScalerKwargs
+
+    acc = Accelerator(cpu=True, mixed_precision="fp16", gradient_accumulation_steps=2,
+                      kwargs_handlers=[GradScalerKwargs(init_scale=1024.0)])
+    torch.manual_seed(0)
+    model = torch.nn.Linear(4, 2)
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    model, opt = acc.prepare(model, opt)
+    x = torch.ones(3, 4)
+    for micro in range(2):
+        with acc.accumulate(model):
+            factor = float("inf") if (micro == 1 and acc.process_index == 1) else 1.0
+            acc.backward(model(x).float().sum() * factor)
+            acc.clip_grad_norm_(model.parameters(), 1.0)
+            opt.step()
+            opt.zero_grad()
+    return {"skipped": opt.step_was_skipped,
+            "finite": all(bool(torch.isfinite(p).all()) for p in model.parameters()),
+            "scale": acc.scaler.get_scale()}
