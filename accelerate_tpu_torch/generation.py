@@ -36,8 +36,11 @@ which an ``Accelerator.autocast`` island suspends. Each policy keys its
 own programs (the key carries the dtype and the recipe's format), so an
 island neither replays a bf16 graph nor captures anew on every call.
 
-Not ported yet: the seq2seq loop (t5, ROADMAP item 17) and the streaming
-``DispatchedModel`` path (item 19).
+An encoder-decoder model (``is_encoder_decoder``: t5) decodes through the
+seq2seq loop (:func:`_generate_seq2seq`): the prompt is encoded once and
+one decoder forward a token reads the fixed-size decoder buffer, eagerly.
+
+Not ported yet: the streaming ``DispatchedModel`` path (ROADMAP item 19).
 """
 
 from __future__ import annotations
@@ -271,8 +274,8 @@ class _DecodeProgram(_StaticProgram):
     read-back."""
 
     def __init__(self, backend, b: int, total: int, do_sample: bool, has_eos: bool):
-        c, dev = backend.config, backend.device
-        shape = (c.num_hidden_layers, b, total + 1, c.num_key_value_heads, c.head_dim)
+        dev = backend.device
+        shape = backend.module.kv_cache_shape(b, total + 1)
         self.kv = {n: torch.zeros(shape, dtype=backend.dtype, device=dev) for n in "kv"}
         self.tok = torch.zeros(b, dtype=torch.int64, device=dev)
         self.pos = torch.zeros(b, dtype=torch.int64, device=dev)
@@ -363,7 +366,8 @@ def generate(
     when the model declares ``supports_kv_cache`` (a
     :class:`~.models.llama.LlamaForCausalLM`, or a prepared one); other
     models silently use the full-forward path, which is equally correct.
-    ``draft_model`` runs greedy speculative decoding: the draft proposes
+    An encoder-decoder model (t5) returns ``[b, 1 + new]`` decoder tokens
+    from its start token (:func:`_generate_seq2seq`). ``draft_model`` runs greedy speculative decoding: the draft proposes
     ``num_draft_tokens`` tokens a round and the target verifies them in
     one forward."""
     from .telemetry import get_active_recorder
@@ -371,6 +375,13 @@ def generate(
     tel = get_active_recorder()
     t0 = time.perf_counter()
     with torch.no_grad():
+        if _is_encoder_decoder(model):
+            out = _generate_seq2seq(model, input_ids, max_new_tokens, do_sample, temperature,
+                                    eos_token_id, seed, attention_mask)
+            if tel:
+                tel.record_generation(mode="seq2seq", new_tokens=int(out.shape[0]) * (
+                    int(out.shape[1]) - 1), seconds=time.perf_counter() - t0)
+            return _result(out, input_ids)
         if draft_model is not None:
             if do_sample:
                 raise NotImplementedError(
@@ -476,6 +487,49 @@ def _generate_full_forward(model, input_ids, max_new_tokens, do_sample, temperat
     return buf[:, : int(lengths.max())]
 
 
+def _is_encoder_decoder(model) -> bool:
+    """The flag of the model, or of the module under a prepared model."""
+    return bool(getattr(model, "is_encoder_decoder", False)
+                or getattr(getattr(model, "module", None), "is_encoder_decoder", False))
+
+
+def _generate_seq2seq(model, input_ids, max_new_tokens, do_sample, temperature,
+                      eos_token_id, seed, attention_mask):
+    """Greedy / sampled seq2seq decoding (port of JAX ``_generate_seq2seq``):
+    the encoder's prompt is fixed and tokens fill a ``[b, 1 + max_new]``
+    decoder buffer from the config's ``decoder_start_token_id``. Decoder
+    self-attention is causal and cross-attention per position, so the
+    buffer's unwritten tail cannot reach the position read: one shape
+    serves every step. The encoder runs once (its output is fed back as
+    ``encoder_outputs``), then one decoder forward a token, through the
+    model's own call (a prepared model's precision policy included)."""
+    config = getattr(model, "config", None)
+    start_id = int(getattr(config, "decoder_start_token_id", 0) or 0)
+    ids = _as_ids(input_ids)
+    b, prompt_len = ids.shape
+    dev = _device_of(model, input_ids)
+    ids_t = torch.as_tensor(ids, device=dev)
+    mask_t = torch.as_tensor(_mask_of(attention_mask, b, prompt_len), device=dev)
+    total = 1 + max_new_tokens
+    dec = torch.full((b, total), start_id, dtype=torch.int64, device=dev)
+    enc = model(input_ids=ids_t, attention_mask=mask_t,
+                decoder_input_ids=dec[:, :1])["encoder_last_hidden_state"]
+    seeds = torch.as_tensor(_row_seeds(seed, b), device=dev)
+    finished = np.zeros((b,), bool)
+    n_written = 0
+    for t in range(max_new_tokens):
+        logits = _logits_of(model(input_ids=ids_t, attention_mask=mask_t, encoder_outputs=enc,
+                                  decoder_input_ids=dec))[:, t, :]
+        u = _uniforms(seeds, torch.full((b,), t + 1, device=dev)) if do_sample else None
+        next_tok, finished = _pick_next(logits, do_sample, temperature, u, finished,
+                                        eos_token_id)
+        dec[:, t + 1] = torch.as_tensor(next_tok, device=dev)
+        n_written = t + 1
+        if eos_token_id is not None and finished.all():
+            break
+    return dec[:, : 1 + n_written].cpu().numpy()
+
+
 def _generate_cached(backend, input_ids, max_new_tokens, do_sample, temperature,
                      eos_token_id, seed, attention_mask):
     """Prefill + per-token cached decode (the llama's ``use_cache`` and
@@ -559,12 +613,9 @@ class _SpecProgram(_StaticProgram):
 
     def __init__(self, target, draft, b, total, cache_len, k, has_eos):
         dev = target.device
-        ct, cd = target.config, draft.config
-        self.kv_t = {n: torch.zeros((ct.num_hidden_layers, b, cache_len + 1,
-                                     ct.num_key_value_heads, ct.head_dim),
+        self.kv_t = {n: torch.zeros(target.module.kv_cache_shape(b, cache_len + 1),
                                     dtype=target.dtype, device=dev) for n in "kv"}
-        self.kv_d = {n: torch.zeros((cd.num_hidden_layers, b, cache_len + 1,
-                                     cd.num_key_value_heads, cd.head_dim),
+        self.kv_d = {n: torch.zeros(draft.module.kv_cache_shape(b, cache_len + 1),
                                     dtype=draft.dtype, device=dev) for n in "kv"}
         # column ``total`` takes the dropped writes (JAX's mode="drop")
         self.buf = torch.zeros((b, total + 1), dtype=torch.int32, device=dev)

@@ -34,13 +34,14 @@ from ..modules import ModelOutput
 from ..ops.attention import attention
 from ..ops.fp8 import dense
 from ..ops.layers import (
-    apply_rope,
     fused_cross_entropy,
     rms_norm,
-    rope_frequencies,
+    rope_attention_block,
     rope_cached_attention_block,
+    rope_frequencies,
     rope_paged_attention_block,
     shift_labels,
+    table_rows,
 )
 from ..parallel.pipeline import remat_policy, remat_wrap
 from ..utils.device import resolve_device
@@ -200,18 +201,18 @@ def llama_layer_apply(config: LlamaConfig, w: dict, x, cos, sin, positions, atte
     :func:`~..ops.fp8.dense`. ``return_kv`` also returns the block's roped K
     and V ``[b, s, n_kv, hd]`` (the prefill's cache)."""
     c = config
-    nh, nkv, hd = c.num_attention_heads, c.num_key_value_heads, c.head_dim
-    b, s, _ = x.shape
-    y = rms_norm(x, w["attn_norm"], c.rms_norm_eps)
-    q = apply_rope(dense(y, w["wq"]).reshape(b, s, nh, hd), cos, sin, positions)
-    k = apply_rope(dense(y, w["wk"]).reshape(b, s, nkv, hd), cos, sin, positions)
-    v = dense(y, w["wv"]).reshape(b, s, nkv, hd)
-    attn = attention(q, k, v, segment_mask=attention_mask, causal=True)
-    x = x + dense(attn.reshape(b, s, nh * hd), w["wo"])
+    kv = []
+
+    def attend(q, k, v):
+        kv.append((k, v))
+        return attention(q, k, v, segment_mask=attention_mask, causal=True)
+
+    x = rope_attention_block(w, x, cos, sin, positions, attend, c.num_attention_heads,
+                             c.num_key_value_heads, c.head_dim, c.rms_norm_eps)
     y = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
     gated = F.silu(dense(y, w["w_gate"])) * dense(y, w["w_up"])
     x = x + dense(gated, w["w_down"])
-    return (x, (k, v)) if return_kv else x
+    return (x, kv[0]) if return_kv else x
 
 
 _LAYER_KEYS = _LINEARS + _NORMS
@@ -320,9 +321,12 @@ class LlamaForCausalLM(nn.Module):
         from the end once, then every id is clamped into ``[0, vocab)``, so
         an out-of-vocabulary prompt id answers instead of raising. No host
         sync: the decode steps that call it are replayed from CUDA graphs."""
-        v = self.config.vocab_size
-        ids = input_ids.long()
-        return torch.where(ids < 0, ids + v, ids).clamp_(0, v - 1)
+        return table_rows(input_ids, self.config.vocab_size)
+
+    def kv_cache_shape(self, batch: int, length: int) -> tuple:
+        """``[L, b, length, n_kv, hd]``: one dense cache."""
+        c = self.config
+        return (c.num_hidden_layers, batch, length, c.num_key_value_heads, c.head_dim)
 
     def _head(self) -> torch.Tensor:
         """The LM head ``[vocab, h]`` (the embeddings when tied)."""
@@ -426,14 +430,15 @@ class LlamaForCausalLM(nn.Module):
         idx = cache_index.reshape(b)
         x = self.embed_tokens(self._token_ids(input_ids))
         for i, layer in enumerate(self.layers):
+            w = layer.weights()
             x, _, _ = rope_cached_attention_block(
-                layer, x, kv_cache["k"][i], kv_cache["v"][i], self.rope_cos, self.rope_sin,
+                w, x, kv_cache["k"][i], kv_cache["v"][i], self.rope_cos, self.rope_sin,
                 idx, c.num_attention_heads, c.num_key_value_heads, c.head_dim, c.rms_norm_eps,
                 spare_slot,
             )
-            y = rms_norm(x, layer.mlp_norm, c.rms_norm_eps)
-            gated = F.silu(dense(y, layer.w_gate.weight)) * dense(y, layer.w_up.weight)
-            x = x + dense(gated, layer.w_down.weight)
+            y = rms_norm(x, w["mlp_norm"], c.rms_norm_eps)
+            gated = F.silu(dense(y, w["w_gate"])) * dense(y, w["w_up"])
+            x = x + dense(gated, w["w_down"])
         x = rms_norm(x, self.norm, c.rms_norm_eps)
         return ModelOutput(logits=dense(x, self._head()), kv_cache=kv_cache)
 

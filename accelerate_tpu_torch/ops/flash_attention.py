@@ -122,7 +122,10 @@ def flash_attention(q, k, v, segment_mask=None, causal=True, scale=None, impl=No
     ``[b, skv, n_kv, hd]`` (GQA when ``n_kv < nh``), ``segment_mask [b, skv]``
     (1 = valid key). Differentiable in ``q``, ``k`` and ``v``. ``impl=None``
     takes the CUDA kernels for CUDA tensors and the plain versions for CPU
-    tensors; ``"plain"`` forces the plain versions (tests, ``chip_smoke.py``)."""
+    tensors; ``"plain"`` forces the plain versions (tests, ``chip_smoke.py``).
+    Strided views (the q/k/v of a fused projection, split on the last dim)
+    are made contiguous here, as the kernels take them."""
+    q, k, v = (t.contiguous() for t in (q, k, v))
     return _FlashAttention.apply(q, k, v, segment_mask, _scale(q, scale), bool(causal), impl)
 
 

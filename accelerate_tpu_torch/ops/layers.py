@@ -22,6 +22,17 @@ from .fp8 import checkpoint_contexts, dense, quantize_kv_rows
 NULL_BLOCK = 0
 
 
+def table_rows(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """The rows of an ``n``-row table that JAX's gather (``table[ids]``)
+    reads: a negative index counts from the end once, then every index is
+    clamped into ``[0, n)``, where ``nn.Embedding`` or an index would raise
+    (a device-side assert on the card). Token ids past the vocabulary and
+    positions past a learned position table both take it. No host sync: the
+    decode steps that call it are replayed from CUDA graphs."""
+    ids = ids.long()
+    return torch.where(ids < 0, ids + n, ids).clamp_(0, n - 1)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm accumulated in f32 and cast back to ``x.dtype``."""
     dtype = x.dtype
@@ -119,11 +130,14 @@ def shift_labels(labels, ignore_index: int = -100):
     return torch.cat([labels[:, 1:], pad], dim=1)
 
 
-def _chunk_nll(x_i, head, l_i, ignore_index: int):
+def _chunk_nll(x_i, head, l_i, ignore_index: int, bias=None):
     """One chunk's summed NLL and valid count; the head product
-    (:func:`~.fp8.dense`) runs in the compute dtype and is cast to f32
-    before the log-softmax."""
-    logits = dense(x_i, head.t()).float()  # [b, s/C, V]
+    (:func:`~.fp8.dense`, plus ``bias`` when the head has one) runs in the
+    compute dtype and is cast to f32 before the log-softmax."""
+    logits = dense(x_i, head.t())
+    if bias is not None:
+        logits = logits + bias
+    logits = logits.float()  # [b, s/C, V]
     valid = l_i != ignore_index
     safe = torch.where(valid, l_i, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
@@ -131,7 +145,8 @@ def _chunk_nll(x_i, head, l_i, ignore_index: int):
     return ((logz - gold) * valid).sum(), valid.sum()
 
 
-def fused_cross_entropy(x, head, labels, ignore_index: int = -100, chunk_tokens: int = 1024):
+def fused_cross_entropy(x, head, labels, ignore_index: int = -100, chunk_tokens: int = 1024,
+                        bias=None):
     """Token CE from pre-head hidden states ``x [b, s, h]`` and ``head [h,
     vocab]`` without holding the full ``[b, s, vocab]`` logits: the sequence
     splits into ``C`` chunks, the largest divisor of ``s`` with ``s // C >=
@@ -140,7 +155,8 @@ def fused_cross_entropy(x, head, labels, ignore_index: int = -100, chunk_tokens:
     (the JAX ``jax.checkpoint`` inside ``lax.scan``), under the fp8 state of
     the forward. Equal to ``cross_entropy_loss(x @ head, labels)``; the
     head product is :func:`~.fp8.dense`'s, so it runs in fp8 inside
-    ``fp8_autocast``."""
+    ``fp8_autocast``. ``bias [vocab]`` is the head's bias, where it has one
+    (GPT-J)."""
     b, s, _ = x.shape
     rows = max(1, chunk_tokens // b)
     C = 1
@@ -148,7 +164,9 @@ def fused_cross_entropy(x, head, labels, ignore_index: int = -100, chunk_tokens:
         if s % c == 0 and s // c >= rows:
             C = c
     if C == 1:
-        return cross_entropy_loss(dense(x, head.t()), labels, ignore_index)
+        logits = dense(x, head.t())
+        return cross_entropy_loss(logits if bias is None else logits + bias, labels,
+                                  ignore_index)
     from torch.utils.checkpoint import checkpoint
 
     n = s // C
@@ -156,7 +174,7 @@ def fused_cross_entropy(x, head, labels, ignore_index: int = -100, chunk_tokens:
     count = torch.zeros((), dtype=torch.int64, device=x.device)
     for i in range(C):
         d_nll, d_cnt = checkpoint(_chunk_nll, x[:, i * n:(i + 1) * n], head,
-                                  labels[:, i * n:(i + 1) * n], ignore_index,
+                                  labels[:, i * n:(i + 1) * n], ignore_index, bias,
                                   use_reentrant=False, context_fn=checkpoint_contexts)
         nll = nll + d_nll
         count = count + d_cnt
@@ -212,29 +230,48 @@ def write_kv_cache(k_cache_l, v_cache_l, k, v, idx, spare_slot: bool = False):
     return k_cache_l, v_cache_l
 
 
-def rope_cached_attention_block(layer, x, k_cache_l, v_cache_l, cos, sin, idx,
+def rope_attention_block(w: dict, x, cos, sin, positions, attend, n_heads: int,
+                         n_kv_heads: int, head_dim: int, eps: float):
+    """The attention sub-block of the llama-style families (llama,
+    mixtral), in training, prefill and decode alike: RMSNorm → q/k/v
+    projections → RoPE at ``positions [b, s]`` → ``attend(q, k, v)`` →
+    output projection residual. ``w`` is the layer's weight dict
+    (``wq``/``wk``/``wv``/``wo`` ``[out, in]`` and ``attn_norm``); the
+    projections run through :func:`~.fp8.dense`, so in fp8 inside
+    ``fp8_autocast``. Returns ``x + attn_out``."""
+    b, s, _ = x.shape
+    y = rms_norm(x, w["attn_norm"], eps)
+    q = apply_rope(dense(y, w["wq"]).reshape(b, s, n_heads, head_dim), cos, sin, positions)
+    k = apply_rope(dense(y, w["wk"]).reshape(b, s, n_kv_heads, head_dim), cos, sin, positions)
+    v = dense(y, w["wv"]).reshape(b, s, n_kv_heads, head_dim)
+    return x + dense(attend(q, k, v).reshape(b, s, n_heads * head_dim), w["wo"])
+
+
+def cached_attend(k_cache_l, v_cache_l, idx, spare_slot: bool = False):
+    """The ``attend(q, k, v)`` of a dense-cache decode step, for every
+    decoder family: :func:`write_kv_cache` (in place; ``spare_slot`` is
+    its) then :func:`cached_attention` against each row's prefix."""
+    def attend(q, k, v):
+        write_kv_cache(k_cache_l, v_cache_l, k, v, idx, spare_slot)
+        return cached_attention(q, k_cache_l, v_cache_l, idx)
+
+    return attend
+
+
+def rope_cached_attention_block(w: dict, x, k_cache_l, v_cache_l, cos, sin, idx,
                                 n_heads: int, n_kv_heads: int, head_dim: int, eps: float,
                                 spare_slot: bool = False):
     """The decode-step attention sub-block (port of JAX
-    ``rope_cached_attention_block``): RMSNorm → q/k/v projections → RoPE at
-    each row's cache position → :func:`write_kv_cache` (in place) →
-    :func:`cached_attention` → output projection residual. ``layer`` carries
-    the ``wq``/``wk``/``wv``/``wo`` projections and the ``attn_norm`` weight;
-    ``spare_slot`` is :func:`write_kv_cache`'s. The projections run through
-    :func:`~.fp8.dense`, so in fp8 inside ``fp8_autocast``. Returns ``(x +
-    attn_out, k_cache_l, v_cache_l)``."""
+    ``rope_cached_attention_block``): :func:`rope_attention_block` at each
+    row's cache position ``idx [b] + j``, attending through
+    :func:`cached_attend`. Returns ``(x + attn_out, k_cache_l,
+    v_cache_l)``."""
     b, s, _ = x.shape
     idx = idx.reshape(b)
     positions = idx[:, None].long() + torch.arange(s, device=x.device)[None, :]
-    y = rms_norm(x, layer.attn_norm, eps)
-    q = apply_rope(dense(y, layer.wq.weight).reshape(b, s, n_heads, head_dim), cos, sin,
-                   positions)
-    k = apply_rope(dense(y, layer.wk.weight).reshape(b, s, n_kv_heads, head_dim), cos, sin,
-                   positions)
-    v = dense(y, layer.wv.weight).reshape(b, s, n_kv_heads, head_dim)
-    write_kv_cache(k_cache_l, v_cache_l, k, v, idx, spare_slot)
-    attn = cached_attention(q, k_cache_l, v_cache_l, idx)
-    x = x + dense(attn.reshape(b, s, n_heads * head_dim), layer.wo.weight)
+    x = rope_attention_block(w, x, cos, sin, positions,
+                             cached_attend(k_cache_l, v_cache_l, idx, spare_slot),
+                             n_heads, n_kv_heads, head_dim, eps)
     return x, k_cache_l, v_cache_l
 
 

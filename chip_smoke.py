@@ -292,8 +292,40 @@ failure, so the script exits non-zero and prints no result):
     step, peak memory (``max_memory_allocated``), every step's loss within
     1e-3 of ``remat=False``'s. 14b opens with the same loop at bf16, the yardstick in the same
     process.
-    ``python3 chip_smoke.py --phase14`` runs phases 1, 2 and 14 alone and
+    ``python3 chip_smoke.py --phase 14`` runs phases 1, 2 and 14 alone and
     prints no verdict.
+
+15. the model zoo. 15a: Mixtral-8x7B's width (hidden 4096, 32 query and 8
+    kv heads × 128, 8 experts top-2, ff 14336, vocab 32000, ``remat=True``)
+    cut to 2 of its 32 layers: B1-B3 against their plain versions at 32/8 ×
+    128 (b 4, s 1024; bf16, f32, and a left-padded case) and timed there
+    beside sdpa with ``enable_gqa=True``; then the 5-line loop at b 4 ×
+    1024 (bf16 over f32 masters, AdamW one tensor at a time): the first
+    loss through the kernels within 2e-2 of the plain path, 2 warm-up and 5
+    timed steps with the flash counters set to 0 just before and read just
+    after (B1 2 × 2 a step under remat, B2 and B3 2), a falling loss,
+    tokens/s, peak memory, one profiled step (device ms, kernels, B1-B3's
+    share), MFU over the active parameters (``6 × (attention + 2 of 8
+    experts + router + head) × tokens + 6 × L × tokens × s × h`` against 989
+    TFLOP/s) and the dispatch/combine einsums' share of the profiled step
+    (the ``aten::einsum`` calls, their recompute and the backward nodes
+    autograd made for them, matched by sequence number). 15b:
+    ``generate()`` there: bf16 8 × 128 for time (decode tok/s by
+    difference), f32 (``capacity_factor`` 8: no drops) cached with the
+    kernels = plain = full-forward. 15c: GPT-J-6B's width (16 × 256, ff
+    16384, vocab 50400) cut to 2 of 28 layers: B1-B3 against plain at hd
+    256 and timed there, the loop at b 4 × 1024 with its profiled share.
+    15d: gpt2, opt-125m, pythia-1.4b, bert-base (a key mask that pads every
+    other row on the right), vit-base-patch16-224 (s 197), resnet50d and
+    t5-small at their published sizes: B1-B3 against their plain versions
+    at each attention family's training shape and mask (f32 and bf16, the
+    gates of phase 8), the f32 logits with the kernels within 1e-3 of plain
+    at the training batch, the first loss with the kernels within 2e-2 of
+    plain, 4 steps (one launch of each flash kernel a layer a step; resnet
+    and T5 none), a falling loss, and f32 greedy ``generate()`` tokens with
+    the kernels equal to plain for the LMs and T5. Phase 15 logs its own
+    seconds. ``python3 chip_smoke.py --phase 15`` runs phases 1, 2 and 15
+    alone and prints no verdict.
 
 The ``{"kernels": [...]}`` line lists all four kernels. The last line of
 standard output is ``{"ok": true, "device": {...}}``.
@@ -3145,6 +3177,11 @@ FLASH_GATES = {"f32": (2e-5, 2e-4), "bf16": (3e-2, 5e-2), "f16": (4e-3, 8e-3)}
 
 
 def _flash_inputs(rng, b, s, nh, n_kv, hd, pad, dtype, dev):
+    """Random q, k, v, dO and the key mask ``pad`` asks for: 0 none, an int
+    the first ``pad`` keys of every row (a left pad shared by the batch),
+    ``(step, start)`` the keys from ``start`` on in every ``step``-th row
+    (a right pad that differs from row to row, as a padded encoder batch
+    has it)."""
     def draw(*shape):
         return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev).to(dtype)
 
@@ -3153,7 +3190,11 @@ def _flash_inputs(rng, b, s, nh, n_kv, hd, pad, dtype, dev):
     mask = None
     if pad:
         mask = torch.ones((b, s), dtype=torch.bool, device=dev)
-        mask[:, :pad] = False
+        if isinstance(pad, tuple):
+            step, start = pad
+            mask[::step, start:] = False
+        else:
+            mask[:, :pad] = False
     return q, k, v, do, mask
 
 
@@ -3196,7 +3237,7 @@ def check_flash_vs_plain(dev, cases=None) -> dict:
         g_errs = [_scaled_err(g, r) for g, r in ((dq, rdq), (dk, rdk), (dv, rdv))]
         o_gate, g_gate = FLASH_GATES[key]
         ok = o_err <= o_gate and lse_err <= 1e-5 and max(g_errs) <= g_gate
-        if pad and causal:  # rows with no valid key: output 0, dq 0
+        if isinstance(pad, int) and pad and causal:  # rows with no valid key: output 0, dq 0
             ok = ok and o[:, :pad].abs().max().item() == 0.0 and dq[:, :pad].abs().max().item() == 0.0
         line = (f"  flash {what}: |o| {o_err:.2e} |lse| {lse_err:.2e} "
                 f"dq/dk/dv {g_errs[0]:.2e}/{g_errs[1]:.2e}/{g_errs[2]:.2e}")
@@ -3577,7 +3618,8 @@ def time_flash_kernels(dev, per_launch_ms: dict) -> dict:
     return out
 
 
-def time_flash_at(dev, b: int, s: int, nh: int, head_dims, dtype=torch.bfloat16) -> dict:
+def time_flash_at(dev, b: int, s: int, nh: int, head_dims, dtype=torch.bfloat16,
+                  n_kv: int | None = None) -> dict:
     """B1-B3 at ``head_dims`` at one shape (b, s, nh heads, bf16, causal):
     CUDA events around the Python wrapper, the profiler's device time a
     launch, the plain version, sdpa's forward and its backward alone
@@ -3585,15 +3627,19 @@ def time_flash_at(dev, b: int, s: int, nh: int, head_dims, dtype=torch.bfloat16)
     counted on the real head dim's work (the padded columns are waste, not
     work). Phase 8b: the tiny llama's training shape (b 8, s 128, 4 heads)
     at hd 16, 32, 24 and 80; C4b: b 8, s 1024, 8 heads at hd 256; phase
-    14a: the flagship shape at f16 (``dtype``, sdpa at the same dtype)."""
+    14a: the flagship shape at f16 (``dtype``, sdpa at the same dtype);
+    phase 15a: Mixtral's GQA, ``n_kv`` kv heads (sdpa with ``enable_gqa``;
+    K and V counted at ``n_kv`` heads in the bound's bytes)."""
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import flash_attention as fa
 
+    n_kv = n_kv or nh
+    gqa = {"enable_gqa": True} if n_kv != nh else {}
     out = {}
     for hd in head_dims:
         rng = np.random.default_rng(15 + hd)
-        q, k, v, do, _ = _flash_inputs(rng, b, s, nh, nh, hd, 0, dtype, dev)
+        q, k, v, do, _ = _flash_inputs(rng, b, s, nh, n_kv, hd, 0, dtype, dev)
         scale = 1.0 / float(np.sqrt(hd))
         o, lse = fa.flash_fwd(q, k, v, impl="cuda")
         delta = fa._delta(o, do)
@@ -3610,9 +3656,9 @@ def time_flash_at(dev, b: int, s: int, nh: int, head_dims, dtype=torch.bfloat16)
         }
         lq, lk, lv, ldo = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
         gq, gk, gv = (t.detach().clone().requires_grad_() for t in (lq, lk, lv))
-        lib_out = F.scaled_dot_product_attention(gq, gk, gv, is_causal=True)
+        lib_out = F.scaled_dot_product_attention(gq, gk, gv, is_causal=True, **gqa)
         fwd_rows = _library_rows(
-            lambda i: F.scaled_dot_product_attention(lq, lk, lv, is_causal=True), 20)
+            lambda i: F.scaled_dot_product_attention(lq, lk, lv, is_causal=True, **gqa), 20)
         backend = _sdpa_backend(fwd_rows)
         library = {
             "fwd": _profiled_ms_per_call(None, 20, rows=fwd_rows),
@@ -3620,11 +3666,11 @@ def time_flash_at(dev, b: int, s: int, nh: int, head_dims, dtype=torch.bfloat16)
                 lambda i: torch.autograd.grad(lib_out, (gq, gk, gv), ldo, retain_graph=True), 20),
         }
         pairs = s * (s + 1) / 2 * b * nh
-        tile = b * s * nh * hd * 2
+        tile, kv_tile = b * s * nh * hd * 2, b * s * n_kv * hd * 2
         rows = b * nh * s * 4
-        work = {"flash_fwd": (2 * 2 * pairs * hd, 4 * tile + rows),
-                "flash_bwd_dq": (3 * 2 * pairs * hd, 5 * tile + 2 * rows),
-                "flash_bwd_dkv": (4 * 2 * pairs * hd, 6 * tile + 2 * rows)}
+        work = {"flash_fwd": (2 * 2 * pairs * hd, 2 * tile + 2 * kv_tile + rows),
+                "flash_bwd_dq": (3 * 2 * pairs * hd, 3 * tile + 2 * kv_tile + 2 * rows),
+                "flash_bwd_dkv": (4 * 2 * pairs * hd, 2 * tile + 4 * kv_tile + 2 * rows)}
         for name, fn in calls.items():
             flops, nbytes = work[name]
             ops_ms = flops / BF16_FLOPS_PER_S * 1e3
@@ -3640,7 +3686,7 @@ def time_flash_at(dev, b: int, s: int, nh: int, head_dims, dtype=torch.bfloat16)
                 raise AssertionError(f"the profiler saw no {name} launch at hd {hd} in "
                                      f"{PROFILER_TRIES} windows")
             entry = {
-                "shape": {"batch": b, "seq": s, "n_heads": nh, "head_dim": hd,
+                "shape": {"batch": b, "seq": s, "n_heads": nh, "n_kv": n_kv, "head_dim": hd,
                           "dtype": FLASH_DTYPE_NAMES[dtype], "causal": True},
                 "ms": spread[1],
                 "ms_spread": spread,
@@ -3652,7 +3698,7 @@ def time_flash_at(dev, b: int, s: int, nh: int, head_dims, dtype=torch.bfloat16)
                 "plain_ms": plain["flash_fwd" if name == "flash_fwd" else "bwd"],
             }
             out.setdefault(name, {})[f"head_dim_{hd}"] = entry
-            log(f"  {name} hd {hd} (b {b}, s {s}, {nh} heads, {FLASH_DTYPE_NAMES[dtype]}, "
+            log(f"  {name} hd {hd} (b {b}, s {s}, {nh}/{n_kv} heads, {FLASH_DTYPE_NAMES[dtype]}, "
                 f"causal): kernel "
                 f"{entry['ms']:.4f} ms by events, {entry['profiler_ms']:.4f} ms a launch by the "
                 f"profiler, bound {entry['bound_ms']:.6f} ms ({entry['bound_by']}), sdpa "
@@ -4325,6 +4371,489 @@ def run_phase14(dev) -> dict:
             "fp8": fp8_loop, "remat": remat}
 
 
+# -- phase 15: the model zoo --------------------------------------------------
+
+#: phase 15a and 15c: the training shape of the two wide paths, and the steps
+P15_BATCH, P15_SEQ, P15_WARMUP, P15_TIMED = 4, 1024, 2, 5
+#: phase 10's AdamW (optax.adamw(1e-4)), one tensor at a time: at Mixtral's
+#: width the foreach path's temporaries hold a copy of every parameter in
+#: f32 (12.7 GB), the per-tensor path one tensor's (at most 0.94 GB)
+P15_ADAMW = dict(lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4, foreach=False)
+#: phase 15b: generate() at Mixtral's width, bf16 for time (8 × 128 random
+#: ids, 8 and 72 new tokens differenced) and f32 for equality (phase 7c's
+#: ragged prompts, 16 new tokens)
+P15_GEN_SHORT, P15_GEN_LONG, P15_GEN_F32_NEW = 8, 72, 16
+#: phase 15d: each attention family's training batch and the attention it
+#: hands B1-B3 there: (b, s, heads, kv heads, head dim, causal, key mask as
+#: ``_flash_inputs`` takes it). bert-base pads every other row's keys from
+#: 96 on; vit-base's s is 196 patches and the class token
+P15_FAMILY_FLASH = {
+    "gpt2": (8, 512, 12, 12, 64, True, 0),
+    "opt-125m": (8, 512, 12, 12, 64, True, 0),
+    "pythia-1.4b": (8, 512, 16, 16, 128, True, 0),
+    "bert-base": (16, 128, 12, 12, 64, False, (2, 96)),
+    "vit-base-patch16-224": (16, 197, 12, 12, 64, False, 0),
+}
+#: phase 15d: the gate on the f32 logits through the kernels against the
+#: plain attention path at each family's training batch, over max(|logit|,
+#: 1): a few f32 roundings of the kernels' output (gate 2e-5) carried
+#: through 12 to 24 layers stay far below it; a kernel that is wrong moves
+#: the logits by their own size
+P15_F32_LOGITS_GATE = 1e-3
+
+
+def mixtral_width(**kw):
+    """Mixtral-8x7B at its published width (hidden 4096, 32 query and 8 kv
+    heads × 128, 8 experts top-2, ff 14336, vocab 32000, the preset's
+    ``remat=True``), cut to 2 of its 32 layers."""
+    import dataclasses
+
+    from accelerate_tpu_torch.models.mixtral import MixtralConfig
+
+    return dataclasses.replace(MixtralConfig(), num_hidden_layers=2, **kw)
+
+
+def gptj_width():
+    """GPT-J-6B at its published width (hidden 4096, 16 heads × 256, rotary
+    64, ff 16384, vocab 50400), cut to 2 of its 28 layers."""
+    import dataclasses
+
+    from accelerate_tpu_torch.models.gpt_neox import GPTNeoXConfig
+
+    return dataclasses.replace(GPTNeoXConfig.gptj_6b(), num_hidden_layers=2)
+
+
+def mixtral_active_params(c) -> int:
+    """The parameters a token runs through: attention, ``k`` of the ``E``
+    experts, the router and the head (the embedding is a gather)."""
+    q, kv = c.num_attention_heads * c.head_dim, c.num_key_value_heads * c.head_dim
+    h = c.hidden_size
+    layer = (2 * h * q + 2 * h * kv + c.num_experts_per_tok * 3 * h * c.intermediate_size
+             + h * c.num_local_experts)
+    return c.num_hidden_layers * layer + c.vocab_size * h
+
+
+def _lm_batch(vocab: int, b: int, s: int, dev, seed: int = 0) -> dict:
+    ids = torch.as_tensor(np.random.default_rng(seed).integers(0, vocab, size=(b, s)), device=dev)
+    return {"input_ids": ids, "labels": ids}
+
+
+def _reset_accelerator_state() -> None:
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state(reset_partial_state=True)
+    GradientState._reset_state()
+
+
+def _first_losses(model, batch) -> tuple:
+    """The first forward's loss through the kernels and through the plain
+    attention path (``flash_impl="plain"``), on the same weights."""
+    from accelerate_tpu_torch.ops.attention import attention_context
+
+    with torch.no_grad():
+        kernel = model(**batch).loss.float().item()
+        with attention_context(impl="flash", flash_impl="plain"):
+            plain = model(**batch).loss.float().item()
+    return kernel, plain
+
+
+def einsum_ms_from_trace(prof, time_attr: str = "device_time_total") -> dict:
+    """The ms of a profiled step's ``aten::einsum`` calls (the forward and,
+    under remat, its recompute) and of the backward nodes autograd made for
+    them, read from the trace: a backward node carries the sequence number
+    and the forward thread of the op that made it, so each op inside an
+    einsum names its backward node. ``time_attr`` is the events' time to
+    sum (the device's on the card)."""
+    events = prof.events()
+    made = set()
+    forward, calls = 0.0, 0
+
+    def walk(e):
+        if e.sequence_nr >= 0:
+            made.add((e.thread, e.sequence_nr))
+        for child in e.cpu_children:
+            walk(child)
+
+    for e in events:
+        if e.name == "aten::einsum" and not _under(e, lambda p: p.name == "aten::einsum"):
+            forward += getattr(e, time_attr)
+            calls += 1
+            walk(e)
+
+    def is_node(e):
+        return e.fwd_thread and (e.fwd_thread, e.sequence_nr) in made
+
+    nodes = [e for e in events if is_node(e) and not _under(e, is_node)]
+    names = [e.name.removeprefix("autograd::engine::evaluate_function: ") for e in nodes]
+    return {"calls": calls, "forward_ms": forward / 1e3,
+            "backward_ms": sum(getattr(e, time_attr) for e in nodes) / 1e3,
+            "backward_nodes": {n: names.count(n) for n in sorted(set(names))}}
+
+
+def _under(e, pred) -> bool:
+    """Whether an ancestor of the event ``e`` satisfies ``pred``."""
+    p = e.cpu_parent
+    while p is not None:
+        if pred(p):
+            return True
+        p = p.cpu_parent
+    return False
+
+
+def p15_train(module, batch, what: str, warmup: int, timed: int, launches_per_step: dict,
+              items: int, profile_step: bool = True) -> dict:
+    """``module`` through the 5-line loop (bf16 over f32 masters, AdamW at
+    phase 10's settings): the first loss through the kernels against the
+    plain attention path (2e-2 relative), then ``warmup`` and ``timed``
+    steps with the flash counters set to 0 just before and read just after
+    (each kernel ``launches_per_step`` a step), a falling finite loss, peak
+    memory, and one profiled step: device ms, kernels, B1-B3's device ms
+    and share, the einsums' device ms and share (forward, recompute and
+    backward: :func:`einsum_ms_from_trace`). ``items``: the
+    tokens (or images, or sequences) a step, for the rate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch import Accelerator
+
+    _reset_accelerator_state()
+    accelerator = Accelerator(mixed_precision="bf16")
+    model, opt = accelerator.prepare(module, torch.optim.AdamW(module.parameters(), **P15_ADAMW))
+    kernel_loss, plain_loss = _first_losses(model, batch)
+    first_rel = abs(kernel_loss - plain_loss) / abs(plain_loss)
+    log(f"  {what}: first loss through the kernels {kernel_loss:.6f}, plain {plain_loss:.6f} "
+        f"(rel {first_rel:.2e}, gate 2e-2)")
+    if not (math.isfinite(kernel_loss) and first_rel <= 2e-2):
+        raise AssertionError(f"{what}: the first loss through the kernels disagrees with plain")
+    losses = []
+
+    def step():
+        out = model(**batch)
+        accelerator.backward(out.loss)
+        opt.step()
+        opt.zero_grad()
+        losses.append(out.loss.detach())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / timed
+    counts = _flash_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = warmup + timed
+    want = {k: launches_per_step.get(k, 0) * steps for k in FLASH_KERNELS}
+    loss_vals = [x.item() for x in losses]
+    out = {"losses": loss_vals, "step_ms": step_ms, "launches": counts,
+           "launches_per_step": {k: counts[k] / steps for k in counts},
+           "max_memory_allocated_bytes": peak, "first_loss_kernels": kernel_loss,
+           "first_loss_plain": plain_loss, "first_loss_rel_err": first_rel,
+           "items_per_step": items, "items_per_s": items / (step_ms / 1e3)}
+    if counts != want:
+        raise AssertionError(f"{what}: flash launches {counts} in {steps} steps, {want} expected")
+    if not (all(math.isfinite(x) for x in loss_vals) and loss_vals[-1] < loss_vals[0]):
+        raise AssertionError(f"{what}: the loss is not finite and falling: {loss_vals}")
+    if profile_step:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        rows = _kernel_rows(prof)
+        device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+        flash = {name: [e for e in rows if re.search(flash_kernel_pattern(name), e.key)]
+                 for name in FLASH_KERNELS}
+        flash_ms = {n: sum(e.self_device_time_total for e in r) / 1e3 for n, r in flash.items()}
+        einsum = einsum_ms_from_trace(prof)
+        top = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        out["profiled_step"] = {
+            "device_ms": device_ms, "kernels_launched": sum(e.count for e in rows),
+            "device_busy_share": device_ms / step_ms,
+            "flash_ms": flash_ms,
+            "flash_launches": {n: sum(e.count for e in r) for n, r in flash.items()},
+            "flash_share_of_device": sum(flash_ms.values()) / device_ms,
+            "einsum_device_ms": einsum,
+            "einsum_share_of_device": (einsum["forward_ms"] + einsum["backward_ms"]) / device_ms,
+            "top_kernels_ms": {e.key[:70]: e.self_device_time_total / 1e3 for e in top},
+        }
+        if launches_per_step and not all(flash_ms[k] > 0 for k in launches_per_step):
+            raise AssertionError(f"{what}: the profiled step shows no flash kernel: {flash_ms}")
+    log(f"  {what}: step {step_ms:.2f} ms, {out['items_per_s']:.0f} items/s, peak memory "
+        f"{peak / 2**30:.2f} GiB, losses {['%.4f' % x for x in loss_vals]}, flash launches a "
+        f"step {out['launches_per_step']}"
+        + (f"; profiled step: device {out['profiled_step']['device_ms']:.2f} ms, "
+           f"{out['profiled_step']['kernels_launched']} kernels, B1-B3 "
+           f"{ {k: round(v, 3) for k, v in out['profiled_step']['flash_ms'].items()} } ms = "
+           f"{out['profiled_step']['flash_share_of_device']:.1%} of device time" if profile_step
+           else ""))
+    del model, opt, losses
+    _reset_accelerator_state()
+    return out
+
+
+def p15_generate(dev) -> dict:
+    """15b: ``generate()`` at Mixtral's width. bf16 for time: 8 × 128
+    random ids, 8 and 72 new tokens (each called twice: the first captures
+    the decode step), decode tok/s by difference. f32 for equality, with
+    ``capacity_factor`` = the expert count, so no assignment is dropped: a
+    full forward over the whole buffer routes other token counts than a
+    decode step, and a capacity that binds would drop other tokens in each
+    (as in JAX). The cached path with the kernels = the same path with
+    ``flash_impl="plain"`` = the full-forward loop, on phase 7c's ragged
+    prompts; the flash counters set to 0 just before the cached call and
+    read just after: B1 once a layer (the prefill)."""
+    from accelerate_tpu_torch import generation
+    from accelerate_tpu_torch.generation import generate
+    from accelerate_tpu_torch.models.mixtral import MixtralForCausalLM
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops.attention import attention_context
+
+    cfg = mixtral_width()
+    model = MixtralForCausalLM.from_config(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    ids = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(8, 128)).astype(np.int32)
+    secs, caps = {}, {}
+    for new in (P15_GEN_SHORT, P15_GEN_LONG):
+        before = generation.captures
+        generate(model, ids, max_new_tokens=new, use_cache=True)
+        caps[new] = generation.captures - before
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = generate(model, ids, max_new_tokens=new, use_cache=True)
+        torch.cuda.synchronize()
+        secs[new] = time.perf_counter() - t0
+        if tuple(out.shape) != (8, 128 + new):
+            raise AssertionError(f"generate() at Mixtral width: shape {tuple(out.shape)}")
+    step_s = (secs[P15_GEN_LONG] - secs[P15_GEN_SHORT]) / (P15_GEN_LONG - P15_GEN_SHORT)
+    timed = {"calls_s": {str(k): v for k, v in secs.items()}, "decode_step_ms": step_s * 1e3,
+             "decode_tokens_per_s": 8 / step_s, "captures_first_call": caps}
+    log(f"  bf16 generate() at Mixtral width (8 × 128, 2 layers): {secs[P15_GEN_SHORT]:.3f} s for "
+        f"{P15_GEN_SHORT} new, {secs[P15_GEN_LONG]:.3f} s for {P15_GEN_LONG}; a decode step "
+        f"{step_s * 1e3:.3f} ms, {8 / step_s:.1f} decode tok/s; captures {caps}")
+    if any(v != 1 for v in caps.values()):
+        raise AssertionError(f"each length's first call must capture its decode step once: {caps}")
+    del model
+    clear_memory()
+
+    cfg32 = mixtral_width(capacity_factor=8.0)
+    model = MixtralForCausalLM.from_config(cfg32, seed=0, dtype=torch.float32, device=dev)
+    ids, mask = _ragged_prompts(cfg32.vocab_size, seed=3)
+    kw = dict(max_new_tokens=P15_GEN_F32_NEW, attention_mask=mask)
+    _zero_flash_counts()
+    cached = generate(model, ids, use_cache=True, **kw)
+    launches = fa.fwd_launches
+    with attention_context(flash_impl="plain"):
+        plain = generate(model, ids, use_cache=True, **kw)
+    full = generate(model, ids, **kw)
+    if launches != cfg32.num_hidden_layers:
+        raise AssertionError(f"B1 launched {launches} times in a cached generate(): one a layer")
+    for what, other in (("flash_impl='plain'", plain), ("the full-forward loop", full)):
+        if not torch.equal(cached, other):
+            rows = [int(r) for r in torch.nonzero((cached != other).any(dim=1)).flatten()]
+            raise AssertionError(f"Mixtral f32: greedy tokens of the cached path differ from "
+                                 f"{what} in rows {rows}")
+    log(f"  f32 greedy generate() at Mixtral width (capacity_factor 8: no drops), 8 ragged "
+        f"prompts, {P15_GEN_F32_NEW} new: cached with the kernels = flash_impl='plain' = the "
+        f"full-forward loop; B1 {launches} launches a cached call")
+    del model
+    clear_memory()
+    return {"bf16": timed, "f32_tokens_identical": True, "flash_fwd_launches_cached_call": launches}
+
+
+def clear_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _image_batch(b: int, size: int, classes: int, dev, seed: int = 0) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"pixel_values": torch.as_tensor(rng.normal(size=(b, size, size, 3)).astype(np.float32),
+                                            device=dev),
+            "labels": torch.as_tensor(rng.integers(0, classes, size=(b,)), device=dev)}
+
+
+def p15_family_flash_cases():
+    """15d: B1-B3 at each attention family's training shape and key mask
+    (``P15_FAMILY_FLASH``), f32 and bf16."""
+    shapes = dict.fromkeys(P15_FAMILY_FLASH.values())
+    return [(*shape, dtype) for shape in shapes for dtype in (torch.float32, torch.bfloat16)]
+
+
+def _f32_logits_gap(module, batch) -> float:
+    """max |logits through the kernels − through ``flash_impl="plain"``| /
+    max(|plain|, 1), on the f32 module (no autocast) at ``batch`` without
+    its labels."""
+    from accelerate_tpu_torch.ops.attention import attention_context
+
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    with torch.no_grad():
+        got = module(**inputs).logits
+        with attention_context(impl="flash", flash_impl="plain"):
+            ref = module(**inputs).logits
+        return _scaled_err(got, ref)
+
+
+def p15_families(dev) -> dict:
+    """15d: the zoo's other families at their published sizes (random
+    weights from seed 0, bf16 over f32 masters): for the attention families
+    the f32 logits at the training batch through the kernels against the
+    plain path (``P15_F32_LOGITS_GATE``); the first loss through the
+    kernels against the plain path, 1 warm-up and 3 timed steps of the
+    5-line loop with the flash counters set to 0 just before and read just
+    after (one launch of each kernel a layer a step for the attention
+    families; resnet and T5 run none), a falling loss; then greedy
+    ``generate()`` at f32 for the LMs and T5, with the kernels and with
+    ``flash_impl="plain"``, tokens equal."""
+    from accelerate_tpu_torch.generation import generate
+    from accelerate_tpu_torch.models import MODEL_ZOO
+    from accelerate_tpu_torch.ops.attention import attention_context
+
+    rng = np.random.default_rng(31)
+    runs = {}
+    for name in ("gpt2", "opt-125m", "pythia-1.4b", "bert-base", "vit-base-patch16-224",
+                 "resnet50d", "t5-small"):
+        cfg, factory = MODEL_ZOO[name]
+        module = factory(cfg)
+        layers = getattr(cfg, "num_hidden_layers", 0)
+        if name in P15_FAMILY_FLASH:
+            b, s, nh, _, hd, _, pad = P15_FAMILY_FLASH[name]
+            if (cfg.num_attention_heads, cfg.head_dim) != (nh, hd):
+                raise AssertionError(f"{name}: {cfg.num_attention_heads} heads × {cfg.head_dim}, "
+                                     f"not the {nh} × {hd} its kernels were checked at")
+        if name in ("gpt2", "opt-125m", "pythia-1.4b"):
+            batch = _lm_batch(cfg.vocab_size, b, s, dev)
+            items = b * s
+        elif name == "bert-base":
+            ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, s)), device=dev)
+            mask = torch.ones_like(ids)
+            step, start = pad
+            mask[::step, start:] = 0  # every other row padded: a key mask on the kernels' path
+            batch = {"input_ids": ids, "attention_mask": mask,
+                     "labels": torch.as_tensor(rng.integers(0, 2, size=(b,)), device=dev)}
+            items = b
+        elif name == "t5-small":
+            ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(8, 128)), device=dev)
+            batch = {"input_ids": ids, "attention_mask": torch.ones_like(ids),
+                     "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(8, 64)),
+                                               device=dev)}
+            layers, items = 0, 8 * 64
+        else:
+            batch = _image_batch(16, 224, cfg.num_classes, dev)
+            layers, items = (0 if name == "resnet50d" else layers), 16
+        per_step = {k: layers for k in FLASH_KERNELS} if layers else {}
+        gap = None
+        if name in P15_FAMILY_FLASH:
+            gap = _f32_logits_gap(module, batch)
+            log(f"  {name}: f32 logits through the kernels against plain {gap:.2e} of max(|logit|, "
+                f"1) (gate {P15_F32_LOGITS_GATE:.0e})")
+            if not gap <= P15_F32_LOGITS_GATE:
+                raise AssertionError(f"{name}: f32 logits through the kernels disagree with plain")
+        run = p15_train(module, batch, name, 1, 3, per_step, items, profile_step=False)
+        run["f32_logits_rel_err"] = gap
+        del module
+        clear_memory()
+        if name in ("gpt2", "opt-125m", "pythia-1.4b", "t5-small"):
+            model = factory(cfg, dtype=torch.float32)
+            prompts = rng.integers(1, cfg.vocab_size, size=(2, 32)).astype(np.int32)
+            kw = dict(max_new_tokens=8, use_cache=True)
+            got = generate(model, prompts, **kw)
+            with attention_context(flash_impl="plain"):
+                ref = generate(model, prompts, **kw)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{name}: f32 greedy tokens through the kernels differ "
+                                     "from the plain path")
+            run["f32_greedy_tokens_equal_plain"] = True
+            run["f32_greedy_shape"] = list(got.shape)
+            del model
+            clear_memory()
+        runs[name] = run
+    log(f"  families: {json.dumps({k: {'step_ms': round(v['step_ms'], 2), 'items_per_s': round(v['items_per_s'], 1), 'launches_per_step': v['launches_per_step'], 'first_loss_rel_err': v['first_loss_rel_err'], 'f32_logits_rel_err': v['f32_logits_rel_err']} for k, v in runs.items()})}")
+    return runs
+
+
+def run_phase15(dev) -> dict:
+    """Phase 15: the model zoo on the card (see the module docstring)."""
+    from accelerate_tpu_torch.models.gpt_neox import GPTNeoXForCausalLM
+    from accelerate_tpu_torch.models.mixtral import MixtralForCausalLM
+
+    t0 = time.perf_counter()
+    seconds = {}
+    log_phase("phase 15a: Mixtral-8x7B's width (2 of 32 layers) — B1-B3 at 32/8 × 128 against "
+              "plain; the 5-line loop at b 4 × 1024, bf16 over f32 masters, remat")
+    cfg = mixtral_width()
+    gqa_errs = check_flash_vs_plain(dev, [
+        (P15_BATCH, P15_SEQ, 32, 8, 128, True, 0, torch.bfloat16),
+        (P15_BATCH, P15_SEQ, 32, 8, 128, True, 0, torch.float32),
+        (2, P15_SEQ, 32, 8, 128, True, 77, torch.bfloat16)])
+    gqa_times = time_flash_at(dev, P15_BATCH, P15_SEQ, 32, (128,), n_kv=8)
+    module = MixtralForCausalLM.from_config(cfg, seed=0, device=dev)
+    n_params = sum(p.numel() for p in module.parameters())
+    batch = _lm_batch(cfg.vocab_size, P15_BATCH, P15_SEQ, dev)
+    L = cfg.num_hidden_layers
+    tokens = P15_BATCH * P15_SEQ
+    mixtral = p15_train(module, batch, "Mixtral width", P15_WARMUP, P15_TIMED,
+                        {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}, tokens)
+    del module
+    clear_memory()
+    active = mixtral_active_params(cfg)
+    flops = 6.0 * active * tokens + 6.0 * L * tokens * P15_SEQ * cfg.hidden_size
+    mixtral.update({"n_params": n_params, "active_params": active, "train_flops_per_step": flops,
+                    "tokens_per_s": tokens / (mixtral["step_ms"] / 1e3),
+                    "mfu_active": flops / (mixtral["step_ms"] / 1e3) / BF16_FLOPS_PER_S})
+    # every einsum of the step is moe_ffn's dispatch and combine
+    einsum = mixtral["profiled_step"]["einsum_device_ms"]
+    if not (einsum["forward_ms"] > 0 and einsum["backward_ms"] > 0):
+        raise AssertionError(f"Mixtral width: the profiled step shows no einsum: {einsum}")
+    log(f"  Mixtral width: {n_params / 1e9:.3f} B parameters ({active / 1e9:.3f} B active a "
+        f"token); {mixtral['tokens_per_s']:.0f} tokens/s, MFU over active parameters "
+        f"{mixtral['mfu_active']:.4f} of 989 TFLOP/s (6 × active × tokens + 6 × L × tokens × s × "
+        f"h); the dispatch/combine einsums in the profiled step: {einsum['forward_ms']:.3f} ms "
+        f"forward and recompute, {einsum['backward_ms']:.3f} ms in their backward nodes = "
+        f"{mixtral['profiled_step']['einsum_share_of_device']:.1%} of the step's device time")
+    seconds["15a"] = time.perf_counter() - t0
+
+    log_phase("phase 15b: generate() at Mixtral's width — bf16 for time, f32 for equality")
+    gen = p15_generate(dev)
+    seconds["15b"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    log_phase("phase 15c: GPT-J-6B's width (2 of 28 layers) — B1-B3 at 16 × 256 against plain; "
+              "the 5-line loop at b 4 × 1024")
+    hd256_errs = check_flash_vs_plain(dev, [
+        (P15_BATCH, P15_SEQ, 16, 16, 256, True, 0, torch.bfloat16),
+        (2, P15_SEQ, 16, 16, 256, True, 77, torch.float32)])
+    hd256_times = time_flash_at(dev, P15_BATCH, P15_SEQ, 16, (256,))
+    gcfg = gptj_width()
+    module = GPTNeoXForCausalLM.from_config(gcfg, seed=0, device=dev)
+    gptj = p15_train(module, _lm_batch(gcfg.vocab_size, P15_BATCH, P15_SEQ, dev), "GPT-J width",
+                     P15_WARMUP, P15_TIMED, {k: gcfg.num_hidden_layers for k in FLASH_KERNELS},
+                     tokens)
+    gptj["tokens_per_s"] = tokens / (gptj["step_ms"] / 1e3)
+    del module
+    clear_memory()
+    seconds["15c"] = time.perf_counter() - t0 - sum(seconds.values())
+
+    log_phase("phase 15d: gpt2, opt-125m, pythia-1.4b, bert-base, vit-base-patch16-224, "
+              "resnet50d, t5-small at their published sizes — B1-B3 against plain at each "
+              "family's training shape and mask, then the families")
+    family_errs = check_flash_vs_plain(dev, p15_family_flash_cases())
+    families = p15_families(dev)
+    errs = {name: {} for name in FLASH_KERNELS}
+    for src in (gqa_errs, hd256_errs, family_errs):
+        for name, by_dtype in src["by_dtype"].items():
+            for key, err in by_dtype.items():
+                errs[name][key] = max(errs[name].get(key, 0.0), err)
+    seconds["15d"] = time.perf_counter() - t0 - sum(seconds.values())
+    seconds["total"] = time.perf_counter() - t0
+    log(f"  phase 15: {seconds['total']:.1f} s (15a {seconds['15a']:.1f}, 15b "
+        f"{seconds['15b']:.1f}, 15c {seconds['15c']:.1f}, 15d {seconds['15d']:.1f})")
+    return {"mixtral": mixtral, "generate": gen, "gptj": gptj, "families": families,
+            "flash_max_abs_err": errs, "seconds": seconds,
+            "flash_at_mixtral_gqa": {k: v["head_dim_128"] for k, v in gqa_times.items()},
+            "flash_at_gptj_hd256": {k: v["head_dim_256"] for k, v in hd256_times.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this run needs one GPU",
@@ -4333,8 +4862,13 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:2] == ["--ddp-loop"]:
         return ddp_loop_child(sys.argv[2])
-    # phases 1, 2 and 14 alone, for work on the precision policies: no verdict
-    phase14_only = sys.argv[1:2] == ["--phase14"]
+    # --phase N: phases 1, 2 and N alone, for work on that phase; no verdict
+    alone = None
+    if sys.argv[1:2] == ["--phase"]:
+        alone = {"14": run_phase14, "15": run_phase15}.get(sys.argv[2] if sys.argv[2:] else "")
+        if alone is None:
+            print("chip_smoke: --phase takes 14 or 15", file=sys.stderr)
+            return 2
     from accelerate_tpu_torch import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4379,10 +4913,9 @@ def main() -> int:
     b4 = ptxas["paged_attention.cu"][PAGED_TIMED[0]]
     if b4["spill_stores"] or b4["spill_loads"]:
         raise AssertionError(f"B4's bf16 hd-128 instance must build without spills: {b4}")
-    if phase14_only:
-        p14 = run_phase14(dev)
-        log(json.dumps({"phase14": p14, "card": smi}))
-        log(f"phase 14 alone: {time.perf_counter() - t_start:.1f} s; no verdict")
+    if alone is not None:
+        log(json.dumps({f"phase{sys.argv[2]}": alone(dev), "card": smi}))
+        log(f"phase {sys.argv[2]} alone: {time.perf_counter() - t_start:.1f} s; no verdict")
         return 0
 
     log_phase("phase 3: paged_attention kernel against its plain version")
@@ -4517,6 +5050,10 @@ def main() -> int:
     log(json.dumps({"ddp_loop": ddp, "card": smi}))
     p14 = run_phase14(dev)
     log(json.dumps({"phase14": p14, "card": smi}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    p15 = run_phase15(dev)
+    log(json.dumps({"phase15": p15, "card": smi}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "losses"},
                     "train_step_check": step_check, "tiny_train": tiny_train,
                     "tiny_train_head_dim_256": tiny_train_256,
@@ -4614,6 +5151,13 @@ def main() -> int:
             "at_narrow_heads": flash_narrow[name],
             "at_head_dim_256": flash_wide[name],
             "at_head_dim_512": flash_512[name],
+            # phase 15: the zoo's paths, each driven with the counters at 0
+            "launches_phase15": {"mixtral_width": p15["mixtral"]["launches"][name],
+                                 "gptj_width": p15["gptj"]["launches"][name],
+                                 **{f: r["launches"][name] for f, r in p15["families"].items()}},
+            "max_abs_err_phase15": p15["flash_max_abs_err"][name],
+            "at_mixtral_gqa": p15["flash_at_mixtral_gqa"][name],
+            "at_gptj_head_dim_256": p15["flash_at_gptj_hd256"][name],
         })
     log(json.dumps({"kernels": kernels, "build_s": build_s, "serve_wall_s": serve_run["wall_s"],
                     "total_s": time.perf_counter() - t_start, "card": smi}))
