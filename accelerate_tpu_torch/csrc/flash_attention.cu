@@ -24,8 +24,10 @@
 // dim to the next multiple of 8 and slices the outputs back). Up to 128
 // each family is built at the eight multiples of 16 (HD, hd rounded up to
 // 16; the columns between hd and HD load as zeros and are never stored);
-// from 136 to 256 every dtype takes the wide FMA instance at HD 256, and
-// past 256 its column-block instance (kCols). Pitches and stores use hd.
+// from 136 to 256 bf16 and f16 forward and dq take their tensor-core
+// instance at HD 256, and f32 (and every dk/dv) the wide FMA instance at HD
+// 256; past 256 every dtype takes the column-block FMA instance (kCols).
+// Pitches and stores use hd.
 // The optional key mask is [b, skv] bytes (1 = valid) and applies
 // where(valid, s, NEG_INF), equal to the JAX "s + bias" after rounding
 // because NEG_INF is the f32 minimum.
@@ -61,14 +63,14 @@
 //    no TF32, so they meet the JAX gates (2e-5) against the plain version:
 //    64-row tiles, 256 threads form a 16 x 16 grid over a 64 x 64 score
 //    tile, tiles staged as f32 with rows padded by one float; expf, logf.
-//  * Head dims past 128, f32, bf16 or f16 (C4b): the same FMA kernels with
-//    32-row tiles at HD 256 (a 64-row tile of 256 f32 columns is 64 KB, and
-//    dq's and dk/dv's four of them exceed the 227 KB of shared memory), bf16
-//    and f16 widened to f32 as they are staged and rounded where the TPU
-//    kernels round.
-//    A 64-row wgmma accumulator over 256 columns is 128 f32 registers a
-//    thread for O, and for each of dK and dV, which B3's budget cannot hold:
-//    a tensor-core kernel for these widths is later work (PERF.md §7).
+//  * Head dims 136-256, f32 at every kernel and bf16 / f16 dk/dv (C4b): the
+//    same FMA kernels with 32-row tiles at HD 256 (a 64-row tile of 256 f32
+//    columns is 64 KB, and dq's and dk/dv's four of them exceed the 227 KB
+//    of shared memory), bf16 and f16 widened to f32 as they are staged and
+//    rounded where the TPU kernels round. A 64-row wgmma accumulator over
+//    256 columns is 128 f32 registers a thread: B1's O and B2's dQ fit the
+//    255 a thread may have (below), but B3 keeps two, dK and dV, and needs
+//    another algorithm (PERF.md §7).
 //  * Head dims past 256, f32, bf16 or f16 (C4c): the wide kernels at kCols. The
 //    head dim is cut into column blocks of 256 and a block owns one column
 //    block of its output, folded into grid x. S = Q K^T (and dP = dO V^T)
@@ -82,13 +84,16 @@
 //  * bf16 and f16 forward (B1), dq (B2) and dk/dv (B3): wgmma fed by a ring
 //    of TMA copies with mbarriers, two warpgroups of products (section "bf16
 //    forward (B1), dq (B2) and dk/dv (B3) for Hopper"; each kernel is a
-//    template over the 16-bit type). B1 takes 128
-//    query rows a block, with a producer warp in a third
+//    template over the 16-bit type); B1 and B2 up to hd 256, B3 up to 128.
+//    B1 takes 128 query rows a block, with a producer warp in a third
 //    warpgroup, and streams K/V tiles of 128 keys through three stages, so
 //    the next tiles' loads overlap this tile's products; it applies the
 //    causal compare and the key mask only on the tiles that need them (the
 //    diagonal, the ragged edge, masked keys) and launches the heaviest
-//    causal query tiles first. B3 takes 128 keys a block, loads K and V
+//    causal query tiles first. At hd 136-256 it stages 256 columns in four
+//    64-column quarters, drops the producer warpgroup (warp 0 refills the
+//    ring, as in B2) and streams 64-key tiles through two stages; P V is
+//    one m64n256 wgmma a 16-key step. B3 takes 128 keys a block, loads K and V
 //    once and streams tiles of 64 query rows (Q, dO, lse, delta) through
 //    three stages; its four products per tile are wgmmas, P^T and dS^T never
 //    leave registers, and it masks only the diagonal and masked keys. B2
@@ -96,7 +101,9 @@
 //    tiles of 64 keys (with their mask bytes) through four stages; S and dP
 //    are SS wgmmas, dS stays in registers as the A operand of dS K against
 //    the same K tile read MN-major; it masks as B1 does and launches the
-//    heaviest causal query tiles first. exp is ex2.approx with
+//    heaviest causal query tiles first. At hd 136-256 its tiles are 32 keys
+//    through three stages (Q and dO take 128 KB), dS K one m64n256 wgmma a
+//    16-key step. exp is ex2.approx with
 //    scale * log2(e) folded in; lse stays a natural log.
 
 #include <algorithm>
@@ -633,14 +640,17 @@ __device__ __forceinline__ float quad_sum(float x) {
 //    dO of 128 query rows are loaded once, and tiles of 64 keys (K, V and
 //    the tile's mask bytes) stream through four stages. ptxas gives it
 //    160 registers a thread at hd 128 (the dQ accumulator is 64 of them).
+//  * At HDT 256 B1 takes B2's shape too, and both stream narrower key
+//    tiles (FwdTiling, DqTiling).
 //
 // Operand tiles live in shared memory exactly as TMA writes them with the
 // 128-byte swizzle: rows of 64 bf16 or f16 (128 bytes), a head of 128 split into
 // two such halves, each half 1024-byte aligned; a head dim up to 64 is staged
-// as one zero-padded half, one past 64 as two (staged_hd). A wgmma descriptor reads
+// as one zero-padded half, one past 64 as two, one past 128 as four
+// (staged_hd). A wgmma descriptor reads
 // them K-major (a 16-wide K step is 32 bytes into the row, walking across
-// the halves) or MN-major (a 16-row K step is 2048 bytes on, the second
-// half of the MN extent one half-tile on). Tensor maps are 4-D over
+// the halves) or MN-major (a 16-row K step is 2048 bytes on, each next 64
+// columns of the MN extent one half-tile on). Tensor maps are 4-D over
 // (hd, heads, s, b), so TMA's zero fill stops at each sequence's own end.
 //
 // Score accumulators stay in registers: the wgmma accumulator layout of a
@@ -653,16 +663,39 @@ constexpr int kWgThreads = 128;                  // one warpgroup
 constexpr int kFwdThreads = 3 * kWgThreads;      // two consumer warpgroups + the producer's
 constexpr int kSwizzleRow = 128;                 // bytes of a swizzled row: 64 bf16
 constexpr int kFwdRows = 128;                    // query rows of a forward block
-constexpr int kFwdTileKeys = 128;                // keys per forward tile (the plain forward's tile)
-constexpr int kFwdStages = 3;
+constexpr int kFwdTileKeys = 128;                // keys per forward tile to hd 128 (= the plain's)
+constexpr int kWideFwdTileKeys = 64;             // the same from hd 136 to 256
 constexpr int kDkvKeys = 128;                    // keys of a dk/dv block
 constexpr int kDkvQRows = 64;                    // query rows per dk/dv tile (the wgmma N)
 constexpr int kDkvStages = 3;
 constexpr int kDkvThreads = 2 * kWgThreads;      // two warpgroups, no producer warpgroup
 constexpr int kDqRows = 128;                     // query rows of a dq block
-constexpr int kDqTileKeys = 64;                  // keys per dq tile (the wgmma N of S and dP)
-constexpr int kDqStages = 4;
+constexpr int kDqTileKeys = 64;                  // keys per dq tile (S's, dP's wgmma N) to hd 128
+constexpr int kWideDqTileKeys = 32;              // the same from hd 136 to 256
 constexpr int kDqThreads = 2 * kWgThreads;       // two warpgroups, as B3
+constexpr int kSmemOptIn = 232448;               // the 227 KB a block may opt into
+
+// B1's and B2's key tiles at a staged width (HDT, below). Up to 128, B1
+// keeps a producer warpgroup and streams 128-key tiles through 3 stages; B2
+// streams 64-key tiles through 4. At 256 (head dims 136-256) a 64 x 256 f32
+// accumulator (O, dQ) is 128 registers a thread, past the 168 a 384-thread
+// block leaves (see below), so B1 takes B2's shape: two warpgroups, warp 0
+// refilling the ring, 64-key tiles through 2 stages (Q 64 KB, K and V 64 KB
+// a stage); B2 takes 32-key tiles through 3 (Q and dO 128 KB, K and V 32 KB
+// a stage).
+template <int HDT>
+struct FwdTiling {
+  static constexpr bool kStager = HDT == 256;  // warp 0 stages; no producer warpgroup
+  static constexpr int kKeys = HDT == 256 ? kWideFwdTileKeys : kFwdTileKeys;
+  static constexpr int kStages = HDT == 256 ? 2 : 3;
+  static constexpr int kThreads = kStager ? 2 * kWgThreads : kFwdThreads;
+};
+
+template <int HDT>
+struct DqTiling {
+  static constexpr int kKeys = HDT == 256 ? kWideDqTileKeys : kDqTileKeys;
+  static constexpr int kStages = HDT == 256 ? 3 : 4;
+};
 // B1's registers a thread after setmaxnreg: 128 x kProducerRegs + 256 x
 // kConsumerRegs is the pool of 384 threads at 168 each (the launch bound)
 constexpr int kProducerRegs = 24;
@@ -670,16 +703,20 @@ constexpr int kConsumerRegs = 240;
 constexpr int kLaunchRegs = 168;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// A head dim is staged as 64-column tiles (one for hd <= 64, two past it)
-// whose columns past the head dim are zero: the TMA box stays 64 columns
-// (one 128-byte swizzled row) over a global inner dimension of hd, and TMA
-// fills the elements past the tensor's edge with zeros (a second half of hd
-// 80 holds 16 real columns). Zero columns add nothing to Q K^T, dO V^T, dS K
-// or dS^T Q, so the hd-64 and hd-128 loops run as they are; the products
-// over the head dim take HD / 16 = ceil(hd / 16) K steps, and only the first
-// hd columns of O, dQ, dK and dV are stored. Heads narrower than the staged
-// width pay it in P V, dS K, P^T dO and dS^T Q (4x at hd 16, 1.6x at hd 80).
-__host__ __device__ constexpr int staged_hd(int hd) { return hd <= 64 ? 64 : 128; }
+// A head dim is staged as 64-column tiles (one for hd <= 64, two up to 128,
+// four up to 256: B1 and B2 only, B3 keeps its FMA kernel there) whose
+// columns past the head dim are zero: the TMA box stays 64 columns (one
+// 128-byte swizzled row) over a global inner dimension of hd, and TMA fills
+// the elements past the tensor's edge with zeros (a second half of hd 80
+// holds 16 real columns; at hd 136 the fourth quarter lies wholly past it).
+// Zero columns add nothing to Q K^T, dO V^T, dS K or dS^T Q, so the loops
+// run as they are; the products over the head dim take HD / 16 K steps, and
+// only the first hd columns of O, dQ, dK and dV are stored. Heads narrower
+// than the staged width pay it in P V, dS K, P^T dO and dS^T Q (4x at hd 16,
+// 1.6x at hd 80, 1.9x at hd 136).
+__host__ __device__ constexpr int staged_hd(int hd) {
+  return hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -854,6 +891,38 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
     WGMMA_SS_N64_ASM("f16");
 }
 
+#define WGMMA_SS_N32_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]) \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                             int accumulate) {
+  if constexpr (std::is_same_v<T, bf16>)
+    WGMMA_SS_N32_ASM("bf16");
+  else
+    WGMMA_SS_N32_ASM("f16");
+}
+
+// the ss wgmma of width N (128, 64 or 32): S and dP over a key tile of N keys
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  if constexpr (N == 128)
+    wgmma_ss_n128<T>(d, desc_a, desc_b, accumulate);
+  else if constexpr (N == 64)
+    wgmma_ss_n64<T>(d, desc_a, desc_b, accumulate);
+  else
+    wgmma_ss_n32<T>(d, desc_a, desc_b, accumulate);
+}
+
 #define WGMMA_RS_N128_ASM(TY) \
   asm volatile( \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
@@ -908,13 +977,62 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0, uint32
     WGMMA_RS_N64_ASM("f16");
 }
 
+#define WGMMA_RS_N256_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " {" \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, " \
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, " \
+      "%120, %121, %122, %123, %124, %125, %126, %127" \
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), \
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), \
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), \
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), \
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), \
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), \
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), \
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), \
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), \
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t desc_b) {
+  if constexpr (std::is_same_v<T, bf16>)
+    WGMMA_RS_N256_ASM("bf16");
+  else
+    WGMMA_RS_N256_ASM("f16");
+}
+
 // d (64 x HD) += A B over 16 K-rows: A is register fragment kk of `a`, B the
-// MN-major tile at `b_addr` (K-rows of 128 bytes, halves `half` bytes apart)
+// MN-major tile at `b_addr` (K-rows of 128 bytes, 64-column tiles `half`
+// bytes apart: two at HD 128, four at 256, one wgmma over all of them)
 template <typename T, int HD, int NA>
 __device__ __forceinline__ void wgmma_rs_hd(float (&d)[HD / 2], const uint32_t (&a)[NA], int kk,
                                             uint32_t b_addr, uint32_t half) {
   const uint64_t desc = smem_desc(b_addr, half, 1024);
-  if constexpr (HD == 128)
+  if constexpr (HD == 256)
+    wgmma_rs_n256<T>(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3], desc);
+  else if constexpr (HD == 128)
     wgmma_rs_n128<T>(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3], desc);
   else
     wgmma_rs_n64<T>(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3], desc);
@@ -930,24 +1048,50 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4 * KSTEPS], const float (&
   for (int i = 0; i < 4 * KSTEPS; ++i) a[i] = pack2<T>(s[2 * i], s[2 * i + 1]);
 }
 
+// Warp-wide: the mask bytes of keys t0 .. t0 + KEYS, KEYS / 32 a lane, into
+// dst (a key past skv reads as valid: the ragged edge is tested apart), and
+// whether any of them is masked.
+template <int KEYS>
+__device__ __forceinline__ int stage_mask(uint8_t* dst, const uint8_t* __restrict__ mask_b, int t0,
+                                          int skv, int lane) {
+  constexpr int kPer = KEYS / 32;
+  uint32_t word = 0;
+  bool all = true;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int key = t0 + kPer * lane + i;
+    const uint32_t mv = key < skv ? mask_b[key] : 1u;
+    word |= mv << (8 * i);
+    all = all && mv != 0;
+  }
+  if constexpr (kPer == 4)
+    reinterpret_cast<uint32_t*>(dst)[lane] = word;
+  else if constexpr (kPer == 2)
+    reinterpret_cast<uint16_t*>(dst)[lane] = static_cast<uint16_t>(word);
+  else
+    dst[lane] = static_cast<uint8_t>(word);
+  return !__all_sync(kFull, all);
+}
+
 template <int HD>
 struct FwdSmem {
+  using C = FwdTiling<HD>;
   static constexpr int kHalves = HD / 64;
   static constexpr uint32_t kQHalf = kFwdRows * kSwizzleRow;
-  static constexpr uint32_t kKVHalf = kFwdTileKeys * kSwizzleRow;
+  static constexpr uint32_t kKVHalf = C::kKeys * kSwizzleRow;
   static constexpr uint32_t kKVStage = kHalves * kKVHalf;
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kK = kQ + kHalves * kQHalf;
-  static constexpr uint32_t kV = kK + kFwdStages * kKVStage;
+  static constexpr uint32_t kV = kK + C::kStages * kKVStage;
   // barriers: Q, then K full, V full and empty for each stage
-  static constexpr uint32_t kBars = kV + kFwdStages * kKVStage;
-  static constexpr uint32_t kMask = kBars + (1 + 3 * kFwdStages) * 8;
-  static constexpr uint32_t kNeed = kMask + kFwdStages * kFwdTileKeys;
-  static constexpr uint32_t kBytes = kNeed + kFwdStages * 4 + 1024;  // + alignment slack
+  static constexpr uint32_t kBars = kV + C::kStages * kKVStage;
+  static constexpr uint32_t kMask = kBars + (1 + 3 * C::kStages) * 8;
+  static constexpr uint32_t kNeed = kMask + C::kStages * C::kKeys;
+  static constexpr uint32_t kBytes = kNeed + C::kStages * 4 + 1024;  // + alignment slack
 };
 
 template <int HD, typename T>
-__global__ void __launch_bounds__(kFwdThreads, 1)
+__global__ void __launch_bounds__(FwdTiling<staged_hd(HD)>::kThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
@@ -955,13 +1099,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        float* __restrict__ lse, int sq, int skv, int nh, int n_kv, int hd,
                        float scale, int causal) {
   constexpr int HDT = staged_hd(HD);
+  using C = FwdTiling<HDT>;
   using L = FwdSmem<HDT>;
+  constexpr int kKeys = C::kKeys, kStages = C::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // 128-byte swizzle: 1024-byte aligned tiles
   unsigned char* smem = smem_raw + (base - raw);
   const uint32_t bar_q = base + L::kBars;
-  const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * kFwdStages, bar_e = bar_v + 8 * kFwdStages;
+  const uint32_t bar_k = bar_q + 8, bar_v = bar_k + 8 * kStages, bar_e = bar_v + 8 * kStages;
   uint8_t* mask_s = smem + L::kMask;
   int* need_s = reinterpret_cast<int*>(smem + L::kNeed);
 
@@ -969,13 +1115,13 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kFwdRows, h = blockIdx.x, b = blockIdx.y;
   const int g = h / (nh / n_kv);
   const int kv_end = causal ? min(skv, q0 + kFwdRows) : skv;
-  const int n_tiles = (kv_end + kFwdTileKeys - 1) / kFwdTileKeys;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * skv;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < kFwdStages; ++s) {
-      mbar_init(bar_k + 8 * s, 32);  // the producer warp: mask bytes, then K's copies
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 32);  // the staging warp: mask bytes, then K's copies
       mbar_init(bar_v + 8 * s, 1);
       mbar_init(bar_e + 8 * s, 2 * kWgThreads);
     }
@@ -983,161 +1129,171 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / kWgThreads;
-  if (wg == 2) {
-    // producer: one warp issues the copies; the other three leave
-    regs_dec<kProducerRegs>();
-    if (threadIdx.x % kWgThreads >= 32) return;
-    const int lane = threadIdx.x % 32;
+  const CUtensorMap* k_tma = &k_map;
+  const CUtensorMap* v_tma = &v_map;
+  auto load_q = [&] {
+    mbar_expect_tx(bar_q, L::kHalves * L::kQHalf);
+    for (int hf = 0; hf < L::kHalves; ++hf)
+      tma_load_4d(base + L::kQ + hf * L::kQHalf, &q_map, 64 * hf, h, q0, b, bar_q);
+  };
+  // one warp: wait until tile j's stage is free, stage its mask bytes (and
+  // whether any key of it is masked) and start its K and V copies
+  auto stage_tile = [&](int j, int lane) {
+    const int s = j % kStages, t0 = j * kKeys;
+    mbar_wait(bar_e + 8 * s, ((j / kStages) & 1) ^ 1);
+    const int need =
+        mask_b == nullptr ? 0 : stage_mask<kKeys>(mask_s + s * kKeys, mask_b, t0, skv, lane);
     if (lane == 0) {
-      mbar_expect_tx(bar_q, L::kHalves * L::kQHalf);
+      need_s[s] = need;
+      mbar_expect_tx(bar_k + 8 * s, L::kKVStage);
       for (int hf = 0; hf < L::kHalves; ++hf)
-        tma_load_4d(base + L::kQ + hf * L::kQHalf, &q_map, 64 * hf, h, q0, b, bar_q);
+        tma_load_4d(base + L::kK + s * L::kKVStage + hf * L::kKVHalf, k_tma, 64 * hf, g, t0, b,
+                    bar_k + 8 * s);
+      mbar_expect_tx(bar_v + 8 * s, L::kKVStage);
+      for (int hf = 0; hf < L::kHalves; ++hf)
+        tma_load_4d(base + L::kV + s * L::kKVStage + hf * L::kKVHalf, v_tma, 64 * hf, g, t0, b,
+                    bar_v + 8 * s);
+    } else {
+      mbar_arrive(bar_k + 8 * s);
     }
-    for (int j = 0; j < n_tiles; ++j) {
-      const int s = j % kFwdStages, t0 = j * kFwdTileKeys;
-      mbar_wait(bar_e + 8 * s, ((j / kFwdStages) & 1) ^ 1);
-      int need = 0;
-      if (mask_b != nullptr) {  // this tile's mask bytes, and whether any key is masked
-        uint32_t word = 0;
-        bool all = true;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = t0 + 4 * lane + i;
-          const uint32_t mv = key < skv ? mask_b[key] : 1u;
-          word |= mv << (8 * i);
-          all = all && mv != 0;
-        }
-        reinterpret_cast<uint32_t*>(mask_s + s * kFwdTileKeys)[lane] = word;
-        need = !__all_sync(kFull, all);
-      }
-      if (lane == 0) {
-        need_s[s] = need;
-        mbar_expect_tx(bar_k + 8 * s, L::kKVStage);
-        for (int hf = 0; hf < L::kHalves; ++hf)
-          tma_load_4d(base + L::kK + s * L::kKVStage + hf * L::kKVHalf, &k_map, 64 * hf, g, t0, b,
-                      bar_k + 8 * s);
-        mbar_expect_tx(bar_v + 8 * s, L::kKVStage);
-        for (int hf = 0; hf < L::kHalves; ++hf)
-          tma_load_4d(base + L::kV + s * L::kKVStage + hf * L::kKVHalf, &v_map, 64 * hf, g, t0, b,
-                      bar_v + 8 * s);
-      } else {
-        mbar_arrive(bar_k + 8 * s);
-      }
+  };
+
+  const int wg = threadIdx.x / kWgThreads;
+  if constexpr (!C::kStager) {
+    if (wg == 2) {
+      // producer: one warp issues the copies; the other three leave
+      regs_dec<kProducerRegs>();
+      if (threadIdx.x % kWgThreads >= 32) return;
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) load_q();
+      for (int j = 0; j < n_tiles; ++j) stage_tile(j, lane);
+      return;
     }
-  } else {
     regs_inc<kConsumerRegs>();
-    const int tid = threadIdx.x % kWgThreads, warp = tid / 32, lane = tid % 32;
-    const int gr = lane >> 2, tg = lane & 3;
-    const int r0 = q0 + 64 * wg;  // this warpgroup's first query row
-    const int rows[2] = {r0 + 16 * warp + gr, r0 + 16 * warp + gr + 8};
-    const float c = scale * kLog2e;  // exp(scale * x) = 2^(c * x)
-    const uint32_t q_wg = base + L::kQ + 64 * wg * kSwizzleRow;
-    float acc[HDT / 2];
+  }
+  const int tid = threadIdx.x % kWgThreads, warp = tid / 32, lane = tid % 32;
+  // at HDT 256 warp 0 also keeps the ring filled: Q and the first tiles now,
+  // then at the top of each tile the stage that the previous tile used
+  const bool stager = C::kStager && threadIdx.x < 32;
+  if (stager) {
+    if (lane == 0) load_q();
+    for (int j = 0; j < kStages - 1 && j < n_tiles; ++j) stage_tile(j, lane);
+  }
+  const int gr = lane >> 2, tg = lane & 3;
+  const int r0 = q0 + 64 * wg;  // this warpgroup's first query row
+  const int rows[2] = {r0 + 16 * warp + gr, r0 + 16 * warp + gr + 8};
+  const float c = scale * kLog2e;  // exp(scale * x) = 2^(c * x)
+  const uint32_t q_wg = base + L::kQ + 64 * wg * kSwizzleRow;
+  float acc[HDT / 2];
 #pragma unroll
-    for (int i = 0; i < HDT / 2; ++i) acc[i] = 0.f;
-    // m is the running max of the raw scores Q K^T (NEG_INF while a row has
-    // seen no valid key); l the running sum of p
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-    mbar_wait(bar_q, 0);
+  for (int i = 0; i < HDT / 2; ++i) acc[i] = 0.f;
+  // m is the running max of the raw scores Q K^T (NEG_INF while a row has
+  // seen no valid key); l the running sum of p
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  mbar_wait(bar_q, 0);
 
-    for (int j = 0; j < n_tiles; ++j) {
-      const int s = j % kFwdStages, t0 = j * kFwdTileKeys;
-      const uint32_t phase = (j / kFwdStages) & 1;
-      const uint32_t k_s = base + L::kK + s * L::kKVStage, v_s = base + L::kV + s * L::kKVStage;
+  for (int j = 0; j < n_tiles; ++j) {
+    if (stager && j + kStages - 1 < n_tiles) stage_tile(j + kStages - 1, lane);
+    const int s = j % kStages, t0 = j * kKeys;
+    const uint32_t phase = (j / kStages) & 1;
+    const uint32_t k_s = base + L::kK + s * L::kKVStage, v_s = base + L::kV + s * L::kKVStage;
 
-      float sc[kFwdTileKeys / 2];  // S = Q K^T, 64 rows x 128 keys
-      mbar_wait(bar_k + 8 * s, phase);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const uint32_t off = (kk % 4) * 32;
-        wgmma_ss_n128<T>(sc, desc_kmajor(q_wg + (kk / 4) * L::kQHalf + off),
-                      desc_kmajor(k_s + (kk / 4) * L::kKVHalf + off), kk > 0);
+    float sc[kKeys / 2];  // S = Q K^T, 64 rows x kKeys keys
+    mbar_wait(bar_k + 8 * s, phase);
+    if constexpr (kKeys < kFwdRows) {
+      if (causal && t0 >= r0 + 64) {  // every key after every query row
+        mbar_arrive(bar_e + 8 * s);
+        continue;
       }
-      wgmma_commit();
-      wgmma_wait_all();
-      settle(sc);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss<T, kKeys>(sc, desc_kmajor(q_wg + (kk / 4) * L::kQHalf + off),
+                         desc_kmajor(k_s + (kk / 4) * L::kKVHalf + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    settle(sc);
 
-      // the causal compare and the key mask, only where a tile needs them
-      const bool need = need_s[s] != 0 || t0 + kFwdTileKeys > skv ||
-                        (causal && t0 + kFwdTileKeys - 1 > r0);
-      if (need) {
-        const uint8_t* mk = mask_s + s * kFwdTileKeys;
+    // the causal compare and the key mask, only where a tile needs them
+    const bool need = need_s[s] != 0 || t0 + kKeys > skv || (causal && t0 + kKeys - 1 > r0);
+    if (need) {
+      const uint8_t* mk = mask_s + s * kKeys;
 #pragma unroll
-        for (int i = 0; i < kFwdTileKeys / 2; ++i) {
-          const int col = 8 * (i >> 2) + 2 * tg + (i & 1), key = t0 + col;
-          const bool valid = key < skv && (!causal || rows[(i >> 1) & 1] >= key) &&
-                             (mask_b == nullptr || mk[col] != 0);
-          if (!valid) sc[i] = kNegInf;
-        }
+      for (int i = 0; i < kKeys / 2; ++i) {
+        const int col = 8 * (i >> 2) + 2 * tg + (i & 1), key = t0 + col;
+        const bool valid = key < skv && (!causal || rows[(i >> 1) & 1] >= key) &&
+                           (mask_b == nullptr || mk[col] != 0);
+        if (!valid) sc[i] = kNegInf;
       }
-
-      float mx[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < kFwdTileKeys / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-      float alpha[2], mc[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = quad_max(mx[r]);
-        alpha[r] = ex2((m[r] - mx[r]) * c);  // 0 when m was NEG_INF and mx is not
-        mc[r] = mx[r] * c;
-      }
-#pragma unroll
-      for (int i = 0; i < kFwdTileKeys / 2; ++i) {
-        const int r = (i >> 1) & 1;
-        // NEG_INF is finite: a row with no valid key yet takes p = 0
-        sc[i] = mx[r] == kNegInf ? 0.f : ex2(fmaf(sc[i], c, -mc[r]));
-        sum[r] += sc[i];
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l[r] = alpha[r] * l[r] + quad_sum(sum[r]);
-        m[r] = mx[r];
-      }
-#pragma unroll
-      for (int i = 0; i < HDT / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-
-      uint32_t pa[kFwdTileKeys / 4];  // P rounded to V's dtype
-      pack_a<T, kFwdTileKeys / 16>(pa, sc);
-      mbar_wait(bar_v + 8 * s, phase);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kFwdTileKeys / 16; ++kk)
-        wgmma_rs_hd<T, HDT>(acc, pa, kk, v_s + kk * 16 * kSwizzleRow, L::kKVHalf);
-      wgmma_commit();
-      wgmma_wait_all();
-      settle(acc);
-      settle(pa);
-      mbar_arrive(bar_e + 8 * s);
     }
 
-    // the store at hd == HD takes a compile-time pitch and no column test:
-    // with the runtime ones, hd 128 ran ~6% slower (the flagship shape,
-    // measured on the card)
-    const auto store_out = [&](auto exact) {
-      const int w = decltype(exact)::value ? HD : hd;
+    float mx[2] = {m[0], m[1]}, sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (rows[r] >= sq) continue;
-        const bool empty = l[r] == 0.f;
-        const float den = empty ? 1.f : l[r];
-        T* o_row = o + ((static_cast<int64_t>(b) * sq + rows[r]) * nh + h) * w;
+    for (int i = 0; i < kKeys / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2], mc[2];
 #pragma unroll
-        for (int c8 = 0; c8 < HD / 8; ++c8)
-          if (c8 < w / 8)
-            *reinterpret_cast<uint32_t*>(o_row + 8 * c8 + 2 * tg) =
-                pack2<T>(acc[4 * c8 + 2 * r] / den, acc[4 * c8 + 2 * r + 1] / den);
-        if (tg == 0)
-          lse[(static_cast<int64_t>(b) * nh + h) * sq + rows[r]] =
-              empty ? kNegInf : m[r] * scale + logf(den);
-      }
-    };
-    if (hd == HD)
-      store_out(std::true_type{});
-    else
-      store_out(std::false_type{});
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      alpha[r] = ex2((m[r] - mx[r]) * c);  // 0 when m was NEG_INF and mx is not
+      mc[r] = mx[r] * c;
+    }
+#pragma unroll
+    for (int i = 0; i < kKeys / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      // NEG_INF is finite: a row with no valid key yet takes p = 0
+      sc[i] = mx[r] == kNegInf ? 0.f : ex2(fmaf(sc[i], c, -mc[r]));
+      sum[r] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = alpha[r] * l[r] + quad_sum(sum[r]);
+      m[r] = mx[r];
+    }
+#pragma unroll
+    for (int i = 0; i < HDT / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    uint32_t pa[kKeys / 4];  // P rounded to V's dtype
+    pack_a<T, kKeys / 16>(pa, sc);
+    mbar_wait(bar_v + 8 * s, phase);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_rs_hd<T, HDT>(acc, pa, kk, v_s + kk * 16 * kSwizzleRow, L::kKVHalf);
+    wgmma_commit();
+    wgmma_wait_all();
+    settle(acc);
+    settle(pa);
+    mbar_arrive(bar_e + 8 * s);
   }
+
+  // the store at hd == HD takes a compile-time pitch and no column test:
+  // with the runtime ones, hd 128 ran ~6% slower (the flagship shape,
+  // measured on the card)
+  const auto store_out = [&](auto exact) {
+    const int w = decltype(exact)::value ? HD : hd;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= sq) continue;
+      const bool empty = l[r] == 0.f;
+      const float den = empty ? 1.f : l[r];
+      T* o_row = o + ((static_cast<int64_t>(b) * sq + rows[r]) * nh + h) * w;
+#pragma unroll
+      for (int c8 = 0; c8 < HD / 8; ++c8)
+        if (c8 < w / 8)
+          *reinterpret_cast<uint32_t*>(o_row + 8 * c8 + 2 * tg) =
+              pack2<T>(acc[4 * c8 + 2 * r] / den, acc[4 * c8 + 2 * r + 1] / den);
+      if (tg == 0)
+        lse[(static_cast<int64_t>(b) * nh + h) * sq + rows[r]] =
+            empty ? kNegInf : m[r] * scale + logf(den);
+    }
+  };
+  if (hd == HD)
+    store_out(std::true_type{});
+  else
+    store_out(std::false_type{});
 }
 
 template <int HD>
@@ -1331,20 +1487,21 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
 template <int HD>
 struct DqSmem {
+  using C = DqTiling<HD>;
   static constexpr int kHalves = HD / 64;
   static constexpr uint32_t kQHalf = kDqRows * kSwizzleRow;
   static constexpr uint32_t kQTile = kHalves * kQHalf;
-  static constexpr uint32_t kKVHalf = kDqTileKeys * kSwizzleRow;
+  static constexpr uint32_t kKVHalf = C::kKeys * kSwizzleRow;
   static constexpr uint32_t kKVTile = kHalves * kKVHalf;
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kDo = kQ + kQTile;
   // stage s: K at kK + 2 s kKVTile, V right after it
   static constexpr uint32_t kK = kDo + kQTile;
-  static constexpr uint32_t kMask = kK + kDqStages * 2 * kKVTile;
-  static constexpr uint32_t kNeed = kMask + kDqStages * kDqTileKeys;
-  // barriers: Q and dO, then full and empty for each stage
-  static constexpr uint32_t kBars = kNeed + kDqStages * 4;
-  static constexpr uint32_t kBytes = kBars + (1 + 2 * kDqStages) * 8 + 1024;
+  static constexpr uint32_t kMask = kK + C::kStages * 2 * kKVTile;
+  static constexpr uint32_t kNeed = kMask + C::kStages * C::kKeys;
+  // barriers (8-byte aligned): Q and dO, then full and empty for each stage
+  static constexpr uint32_t kBars = (kNeed + C::kStages * 4 + 7) / 8 * 8;
+  static constexpr uint32_t kBytes = kBars + (1 + 2 * C::kStages) * 8 + 1024;
 };
 
 template <int HD, typename T>
@@ -1358,12 +1515,13 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           int skv, int nh, int n_kv, int hd, float scale, int causal) {
   constexpr int HDT = staged_hd(HD);
   using L = DqSmem<HDT>;
+  constexpr int kKeys = DqTiling<HDT>::kKeys, kStages = DqTiling<HDT>::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
   const uint32_t bar_q = base + L::kBars;
-  const uint32_t bar_f = bar_q + 8, bar_e = bar_f + 8 * kDqStages;
+  const uint32_t bar_f = bar_q + 8, bar_e = bar_f + 8 * kStages;
   uint8_t* mask_s = smem + L::kMask;
   int* need_s = reinterpret_cast<int*>(smem + L::kNeed);
 
@@ -1371,12 +1529,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kDqRows, h = blockIdx.x, b = blockIdx.y;
   const int g = h / (nh / n_kv);
   const int kv_end = causal ? min(skv, q0 + kDqRows) : skv;
-  const int n_tiles = (kv_end + kDqTileKeys - 1) / kDqTileKeys;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
   const uint8_t* mask_b = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * skv;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < kDqStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_f + 8 * s, 32);  // warp 0: mask bytes, then K's and V's copies
       mbar_init(bar_e + 8 * s, kDqThreads);
     }
@@ -1392,22 +1550,10 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // warp 0: wait until tile jt's stage is free, stage its mask bytes (and
   // whether any key of it is masked) and start its K and V copies
   auto stage_tile = [&](int jt) {
-    const int s = jt % kDqStages, t0 = jt * kDqTileKeys;
-    mbar_wait(bar_e + 8 * s, ((jt / kDqStages) & 1) ^ 1);
-    int need = 0;
-    if (mask_b != nullptr) {
-      uint32_t word = 0;
-      bool all = true;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int key = t0 + 2 * lane + i;
-        const uint32_t mv = key < skv ? mask_b[key] : 1u;  // the ragged edge is tested apart
-        word |= mv << (8 * i);
-        all = all && mv != 0;
-      }
-      reinterpret_cast<uint16_t*>(mask_s + s * kDqTileKeys)[lane] = static_cast<uint16_t>(word);
-      need = !__all_sync(kFull, all);
-    }
+    const int s = jt % kStages, t0 = jt * kKeys;
+    mbar_wait(bar_e + 8 * s, ((jt / kStages) & 1) ^ 1);
+    const int need =
+        mask_b == nullptr ? 0 : stage_mask<kKeys>(mask_s + s * kKeys, mask_b, t0, skv, lane);
     if (lane == 0) {
       need_s[s] = need;
       const uint32_t k_s = base + L::kK + 2 * s * L::kKVTile;
@@ -1428,7 +1574,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         tma_load_4d(base + L::kDo + hf * L::kQHalf, &do_map, 64 * hf, h, q0, b, bar_q);
       }
     }
-    for (int jt = 0; jt < kDqStages - 1 && jt < n_tiles; ++jt) stage_tile(jt);
+    for (int jt = 0; jt < kStages - 1 && jt < n_tiles; ++jt) stage_tile(jt);
   }
 
   const int gr = lane >> 2, tg = lane & 3;
@@ -1457,27 +1603,27 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int j = 0; j < n_tiles; ++j) {
     // refill the stage that tile j - 1 used: warpgroup 0 may run at most
     // one tile ahead of warpgroup 1, warpgroup 1 as far ahead as the ring
-    if (stager && j + kDqStages - 1 < n_tiles) stage_tile(j + kDqStages - 1);
-    const int s = j % kDqStages, t0 = j * kDqTileKeys;
+    if (stager && j + kStages - 1 < n_tiles) stage_tile(j + kStages - 1);
+    const int s = j % kStages, t0 = j * kKeys;
     const uint32_t k_s = base + L::kK + 2 * s * L::kKVTile, v_s = k_s + L::kKVTile;
-    mbar_wait(bar_f + 8 * s, (j / kDqStages) & 1);
+    mbar_wait(bar_f + 8 * s, (j / kStages) & 1);
     if (causal && t0 >= r0 + 64) {  // every key after every query row
       mbar_arrive(bar_e + 8 * s);
       continue;
     }
-    float sc[kDqTileKeys / 2], dp[kDqTileKeys / 2];  // S = Q K^T, dP = dO V^T
+    float sc[kKeys / 2], dp[kKeys / 2];  // S = Q K^T, dP = dO V^T
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_n64<T>(sc, desc_kmajor(q_wg + (kk / 4) * L::kQHalf + off),
-                   desc_kmajor(k_s + (kk / 4) * L::kKVHalf + off), kk > 0);
+      wgmma_ss<T, kKeys>(sc, desc_kmajor(q_wg + (kk / 4) * L::kQHalf + off),
+                         desc_kmajor(k_s + (kk / 4) * L::kKVHalf + off), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_n64<T>(dp, desc_kmajor(do_wg + (kk / 4) * L::kQHalf + off),
-                   desc_kmajor(v_s + (kk / 4) * L::kKVHalf + off), kk > 0);
+      wgmma_ss<T, kKeys>(dp, desc_kmajor(do_wg + (kk / 4) * L::kQHalf + off),
+                         desc_kmajor(v_s + (kk / 4) * L::kKVHalf + off), kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -1486,11 +1632,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
     // the causal compare and the key mask only on the diagonal, the ragged
     // edge and tiles with a masked key
-    const bool need = need_s[s] != 0 || t0 + kDqTileKeys > skv ||
-                      (causal && t0 + kDqTileKeys - 1 > r0);
-    const uint8_t* mk = mask_s + s * kDqTileKeys;
+    const bool need = need_s[s] != 0 || t0 + kKeys > skv ||
+                      (causal && t0 + kKeys - 1 > r0);
+    const uint8_t* mk = mask_s + s * kKeys;
 #pragma unroll
-    for (int i = 0; i < kDqTileKeys / 2; ++i) {
+    for (int i = 0; i < kKeys / 2; ++i) {
       const int col = 8 * (i >> 2) + 2 * tg + (i & 1), r = (i >> 1) & 1, key = t0 + col;
       bool valid = live[r];
       if (need)
@@ -1499,11 +1645,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const float p = valid ? ex2(fmaf(sc[i], c, -lse2[r])) : 0.f;
       sc[i] = p * (dp[i] - dl[r]) * scale;  // dS
     }
-    uint32_t pd[kDqTileKeys / 4];
-    pack_a<T, kDqTileKeys / 16>(pd, sc);  // dS rounded to K's dtype
+    uint32_t pd[kKeys / 4];
+    pack_a<T, kKeys / 16>(pd, sc);  // dS rounded to K's dtype
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kDqTileKeys / 16; ++kk)  // dQ += dS K, K read MN-major
+    for (int kk = 0; kk < kKeys / 16; ++kk)  // dQ += dS K, K read MN-major
       wgmma_rs_hd<T, HDT>(acc, pd, kk, k_s + kk * 16 * kSwizzleRow, L::kKVHalf);
     wgmma_commit();
     wgmma_wait_all();
@@ -1538,7 +1684,7 @@ template <int HD, int BLK>
 constexpr int dkv_smem_bytes() {
   return (4 * BLK * (HD + 1) + 2 * BLK * (BLK + 1) + 2 * BLK) * 4;
 }
-static_assert(dkv_smem_bytes<kWideHD, kWideBlock>() <= 232448,
+static_assert(dkv_smem_bytes<kWideHD, kWideBlock>() <= kSmemOptIn,
               "the wide dk/dv kernel's tiles exceed the 227 KB a block may opt into");
 
 // Above 48 KB a kernel needs an opt-in for dynamic shared memory; once per
@@ -1678,23 +1824,32 @@ cudaError_t launch_fma_dkv(const void* q, const void* k, const void* v, const ui
   return cudaGetLastError();
 }
 
-// Up to hd 128: dtype 0 (f32) takes the FMA kernels, dtypes 1 (bf16) and 2
-// (f16) the tensor-core ones, one template instance a type (T)
+static_assert(FwdSmem<256>::kBytes <= kSmemOptIn && DqSmem<256>::kBytes <= kSmemOptIn,
+              "the 256-wide B1 or B2 tiles exceed the 227 KB a block may opt into");
+static_assert(FwdSmem<256>::kBars % 8 == 0 && DqSmem<256>::kBars % 8 == 0 &&
+                  FwdSmem<128>::kBars % 8 == 0 && DqSmem<128>::kBars % 8 == 0,
+              "mbarriers must be 8-byte aligned");
+
+// Up to hd 256: dtypes 1 (bf16) and 2 (f16) take the tensor-core kernels of
+// B1 and B2, one template instance a type (T); B3 up to hd 128
 template <int HD, typename T>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const uint8_t* m, void* o,
                           float* lse, const Shape& a, cudaStream_t stream) {
+  using C = FwdTiling<staged_hd(HD)>;
   static bool ready = false, pool = false;
   constexpr int bytes = FwdSmem<staged_hd(HD)>::kBytes;
   cudaError_t err;
   CUtensorMap q_map, k_map, v_map;
   if ((err = tma_map<T>(&q_map, q, a.hd, a.nh, a.sq, a.b, kFwdRows)) != cudaSuccess ||
-      (err = tma_map<T>(&k_map, k, a.hd, a.n_kv, a.skv, a.b, kFwdTileKeys)) != cudaSuccess ||
-      (err = tma_map<T>(&v_map, v, a.hd, a.n_kv, a.skv, a.b, kFwdTileKeys)) != cudaSuccess ||
-      (err = allow_smem(flash_fwd_wgmma_kernel<HD, T>, bytes, ready)) != cudaSuccess ||
-      (err = check_register_pool(flash_fwd_wgmma_kernel<HD, T>, pool)) != cudaSuccess)
+      (err = tma_map<T>(&k_map, k, a.hd, a.n_kv, a.skv, a.b, C::kKeys)) != cudaSuccess ||
+      (err = tma_map<T>(&v_map, v, a.hd, a.n_kv, a.skv, a.b, C::kKeys)) != cudaSuccess ||
+      (err = allow_smem(flash_fwd_wgmma_kernel<HD, T>, bytes, ready)) != cudaSuccess)
     return err;
+  // only the producer warpgroup's shape moves registers with setmaxnreg
+  if constexpr (!C::kStager)
+    if ((err = check_register_pool(flash_fwd_wgmma_kernel<HD, T>, pool)) != cudaSuccess) return err;
   const dim3 grid(a.nh, a.b, (a.sq + kFwdRows - 1) / kFwdRows);
-  flash_fwd_wgmma_kernel<HD, T><<<grid, kFwdThreads, bytes, stream>>>(
+  flash_fwd_wgmma_kernel<HD, T><<<grid, C::kThreads, bytes, stream>>>(
       q_map, k_map, v_map, m, static_cast<T*>(o), lse, a.sq, a.skv, a.nh, a.n_kv, a.hd, a.scale,
       a.causal);
   return cudaGetLastError();
@@ -1710,8 +1865,10 @@ cudaError_t launch_dq_tc(const void* q, const void* k, const void* v, const uint
   CUtensorMap q_map, k_map, v_map, do_map;
   if ((err = tma_map<T>(&q_map, q, a.hd, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
       (err = tma_map<T>(&do_map, dout, a.hd, a.nh, a.sq, a.b, kDqRows)) != cudaSuccess ||
-      (err = tma_map<T>(&k_map, k, a.hd, a.n_kv, a.skv, a.b, kDqTileKeys)) != cudaSuccess ||
-      (err = tma_map<T>(&v_map, v, a.hd, a.n_kv, a.skv, a.b, kDqTileKeys)) != cudaSuccess ||
+      (err = tma_map<T>(&k_map, k, a.hd, a.n_kv, a.skv, a.b, DqTiling<staged_hd(HD)>::kKeys)) !=
+          cudaSuccess ||
+      (err = tma_map<T>(&v_map, v, a.hd, a.n_kv, a.skv, a.b, DqTiling<staged_hd(HD)>::kKeys)) !=
+          cudaSuccess ||
       (err = allow_smem(flash_bwd_dq_wgmma_kernel<HD, T>, bytes, ready)) != cudaSuccess)
     return err;
   const dim3 grid(a.nh, a.b, (a.sq + kDqRows - 1) / kDqRows);
@@ -1815,7 +1972,7 @@ bool valid_shape(const Shape& a, int dtype) {
 
 // fn(std::integral_constant<int, HD>) with HD = hd rounded up to 16: one
 // instance of every kernel at each multiple of 16 from 16 to 128 (a head
-// dim past 128 takes the wide FMA kernels instead, before this)
+// dim past 128 is dispatched before this)
 template <typename Fn>
 cudaError_t by_head_dim(int hd, Fn&& fn) {
   switch ((hd + 15) / 16) {
@@ -1846,40 +2003,49 @@ template <int HD>
 cudaError_t wgmma_blocks_per_sm(int which, int* blocks) {
   switch (which) {
     case 0:
-      return occupancy(flash_fwd_wgmma_kernel<HD, bf16>, kFwdThreads, FwdSmem<staged_hd(HD)>::kBytes,
-                       blocks);
+      return occupancy(flash_fwd_wgmma_kernel<HD, bf16>, FwdTiling<staged_hd(HD)>::kThreads,
+                       FwdSmem<staged_hd(HD)>::kBytes, blocks);
     case 1:
-      return occupancy(flash_bwd_dq_wgmma_kernel<HD, bf16>, kDqThreads, DqSmem<staged_hd(HD)>::kBytes,
-                       blocks);
-    case 2:
-      return occupancy(flash_bwd_dkv_wgmma_kernel<HD, bf16>, kDkvThreads,
-                       DkvSmem<staged_hd(HD)>::kBytes, blocks);
-    default: return cudaErrorInvalidValue;
+      return occupancy(flash_bwd_dq_wgmma_kernel<HD, bf16>, kDqThreads,
+                       DqSmem<staged_hd(HD)>::kBytes, blocks);
+    case 2:  // B3 has no tensor-core instance past hd 128
+      if constexpr (staged_hd(HD) <= 128)
+        return occupancy(flash_bwd_dkv_wgmma_kernel<HD, bf16>, kDkvThreads,
+                         DkvSmem<staged_hd(HD)>::kBytes, blocks);
+      break;
   }
+  return cudaErrorInvalidValue;
 }
 
+// the FMA kernels past hd 256 (kCols), and B3's at 136-256
 template <bool kCols>
 cudaError_t wide_blocks_per_sm(int which, int* blocks) {
   switch (which) {
     case 0:
-      return occupancy(flash_fwd_kernel<kWideHD, kWideBlock, bf16, kCols>, kThreads,
-                       fwd_smem_bytes<kWideHD, kWideBlock>(), blocks);
+      if constexpr (kCols)
+        return occupancy(flash_fwd_kernel<kWideHD, kWideBlock, bf16, kCols>, kThreads,
+                         fwd_smem_bytes<kWideHD, kWideBlock>(), blocks);
+      break;
     case 1:
-      return occupancy(flash_bwd_dq_kernel<kWideHD, kWideBlock, bf16, kCols>, kThreads,
-                       dq_smem_bytes<kWideHD, kWideBlock>(), blocks);
+      if constexpr (kCols)
+        return occupancy(flash_bwd_dq_kernel<kWideHD, kWideBlock, bf16, kCols>, kThreads,
+                         dq_smem_bytes<kWideHD, kWideBlock>(), blocks);
+      break;
     case 2:
       return occupancy(flash_bwd_dkv_kernel<kWideHD, kWideBlock, bf16, kCols>, kThreads,
                        dkv_smem_bytes<kWideHD, kWideBlock>(), blocks);
-    default: return cudaErrorInvalidValue;
   }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype codes shared with the Python wrapper: 0 = f32, 1 = bf16, 2 = f16 (q,
 // k, v, o, dO and the gradients all share it). mask is null or [b, skv]
-// bytes. Past hd 128 every dtype takes the wide FMA instance of its type
-// (past 256 its column-block instance).
+// bytes. From hd 136 to 256, bf16 and f16 forward and dq take their
+// tensor-core instance at HD 256, and f32 (and every dk/dv) the wide FMA
+// instance of its type; past 256 every dtype takes the column-block FMA
+// instance.
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
                                    void* o, void* lse, int b, int sq, int skv, int nh, int n_kv,
@@ -1893,8 +2059,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (hd > 128)
     return by_dtype(dtype, [&](auto tag) {
       using T = typename decltype(tag)::type;
-      return hd > kWideHD ? launch_fma_fwd<kWideHD, kWideBlock, T, true>(q, k, v, m, o, l, a, st)
-                          : launch_fma_fwd<kWideHD, kWideBlock, T>(q, k, v, m, o, l, a, st);
+      if (hd > kWideHD)
+        return launch_fma_fwd<kWideHD, kWideBlock, T, true>(q, k, v, m, o, l, a, st);
+      if constexpr (std::is_same_v<T, float>)
+        return launch_fma_fwd<kWideHD, kWideBlock, T>(q, k, v, m, o, l, a, st);
+      else
+        return launch_fwd_tc<kWideHD, T>(q, k, v, m, o, l, a, st);
     });
   return by_head_dim(hd, [&](auto c) {
     return launch_fwd<decltype(c)::value>(q, k, v, m, o, l, a, dtype, st);
@@ -1916,9 +2086,12 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
   if (hd > 128)
     return by_dtype(dtype, [&](auto tag) {
       using T = typename decltype(tag)::type;
-      return hd > kWideHD
-                 ? launch_fma_dq<kWideHD, kWideBlock, T, true>(q, k, v, m, dout, l, d, dq, a, st)
-                 : launch_fma_dq<kWideHD, kWideBlock, T>(q, k, v, m, dout, l, d, dq, a, st);
+      if (hd > kWideHD)
+        return launch_fma_dq<kWideHD, kWideBlock, T, true>(q, k, v, m, dout, l, d, dq, a, st);
+      if constexpr (std::is_same_v<T, float>)
+        return launch_fma_dq<kWideHD, kWideBlock, T>(q, k, v, m, dout, l, d, dq, a, st);
+      else
+        return launch_dq_tc<kWideHD, T>(q, k, v, m, dout, l, d, dq, a, st);
     });
   return by_head_dim(hd, [&](auto c) {
     return launch_dq<decltype(c)::value>(q, k, v, m, dout, l, d, dq, a, dtype, st);
@@ -1952,13 +2125,16 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
 
 // Resident blocks an SM holds of the bf16 kernel `which` (0 forward, 1 dq,
 // 2 dk/dv) at head dim hd, with the threads and shared memory it launches
-// with: a wgmma kernel up to hd 128, a wide FMA kernel past it (the
-// column-block instance past 256).
+// with: a wgmma kernel up to hd 128, and for the forward and dq up to 256;
+// dk/dv's wide FMA kernel from 136 to 256; the column-block FMA instances
+// past 256.
 extern "C" int flash_attention_blocks_per_sm(int which, int hd, int* blocks) {
   (void)cudaGetLastError();
   if (!valid_head_dim(hd)) return cudaErrorInvalidValue;
   if (hd > kWideHD) return wide_blocks_per_sm<true>(which, blocks);
-  if (hd > 128) return wide_blocks_per_sm<false>(which, blocks);
+  if (hd > 128)
+    return which == 2 ? wide_blocks_per_sm<false>(which, blocks)
+                      : wgmma_blocks_per_sm<kWideHD>(which, blocks);
   return by_head_dim(hd, [&](auto c) {
     return wgmma_blocks_per_sm<decltype(c)::value>(which, blocks);
   });

@@ -10,11 +10,12 @@ backward is :func:`flash_bwd`:
 * the **CUDA kernels** ``csrc/flash_attention.cu`` (hand-written for
   ``sm_90a``): ``flash_fwd_*`` replaces the TPU kernel ``_fwd_kernel``,
   ``flash_bwd_dq_*`` ``_bwd_dq_kernel`` and ``flash_bwd_dkv_*``
-  ``_bwd_dkv_kernel``; bf16 and f16 inputs up to head dim 128 run their
-  products on the tensor cores (``wgmma`` fed by a TMA ring), f32 inputs
-  and every head dim past 128 on the FMA units (no TF32; past 256 in
-  column blocks of 256). Taken for CUDA tensors,
-  and only the kernels: a build or launch failure raises;
+  ``_bwd_dkv_kernel``; bf16 and f16 inputs run their products on the
+  tensor cores (``wgmma`` fed by a TMA ring): the forward and dq up to head
+  dim 256, dk/dv up to 128. f32 inputs, dk/dv from 136 to 256 and every
+  kernel past 256 run on the FMA units (no TF32; past 256 in column blocks
+  of 256). Taken for CUDA tensors, and only the kernels: a build or launch
+  failure raises;
 * the **plain** PyTorch versions :func:`_flash_fwd_plain` and
   :func:`_flash_bwd_plain` — the kernels' math as a loop over key tiles,
   with the same masking and rounding points. Taken for CPU tensors, and by
@@ -65,8 +66,11 @@ def takes_head_dim(hd: int) -> bool:
     """True for a head dim the CUDA kernels take (:data:`HEAD_DIM_RULE`)."""
     return hd >= 1
 
-#: key tile of the plain forward: the bf16 forward kernel's (``kFwdTileKeys``
-#: in ``csrc/flash_attention.cu``), where P is rounded at each tile's running max
+#: key tile of the plain forward: the bf16 forward kernel's up to head dim 128
+#: (``kFwdTileKeys`` in ``csrc/flash_attention.cu``), where P is rounded at
+#: each tile's running max. Past 128 the kernels' tiles are narrower (64 keys
+#: on the tensor cores, 32 on the FMA units): P's rounding points move by an
+#: ulp in a few entries, well inside the gates ``chip_smoke.py`` holds them to
 _FWD_TILE = 128
 #: key tile of the plain backward (P comes from lse there, so the tile does not
 #: change its rounding)

@@ -16,8 +16,9 @@ failure, so the script exits non-zero and prints no result):
    and combine kernels), and the blocks a SM holds of the bf16 flash kernels
    and of the paged kernels' timed instances (with the split kernel's
    dynamic shared memory), from the CUDA runtime's occupancy calculator on
-   the card (B1-B3's wide FMA instances and B4's hd-256 instances too).
-   Fails if a wgmma flash kernel or B4's bf16 hd-128 split instance spills;
+   the card (B1-B3's instances at hd 256 and 512 and B4's hd-256 instances
+   too). Fails if a wgmma flash kernel (B1-B3 up to hd 128, B1 and B2 at
+   256) or B4's bf16 hd-128 split instance spills;
 3. the paged-attention kernel against its plain PyTorch version on the
    card: decode (s=1) and prefill-chunk (s=32) queries, hd=128, bs=16, MHA
    12/12 and GQA 32/8, ``idx`` on and beside block edges, f32 / bf16 /
@@ -208,7 +209,9 @@ failure, so the script exits non-zero and prints no result):
    counted on the real head dim;
 8c. C4b: a tiny llama with four 256-wide heads (hidden 1024) trained the
    same way (finite, falling loss, each kernel once a layer a step); B1-B3
-   at hd 256 (b 8, s 1024, 8 heads, bf16, causal) timed as in 8b;
+   at hd 256 (b 8, s 1024, 8 heads, bf16, causal) timed as in 8b (B1 and
+   B2 on their 256-wide wgmma instances, B3 on its wide FMA one; their
+   registers, spills and blocks a SM in the kernels line);
 8d. C4c: B1-B3 at head dims 264, 300 and 512 (column blocks of 256) at
    s = 129, at 1000 left-padded and at 200 not causal, f32 and bf16, under
    phase 8's gates and launched twice; a tiny llama with two 512-wide heads
@@ -314,7 +317,14 @@ failure, so the script exits non-zero and prints no result):
     difference), f32 (``capacity_factor`` 8: no drops) cached with the
     kernels = plain = full-forward. 15c: GPT-J-6B's width (16 × 256, ff
     16384, vocab 50400) cut to 2 of 28 layers: B1-B3 against plain at hd
-    256 and timed there, the loop at b 4 × 1024 with its profiled share.
+    256 (f32 left-padded), and B1 and B2's 256-wide wgmma instances (bf16
+    and f16 at hd 136, 200 and 256: GQA 8/2, s = 129, 1000 left-padded,
+    200 causal and not with a left pad of 130, and GPT-J's shape; the
+    gates of phases 8 and 14a, launched twice); the instance each of B1-B3
+    launched at hd 128, 136, 200, 256 (bf16, f16, f32) and 512, read from
+    the profiler's kernel names (B1 and B2 in bf16 and f16 on wgmma up to
+    256; f32, 512 and B3 past 128 on the FMA kernels); B1-B3 timed at
+    GPT-J's shape; the loop at b 4 × 1024 with its profiled share.
     15d: gpt2, opt-125m, pythia-1.4b, bert-base (a key mask that pads every
     other row on the right), vit-base-patch16-224 (s 197), resnet50d and
     t5-small at their published sizes: B1-B3 against their plain versions
@@ -399,6 +409,7 @@ def ptxas_report(log: str) -> dict:
 
 #: the head dims B1-B3 are built at (a head dim runs at the first that holds it)
 FLASH_BUILT_HDS = (16, 32, 48, 64, 80, 96, 112, 128)
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 #: B4's instances at the timed decode shape (hd 128, bf16 queries and pool)
 PAGED_TIMED = ("paged_attention_kernel<128, __nv_bfloat16, __nv_bfloat16, false, false>",
                "combine_splits_kernel<128, __nv_bfloat16, false>")
@@ -408,18 +419,41 @@ PAGED_WIDE = ("paged_attention_kernel<256, __nv_bfloat16, __nv_bfloat16, false, 
 #: B4's column-block instances past head dim 256 (C4c), bf16 queries and pool
 PAGED_COLS = ("paged_attention_kernel<256, __nv_bfloat16, __nv_bfloat16, false, true>",
               "combine_splits_kernel<256, __nv_bfloat16, true>")
-#: B1-B3's bf16 instances past head dim 128 (C4b): the wide FMA kernels
-FLASH_WIDE = tuple(f"{name}_kernel<256, 32, __nv_bfloat16, false>" for name in
-                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+#: the C++ names of the kernels' storage types, by dtype name
+FLASH_TYPE_NAMES = {"f32": "float", "bf16": "__nv_bfloat16", "f16": "__half"}
+
+
+def flash_instances(hd: int, dtype: str) -> dict:
+    """``{"flash_fwd": "kernel<args>", ...}``: the instance each of B1-B3
+    launches at head dim ``hd`` (a multiple of 8) in ``dtype`` ("f32",
+    "bf16" or "f16"), by the dispatch of ``csrc/flash_attention.cu``. Up to
+    128 f32 takes the FMA kernels and bf16 / f16 the wgmma ones, at hd
+    rounded up to 16; from 136 to 256 bf16 and f16 B1 and B2 take their
+    wgmma instance at 256 and everything else the wide FMA instance; past
+    256 every dtype takes the column-block FMA instance."""
+    t = FLASH_TYPE_NAMES[dtype]
+    if hd > 256:
+        return {n: f"{n}_kernel<256, 32, {t}, true>" for n in FLASH_KERNELS}
+    if hd > 128:
+        return {n: f"{n}_wgmma_kernel<256, {t}>" if dtype != "f32" and n != "flash_bwd_dkv"
+                else f"{n}_kernel<256, 32, {t}, false>" for n in FLASH_KERNELS}
+    width = -(-hd // 16) * 16
+    if dtype == "f32":
+        return {n: f"{n}_kernel<{width}, 64, float, false>" for n in FLASH_KERNELS}
+    return {n: f"{n}_wgmma_kernel<{width}, {t}>" for n in FLASH_KERNELS}
+
+
+#: B1-B3's bf16 instances from head dim 136 to 256: B1 and B2 on the tensor
+#: cores at a 256-wide staging, B3 on its wide FMA kernel (C4b)
+FLASH_WIDE = tuple(flash_instances(256, "bf16").values())
 #: and past 256 (C4c): their column-block instances
-FLASH_COLS = tuple(f"{name}_kernel<256, 32, __nv_bfloat16, true>" for name in
-                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+FLASH_COLS = tuple(flash_instances(512, "bf16").values())
 
 
 def occupancy_report() -> tuple[dict, dict]:
     """``({"kernel<args>": blocks}, {"kernel<args>": bytes})``: resident
-    blocks an SM holds of each bf16 flash kernel (the wide FMA instances at
-    hd 256 too) and of B4's instances at hd 128 and 256, from the CUDA
+    blocks an SM holds of each bf16 flash kernel (the instances that run at
+    hd 256 and 512 too) and of B4's instances at hd 128 and 256, from the CUDA
     runtime's occupancy calculator on this card, for the threads and shared
     memory each is launched with; and the dynamic shared memory of B4's
     split kernels at the decode shape."""
@@ -3092,8 +3126,6 @@ def run_fleet_slo(device: str = "cuda") -> dict:
 
 # -- phase 8 ----------------------------------------------------------------
 
-FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-
 
 def _flash_counts() -> dict:
     from accelerate_tpu_torch.ops import flash_attention as fa
@@ -3146,7 +3178,8 @@ def _flash_cases():
 
 def c4b_flash_cases():
     """C4b: head dims 20 and 36 (handed to the kernels zero-padded to 24
-    and 40) and 256 (the wide FMA instances), f32 and bf16 (launched
+    and 40) and 256 (in bf16 B1 and B2's 256-wide wgmma instances, B3's
+    wide FMA one; in f32 the wide FMA instances), f32 and bf16 (launched
     twice)."""
     return [
         (2, s, nh, n_kv, hd, causal, pad, dtype)
@@ -3154,6 +3187,73 @@ def c4b_flash_cases():
         for dtype in (torch.float32, torch.bfloat16)
         for s, causal, pad in ((129, True, 0), (1000, True, 77), (200, False, 0))
     ]
+
+
+def wide_tc_flash_cases():
+    """B1 and B2's 256-wide tensor-core instances (bf16 and f16 at head dims
+    136-256; B3 runs beside them on its wide FMA kernel): hd 136 and 200
+    (120 and 56 of the 256 staged columns past hd; 200 not a multiple of
+    16) and 256, GQA 8/2, at s = 129 (one row past a 128-row query tile), at 1000
+    left-padded by 77 (fully masked query rows; a multiple of neither the
+    32- nor the 64-key tile), at 200 causal with a left pad of 130 (query
+    tile 0 fully masked) and at 200 not causal with the same pad (masked
+    keys inside key tiles off the diagonal); then GPT-J-6B's training shape
+    (b 4, s 1024, 16 × 256) in both dtypes. Launched twice each."""
+    return [
+        (2, s, 8, 2, hd, causal, pad, dtype)
+        for hd in (136, 200, 256)
+        for dtype in (torch.bfloat16, torch.float16)
+        for s, causal, pad in ((129, True, 0), (1000, True, 77), (200, True, 130),
+                               (200, False, 130))
+    ] + [(P15_BATCH, P15_SEQ, 16, 16, 256, True, 0, dtype)
+         for dtype in (torch.bfloat16, torch.float16)]
+
+
+#: phase 15c: the (head dim, dtype) pairs whose B1-B3 instances are read
+#: from the profiler: the flagship's width, the 256-wide tensor-core
+#: instances (hd 136, 200 and 256 in bf16 and f16), the wide FMA ones (f32
+#: at 256) and the column blocks (512)
+FLASH_INSTANCE_CASES = ((128, "bf16"), (136, "bf16"), (200, "f16"), (256, "bf16"), (256, "f16"),
+                        (256, "f32"), (512, "bf16"))
+
+
+def check_flash_instances(dev) -> dict:
+    """``{"head_dim_<hd>_<dtype>": {"flash_fwd": "kernel<args>", ...}}``: the
+    B1-B3 instances that one forward and backward through
+    ``flash_attention`` (b 1, s 256, 4 query and 2 kv heads, causal)
+    launched at each of :data:`FLASH_INSTANCE_CASES`, read from the
+    profiler's kernel names. Fails unless they are exactly
+    :func:`flash_instances`: bf16 and f16 B1 and B2 on their wgmma
+    instances up to hd 256, f32, hd 512 and B3 past 128 on the FMA ones."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    dtypes = {name: dt for dt, name in FLASH_DTYPE_NAMES.items()}
+    rng = np.random.default_rng(151)
+    out = {}
+    for hd, name in FLASH_INSTANCE_CASES:
+        q, k, v, do, _ = _flash_inputs(rng, 1, 256, 4, 2, hd, 0, dtypes[name], dev)
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+
+        def fwd_bwd(i):
+            fa.flash_attention(q, k, v, causal=True, impl="cuda").backward(do)
+
+        want = flash_instances(hd, name)
+        # a window can miss a row (the first launch in it, seen on the card):
+        # one that lacks an expected instance is taken again, while a wrong
+        # instance shows in every window and fails
+        for _ in range(PROFILER_TRIES):
+            seen = {key for key in (kernel_key(e.key) for e in _profiled_rows(fwd_bwd, 3))
+                    if key and key.startswith("flash_")}
+            if seen == set(want.values()):
+                break
+        log(f"  hd {hd} {name}: {sorted(seen)}")
+        if seen != set(want.values()):
+            raise AssertionError(f"B1-B3 at hd {hd} {name} launched {sorted(seen)}, "
+                                 f"{sorted(want.values())} expected")
+        out[f"head_dim_{hd}_{name}"] = want
+        del q, k, v, do
+    torch.cuda.empty_cache()
+    return out
 
 
 def c4c_flash_cases():
@@ -4818,11 +4918,12 @@ def run_phase15(dev) -> dict:
     gen = p15_generate(dev)
     seconds["15b"] = time.perf_counter() - t0 - sum(seconds.values())
 
-    log_phase("phase 15c: GPT-J-6B's width (2 of 28 layers) — B1-B3 at 16 × 256 against plain; "
-              "the 5-line loop at b 4 × 1024")
+    log_phase("phase 15c: GPT-J-6B's width (2 of 28 layers) — B1-B3 at 16 × 256 and B1 and B2's "
+              "256-wide wgmma instances (hd 136-256, bf16 and f16) against plain; the instances "
+              "each width and dtype launches; B1-B3 timed; the 5-line loop at b 4 × 1024")
     hd256_errs = check_flash_vs_plain(dev, [
-        (P15_BATCH, P15_SEQ, 16, 16, 256, True, 0, torch.bfloat16),
-        (2, P15_SEQ, 16, 16, 256, True, 77, torch.float32)])
+        (2, P15_SEQ, 16, 16, 256, True, 77, torch.float32)] + wide_tc_flash_cases())
+    instances = check_flash_instances(dev)
     hd256_times = time_flash_at(dev, P15_BATCH, P15_SEQ, 16, (256,))
     gcfg = gptj_width()
     module = GPTNeoXForCausalLM.from_config(gcfg, seed=0, device=dev)
@@ -4851,7 +4952,8 @@ def run_phase15(dev) -> dict:
     return {"mixtral": mixtral, "generate": gen, "gptj": gptj, "families": families,
             "flash_max_abs_err": errs, "seconds": seconds,
             "flash_at_mixtral_gqa": {k: v["head_dim_128"] for k, v in gqa_times.items()},
-            "flash_at_gptj_hd256": {k: v["head_dim_256"] for k, v in hd256_times.items()}}
+            "flash_at_gptj_hd256": {k: v["head_dim_256"] for k, v in hd256_times.items()},
+            "flash_instances": instances}
 
 
 def main() -> int:
@@ -4904,11 +5006,12 @@ def main() -> int:
             + (f", blocks a SM {rep['blocks_per_sm']}" if "blocks_per_sm" in rep else ""))
     flash_ptxas = ptxas["flash_attention.cu"]
     wgmma = {k: v for k, v in flash_ptxas.items() if "_wgmma_kernel<" in k}
-    # bf16 and f16 (fp16 training) instances of each
-    if len(wgmma) != 3 * 2 * len(FLASH_BUILT_HDS) or any(v["spill_stores"] or v["spill_loads"]
-                                                          for v in wgmma.values()):
-        raise AssertionError(f"the wgmma flash kernels (3 at each of {FLASH_BUILT_HDS}, bf16 "
-                             "and f16) must "
+    # bf16 and f16 (fp16 training) instances of each up to hd 128, and of B1
+    # and B2 at 256
+    if len(wgmma) != 3 * 2 * len(FLASH_BUILT_HDS) + 2 * 2 or any(
+            v["spill_stores"] or v["spill_loads"] for v in wgmma.values()):
+        raise AssertionError(f"the wgmma flash kernels (3 at each of {FLASH_BUILT_HDS} and B1 "
+                             "and B2 at 256, bf16 and f16) must "
                              f"build without spills: {wgmma}")
     b4 = ptxas["paged_attention.cu"][PAGED_TIMED[0]]
     if b4["spill_stores"] or b4["spill_loads"]:
@@ -5123,6 +5226,10 @@ def main() -> int:
             "tflops": t["tflops"],
             "tflops_profiler": t["tflops_profiler"],
             "ptxas": {k: v for k, v in flash_ptxas.items() if k.startswith(f"{name}_")},
+            # the instance the timed shape (hd 128, bf16) launches, and those
+            # phase 15c saw at each width and dtype
+            "instance": flash_instances(128, "bf16")[name],
+            "instances": {case: by_name[name] for case, by_name in p15["flash_instances"].items()},
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
@@ -5149,7 +5256,8 @@ def main() -> int:
             "library_ms_fp16": p14["flash_f16_times"][name]["head_dim_128"]["library_ms"],
             "launches_fp16_loop_per_step": p14["fp16"]["flash_launches_per_step"][name],
             "at_narrow_heads": flash_narrow[name],
-            "at_head_dim_256": flash_wide[name],
+            "at_head_dim_256": {**flash_wide[name], "instance": FLASH_WIDE[FLASH_KERNELS.index(name)],
+                                "ptxas": flash_ptxas[FLASH_WIDE[FLASH_KERNELS.index(name)]]},
             "at_head_dim_512": flash_512[name],
             # phase 15: the zoo's paths, each driven with the counters at 0
             "launches_phase15": {"mixtral_width": p15["mixtral"]["launches"][name],
@@ -5157,7 +5265,9 @@ def main() -> int:
                                  **{f: r["launches"][name] for f, r in p15["families"].items()}},
             "max_abs_err_phase15": p15["flash_max_abs_err"][name],
             "at_mixtral_gqa": p15["flash_at_mixtral_gqa"][name],
-            "at_gptj_head_dim_256": p15["flash_at_gptj_hd256"][name],
+            "at_gptj_head_dim_256": {**p15["flash_at_gptj_hd256"][name],
+                                     "instance": FLASH_WIDE[FLASH_KERNELS.index(name)],
+                                     "ptxas": flash_ptxas[FLASH_WIDE[FLASH_KERNELS.index(name)]]},
         })
     log(json.dumps({"kernels": kernels, "build_s": build_s, "serve_wall_s": serve_run["wall_s"],
                     "total_s": time.perf_counter() - t_start, "card": smi}))

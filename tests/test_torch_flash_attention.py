@@ -264,6 +264,33 @@ def test_chip_smoke_profiler_pattern_finds_each_flash_kernel():
                 assert found == (other == family), (family, key)
 
 
+def test_chip_smoke_names_the_instance_each_head_dim_and_dtype_launches():
+    """``chip_smoke.flash_instances``, which phase 15c holds the profiler's
+    kernel names to: bf16 and f16 B1 and B2 on their wgmma instances up to
+    hd 256 (at 256 from 136 on), B3 on wgmma up to 128 and its wide FMA
+    kernel past it, f32 on the FMA kernels, and every dtype past 256 on the
+    column-block instances."""
+    smoke = _chip_smoke()
+    fams = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    assert smoke.flash_instances(80, "bf16") == {f: f"{f}_wgmma_kernel<80, __nv_bfloat16>"
+                                                 for f in fams}
+    assert smoke.flash_instances(24, "f32") == {f: f"{f}_kernel<32, 64, float, false>"
+                                                for f in fams}
+    for hd in (136, 200, 256):
+        for dtype, t in (("bf16", "__nv_bfloat16"), ("f16", "__half")):
+            assert smoke.flash_instances(hd, dtype) == {
+                "flash_fwd": f"flash_fwd_wgmma_kernel<256, {t}>",
+                "flash_bwd_dq": f"flash_bwd_dq_wgmma_kernel<256, {t}>",
+                "flash_bwd_dkv": f"flash_bwd_dkv_kernel<256, 32, {t}, false>"}
+        assert smoke.flash_instances(hd, "f32") == {f: f"{f}_kernel<256, 32, float, false>"
+                                                    for f in fams}
+    assert smoke.flash_instances(512, "f16") == {f: f"{f}_kernel<256, 32, __half, true>"
+                                                 for f in fams}
+    assert smoke.FLASH_WIDE == tuple(smoke.flash_instances(256, "bf16").values())
+    # every (head dim, dtype) the profiler check reads is one the wrapper takes
+    assert all(tfa.takes_head_dim(hd) and hd % 8 == 0 for hd, _ in smoke.FLASH_INSTANCE_CASES)
+
+
 def test_flash_fwd_bwd_pair_equals_the_autograd_function():
     """``flash_fwd``/``flash_bwd`` (the ring-attention building blocks) give
     what the autograd.Function gives, and the plain backward matches
