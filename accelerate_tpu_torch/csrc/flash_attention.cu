@@ -24,9 +24,9 @@
 // dim to the next multiple of 8 and slices the outputs back). Up to 128
 // each family is built at the eight multiples of 16 (HD, hd rounded up to
 // 16; the columns between hd and HD load as zeros and are never stored);
-// from 136 to 256 bf16 and f16 forward and dq take their tensor-core
-// instance at HD 256, and f32 (and every dk/dv) the wide FMA instance at HD
-// 256; past 256 every dtype takes the column-block FMA instance (kCols).
+// from 136 to 256 bf16 and f16 take the tensor-core instances at HD 256,
+// and f32 the wide FMA instances at HD 256; past 256 every dtype takes the
+// column-block FMA instance (kCols).
 // Pitches and stores use hd.
 // The optional key mask is [b, skv] bytes (1 = valid) and applies
 // where(valid, s, NEG_INF), equal to the JAX "s + bias" after rounding
@@ -63,15 +63,12 @@
 //    no TF32, so they meet the JAX gates (2e-5) against the plain version:
 //    64-row tiles, 256 threads form a 16 x 16 grid over a 64 x 64 score
 //    tile, tiles staged as f32 with rows padded by one float; expf, logf.
-//  * Head dims 136-256, f32 at every kernel and bf16 / f16 dk/dv (C4b): the
-//    same FMA kernels with 32-row tiles at HD 256 (a 64-row tile of 256 f32
-//    columns is 64 KB, and dq's and dk/dv's four of them exceed the 227 KB
-//    of shared memory), bf16 and f16 widened to f32 as they are staged and
-//    rounded where the TPU kernels round. A 64-row wgmma accumulator over
-//    256 columns is 128 f32 registers a thread: B1's O and B2's dQ fit the
-//    255 a thread may have (below), but B3 keeps two, dK and dV, and needs
-//    another algorithm (PERF.md §7).
-//  * Head dims past 256, f32, bf16 or f16 (C4c): the wide kernels at kCols. The
+//  * Head dims 136-256 in f32 (C4b): the same FMA kernels with 32-row tiles
+//    at HD 256 (a 64-row tile of 256 f32 columns is 64 KB, and dq's and
+//    dk/dv's four of them exceed the 227 KB of shared memory).
+//  * Head dims past 256, f32, bf16 or f16 (C4c): the wide kernels at kCols,
+//    bf16 and f16 widened to f32 as they are staged and rounded where the
+//    TPU kernels round. The
 //    head dim is cut into column blocks of 256 and a block owns one column
 //    block of its output, folded into grid x. S = Q K^T (and dP = dO V^T)
 //    need every column: the block stages 256-column chunks of Q and K (dO
@@ -84,7 +81,7 @@
 //  * bf16 and f16 forward (B1), dq (B2) and dk/dv (B3): wgmma fed by a ring
 //    of TMA copies with mbarriers, two warpgroups of products (section "bf16
 //    forward (B1), dq (B2) and dk/dv (B3) for Hopper"; each kernel is a
-//    template over the 16-bit type); B1 and B2 up to hd 256, B3 up to 128.
+//    template over the 16-bit type), up to hd 256.
 //    B1 takes 128 query rows a block, with a producer warp in a third
 //    warpgroup, and streams K/V tiles of 128 keys through three stages, so
 //    the next tiles' loads overlap this tile's products; it applies the
@@ -96,7 +93,12 @@
 //    one m64n256 wgmma a 16-key step. B3 takes 128 keys a block, loads K and V
 //    once and streams tiles of 64 query rows (Q, dO, lse, delta) through
 //    three stages; its four products per tile are wgmmas, P^T and dS^T never
-//    leave registers, and it masks only the diagonal and masked keys. B2
+//    leave registers, and it masks only the diagonal and masked keys. At hd
+//    136-256 two 64 x 256 accumulators (dK and dV) would not fit a thread's
+//    255 registers: the block owns 64 keys, warpgroup 0 forms P^T and
+//    accumulates dV, warpgroup 1 forms dS^T and accumulates dK, and P^T
+//    passes between them through shared memory under two named barriers;
+//    Q and dO stream through two stages (DkvTiling). B2
 //    takes 128 query rows a block, loads Q and dO once and streams K/V
 //    tiles of 64 keys (with their mask bytes) through four stages; S and dP
 //    are SS wgmmas, dS stays in registers as the A operand of dS K against
@@ -245,7 +247,8 @@ __device__ __forceinline__ bool key_valid(const uint8_t* __restrict__ mask_b, in
 }
 
 // The FMA kernels, at (HD, BLK, T) = (16..128, 64, f32) for f32 inputs up to
-// hd 128 and (256, 32, f32, bf16 or f16) for every input past it. Inputs are
+// hd 128, (256, 32, f32) for f32 from 136 to 256 and (256, 32, f32, bf16 or
+// f16) in column blocks for every input past 256. Inputs are
 // staged as f32, every product runs on the FMA units in f32, and a bf16 or
 // f16 instance rounds where the TPU kernels round: P to V's dtype before P V
 // (forward), dS to K's dtype before dS K (dq), P to dO's and dS to Q's
@@ -641,7 +644,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 //    the tile's mask bytes) stream through four stages. ptxas gives it
 //    160 registers a thread at hd 128 (the dQ accumulator is 64 of them).
 //  * At HDT 256 B1 takes B2's shape too, and both stream narrower key
-//    tiles (FwdTiling, DqTiling).
+//    tiles (FwdTiling, DqTiling); B3 splits its warpgroups by role over 64
+//    keys (DkvTiling).
 //
 // Operand tiles live in shared memory exactly as TMA writes them with the
 // 128-byte swizzle: rows of 64 bf16 or f16 (128 bytes), a head of 128 split into
@@ -665,9 +669,9 @@ constexpr int kSwizzleRow = 128;                 // bytes of a swizzled row: 64 
 constexpr int kFwdRows = 128;                    // query rows of a forward block
 constexpr int kFwdTileKeys = 128;                // keys per forward tile to hd 128 (= the plain's)
 constexpr int kWideFwdTileKeys = 64;             // the same from hd 136 to 256
-constexpr int kDkvKeys = 128;                    // keys of a dk/dv block
+constexpr int kDkvKeys = 128;                    // keys of a dk/dv block to hd 128
+constexpr int kWideDkvKeys = 64;                 // the same from hd 136 to 256
 constexpr int kDkvQRows = 64;                    // query rows per dk/dv tile (the wgmma N)
-constexpr int kDkvStages = 3;
 constexpr int kDkvThreads = 2 * kWgThreads;      // two warpgroups, no producer warpgroup
 constexpr int kDqRows = 128;                     // query rows of a dq block
 constexpr int kDqTileKeys = 64;                  // keys per dq tile (S's, dP's wgmma N) to hd 128
@@ -696,6 +700,22 @@ struct DqTiling {
   static constexpr int kKeys = HDT == 256 ? kWideDqTileKeys : kDqTileKeys;
   static constexpr int kStages = HDT == 256 ? 3 : 4;
 };
+
+// B3's block at a staged width. Up to 128 each warpgroup owns 64 of the
+// block's 128 keys and accumulates dK and dV for them; 64-row query tiles
+// stream through 3 stages. At 256 that design needs two 128-register
+// accumulators a thread (over the 255 allowed) and 320 KB of shared memory,
+// so the block owns 64 keys and its warpgroups split the roles, not the
+// keys (kSplit): warpgroup 0 forms P^T and accumulates dV, warpgroup 1
+// forms dS^T and accumulates dK, and P^T (f32) passes from 0 to 1 through
+// shared memory. Q and dO stream through 2 stages (K and V 64 KB, Q and dO
+// 64 KB a stage, P^T 16 KB).
+template <int HDT>
+struct DkvTiling {
+  static constexpr bool kSplit = HDT == 256;
+  static constexpr int kKeys = kSplit ? kWideDkvKeys : kDkvKeys;
+  static constexpr int kStages = kSplit ? 2 : 3;
+};
 // B1's registers a thread after setmaxnreg: 128 x kProducerRegs + 256 x
 // kConsumerRegs is the pool of 384 threads at 168 each (the launch bound)
 constexpr int kProducerRegs = 24;
@@ -704,7 +724,7 @@ constexpr int kLaunchRegs = 168;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // A head dim is staged as 64-column tiles (one for hd <= 64, two up to 128,
-// four up to 256: B1 and B2 only, B3 keeps its FMA kernel there) whose
+// four up to 256) whose
 // columns past the head dim are zero: the TMA box stays 64 columns (one
 // 128-byte swizzled row) over a global inner dimension of hd, and TMA fills
 // the elements past the tensor's edge with zeros (a second half of hd 80
@@ -762,6 +782,20 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       else if (now - t0 > 10000000000ull) __trap();
     }
   }
+}
+
+// Named barrier ID over B3's two warpgroups (0 is __syncthreads): one
+// warpgroup arrives without waiting, the other waits for those arrivals.
+// What the arriving threads wrote to shared memory before they arrived is
+// visible to the waiting ones after the wait.
+template <int ID>
+__device__ __forceinline__ void named_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" ::"n"(ID), "n"(2 * kWgThreads) : "memory");
+}
+
+template <int ID>
+__device__ __forceinline__ void named_sync() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(2 * kWgThreads) : "memory");
 }
 
 // TMA: one box of a 4-D tensor map into shared memory, completing on `bar`
@@ -1298,20 +1332,28 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
 template <int HD>
 struct DkvSmem {
+  using C = DkvTiling<HD>;
   static constexpr int kHalves = HD / 64;
-  static constexpr uint32_t kKVHalf = kDkvKeys * kSwizzleRow;
+  static constexpr uint32_t kKVHalf = C::kKeys * kSwizzleRow;
   static constexpr uint32_t kQHalf = kDkvQRows * kSwizzleRow;
   static constexpr uint32_t kQTile = kHalves * kQHalf;
   static constexpr uint32_t kK = 0;
   static constexpr uint32_t kV = kK + kHalves * kKVHalf;
   // stage s: Q at kQ + 2 s kQTile, dO right after it
   static constexpr uint32_t kQ = kV + kHalves * kKVHalf;
-  static constexpr uint32_t kLse = kQ + kDkvStages * 2 * kQTile;
-  static constexpr uint32_t kDelta = kLse + kDkvStages * kDkvQRows * 4;
+  static constexpr uint32_t kLse = kQ + C::kStages * 2 * kQTile;
+  static constexpr uint32_t kDelta = kLse + C::kStages * kDkvQRows * 4;
+  // kSplit: P^T of one tile in f32, in the accumulator layout (16-byte
+  // chunk i of thread t at (i * 128 + t) * 16)
+  static constexpr uint32_t kPt = kDelta + C::kStages * kDkvQRows * 4;
   // barriers: K and V, then full and empty for each stage
-  static constexpr uint32_t kBars = kDelta + kDkvStages * kDkvQRows * 4;
-  static constexpr uint32_t kBytes = kBars + (1 + 2 * kDkvStages) * 8 + 1024;
+  static constexpr uint32_t kBars = kPt + (C::kSplit ? C::kKeys * kDkvQRows * 4 : 0);
+  static constexpr uint32_t kBytes = kBars + (1 + 2 * C::kStages) * 8 + 1024;
 };
+
+// the named barriers of B3's P^T hand-off at HDT 256
+constexpr int kBarPtFull = 1;  // warpgroup 0 has written P^T
+constexpr int kBarPtRead = 2;  // warpgroup 1 has read it
 
 template <int HD, typename T>
 __global__ void __launch_bounds__(kDkvThreads, 1)
@@ -1324,18 +1366,20 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                            T* __restrict__ dv, int sq, int skv, int nh, int n_kv, int hd,
                            float scale, int causal) {
   constexpr int HDT = staged_hd(HD);
+  using C = DkvTiling<HDT>;
   using L = DkvSmem<HDT>;
+  constexpr int kStages = C::kStages;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
   const uint32_t bar_kv = base + L::kBars;
-  const uint32_t bar_f = bar_kv + 8, bar_e = bar_f + 8 * kDkvStages;
+  const uint32_t bar_f = bar_kv + 8, bar_e = bar_f + 8 * kStages;
   float* lse_s = reinterpret_cast<float*>(smem + L::kLse);
   float* delta_s = reinterpret_cast<float*>(smem + L::kDelta);
 
   // causal: the first key tiles see the most query tiles, and run first
-  const int k0 = blockIdx.z * kDkvKeys, g = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * C::kKeys, g = blockIdx.x, b = blockIdx.y;
   const int rep = nh / n_kv;
   // causal: query tiles wholly before this key tile see none of its keys
   const int q_start = causal ? k0 : 0;
@@ -1345,7 +1389,7 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
-    for (int s = 0; s < kDkvStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_f + 8 * s, 32);  // warp 0: lse and delta, then the copies' bytes
       mbar_init(bar_e + 8 * s, kDkvThreads);
     }
@@ -1361,9 +1405,9 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   // warp 0: wait until tile jt's stage is free, stage its lse and delta (rows
   // past the sequence: lse = NEG_INF, so p = 0) and start its Q and dO copies
   auto stage_tile = [&](int jt) {
-    const int s = jt % kDkvStages;
+    const int s = jt % kStages;
     const int h = g * rep + jt / n_qt, q0 = q_start + (jt % n_qt) * kDkvQRows;
-    mbar_wait(bar_e + 8 * s, ((jt / kDkvStages) & 1) ^ 1);
+    mbar_wait(bar_e + 8 * s, ((jt / kStages) & 1) ^ 1);
     const int64_t row_off = (static_cast<int64_t>(b) * nh + h) * sq;
     for (int i = lane; i < kDkvQRows; i += 32) {
       const int qi = q0 + i;
@@ -1389,98 +1433,204 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         tma_load_4d(base + L::kV + hf * L::kKVHalf, &v_map, 64 * hf, g, k0, b, bar_kv);
       }
     }
-    for (int jt = 0; jt < kDkvStages - 1 && jt < n_tiles; ++jt) stage_tile(jt);
+    for (int jt = 0; jt < kStages - 1 && jt < n_tiles; ++jt) stage_tile(jt);
   }
 
   const int gr = lane >> 2, tg = lane & 3;
-  const int rk0 = k0 + 64 * wg;  // this warpgroup's first key
+  // this warpgroup's first key (kSplit: both take the block's 64 keys)
+  const int wk = C::kSplit ? 0 : 64 * wg;
+  const int rk0 = k0 + wk;
   // transposed score tiles: row = key, column = query
   const int keys[2] = {rk0 + 16 * warp + gr, rk0 + 16 * warp + gr + 8};
   const bool key_ok[2] = {key_valid(mask_b, keys[0], skv), key_valid(mask_b, keys[1], skv)};
   const bool keys_ok = key_ok[0] && key_ok[1];
   const float c = scale * kLog2e;
-  const uint32_t k_wg = base + L::kK + 64 * wg * kSwizzleRow;
-  const uint32_t v_wg = base + L::kV + 64 * wg * kSwizzleRow;
-  float dk_acc[HDT / 2], dv_acc[HDT / 2];
-#pragma unroll
-  for (int i = 0; i < HDT / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-  mbar_wait(bar_kv, 0);
+  const uint32_t k_wg = base + L::kK + wk * kSwizzleRow;
+  const uint32_t v_wg = base + L::kV + wk * kSwizzleRow;
 
-  for (int j = 0; j < n_tiles; ++j) {
-    // refill the stage that tile j - 1 used: warpgroup 0 may run at most
-    // one tile ahead of warpgroup 1, warpgroup 1 as far ahead as the ring
-    if (stager && j + kDkvStages - 1 < n_tiles) stage_tile(j + kDkvStages - 1);
-    const int s = j % kDkvStages, q0 = q_start + (j % n_qt) * kDkvQRows;
-    const uint32_t q_s = base + L::kQ + 2 * s * L::kQTile, do_s = q_s + L::kQTile;
-    mbar_wait(bar_f + 8 * s, (j / kDkvStages) & 1);
-    if (causal && q0 + kDkvQRows <= rk0) {  // every query before every key
+  if constexpr (!C::kSplit) {
+    float dk_acc[HDT / 2], dv_acc[HDT / 2];
+#pragma unroll
+    for (int i = 0; i < HDT / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(bar_kv, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      // refill the stage that tile j - 1 used: warpgroup 0 may run at most
+      // one tile ahead of warpgroup 1, warpgroup 1 as far ahead as the ring
+      if (stager && j + kStages - 1 < n_tiles) stage_tile(j + kStages - 1);
+      const int s = j % kStages, q0 = q_start + (j % n_qt) * kDkvQRows;
+      const uint32_t q_s = base + L::kQ + 2 * s * L::kQTile, do_s = q_s + L::kQTile;
+      mbar_wait(bar_f + 8 * s, (j / kStages) & 1);
+      if (causal && q0 + kDkvQRows <= rk0) {  // every query before every key
+        mbar_arrive(bar_e + 8 * s);
+        continue;
+      }
+      float st[kDkvQRows / 2], dpt[kDkvQRows / 2];  // S^T = K Q^T, dP^T = V dO^T
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss_n64<T>(st, desc_kmajor(k_wg + (kk / 4) * L::kKVHalf + off),
+                        desc_kmajor(q_s + (kk / 4) * L::kQHalf + off), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss_n64<T>(dpt, desc_kmajor(v_wg + (kk / 4) * L::kKVHalf + off),
+                        desc_kmajor(do_s + (kk / 4) * L::kQHalf + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      settle(st);
+      settle(dpt);
+
+      // the causal compare and the key mask only on the diagonal and for
+      // masked keys; P^T = 0 where lse == NEG_INF (a fully masked row)
+      const bool need = !keys_ok || (causal && q0 < rk0 + 64);
+      const float* ls = lse_s + s * kDkvQRows;
+      const float* dl = delta_s + s * kDkvQRows;
+#pragma unroll
+      for (int i = 0; i < kDkvQRows / 2; ++i) {
+        const int col = 8 * (i >> 2) + 2 * tg + (i & 1), kr = (i >> 1) & 1;
+        const float lq = ls[col];
+        bool valid = lq != kNegInf;
+        if (need) valid = valid && key_ok[kr] && (!causal || q0 + col >= keys[kr]);
+        const float p = valid ? ex2(fmaf(st[i], c, -lq * kLog2e)) : 0.f;
+        dpt[i] = p * (dpt[i] - dl[col]) * scale;  // dS^T
+        st[i] = p;                                // P^T
+      }
+      uint32_t pp[kDkvQRows / 4], pd[kDkvQRows / 4];
+      pack_a<T, kDkvQRows / 16>(pp, st);   // P rounded to dO's dtype
+      pack_a<T, kDkvQRows / 16>(pd, dpt);  // dS rounded to Q's dtype
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDkvQRows / 16; ++kk)
+        wgmma_rs_hd<T, HDT>(dv_acc, pp, kk, do_s + kk * 16 * kSwizzleRow, L::kQHalf);
+#pragma unroll
+      for (int kk = 0; kk < kDkvQRows / 16; ++kk)
+        wgmma_rs_hd<T, HDT>(dk_acc, pd, kk, q_s + kk * 16 * kSwizzleRow, L::kQHalf);
+      wgmma_commit();
+      wgmma_wait_all();
+      settle(dv_acc);
+      settle(dk_acc);
+      settle(pp);
+      settle(pd);
       mbar_arrive(bar_e + 8 * s);
-      continue;
     }
-    float st[kDkvQRows / 2], dpt[kDkvQRows / 2];  // S^T = K Q^T, dP^T = V dO^T
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_n64<T>(st, desc_kmajor(k_wg + (kk / 4) * L::kKVHalf + off),
-                   desc_kmajor(q_s + (kk / 4) * L::kQHalf + off), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_n64<T>(dpt, desc_kmajor(v_wg + (kk / 4) * L::kKVHalf + off),
-                   desc_kmajor(do_s + (kk / 4) * L::kQHalf + off), kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    settle(st);
-    settle(dpt);
-
-    // the causal compare and the key mask only on the diagonal and for
-    // masked keys; P^T = 0 where lse == NEG_INF (a fully masked row)
-    const bool need = !keys_ok || (causal && q0 < rk0 + 64);
-    const float* ls = lse_s + s * kDkvQRows;
-    const float* dl = delta_s + s * kDkvQRows;
-#pragma unroll
-    for (int i = 0; i < kDkvQRows / 2; ++i) {
-      const int col = 8 * (i >> 2) + 2 * tg + (i & 1), kr = (i >> 1) & 1;
-      const float lq = ls[col];
-      bool valid = lq != kNegInf;
-      if (need) valid = valid && key_ok[kr] && (!causal || q0 + col >= keys[kr]);
-      const float p = valid ? ex2(fmaf(st[i], c, -lq * kLog2e)) : 0.f;
-      dpt[i] = p * (dpt[i] - dl[col]) * scale;  // dS^T
-      st[i] = p;                                // P^T
-    }
-    uint32_t pp[kDkvQRows / 4], pd[kDkvQRows / 4];
-    pack_a<T, kDkvQRows / 16>(pp, st);   // P rounded to dO's dtype
-    pack_a<T, kDkvQRows / 16>(pd, dpt);  // dS rounded to Q's dtype
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kDkvQRows / 16; ++kk)
-      wgmma_rs_hd<T, HDT>(dv_acc, pp, kk, do_s + kk * 16 * kSwizzleRow, L::kQHalf);
-#pragma unroll
-    for (int kk = 0; kk < kDkvQRows / 16; ++kk)
-      wgmma_rs_hd<T, HDT>(dk_acc, pd, kk, q_s + kk * 16 * kSwizzleRow, L::kQHalf);
-    wgmma_commit();
-    wgmma_wait_all();
-    settle(dv_acc);
-    settle(dk_acc);
-    settle(pp);
-    settle(pd);
-    mbar_arrive(bar_e + 8 * s);
-  }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (keys[i] >= skv) continue;
-    const int64_t row = ((static_cast<int64_t>(b) * skv + keys[i]) * n_kv + g) * hd;
+    for (int i = 0; i < 2; ++i) {
+      if (keys[i] >= skv) continue;
+      const int64_t row = ((static_cast<int64_t>(b) * skv + keys[i]) * n_kv + g) * hd;
 #pragma unroll
-    for (int c8 = 0; c8 < HD / 8; ++c8) {
-      if (c8 >= hd / 8) continue;
-      *reinterpret_cast<uint32_t*>(dk + row + 8 * c8 + 2 * tg) =
-          pack2<T>(dk_acc[4 * c8 + 2 * i], dk_acc[4 * c8 + 2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dv + row + 8 * c8 + 2 * tg) =
-          pack2<T>(dv_acc[4 * c8 + 2 * i], dv_acc[4 * c8 + 2 * i + 1]);
+      for (int c8 = 0; c8 < HD / 8; ++c8) {
+        if (c8 >= hd / 8) continue;
+        *reinterpret_cast<uint32_t*>(dk + row + 8 * c8 + 2 * tg) =
+            pack2<T>(dk_acc[4 * c8 + 2 * i], dk_acc[4 * c8 + 2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(dv + row + 8 * c8 + 2 * tg) =
+            pack2<T>(dv_acc[4 * c8 + 2 * i], dv_acc[4 * c8 + 2 * i + 1]);
+      }
+    }
+  } else {
+    // Roles: warpgroup 0 computes S^T = K Q^T, forms P^T, hands it to
+    // warpgroup 1 and accumulates dV += P^T dO; warpgroup 1 computes dP^T =
+    // V dO^T, forms dS^T = P^T (dP^T - delta) * scale from the P^T it is
+    // handed and accumulates dK += dS^T Q. Each product runs once, and each
+    // thread keeps one 64 x 256 accumulator. Thread t of warpgroup 1 holds
+    // the same score entries as thread t of warpgroup 0, so it reads just
+    // what that thread wrote.
+    const bool dv_role = wg == 0;
+    const uint32_t a_wg = dv_role ? k_wg : v_wg;
+    float4* pt_s = reinterpret_cast<float4*>(smem + L::kPt) + tid;
+    float acc[HDT / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+    for (int i = 0; i < HDT / 2; ++i) acc[i] = 0.f;
+    bool handed = false;  // warpgroup 0: a P^T is out that warpgroup 1 has yet to read
+    mbar_wait(bar_kv, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      // refill the stage that tile j - 1 used (2 stages: the warpgroups run
+      // in step, tile j's copies landing while tile j - 1 is computed)
+      if (stager && j + kStages - 1 < n_tiles) stage_tile(j + kStages - 1);
+      const int s = j % kStages, q0 = q_start + (j % n_qt) * kDkvQRows;
+      const uint32_t q_s = base + L::kQ + 2 * s * L::kQTile, do_s = q_s + L::kQTile;
+      mbar_wait(bar_f + 8 * s, (j / kStages) & 1);
+      // no query tile lies wholly before the block's keys (q_start = k0), so
+      // both warpgroups take every tile
+      float sc[kDkvQRows / 2];  // S^T (warpgroup 0) or dP^T (warpgroup 1)
+      const uint32_t b_s = dv_role ? q_s : do_s;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss_n64<T>(sc, desc_kmajor(a_wg + (kk / 4) * L::kKVHalf + off),
+                        desc_kmajor(b_s + (kk / 4) * L::kQHalf + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      settle(sc);
+
+      if (dv_role) {
+        // the causal compare and the key mask only on the diagonal and for
+        // masked keys; P^T = 0 where lse == NEG_INF (a fully masked row)
+        const bool need = !keys_ok || (causal && q0 < k0 + C::kKeys);
+        const float* ls = lse_s + s * kDkvQRows;
+#pragma unroll
+        for (int i = 0; i < kDkvQRows / 2; ++i) {
+          const int col = 8 * (i >> 2) + 2 * tg + (i & 1), kr = (i >> 1) & 1;
+          const float lq = ls[col];
+          bool valid = lq != kNegInf;
+          if (need) valid = valid && key_ok[kr] && (!causal || q0 + col >= keys[kr]);
+          sc[i] = valid ? ex2(fmaf(sc[i], c, -lq * kLog2e)) : 0.f;  // P^T
+        }
+        if (handed) named_sync<kBarPtRead>();  // the previous P^T has been read
+#pragma unroll
+        for (int i = 0; i < kDkvQRows / 8; ++i)
+          pt_s[i * kWgThreads] = make_float4(sc[4 * i], sc[4 * i + 1], sc[4 * i + 2], sc[4 * i + 3]);
+        named_arrive<kBarPtFull>();
+        handed = true;
+      } else {
+        const float* dl = delta_s + s * kDkvQRows;
+        named_sync<kBarPtFull>();
+#pragma unroll
+        for (int i = 0; i < kDkvQRows / 8; ++i) {
+          const float4 p = pt_s[i * kWgThreads];
+          const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * i + 2 * tg + (e & 1);  // element 4 i + e
+            sc[4 * i + e] = pv[e] * (sc[4 * i + e] - dl[col]) * scale;  // dS^T
+          }
+        }
+        named_arrive<kBarPtRead>();
+      }
+      // P rounded to dO's dtype (warpgroup 0), dS to Q's (warpgroup 1)
+      uint32_t pa[kDkvQRows / 4];
+      pack_a<T, kDkvQRows / 16>(pa, sc);
+      const uint32_t rhs = dv_role ? do_s : q_s;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDkvQRows / 16; ++kk)
+        wgmma_rs_hd<T, HDT>(acc, pa, kk, rhs + kk * 16 * kSwizzleRow, L::kQHalf);
+      wgmma_commit();
+      wgmma_wait_all();
+      settle(acc);
+      settle(pa);
+      mbar_arrive(bar_e + 8 * s);
+    }
+    // match warpgroup 1's last "read" arrival before the block exits
+    if (handed) named_sync<kBarPtRead>();
+
+    T* out = dv_role ? dv : dk;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (keys[i] >= skv) continue;
+      T* row = out + ((static_cast<int64_t>(b) * skv + keys[i]) * n_kv + g) * hd;
+#pragma unroll
+      for (int c8 = 0; c8 < HD / 8; ++c8)
+        if (c8 < hd / 8)
+          *reinterpret_cast<uint32_t*>(row + 8 * c8 + 2 * tg) =
+              pack2<T>(acc[4 * c8 + 2 * i], acc[4 * c8 + 2 * i + 1]);
     }
   }
 }
@@ -1824,14 +1974,17 @@ cudaError_t launch_fma_dkv(const void* q, const void* k, const void* v, const ui
   return cudaGetLastError();
 }
 
-static_assert(FwdSmem<256>::kBytes <= kSmemOptIn && DqSmem<256>::kBytes <= kSmemOptIn,
-              "the 256-wide B1 or B2 tiles exceed the 227 KB a block may opt into");
+static_assert(FwdSmem<256>::kBytes <= kSmemOptIn && DqSmem<256>::kBytes <= kSmemOptIn &&
+                  DkvSmem<256>::kBytes <= kSmemOptIn && DkvSmem<128>::kBytes <= kSmemOptIn,
+              "the wgmma kernels' tiles exceed the 227 KB a block may opt into");
 static_assert(FwdSmem<256>::kBars % 8 == 0 && DqSmem<256>::kBars % 8 == 0 &&
-                  FwdSmem<128>::kBars % 8 == 0 && DqSmem<128>::kBars % 8 == 0,
+                  DkvSmem<256>::kBars % 8 == 0 && FwdSmem<128>::kBars % 8 == 0 &&
+                  DqSmem<128>::kBars % 8 == 0 && DkvSmem<128>::kBars % 8 == 0,
               "mbarriers must be 8-byte aligned");
+static_assert(DkvSmem<256>::kPt % 16 == 0, "B3's P^T exchange is read as float4");
 
 // Up to hd 256: dtypes 1 (bf16) and 2 (f16) take the tensor-core kernels of
-// B1 and B2, one template instance a type (T); B3 up to hd 128
+// B1-B3, one template instance a type (T)
 template <int HD, typename T>
 cudaError_t launch_fwd_tc(const void* q, const void* k, const void* v, const uint8_t* m, void* o,
                           float* lse, const Shape& a, cudaStream_t stream) {
@@ -1882,17 +2035,18 @@ template <int HD, typename T>
 cudaError_t launch_dkv_tc(const void* q, const void* k, const void* v, const uint8_t* m,
                           const void* dout, const float* lse, const float* delta, void* dk,
                           void* dv, const Shape& a, cudaStream_t stream) {
+  constexpr int kKeys = DkvTiling<staged_hd(HD)>::kKeys;
   static bool ready = false;
   constexpr int bytes = DkvSmem<staged_hd(HD)>::kBytes;
   cudaError_t err;
   CUtensorMap q_map, k_map, v_map, do_map;
   if ((err = tma_map<T>(&q_map, q, a.hd, a.nh, a.sq, a.b, kDkvQRows)) != cudaSuccess ||
       (err = tma_map<T>(&do_map, dout, a.hd, a.nh, a.sq, a.b, kDkvQRows)) != cudaSuccess ||
-      (err = tma_map<T>(&k_map, k, a.hd, a.n_kv, a.skv, a.b, kDkvKeys)) != cudaSuccess ||
-      (err = tma_map<T>(&v_map, v, a.hd, a.n_kv, a.skv, a.b, kDkvKeys)) != cudaSuccess ||
+      (err = tma_map<T>(&k_map, k, a.hd, a.n_kv, a.skv, a.b, kKeys)) != cudaSuccess ||
+      (err = tma_map<T>(&v_map, v, a.hd, a.n_kv, a.skv, a.b, kKeys)) != cudaSuccess ||
       (err = allow_smem(flash_bwd_dkv_wgmma_kernel<HD, T>, bytes, ready)) != cudaSuccess)
     return err;
-  const dim3 grid(a.n_kv, a.b, (a.skv + kDkvKeys - 1) / kDkvKeys);
+  const dim3 grid(a.n_kv, a.b, (a.skv + kKeys - 1) / kKeys);
   flash_bwd_dkv_wgmma_kernel<HD, T><<<grid, kDkvThreads, bytes, stream>>>(
       q_map, k_map, v_map, do_map, m, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), a.sq,
       a.skv, a.nh, a.n_kv, a.hd, a.scale, a.causal);
@@ -2008,31 +2162,24 @@ cudaError_t wgmma_blocks_per_sm(int which, int* blocks) {
     case 1:
       return occupancy(flash_bwd_dq_wgmma_kernel<HD, bf16>, kDqThreads,
                        DqSmem<staged_hd(HD)>::kBytes, blocks);
-    case 2:  // B3 has no tensor-core instance past hd 128
-      if constexpr (staged_hd(HD) <= 128)
-        return occupancy(flash_bwd_dkv_wgmma_kernel<HD, bf16>, kDkvThreads,
-                         DkvSmem<staged_hd(HD)>::kBytes, blocks);
-      break;
+    case 2:
+      return occupancy(flash_bwd_dkv_wgmma_kernel<HD, bf16>, kDkvThreads,
+                       DkvSmem<staged_hd(HD)>::kBytes, blocks);
   }
   return cudaErrorInvalidValue;
 }
 
-// the FMA kernels past hd 256 (kCols), and B3's at 136-256
-template <bool kCols>
-cudaError_t wide_blocks_per_sm(int which, int* blocks) {
+// the column-block FMA kernels past hd 256
+cudaError_t cols_blocks_per_sm(int which, int* blocks) {
   switch (which) {
     case 0:
-      if constexpr (kCols)
-        return occupancy(flash_fwd_kernel<kWideHD, kWideBlock, bf16, kCols>, kThreads,
-                         fwd_smem_bytes<kWideHD, kWideBlock>(), blocks);
-      break;
+      return occupancy(flash_fwd_kernel<kWideHD, kWideBlock, bf16, true>, kThreads,
+                       fwd_smem_bytes<kWideHD, kWideBlock>(), blocks);
     case 1:
-      if constexpr (kCols)
-        return occupancy(flash_bwd_dq_kernel<kWideHD, kWideBlock, bf16, kCols>, kThreads,
-                         dq_smem_bytes<kWideHD, kWideBlock>(), blocks);
-      break;
+      return occupancy(flash_bwd_dq_kernel<kWideHD, kWideBlock, bf16, true>, kThreads,
+                       dq_smem_bytes<kWideHD, kWideBlock>(), blocks);
     case 2:
-      return occupancy(flash_bwd_dkv_kernel<kWideHD, kWideBlock, bf16, kCols>, kThreads,
+      return occupancy(flash_bwd_dkv_kernel<kWideHD, kWideBlock, bf16, true>, kThreads,
                        dkv_smem_bytes<kWideHD, kWideBlock>(), blocks);
   }
   return cudaErrorInvalidValue;
@@ -2042,10 +2189,9 @@ cudaError_t wide_blocks_per_sm(int which, int* blocks) {
 
 // dtype codes shared with the Python wrapper: 0 = f32, 1 = bf16, 2 = f16 (q,
 // k, v, o, dO and the gradients all share it). mask is null or [b, skv]
-// bytes. From hd 136 to 256, bf16 and f16 forward and dq take their
-// tensor-core instance at HD 256, and f32 (and every dk/dv) the wide FMA
-// instance of its type; past 256 every dtype takes the column-block FMA
-// instance.
+// bytes. From hd 136 to 256, bf16 and f16 take the tensor-core instances at
+// HD 256 and f32 the wide FMA instances; past 256 every dtype takes the
+// column-block FMA instance.
 
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
                                    void* o, void* lse, int b, int sq, int skv, int nh, int n_kv,
@@ -2113,10 +2259,12 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
   if (hd > 128)
     return by_dtype(dtype, [&](auto tag) {
       using T = typename decltype(tag)::type;
-      return hd > kWideHD ? launch_fma_dkv<kWideHD, kWideBlock, T, true>(q, k, v, m, dout, l, d,
-                                                                         dk, dv, a, st)
-                          : launch_fma_dkv<kWideHD, kWideBlock, T>(q, k, v, m, dout, l, d, dk,
-                                                                   dv, a, st);
+      if (hd > kWideHD)
+        return launch_fma_dkv<kWideHD, kWideBlock, T, true>(q, k, v, m, dout, l, d, dk, dv, a, st);
+      if constexpr (std::is_same_v<T, float>)
+        return launch_fma_dkv<kWideHD, kWideBlock, T>(q, k, v, m, dout, l, d, dk, dv, a, st);
+      else
+        return launch_dkv_tc<kWideHD, T>(q, k, v, m, dout, l, d, dk, dv, a, st);
     });
   return by_head_dim(hd, [&](auto c) {
     return launch_dkv<decltype(c)::value>(q, k, v, m, dout, l, d, dk, dv, a, dtype, st);
@@ -2125,16 +2273,13 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
 
 // Resident blocks an SM holds of the bf16 kernel `which` (0 forward, 1 dq,
 // 2 dk/dv) at head dim hd, with the threads and shared memory it launches
-// with: a wgmma kernel up to hd 128, and for the forward and dq up to 256;
-// dk/dv's wide FMA kernel from 136 to 256; the column-block FMA instances
-// past 256.
+// with: a wgmma kernel up to hd 256 (at 256 from 136 on), the column-block
+// FMA instances past 256.
 extern "C" int flash_attention_blocks_per_sm(int which, int hd, int* blocks) {
   (void)cudaGetLastError();
   if (!valid_head_dim(hd)) return cudaErrorInvalidValue;
-  if (hd > kWideHD) return wide_blocks_per_sm<true>(which, blocks);
-  if (hd > 128)
-    return which == 2 ? wide_blocks_per_sm<false>(which, blocks)
-                      : wgmma_blocks_per_sm<kWideHD>(which, blocks);
+  if (hd > kWideHD) return cols_blocks_per_sm(which, blocks);
+  if (hd > 128) return wgmma_blocks_per_sm<kWideHD>(which, blocks);
   return by_head_dim(hd, [&](auto c) {
     return wgmma_blocks_per_sm<decltype(c)::value>(which, blocks);
   });

@@ -11,11 +11,10 @@ backward is :func:`flash_bwd`:
   ``sm_90a``): ``flash_fwd_*`` replaces the TPU kernel ``_fwd_kernel``,
   ``flash_bwd_dq_*`` ``_bwd_dq_kernel`` and ``flash_bwd_dkv_*``
   ``_bwd_dkv_kernel``; bf16 and f16 inputs run their products on the
-  tensor cores (``wgmma`` fed by a TMA ring): the forward and dq up to head
-  dim 256, dk/dv up to 128. f32 inputs, dk/dv from 136 to 256 and every
-  kernel past 256 run on the FMA units (no TF32; past 256 in column blocks
-  of 256). Taken for CUDA tensors, and only the kernels: a build or launch
-  failure raises;
+  tensor cores (``wgmma`` fed by a TMA ring) up to head dim 256. f32 inputs
+  and every kernel past 256 run on the FMA units (no TF32; past 256 in
+  column blocks of 256). Taken for CUDA tensors, and only the kernels: a
+  build or launch failure raises;
 * the **plain** PyTorch versions :func:`_flash_fwd_plain` and
   :func:`_flash_bwd_plain` — the kernels' math as a loop over key tiles,
   with the same masking and rounding points. Taken for CPU tensors, and by

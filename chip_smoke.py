@@ -209,9 +209,9 @@ failure, so the script exits non-zero and prints no result):
    counted on the real head dim;
 8c. C4b: a tiny llama with four 256-wide heads (hidden 1024) trained the
    same way (finite, falling loss, each kernel once a layer a step); B1-B3
-   at hd 256 (b 8, s 1024, 8 heads, bf16, causal) timed as in 8b (B1 and
-   B2 on their 256-wide wgmma instances, B3 on its wide FMA one; their
-   registers, spills and blocks a SM in the kernels line);
+   at hd 256 (b 8, s 1024, 8 heads, bf16, causal) timed as in 8b (on
+   their 256-wide wgmma instances; their registers, spills and blocks a SM
+   in the kernels line);
 8d. C4c: B1-B3 at head dims 264, 300 and 512 (column blocks of 256) at
    s = 129, at 1000 left-padded and at 200 not causal, f32 and bf16, under
    phase 8's gates and launched twice; a tiny llama with two 512-wide heads
@@ -323,7 +323,7 @@ failure, so the script exits non-zero and prints no result):
     gates of phases 8 and 14a, launched twice); the instance each of B1-B3
     launched at hd 128, 136, 200, 256 (bf16, f16, f32) and 512, read from
     the profiler's kernel names (B1 and B2 in bf16 and f16 on wgmma up to
-    256; f32, 512 and B3 past 128 on the FMA kernels); B1-B3 timed at
+    256; f32 and 512 on the FMA kernels); B1-B3 timed at
     GPT-J's shape; the loop at b 4 × 1024 with its profiled share.
     15d: gpt2, opt-125m, pythia-1.4b, bert-base (a key mask that pads every
     other row on the right), vit-base-patch16-224 (s 197), resnet50d and
@@ -428,14 +428,14 @@ def flash_instances(hd: int, dtype: str) -> dict:
     launches at head dim ``hd`` (a multiple of 8) in ``dtype`` ("f32",
     "bf16" or "f16"), by the dispatch of ``csrc/flash_attention.cu``. Up to
     128 f32 takes the FMA kernels and bf16 / f16 the wgmma ones, at hd
-    rounded up to 16; from 136 to 256 bf16 and f16 B1 and B2 take their
-    wgmma instance at 256 and everything else the wide FMA instance; past
-    256 every dtype takes the column-block FMA instance."""
+    rounded up to 16; from 136 to 256 bf16 and f16 take the wgmma
+    instances at 256 and f32 the wide FMA ones; past 256 every dtype takes
+    the column-block FMA instance."""
     t = FLASH_TYPE_NAMES[dtype]
     if hd > 256:
         return {n: f"{n}_kernel<256, 32, {t}, true>" for n in FLASH_KERNELS}
     if hd > 128:
-        return {n: f"{n}_wgmma_kernel<256, {t}>" if dtype != "f32" and n != "flash_bwd_dkv"
+        return {n: f"{n}_wgmma_kernel<256, {t}>" if dtype != "f32"
                 else f"{n}_kernel<256, 32, {t}, false>" for n in FLASH_KERNELS}
     width = -(-hd // 16) * 16
     if dtype == "f32":
@@ -443,8 +443,8 @@ def flash_instances(hd: int, dtype: str) -> dict:
     return {n: f"{n}_wgmma_kernel<{width}, {t}>" for n in FLASH_KERNELS}
 
 
-#: B1-B3's bf16 instances from head dim 136 to 256: B1 and B2 on the tensor
-#: cores at a 256-wide staging, B3 on its wide FMA kernel (C4b)
+#: B1-B3's bf16 instances from head dim 136 to 256: the tensor-core
+#: instances at a 256-wide staging (B3's splits its warpgroups by role)
 FLASH_WIDE = tuple(flash_instances(256, "bf16").values())
 #: and past 256 (C4c): their column-block instances
 FLASH_COLS = tuple(flash_instances(512, "bf16").values())
@@ -2409,7 +2409,9 @@ def time_paged_shape(dev, b: int = 8, s: int = 1, ctx: int = 512, hd: int = 128,
     device_ms = _profiled_ms_per_launch(kernel, 160, PAGED_KERNELS)
     plain_ms = _time_ms(plain, calls=16, repeats=5)
     library_ms = _time_ms(library, calls=160, repeats=9)
-    library_device_ms = _profiled_ms_per_call(library, 160)
+    lib_rows = _library_rows(library, 160)
+    library_device_ms = _profiled_ms_per_call(None, 160, rows=lib_rows)
+    backend = _sdpa_backend(lib_rows)
     pairs = b * nh * sum(start + i + 1 for i in range(s))  # (query, key) pairs attended
     kv_bytes = 2 * b * ctx * nh * hd * 2                   # valid K and V, bf16, read once
     io_bytes = 2 * b * s * nh * hd * 2 + b * mb * 4 + b * 4  # q, out, tables, idx
@@ -2421,12 +2423,13 @@ def time_paged_shape(dev, b: int = 8, s: int = 1, ctx: int = 512, hd: int = 128,
         f"wrapper; profiler a launch: split {split_ms:.4f} ms, "
         f"combine {device_ms['combine_splits_kernel']:.4f} ms), plain {plain_ms:.4f} ms, "
         f"sdpa (span pre-gathered, gather excluded) {library_device_ms:.4f} ms a call by the "
-        f"profiler ({library_ms:.4f} ms by events), "
+        f"profiler ({library_ms:.4f} ms by events; {backend}), "
         f"bound {max(bytes_ms, ops_ms):.4f} ms ({kv_bytes / 1e6:.2f} MB of K/V, the split kernel at "
         f"{(kv_bytes + io_bytes) / (split_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of HBM's rate); "
         f"|kernel - plain| {err:.2e}, |kernel - sdpa| {lib_err:.2e}")
     return {
         "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_device_ms,
+        "library_backend": backend,
         "profiler_ms_per_launch": device_ms, "library_events_ms": library_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -3178,9 +3181,8 @@ def _flash_cases():
 
 def c4b_flash_cases():
     """C4b: head dims 20 and 36 (handed to the kernels zero-padded to 24
-    and 40) and 256 (in bf16 B1 and B2's 256-wide wgmma instances, B3's
-    wide FMA one; in f32 the wide FMA instances), f32 and bf16 (launched
-    twice)."""
+    and 40) and 256 (in bf16 B1-B3's 256-wide wgmma instances; in f32 the
+    wide FMA instances), f32 and bf16 (launched twice)."""
     return [
         (2, s, nh, n_kv, hd, causal, pad, dtype)
         for hd, nh, n_kv in ((20, 4, 2), (36, 4, 4), (256, 4, 2))
@@ -3190,15 +3192,17 @@ def c4b_flash_cases():
 
 
 def wide_tc_flash_cases():
-    """B1 and B2's 256-wide tensor-core instances (bf16 and f16 at head dims
-    136-256; B3 runs beside them on its wide FMA kernel): hd 136 and 200
-    (120 and 56 of the 256 staged columns past hd; 200 not a multiple of
-    16) and 256, GQA 8/2, at s = 129 (one row past a 128-row query tile), at 1000
+    """B1-B3's 256-wide tensor-core instances (bf16 and f16 at head dims
+    136-256): hd 136 and 200 (120 and 56 of the 256 staged columns past hd;
+    200 not a multiple of 16) and 256, GQA 8/2, at s = 129 (one row past a
+    128-row query tile; B3's last 64-key block holds one key), at 1000
     left-padded by 77 (fully masked query rows; a multiple of neither the
     32- nor the 64-key tile), at 200 causal with a left pad of 130 (query
     tile 0 fully masked) and at 200 not causal with the same pad (masked
     keys inside key tiles off the diagonal); then GPT-J-6B's training shape
-    (b 4, s 1024, 16 × 256) in both dtypes. Launched twice each."""
+    (b 4, s 1024, 16 × 256, no GQA) in both dtypes. Launched twice each,
+    with equal bits: B3's hand-off of P^T between its warpgroups is
+    deterministic."""
     return [
         (2, s, 8, 2, hd, causal, pad, dtype)
         for hd in (136, 200, 256)
@@ -3223,8 +3227,8 @@ def check_flash_instances(dev) -> dict:
     ``flash_attention`` (b 1, s 256, 4 query and 2 kv heads, causal)
     launched at each of :data:`FLASH_INSTANCE_CASES`, read from the
     profiler's kernel names. Fails unless they are exactly
-    :func:`flash_instances`: bf16 and f16 B1 and B2 on their wgmma
-    instances up to hd 256, f32, hd 512 and B3 past 128 on the FMA ones."""
+    :func:`flash_instances`: bf16 and f16 B1-B3 on their wgmma instances
+    up to hd 256, f32 and hd 512 on the FMA ones."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     dtypes = {name: dt for dt, name in FLASH_DTYPE_NAMES.items()}
@@ -3812,12 +3816,14 @@ def time_flash_at(dev, b: int, s: int, nh: int, head_dims, dtype=torch.bfloat16,
 def _sdpa_backend(rows) -> str:
     """Which of sdpa's backends ran, from the names of its kernels' profiler
     ``rows`` (PyTorch's flash backend takes head dims up to 256; past that
-    the dispatcher picks another): ``flash``, ``efficient``, ``cudnn`` or
-    ``math``, with the heaviest kernel's name."""
+    the dispatcher picks another): ``cudnn``, ``flash``, ``efficient`` or
+    ``math``, with the heaviest kernel's name. cuDNN's kernel names hold
+    "flash" too (``cudnn_generated_..._flash_fprop_...``), so it is tested
+    first."""
     rows = sorted(rows, key=lambda e: -e.self_device_time_total)
     names = " ".join(e.key for e in rows).lower()
-    for backend, marks in (("flash", ("flash",)), ("efficient", ("fmha", "mem_eff", "cutlass")),
-                           ("cudnn", ("cudnn",))):
+    for backend, marks in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                           ("efficient", ("fmha", "mem_eff", "cutlass"))):
         if any(m in names for m in marks):
             break
     else:
@@ -4124,7 +4130,7 @@ FP8_GATE = 1e-2
 def f16_flash_cases():
     """Phase 14a: B1-B3 at f16 — the flagship shape (the wgmma path), GQA
     with a left pad (a fully masked query tile), hd 16 (staged at 64),
-    hd 80, hd 256 (the wide FMA path) and hd 264 and 512 (column blocks),
+    hd 80, hd 256 (the 256-wide wgmma instances) and hd 264 and 512 (column blocks),
     each past hd 64 and 128 launched twice."""
     f16 = torch.float16
     return [
@@ -4918,7 +4924,7 @@ def run_phase15(dev) -> dict:
     gen = p15_generate(dev)
     seconds["15b"] = time.perf_counter() - t0 - sum(seconds.values())
 
-    log_phase("phase 15c: GPT-J-6B's width (2 of 28 layers) — B1-B3 at 16 × 256 and B1 and B2's "
+    log_phase("phase 15c: GPT-J-6B's width (2 of 28 layers) — B1-B3 at 16 × 256 and their "
               "256-wide wgmma instances (hd 136-256, bf16 and f16) against plain; the instances "
               "each width and dtype launches; B1-B3 timed; the 5-line loop at b 4 × 1024")
     hd256_errs = check_flash_vs_plain(dev, [
@@ -5006,12 +5012,11 @@ def main() -> int:
             + (f", blocks a SM {rep['blocks_per_sm']}" if "blocks_per_sm" in rep else ""))
     flash_ptxas = ptxas["flash_attention.cu"]
     wgmma = {k: v for k, v in flash_ptxas.items() if "_wgmma_kernel<" in k}
-    # bf16 and f16 (fp16 training) instances of each up to hd 128, and of B1
-    # and B2 at 256
-    if len(wgmma) != 3 * 2 * len(FLASH_BUILT_HDS) + 2 * 2 or any(
+    # bf16 and f16 (fp16 training) instances of each up to hd 128 and at 256
+    if len(wgmma) != 3 * 2 * len(FLASH_BUILT_HDS) + 3 * 2 or any(
             v["spill_stores"] or v["spill_loads"] for v in wgmma.values()):
-        raise AssertionError(f"the wgmma flash kernels (3 at each of {FLASH_BUILT_HDS} and B1 "
-                             "and B2 at 256, bf16 and f16) must "
+        raise AssertionError(f"the wgmma flash kernels (B1-B3 at each of {FLASH_BUILT_HDS} and "
+                             "at 256, bf16 and f16) must "
                              f"build without spills: {wgmma}")
     b4 = ptxas["paged_attention.cu"][PAGED_TIMED[0]]
     if b4["spill_stores"] or b4["spill_loads"]:

@@ -266,10 +266,9 @@ def test_chip_smoke_profiler_pattern_finds_each_flash_kernel():
 
 def test_chip_smoke_names_the_instance_each_head_dim_and_dtype_launches():
     """``chip_smoke.flash_instances``, which phase 15c holds the profiler's
-    kernel names to: bf16 and f16 B1 and B2 on their wgmma instances up to
-    hd 256 (at 256 from 136 on), B3 on wgmma up to 128 and its wide FMA
-    kernel past it, f32 on the FMA kernels, and every dtype past 256 on the
-    column-block instances."""
+    kernel names to: bf16 and f16 B1-B3 on their wgmma instances up to hd
+    256 (at 256 from 136 on), f32 on the FMA kernels, and every dtype past
+    256 on the column-block instances."""
     smoke = _chip_smoke()
     fams = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     assert smoke.flash_instances(80, "bf16") == {f: f"{f}_wgmma_kernel<80, __nv_bfloat16>"
@@ -281,7 +280,7 @@ def test_chip_smoke_names_the_instance_each_head_dim_and_dtype_launches():
             assert smoke.flash_instances(hd, dtype) == {
                 "flash_fwd": f"flash_fwd_wgmma_kernel<256, {t}>",
                 "flash_bwd_dq": f"flash_bwd_dq_wgmma_kernel<256, {t}>",
-                "flash_bwd_dkv": f"flash_bwd_dkv_kernel<256, 32, {t}, false>"}
+                "flash_bwd_dkv": f"flash_bwd_dkv_wgmma_kernel<256, {t}>"}
         assert smoke.flash_instances(hd, "f32") == {f: f"{f}_kernel<256, 32, float, false>"
                                                     for f in fams}
     assert smoke.flash_instances(512, "f16") == {f: f"{f}_kernel<256, 32, __half, true>"
@@ -289,6 +288,27 @@ def test_chip_smoke_names_the_instance_each_head_dim_and_dtype_launches():
     assert smoke.FLASH_WIDE == tuple(smoke.flash_instances(256, "bf16").values())
     # every (head dim, dtype) the profiler check reads is one the wrapper takes
     assert all(tfa.takes_head_dim(hd) and hd % 8 == 0 for hd, _ in smoke.FLASH_INSTANCE_CASES)
+
+
+def test_chip_smoke_names_the_sdpa_backend_from_kernel_names():
+    """``chip_smoke._sdpa_backend``, which labels each ``library_ms``: the
+    backend of the kernel rows sdpa ran, cuDNN's before flash (its kernel
+    names hold "flash" too), with the heaviest kernel's name."""
+    from types import SimpleNamespace
+
+    smoke = _chip_smoke()
+
+    def rows(*named):
+        return [SimpleNamespace(key=k, self_device_time_total=t) for k, t in named]
+
+    cudnn = "cudnn_generated_fort_native_sdpa_sm90_flash_fprop_wgmma_f16_knob_7_64x128x256_4x"
+    assert smoke._sdpa_backend(rows((cudnn, 5.0))) == f"cudnn ({cudnn[:80]})"
+    flash = "void pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits<128, 128>>"
+    assert smoke._sdpa_backend(rows(("copy", 1.0), (flash, 9.0))) == f"flash ({flash[:80]})"
+    eff = "fmha_cutlassF_bf16_aligned_32x128_gmem_sm80(PyTorchMemEffAttention::AttentionKernel)"
+    assert smoke._sdpa_backend(rows((eff, 2.0))).startswith("efficient (fmha_cutlassF")
+    assert smoke._sdpa_backend(rows(("void at::native::bmm", 1.0))).startswith("math (")
+    assert smoke._sdpa_backend([]) == "math"
 
 
 def test_flash_fwd_bwd_pair_equals_the_autograd_function():

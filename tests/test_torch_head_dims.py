@@ -102,30 +102,35 @@ def test_plain_flash_bf16_matches_jax_at_head_dims(hd):
         np.testing.assert_allclose(g, r, rtol=0, atol=5e-2 * max(float(np.abs(r).max()), 1.0))
 
 
-#: the head dims where bf16 and f16 B1 and B2 run their 256-wide tensor-core
+#: the head dims where bf16 and f16 B1-B3 run their 256-wide tensor-core
 #: instances: 136 and 200 (a quarter of zero columns staged, 200 not a
 #: multiple of 16), 192 and 256; and each 16-bit dtype's gates (output;
 #: gradients × max(|ref|, 1)): the JAX tests' bf16 ones, and for f16 those
 #: of ``tests/test_torch_precision.py`` (bf16's scaled by f16's 8× finer
 #: mantissa), which ``chip_smoke.py`` holds the kernels to as ``FLASH_GATES``
 WIDE_16BIT_HEAD_DIMS = (136, 192, 200, 256)
+#: the (head dim, query heads, kv heads) cases of the wide 16-bit test: GQA
+#: 8/2 at each of :data:`WIDE_16BIT_HEAD_DIMS`, and GPT-J-6B's head layout
+#: (one kv head a query head, no GQA) at 256, where B3's block sums no heads
+WIDE_16BIT_CASES = [(hd, 8, 2) for hd in WIDE_16BIT_HEAD_DIMS] + [(256, 4, 4)]
+WIDE_16BIT_IDS = [str(hd) for hd in WIDE_16BIT_HEAD_DIMS] + ["256-no_gqa"]
 GATES_16BIT = {"bf16": (jnp.bfloat16, torch.bfloat16, 3e-2, 5e-2),
                "f16": (jnp.float16, torch.float16, 4e-3, 8e-3)}
 
 
 @pytest.mark.parametrize("causal", (True, False), ids=("causal", "not_causal"))
 @pytest.mark.parametrize("dtype", list(GATES_16BIT))
-@pytest.mark.parametrize("hd", WIDE_16BIT_HEAD_DIMS)
-def test_plain_flash_16bit_matches_jax_at_wide_head_dims(hd, dtype, causal):
-    """The plain B1 and B2 (with B3, which the backward computes beside
-    them) in bf16 and f16 at the head dims of the 256-wide tensor-core
-    instances, held to the JAX Pallas kernels in interpret mode on the same
-    16-bit values: GQA 8/2, s = 200 (a multiple of neither the kernels' key
-    tiles nor their 128-row query tiles), a key mask whose first row is
-    left-padded by 9 keys (causal: query rows 0-8 see no key) and whose
-    second row is fully masked (output and gradients 0 there)."""
+@pytest.mark.parametrize("hd, h, n_kv", WIDE_16BIT_CASES, ids=WIDE_16BIT_IDS)
+def test_plain_flash_16bit_matches_jax_at_wide_head_dims(hd, h, n_kv, dtype, causal):
+    """The plain B1-B3 in bf16 and f16 at the head dims of the 256-wide
+    tensor-core instances, held to the JAX Pallas kernels in interpret mode
+    on the same 16-bit values: GQA 8/2 (and, at 256, GPT-J's 4/4), s = 200
+    (a multiple of neither the kernels' key tiles nor their 128-row query
+    tiles), a key mask whose first row is left-padded by 9 keys (causal:
+    query rows 0-8 see no key) and whose second row is fully masked (output
+    and gradients 0 there)."""
     jdt, tdt, o_gate, g_gate = GATES_16BIT[dtype]
-    q, k, v, do = _flash_inputs(hd, seed=11 + hd, b=2, s=200, h=8, n_kv=2)
+    q, k, v, do = _flash_inputs(hd, seed=11 + hd, b=2, s=200, h=h, n_kv=n_kv)
     mask = np.ones((2, 200), bool)
     mask[0, :9] = False
     mask[1] = False
