@@ -40,7 +40,9 @@ An encoder-decoder model (``is_encoder_decoder``: t5) decodes through the
 seq2seq loop (:func:`_generate_seq2seq`): the prompt is encoded once and
 one decoder forward a token reads the fixed-size decoder buffer, eagerly.
 
-Not ported yet: the streaming ``DispatchedModel`` path (ROADMAP item 19).
+A :class:`~.big_modeling.DispatchedModel` (weights streamed from host and
+disk) has no KV-cache backend, so it takes the full-forward loop, as in
+JAX: one streamed forward a token over the whole static buffer.
 """
 
 from __future__ import annotations

@@ -3,8 +3,8 @@ families, :data:`MODEL_ZOO` (name → ``(config, factory)``, built lazily:
 building it imports every family), :func:`config_from_hf_json` (an HF
 ``config.json`` onto a zoo config by ``model_type``) and
 :func:`model_factory_for_config`. A factory takes the config and builds
-the model with random weights on the card (``from_config``'s defaults);
-JAX's ``init_empty_weights`` shapes-only path is ROADMAP item 19.
+the model with random weights on the card (``from_config``'s defaults), or
+its meta skeleton under :func:`~..big_modeling.init_empty_weights`.
 """
 
 from .llama import (

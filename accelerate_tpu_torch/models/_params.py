@@ -20,8 +20,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..big_modeling import init_device
 from ..parallel.pipeline import remat_wrap
-from ..utils.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -120,6 +120,19 @@ def state_dict_from_jax(np_params, convert, stacked=("layers",)) -> dict[str, to
     return {key: as_tensor(convert(leaf, arr)) for key, leaf, arr in walk(np_params, "")}
 
 
+def jax_param_name(name: str) -> str:
+    """The JAX name of a port parameter (a spec family's: the same, JAX's
+    layer-stacked leaves expanded to ``layers.<i>.<leaf>`` as JAX's device
+    maps expand them)."""
+    return name
+
+
+def buffer_device(device: torch.device) -> torch.device:
+    """Where a model's computed tables (RoPE) go: its device, or the host
+    when it is built on the meta device (``init_empty_weights``)."""
+    return torch.device("cpu") if device.type == "meta" else device
+
+
 def transposed(names):
     """A ``convert`` for :func:`state_dict_from_jax` that transposes the
     2-D leaves named in ``names`` (JAX's ``[in, out]`` projections) and
@@ -164,12 +177,16 @@ class SpecModel(nn.Module):
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()
         self.config = config
-        build(self, self._spec(config), dtype, resolve_device(device))
+        build(self, self._spec(config), dtype, init_device(device))
 
     @classmethod
     def from_config(cls, config, seed: int = 0, dtype=torch.float32, device=None):
-        device = resolve_device(device)
+        """Random weights from ``seed``; under ``init_empty_weights`` the
+        meta-built model, with no draw."""
         model = cls(config, dtype=dtype, device=device)
+        if model.device.type == "meta":
+            return model
+        device = model.device
         generator = torch.Generator(device=device).manual_seed(seed)
         params = dict(model.named_parameters())
         with torch.no_grad():  # leaf by leaf: the draws of init_state_dict, one at a time

@@ -5,8 +5,9 @@ them), non-causal attention with a key mask through
 :func:`~..ops.attention.attention` (the flash kernels on the card, as the
 LMs), a tanh-GELU MLP, ``[CLS]`` pooling and a linear head. Each layer is a
 submodule holding the JAX leaves by their names, projections ``[out,
-in]``. The streaming segments and the pipelined stack are later slices
-(ROADMAP items 18-19).
+in]``. :meth:`BertForSequenceClassification.segments` is the streaming
+plan a :class:`~..big_modeling.DispatchedModel` runs; the pipelined stack
+is a later slice (ROADMAP item 18).
 """
 
 from __future__ import annotations
@@ -91,6 +92,9 @@ def params_from_jax(np_params, config: BertConfig) -> dict[str, torch.Tensor]:
         np_params, _params.transposed(("wq", "wk", "wv", "wo", "w_in", "w_out", "w")))
 
 
+jax_param_name = _params.jax_param_name
+
+
 class BertForSequenceClassification(_params.SpecModel):
     """BERT (port of the JAX ``BertForSequenceClassification``):
     ``forward(input_ids, attention_mask=None, token_type_ids=None,
@@ -111,26 +115,71 @@ class BertForSequenceClassification(_params.SpecModel):
         y = rms_norm(x, w["mlp_norm"], c.norm_eps)
         return x + dense(gelu_tanh(dense(y, w["w_in"])), w["w_out"])
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                labels=None) -> ModelOutput:
+    def _embed(self, w, input_ids, token_type_ids):
         c = self.config
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        x = (w["embed_tokens"][table_rows(input_ids, c.vocab_size)]
+             + w["embed_positions"][table_rows(pos, c.max_position_embeddings)][None]
+             + w["embed_types"][table_rows(token_type_ids, c.type_vocab_size)])
+        return rms_norm(x, w["emb_norm"], c.norm_eps)
+
+    @staticmethod
+    def _inputs(input_ids, attention_mask, token_type_ids):
         b, s = input_ids.shape
         dev = input_ids.device
         if attention_mask is None:
             attention_mask = torch.ones((b, s), dtype=torch.int32, device=dev)
         if token_type_ids is None:
             token_type_ids = torch.zeros((b, s), dtype=torch.int32, device=dev)
-        pos = torch.arange(s, device=dev)
-        x = (self.embed_tokens[table_rows(input_ids, c.vocab_size)]
-             + self.embed_positions[table_rows(pos, c.max_position_embeddings)][None]
-             + self.embed_types[table_rows(token_type_ids, c.type_vocab_size)])
-        x = rms_norm(x, self.emb_norm, c.norm_eps)
-        for layer in self.layers:
-            x = _params.apply_layer(self._block, c.remat, layer, x, attention_mask)
-        x = rms_norm(x, self.norm, c.norm_eps)
-        logits = F.linear(x[:, 0, :], self.classifier.w, self.classifier.b)  # [CLS]
+        return attention_mask, token_type_ids
+
+    @staticmethod
+    def _output(logits, labels) -> ModelOutput:
         out = ModelOutput(logits=logits)
         if labels is not None:
             logp = torch.log_softmax(logits.float(), dim=-1)
             out["loss"] = -logp.gather(-1, labels.long()[:, None]).mean()
         return out
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                labels=None) -> ModelOutput:
+        c = self.config
+        attention_mask, token_type_ids = self._inputs(input_ids, attention_mask, token_type_ids)
+        x = self._embed(self._parameters, input_ids, token_type_ids)
+        for layer in self.layers:
+            x = _params.apply_layer(self._block, c.remat, layer, x, attention_mask)
+        x = rms_norm(x, self.norm, c.norm_eps)
+        logits = F.linear(x[:, 0, :], self.classifier.w, self.classifier.b)  # [CLS]
+        return self._output(logits, labels)
+
+    def segments(self, input_ids=None, attention_mask=None, token_type_ids=None, labels=None,
+                 **kw):
+        """The streaming plan (port of ``bert_segments``): embed → one step
+        a layer → norm and classifier. The classifier reads its weight
+        dequantized, as JAX's ``x @ w`` does."""
+        from ..utils.quantization import dequantize_array
+
+        c = self.config
+        attention_mask, token_type_ids = self._inputs(input_ids, attention_mask, token_type_ids)
+        embed = ["embed_tokens", "embed_positions", "embed_types", "emb_norm"]
+
+        def layer_step(i):
+            names = self.layers[i].leaf_names
+
+            def fn(seg, carry):
+                w = {n: seg[f"layers.{i}.{n}"] for n in names}
+                return {"x": self._block(w, carry["x"], attention_mask)}
+
+            return ("layer", i), [f"layers.{i}.{n}" for n in names], fn
+
+        def head(seg, carry):
+            x = rms_norm(carry["x"], seg["norm"], c.norm_eps)[:, 0, :]
+            w = dequantize_array(seg["classifier.w"], x.dtype)
+            return {"logits": F.linear(x, w, seg["classifier.b"])}
+
+        steps = [("embed", embed,
+                  lambda seg, carry: {"x": self._embed(seg, input_ids, token_type_ids)})]
+        steps += [layer_step(i) for i in range(c.num_hidden_layers)]
+        steps.append(("head", ["norm", "classifier.w", "classifier.b"], head))
+        return {"init": dict, "steps": steps,
+                "finalize": lambda carry: self._output(carry["logits"], labels)}

@@ -11,9 +11,10 @@ submodule holding the JAX leaves by their names (projections ``[out,
 in]``, the transpose of JAX's), and the layer loop is a Python loop.
 Ported: the config and its presets, the init, ``params_from_jax``, the
 forward with its prefill mode (``use_cache=True``), the decode step
-``generate()`` runs (:meth:`CausalLM.cached_step`) and the HF converter.
-The streaming segments and the pipelined stacks are later slices
-(ROADMAP items 18-19).
+``generate()`` runs (:meth:`CausalLM.cached_step`), the streaming segments
+a :class:`~..big_modeling.DispatchedModel` runs (:meth:`CausalLM.segments`)
+and the HF converter. The pipelined stacks are a later slice (ROADMAP item
+18).
 """
 
 from __future__ import annotations
@@ -26,7 +27,13 @@ import torch.nn.functional as F
 from ..modules import ModelOutput
 from ..ops.attention import attention
 from ..ops.fp8 import dense
-from ..ops.layers import cached_attend, fused_cross_entropy, shift_labels, table_rows
+from ..ops.layers import (
+    cached_attend,
+    cross_entropy_loss,
+    fused_cross_entropy,
+    shift_labels,
+    table_rows,
+)
 from ..parallel.pipeline import remat_policy
 from . import _params
 from ._params import Leaf
@@ -113,6 +120,9 @@ def params_from_jax(np_params, config: GPT2Config) -> dict[str, torch.Tensor]:
     return _params.state_dict_from_jax(np_params, _params.transposed(_GPT2_PROJ))
 
 
+jax_param_name = _params.jax_param_name
+
+
 def convert_hf_gpt2_state_dict(flat: dict, config: GPT2Config) -> dict[str, torch.Tensor]:
     """An HF transformers GPT-2 state dict (``transformer.h.{i}.attn.c_attn.weight``,
     ..., with or without the ``transformer.`` prefix) → this model's state
@@ -155,9 +165,14 @@ class CausalLM(_params.SpecModel):
     forward, its prefill mode and the dense KV-cache decode step that
     ``generate()`` runs. A family gives its spec, ``_embed``, ``_block``
     (one layer, attention through the ``attend(q, k, v)`` it is handed),
-    ``_final`` and ``_head``."""
+    ``_final`` and ``_head``. ``_embed``, ``_final``, ``_head`` and
+    ``_logits`` read the model's own top-level leaves, or the dict ``w``
+    that a streamed segment hands them (``_embed_leaves``, ``_head_leaves``
+    name what those segments stream)."""
 
     supports_kv_cache = True
+    _embed_leaves = ("wte", "wpe")
+    _head_leaves = ("ln_f_g", "ln_f_b", "wte")
 
     def kv_cache_shape(self, batch: int, length: int) -> tuple:
         """``[L, b, length, kv heads, head_dim]``: one dense cache."""
@@ -173,13 +188,55 @@ class CausalLM(_params.SpecModel):
                 "silently clamp, producing wrong logits"
             )
 
-    def _final(self, x):
-        return layer_norm(x, self.ln_f_g, self.ln_f_b, self.config.layer_norm_eps)
+    def _final(self, x, w=None):
+        w = self._parameters if w is None else w
+        return layer_norm(x, w["ln_f_g"], w["ln_f_b"], self.config.layer_norm_eps)
 
-    def _logits(self, x):
-        head, bias = self._head()
+    def _logits(self, x, w=None):
+        head, bias = self._head(w)
         logits = dense(x, head)
         return logits if bias is None else logits + bias
+
+    def segments(self, input_ids=None, attention_mask=None, positions=None, labels=None,
+                 **kw):
+        """The streaming plan (port of ``gpt2_segments``, ``opt_segments``
+        and ``gpt_neox_segments``): embed → one step a layer → final norm
+        and head, each step a function of its streamed weights and the
+        carry. The layer step is the family's ``_block``, so its attention
+        runs :func:`~..ops.attention.attention` (B1 on the card)."""
+        b, s = input_ids.shape
+        self._check_length(s)
+        if positions is None:
+            positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
+
+        def attend(q, k, v):
+            return attention(q, k, v, segment_mask=attention_mask, causal=True)
+
+        def layer_step(i):
+            names = self.layers[i].leaf_names
+
+            def fn(seg, carry):
+                w = {n: seg[f"layers.{i}.{n}"] for n in names}
+                out = self._block(w, carry["x"], positions, attend)
+                return {"x": out[0] if isinstance(out, tuple) else out}
+
+            return ("layer", i), [f"layers.{i}.{n}" for n in names], fn
+
+        head_leaves = [n for n in self._head_leaves if n in self._parameters]
+        steps = [("embed", list(self._embed_leaves),
+                  lambda seg, carry: {"x": self._embed(input_ids, positions, seg)})]
+        steps += [layer_step(i) for i in range(len(self.layers))]
+        steps.append(("head", head_leaves,
+                      lambda seg, carry: {"logits": self._logits(self._final(carry["x"], seg),
+                                                                  seg)}))
+
+        def finalize(carry):
+            out = ModelOutput(logits=carry["logits"])
+            if labels is not None:
+                out["loss"] = cross_entropy_loss(carry["logits"][:, :-1, :], labels[:, 1:])
+            return out
+
+        return {"init": dict, "steps": steps, "finalize": finalize}
 
     def _run_layer(self, i: int, x, positions, attend):
         """Layer ``i``; a family with an auxiliary output (Mixtral) returns
@@ -283,13 +340,14 @@ class GPT2LMHeadModel(CausalLM):
 
     _spec = staticmethod(gpt2_spec)
 
-    def _embed(self, input_ids, positions):
+    def _embed(self, input_ids, positions, w=None):
         c = self.config
-        return (self.wte[table_rows(input_ids, c.vocab_size)]
-                + self.wpe[table_rows(positions, c.max_position_embeddings)])
+        w = self._parameters if w is None else w
+        return (w["wte"][table_rows(input_ids, c.vocab_size)]
+                + w["wpe"][table_rows(positions, c.max_position_embeddings)])
 
-    def _head(self):
-        return self.wte, None
+    def _head(self, w=None):
+        return (self._parameters if w is None else w)["wte"], None
 
     def _block(self, w, x, positions, attend):
         """One pre-LN block (port of ``gpt2_layer_apply``)."""

@@ -20,7 +20,6 @@ import torch.nn.functional as F
 from ..ops.fp8 import dense
 from ..ops.layers import apply_rope, rope_frequencies, table_rows
 from ..parallel.pipeline import remat_policy
-from ..utils.device import resolve_device
 from . import _params
 from ._params import Leaf
 from .gpt2 import CausalLM, hf_getter, layer_norm
@@ -128,6 +127,9 @@ def params_from_jax(np_params, config: GPTNeoXConfig) -> dict[str, torch.Tensor]
     return _params.state_dict_from_jax(np_params, _params.transposed(_NEOX_PROJ))
 
 
+jax_param_name = _params.jax_param_name
+
+
 def _gelu(c: GPTNeoXConfig, x):
     """Family-resolved GELU: exact erf for NeoX, tanh for GPT-J (identified
     by its shared LayerNorm) unless ``gelu_approximate`` forces one."""
@@ -212,15 +214,21 @@ class GPTNeoXForCausalLM(CausalLM):
     def __init__(self, config: GPTNeoXConfig, dtype=torch.float32, device=None):
         super().__init__(config, dtype=dtype, device=device)
         cos, sin = rope_frequencies(config.rotary_dim, config.max_position_embeddings,
-                                    config.rope_theta, device=resolve_device(device))
+                                    config.rope_theta,
+                                    device=_params.buffer_device(self.device))
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
 
-    def _embed(self, input_ids, positions):
-        return self.wte[table_rows(input_ids, self.config.vocab_size)]
+    _embed_leaves = ("wte",)
+    _head_leaves = ("ln_f_g", "ln_f_b", "lm_head", "lm_head_b")
 
-    def _head(self):
-        return self.lm_head, getattr(self, "lm_head_b", None)
+    def _embed(self, input_ids, positions, w=None):
+        w = self._parameters if w is None else w
+        return w["wte"][table_rows(input_ids, self.config.vocab_size)]
+
+    def _head(self, w=None):
+        w = self._parameters if w is None else w
+        return w["lm_head"], w.get("lm_head_b")
 
     def _block(self, w, x, positions, attend):
         """One parallel-residual block (port of ``gpt_neox_layer_apply``):

@@ -17,8 +17,9 @@ serving engine runs (:meth:`LlamaForCausalLM.paged_step`, the port of
 and ``cached_step`` (so an fp8 recipe reaches training and ``generate()``
 alike); ``paged_step`` keeps plain products, since serving has no
 precision policy. :func:`convert_hf_llama_state_dict` loads an HF-layout
-checkpoint. The streaming segments and the pipelined stacks are later
-slices.
+checkpoint. :meth:`LlamaForCausalLM.segments` is the streaming plan a
+:class:`~..big_modeling.DispatchedModel` runs; the pipelined stacks are a
+later slice.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..modules import ModelOutput
 from ..ops.attention import attention
 from ..ops.fp8 import dense
 from ..ops.layers import (
+    cross_entropy_loss,
     fused_cross_entropy,
     rms_norm,
     rope_attention_block,
@@ -43,8 +45,8 @@ from ..ops.layers import (
     shift_labels,
     table_rows,
 )
+from ..big_modeling import init_device
 from ..parallel.pipeline import remat_policy, remat_wrap
-from ..utils.device import resolve_device
 
 
 @dataclass
@@ -171,6 +173,13 @@ def params_from_jax(np_params, config: LlamaConfig) -> dict[str, torch.Tensor]:
     return sd
 
 
+def jax_param_name(name: str) -> str:
+    """The JAX name of a port parameter (JAX's layer-stacked leaves
+    expanded to ``layers.<i>.<leaf>``, as JAX's device maps expand them):
+    ``nn.Linear``'s and ``nn.Embedding``'s ``.weight`` dropped."""
+    return name[: -len(".weight")] if name.endswith(".weight") else name
+
+
 class LlamaDecoderLayer(nn.Module):
     """One block's weights, under the JAX package's leaf names."""
 
@@ -279,7 +288,7 @@ class LlamaForCausalLM(nn.Module):
 
     def __init__(self, config: LlamaConfig, dtype=torch.float32, device=None):
         super().__init__()
-        device = resolve_device(device)
+        device = init_device(device)
         self.config = config
         c = config
         with torch.device("meta"):
@@ -292,17 +301,20 @@ class LlamaForCausalLM(nn.Module):
                 None if c.tie_word_embeddings
                 else nn.Linear(c.hidden_size, c.vocab_size, bias=False, dtype=dtype)
             )
-        self.to_empty(device=device)
+        if device.type != "meta":  # init_empty_weights keeps the parameters on meta
+            self.to_empty(device=device)
         cos, sin = rope_frequencies(c.head_dim, c.max_position_embeddings, c.rope_theta,
-                                    device=device)
+                                    device=device if device.type != "meta" else "cpu")
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
 
     @classmethod
     def from_config(cls, config: LlamaConfig, seed: int = 0, dtype=torch.float32,
                     device=None) -> "LlamaForCausalLM":
-        device = resolve_device(device)
         model = cls(config, dtype=dtype, device=device)
+        if model.device.type == "meta":  # init_empty_weights: no draw
+            return model
+        device = model.device
         generator = torch.Generator(device=device).manual_seed(seed)
         model.load_state_dict(init_llama_params(generator, config, dtype, device))
         return model
@@ -397,6 +409,45 @@ class LlamaForCausalLM(nn.Module):
         if labels is not None:
             out["loss"] = fused_cross_entropy(x, head.t(), shift_labels(labels))
         return out
+
+    def segments(self, input_ids=None, attention_mask=None, positions=None, labels=None,
+                 **kw):
+        """The streaming plan (port of ``llama_segments``): embed → one step
+        a layer (:func:`llama_layer_apply` on the streamed weights, so its
+        attention runs B1 on the card) → norm and head."""
+        c = self.config
+        b, s = input_ids.shape
+        self._check_length(s)
+        if positions is None:
+            positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
+        rope = (self.rope_cos, self.rope_sin)
+        table = "embed_tokens.weight"
+        head = table if self.lm_head is None else "lm_head.weight"
+
+        def name(i, leaf):
+            return f"layers.{i}.{leaf}" + ("" if leaf in _NORMS else ".weight")
+
+        def layer_step(i):
+            def fn(seg, carry):
+                w = {k: seg[name(i, k)] for k in _LAYER_KEYS}
+                return {"x": llama_layer_apply(c, w, carry["x"], *rope, positions,
+                                               attention_mask)}
+
+            return ("layer", i), [name(i, k) for k in _LAYER_KEYS], fn
+
+        steps = [("embed", [table],
+                  lambda seg, carry: {"x": seg[table][self._token_ids(input_ids)]})]
+        steps += [layer_step(i) for i in range(c.num_hidden_layers)]
+        steps.append(("head", ["norm", head], lambda seg, carry: {
+            "logits": dense(rms_norm(carry["x"], seg["norm"], c.rms_norm_eps), seg[head])}))
+
+        def finalize(carry):
+            out = ModelOutput(logits=carry["logits"])
+            if labels is not None:
+                out["loss"] = cross_entropy_loss(carry["logits"][:, :-1, :], labels[:, 1:])
+            return out
+
+        return {"init": dict, "steps": steps, "finalize": finalize}
 
     def convert_state_dict(self, flat: dict) -> dict[str, torch.Tensor]:
         """An HF-layout state dict as this model's

@@ -35,7 +35,6 @@ from ..ops.layers import (
     table_rows,
 )
 from ..parallel.pipeline import remat_policy
-from ..utils.device import resolve_device
 from . import _params
 from ._params import Leaf
 from .gpt2 import CausalLM
@@ -180,18 +179,24 @@ class MixtralForCausalLM(CausalLM):
     def __init__(self, config: MixtralConfig, dtype=torch.float32, device=None):
         super().__init__(config, dtype=dtype, device=device)
         cos, sin = rope_frequencies(config.head_dim, config.max_position_embeddings,
-                                    config.rope_theta, device=resolve_device(device))
+                                    config.rope_theta,
+                                    device=_params.buffer_device(self.device))
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
 
-    def _embed(self, input_ids, positions):
-        return self.embed_tokens[table_rows(input_ids, self.config.vocab_size)]
+    #: JAX's Mixtral has no streaming plan: a DispatchedModel materialises it
+    segments = None
 
-    def _final(self, x):
-        return rms_norm(x, self.norm, self.config.rms_norm_eps)
+    def _embed(self, input_ids, positions, w=None):
+        w = self._parameters if w is None else w
+        return w["embed_tokens"][table_rows(input_ids, self.config.vocab_size)]
 
-    def _head(self):
-        return self.lm_head, None
+    def _final(self, x, w=None):
+        w = self._parameters if w is None else w
+        return rms_norm(x, w["norm"], self.config.rms_norm_eps)
+
+    def _head(self, w=None):
+        return (self._parameters if w is None else w)["lm_head"], None
 
     def _block(self, w, x, positions, attend):
         """One block (port of ``mixtral_layer_apply``): the llama's

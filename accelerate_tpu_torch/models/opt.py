@@ -2,8 +2,8 @@
 decoder with learned positions (HF's +2 offset folded away by the
 converter), separate biased q/k/v projections, a ReLU MLP and the LM head
 tied to ``wte``. Sizes with ``word_embed_proj_dim != hidden_size`` (only
-opt-350m) are not supported, as in JAX. The forward, prefill and decode
-step are :class:`~.gpt2.CausalLM`'s.
+opt-350m) are not supported, as in JAX. The forward, prefill, decode step
+and streaming segments are :class:`~.gpt2.CausalLM`'s.
 """
 
 from __future__ import annotations
@@ -104,6 +104,9 @@ def params_from_jax(np_params, config: OPTConfig) -> dict[str, torch.Tensor]:
     return _params.state_dict_from_jax(np_params, _params.transposed(_OPT_PROJ))
 
 
+jax_param_name = _params.jax_param_name
+
+
 def convert_hf_opt_state_dict(flat: dict, config: OPTConfig) -> dict[str, torch.Tensor]:
     """An HF transformers OPT state dict (``model.decoder.layers.{i}...``) →
     this model's state dict (port of JAX ``convert_hf_opt_state_dict``).
@@ -136,13 +139,14 @@ class OPTForCausalLM(CausalLM):
 
     _spec = staticmethod(opt_spec)
 
-    def _embed(self, input_ids, positions):
+    def _embed(self, input_ids, positions, w=None):
         c = self.config
-        return (self.wte[table_rows(input_ids, c.vocab_size)]
-                + self.wpe[table_rows(positions, c.max_position_embeddings)])
+        w = self._parameters if w is None else w
+        return (w["wte"][table_rows(input_ids, c.vocab_size)]
+                + w["wpe"][table_rows(positions, c.max_position_embeddings)])
 
-    def _head(self):
-        return self.wte, None
+    def _head(self, w=None):
+        return (self._parameters if w is None else w)["wte"], None
 
     def _block(self, w, x, positions, attend):
         """One pre-LN block (port of ``opt_layer_apply``)."""

@@ -9,7 +9,9 @@ projections, the v1.0 ReLU or v1.1 gated-GELU FFN, and a head tied to
 Attention is JAX's own ``_t5_attention`` in plain PyTorch (softmax in
 f32): the flash kernels take no additive bias, so T5 runs no kernel, as in
 JAX. ``generate()`` runs it through its seq2seq loop
-(:func:`~..generation.generate`, ``is_encoder_decoder``).
+(:func:`~..generation.generate`, ``is_encoder_decoder``);
+:meth:`T5ForConditionalGeneration.segments` is the streaming plan a
+:class:`~..big_modeling.DispatchedModel` runs.
 """
 
 from __future__ import annotations
@@ -127,6 +129,9 @@ def params_from_jax(np_params, config: T5Config) -> dict[str, torch.Tensor]:
     return _params.state_dict_from_jax(np_params, _params.transposed(_T5_PROJ))
 
 
+jax_param_name = _params.jax_param_name
+
+
 def relative_position_bucket(relative_position: torch.Tensor, bidirectional: bool,
                              num_buckets: int, max_distance: int) -> torch.Tensor:
     """T5's log-bucketed relative positions (HF
@@ -214,17 +219,21 @@ class T5ForConditionalGeneration(_params.SpecModel):
         x = x + self._attend(w, y, enc_out, "c", None, enc_mask)
         return self._ffn(w, x)
 
-    def _bias(self, stack, s: int, bidirectional: bool):
+    def _bias(self, rel_bias, s: int, bidirectional: bool):
         c = self.config
-        return compute_position_bias(stack.rel_bias, s, s, bidirectional,
+        bias = compute_position_bias(rel_bias, s, s, bidirectional,
                                      c.relative_attention_num_buckets,
                                      c.relative_attention_max_distance)
+        if bidirectional:
+            return bias
+        causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=bias.device))[None, None]
+        return torch.where(causal, bias, -1e9)
 
     def encode(self, input_ids, attention_mask=None):
         """The encoder stack and its final norm (port of ``t5_encode``)."""
         c = self.config
         x = self.shared[table_rows(input_ids, c.vocab_size)]
-        bias = self._bias(self.encoder, input_ids.shape[1], True)
+        bias = self._bias(self.encoder.rel_bias, input_ids.shape[1], True)
         for layer in self.encoder.layers:
             x = _params.apply_layer(self._encoder_block, c.remat, layer, x, bias, attention_mask)
         return rms_norm(x, self.encoder.final_norm, c.layer_norm_epsilon)
@@ -235,9 +244,7 @@ class T5ForConditionalGeneration(_params.SpecModel):
         diagonal)."""
         c = self.config
         x = self.shared[table_rows(decoder_input_ids, c.vocab_size)]
-        s = decoder_input_ids.shape[1]
-        causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=x.device))[None, None]
-        bias = torch.where(causal, self._bias(self.decoder, s, False), -1e9)
+        bias = self._bias(self.decoder.rel_bias, decoder_input_ids.shape[1], False)
         for layer in self.decoder.layers:
             x = _params.apply_layer(self._decoder_block, c.remat, layer, x, bias,
                                     decoder_attention_mask, enc_out, enc_mask)
@@ -266,6 +273,69 @@ class T5ForConditionalGeneration(_params.SpecModel):
         if labels is not None:
             out["loss"] = cross_entropy_loss(logits, labels)  # no shift: seq2seq
         return out
+
+    def segments(self, input_ids=None, attention_mask=None, decoder_input_ids=None,
+                 decoder_attention_mask=None, labels=None, encoder_outputs=None, **kw):
+        """The streaming plan (port of ``t5_segments``): encoder embed → a
+        step an encoder layer → its norm → decoder embed → a step a decoder
+        layer → norm and head; the carry holds the encoder's output for
+        cross-attention. ``encoder_outputs`` skips the encoder's steps, as
+        :meth:`forward` does. The tied head scales the hidden state rather
+        than the table, as JAX's plan does, so a quantized table stays
+        quantized for :func:`~..ops.fp8.dense`."""
+        c = self.config
+        eps = c.layer_norm_epsilon
+        if decoder_input_ids is None:
+            if labels is None:
+                raise ValueError("T5 needs decoder_input_ids or labels")
+            decoder_input_ids = shift_right(labels, c.decoder_start_token_id)
+
+        def layer_step(side, i, block, *extra):
+            names = getattr(self, side).layers[i].leaf_names
+
+            def fn(seg, carry):
+                w = {n: seg[f"{side}.layers.{i}.{n}"] for n in names}
+                return {**carry, "x": block(w, carry["x"], *(e(carry) for e in extra))}
+
+            return (f"{side}_layer", i), [f"{side}.layers.{i}.{n}" for n in names], fn
+
+        def embed_step(side, ids, bidirectional):
+            def fn(seg, carry):
+                bias = self._bias(seg[f"{side}.rel_bias"], ids.shape[1], bidirectional)
+                return {**carry, "x": seg["shared"][table_rows(ids, c.vocab_size)],
+                        "bias": bias}
+
+            return f"{side}_embed", ["shared", f"{side}.rel_bias"], fn
+
+        steps = []
+        if encoder_outputs is None:
+            steps.append(embed_step("encoder", input_ids, True))
+            steps += [layer_step("encoder", i, self._encoder_block, lambda cr: cr["bias"],
+                                 lambda cr: attention_mask) for i in range(c.num_layers)]
+            steps.append(("encoder_final", ["encoder.final_norm"], lambda seg, carry: {
+                "enc_out": rms_norm(carry["x"], seg["encoder.final_norm"], eps)}))
+        steps.append(embed_step("decoder", decoder_input_ids, False))
+        steps += [layer_step("decoder", i, self._decoder_block, lambda cr: cr["bias"],
+                             lambda cr: decoder_attention_mask, lambda cr: cr["enc_out"],
+                             lambda cr: attention_mask) for i in range(c.num_decoder_layers)]
+        tied = "lm_head" not in self._parameters
+
+        def head(seg, carry):
+            x = rms_norm(carry["x"], seg["decoder.final_norm"], eps)
+            if tied:
+                x = x * c.hidden_size ** -0.5
+            return {**carry, "logits": dense(x, seg["shared" if tied else "lm_head"])}
+
+        steps.append(("head", ["decoder.final_norm", "shared" if tied else "lm_head"], head))
+
+        def finalize(carry):
+            out = ModelOutput(logits=carry["logits"], encoder_last_hidden_state=carry["enc_out"])
+            if labels is not None:
+                out["loss"] = cross_entropy_loss(carry["logits"], labels)
+            return out
+
+        init = (lambda: {}) if encoder_outputs is None else (lambda: {"enc_out": encoder_outputs})
+        return {"init": init, "steps": steps, "finalize": finalize}
 
     def convert_state_dict(self, flat: dict) -> dict[str, torch.Tensor]:
         """An HF-layout state dict as this model's, for ``load_state_dict``

@@ -85,6 +85,11 @@ class PreparedModel:
         return getattr(self.module, name)
 
     def __call__(self, *args, **kwargs):
+        return self.forward(*args, **kwargs)
+
+    def forward(self, *args, **kwargs):
+        """The policy's call (``__call__`` goes through here, so a hook
+        that replaces ``forward`` runs around it)."""
         with self.fp8_context():
             if self.compute_dtype is None:
                 return self.module(*args, **kwargs)
@@ -102,8 +107,6 @@ class PreparedModel:
         from .ops.fp8 import fp8_autocast
 
         return fp8_autocast(enabled=True, fp8_format=self.fp8_recipe.fp8_format)
-
-    forward = __call__
 
     @property
     def training(self) -> bool:

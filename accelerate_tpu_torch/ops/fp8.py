@@ -203,17 +203,34 @@ def fp8_matmul(x: torch.Tensor, w: torch.Tensor, fp8_format: str | None = None,
     return _FP8Matmul.apply(x, w, fmt, impl)
 
 
-def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def dense(x: torch.Tensor, w) -> torch.Tensor:
     """The model's projection ``x [..., in] @ wᵀ`` with ``w`` in
     ``nn.Linear``'s ``[out, in]`` layout (the transpose of JAX's
     ``dense(x, w [in, out])``; per-tensor amax is the same for both): the
     plain ``F.linear`` normally, :func:`fp8_matmul` inside
-    :func:`fp8_autocast`. JAX's quantized-leaf branches (int8 and 4-bit
-    weights) belong to the big-model slice (ROADMAP item 19): a weight that
-    is not a plain floating tensor raises "not yet ported"."""
+    :func:`fp8_autocast`, and for a quantized weight (which the streaming
+    executor hands the layers, ``big_modeling.py``) JAX's quantized
+    products: an int8 GEMM over a :class:`~..utils.quantization.QTensor`,
+    one a block over a 4-bit weight. Any other weight raises."""
+    from ..utils.quantization import (
+        Q4DecodedTensor,
+        Q4Tensor,
+        QTensor,
+        int8_matmul,
+        q4_decoded_matmul,
+        q4_matmul,
+    )
+
+    if isinstance(w, QTensor):
+        return int8_matmul(x, w)
+    if isinstance(w, Q4Tensor):
+        return q4_matmul(x, w)
+    if isinstance(w, Q4DecodedTensor):
+        return q4_decoded_matmul(x, w)
     if not (isinstance(w, torch.Tensor) and w.is_floating_point()):
-        raise ValueError(f"dense over a {type(w).__name__} weight is not yet ported: quantized "
-                         "weights are ROADMAP item 19")
+        raise ValueError(f"dense takes a floating weight or a quantized one (QTensor, Q4Tensor, "
+                         f"Q4DecodedTensor), not a {type(w).__name__} of "
+                         f"{getattr(w, 'dtype', None)}")
     if not _FP8_STATE["active"]:
         return torch.nn.functional.linear(x, w)
     lead = x.shape[:-1]

@@ -337,6 +337,29 @@ failure, so the script exits non-zero and prints no result):
     seconds. ``python3 chip_smoke.py --phase 15`` runs phases 1, 2 and 15
     alone and prints no verdict.
 
+16. big-model inference at OPT-30B's width (hidden 7168, 56 × 128 heads,
+    ff 28672, vocab 50272, tied head) cut to 8 of its 48 layers, fp16,
+    random weights from seed 0 written as a sharded ``.safetensors``
+    checkpoint (10.6 GB) under the temporary directory or ``build/``
+    (whichever has more room; removed after). 16a: ``init_empty_weights``
+    → ``load_checkpoint_and_dispatch(device_map="auto")`` over a budget
+    that puts 3 layers on the card, 3 on the host and the rest on disk →
+    ``generate()`` of 8 tokens from 4 right-padded prompts of 64-128 ids,
+    the flash counters at 0 around it (B1 8 × 8 launches); gates: every
+    step's logits bit-equal to the same plan with every tier on the card
+    (``device_map={"": 0}``), greedy tokens equal, peak memory below
+    resident + 3 × the largest segment + 1 GiB and below the model; then
+    two warm tokens and one cold (``posix_fadvise(DONTNEED)`` on the
+    offload files) timed: load s, s a token, bytes streamed, GB/s, copy
+    and compute ms (events). 16b: ``load_and_quantize_model`` int8 and nf4
+    with one layer on the card, one on the host, the rest on disk, 4
+    tokens each: the int8 GEMM and the native nibble decoder must run, no
+    segment may take the dequantize retry. 16c: B1 at the streamed shape
+    (b 4, s 136, 56 × 128, f16, the prompts' key mask) against its plain
+    version at phase 8's f16 gates, launched twice with equal bits, timed
+    against sdpa. ``python3 chip_smoke.py --phase 16`` runs phases 1, 2
+    and 16 alone and prints no verdict.
+
 The ``{"kernels": [...]}`` line lists all four kernels. The last line of
 standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -1558,6 +1581,10 @@ def _kernel_summary(manifest: dict) -> dict:
         return json.load(f)
 
 
+#: tokens each request of the front door's SIGTERM drain asks for
+DRAIN_NEW = 100
+
+
 def run_front_door(phase5: dict) -> dict:
     """``serve --http`` on the flagship in a fresh process (so its counts
     start at 0), driven as clients drive it: the lifecycle; phase 5's
@@ -1611,6 +1638,7 @@ def run_front_door(phase5: dict) -> dict:
 
         reqs = _requests(12, seed=0)  # phase 5's requests
         ref = {r["id"]: r["tokens"] for r in phase5["rows"]}
+        marks = {"ready": time.perf_counter()}  # each step's end, for its seconds
 
         # (1) the first traffic, as in phase 5: its 12 as greedy SSE (the
         # plain burst and the prefill chunk are captured inside), scrapes
@@ -1634,6 +1662,7 @@ def run_front_door(phase5: dict) -> dict:
         for r, a in zip(reqs, timed["answers"]):
             if not _splits(a["deltas"], ref[r["id"]]) or a["tokens"] != len(ref[r["id"]]):
                 raise AssertionError(f"SSE answer {r['id']} differs from phase 5's tokens")
+        marks["first_traffic"] = time.perf_counter()
 
         # (2) 16 requests at once, a /profile window opened just before them:
         # 10 of phase 5's greedy (4 non-stream completions, 3 SSE, 3 /generate),
@@ -1690,20 +1719,23 @@ def run_front_door(phase5: dict) -> dict:
             raise AssertionError(f"/profile saw B4 {named} and {profile['flight_iterations']} "
                                  "flight iterations")
 
+        marks["mixed_16_profiled"] = time.perf_counter()
         # (3) fresh prompts of phase 5's lengths (no prefix-cache hits),
-        # without and then with a 1 s /profile window open at the start
-        timed_plain = _timed_sse_batch(base, _requests(12, seed=1))
+        # without and then with a 1 s /profile window open at the start (6
+        # each: the smoke run's time budget)
+        timed_plain = _timed_sse_batch(base, _requests(6, seed=1))
         profile2 = {}
         profiler = threading.Thread(target=lambda: profile2.update(
             _json(base, "/profile?seconds=1")))
         profiler.start()
         time.sleep(0.05)
-        timed_profiled = _timed_sse_batch(base, _requests(12, seed=2))
+        timed_profiled = _timed_sse_batch(base, _requests(6, seed=2))
         profiler.join(HTTP_TIMEOUT_S)
         with open(next(p for p in profile2["artifacts"] if p.endswith("flight_window.json"))) as f:
             window = json.load(f)
         inside = [e["wall_s"] for e in window["entries"]]
 
+        marks["fresh_batches"] = time.perf_counter()
         # (4) idle: the routes timed, /metrics against /stats, the captures
         # and B4's launches
         idle_ms = {}
@@ -1727,8 +1759,9 @@ def run_front_door(phase5: dict) -> dict:
         if (stats_before["decode_compiles"], stats_before["prefill_compiles"]) != (1, 1):
             raise AssertionError(f"captures before the profiled batch: {stats_before}")
 
+        marks["idle_routes"] = time.perf_counter()
         # (5) SIGTERM with 8 requests in flight
-        drain_reqs = [{"id": f"d{i}", "prompt": reqs[i]["prompt"], "max_new_tokens": 200}
+        drain_reqs = [{"id": f"d{i}", "prompt": reqs[i]["prompt"], "max_new_tokens": DRAIN_NEW}
                       for i in range(8)]
         drained = []
         senders = [threading.Thread(target=lambda r=r: drained.append(
@@ -1749,6 +1782,7 @@ def run_front_door(phase5: dict) -> dict:
             t.join(HTTP_TIMEOUT_S)
         rc = proc.wait(timeout=HTTP_TIMEOUT_S)
         drain_s = time.perf_counter() - t_term
+        marks["drain"] = time.perf_counter()
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -1757,7 +1791,7 @@ def run_front_door(phase5: dict) -> dict:
     if rc != 0 or "(drained on SIGTERM)" not in stderr:
         raise AssertionError(f"serve --http exited {rc} on SIGTERM:\n{stderr[-3000:]}")
     if sorted(r["id"] for r in drained) != sorted(r["id"] for r in drain_reqs) or any(
-            len(r["tokens"]) != 200 for r in drained):
+            len(r["tokens"]) != DRAIN_NEW for r in drained):
         raise AssertionError(f"the drain lost requests: {[r.get('id') for r in drained]}")
     if not any(n.startswith(f"FLIGHT_DRAIN_{proc.pid}") for n in os.listdir(logging_dir)):
         raise AssertionError("the SIGTERM drain wrote no flight drain file")
@@ -1788,6 +1822,7 @@ def run_front_door(phase5: dict) -> dict:
         "captures": {k: final[k] for k in ("decode_compiles", "prefill_compiles",
                                            "lane_decode_compiles")},
         "drain_s": drain_s, "answered_in_drain": len(drained),
+        "step_s": {k: marks[k] - t for k, t in zip(list(marks)[1:], marks.values())},
     }
     log(f"  serve --http: ready in {ready_s:.1f} s ({states[0]} -> ready); 12 greedy SSE "
         f"{timed['tokens_per_sec']:.1f} tok/s, client TTFT p50/p99 "
@@ -1801,7 +1836,8 @@ def run_front_door(phase5: dict) -> dict:
         f"{out['profile']['lane_capture_inside']}); idle ms {idle_ms}; /metrics "
         f"p50 {out['metrics_scrape_ms']['under_load_p50']:.2f} ms under load; captures "
         f"{out['captures']}; B4 launches {launches}; SIGTERM drained {len(drained)} in "
-        f"{drain_s:.2f} s, exit {rc}")
+        f"{drain_s:.2f} s, exit {rc}; seconds by step "
+        f"{ {k: round(v, 1) for k, v in out['step_s'].items()} }")
     return out
 
 
@@ -2955,19 +2991,27 @@ def check_flash_generate_shapes(dev) -> dict:
 
 def time_flash_prefill(dev) -> dict:
     """B1 at ``generate()``'s prefill shape (b 8, s 128, 12 × 128, bf16,
-    causal, a right-padded key mask of lengths 17-128): events around the
-    wrapper, the profiler's device time a launch, the plain version, and
-    sdpa with the same boolean mask (its kernels' device time a call); the
-    bound counts the (query, key) pairs this mask leaves, and of K and V
-    only the rows it leaves (a row's first ``length`` keys)."""
+    causal, a right-padded key mask of lengths 17-128):
+    :func:`time_flash_masked`."""
+    return time_flash_masked(dev, DECODE_BATCH, DECODE_PROMPT, 12, 128, GEN_LENGTHS,
+                             torch.bfloat16, "the prefill shape")
+
+
+def time_flash_masked(dev, b, s, nh, hd, row_lengths, dtype, what) -> dict:
+    """B1 at ``(b, s, nh × hd)``, causal, with a right-padded key mask of
+    ``row_lengths``: events around the wrapper, the profiler's device time
+    a launch, the plain version, and sdpa with the same boolean mask (its
+    kernels' device time a call); the bound counts the (query, key) pairs
+    this mask leaves, and of K and V only the rows it leaves (a row's
+    first ``length`` keys), against the 16-bit tensor-core peak (bf16 and
+    f16 alike)."""
     import torch.nn.functional as F
 
     from accelerate_tpu_torch.ops import flash_attention as fa
 
-    b, s, nh, hd = DECODE_BATCH, DECODE_PROMPT, 12, 128
     rng = np.random.default_rng(14)
-    q, k, v, _, _ = _flash_inputs(rng, b, s, nh, nh, hd, 0, torch.bfloat16, dev)
-    lengths = np.asarray(GEN_LENGTHS)
+    q, k, v, _, _ = _flash_inputs(rng, b, s, nh, nh, hd, 0, dtype, dev)
+    lengths = np.asarray(row_lengths)
     mask = torch.as_tensor(np.arange(s)[None, :] < lengths[:, None], device=dev)
     scale = 1.0 / float(np.sqrt(hd))
     fn = lambda i: fa._flash_fwd_cuda(q, k, v, mask, scale, True)  # noqa: E731
@@ -2979,7 +3023,7 @@ def time_flash_prefill(dev) -> dict:
         if launches:
             break
     else:
-        raise AssertionError("the profiler saw no B1 launch at the prefill shape")
+        raise AssertionError(f"the profiler saw no B1 launch at {what}")
     plain_ms = _time_ms(lambda i: fa._flash_fwd_plain(q, k, v, mask, scale, True), 3, 3)
     lq, lk, lv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     allowed = torch.tril(torch.ones(s, s, dtype=torch.bool, device=dev))[None, None] \
@@ -2998,8 +3042,9 @@ def time_flash_prefill(dev) -> dict:
     ops_ms = flops / BF16_FLOPS_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     out = {
-        "shape": {"batch": b, "seq": s, "n_heads": nh, "head_dim": hd, "dtype": "bf16",
-                  "causal": True, "key_mask_lengths": list(GEN_LENGTHS)},
+        "shape": {"batch": b, "seq": s, "n_heads": nh, "head_dim": hd,
+                  "dtype": FLASH_DTYPE_NAMES[dtype], "causal": True,
+                  "key_mask_lengths": [int(n) for n in lengths]},
         "ms": spread[1], "ms_spread": spread,
         "profiler_ms": sum(e.self_device_time_total for e in rows_) / 1e3 / launches,
         "plain_ms": plain_ms,
@@ -3010,8 +3055,8 @@ def time_flash_prefill(dev) -> dict:
         "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
         "flops": flops, "bytes": nbytes,
     }
-    log(f"  B1 at the prefill shape (b {b}, s {s}, {nh} × {hd}, bf16, causal, key mask of "
-        f"lengths {GEN_LENGTHS[0]}-{GEN_LENGTHS[-1]}): {out['ms']:.4f} ms by events, "
+    log(f"  B1 at {what} (b {b}, s {s}, {nh} × {hd}, {FLASH_DTYPE_NAMES[dtype]}, causal, key "
+        f"mask of lengths {lengths.min()}-{lengths.max()}): {out['ms']:.4f} ms by events, "
         f"{out['profiler_ms']:.4f} ms a launch by the profiler, bound {out['bound_ms']:.6f} ms "
         f"({out['bound_by']}), plain {plain_ms:.3f} ms, sdpa with the mask "
         f"{out['library_ms']:.4f} ms ({out['library_backend']}; |Δ| {lib_err:.2e})")
@@ -4962,6 +5007,412 @@ def run_phase15(dev) -> dict:
             "flash_instances": instances}
 
 
+# -- phase 16: big-model inference at OPT-30B's width -----------------------------
+
+#: OPT-30B's width (hidden 7168, 56 × 128 heads, ff 28672, vocab 50272, the
+#: head tied to ``wte``) cut to 8 of its 48 layers
+P16_LAYERS = 8
+#: the four prompts' lengths, right-padded to the longest
+P16_LENGTHS = (64, 88, 111, 128)
+P16_NEW = 8
+P16_NEW_QUANT = 4
+#: steady-state forwards timed with the offload files in the page cache
+P16_WARM = 2
+#: free bytes phase 16 needs for its checkpoint and three offload folders
+P16_DISK_BYTES = 24 * 2**30
+
+
+def p16_config():
+    from accelerate_tpu_torch.models.opt import OPTConfig
+
+    config = OPTConfig.opt_30b()
+    config.num_hidden_layers = P16_LAYERS
+    return config
+
+
+def _p16_dir() -> str:
+    """A scratch directory for the checkpoint and the offload folders: the
+    temporary directory or the checkout's git-ignored ``build/``, whichever
+    has more room; it must hold :data:`P16_DISK_BYTES`."""
+    candidates = [tempfile.gettempdir(), os.path.join(REPO, "build")]
+    os.makedirs(candidates[1], exist_ok=True)
+    free = {c: shutil.disk_usage(c).free for c in candidates}
+    log(f"  free bytes: {free}")
+    base = max(free, key=free.get)
+    if free[base] < P16_DISK_BYTES:
+        raise AssertionError(f"phase 16 needs {P16_DISK_BYTES} free bytes for its checkpoint and "
+                             f"offload folders; the most any candidate has is {free[base]}")
+    return tempfile.mkdtemp(prefix="p16_", dir=base)
+
+
+def write_p16_checkpoint(path: str, config, seed: int = 0) -> dict:
+    """Random fp16 weights from ``seed`` (the family's initialiser, drawn
+    leaf by leaf on the card, where 5 G normals take a fraction of a
+    second, and moved to the host) as a sharded ``.safetensors``
+    checkpoint: one shard a layer and one for the embeddings and the final
+    norm, with ``model.safetensors.index.json``."""
+    from accelerate_tpu_torch.models import _params
+    from accelerate_tpu_torch.models.opt import opt_spec
+    from accelerate_tpu_torch.utils.modeling import SAFE_WEIGHTS_INDEX_NAME, save_safetensors
+
+    t0 = time.perf_counter()
+    os.makedirs(path, exist_ok=True)
+    shards: dict = {}
+    for name, leaf in _params.flatten(opt_spec(config)):
+        shard = "layer-" + name.split(".")[1] if name.startswith("layers.") else "other"
+        shards.setdefault(shard, {})[name] = leaf
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    weight_map, nbytes = {}, 0
+    for k, leaves in enumerate(shards.values()):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        tensors = {n: _params._draw(generator, leaf, torch.float16, "cuda").cpu()
+                   for n, leaf in leaves.items()}
+        save_safetensors(tensors, os.path.join(path, fname))
+        nbytes += sum(t.numel() * t.element_size() for t in tensors.values())
+        weight_map.update({n: fname for n in tensors})
+    with open(os.path.join(path, SAFE_WEIGHTS_INDEX_NAME), "w") as f:
+        json.dump({"metadata": {"total_size": nbytes}, "weight_map": weight_map}, f)
+    return {"bytes": nbytes, "shards": len(shards), "seconds": time.perf_counter() - t0}
+
+
+def _p16_new_tokens(tokens, n: int) -> list:
+    """Each row's ``n`` new tokens: they follow its own prompt in the
+    right-padded buffer."""
+    return [tokens[r, length:length + n].tolist() for r, length in enumerate(P16_LENGTHS)]
+
+
+def _p16_prompts(vocab: int, dev):
+    rng = np.random.default_rng(16)
+    s = max(P16_LENGTHS)
+    mask = (np.arange(s)[None, :] < np.asarray(P16_LENGTHS)[:, None]).astype(np.int32)
+    ids = rng.integers(0, vocab, size=(len(P16_LENGTHS), s)).astype(np.int64) * mask
+    return torch.as_tensor(ids, device=dev), torch.as_tensor(mask, device=dev)
+
+
+def _segment_bytes(model) -> dict:
+    """Bytes a streamed segment moves: each layer's, and the embedding and
+    head segments' (``wte``, ``wpe``; the final norm and ``wte``)."""
+    sizes = {}
+    for name, p in model.named_parameters():
+        key = ".".join(name.split(".")[:2]) if name.startswith("layers.") else name
+        sizes[key] = sizes.get(key, 0) + p.numel() * p.element_size()
+    embed = sizes["wte"] + sizes["wpe"]
+    head = sizes["ln_f_g"] + sizes["ln_f_b"] + sizes["wte"]
+    layers = [v for k, v in sizes.items() if k.startswith("layers.")]
+    return {"layer": max(layers), "embed": embed, "head": head,
+            "largest": max(max(layers), embed, head), "model": sum(sizes.values())}
+
+
+def _layer_tiers(device_map, layers: int) -> dict:
+    from accelerate_tpu_torch.big_modeling import _entry_for
+
+    return {i: str(_entry_for(f"layers.{i}.w_q", device_map)) for i in range(layers)}
+
+
+def _drop_page_cache(folder: str) -> int:
+    """``posix_fadvise(DONTNEED)`` on this process's own offload files (after
+    an ``fsync``): the next read of them comes from the disk. Returns the
+    bytes advised."""
+    nbytes = 0
+    for name in os.listdir(folder):
+        if name.endswith(".dat"):
+            fd = os.open(os.path.join(folder, name), os.O_RDONLY)
+            try:
+                os.fsync(fd)
+                os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+                nbytes += os.fstat(fd).st_size
+            finally:
+                os.close(fd)
+    return nbytes
+
+
+def _logits_recorder():
+    """A hook that keeps a host copy of every forward's logits."""
+    from accelerate_tpu_torch.hooks import ModelHook
+
+    class Record(ModelHook):
+        def __init__(self):
+            self.logits = []
+
+        def post_forward(self, module, output):
+            self.logits.append(output["logits"].detach().cpu())
+            return output
+
+    return Record()
+
+
+def p16_fp16(dev, cfg, ckpt: str, root: str) -> dict:
+    """16a: ``init_empty_weights`` → ``load_checkpoint_and_dispatch(device_map=
+    "auto")`` with a third of the layers in HBM, a third on the host and
+    the rest on disk → ``generate()`` streamed; gated bit for bit against
+    the same plan with every tier in HBM."""
+    from accelerate_tpu_torch import big_modeling as bm
+    from accelerate_tpu_torch.generation import generate
+    from accelerate_tpu_torch.hooks import add_hook_to_module, remove_hook_from_module
+    from accelerate_tpu_torch.models.opt import OPTForCausalLM
+
+    ids, mask = _p16_prompts(cfg.vocab_size, dev)
+    with bm.init_empty_weights():
+        sizes = _segment_bytes(OPTForCausalLM(cfg, dtype=torch.float16))
+    # the map walks JAX's pytree order (layers, ln_f_*, wpe, wte): three
+    # layers fill the card, three the host, and the rest lands on disk
+    third = round(P16_LAYERS / 3)
+    max_memory = {0: third * sizes["layer"] + 2**20, "cpu": third * sizes["layer"] + 2**20,
+                  "disk": float("inf")}
+    offload = os.path.join(root, "offload_fp16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with bm.init_empty_weights():
+        empty = OPTForCausalLM(cfg, dtype=torch.float16)
+    assert all(p.is_meta for p in empty.parameters()), "init_empty_weights left real tensors"
+    model = bm.load_checkpoint_and_dispatch(empty, ckpt, device_map="auto", max_memory=max_memory,
+                                            no_split_module_classes=[r"layers\.\d+"],
+                                            offload_folder=offload)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    tiers = _layer_tiers(model.hf_device_map, P16_LAYERS)
+    log(f"  the inferred map: {model.hf_device_map}")
+    log(f"  layers by tier: {tiers}; load {load_s:.2f} s")
+    if not {"0", "cpu", "disk"} <= set(tiers.values()):
+        raise AssertionError(f"the map must put layers on all three tiers: {tiers}")
+    resident_bytes = model.tiered.resident_bytes
+    record = _logits_recorder()
+    add_hook_to_module(model, record)
+    model.timing = True
+    model.stream_report()
+    _zero_flash_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(model, ids, attention_mask=mask, max_new_tokens=P16_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = _flash_counts()["flash_fwd"]
+    peak = torch.cuda.max_memory_allocated()
+    first = model.stream_report()
+    remove_hook_from_module(model)
+    if launches != P16_NEW * P16_LAYERS:
+        raise AssertionError(f"B1 launched {launches} times in the streamed generate(); "
+                             f"{P16_NEW} forwards × {P16_LAYERS} layers expected")
+    bound = resident_bytes + 3 * sizes["largest"] + 2**30
+    log(f"  streamed generate(): {gen_s:.3f} s for {P16_NEW} tokens; peak {peak / 2**30:.3f} GiB "
+        f"(bound {bound / 2**30:.3f}: resident {resident_bytes / 2**30:.3f} + 3 × "
+        f"{sizes['largest'] / 2**30:.3f} + 1; the model {sizes['model'] / 2**30:.3f}); {first}")
+    if not peak < min(bound, sizes["model"]):
+        raise AssertionError(f"peak {peak} breaks the memory invariant ({bound}, model "
+                             f"{sizes['model']})")
+    # steady-state tokens: forwards of the last step's buffer, the offload
+    # files in the page cache (warm), then out of it (cold)
+    lengths = torch.as_tensor(P16_LENGTHS, device=dev)[:, None] + P16_NEW
+    buf_mask = (torch.arange(out.shape[1], device=dev)[None, :] < lengths).to(torch.int32)
+
+    def token() -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model(input_ids=out, attention_mask=buf_mask)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    warm_s = [token() for _ in range(P16_WARM)]
+    warm = model.stream_report()
+    dropped = _drop_page_cache(offload)
+    cold_s = token()
+    cold = model.stream_report()
+    streamed_logits = record.logits[:P16_NEW]
+    retries = model.dequantize_retries
+    model.close()
+    del model, empty, record
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the same plan with every tier in HBM
+    with bm.init_empty_weights():
+        empty = OPTForCausalLM(cfg, dtype=torch.float16)
+    resident = bm.load_checkpoint_and_dispatch(empty, ckpt, device_map={"": 0})
+    record = _logits_recorder()
+    add_hook_to_module(resident, record)
+    ref = generate(resident, ids, attention_mask=mask, max_new_tokens=P16_NEW)
+    if not torch.equal(out, ref):
+        raise AssertionError(f"streamed greedy tokens differ from the all-HBM run's:\n{out}\n{ref}")
+    if len(record.logits) != len(streamed_logits) or not all(
+            torch.equal(a, b) for a, b in zip(streamed_logits, record.logits)):
+        diff = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(streamed_logits, record.logits))
+        raise AssertionError(f"streamed logits differ from the all-HBM run's (max |Δ| {diff})")
+    if not all(torch.isfinite(t).all() for t in streamed_logits):
+        raise AssertionError("streamed logits are not finite")
+    resident.close()
+    del resident, empty, record, streamed_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_token = sum(warm_s) / P16_WARM
+    result = {
+        "cut": f"{P16_LAYERS} of OPT-30B's 48 layers, full width, fp16, random from seed 0",
+        "tiers": tiers, "load_s": load_s, "generate_s": gen_s,
+        "generate_s_per_token": gen_s / P16_NEW, "generate_stream": first,
+        "s_per_token_warm": per_token, "s_per_token_warm_each": warm_s,
+        "s_per_token_cold": cold_s,
+        "bytes_streamed_per_token": warm["bytes_h2d"] / P16_WARM,
+        "effective_GBps_warm": warm["bytes_h2d"] / P16_WARM / per_token / 1e9,
+        "effective_GBps_cold": cold["bytes_h2d"] / cold_s / 1e9,
+        "copy_ms_per_token": warm["copy_ms"] / P16_WARM,
+        "compute_ms_per_token": warm["compute_ms"] / P16_WARM,
+        "io_s_per_token_warm": warm["io_s"] / P16_WARM, "io_s_cold": cold["io_s"],
+        "copy_ms_cold": cold["copy_ms"], "compute_ms_cold": cold["compute_ms"],
+        "page_cache_dropped_bytes": dropped,
+        "peak_GiB": peak / 2**30, "peak_bound_GiB": bound / 2**30,
+        "resident_GiB": resident_bytes / 2**30, "model_GiB": sizes["model"] / 2**30,
+        "largest_segment_GiB": sizes["largest"] / 2**30,
+        "flash_fwd_launches_per_generate": launches, "dequantize_retries": retries,
+        "bit_equal_to_all_hbm": True, "tokens_equal": True,
+        "new_tokens": _p16_new_tokens(out, P16_NEW),
+    }
+    log(f"  16a: load {load_s:.2f} s; {per_token:.4f} s a token warm, {cold_s:.4f} s cold; "
+        f"(generate() {gen_s / P16_NEW:.4f} s a token, its first call's staging ring "
+        f"included); {result['bytes_streamed_per_token'] / 1e9:.3f} GB streamed a token, "
+        f"{result['effective_GBps_warm']:.2f} GB/s warm, {result['effective_GBps_cold']:.2f} "
+        f"cold; copy {result['copy_ms_per_token']:.1f} ms against compute "
+        f"{result['compute_ms_per_token']:.1f} ms a token; logits bit-equal to the all-HBM run")
+    return result
+
+
+def _p16_quant_layer_bytes(cfg, mode: str) -> int:
+    """One layer's bytes once quantized (``int8``: a byte a weight and an
+    f32 scale a row; ``nf4``: half a byte a weight, an int8 scale a block
+    of 64, two f32 a row and the codebook), its vectors in fp16."""
+    h, ff = cfg.hidden_size, cfg.intermediate_size
+    shapes = [(h, h)] * 4 + [(ff, h), (h, ff)]
+    vectors = 2 * (9 * h + ff)
+    if mode == "int8":
+        return vectors + sum(o * i + 4 * o for o, i in shapes)
+    return vectors + sum(o * i // 2 + o * (i // 64) + 8 * o + 64 for o, i in shapes)
+
+
+def p16_quantized(dev, cfg, ckpt: str, root: str, fp16_tokens) -> dict:
+    """16b: ``load_and_quantize_model`` on the same checkpoint, int8 and
+    nf4, with one layer in HBM, one on the host and the rest, embeddings
+    included, on disk; 4 new tokens each. The int8 GEMM and the native nibble
+    decoder must have run."""
+    from accelerate_tpu_torch import big_modeling as bm
+    from accelerate_tpu_torch import native
+    from accelerate_tpu_torch.generation import generate
+    from accelerate_tpu_torch.models.opt import OPTForCausalLM
+    from accelerate_tpu_torch.utils import quantization as q
+
+    ids, mask = _p16_prompts(cfg.vocab_size, dev)
+    out = {}
+    for mode in ("int8", "nf4"):
+        config = q.BnbQuantizationConfig(load_in_4bit=mode == "nf4")
+        with bm.init_empty_weights():
+            empty = OPTForCausalLM(cfg, dtype=torch.float16)
+        layer = _p16_quant_layer_bytes(cfg, mode)
+        max_memory = {0: layer + 2**20, "cpu": layer + 2**20, "disk": float("inf")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = q.load_and_quantize_model(empty, config, weights_location=ckpt,
+                                          device_map="auto", max_memory=max_memory,
+                                          no_split_module_classes=[r"layers\.\d+"],
+                                          offload_folder=os.path.join(root, f"offload_{mode}"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        tiers = _layer_tiers(model.hf_device_map, P16_LAYERS)
+        gemms, decodes = q.int8_gemm_launches, native.decode_calls
+        model.stream_report()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = generate(model, ids, attention_mask=mask, max_new_tokens=P16_NEW_QUANT)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        report = model.stream_report()
+        gemms, decodes = q.int8_gemm_launches - gemms, native.decode_calls - decodes
+        new = torch.as_tensor(_p16_new_tokens(tokens, P16_NEW_QUANT))
+        agree = float((new == torch.as_tensor(fp16_tokens)[:, :P16_NEW_QUANT]).float().mean())
+        row = {"tiers": tiers, "load_s": load_s, "generate_s": gen_s,
+               "s_per_token": gen_s / P16_NEW_QUANT,
+               "bytes_streamed_per_token": report["bytes_h2d"] / P16_NEW_QUANT,
+               "int8_gemm_launches": gemms, "native_decodes": decodes,
+               "decode_s_per_token": report["decode_s"] / P16_NEW_QUANT,
+               "dequantize_retries": model.dequantize_retries,
+               "greedy_agreement_with_fp16": agree}
+        log(f"  16b {mode}: layers {tiers}; load {load_s:.2f} s; {row['s_per_token']:.4f} s a "
+            f"token, {row['bytes_streamed_per_token'] / 1e9:.3f} GB streamed a token; {gemms} int8 "
+            f"GEMMs, {decodes} native decodes; greedy tokens agree with fp16 on {agree:.2f}")
+        if not {"0", "cpu", "disk"} <= set(tiers.values()):
+            raise AssertionError(f"{mode}: the map must put layers on all three tiers: {tiers}")
+        if gemms == 0:
+            raise AssertionError(f"{mode}: the int8 GEMM never ran")
+        if mode == "nf4" and (native.load() is None or decodes == 0):
+            raise AssertionError("nf4: the native nibble decoder did not build or did not run")
+        if model.dequantize_retries:
+            raise AssertionError(f"{mode}: a zoo segment took the dequantize retry")
+        if tokens.shape != (ids.shape[0], ids.shape[1] + P16_NEW_QUANT):
+            raise AssertionError(f"{mode}: tokens of shape {tuple(tokens.shape)}")
+        model.close()
+        del model, empty
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[mode] = row
+    return out
+
+
+def p16_flash(dev, launches: int) -> dict:
+    """16c: B1 at the streamed forward's shape (b 4, s = 128 + 8, 56 × 128,
+    f16, causal, the prompts' key mask) against its plain version at phase
+    8's f16 gates, launched twice with equal bits; timed against sdpa."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    b, s, nh, hd = len(P16_LENGTHS), max(P16_LENGTHS) + P16_NEW, 56, 128
+    rng = np.random.default_rng(17)
+    q, k, v, _, _ = _flash_inputs(rng, b, s, nh, nh, hd, 0, torch.float16, dev)
+    lengths = np.asarray(P16_LENGTHS)
+    mask = torch.as_tensor(np.arange(s)[None, :] < lengths[:, None], device=dev)
+    o, lse = fa.flash_fwd(q, k, v, mask, causal=True, impl="cuda")
+    o2, lse2 = fa.flash_fwd(q, k, v, mask, causal=True, impl="cuda")
+    ro, rlse = fa.flash_fwd(q, k, v, mask, causal=True, impl="plain")
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        raise AssertionError("B1 at the streamed shape: two launches differ")
+    o_err = (o.float() - ro.float()).abs().max().item()
+    lse_err = (lse - rlse).abs().max().item()
+    o_gate = FLASH_GATES["f16"][0]
+    log(f"  B1 at the streamed shape: |o| {o_err:.2e} (gate {o_gate}), |lse| {lse_err:.2e}")
+    if not (o_err <= o_gate and lse_err <= 1e-5 and torch.isfinite(o.float()).all()):
+        raise AssertionError(f"B1 disagrees with its plain version at the streamed shape "
+                             f"(|o| {o_err}, |lse| {lse_err})")
+    timed = time_flash_masked(dev, b, s, nh, hd, P16_LENGTHS, torch.float16,
+                              "the streamed OPT-30B shape")
+    return {**timed, "max_abs_err": o_err, "lse_max_abs_err": lse_err,
+            "launches_per_generate": launches}
+
+
+def run_phase16(dev) -> dict:
+    """Phase 16: big-model inference at OPT-30B's width (16a fp16 tiered,
+    16b int8 and nf4, 16c B1 at the path's shape); logs its own seconds."""
+    t0 = time.perf_counter()
+    cfg = p16_config()
+    root = _p16_dir()
+    try:
+        log_phase(f"phase 16a: OPT-30B's width ({P16_LAYERS} of 48 layers, fp16, random weights "
+                  "from seed 0): a sharded safetensors checkpoint → init_empty_weights → "
+                  "load_checkpoint_and_dispatch over HBM, host and disk → generate()")
+        ckpt = os.path.join(root, "checkpoint")
+        written = write_p16_checkpoint(ckpt, cfg)
+        log(f"  checkpoint: {written}")
+        fp16 = p16_fp16(dev, cfg, ckpt, root)
+        t_a = time.perf_counter()
+        log_phase("phase 16b: load_and_quantize_model, int8 and nf4, the disk-heavy map")
+        quant = p16_quantized(dev, cfg, ckpt, root, fp16["new_tokens"])
+        t_b = time.perf_counter()
+        log_phase("phase 16c: B1 at the streamed shape (b 4, s 136, 56 × 128, f16, key mask)")
+        flash = p16_flash(dev, fp16["flash_fwd_launches_per_generate"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    log(f"phase 16: {seconds:.1f} s (16a {t_a - t0:.1f}, 16b {t_b - t_a:.1f}, "
+        f"16c {seconds - (t_b - t0):.1f})")
+    return {"checkpoint": written, "fp16": fp16, "quantized": quant, "flash_fwd": flash,
+            "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this run needs one GPU",
@@ -4973,9 +5424,10 @@ def main() -> int:
     # --phase N: phases 1, 2 and N alone, for work on that phase; no verdict
     alone = None
     if sys.argv[1:2] == ["--phase"]:
-        alone = {"14": run_phase14, "15": run_phase15}.get(sys.argv[2] if sys.argv[2:] else "")
+        alone = {"14": run_phase14, "15": run_phase15, "16": run_phase16}.get(
+            sys.argv[2] if sys.argv[2:] else "")
         if alone is None:
-            print("chip_smoke: --phase takes 14 or 15", file=sys.stderr)
+            print("chip_smoke: --phase takes 14, 15 or 16", file=sys.stderr)
             return 2
     from accelerate_tpu_torch import _build
 
@@ -5162,6 +5614,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     p15 = run_phase15(dev)
     log(json.dumps({"phase15": p15, "card": smi}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    p16 = run_phase16(dev)
+    log(json.dumps({"phase16": p16, "card": smi}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "losses"},
                     "train_step_check": step_check, "tiny_train": tiny_train,
                     "tiny_train_head_dim_256": tiny_train_256,
@@ -5273,6 +5729,10 @@ def main() -> int:
             "at_gptj_head_dim_256": {**p15["flash_at_gptj_hd256"][name],
                                      "instance": FLASH_WIDE[FLASH_KERNELS.index(name)],
                                      "ptxas": flash_ptxas[FLASH_WIDE[FLASH_KERNELS.index(name)]]},
+            # phase 16: big-model inference, the counters at 0 around the
+            # streamed generate() (B1 only: inference)
+            **({"launches_big_model_generate": p16["fp16"]["flash_fwd_launches_per_generate"],
+                "at_opt30b_streamed": p16["flash_fwd"]} if name == "flash_fwd" else {}),
         })
     log(json.dumps({"kernels": kernels, "build_s": build_s, "serve_wall_s": serve_run["wall_s"],
                     "total_s": time.perf_counter() - t_start, "card": smi}))

@@ -127,7 +127,9 @@ def test_dense_routes_by_context():
         ref = np.asarray(jfp8.dense(jnp.asarray(x).reshape(2, 12, 64), jnp.asarray(w)))
     assert out.shape == (2, 12, 16)
     np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
-    with pytest.raises(ValueError, match="not yet ported"):
+    # a bare integer tensor is no weight: quantized ones come as QTensor /
+    # Q4Tensor (test_dense_over_quantized_weights_matches_jax)
+    with pytest.raises(ValueError, match="a floating weight or a quantized one"):
         tfp8.dense(x3, torch.zeros((16, 64), dtype=torch.int8))
     with pytest.raises(ValueError, match="fp8_format"):
         tfp8.fp8_matmul(torch.from_numpy(x), torch.from_numpy(w), fp8_format="E3M4")
@@ -136,6 +138,32 @@ def test_dense_routes_by_context():
         tfp8.fp8_matmul(torch.from_numpy(x), torch.from_numpy(w), impl="cuda")
     with pytest.raises(ValueError, match="unknown fp8 matmul impl"):
         tfp8.fp8_matmul(torch.from_numpy(x), torch.from_numpy(w), impl="triton")
+
+
+@pytest.mark.parametrize("kind", ["int8", "nf4", "nf4_decoded"])
+def test_dense_over_quantized_weights_matches_jax(kind):
+    """``dense`` over a quantized weight runs JAX's quantized product (the
+    int8 GEMM, or one a block for 4-bit) on the same codes: JAX's ``dense``
+    over its quantized ``[in, out]`` weight within 1e-6 of max |ref|."""
+    from accelerate_tpu.utils import quantization as jq
+    from accelerate_tpu_torch import native as tnative
+    from accelerate_tpu_torch.utils import quantization as tq
+
+    x, w, _ = _operands(5, m=24, k=128, n=32)
+    x3 = x.reshape(2, 12, 128)
+    if kind == "int8":
+        jw, tw = jq.quantize_array(w), tq.quantize_array(torch.from_numpy(w.T.copy()))
+    else:
+        jw = jq.quantize_array_4bit(w)
+        tw = tq.quantize_array_4bit(torch.from_numpy(w.T.copy()))
+        if kind == "nf4_decoded":
+            c8 = tnative.q4_decode_codes(tw.packed.numpy(), tq._int8_lut(tw.code).numpy())
+            tw = tq.Q4DecodedTensor(torch.from_numpy(c8), tw.scale_q, tw.scale_offset,
+                                    tw.scale_scale)
+    ref = np.asarray(jfp8.dense(jnp.asarray(x3), jw))
+    out = tfp8.dense(torch.from_numpy(x3), tw)
+    assert out.shape == (2, 12, 32)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6 * np.abs(ref).max())
 
 
 def test_fp8_quantization_is_actually_applied():

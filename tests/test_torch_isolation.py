@@ -1,8 +1,9 @@
 """The port stands alone: ``accelerate_tpu_torch``, ``chip_smoke.py`` and
 ``benchmarks/torch_paged_attention_sweep.py`` import neither ``jax`` nor
 anything of the JAX package ``accelerate_tpu`` (whose ``__init__`` pulls in
-jax), and the package imports on a box with no GPU, no ``nvcc`` and no
-``triton``.
+jax), nor ``safetensors`` or ``ml_dtypes`` (the card's machine has neither:
+the port reads safetensors files itself), and the package imports on a box
+with no GPU, no ``nvcc`` and no ``triton``.
 
 Checked twice: at run time, by importing every module of the package in a
 fresh interpreter and reading ``sys.modules``; and statically, by walking
@@ -22,7 +23,7 @@ pytest.importorskip("torch")
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "accelerate_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "optax", "accelerate_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "accelerate_tpu", "safetensors", "ml_dtypes")
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -31,7 +32,8 @@ names = sorted(m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ 
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in {"jax", "jaxlib", "optax", "accelerate_tpu", "triton"})
+                if m.split(".")[0] in {"jax", "jaxlib", "optax", "accelerate_tpu", "triton",
+                                       "safetensors", "ml_dtypes"})
 print(json.dumps({"modules": names, "leaked": leaked}))
 """
 
@@ -69,7 +71,11 @@ def test_every_module_imports_without_jax_or_triton():
                  # the precision and memory policies: the loss scaler, fp8
                  # projections, autocast islands, named remat, the HF loader
                  "modules", "ops.fp8", "ops.layers", "models.llama", "parallel",
-                 "parallel.pipeline"):
+                 "parallel.pipeline",
+                 # big-model inference: its own safetensors reader, no
+                 # safetensors or ml_dtypes package
+                 "big_modeling", "hooks", "utils.modeling", "utils.offload",
+                 "utils.quantization", "native"):
         assert f"accelerate_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
 
