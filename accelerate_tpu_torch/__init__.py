@@ -16,6 +16,12 @@ Ported so far:
   process group (NCCL on the card, gloo on the CPU) with the prepared
   ``DataLoader`` and the collectives (``operations``, ``data_loader``,
   ``mesh``, ``launchers``);
+* the loop's state — ``save_state`` / ``load_state`` (sync, async,
+  sharded) with the JAX package's directory contract and manifests,
+  preemption with an emergency save and auto-resume, the trackers, the
+  hang watchdog and ``find_executable_batch_size`` (``checkpointing``,
+  ``resilience``, ``tracking``, ``diagnostics.watchdog``,
+  ``utils.memory``);
 * ``generate()`` — the llama's dense KV cache (its prefill through the
   flash forward kernel) and greedy speculative decoding;
 * the serving path — the paged llama step, the continuous-batching engine
@@ -49,13 +55,17 @@ from .state import AcceleratorState, GradientState, PartialState
 from .utils.dataclasses import (
     AutocastKwargs,
     DataLoaderConfiguration,
+    DiagnosticsPlugin,
     DistributedType,
+    FaultTolerancePlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
     InitProcessGroupKwargs,
     MeshPlugin,
+    ProjectConfiguration,
 )
 from .utils.device import resolve_device
+from .utils.memory import find_executable_batch_size, release_memory
 from .utils.random import set_seed, synchronize_rng_state, synchronize_rng_states
 
 __version__ = "0.2.0"
@@ -65,8 +75,10 @@ __all__ = [
     "AcceleratorState",
     "AutocastKwargs",
     "DataLoaderConfiguration",
+    "DiagnosticsPlugin",
     "DistributedType",
     "FP8RecipeKwargs",
+    "FaultTolerancePlugin",
     "GradScalerKwargs",
     "GradientAccumulationPlugin",
     "GradientState",
@@ -74,9 +86,11 @@ __all__ = [
     "LossScaler",
     "MeshPlugin",
     "PartialState",
+    "ProjectConfiguration",
     "broadcast",
     "broadcast_object_list",
     "debug_launcher",
+    "find_executable_batch_size",
     "gather",
     "gather_object",
     "generate",
@@ -85,6 +99,7 @@ __all__ = [
     "pad_across_processes",
     "prepare_data_loader",
     "reduce",
+    "release_memory",
     "resolve_device",
     "send_to_device",
     "set_seed",

@@ -1,5 +1,5 @@
 """The ``Accelerator`` (port of the subset of ``accelerate_tpu/accelerator.py``
-that the 5-line training loop and its evaluation use)::
+that the 5-line training loop, its evaluation and its state use)::
 
     accelerator = Accelerator(mixed_precision="bf16")
     model, opt, train_dl, eval_dl, sched = accelerator.prepare(model, opt, train_dl, eval_dl, sched)
@@ -20,14 +20,27 @@ the same contract (see :mod:`.optimizer`). Precision: ``"bf16"`` and
 the dynamic loss scaler (:attr:`Accelerator.scaler`; ``GradScalerKwargs``
 in ``kwargs_handlers``); ``"fp8"`` runs bf16 with scaled-fp8 projections
 (``FP8RecipeKwargs``); :meth:`Accelerator.autocast` opens a full-precision
-island. The plugins (FSDP, DeepSpeed, Megatron-LM, context parallel), a
-mesh with axes other than ``dp`` and the profiling and DDP handlers are not
-ported yet and raise; checkpointing is a later slice.
+island.
+
+The loop's state (:mod:`.checkpointing`): ``save_state`` / ``load_state``
+(sync, ``async_save=True``, ``sharded=True``) under ``project_dir`` with
+``ProjectConfiguration``'s rotation, ``register_for_checkpointing``,
+``save_model``. ``fault_tolerance=`` (:class:`FaultTolerancePlugin`) arms
+the preemption handler: a SIGTERM takes ONE emergency save at the next
+step boundary and exits with the plugin's code; a relaunch with
+``ACCELERATE_AUTO_RESUME=true`` resumes in ``prepare`` from the newest
+checkpoint that validates. ``log_with=`` picks the trackers
+(:mod:`.tracking`: ``init_trackers``, ``log``, ``end_training``);
+``diagnostics=`` (:class:`DiagnosticsPlugin`) the tracer and the hang
+watchdog. The plugins (FSDP, DeepSpeed, Megatron-LM, context parallel), a
+mesh with axes other than ``dp``, ``telemetry=``, ``sanitize=`` and the
+profiling and DDP handlers are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
 
 import torch
@@ -45,11 +58,17 @@ from .state import AcceleratorState, GradientState
 from .utils.dataclasses import (
     AutocastKwargs,
     DataLoaderConfiguration,
+    DiagnosticsPlugin,
+    FaultTolerancePlugin,
     GradientAccumulationPlugin,
     GradScalerKwargs,
     InitProcessGroupKwargs,
     MeshPlugin,
+    ProjectConfiguration,
 )
+from .utils.environment import parse_flag_from_env
+
+logger = logging.getLogger(__name__)
 
 #: fp8 keeps bf16 for everything but the projections, which
 #: ``ops.fp8.dense`` runs as fp8 products under the model's recipe; int8 has
@@ -92,12 +111,20 @@ class Accelerator:
         mesh_plugin: MeshPlugin | None = None,
         context_parallel_plugin=None,
         rng_types: list[str] | None = None,
+        log_with=None,
+        project_dir: str | None = None,
+        project_config: ProjectConfiguration | None = None,
         gradient_accumulation_plugin: GradientAccumulationPlugin | None = None,
         step_scheduler_with_optimizer: bool = True,
         even_batches: bool = True,
         use_seedable_sampler: bool = False,
         kwargs_handlers: list | None = None,
+        fault_tolerance: FaultTolerancePlugin | bool | None = None,
+        diagnostics: DiagnosticsPlugin | bool | None = None,
     ):
+        self.project_configuration = project_config or ProjectConfiguration(project_dir=project_dir)
+        if project_dir is not None and self.project_configuration.project_dir is None:
+            self.project_configuration.set_directories(project_dir)
         plugins = {
             "deepspeed_plugin": deepspeed_plugin,
             "fsdp_plugin": fsdp_plugin,
@@ -157,10 +184,92 @@ class Accelerator:
                                           backoff_factor=h.backoff_factor,
                                           growth_interval=h.growth_interval, device=self.device)
         self.step = 0
+        self.flag_tensor = None
         self._models: list[PreparedModel] = []
         self._optimizers: list[AcceleratedOptimizer] = []
         self._schedulers: list[AcceleratedScheduler] = []
         self._dataloaders: list[DataLoaderShard] = []
+        self._custom_objects: list = []
+        self._training_started = False
+
+        from .tracking import filter_trackers
+
+        self.log_with = filter_trackers(log_with, self.logging_dir)
+        self.trackers = []
+        self._init_diagnostics(diagnostics)
+        self._init_fault_tolerance(fault_tolerance)
+
+    def _init_diagnostics(self, diagnostics):
+        """The tracer and the hang watchdog (``diagnostics=`` or
+        ``ACCELERATE_DIAGNOSTICS=1``). The newest Accelerator owns the
+        process-wide tracer and watchdog: a stale one is stopped."""
+        from .diagnostics.tracing import NULL_TRACER, Tracer, get_tracer, set_active_tracer
+        from .diagnostics.watchdog import Watchdog, get_active_watchdog
+        from .telemetry import get_active_recorder
+
+        if diagnostics is None:
+            diagnostics = parse_flag_from_env("ACCELERATE_DIAGNOSTICS")
+        if diagnostics is True:
+            diagnostics = DiagnosticsPlugin()
+        elif diagnostics is False:
+            diagnostics = None
+        self.diagnostics_plugin: DiagnosticsPlugin | None = diagnostics
+        self.tracer = NULL_TRACER
+        self.watchdog = None
+        if diagnostics is None:
+            return
+        stale_watchdog = get_active_watchdog()
+        if stale_watchdog is not None:
+            stale_watchdog.stop()
+        stale_tracer = get_tracer()
+        if stale_tracer:
+            stale_tracer.close()
+        if diagnostics.tracing:
+            self.tracer = Tracer(logging_dir=self.logging_dir,
+                                 buffer_events=diagnostics.trace_buffer_events)
+            set_active_tracer(self.tracer)
+        if diagnostics.watchdog:
+            recorder = get_active_recorder()
+            self.watchdog = Watchdog(
+                logging_dir=self.logging_dir,
+                multiplier=diagnostics.watchdog_multiplier,
+                floor_seconds=diagnostics.watchdog_floor_seconds,
+                check_interval_seconds=diagnostics.watchdog_check_seconds,
+                ema_alpha=diagnostics.watchdog_ema_alpha,
+                heartbeat_interval_seconds=diagnostics.heartbeat_interval_seconds,
+                grace_seconds=diagnostics.watchdog_grace_seconds,
+                telemetry_tail=diagnostics.watchdog_telemetry_tail,
+                preempt_on_hang=diagnostics.preempt_on_hang,
+                telemetry=recorder if recorder else None,
+            )
+            self.watchdog.start()
+
+    def _init_fault_tolerance(self, fault_tolerance):
+        """The preemption handler (``fault_tolerance=``,
+        ``ACCELERATE_FAULT_TOLERANCE=1``, or — so a relaunch is
+        preemption-safe too — ``ACCELERATE_AUTO_RESUME=1``)."""
+        if fault_tolerance is None and (parse_flag_from_env("ACCELERATE_FAULT_TOLERANCE")
+                                        or parse_flag_from_env("ACCELERATE_AUTO_RESUME")):
+            fault_tolerance = True
+        if fault_tolerance is True:
+            fault_tolerance = FaultTolerancePlugin()
+        elif fault_tolerance is False:
+            fault_tolerance = None
+        self.fault_tolerance_plugin: FaultTolerancePlugin | None = fault_tolerance
+        self._preemption_handler = None
+        self._ft_boundary_count = 0
+        self._ft_deferred_boundaries = 0
+        if fault_tolerance is not None:
+            fault_tolerance.export_io_env()
+            from .resilience.preemption import PreemptionHandler
+
+            self._preemption_handler = PreemptionHandler(
+                handle_sigint=fault_tolerance.handle_sigint,
+                monitor_maintenance=fault_tolerance.monitor_maintenance,
+                poll_seconds=fault_tolerance.maintenance_poll_seconds,
+                handle_signals=fault_tolerance.handle_signals,
+            )
+            self._preemption_handler.install()
 
     # -- state views ---------------------------------------------------------
 
@@ -249,6 +358,18 @@ class Accelerator:
     def gradient_accumulation_steps(self) -> int:
         return self.gradient_state.num_steps
 
+    @property
+    def project_dir(self) -> str | None:
+        return self.project_configuration.project_dir
+
+    @property
+    def logging_dir(self) -> str | None:
+        return self.project_configuration.logging_dir
+
+    @property
+    def save_iteration(self) -> int:
+        return self.project_configuration.iteration
+
     def wait_for_everyone(self):
         self.state.wait_for_everyone()
 
@@ -288,7 +409,13 @@ class Accelerator:
     def prepare(self, *args, device_placement: list[bool] | None = None):
         """Wrap models, optimizers and data loaders, then schedulers (a
         scheduler needs the prepared optimizers); anything else passes
-        through. Order is preserved."""
+        through. Order is preserved. Under auto-resume the newest valid
+        checkpoint is then loaded into what is prepared
+        (:meth:`_maybe_auto_resume`)."""
+        with trace_span("prepare", n_objects=len(args)):
+            return self._prepare_inner(*args, device_placement=device_placement)
+
+    def _prepare_inner(self, *args, device_placement: list[bool] | None = None):
         if device_placement is None:
             device_placement = [None] * len(args)
         prepared = []
@@ -306,7 +433,133 @@ class Accelerator:
             else obj
             for obj in prepared
         ]
+        self._maybe_auto_resume()
         return result[0] if len(result) == 1 else tuple(result)
+
+    # -- fault tolerance -----------------------------------------------------
+
+    @property
+    def preemption_requested(self) -> bool:
+        """Has a SIGTERM/SIGINT/maintenance event raised the LOCAL
+        preemption flag? (The processes agree in :meth:`check_preemption`.)"""
+        return (self._preemption_handler is not None
+                and self._preemption_handler.preemption_requested)
+
+    def check_preemption(self):
+        """The step-boundary preemption check (called from ``backward``; an
+        eval loop may call it itself). Every ``consensus_interval``
+        boundaries the flag is all-reduced across the processes; on
+        agreement ONE emergency ``save_state()`` runs and the process exits
+        with the plugin's code and a sentinel file.
+
+        Mid-accumulation (gradients already accumulated) the save is
+        DEFERRED to the window's end, as in the JAX package, bounded at
+        ``max(2 × window, 4)`` deferrals. The batch whose ``backward``
+        triggered the check never trains: the resume is within ONE
+        optimizer step of the signal."""
+        handler = self._preemption_handler
+        if handler is None:
+            return
+        plugin = self.fault_tolerance_plugin
+        self._ft_boundary_count += 1
+        if self.num_processes > 1:
+            if self._ft_boundary_count % plugin.consensus_interval != 0:
+                return
+            preempt = handler.consensus()
+        else:
+            preempt = handler.preemption_requested
+        if not preempt:
+            return
+        # a clean window boundary: no accumulated gradients (the same on
+        # every process: all run the same schedule)
+        clean = all(p.grad is None for o in self._optimizers for p in o.parameters())
+        if not clean:
+            self._ft_deferred_boundaries += 1
+            if self._ft_deferred_boundaries <= max(2 * self.gradient_accumulation_steps, 4):
+                return
+            logger.warning("emergency save forced mid-accumulation after %d deferrals "
+                           "(the partial gradient window is dropped)",
+                           self._ft_deferred_boundaries)
+        self._emergency_save_and_exit()
+
+    def _emergency_save_and_exit(self):
+        from .telemetry import get_active_recorder
+
+        handler = self._preemption_handler
+        plugin = self.fault_tolerance_plugin
+        reason = handler.reason or "preemption"
+        logger.warning("preemption consensus (%s): emergency checkpoint", reason)
+        if self.watchdog is not None:
+            # the save may take longer than a step deadline
+            self.watchdog.stop()
+        checkpoint = None
+        if plugin.save_on_preemption:
+            if self.project_dir is None:
+                logger.warning("emergency save skipped: no project_dir configured on "
+                               "this Accelerator")
+            else:
+                try:
+                    # synchronous on purpose: durability outranks step time
+                    # when the machine is about to go
+                    checkpoint = self.save_state(async_save=False)
+                except Exception:
+                    logger.error("emergency save FAILED", exc_info=True)
+        recorder = get_active_recorder()
+        if recorder:
+            recorder.record_event("preemption", reason=reason, checkpoint=checkpoint,
+                                  step=self.step)
+        if self.tracer:
+            self.tracer.instant("preemption", reason=reason)
+            self.tracer.close()
+        sentinel_dir = (os.path.join(self.project_dir, "checkpoints")
+                        if self.project_dir is not None else os.getcwd())
+        if self.is_main_process:
+            handler.write_sentinel(sentinel_dir, checkpoint, self.step)
+        handler.uninstall()
+        logger.warning("exiting cleanly after preemption (checkpoint=%s, exit_code=%d)",
+                       checkpoint, plugin.exit_code)
+        raise SystemExit(plugin.exit_code)
+
+    def _maybe_auto_resume(self):
+        """Under ``FaultTolerancePlugin(auto_resume=True)`` or
+        ``ACCELERATE_AUTO_RESUME=true``, load the newest checkpoint under
+        ``{project_dir}/checkpoints`` whose manifest validates into what is
+        prepared. It runs again on every ``prepare`` until the first
+        ``backward`` (a script may prepare its objects over several calls),
+        and never after. With several processes the main process picks the
+        checkpoint and broadcasts its choice."""
+        if self._training_started:
+            return
+        plugin_resume = (self.fault_tolerance_plugin is not None
+                         and self.fault_tolerance_plugin.auto_resume)
+        if not (plugin_resume or parse_flag_from_env("ACCELERATE_AUTO_RESUME")):
+            return
+        if self.project_dir is None:
+            return
+        from .resilience.manifest import SENTINEL_NAME, find_latest_valid_checkpoint
+
+        checkpoints_dir = os.path.join(self.project_dir, "checkpoints")
+        if self.num_processes > 1:
+            choice = [find_latest_valid_checkpoint(checkpoints_dir)
+                      if self.is_main_process else None]
+            latest = ops.broadcast_object_list(choice)[0]
+        else:
+            latest = find_latest_valid_checkpoint(checkpoints_dir)
+        if latest is None:
+            if not getattr(self, "_auto_resume_warned", False):
+                self._auto_resume_warned = True
+                logger.warning("auto-resume is on but no valid checkpoint_* exists under "
+                               "%s; starting fresh", checkpoints_dir)
+            return
+        logger.info("auto-resuming from %s", latest)
+        self.load_state(latest)
+        sentinel = os.path.join(checkpoints_dir, SENTINEL_NAME)
+        if self.is_main_process and os.path.exists(sentinel):
+            # consumed: this run IS the resume the sentinel asked for
+            try:
+                os.remove(sentinel)
+            except OSError:
+                pass
 
     def prepare_model(self, model, device_placement: bool | None = None,
                       evaluation_mode: bool = False) -> PreparedModel:
@@ -392,6 +645,11 @@ class Accelerator:
                 f"call; got {type(loss).__name__}. Compute the loss from model "
                 "outputs (e.g. model(**batch).loss)."
             )
+        self._training_started = True  # freezes auto-resume (_maybe_auto_resume)
+        if self._preemption_handler is not None:
+            # a step boundary: the previous step is applied, this one has
+            # not staged yet — the one consistent point to emergency-save
+            self.check_preemption()
         if self._loss_scale is None:
             (loss / self.gradient_accumulation_steps).backward(**kwargs)
         else:
@@ -581,6 +839,121 @@ class Accelerator:
 
     def unwrap_model(self, model, keep_fp32_wrapper: bool = True):
         return extract_model_from_parallel(model, keep_fp32_wrapper)
+
+    # -- the trigger ---------------------------------------------------------
+
+    def set_trigger(self):
+        """Raise this process's trigger; :meth:`check_trigger` on every
+        process then sees it."""
+        self.flag_tensor = torch.ones((), dtype=torch.int32, device=self.device)
+
+    def check_trigger(self) -> bool:
+        """Did any process :meth:`set_trigger`? A collective under a process
+        group; a raised trigger is cleared when seen."""
+        flag = (self.flag_tensor if self.flag_tensor is not None
+                else torch.zeros((), dtype=torch.int32, device=self.device))
+        triggered = bool(ops.reduce(flag, reduction="sum") >= 1)
+        if triggered:
+            self.flag_tensor = None
+        return triggered
+
+    # -- memory --------------------------------------------------------------
+
+    def free_memory(self, *objects):
+        """Drop the prepared references and return ``objects`` as ``None``s
+        (``a, b = accelerator.free_memory(a, b)``), then collect garbage and
+        empty the card's cache (:func:`.utils.memory.release_memory`)."""
+        from .utils.memory import release_memory
+
+        self._models.clear()
+        self._optimizers.clear()
+        self._schedulers.clear()
+        self._dataloaders.clear()
+        self.step = 0
+        return release_memory(*objects)
+
+    def clear(self, *objects):
+        return self.free_memory(*objects)
+
+    def get_state_dict(self, model, unwrap: bool = True):
+        """The model's ``state_dict`` (the f32 masters under a compute dtype)."""
+        return extract_model_from_parallel(model).state_dict()
+
+    # -- checkpointing (:mod:`.checkpointing`) -------------------------------
+
+    def register_for_checkpointing(self, *objects):
+        """Add objects with ``state_dict``/``load_state_dict`` to what
+        ``save_state`` / ``load_state`` carry (``custom_checkpoint_<i>.pkl``)."""
+        for obj in objects:
+            if not (hasattr(obj, "state_dict") and hasattr(obj, "load_state_dict")):
+                raise ValueError(f"{obj} must define state_dict/load_state_dict to be registered")
+        self._custom_objects.extend(objects)
+
+    def save_state(self, output_dir: str | None = None, **save_model_func_kwargs):
+        """:func:`.checkpointing.save_accelerator_state` (``async_save=``,
+        ``sharded=``, ``safe_serialization=``); returns the directory."""
+        from .checkpointing import save_accelerator_state
+
+        return save_accelerator_state(self, output_dir, **save_model_func_kwargs)
+
+    def load_state(self, input_dir: str | None = None, **load_model_func_kwargs):
+        """:func:`.checkpointing.load_accelerator_state`; returns the directory."""
+        from .checkpointing import load_accelerator_state
+
+        return load_accelerator_state(self, input_dir, **load_model_func_kwargs)
+
+    def save_model(self, model, save_directory: str, max_shard_size="10GB",
+                   safe_serialization: bool = True):
+        """The weights as ``model.safetensors`` (or shards with an index)
+        for ``load_checkpoint_and_dispatch``."""
+        from .checkpointing import save_model_weights
+
+        return save_model_weights(self, model, save_directory, max_shard_size,
+                                  safe_serialization)
+
+    def save(self, obj, f, safe_serialization: bool = False):
+        """Pickle ``obj`` to ``f`` on the main process."""
+        from .checkpointing import save_object
+
+        if self.is_main_process:
+            save_object(obj, f, safe_serialization=safe_serialization)
+
+    # -- tracking (:mod:`.tracking`) -----------------------------------------
+
+    def init_trackers(self, project_name: str, config: dict | None = None,
+                      init_kwargs: dict | None = None):
+        from .tracking import init_trackers
+
+        self.trackers = init_trackers(self.log_with, project_name, self.logging_dir, config,
+                                      init_kwargs or {})
+
+    def get_tracker(self, name: str, unwrap: bool = False):
+        for tracker in self.trackers:
+            if getattr(tracker, "name", None) == name:
+                return tracker.tracker if unwrap else tracker
+        from .tracking import GeneralTracker
+
+        return GeneralTracker(_blank=True)
+
+    def log(self, values: dict, step: int | None = None, log_kwargs: dict | None = None):
+        for tracker in self.trackers:
+            tracker.log(values, step=step, **(log_kwargs or {}).get(tracker.name, {}))
+
+    def end_training(self):
+        """Finish the trackers, stop the watchdog and the tracer, uninstall
+        the preemption handler, and land and commit a trailing async save."""
+        from .checkpointing import _join_writer_then_barrier
+
+        for tracker in self.trackers:
+            tracker.finish()
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        self.tracer.close()
+        if self._preemption_handler is not None:
+            self._preemption_handler.uninstall()
+        # the barriered join is the only place a multi-process commit is safe
+        _join_writer_then_barrier(self)
+        self.wait_for_everyone()
 
     def __repr__(self):
         return (f"Accelerator(device={self.device}, mixed_precision={self.mixed_precision!r}, "

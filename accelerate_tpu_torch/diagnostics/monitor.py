@@ -8,10 +8,11 @@ a different machine over a shared filesystem, or post-mortem on a dead
 one. Pure functions (collect → render) so tests and other tooling can
 consume the status dict directly.
 
-The heartbeat files and the per-host collective digests are written by
-modules the port does not have yet (the hang watchdog and the compiled
-programs' sanitizer, ROADMAP item 23); their directory and readers are
-copied here, so those panels show what a run without those writers shows.
+The heartbeat files and hang reports are written by the port's hang
+watchdog (:mod:`.watchdog`). The per-host collective digests are written by
+a module the port does not have yet (the compiled programs' sanitizer,
+ROADMAP item 23); their reader is copied here, so that panel shows what a
+run without that writer shows.
 """
 
 from __future__ import annotations

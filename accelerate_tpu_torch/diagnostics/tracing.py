@@ -1,9 +1,10 @@
 """Request-scoped tracing — Chrome/Perfetto ``trace_event`` JSON (the
 request-scoped half of ``accelerate_tpu/diagnostics/tracing.py``: trace
 ids, the :class:`Tracer` with its spans, instants, counters, request
-events and flow arrows, the process-wide active tracer and
+events and flow arrows, the open-span registry the hang watchdog
+(:mod:`.watchdog`) reads, the process-wide active tracer and
 :func:`trace_span`, and the readers ``trace merge``, ``trace tail`` and the
-goodput ledger parse with; the hang watchdog is not ported).
+goodput ledger parse with).
 
 The on-disk format is the JAX package's, so its ``accelerate-tpu trace
 merge`` reads a trace this module wrote:
@@ -37,6 +38,7 @@ from typing import Any
 
 from ..metrics.ingest import observe_span as _observe_metrics_span
 from ..metrics.registry import get_active_registry as _get_metrics_registry
+from .watchdog import get_active_watchdog as _active_watchdog
 
 logger = logging.getLogger(__name__)
 
@@ -149,6 +151,9 @@ class _NullTracer:
     def flow(self, trace_id, phase, name="req/hop", **attrs):
         pass
 
+    def open_spans(self):
+        return {}
+
     def flush(self):
         pass
 
@@ -176,23 +181,27 @@ class _Span:
     """One open span: records entry on ``__enter__``, emits a complete
     Chrome ``ph:"X"`` event on ``__exit__``."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_t0")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_tid")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
         self._t0 = 0.0
+        self._tid = 0
 
     def set_attr(self, **attrs):
         self.attrs.update(attrs)
 
     def __enter__(self):
         self._t0 = time.perf_counter()
+        self._tid = threading.get_ident()
+        self._tracer._push(self)
         return self
 
     def __exit__(self, exc_type, exc, tb):
         t1 = time.perf_counter()
+        self._tracer._pop(self)
         if exc_type is not None:
             self.attrs["error"] = exc_type.__name__
         self._tracer._emit_complete(self.name, self._t0, t1 - self._t0, self.attrs)
@@ -204,7 +213,8 @@ class Tracer:
 
     Args:
         logging_dir: root under which ``traces/host_<n>.trace.json`` is
-            appended. ``None`` disables the file sink.
+            appended. ``None`` disables the file sink (spans still keep the
+            open-span registry the watchdog dumps into hang reports).
         host: process index used as the trace ``pid``; default resolves
             from ``PartialState``/env.
         buffer_events: batch this many events per write+flush (1 = flush
@@ -233,6 +243,10 @@ class Tracer:
         self._lock = threading.Lock()
         self._buffer: list[str] = []
         self._buffer_events = max(1, int(buffer_events))
+        #: thread ident -> list of open _Span (innermost last); read by the
+        #: watchdog from ITS thread, so mutations hold the GIL-atomic list
+        #: ops only (append/remove) and readers copy
+        self._open: dict[int, list] = {}
         self._closed = False
 
         if logging_dir is not None:
@@ -355,6 +369,38 @@ class Tracer:
 
     # -- internals -----------------------------------------------------------
 
+    def open_spans(self) -> dict[int, list[dict]]:
+        """Snapshot of currently-open spans per thread (outermost first) —
+        the watchdog writes this into hang reports to name the stalled
+        phase."""
+        now = time.perf_counter()
+        out: dict[int, list[dict]] = {}
+        for tid, stack in list(self._open.items()):
+            frames = [
+                {"name": s.name, "age_s": now - s._t0, "attrs": dict(s.attrs)}
+                for s in list(stack)
+            ]
+            if frames:
+                out[tid] = frames
+        return out
+
+    def _push(self, span: _Span):
+        self._open.setdefault(span._tid, []).append(span)
+        wd = _active_watchdog()
+        if wd is not None:
+            wd.touch(span.name)
+
+    def _pop(self, span: _Span):
+        stack = self._open.get(span._tid)
+        if stack is not None:
+            try:
+                stack.remove(span)
+            except ValueError:
+                pass
+        wd = _active_watchdog()
+        if wd is not None:
+            wd.touch(None)
+
     def _emit_complete(self, name: str, t0: float, dur: float, attrs: dict):
         event = {
             "name": name, "ph": "X",
@@ -430,14 +476,41 @@ class Tracer:
             _ACTIVE_TRACER = NULL_TRACER
 
 
+class _TouchSpan:
+    """Watchdog-only span: no trace file, but span entry/exit still defers
+    the hang deadline and names the phase — so ``tracing=False,
+    watchdog=True`` doesn't false-fire on a long save."""
+
+    __slots__ = ("_wd", "_name")
+
+    def __init__(self, wd, name: str):
+        self._wd = wd
+        self._name = name
+
+    def __enter__(self):
+        self._wd.touch(self._name)
+        return self
+
+    def __exit__(self, *exc):
+        self._wd.touch(None)
+        return False
+
+    def set_attr(self, **attrs):
+        pass
+
+
 def trace_span(name: str, **attrs):
     """Module-level span entry point for the instrumented hot paths:
     ``with trace_span("serve/decode"): ...``. Routes through the
-    process-wide active tracer; disabled this is one global read returning
-    a shared no-op context manager."""
+    process-wide active tracer; with only the watchdog active the span
+    still feeds it progress and phase signals; fully disabled this is two
+    global reads returning a shared no-op context manager."""
     tracer = _ACTIVE_TRACER
     if tracer:
         return tracer.span(name, **attrs)
+    wd = _active_watchdog()
+    if wd is not None:
+        return _TouchSpan(wd, name)
     return _NULL_SPAN
 
 

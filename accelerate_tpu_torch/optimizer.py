@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from .diagnostics.tracing import trace_span
+from .diagnostics.watchdog import get_active_watchdog
 from .state import GradientState
 
 
@@ -146,7 +147,16 @@ class AcceleratedOptimizer:
         """Update at a sync step, else nothing. A step with no gradient at
         all is skipped and says so in :attr:`step_was_skipped`. Under fp16
         the gradients are unscaled, checked, and the scale updated; a
-        non-finite gradient skips the update and clears the gradients."""
+        non-finite gradient skips the update and clears the gradients. A
+        sync step tells the hang watchdog, when one runs, that a step
+        landed."""
+        out = self._step(closure)
+        wd = get_active_watchdog()
+        if wd is not None and self.gradient_state.sync_gradients:
+            wd.step_completed()
+        return out
+
+    def _step(self, closure):
         if not self.gradient_state.sync_gradients:
             self._step_was_skipped = False
             return None

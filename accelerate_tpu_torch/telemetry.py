@@ -1,5 +1,6 @@
-"""Serving telemetry: crash-safe JSONL rows and their feed into the live
-metrics registry (the serving half of ``accelerate_tpu/telemetry.py``).
+"""Telemetry: crash-safe JSONL rows and their feed into the live metrics
+registry (the serving, checkpoint and event rows of
+``accelerate_tpu/telemetry.py``).
 
 A :class:`TelemetryRecorder` appends one JSON object a line to
 ``{logging_dir}/telemetry/telemetry.jsonl`` — the file, the row shapes and
@@ -15,7 +16,11 @@ monitor`` and metrics exporter read a trail this module wrote. Rows:
   one row an XLA compile (it has no lazy compile cache to hook);
 * ``{"type": "generate", "mode": ...}`` one a ``generate()`` call
   (:meth:`record_generation`);
-* ``{"type": "event", "kind": ...}`` (:meth:`record_event`).
+* ``{"type": "checkpoint", "kind": "save" | "restore", ...}`` one a
+  checkpoint save or restore (:meth:`record_checkpoint`, fed by
+  ``checkpointing.py``);
+* ``{"type": "event", "kind": ...}`` (:meth:`record_event`), e.g. the
+  emergency save's ``"preemption"`` and the watchdog's ``"watchdog_hang"``.
 
 Every row also passes through :func:`~.metrics.ingest.observe_record` into
 the active :class:`~.metrics.registry.MetricsRegistry`, so ``GET
@@ -91,6 +96,9 @@ class _NullTelemetry:
         pass
 
     def record_generation(self, *a, **k):
+        pass
+
+    def record_checkpoint(self, *a, **k):
         pass
 
     def record_event(self, *a, **k):
@@ -250,6 +258,22 @@ class TelemetryRecorder:
         if verify_rounds is not None:
             record["verify_rounds"] = int(verify_rounds)
         self._emit(record)
+
+    def record_checkpoint(self, kind: str, seconds: float | None = None,
+                          bytes_written: int | None = None, shard_count: int | None = None,
+                          is_async: bool = False, path: str | None = None) -> None:
+        """One checkpoint save or restore: how long, how many bytes, how many
+        per-process shard directories, and whether the write rode the async
+        writer (JAX's row)."""
+        self._emit({
+            "type": "checkpoint",
+            "kind": kind,
+            "seconds": None if seconds is None else float(seconds),
+            "bytes": None if bytes_written is None else int(bytes_written),
+            "shard_count": None if shard_count is None else int(shard_count),
+            "async": bool(is_async),
+            "path": path,
+        })
 
     def record_event(self, kind: str, **fields) -> None:
         self._emit({"type": "event", "kind": kind, **fields})

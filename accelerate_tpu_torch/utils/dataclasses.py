@@ -1,8 +1,9 @@
 """Enums and plugins the training loop reads (port of the subset of
 ``accelerate_tpu/utils/dataclasses.py`` that the port runs: precision and
 its kwargs handlers, gradient accumulation, the data loader's
-configuration and a data-parallel mesh). The other plugins and launch
-configs are later slices; passing one to ``Accelerator`` raises "not yet
+configuration, a data-parallel mesh, the project layout and the fault
+tolerance and diagnostics plugins). The other plugins and launch configs
+are later slices; passing one to ``Accelerator`` raises "not yet
 ported"."""
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from dataclasses import dataclass, field, fields
 from datetime import timedelta
 from typing import Any
 
-from .environment import str_to_bool
+from .environment import parse_flag_from_env, str_to_bool
 
 
 class BaseEnum(str, enum.Enum):
@@ -227,3 +228,130 @@ class DataLoaderConfiguration(KwargsHandler):
         env = os.environ.get("ACCELERATE_PREFETCH_BATCHES")
         if env is not None and self.prefetch_batches == defaults["prefetch_batches"]:
             self.prefetch_batches = int(env)
+
+
+@dataclass
+class ProjectConfiguration:
+    """Checkpoint and artifact layout (port of ``ProjectConfiguration``):
+    ``save_state`` writes under ``{project_dir}/checkpoints``, trackers and
+    diagnostics under ``logging_dir`` (``project_dir`` by default)."""
+
+    project_dir: str | None = None
+    logging_dir: str | None = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: int | None = None
+    iteration: int = 0
+    save_on_each_node: bool = False
+
+    def set_directories(self, project_dir: str | None = None) -> None:
+        self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir
+
+    def __post_init__(self):
+        if self.logging_dir is None:
+            self.logging_dir = self.project_dir
+
+
+@dataclass
+class FaultTolerancePlugin(KwargsHandler):
+    """Preemption-safe checkpointing and auto-resume (port of
+    ``FaultTolerancePlugin``). Given to ``Accelerator(fault_tolerance=...)``
+    it installs SIGTERM/SIGINT handlers (``handle_signals``): a preemption
+    notice triggers ONE emergency ``save_state()`` at the next step
+    boundary, then an exit with ``exit_code`` and a ``PREEMPTED.json``
+    sentinel beside the checkpoints. ``prepare()`` resumes from the newest
+    checkpoint whose manifest validates (``auto_resume``; also forced by
+    ``ACCELERATE_AUTO_RESUME=1``). ``sharded_io`` switches ``save_state``
+    to the per-process piece format; checkpoint IO retries ``io_attempts``
+    times with ``io_backoff_seconds`` of exponential backoff, exported as
+    ``ACCELERATE_FT_IO_ATTEMPTS`` / ``_BACKOFF`` so the background writer
+    agrees. ``consensus_interval`` is the step cadence of the cross-process
+    flag all-reduce: every process must use the same value."""
+
+    auto_resume: bool = True
+    save_on_preemption: bool = True
+    handle_signals: bool = True
+    handle_sigint: bool = True
+    monitor_maintenance: bool = False
+    maintenance_poll_seconds: float = 30.0
+    consensus_interval: int = 1
+    sharded_io: bool = True
+    io_attempts: int = 3
+    io_backoff_seconds: float = 0.5
+    exit_code: int = 143  # 128 + SIGTERM: honest to the launcher's restart logic
+
+    def __post_init__(self):
+        env = os.environ
+        if "ACCELERATE_AUTO_RESUME" in env:
+            self.auto_resume = parse_flag_from_env("ACCELERATE_AUTO_RESUME", self.auto_resume)
+        if "ACCELERATE_FT_SHARDED_IO" in env:
+            self.sharded_io = parse_flag_from_env("ACCELERATE_FT_SHARDED_IO", self.sharded_io)
+        if "ACCELERATE_FT_MONITOR_MAINTENANCE" in env:
+            self.monitor_maintenance = parse_flag_from_env(
+                "ACCELERATE_FT_MONITOR_MAINTENANCE", self.monitor_maintenance)
+        if "ACCELERATE_FT_CONSENSUS_INTERVAL" in env:
+            self.consensus_interval = int(env["ACCELERATE_FT_CONSENSUS_INTERVAL"])
+        if "ACCELERATE_FT_IO_ATTEMPTS" in env:
+            self.io_attempts = int(env["ACCELERATE_FT_IO_ATTEMPTS"])
+        if "ACCELERATE_FT_IO_BACKOFF" in env:
+            self.io_backoff_seconds = float(env["ACCELERATE_FT_IO_BACKOFF"])
+        self.consensus_interval = max(1, int(self.consensus_interval))
+
+    def export_io_env(self):
+        """Publish the retry knobs where the checkpoint writers (the async
+        background thread included) read their defaults."""
+        os.environ["ACCELERATE_FT_IO_ATTEMPTS"] = str(self.io_attempts)
+        os.environ["ACCELERATE_FT_IO_BACKOFF"] = str(self.io_backoff_seconds)
+
+
+@dataclass
+class DiagnosticsPlugin(KwargsHandler):
+    """Tracing and the hang watchdog (port of ``DiagnosticsPlugin``).
+
+    * ``tracing``: per-process Chrome/Perfetto span timelines under
+      ``{logging_dir}/traces/host_<n>.trace.json``.
+    * ``watchdog``: a deadline of ``max(watchdog_multiplier · EMA(step
+      time), watchdog_floor_seconds)`` armed around each step; on expiry
+      ``HANG_REPORT_<host>.json`` (thread stacks, open spans, the card's
+      memory, the telemetry tail) and, with ``preempt_on_hang``, the
+      emergency save. Heartbeat files under ``{logging_dir}/diagnostics``
+      feed the ``monitor`` command.
+
+    Env overrides: ``ACCELERATE_TRACING``, ``ACCELERATE_WATCHDOG``,
+    ``ACCELERATE_WATCHDOG_MULTIPLIER``, ``_FLOOR_SECONDS``,
+    ``_CHECK_SECONDS``, ``_GRACE_SECONDS`` and ``_PREEMPT``."""
+
+    tracing: bool = True
+    watchdog: bool = True
+    watchdog_multiplier: float = 5.0
+    watchdog_floor_seconds: float = 120.0
+    watchdog_check_seconds: float = 5.0
+    watchdog_ema_alpha: float = 0.2
+    #: deadline while the open phase is compile/*, checkpoint/* or prepare
+    #: (host-local, legitimately unbounded by step time)
+    watchdog_grace_seconds: float = 1800.0
+    watchdog_telemetry_tail: int = 50
+    preempt_on_hang: bool = False
+    heartbeat_interval_seconds: float = 5.0
+    trace_buffer_events: int = 16
+
+    def __post_init__(self):
+        env = os.environ
+        if "ACCELERATE_TRACING" in env:
+            self.tracing = parse_flag_from_env("ACCELERATE_TRACING", self.tracing)
+        if "ACCELERATE_WATCHDOG" in env:
+            self.watchdog = parse_flag_from_env("ACCELERATE_WATCHDOG", self.watchdog)
+        if "ACCELERATE_WATCHDOG_MULTIPLIER" in env:
+            self.watchdog_multiplier = float(env["ACCELERATE_WATCHDOG_MULTIPLIER"])
+        if "ACCELERATE_WATCHDOG_FLOOR_SECONDS" in env:
+            self.watchdog_floor_seconds = float(env["ACCELERATE_WATCHDOG_FLOOR_SECONDS"])
+        if "ACCELERATE_WATCHDOG_CHECK_SECONDS" in env:
+            self.watchdog_check_seconds = float(env["ACCELERATE_WATCHDOG_CHECK_SECONDS"])
+        if "ACCELERATE_WATCHDOG_GRACE_SECONDS" in env:
+            self.watchdog_grace_seconds = float(env["ACCELERATE_WATCHDOG_GRACE_SECONDS"])
+        if "ACCELERATE_WATCHDOG_PREEMPT" in env:
+            self.preempt_on_hang = parse_flag_from_env("ACCELERATE_WATCHDOG_PREEMPT",
+                                                       self.preempt_on_hang)
+        self.watchdog_multiplier = max(1.0, float(self.watchdog_multiplier))
+        self.watchdog_floor_seconds = max(0.0, float(self.watchdog_floor_seconds))

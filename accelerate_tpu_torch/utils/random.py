@@ -1,7 +1,9 @@
-"""RNG control (port of ``set_seed`` and ``synchronize_rng_state(s)`` from
-``accelerate_tpu/utils/random.py``).
+"""RNG control (port of ``set_seed``, the framework key and
+``synchronize_rng_state(s)`` from ``accelerate_tpu/utils/random.py``).
 The port draws from explicit ``torch.Generator``s; ``set_seed`` seeds the
-global generators that user code and PyTorch's own initialisers read."""
+global generators that user code and PyTorch's own initialisers read, and
+the framework generator (:func:`get_generator`, JAX's framework key) that
+checkpoint RNG bundles carry."""
 
 from __future__ import annotations
 
@@ -9,6 +11,11 @@ import random
 
 import numpy as np
 import torch
+
+#: the framework generator (a CPU ``torch.Generator``): seeded by
+#: ``set_seed``, drawn from by code that takes no generator of its own, and
+#: carried in checkpoint RNG bundles (JAX's ``_JAX_KEY``)
+_GENERATOR: torch.Generator | None = None
 
 
 def set_seed(seed: int, device_specific: bool = False, deterministic: bool = False) -> int:
@@ -20,14 +27,37 @@ def set_seed(seed: int, device_specific: bool = False, deterministic: bool = Fal
         from ..state import PartialState
 
         seed += PartialState().process_index
+    global _GENERATOR
     random.seed(seed)
     np.random.seed(seed % (2**32))
     torch.manual_seed(seed)
+    _GENERATOR = torch.Generator().manual_seed(seed)
     if torch.cuda.is_available():
         torch.cuda.manual_seed_all(seed)
     if deterministic:
         torch.use_deterministic_algorithms(True)
     return seed
+
+
+def get_generator() -> torch.Generator:
+    """The framework generator (seeded from entropy if ``set_seed`` was
+    never called)."""
+    global _GENERATOR
+    if _GENERATOR is None:
+        _GENERATOR = torch.Generator()
+        _GENERATOR.seed()
+    return _GENERATOR
+
+
+def generator_state() -> torch.Tensor | None:
+    """The framework generator's state for checkpoint bundles (None if it
+    was never made)."""
+    return None if _GENERATOR is None else _GENERATOR.get_state()
+
+
+def set_generator_state(state) -> None:
+    if state is not None:
+        get_generator().set_state(state)
 
 
 def synchronize_rng_state(rng_type: str | None = None, generator=None) -> None:

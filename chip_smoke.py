@@ -90,8 +90,8 @@ failure, so the script exits non-zero and prints no result):
    a JSON-schema answer (validated) and 4 seeded sampled requests (sent
    again in reverse: the same tokens), whose lane burst is captured inside
    the window; the window's kernel summary must name B4's two kernels over
-   at least one flight iteration; the 12 again with a window open (tok/s
-   with and without it); ``/metrics`` parsed and equal to ``/stats``; one
+   at least one flight iteration; 6 fresh prompts timed (tok/s);
+   ``/metrics`` parsed and equal to ``/stats``; one
    capture of each program and B4's launches = eager + replays ×
    captured; SIGTERM with 8 requests of 200 tokens in flight: all
    answered, the flight drain written, exit 0;
@@ -108,10 +108,8 @@ failure, so the script exits non-zero and prints no result):
    5's or parting within 5b's margin rule, replica 0 respawned once (dead
    to ready timed), replica 1's and the respawned replica 0's ``/stats``
    one capture of each program and B4's launches = eager + replays ×
-   captured; then replica 1 SIGSTOPped with a request decoding on it: the
-   router's wedge verdict rescues it to replica 0 (whose own request's TPOT
-   is printed beside phase 5's), kills and respawns replica 1; SIGTERM to
-   route drains, exit 0, no fleet process alive and ``nvidia-smi``'s
+   captured (replica 0's after one fresh request, its TPOT printed beside
+   phase 5's); SIGTERM to route drains, exit 0, no fleet process alive and ``nvidia-smi``'s
    compute apps back to the list before the fleet.
    Tok/s, client TTFT and TPOT printed beside phase 5e's single replica;
 5h. the HBM pre-flight: ``serve --auto-blocks`` on the flagship (the chosen
@@ -359,6 +357,36 @@ failure, so the script exits non-zero and prints no result):
     version at phase 8's f16 gates, launched twice with equal bits, timed
     against sdpa. ``python3 chip_smoke.py --phase 16`` runs phases 1, 2
     and 16 alone and prints no verdict.
+
+17. the training loop's state on the flagship (bf16 over f32 masters,
+    AdamW, a decaying ``LambdaLR``, 8 × 1024 ids a step from a
+    ``DataLoader``; under the temporary directory or ``build/``, whichever
+    has more room: it must hold 3 × the 8.4 GB state + the 2.8 GB model,
+    and is removed after). 17a, in processes of their own (this script
+    with ``--p17-loop``): an uninterrupted run of the batches; a run with
+    ``ProjectConfiguration(automatic_checkpoint_naming=True,
+    total_limit=2)``, ``fault_tolerance=True``, ``log_with="jsonl"`` and
+    the watchdog that trains 2 steps, saves (sync), trains 2, saves async
+    (the next 2 steps overlap the write), trains 2 and is sent SIGTERM: the
+    next batch's ``backward`` takes the emergency save and the process
+    exits 143 with ``PREEMPTED.json``; a relaunch with
+    ``ACCELERATE_AUTO_RESUME=true`` trains 3 steps. Gates: every loss of
+    both equal to the uninterrupted run's (1e-5 relative, bitwise
+    expected), B1-B3 16 launches each a step, both kept checkpoints'
+    manifests valid, the sentinel consumed, the tracker's JSONL holding
+    every logged step, the telemetry's checkpoint and preemption rows.
+    Prints the state's GB, the sync save's s and GB/s, the async save's
+    blocking s and the step ms during its write against before it, the
+    load s and the emergency save's s. 17b: ``save_model`` into 1 GB
+    shards, then ``load_checkpoint_and_dispatch`` with the whole model on
+    the card: logits bit-equal to the trained model's. 17c:
+    ``find_executable_batch_size`` from 128 × 1024: the sizes tried, at
+    least one real ``torch.OutOfMemoryError``, ``memory_allocated`` at the
+    start of every try equal to its level before the first. 17d: the hang
+    watchdog (2 s floor) fires on a step held past it; the report carries
+    the card's memory and the port's monitor reads the heartbeat (fired,
+    wedged). ``python3 chip_smoke.py --phase 17`` runs phases 1, 2 and 17
+    alone and prints no verdict.
 
 The ``{"kernels": [...]}`` line lists all four kernels. The last line of
 standard output is ``{"ok": true, "device": {...}}``.
@@ -1594,8 +1622,8 @@ def run_front_door(phase5: dict) -> dict:
     ``/generate`` (phase 5's tokens), chat, a JSON-schema answer and
     seeded sampled requests that reproduce, with a ``/profile`` window
     opened just before them (the lane burst's capture falls inside it);
-    two timed batches of fresh prompts of phase 5's lengths (no prefix-cache
-    hits), without and with a ``/profile`` window open; ``/healthz``,
+    a timed batch of 6 fresh prompts of phase 5's lengths (no prefix-cache
+    hits); ``/healthz``,
     ``/stats`` and ``/metrics`` timed, ``/metrics`` against ``/stats``; one
     capture of each program and B4's launches = eager + replays × captured;
     a SIGTERM with requests in flight: every one answered, the flight drain
@@ -1720,20 +1748,10 @@ def run_front_door(phase5: dict) -> dict:
                                  "flight iterations")
 
         marks["mixed_16_profiled"] = time.perf_counter()
-        # (3) fresh prompts of phase 5's lengths (no prefix-cache hits),
-        # without and then with a 1 s /profile window open at the start (6
-        # each: the smoke run's time budget)
+        # (3) fresh prompts of phase 5's lengths (no prefix-cache hits), 6
+        # of them (the smoke run's time budget; the /profile window of (2)
+        # is the one the phase keeps)
         timed_plain = _timed_sse_batch(base, _requests(6, seed=1))
-        profile2 = {}
-        profiler = threading.Thread(target=lambda: profile2.update(
-            _json(base, "/profile?seconds=1")))
-        profiler.start()
-        time.sleep(0.05)
-        timed_profiled = _timed_sse_batch(base, _requests(6, seed=2))
-        profiler.join(HTTP_TIMEOUT_S)
-        with open(next(p for p in profile2["artifacts"] if p.endswith("flight_window.json"))) as f:
-            window = json.load(f)
-        inside = [e["wall_s"] for e in window["entries"]]
 
         marks["fresh_batches"] = time.perf_counter()
         # (4) idle: the routes timed, /metrics against /stats, the captures
@@ -1803,13 +1821,8 @@ def run_front_door(phase5: dict) -> dict:
         "client": {k: timed[k] for k in ("wall_s", "tokens_per_sec", "ttft_s", "tpot_s")},
         "client_fresh": {k: timed_plain[k] for k in ("wall_s", "tokens_per_sec", "ttft_s",
                                                      "tpot_s")},
-        "client_fresh_with_profile": {k: timed_profiled[k] for k in ("wall_s", "tokens_per_sec",
-                                                                     "ttft_s", "tpot_s")},
         "phase5_stdin": {k: phase5[k] for k in ("tokens_per_sec", "ttft_s", "tpot_s",
                                                 "wall_s")},
-        "iteration_wall_inside_profile_s": {"p50": _pct(inside, 50), "n": len(inside)},
-        "profile_window_s": window["seconds_measured"],
-        "profiler_stop_s": window["profiler_stop_s"],
         "iteration_p50_s": stats.get("iteration_p50_s"),
         "route_ms_idle": idle_ms,
         "metrics_scrape_ms": {"idle": idle_ms["/metrics"]["p50"],
@@ -1829,9 +1842,7 @@ def run_front_door(phase5: dict) -> dict:
         f"{timed['ttft_s']['p50'] * 1e3:.1f}/{timed['ttft_s']['p99'] * 1e3:.1f} ms, TPOT "
         f"{timed['tpot_s']['p50'] * 1e3:.2f}/{timed['tpot_s']['p99'] * 1e3:.2f} ms (phase 5 "
         f"stdin {phase5['tokens_per_sec']:.1f} tok/s); fresh prompts "
-        f"{timed_plain['tokens_per_sec']:.1f} tok/s, with a 1 s /profile window "
-        f"{timed_profiled['tokens_per_sec']:.1f} tok/s (window {window['seconds_measured']:.2f} s, "
-        f"stopping the profiler {window['profiler_stop_s']:.2f} s); /profile under load named "
+        f"{timed_plain['tokens_per_sec']:.1f} tok/s; /profile under load named "
         f"{named} over {profile['flight_iterations']} iterations (lane capture inside: "
         f"{out['profile']['lane_capture_inside']}); idle ms {idle_ms}; /metrics "
         f"p50 {out['metrics_scrape_ms']['under_load_p50']:.2f} ms under load; captures "
@@ -1961,12 +1972,8 @@ def run_fleet(model, phase5: dict, front_door: dict) -> dict:
     within 5b's margin rule; replica 0 respawned once and the fleet back to
     two ready (spawn to ready timed); replica 1's ``/stats`` (then the
     respawned replica 0's) one capture of each program and B4's launches
-    = eager + replays × captured. Then, the survivor steady, a SIGSTOP of
-    replica 1 with a request decoding on it (sent once a fresh one decodes
-    on replica 0; prefix affinity or load placed it): the router's wedge verdict
-    rescues it to replica 0 (the stopped process is killed and respawned),
-    while replica 0's own request's TPOT is printed beside phase 5's. Last,
-    SIGTERM to route: drained, exit 0, no fleet process alive and
+    = eager + replays × captured (replica 0's after one fresh request of
+    400 tokens, its TPOT printed beside phase 5's). Last, SIGTERM to route: drained, exit 0, no fleet process alive and
     ``nvidia-smi``'s compute apps as before the fleet. Tok/s, client TTFT
     and TPOT p50/p99 printed beside phase 5e's single replica."""
     import signal
@@ -2065,63 +2072,33 @@ def run_fleet(model, phase5: dict, front_door: dict) -> dict:
         stats_r1 = _json(urls[1], "/stats")
         launches_r1 = check_graph_counts(stats_r1, 16, 8, "fleet replica 1")
 
-        # the stop scenario: one fresh prompt (the fleet idle, least-loaded
-        # picks the respawned replica 0), then, once replica 0 holds it, one
-        # request that shares a wave prompt's leading block (replica 1: warm
-        # for it by prefix affinity, or else the least loaded), 400 new
-        # tokens each; replica 1 stopped with its request decoding, so the
-        # router's wedge verdict must rescue it. Replica 0 gets its request
-        # first because its first request captures its graphs: sent
-        # together, replica 1 could finish before replica 0 decodes
+        # one fresh prompt on the respawned replica 0 (the fleet idle,
+        # least-loaded picks it), so its graphs are captured and its counts
+        # read. (The SIGSTOP wedge of replica 1 and its rescue, ~80 s with
+        # the second respawn, are cut for the smoke run's time budget.)
         fresh = _requests(4, seed=7)[1]["prompt"]  # 310 ids: with 400 new, under 1024
-        stop_reqs = [{"id": 200, "prompt": reqs[5]["prompt"][:32] + fresh[32:64],
-                      "max_new_tokens": 400},
-                     {"id": 201, "prompt": fresh, "max_new_tokens": 400}]
+        fresh_req = {"id": 201, "prompt": fresh, "max_new_tokens": 400}
         seen = {}
 
-        def decoding(replicas):
-            refused = [r for r in rows_out if r.get("id") in (200, 201) and "error" in r]
+        def decoding_on_r0():
+            refused = [r for r in rows_out if r.get("id") == 201 and "error" in r]
             if refused:
-                raise AssertionError(f"the stop scenario's requests were refused: {refused}")
-            for i in (0, 1):
-                seen[i] = _json(urls[i], "/healthz")["active_slots"]
-            return all(seen[i] > 0 for i in replicas)
+                raise AssertionError(f"the respawned replica's request was refused: {refused}")
+            seen[0] = _json(urls[0], "/healthz")["active_slots"]
+            return seen[0] > 0 or answered([201])
 
-        def wait_decoding(replicas, what):
-            try:
-                _wait_for(lambda: decoding(replicas), what, timeout=120, poll=0.005)
-            except AssertionError as e:
-                raise AssertionError(f"{e}: active slots {seen}, answered "
-                                     f"{[r.get('id') for r in rows_out if r.get('id') in (200, 201)]}"
-                                     f"\n{stderr_text()[-2000:]}") from None
-
-        stdin_rows(stop_reqs[1:])
-        wait_decoding((0,), "the respawned replica 0 to take the fresh stop-scenario request")
-        stdin_rows(stop_reqs[:1])
-        wait_decoding((0, 1), "both replicas to decode a stop-scenario request")
-        requeues_before = [r for r in _fleet_trail(logging_dir)
-                           if r.get("kind") == "router"][-1]["requeues"]
-        os.kill(latest[1]["pid"], signal.SIGSTOP)
-        t_stop = time.perf_counter()
-        _wait_for(lambda: answered(p["id"] for p in stop_reqs), "the stopped replica's rescue")
-        rescue_s = time.perf_counter() - t_stop
-        by_id = {r["id"]: r for r in rows_out}
-        stop_rows = [by_id[p["id"]] for p in stop_reqs]
-        if any("error" in r or len(r["tokens"]) != 400 for r in stop_rows):
-            raise AssertionError(f"the stop scenario lost requests: {stop_rows}")
-        requeues_after = [r for r in _fleet_trail(logging_dir)
-                          if r.get("kind") == "router"][-1]["requeues"]
-        if requeues_after <= requeues_before:
-            raise AssertionError("the stopped replica's request was answered without a rescue "
-                                 f"(requeues {requeues_before} -> {requeues_after})")
+        stdin_rows([fresh_req])
+        try:
+            _wait_for(decoding_on_r0, "the respawned replica 0 to take the fresh request",
+                      timeout=120, poll=0.005)
+        except AssertionError as e:
+            raise AssertionError(f"{e}: active slots {seen}\n{stderr_text()[-2000:]}") from None
+        _wait_for(lambda: answered([201]), "the respawned replica 0's answer")
+        fresh_row = next(r for r in rows_out if r.get("id") == 201)
+        if "error" in fresh_row or len(fresh_row["tokens"]) != 400:
+            raise AssertionError(f"the respawned replica's request: {fresh_row}")
         stats_r0 = _json(urls[0], "/stats")
         launches_r0 = check_graph_counts(stats_r0, 16, 8, "fleet replica 0 (respawned)")
-
-        def second_respawn():
-            latest = _latest_replicas(_fleet_trail(logging_dir))
-            return (all(r["state"] == "ready" for r in latest.values())
-                    and latest[1].get("restarts") == 1 and latest)
-        _wait_for(second_respawn, "replica 1's respawn after the wedge")
 
         # SIGTERM: drain, exit 0
         t_term = time.perf_counter()
@@ -2147,14 +2124,14 @@ def run_fleet(model, phase5: dict, front_door: dict) -> dict:
     if rc != 0:
         raise AssertionError(f"route exited {rc} on SIGTERM:\n{stderr_text()[-3000:]}")
     ids = sorted(r.get("id") for r in rows_out)
-    expect = sorted([p["id"] for p in wave_b] + [p["id"] for p in stop_reqs])
+    expect = sorted([p["id"] for p in wave_b] + [fresh_req["id"]])
     if ids != expect:
         raise AssertionError(f"the fleet's stdin answers {ids} are not one each of {expect}")
     totals = [r for r in trail if r.get("kind") == "router"][-1]
     restarts = {rid: r.get("restarts") for rid, r in _latest_replicas(trail).items()}
-    if totals.get("respawns") != 2 or restarts != {0: 1, 1: 1}:
-        raise AssertionError(f"respawns {totals.get('respawns')}, restarts {restarts}: each "
-                             "replica must be respawned exactly once")
+    if totals.get("respawns") != 1 or restarts[0] != 1 or restarts[1]:
+        raise AssertionError(f"respawns {totals.get('respawns')}, restarts {restarts}: replica "
+                             "0 must be respawned exactly once, replica 1 never")
     def alive(pid):
         try:
             os.kill(pid, 0)
@@ -2169,7 +2146,6 @@ def run_fleet(model, phase5: dict, front_door: dict) -> dict:
     gpu_after = _gpu_pids()
     if (fleet_pids | {proc.pid}) & set(gpu_after):
         raise AssertionError(f"fleet processes still on the card: {gpu_after}")
-    survivor_tpot, rescued_tpot = stop_rows[1]["tpot_s"], stop_rows[0]["tpot_s"]
     engine_b = [by_id[p["id"]] for p in wave_b]
     out = {
         "chaos": "r0:kill@7", "ready_s": ready_s, "respawn_dead_to_ready_s": respawn_ready_s,
@@ -2183,9 +2159,8 @@ def run_fleet(model, phase5: dict, front_door: dict) -> dict:
             "engine_tpot_s": {"p50": _pct([r["tpot_s"] for r in engine_b], 50),
                               "p99": _pct([r["tpot_s"] for r in engine_b], 99)}},
         "diverged": diverged,
-        "stop": {"rescue_s": rescue_s, "survivor_tpot_s": survivor_tpot,
-                 "rescued_tpot_s": rescued_tpot, "phase5_tpot_p50_s": phase5["tpot_s"]["p50"],
-                 "requeues": [requeues_before, requeues_after]},
+        "fresh_on_respawned_r0": {"tpot_s": fresh_row["tpot_s"],
+                                  "phase5_tpot_p50_s": phase5["tpot_s"]["p50"]},
         "launches_replica1": launches_r1, "launches_replica0_respawned": launches_r0,
         "launches": {"total": launches_r1["total"] + launches_r0["total"],
                      "decode": launches_r1["decode"] + launches_r0["decode"]},
@@ -2208,9 +2183,8 @@ def run_fleet(model, phase5: dict, front_door: dict) -> dict:
         f"{out['wave_b_generate']['engine_tpot_s']['p50'] * 1e3:.2f}/"
         f"{out['wave_b_generate']['engine_tpot_s']['p99'] * 1e3:.2f} ms; {len(diverged)} part "
         f"from phase 5 within noise; replica 0 dead to ready again {respawn_ready_s:.1f} s; "
-        f"SIGSTOP of replica 1 rescued in {rescue_s:.1f} s, the survivor's own request's TPOT "
-        f"{survivor_tpot * 1e3:.2f} ms while replica 1 was stopped, the rescued one's "
-        f"{rescued_tpot * 1e3:.2f} ms (phase 5 p50 {phase5['tpot_s']['p50'] * 1e3:.2f} ms); "
+        f"a fresh request on it TPOT {fresh_row['tpot_s'] * 1e3:.2f} ms (phase 5 p50 "
+        f"{phase5['tpot_s']['p50'] * 1e3:.2f} ms); "
         f"B4 launches replica 1 {launches_r1}, "
         f"respawned replica 0 {launches_r0}; {totals.get('respawns')} respawns, "
         f"{totals.get('requeues')} requeues; SIGTERM drained in {drain_s:.2f} s, exit {rc}; "
@@ -5413,6 +5387,539 @@ def run_phase16(dev) -> dict:
             "seconds": seconds}
 
 
+# -- phase 17 ---------------------------------------------------------------
+
+#: phase 17a: 10 global batches of TRAIN_BATCH × TRAIN_SEQ ids; the preempted
+#: run trains 0-5 (a sync save after 1, an async one after 3), is signalled
+#: before 6, whose backward takes the emergency save; the resume trains 7-9
+P17_BATCHES, P17_SIGNALLED, P17_RESUMED = 10, 6, 3
+#: the steps the async write overlaps, and the steps before it it is held to
+P17_DURING_WRITE, P17_BEFORE_WRITE = (4, 5), (2, 3)
+#: 17c: find_executable_batch_size's first size (rows of TRAIN_SEQ ids)
+P17_START_BATCH = 128
+#: 17d: the watchdog's floor, and the longest the held step waits for it
+P17_WATCHDOG_FLOOR_S, P17_HOLD_MAX_S = 2.0, 10.0
+
+
+def _p17_model(dev, seed: int = 0):
+    from accelerate_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    cfg = LlamaConfig.flagship_700m(max_position_embeddings=TRAIN_SEQ)
+    return cfg, LlamaForCausalLM.from_config(cfg, seed=seed, device=dev)
+
+
+def _p17_write(path: str, report: dict) -> None:
+    with open(path + ".part", "w") as f:
+        json.dump(report, f)
+    os.replace(path + ".part", path)
+
+
+def _p17_loop(mode: str, project_dir: str, out_path: str, report: dict) -> dict:
+    """One run of phase 17a's loop on the flagship (bf16 over f32 masters,
+    AdamW, a decaying LambdaLR, a ``DataLoader`` of P17_BATCHES batches).
+    ``straight``: the batches the preempted run and its resume train,
+    uninterrupted (P17_SIGNALLED is skipped: the preempted run fetches it
+    and never trains it). ``train``: ``fault_tolerance=True``,
+    ``log_with="jsonl"``, the watchdog, ``ProjectConfiguration(automatic_
+    checkpoint_naming=True, total_limit=2)``: a sync ``save_state`` after
+    batch 1, an async one after batch 3 overlapping batches 4 and 5, then
+    ``P17_READY`` on stdout; the parent's SIGTERM makes batch 6's
+    ``backward`` take the emergency save and exit 143. ``resume``: the same
+    under ``ACCELERATE_AUTO_RESUME=true`` (``prepare`` loads the newest valid
+    checkpoint), P17_RESUMED steps. Each step is timed between
+    synchronisations and its flash launches counted; ``report`` is written
+    to ``out_path`` after every step."""
+    from accelerate_tpu_torch import Accelerator, DiagnosticsPlugin, ProjectConfiguration
+    from accelerate_tpu_torch.checkpointing import wait_for_checkpoint
+
+    managed = mode != "straight"
+    acc = Accelerator(
+        mixed_precision="bf16", log_with="jsonl" if managed else None,
+        project_config=ProjectConfiguration(project_dir=project_dir if managed else None,
+                                            automatic_checkpoint_naming=True, total_limit=2),
+        fault_tolerance=managed,
+        diagnostics=DiagnosticsPlugin(tracing=False) if managed else False)
+    cfg, module = _p17_model(acc.device)
+    opt = torch.optim.AdamW(module.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=1e-4)
+    sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda step: 0.95 ** step)
+    ids = np.random.default_rng(17).integers(0, cfg.vocab_size,
+                                             size=(P17_BATCHES * TRAIN_BATCH, TRAIN_SEQ))
+    loader = torch.utils.data.DataLoader(_TokenRows(ids), batch_size=TRAIN_BATCH,
+                                         pin_memory=True)
+    t0 = time.perf_counter()
+    model, opt, loader, sched = acc.prepare(module, opt, loader, sched)
+    start = loader.position
+    run = {"mode": mode, "resumed_at": start, "prepare_s": time.perf_counter() - t0,
+           "losses": {}, "step_ms": {}, "launches": {}}
+    report[mode] = run
+    if managed:
+        acc.init_trackers("p17", config={"batch": TRAIN_BATCH, "seq": TRAIN_SEQ})
+    for j, batch in enumerate(loader):
+        idx = start + j
+        if mode == "straight" and idx == P17_SIGNALLED:
+            continue
+        if mode == "train" and idx == P17_SIGNALLED:
+            _p17_write(out_path, report)
+            print("P17_READY", flush=True)
+            deadline = time.perf_counter() + 120
+            while not acc.preemption_requested:
+                if time.perf_counter() > deadline:
+                    raise AssertionError("no SIGTERM came within 120 s")
+                time.sleep(0.01)
+        _zero_flash_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with acc.accumulate(model):
+            out = model(**batch)
+            acc.backward(out.loss)
+            opt.step()
+            sched.step()
+            opt.zero_grad()
+        torch.cuda.synchronize()
+        run["step_ms"][idx] = (time.perf_counter() - t) * 1e3
+        run["launches"][idx] = _flash_counts()
+        loss = out.loss.item()
+        run["losses"][idx] = loss
+        acc.log({"loss": loss, "lr": sched.get_last_lr()[0]}, step=idx)
+        if mode == "train" and idx == 1:
+            t = time.perf_counter()
+            run["sync_save_dir"] = acc.save_state()
+            run["sync_save_s"] = time.perf_counter() - t
+        elif mode == "train" and idx == 3:
+            t = time.perf_counter()
+            run["async_save_dir"] = acc.save_state(async_save=True)
+            run["async_block_s"] = time.perf_counter() - t
+        elif mode == "train" and idx == P17_DURING_WRITE[-1]:
+            t = time.perf_counter()
+            wait_for_checkpoint()
+            run["async_wait_after_steps_s"] = time.perf_counter() - t
+        _p17_write(out_path, report)
+        if mode == "resume" and j + 1 == P17_RESUMED:
+            break
+    acc.end_training()
+    run["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    _p17_write(out_path, report)
+    return run
+
+
+def p17_loop_child(mode: str, project_dir: str, out_path: str) -> int:
+    """Phase 17a's process: ``train`` runs the ``straight`` loop first (the
+    uninterrupted reference, a fresh Accelerator and model), then the
+    preempted loop, which exits 143; ``resume`` runs the resumed loop. The
+    telemetry recorder writes the checkpoint and preemption rows under
+    ``project_dir``."""
+    from accelerate_tpu_torch.telemetry import TelemetryRecorder, set_active_recorder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"pid": os.getpid()}
+    if mode == "train":
+        _p17_loop("straight", project_dir, out_path, report)
+        _reset_accelerator_state()
+        clear_memory()
+        torch.cuda.reset_peak_memory_stats()
+    recorder = TelemetryRecorder(logging_dir=project_dir)
+    set_active_recorder(recorder)
+    _p17_loop(mode, project_dir, out_path, report)
+    recorder.close()
+    return 0
+
+
+def _p17_child(mode: str, project_dir: str, out_path: str, env_extra=None) -> tuple:
+    env = {k: v for k, v in os.environ.items() if k not in DDP_ENV + ("ACCELERATE_AUTO_RESUME",)}
+    env.update(env_extra or {})
+    cmd = [sys.executable, os.path.abspath(__file__), "--p17-loop", mode, project_dir, out_path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=REPO, capture_output=True, text=True, timeout=900)
+    return proc, time.perf_counter() - t0
+
+
+def _p17_report(path: str, mode: str) -> dict:
+    """One loop's report from a 17a child's JSON, batch indices as ints."""
+    with open(path) as f:
+        run = json.load(f)[mode]
+    for key in ("losses", "step_ms", "launches"):
+        run[key] = {int(k): v for k, v in run[key].items()}
+    return run
+
+
+def _p17_dir(state_bytes: int, model_bytes: int) -> str:
+    """A scratch directory under the temporary directory or the checkout's
+    git-ignored ``build/``, whichever has more room; it must hold three
+    checkpoints of the training state and the model's weights."""
+    need = 3 * state_bytes + model_bytes
+    candidates = [tempfile.gettempdir(), os.path.join(REPO, "build")]
+    os.makedirs(candidates[1], exist_ok=True)
+    free = {c: shutil.disk_usage(c).free for c in candidates}
+    log(f"  free bytes: {free}; phase 17 needs {need} (3 × the state {state_bytes} + the "
+        f"model {model_bytes})")
+    base = max(free, key=free.get)
+    if free[base] < need:
+        raise AssertionError(f"phase 17 needs {need} free bytes (3 × the training state + the "
+                             f"model); the most any candidate has is {free[base]}")
+    return tempfile.mkdtemp(prefix="p17_", dir=base)
+
+
+def p17_resume(root: str) -> dict:
+    """17a from the parent: the train child (the straight run, then the
+    preempted run and its SIGTERM), the resume child; the checks and the
+    numbers."""
+    from accelerate_tpu_torch.diagnostics.monitor import collect_status
+    from accelerate_tpu_torch.resilience.manifest import (
+        SENTINEL_NAME,
+        read_manifest,
+        validate_checkpoint,
+    )
+    from accelerate_tpu_torch.telemetry import telemetry_segments
+
+    project = os.path.join(root, "project")
+    train_out, resume_out = (os.path.join(root, f"{m}.json") for m in ("train", "resume"))
+    env = {k: v for k, v in os.environ.items() if k not in DDP_ENV + ("ACCELERATE_AUTO_RESUME",)}
+    cmd = [sys.executable, os.path.abspath(__file__), "--p17-loop", "train", project, train_out]
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    try:
+        ready = False
+        for line in child.stdout:
+            if line.strip() == "P17_READY":
+                ready = True
+                break
+        if not ready:
+            raise AssertionError(f"17a's preempted run ended before it was ready: "
+                                 f"{child.wait(60)}\n{child.stderr.read()[-6000:]}")
+        t_term = time.perf_counter()
+        child.send_signal(__import__("signal").SIGTERM)
+        rc = child.wait(timeout=600)
+        term_to_exit_s = time.perf_counter() - t_term
+        stderr = child.stderr.read()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(60)
+    train_wall_s = time.perf_counter() - t0
+    if rc != 143:
+        log(stderr[-6000:])
+        raise AssertionError(f"the preempted run exited {rc}, not 143")
+    straight, trained = (_p17_report(train_out, m) for m in ("straight", "train"))
+    ckdir = os.path.join(project, "checkpoints")
+    names = sorted(os.listdir(ckdir))
+    if names != [SENTINEL_NAME, "checkpoint_1", "checkpoint_2"]:
+        raise AssertionError(f"after the emergency save (total_limit 2) the checkpoints are {names}")
+    with open(os.path.join(ckdir, SENTINEL_NAME)) as f:
+        sentinel = json.load(f)
+    if sentinel["reason"] != "SIGTERM" or not sentinel["checkpoint"].endswith("checkpoint_2"):
+        raise AssertionError(f"the sentinel says {sentinel}")
+    manifests = {}
+    for name in ("checkpoint_1", "checkpoint_2"):
+        ok, reason = validate_checkpoint(os.path.join(ckdir, name))
+        if not ok:
+            raise AssertionError(f"{name}'s manifest does not validate: {reason}")
+        manifests[name] = read_manifest(os.path.join(ckdir, name))
+
+    proc, resume_s = _p17_child("resume", project, resume_out,
+                                {"ACCELERATE_AUTO_RESUME": "true"})
+    if proc.returncode != 0:
+        log(proc.stderr[-6000:])
+        raise AssertionError(f"17a's resumed run exited {proc.returncode}")
+    resumed = _p17_report(resume_out, "resume")
+    if os.path.exists(os.path.join(ckdir, SENTINEL_NAME)):
+        raise AssertionError("the resume left the sentinel in place")
+    if resumed["resumed_at"] != P17_SIGNALLED + 1:
+        raise AssertionError(f"the resume started at batch {resumed['resumed_at']}, not "
+                             f"{P17_SIGNALLED + 1}")
+    # the losses: the preempted run's equal the straight run's, and so do
+    # the resumed ones (bitwise expected; 1e-5 relative, as phase 13)
+    rel, bitwise = 0.0, True
+    for run in (trained, resumed):
+        for idx, loss in run["losses"].items():
+            ref = straight["losses"][idx]
+            if not math.isfinite(loss):
+                raise AssertionError(f"a non-finite loss at batch {idx}: {run['losses']}")
+            rel = max(rel, abs(loss - ref) / abs(ref))
+            bitwise = bitwise and loss == ref
+    if not rel <= 1e-5:
+        raise AssertionError(f"the resumed losses {resumed['losses']} (preempted run "
+                             f"{trained['losses']}) differ from the uninterrupted "
+                             f"{straight['losses']} (max rel {rel:.2e})")
+    if sorted(resumed["losses"]) != list(range(P17_SIGNALLED + 1,
+                                               P17_SIGNALLED + 1 + P17_RESUMED)):
+        raise AssertionError(f"the resume trained batches {sorted(resumed['losses'])}")
+    layers = 16
+    for run in (straight, trained, resumed):
+        for idx, counts in run["launches"].items():
+            if any(counts[k] != layers for k in FLASH_KERNELS):
+                raise AssertionError(f"each flash kernel must launch {layers} times a step "
+                                     f"(batch {idx} of the {run['mode']} run: {counts})")
+    # the tracker's rows: every logged step of both processes
+    with open(os.path.join(project, "p17", "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    logged = sorted(r["step"] for r in rows if "loss" in r)
+    expected = sorted(list(trained["losses"]) + list(resumed["losses"]))
+    if logged != expected or sum(1 for r in rows if r.get("event") == "init") != 2:
+        raise AssertionError(f"the JSONL tracker logged steps {logged}, not {expected}")
+    # the telemetry rows: the sync, async and emergency saves, the restore
+    tel = []
+    for seg in telemetry_segments(os.path.join(project, "telemetry", "telemetry.jsonl")):
+        with open(seg) as f:
+            tel += [json.loads(line) for line in f]
+    ckpt_rows = [r for r in tel if r["type"] == "checkpoint"]
+    kinds = [(r["kind"], r["async"]) for r in ckpt_rows]
+    if kinds != [("save", False), ("save", True), ("save", False), ("restore", False)]:
+        raise AssertionError(f"the checkpoint rows are {kinds}")
+    sync_row, async_row, emergency_row, restore_row = ckpt_rows
+    events = [r for r in tel if r["type"] == "event" and r["kind"] == "preemption"]
+    if len(events) != 1 or events[0]["reason"] != "SIGTERM":
+        raise AssertionError(f"the preemption rows are {events}")
+    heartbeat = collect_status(project)["hosts"]
+    state_bytes = sync_row["bytes"]
+    during = [trained["step_ms"][i] for i in P17_DURING_WRITE]
+    before = [trained["step_ms"][i] for i in P17_BEFORE_WRITE]
+    out = {
+        "state_gb": state_bytes / 1e9,
+        "n_params": sum(math.prod(e["global_shape"])
+                        for e in manifests["checkpoint_2"]["arrays"]["model_0"].values()),
+        "sync_save_s": trained["sync_save_s"],
+        "sync_save_gb_per_s": state_bytes / 1e9 / trained["sync_save_s"],
+        "sync_save_row_s": sync_row["seconds"],
+        "async_block_s": trained["async_block_s"],
+        "async_write_s": async_row["seconds"],
+        "async_wait_after_steps_s": trained["async_wait_after_steps_s"],
+        "step_ms_during_write": during,
+        "step_ms_before_write": before,
+        "step_ms_straight": [straight["step_ms"][i] for i in P17_DURING_WRITE],
+        "emergency_save_s": emergency_row["seconds"],
+        "sigterm_to_exit_s": term_to_exit_s,
+        "load_s": restore_row["seconds"],
+        "resume_prepare_s": resumed["prepare_s"],
+        "checkpoint_bytes": {k: sum(f["bytes"] for f in m["files"].values())
+                             for k, m in manifests.items()},
+        "checkpoint_kind": manifests["checkpoint_2"]["kind"],
+        "losses_straight": straight["losses"],
+        "losses_preempted": trained["losses"],
+        "losses_resumed": resumed["losses"],
+        "max_rel_loss_diff": rel,
+        "bitwise_equal_losses": bitwise,
+        "launches_per_step_after_resume": resumed["launches"][P17_SIGNALLED + 1],
+        "tracker_steps": logged,
+        "heartbeat_hosts": heartbeat,
+        "wall_s": {"straight_then_preempted": train_wall_s, "resume": resume_s},
+        "peak_allocated_bytes": resumed["peak_allocated_bytes"],
+    }
+    log(f"  state {out['state_gb']:.3f} GB ({out['checkpoint_kind']}); sync save "
+        f"{out['sync_save_s']:.2f} s ({out['sync_save_gb_per_s']:.3f} GB/s); async save blocked "
+        f"{out['async_block_s']:.2f} s, its write took {out['async_write_s']:.2f} s, steps during "
+        f"it {['%.1f' % x for x in during]} ms against {['%.1f' % x for x in before]} before "
+        f"(the straight run's {['%.1f' % x for x in out['step_ms_straight']]}); emergency save "
+        f"{out['emergency_save_s']:.2f} s (SIGTERM to exit 143 {term_to_exit_s:.2f} s); load "
+        f"{out['load_s']:.2f} s; resumed losses {['%.6f' % resumed['losses'][i] for i in sorted(resumed['losses'])]} "
+        f"(bitwise {bitwise}, max rel {rel:.2e}); B1-B3 a step after the resume "
+        f"{out['launches_per_step_after_resume']}; tracker steps {logged}")
+    return out
+
+
+def p17_save_model(dev, root: str) -> dict:
+    """17b: ``save_model`` of a trained flagship into several shards, then
+    ``load_checkpoint_and_dispatch`` with the whole model on the card: its
+    f32 logits bit-equal to the trained module's."""
+    from accelerate_tpu_torch import Accelerator
+    from accelerate_tpu_torch.big_modeling import init_empty_weights, load_checkpoint_and_dispatch
+    from accelerate_tpu_torch.models import LlamaForCausalLM
+
+    _reset_accelerator_state()
+    acc = Accelerator(mixed_precision="bf16")
+    cfg, module = _p17_model(dev)
+    model, opt = acc.prepare(module, torch.optim.AdamW(module.parameters(), lr=1e-4))
+    gen = torch.Generator(device=dev).manual_seed(171)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), device=dev, generator=gen)
+    for _ in range(2):
+        acc.backward(model(input_ids=ids, labels=ids).loss)
+        opt.step()
+        opt.zero_grad()
+    out_dir = os.path.join(root, "weights")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc.save_model(model, out_dir, max_shard_size="1GB")
+    save_s = time.perf_counter() - t0
+    files = sorted(os.listdir(out_dir))
+    shards = [f for f in files if f.endswith(".safetensors")]
+    if len(shards) < 2 or "model.safetensors.index.json" not in files:
+        raise AssertionError(f"save_model(max_shard_size='1GB') wrote {files}")
+    nbytes = sum(os.path.getsize(os.path.join(out_dir, f)) for f in shards)
+    probe = ids[:2]
+    with torch.no_grad():
+        ref = module(input_ids=probe).logits
+    del model, opt
+    acc.free_memory()
+    clear_memory()
+    with init_empty_weights():
+        empty = LlamaForCausalLM(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = load_checkpoint_and_dispatch(empty, out_dir, device_map={"": 0})
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    with torch.no_grad():
+        got = loaded(input_ids=probe).logits
+    if got.shape != ref.shape or not torch.equal(got, ref):
+        raise AssertionError(f"the reloaded model's logits differ from the trained model's: "
+                             f"max |Δ| {(got - ref).abs().max().item()}")
+    out = {"shards": len(shards), "bytes": nbytes, "save_s": save_s,
+           "save_gb_per_s": nbytes / 1e9 / save_s, "load_s": load_s,
+           "load_gb_per_s": nbytes / 1e9 / load_s, "logits_bit_equal": True,
+           "logits_shape": list(ref.shape)}
+    log(f"  save_model: {len(shards)} shards, {nbytes / 1e9:.3f} GB in {save_s:.2f} s "
+        f"({out['save_gb_per_s']:.3f} GB/s); load_checkpoint_and_dispatch {load_s:.2f} s; "
+        f"logits {list(ref.shape)} bit-equal")
+    del loaded, empty, module, ref, got
+    clear_memory()
+    return out
+
+
+def p17_find_batch_size(dev) -> tuple:
+    """17c: ``find_executable_batch_size`` from P17_START_BATCH × TRAIN_SEQ ids
+    a step on the flagship (bf16 over f32 masters, AdamW): the sizes tried,
+    the real ``torch.OutOfMemoryError``s caught, and the allocated bytes at
+    the start of every try, which must equal their level before the first."""
+    from accelerate_tpu_torch import Accelerator, find_executable_batch_size
+
+    _reset_accelerator_state()
+    acc = Accelerator(mixed_precision="bf16")
+    cfg, module = _p17_model(dev)
+    model, opt = acc.prepare(module, torch.optim.AdamW(module.parameters(), lr=1e-4))
+    clear_memory()
+    baseline = torch.cuda.memory_allocated()
+    ooms_before = torch.cuda.memory_stats().get("num_ooms", 0)
+    tried, entry_bytes, caught = [], [], []
+
+    @find_executable_batch_size(starting_batch_size=P17_START_BATCH)
+    def train_step(batch_size):
+        opt.zero_grad()
+        entry_bytes.append(torch.cuda.memory_allocated())
+        tried.append(batch_size)
+        ids = torch.randint(0, cfg.vocab_size, (batch_size, TRAIN_SEQ), device=dev)
+        try:
+            loss = model(input_ids=ids, labels=ids).loss
+            acc.backward(loss)
+            opt.step()
+        except torch.OutOfMemoryError:
+            caught.append(batch_size)
+            raise
+        torch.cuda.synchronize()
+        return batch_size, loss.item()
+
+    t0 = time.perf_counter()
+    settled, loss = train_step()
+    seconds = time.perf_counter() - t0
+    ooms = torch.cuda.memory_stats().get("num_ooms", 0) - ooms_before
+    if not caught or ooms < 1:
+        raise AssertionError(f"no real torch.OutOfMemoryError was caught (tried {tried}, "
+                             f"allocator OOMs {ooms})")
+    if any(b != baseline for b in entry_bytes):
+        raise AssertionError(f"memory_allocated at the start of each try {entry_bytes} did not "
+                             f"return to {baseline}")
+    if not math.isfinite(loss) or settled != tried[-1]:
+        raise AssertionError(f"find_executable_batch_size settled on {settled} (loss {loss})")
+    out = {"tried": tried, "settled": settled, "oom_caught": caught, "allocator_ooms": ooms,
+           "allocated_at_each_try": entry_bytes, "allocated_before": baseline,
+           "loss": loss, "seconds": seconds,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    log(f"  find_executable_batch_size: tried {tried}, caught OOM at {caught} (allocator OOMs "
+        f"{ooms}), settled on {settled} × {TRAIN_SEQ} (loss {loss:.4f}) in {seconds:.1f} s; "
+        f"allocated at each try {entry_bytes} (before {baseline})")
+    return out, (acc, model, opt, cfg)
+
+
+def p17_watchdog(dev, root: str, live) -> dict:
+    """17d: the hang watchdog on the flagship loop: a step held by
+    ``time.sleep`` past a P17_WATCHDOG_FLOOR_S floor fires a hang report
+    that carries the card's memory, and the port's monitor reads the
+    heartbeat (fired, the step count) and names the host wedged."""
+    from accelerate_tpu_torch import Accelerator, DiagnosticsPlugin
+    from accelerate_tpu_torch.diagnostics.monitor import collect_status
+
+    _, model, opt, cfg = live
+    _reset_accelerator_state()
+    logging_dir = os.path.join(root, "watchdog")
+    acc = Accelerator(mixed_precision="bf16", project_dir=logging_dir,
+                      diagnostics=DiagnosticsPlugin(
+                          tracing=False, watchdog_floor_seconds=P17_WATCHDOG_FLOOR_S,
+                          watchdog_check_seconds=0.1, heartbeat_interval_seconds=0.5))
+    model, opt = acc.prepare(model.module, opt.optimizer)
+    ids = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), device=dev)
+    wd = acc.watchdog
+    for _ in range(3):
+        acc.backward(model(input_ids=ids, labels=ids).loss)
+        opt.step()
+        opt.zero_grad()
+        torch.cuda.synchronize()
+    t_hold = time.perf_counter()
+    acc.backward(model(input_ids=ids, labels=ids).loss)
+    torch.cuda.synchronize()
+    while not os.path.exists(wd.report_path) and time.perf_counter() - t_hold < P17_HOLD_MAX_S:
+        time.sleep(0.05)  # the held step: no progress reaches the watchdog
+    fired_after_s = time.perf_counter() - t_hold
+    status = collect_status(logging_dir)
+    opt.step()
+    opt.zero_grad()
+    if not os.path.exists(wd.report_path):
+        raise AssertionError(f"the watchdog did not fire within {fired_after_s:.1f} s")
+    with open(wd.report_path) as f:
+        report = json.load(f)
+    memory = report["device_memory"] or {}
+    if not memory.get("bytes_in_use") or not memory.get("bytes_limit"):
+        raise AssertionError(f"the hang report carries no card memory: {memory}")
+    hosts = status["hosts"]
+    if status["wedged"] != [0] or not hosts or hosts[0]["step"] != 3 or not hosts[0]["fired"]:
+        raise AssertionError(f"the monitor read {status['wedged']} wedged and hosts {hosts}")
+    acc.end_training()
+    out = {"fired_after_s": fired_after_s, "deadline_s": report["deadline_s"],
+           "ema_step_s": report["ema_step_s"], "stalled_phase": report["stalled_phase"],
+           "device_memory": memory, "monitor_hosts": hosts, "monitor_wedged": status["wedged"]}
+    log(f"  watchdog: fired {fired_after_s:.2f} s into the held step (deadline "
+        f"{report['deadline_s']:.2f} s, EMA step {report['ema_step_s']:.3f} s); report memory "
+        f"{memory}; monitor: wedged {status['wedged']}, heartbeat step {hosts[0]['step']}")
+    return out
+
+
+def run_phase17(dev) -> dict:
+    """Phase 17: the training loop's state on the flagship (17a save, async
+    save, SIGTERM and auto-resume in processes of their own; 17b save_model
+    and load_checkpoint_and_dispatch; 17c find_executable_batch_size over a
+    real OOM; 17d the hang watchdog); logs its own seconds."""
+    t0 = time.perf_counter()
+    n_params = 702_000_000
+    # f32 masters, AdamW's two moments; the model's weights alone in f32
+    root = _p17_dir(state_bytes=3 * 4 * n_params, model_bytes=4 * n_params)
+    try:
+        log_phase("phase 17a: save_state (sync, then async under the next steps), SIGTERM → the "
+                  "emergency save → exit 143, ACCELERATE_AUTO_RESUME=true → the same losses")
+        resume = p17_resume(root)
+        t_a = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        log_phase("phase 17b: save_model into shards → load_checkpoint_and_dispatch on the card")
+        saved = p17_save_model(dev, root)
+        t_b = time.perf_counter()
+        log_phase(f"phase 17c: find_executable_batch_size from {P17_START_BATCH} × {TRAIN_SEQ} "
+                  "on the flagship")
+        batch, live = p17_find_batch_size(dev)
+        t_c = time.perf_counter()
+        log_phase("phase 17d: the hang watchdog on a held step; the monitor reads its heartbeat")
+        watchdog = p17_watchdog(dev, root, live)
+        del live
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _reset_accelerator_state()
+        clear_memory()
+    seconds = time.perf_counter() - t0
+    log(f"phase 17: {seconds:.1f} s (17a {t_a - t0:.1f}, 17b {t_b - t_a:.1f}, 17c "
+        f"{t_c - t_b:.1f}, 17d {seconds - (t_c - t0):.1f})")
+    return {"resume": resume, "save_model": saved, "find_executable_batch_size": batch,
+            "watchdog": watchdog, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this run needs one GPU",
@@ -5421,13 +5928,15 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if sys.argv[1:2] == ["--ddp-loop"]:
         return ddp_loop_child(sys.argv[2])
+    if sys.argv[1:2] == ["--p17-loop"]:
+        return p17_loop_child(*sys.argv[2:5])
     # --phase N: phases 1, 2 and N alone, for work on that phase; no verdict
     alone = None
     if sys.argv[1:2] == ["--phase"]:
-        alone = {"14": run_phase14, "15": run_phase15, "16": run_phase16}.get(
-            sys.argv[2] if sys.argv[2:] else "")
+        alone = {"14": run_phase14, "15": run_phase15, "16": run_phase16,
+                 "17": run_phase17}.get(sys.argv[2] if sys.argv[2:] else "")
         if alone is None:
-            print("chip_smoke: --phase takes 14, 15 or 16", file=sys.stderr)
+            print("chip_smoke: --phase takes 14, 15, 16 or 17", file=sys.stderr)
             return 2
     from accelerate_tpu_torch import _build
 
@@ -5518,7 +6027,7 @@ def main() -> int:
     log_phase("phase 5f: workload replay — serve --trace on the flagship")
     workload = run_workload_replay()
     log_phase("phase 5g: the fleet — route --replicas 2 over serve --http replicas of the flagship "
-        "(r0:kill@7, a SIGSTOP wedge, a SIGTERM drain)")
+        "(r0:kill@7, a SIGTERM drain)")
     fleet = run_fleet(flagship, serve_run, front_door)
     log_phase("phase 5h: the HBM pre-flight — serve --auto-blocks and --hbm-gb 1 on the flagship")
     preflight = run_preflight(dev)
@@ -5618,6 +6127,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     p16 = run_phase16(dev)
     log(json.dumps({"phase16": p16, "card": smi}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    p17 = run_phase17(dev)
+    log(json.dumps({"phase17": p17, "card": smi}))
     log(json.dumps({"train": {k: v for k, v in train.items() if k != "losses"},
                     "train_step_check": step_check, "tiny_train": tiny_train,
                     "tiny_train_head_dim_256": tiny_train_256,
@@ -5733,6 +6246,9 @@ def main() -> int:
             # streamed generate() (B1 only: inference)
             **({"launches_big_model_generate": p16["fp16"]["flash_fwd_launches_per_generate"],
                 "at_opt30b_streamed": p16["flash_fwd"]} if name == "flash_fwd" else {}),
+            # phase 17: the resumed loop, the counters at 0 around each step
+            "launches_phase17_per_step_after_resume":
+                p17["resume"]["launches_per_step_after_resume"][name],
         })
     log(json.dumps({"kernels": kernels, "build_s": build_s, "serve_wall_s": serve_run["wall_s"],
                     "total_s": time.perf_counter() - t_start, "card": smi}))

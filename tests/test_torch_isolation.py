@@ -75,9 +75,37 @@ def test_every_module_imports_without_jax_or_triton():
                  # big-model inference: its own safetensors reader, no
                  # safetensors or ml_dtypes package
                  "big_modeling", "hooks", "utils.modeling", "utils.offload",
-                 "utils.quantization", "native"):
+                 "utils.quantization", "native",
+                 # the loop's state: copies of the JAX modules, with the
+                 # port's own safetensors writer
+                 "checkpointing", "tracking", "resilience.manifest",
+                 "resilience.distributed", "resilience.retry", "diagnostics.watchdog",
+                 "utils.memory", "utils.imports"):
         assert f"accelerate_tpu_torch.{name}" in result["modules"]
     assert result["leaked"] == []
+
+
+#: the tracker packages the card's machine has none of
+TRACKER_PACKAGES = ("tensorboard", "tensorboardX", "wandb", "mlflow", "comet_ml", "aim",
+                    "clearml", "dvclive")
+
+_TRACKING_PROBE = r"""
+import json, sys
+import accelerate_tpu_torch.tracking as tracking
+tracking.filter_trackers("all", "/tmp")
+print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in set(sys.argv[1:]))))
+"""
+
+
+def test_tracking_imports_no_tracker_package():
+    """Importing ``tracking`` (and resolving ``log_with="all"``, which asks
+    which trackers are installed) loads none of the tracker packages: each
+    is imported when its tracker is made."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", _TRACKING_PROBE, *TRACKER_PACKAGES], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.splitlines()[-1]) == []
 
 
 def _imports(path: Path):
