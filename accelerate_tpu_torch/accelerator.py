@@ -40,8 +40,9 @@ tp=...)``, ``fsdp_plugin=FullyShardedDataParallelPlugin(...)`` and
 sharded mesh (:func:`.mesh.build_mesh`); ``prepare`` places each model by
 its decided partition specs (:func:`.parallel.sharding.infer_param_sharding`,
 FSDP2 over ``fsdp``, DTensor over ``tp``), the loaders split the batch over
-``dp × fsdp`` and the sequence over ``cp``, attention runs the ``cp``
-ring (or Ulysses, or the all-gather), and ``backward`` reduces each
+``dp × fsdp``, the prepared model cuts a family's sequences over ``cp``,
+attention runs the ``cp`` ring (or Ulysses, or the all-gather), and
+``backward`` reduces each
 gradient once: FSDP2's reduce-scatter over ``fsdp``, then an average over
 the ranks that hold the same shard. The DeepSpeed and Megatron-LM plugins,
 the ``pp`` and ``ep`` axes, ``telemetry=``, ``sanitize=`` and the
@@ -236,10 +237,20 @@ class Accelerator:
         """Bake the mesh into every attention call from here on (JAX's
         ``accelerator.py:349-360``): the axis extents, the ``cp`` and ``tp``
         groups, and with a ``cp`` extent above 1 the mode, from the plugin
-        or ``ACCELERATE_CP_MODE`` (``ring`` by default)."""
+        or ``ACCELERATE_CP_MODE`` (``ring`` by default). The ``data`` and
+        ``batch`` groups a model's loss and batch statistics span
+        (:func:`~.ops.layers.loss_group`) are not baked in: a prepared
+        model's call binds them (:attr:`PreparedModel.batch_groups`), so a
+        module called outside it stays rank-local."""
         from .ops.attention import AttentionContext, set_attention_context
 
-        if not getattr(self.state, "sharded", False):
+        state = self.state
+        sharded = getattr(state, "sharded", False)
+        self._batch_groups = None
+        if state.backend is not None and state.num_processes > 1:
+            index = state.data_parallel_rank if sharded else state.process_index
+            self._batch_groups = {ax: (state.groups[ax], index) for ax in ("data", "batch")}
+        if not sharded:
             return
         sizes = self.state.mesh_sizes
         cp_mode = None
@@ -635,7 +646,8 @@ class Accelerator:
                 ops.broadcast([t.data for t in model.parameters()] + list(model.buffers()))
         if getattr(self.state, "sharded", False):
             return self._prepare_sharded_model(model, evaluation_mode)
-        prepared = PreparedModel(model, compute_dtype=self.compute_dtype)
+        prepared = PreparedModel(model, compute_dtype=self.compute_dtype,
+                                 batch_groups=self._batch_groups)
         if self.mixed_precision == "fp8":
             prepared.fp8_recipe = self.fp8_recipe_handler or FP8RecipeKwargs()
         prepared.train(not evaluation_mode)
@@ -649,12 +661,11 @@ class Accelerator:
         (:func:`.parallel.sharding.infer_param_sharding`, the model's
         ``partition_rules`` first) and applied
         (:func:`.parallel.sharding.shard_params`). A model whose forward
-        takes no shards (no ``supports_tensor_parallel``) runs at a ``tp``
-        extent of 1 only, one that does not take its chunk of the sequence
-        (no ``supports_context_parallel``) at a ``cp`` extent of 1 only, and
-        one whose forward reads its layers' weights without calling them
-        (``supports_fsdp = False``: the zoo's families but the llama) with no
-        parameter on ``fsdp``. An optimizer must be built on the parameters
+        takes no shards (no ``supports_tensor_parallel``, as a user's own
+        module) runs at a ``tp`` extent of 1 only, and one that does not say
+        which of its inputs are sequences (no ``supports_context_parallel``)
+        at a ``cp`` extent of 1 only; the zoo's families run every mesh but
+        ``pp`` and ``ep``. An optimizer must be built on the parameters
         after ``prepare`` (they are new DTensor parameters), or prepared in
         the same call: ``prepare`` rebinds it."""
         from .parallel.sharding import infer_param_sharding, shard_params
@@ -667,27 +678,21 @@ class Accelerator:
         if not tensor_parallel and sizes["tp"] > 1:
             raise ValueError(
                 f"tensor parallelism of {name} is not yet ported: its forward "
-                "takes whole weights (ROADMAP item 18); the llama family runs tp")
+                "takes whole weights; the zoo's families run tp")
         if sizes["cp"] > 1 and not getattr(model, "supports_context_parallel", False):
             raise ValueError(
-                f"context parallelism of {name} is not yet ported: its forward starts the "
-                "positions and shifts the labels inside each rank's chunk of the sequence "
-                "(ROADMAP item 18); the llama family runs cp")
+                f"context parallelism of {name} is not yet ported: it does not say which of "
+                "its inputs are sequences (sequence_inputs); the zoo's families run cp")
         placements = infer_param_sharding(model, sizes, plugin,
                                           getattr(model, "partition_rules", None))
-        if not getattr(model, "supports_fsdp", True) and any(
-                pl.dim_of("fsdp") is not None for pl in placements.values()):
-            raise ValueError(
-                f"FSDP of {name} is not yet ported: its forward reads each layer's weights "
-                "without calling the layer, so FSDP2 would never gather them (ROADMAP item "
-                "18); the llama family runs fsdp")
         if (plugin is not None and plugin.activation_checkpointing
                 and hasattr(config, "remat") and not config.remat):
             config.remat = True
         old = dict(model.named_parameters())
         managed = shard_params(model, placements, self.state.mesh,
                                mp_dtype=self.compute_dtype, tensor_parallel=tensor_parallel)
-        prepared = PreparedModel(model, compute_dtype=self.compute_dtype)
+        prepared = PreparedModel(model, compute_dtype=self.compute_dtype,
+                                 batch_groups=self._batch_groups)
         prepared.placements = placements
         prepared.fsdp_managed = managed
         if self.mixed_precision == "fp8":
@@ -715,7 +720,7 @@ class Accelerator:
             return data_loader
         config = self.dataloader_config
         # on a sharded mesh the loader takes the data-parallel extent and
-        # coordinate (dp × fsdp) from the state, and cuts the sequence over cp
+        # coordinate (dp × fsdp) from the state
         sharded = getattr(self.state, "sharded", False)
         prepared = prepare_data_loader(
             data_loader,
@@ -803,9 +808,13 @@ class Accelerator:
         ``fsdp``, and only the ``replica`` group (``dp × cp``: the same
         shard, other data) is left for it. ``tp`` ranks hold different
         shards, or equal gradients of a replicated parameter, and are not
-        reduced over. Under ``cp`` each rank's gradient is its part of the
-        ``cp`` sum scaled by the ``cp`` extent (the loss's all-reduce sums
-        the gradients it hands back), so the average is the sum. NCCL
+        reduced over. A zoo model's loss is the global batch's mean
+        (:func:`~.ops.layers.global_token_mean`): each rank's gradient is its
+        part of the global sum scaled by the size of the group the loss
+        spans (the loss's all-reduce sums the gradients it hands back), so
+        the average is the sum. A loss the user computes outside the model
+        is this rank's mean, and the average is the mean of the ranks'
+        (HF Accelerate's semantics). NCCL
         averages in the all-reduce (``AVG``, which launches its kernel at
         world size 1 too); gloo sums and the gradients are divided by the
         group's size. Called by every process at the same point, and every

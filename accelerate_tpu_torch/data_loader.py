@@ -288,8 +288,7 @@ class DataLoaderShard(DataLoaderStateMixin, DataLoader):
     def __init__(self, dataset, batch_sampler=None, device=None, rng_types: Sequence[str] | None = None,
                  synchronized_generator=None, skip_batches: int = 0,
                  total_batch_size: int | None = None, _drop_last: bool = False,
-                 _non_blocking: bool = False, prefetch_batches: int = 0,
-                 _seq_shard: tuple[int, int] | None = None, **loader_kwargs):
+                 _non_blocking: bool = False, prefetch_batches: int = 0, **loader_kwargs):
         self._iterable = isinstance(dataset, IterableDataset)
         if not self._iterable and batch_sampler is None:
             raise ValueError("a map-style dataset needs a batch sampler")
@@ -302,9 +301,6 @@ class DataLoaderShard(DataLoaderStateMixin, DataLoader):
         self._non_blocking = _non_blocking
         self._total_batch_size = total_batch_size
         self.prefetch_batches = prefetch_batches
-        #: ``(cp index, cp extent)``: this process's chunk of the sequence
-        #: dim (dim 1) of every batch tensor of two or more dims
-        self._seq_shard = _seq_shard
         self.gradient_state = GradientState()
         self.end_of_dataloader = False
         self.remainder = -1
@@ -363,24 +359,10 @@ class DataLoaderShard(DataLoaderStateMixin, DataLoader):
         asked (``non_blocking``) or when the loader pins its batches (the
         pinned buffers come from PyTorch's caching host allocator, which
         keeps them until the copy is done)."""
-        if self._seq_shard is not None:
-            batch = ops.recursively_apply(self._seq_chunk, batch)
         if self.device is None:
             return batch
         return ops.send_to_device(batch, self.device,
                                   non_blocking=self._non_blocking or self.pin_memory)
-
-    def _seq_chunk(self, t):
-        """This ``cp`` rank's contiguous chunk of ``t``'s sequence dim (JAX's
-        ``P(batch_axes, "cp")``); a tensor of one dim (row ids) whole."""
-        index, extent = self._seq_shard
-        if not isinstance(t, torch.Tensor) or t.dim() < 2:
-            return t
-        if t.shape[1] % extent != 0:
-            raise ValueError(f"sequence length {t.shape[1]} must be divisible by the 'cp' "
-                             f"mesh extent {extent} for context parallelism")
-        n = t.shape[1] // extent
-        return t[:, index * n:(index + 1) * n]
 
     @property
     def _prefetch_safe(self) -> bool:
@@ -629,8 +611,9 @@ def prepare_data_loader(dataloader: DataLoader, device=None, num_processes: int 
     Every prepared loader is stateful (``state_dict`` /
     ``load_state_dict``), so ``use_stateful_dataloader`` is not asked."""
     state = PartialState()
-    # a sharded mesh splits the batch over dp × fsdp, the sequence over cp,
-    # and hands the tp ranks the same rows (JAX's batch_axes=("dp", "fsdp"))
+    # a sharded mesh splits the batch over dp × fsdp and hands the cp and tp
+    # ranks the same rows (JAX's batch_axes=("dp", "fsdp")); the prepared
+    # model cuts a family's sequences over cp (PreparedModel._sequence_chunks)
     sharded = getattr(state, "sharded", False)
     if num_processes is None:
         num_processes = state.data_parallel_size if sharded else state.num_processes
@@ -648,8 +631,6 @@ def prepare_data_loader(dataloader: DataLoader, device=None, num_processes: int 
     kwargs = _loader_kwargs(dataloader)
     common = dict(device=device, rng_types=rng_types, _drop_last=drop_last,
                   _non_blocking=non_blocking, prefetch_batches=prefetch_batches, **kwargs)
-    if sharded and state.mesh_sizes["cp"] > 1:
-        common["_seq_shard"] = (state.axis_index("cp"), state.mesh_sizes["cp"])
     is_iterable = isinstance(dataset, IterableDataset)
 
     if dispatch_batches:
@@ -711,8 +692,7 @@ def skip_first_batches(dataloader, num_batches: int = 0):
                   synchronized_generator=dataloader.synchronized_generator,
                   total_batch_size=total_bs, _drop_last=dataloader._drop_last,
                   _non_blocking=dataloader._non_blocking,
-                  prefetch_batches=dataloader.prefetch_batches,
-                  _seq_shard=dataloader._seq_shard, **_loader_kwargs(dataloader))
+                  prefetch_batches=dataloader.prefetch_batches, **_loader_kwargs(dataloader))
     if dataloader._iterable:
         common.update(skip_batches=num_batches, batch_size=dataloader.batch_size,
                       drop_last=dataloader.drop_last)

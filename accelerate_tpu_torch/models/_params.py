@@ -22,6 +22,7 @@ import torch.nn as nn
 
 from ..big_modeling import init_device
 from ..parallel.pipeline import remat_wrap
+from ..parallel.sharding import TPShard, local, tp_shard
 
 
 @dataclass(frozen=True)
@@ -36,28 +37,26 @@ class Leaf:
 def build(module: nn.Module, spec: dict, dtype, device) -> None:
     """Register ``spec``'s parameters (uninitialised) and submodules on
     ``module``. A submodule made from a dict records its leaves' names in
-    ``leaf_names``, the order :func:`apply_layer` hands them over in."""
+    ``leaf_names``, the order its weights are handed over in; one that is
+    an item of a list is a :class:`Layer` (a list of such lists a
+    :class:`Stage` of them), which runs its block when called."""
     for name, sub in spec.items():
         if isinstance(sub, Leaf):
             module.register_parameter(
                 name, nn.Parameter(torch.empty(sub.shape, dtype=dtype, device=device)))
         elif isinstance(sub, dict):
-            module.add_module(name, _child(sub, dtype, device))
+            module.add_module(name, _child(sub, dtype, device, nn.Module))
         else:
             module.add_module(name, nn.ModuleList(
-                _child(s, dtype, device) if isinstance(s, dict)
-                else _list_child(s, dtype, device) for s in sub))
+                _child(s, dtype, device, Layer) if isinstance(s, dict)
+                else Stage(_child(b, dtype, device, Layer) for b in s) for s in sub))
 
 
-def _child(spec: dict, dtype, device) -> nn.Module:
-    child = nn.Module()
+def _child(spec: dict, dtype, device, cls) -> nn.Module:
+    child = cls()
     build(child, spec, dtype, device)
     child.leaf_names = tuple(n for n, s in spec.items() if isinstance(s, Leaf))
     return child
-
-
-def _list_child(spec: list, dtype, device) -> nn.ModuleList:
-    return nn.ModuleList(_child(s, dtype, device) for s in spec)
 
 
 def flatten(spec, prefix: str = ""):
@@ -147,24 +146,76 @@ def transposed(names):
 
 def weights(layer: nn.Module) -> dict[str, torch.Tensor]:
     """A layer's leaves by name, read at call time, so a ``functional_call``
-    that swapped in compute-dtype copies hands those over."""
-    return {n: getattr(layer, n) for n in layer.leaf_names}
+    that swapped in compute-dtype copies hands those over; of a DTensor,
+    this rank's shard (:func:`~..parallel.sharding.local`)."""
+    return {n: local(getattr(layer, n)) for n in layer.leaf_names}
 
 
-def _positional(fn, names, nargs, *flat):
-    return fn(dict(zip(names, flat[nargs:])), *flat[:nargs])
+def layer_tp(layer: nn.Module) -> TPShard:
+    """The layer's :class:`~..parallel.sharding.TPShard`: which of its
+    leaves are ``tp`` shards, read from their placement."""
+    return tp_shard((n, getattr(layer, n)) for n in layer.leaf_names)
 
 
-def apply_layer(fn, remat, layer: nn.Module, *args):
-    """``fn(weights(layer), *args)``, rematerialised as ``remat`` says
-    (:func:`~..parallel.pipeline.remat_wrap`). Under remat the weights go
-    in as positional tensors, so ``torch.utils.checkpoint`` keeps the very
-    tensors the forward used (the compute-dtype copies under mixed
-    precision) for the recompute."""
-    w = weights(layer)
-    if not remat:
-        return fn(w, *args)
-    return remat_wrap(_positional, remat)(fn, tuple(w), len(args), *args, *w.values())
+def _positional(fn, names, nargs, tp, *flat):
+    return fn(dict(zip(names, flat[nargs:])), *flat[:nargs], tp=tp)
+
+
+class Layer(nn.Module):
+    """One layer of a spec family: its leaves, and a ``forward`` that runs
+    the family's block on them, ``layer(fn, remat, *args)`` =
+    ``fn(weights(layer), *args, tp=layer_tp(layer))``, rematerialised as
+    ``remat`` says (:func:`~..parallel.pipeline.remat_wrap`). The training
+    forward calls each layer as a module, so FSDP2's hooks gather a sharded
+    layer's weights around it. Under remat the weights go in as positional
+    tensors, so ``torch.utils.checkpoint`` keeps the very tensors the
+    forward used (the compute-dtype copies under mixed precision) for the
+    recompute."""
+
+    def forward(self, fn, remat, *args):
+        w = weights(self)
+        if not remat:
+            return fn(w, *args, tp=layer_tp(self))
+        return remat_wrap(_positional, remat)(fn, tuple(w), len(args), layer_tp(self), *args,
+                                              *w.values())
+
+
+def _stage_positional(fn, names, nargs, tps, *flat):
+    ws, at = [], nargs
+    for keys in names:
+        ws.append(dict(zip(keys, flat[at:at + len(keys)])))
+        at += len(keys)
+    return fn(ws, *flat[:nargs], tps=tps)
+
+
+class Stage(nn.Module):
+    """Layers run as one (ResNet's stages, which JAX rematerialises whole):
+    ``stage(fn, remat, *args)`` = ``fn([weights(b) for b in stage], *args,
+    tps=[...])``, each layer's weights positional under remat, as
+    :class:`Layer` hands them over. FSDP2 gathers the stage's weights
+    around the call. The layers are its children ``0``, ``1``, ... (a
+    ``ModuleList``'s names; FSDP2 takes no ``ModuleList`` as a unit)."""
+
+    def __init__(self, layers):
+        super().__init__()
+        for j, layer in enumerate(layers):
+            self.add_module(str(j), layer)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, j: int) -> nn.Module:
+        return self._modules[str(j)]
+
+    def forward(self, fn, remat, *args):
+        ws = [weights(b) for b in self]
+        flat = [t for w in ws for t in w.values()]
+        call = remat_wrap(_stage_positional, remat)
+        return call(fn, tuple(tuple(w) for w in ws), len(args), [layer_tp(b) for b in self],
+                    *args, *flat)
 
 
 class SpecModel(nn.Module):
@@ -174,14 +225,28 @@ class SpecModel(nn.Module):
     constructor leaves the weights uninitialised. ``device`` defaults to
     the card."""
 
-    #: the sharded step (ROADMAP item 18) is not yet ported to these
-    #: families: their forward reads each layer's weights through
-    #: :func:`apply_layer` without calling the layer, so FSDP2's per-layer
-    #: gathers never run, and it starts the positions and shifts the
-    #: labels inside each ``cp`` rank's chunk. ``Accelerator.prepare``
-    #: refuses them on a mesh that would need either
-    supports_fsdp = False
-    supports_context_parallel = False
+    #: the sharded step: FSDP2 gathers each layer's weights when the layer
+    #: is called (:meth:`fsdp_units`), the forward runs on this rank's
+    #: ``tp`` shards, and under ``cp`` it holds the chunk of the inputs that
+    #: ``sequence_inputs`` names (none: every ``cp`` rank takes the whole
+    #: batch, as JAX computes a family that does not route through its
+    #: attention dispatcher)
+    supports_context_parallel = True
+    supports_tensor_parallel = True
+    sequence_inputs: tuple = ()
+
+    def fsdp_units(self) -> list[nn.Module]:
+        """The modules FSDP2 wraps one by one: every :class:`Stage`, and
+        every :class:`Layer` outside one; the other leaves go under the
+        root's."""
+        staged = {id(b) for m in self.modules() if isinstance(m, Stage) for b in m}
+        return [m for m in self.modules()
+                if isinstance(m, Stage) or (isinstance(m, Layer) and id(m) not in staged)]
+
+    def _tp(self) -> TPShard:
+        """The :class:`~..parallel.sharding.TPShard` of the model's own
+        top-level leaves."""
+        return tp_shard(self._parameters.items())
 
     def __init__(self, config, dtype=torch.float32, device=None):
         super().__init__()

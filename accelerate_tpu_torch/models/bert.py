@@ -17,11 +17,13 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import NO_TP, local, vocab_parallel_embedding
 from ..parallel.sharding import PartitionSpec as P
 from ..modules import ModelOutput
 from ..ops.attention import attention
 from ..ops.fp8 import dense
-from ..ops.layers import rms_norm, table_rows
+from ..ops.layers import rms_norm, table_rows, token_loss
+from ..parallel.context import first_token, sequence_shard
 from ..parallel.pipeline import remat_policy
 from . import _params
 from ._params import Leaf
@@ -127,23 +129,30 @@ class BertForSequenceClassification(_params.SpecModel):
 
     _spec = staticmethod(bert_spec)
 
-    def _block(self, w, x, attention_mask):
-        """One encoder block (port of ``bert_layer_apply``)."""
+    #: the inputs a ``cp`` rank takes its chunk of (``PreparedModel``)
+    sequence_inputs = ("input_ids", "attention_mask", "token_type_ids")
+
+    def _block(self, w, x, attention_mask, tp=NO_TP):
+        """One encoder block (port of ``bert_layer_apply``): under tensor
+        parallelism q, k, v and ``w_in`` run column shards, ``wo`` and
+        ``w_out`` row shards."""
         c = self.config
         b, s, h = x.shape
-        nh, hd = c.num_attention_heads, c.head_dim
-        y = rms_norm(x, w["attn_norm"], c.norm_eps)
+        nh, hd = tp.heads(c.num_attention_heads, "wq"), c.head_dim
+        y = tp.enter(rms_norm(x, w["attn_norm"], c.norm_eps), "wq")
         q, k, v = (dense(y, w[n]).reshape(b, s, nh, hd) for n in ("wq", "wk", "wv"))
         attn = attention(q, k, v, segment_mask=attention_mask, causal=False)
-        x = x + dense(attn.reshape(b, s, h), w["wo"])
-        y = rms_norm(x, w["mlp_norm"], c.norm_eps)
-        return x + dense(gelu_tanh(dense(y, w["w_in"])), w["w_out"])
+        x = x + tp.leave(dense(attn.reshape(b, s, nh * hd), w["wo"]), "wo")
+        y = tp.enter(rms_norm(x, w["mlp_norm"], c.norm_eps), "w_in")
+        return x + tp.leave(dense(gelu_tanh(dense(y, w["w_in"])), w["w_out"]), "w_out")
 
-    def _embed(self, w, input_ids, token_type_ids):
+    def _embed(self, w, input_ids, token_type_ids, offset: int = 0, tp=NO_TP):
         c = self.config
-        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
-        x = (w["embed_tokens"][table_rows(input_ids, c.vocab_size)]
-             + w["embed_positions"][table_rows(pos, c.max_position_embeddings)][None]
+        pos = offset + torch.arange(input_ids.shape[1], device=input_ids.device)
+        tokens = vocab_parallel_embedding(table_rows(input_ids, c.vocab_size),
+                                          w["embed_tokens"], c.vocab_size, tp.rank,
+                                          tp.group if tp.on("embed_tokens") else None)
+        x = (tokens + w["embed_positions"][table_rows(pos, c.max_position_embeddings)][None]
              + w["embed_types"][table_rows(token_type_ids, c.type_vocab_size)])
         return rms_norm(x, w["emb_norm"], c.norm_eps)
 
@@ -159,21 +168,30 @@ class BertForSequenceClassification(_params.SpecModel):
 
     @staticmethod
     def _output(logits, labels) -> ModelOutput:
+        """The logits and, with ``labels``, the mean NLL over the global
+        batch (every ``cp`` rank pools the same ``[CLS]`` rows)."""
         out = ModelOutput(logits=logits)
         if labels is not None:
-            logp = torch.log_softmax(logits.float(), dim=-1)
-            out["loss"] = -logp.gather(-1, labels.long()[:, None]).mean()
+            out["loss"] = token_loss(logits, labels, whole_batch=True)
         return out
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 labels=None) -> ModelOutput:
+        """Under context parallelism a ``cp`` rank holds its chunk of the
+        sequence (positions offset by ``cp_rank × s``, the key mask with
+        it), and the ``[CLS]`` row, which only rank 0 holds, reaches every
+        rank through a differentiable sum
+        (:func:`~..parallel.context.first_token`)."""
         c = self.config
+        cp_group, cp_rank, _ = sequence_shard()
         attention_mask, token_type_ids = self._inputs(input_ids, attention_mask, token_type_ids)
-        x = self._embed(self._parameters, input_ids, token_type_ids)
+        w = {n: local(p) for n, p in self._parameters.items()}
+        x = self._embed(w, input_ids, token_type_ids, cp_rank * input_ids.shape[1], self._tp())
         for layer in self.layers:
-            x = _params.apply_layer(self._block, c.remat, layer, x, attention_mask)
-        x = rms_norm(x, self.norm, c.norm_eps)
-        logits = F.linear(x[:, 0, :], self.classifier.w, self.classifier.b)  # [CLS]
+            x = layer(self._block, c.remat, x, attention_mask)
+        x = rms_norm(x, w["norm"], c.norm_eps)
+        logits = F.linear(first_token(x, cp_group, cp_rank), local(self.classifier.w),
+                          local(self.classifier.b))  # [CLS]
         return self._output(logits, labels)
 
     def segments(self, input_ids=None, attention_mask=None, token_type_ids=None, labels=None,

@@ -31,11 +31,12 @@ from ..ops.fp8 import dense
 from ..ops.layers import (
     cached_attend,
     cross_entropy_loss,
-    fused_cross_entropy,
-    shift_labels,
+    fused_token_loss,
     table_rows,
 )
+from ..parallel.context import sequence_shard, shifted_targets
 from ..parallel.pipeline import remat_policy
+from ..parallel.sharding import NO_TP, full_tensor, local, vocab_parallel_embedding
 from . import _params
 from ._params import Leaf
 
@@ -165,15 +166,41 @@ class CausalLM(_params.SpecModel):
     """A decoder family's model over a parameter spec: the training / eval
     forward, its prefill mode and the dense KV-cache decode step that
     ``generate()`` runs. A family gives its spec, ``_embed``, ``_block``
-    (one layer, attention through the ``attend(q, k, v)`` it is handed),
-    ``_final`` and ``_head``. ``_embed``, ``_final``, ``_head`` and
-    ``_logits`` read the model's own top-level leaves, or the dict ``w``
+    (one layer, attention through the ``attend(q, k, v)`` it is handed, on
+    this rank's ``tp`` shards as its ``tp`` says), ``_final`` and
+    ``_head``. ``_embed``, ``_final``, ``_head`` and ``_logits`` read the
+    model's own top-level leaves (this rank's shards), or the dict ``w``
     that a streamed segment hands them (``_embed_leaves``, ``_head_leaves``
-    name what those segments stream)."""
+    name what those segments stream; ``_table`` and ``_head_name`` name
+    the embedding table and the head).
+
+    On a sharded mesh: each layer is called as a module (FSDP2 gathers its
+    weights), a ``cp`` rank holds its chunk of the sequence (positions
+    offset by ``cp_rank × s``, the labels shifted over the gathered
+    sequence), and the loss is the global batch's
+    (:func:`~..ops.layers.fused_token_loss`; vocab-parallel where the head
+    is on ``tp``)."""
 
     supports_kv_cache = True
+    sequence_inputs = ("input_ids", "attention_mask", "labels", "positions")
     _embed_leaves = ("wte", "wpe")
     _head_leaves = ("ln_f_g", "ln_f_b", "wte")
+    _table = "wte"
+    _head_name = "wte"
+
+    def _leaves(self, w=None) -> dict:
+        """The top-level leaves a step reads: ``w`` where a streamed segment
+        hands it over, else this rank's shards of the model's own."""
+        return w if w is not None else {n: local(p) for n, p in self._parameters.items()}
+
+    def _lookup(self, w, input_ids, tp=NO_TP):
+        """The embedding rows of ``input_ids`` (JAX's gather,
+        :func:`~..ops.layers.table_rows`), vocab-parallel where the table
+        is on ``tp``."""
+        table = self._table
+        return vocab_parallel_embedding(table_rows(input_ids, self.config.vocab_size), w[table],
+                                        self.config.vocab_size, tp.rank,
+                                        tp.group if tp.on(table) else None)
 
     def kv_cache_shape(self, batch: int, length: int) -> tuple:
         """``[L, b, length, kv heads, head_dim]``: one dense cache."""
@@ -190,10 +217,14 @@ class CausalLM(_params.SpecModel):
             )
 
     def _final(self, x, w=None):
-        w = self._parameters if w is None else w
+        w = self._leaves(w)
         return layer_norm(x, w["ln_f_g"], w["ln_f_b"], self.config.layer_norm_eps)
 
     def _logits(self, x, w=None):
+        """The logits over the whole vocabulary (a ``tp``-sharded head
+        gathered whole)."""
+        if w is None:
+            w = {n: full_tensor(p) for n, p in self._parameters.items()}
         head, bias = self._head(w)
         logits = dense(x, head)
         return logits if bias is None else logits + bias
@@ -240,8 +271,8 @@ class CausalLM(_params.SpecModel):
         return {"init": dict, "steps": steps, "finalize": finalize}
 
     def _run_layer(self, i: int, x, positions, attend):
-        """Layer ``i``; a family with an auxiliary output (Mixtral) returns
-        ``(x, aux)``."""
+        """Layer ``i`` (prefill and decode); a family with an auxiliary
+        output (Mixtral) returns ``(x, aux)``."""
         return self._block(_params.weights(self.layers[i]), x, positions, attend)
 
     def forward(self, input_ids, attention_mask=None, labels=None, positions=None,
@@ -252,7 +283,7 @@ class CausalLM(_params.SpecModel):
         attention; ``attention_mask [b, s]`` (1 = real token) masks keys.
         With ``labels [b, s]`` (-100 ignored) the loss is the next-token CE,
         computed from the pre-head hidden states one sequence chunk at a
-        time (:func:`~..ops.layers.fused_cross_entropy`), and the logits
+        time (:func:`~..ops.layers.fused_token_loss`), and the logits
         over the whole sequence are skipped unless ``return_logits``: XLA
         drops them in JAX when only the loss is forced. ``use_cache=True``
         also returns each layer's K/V in ``out.kv_cache`` ``{"k", "v"}: [L,
@@ -263,9 +294,13 @@ class CausalLM(_params.SpecModel):
         self._check_length(s)
         if kv_cache is not None:
             return self.cached_step(input_ids, kv_cache, cache_index, spare_slot)
+        cp_group, cp_rank, cp_extent = sequence_shard()
+        self._check_length(s * cp_extent)
         if positions is None:
-            positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
-        x = self._embed(input_ids, positions)
+            positions = cp_rank * s + torch.arange(s, device=input_ids.device)
+            positions = positions[None, :].expand(b, s)
+        tp = self._tp()
+        x = self._embed(input_ids, positions, tp=tp)
         caches = None
         if use_cache:
             max_cache = int(max_cache_len or c.max_position_embeddings)
@@ -286,8 +321,7 @@ class CausalLM(_params.SpecModel):
 
                 out = self._run_layer(i, x, positions, attend)
             else:
-                out = _params.apply_layer(self._train_block, c.remat, layer, x, positions,
-                                          attention_mask)
+                out = layer(self._train_block, c.remat, x, positions, attention_mask)
             if isinstance(out, tuple):
                 x, aux = out
                 aux_total = aux_total + aux
@@ -299,17 +333,24 @@ class CausalLM(_params.SpecModel):
             out["logits"] = self._logits(x)
         if caches is not None:
             out["kv_cache"] = caches
-        self._add_losses(out, x, labels, aux_total)
+        if labels is not None:
+            out["loss"] = self._lm_loss(x, shifted_targets(labels, cp_group, cp_rank), tp)
+        self._add_aux(out, aux_total)
         return out
 
-    def _train_block(self, w, x, positions, attention_mask):
+    def _train_block(self, w, x, positions, attention_mask, tp=NO_TP):
         return self._block(w, x, positions, lambda q, k, v: attention(
-            q, k, v, segment_mask=attention_mask, causal=True))
+            q, k, v, segment_mask=attention_mask, causal=True), tp=tp)
 
-    def _add_losses(self, out, x, labels, aux_total) -> None:
-        if labels is not None:
-            head, bias = self._head()
-            out["loss"] = fused_cross_entropy(x, head.t(), shift_labels(labels), bias=bias)
+    def _lm_loss(self, x, targets, tp):
+        """The next-token CE of the global batch over this rank's head
+        (vocab-parallel where the head is on ``tp``)."""
+        head, bias = self._head(self._leaves())
+        vocab_shard = (tp.rank * head.shape[0], tp.group) if tp.on(self._head_name) else None
+        return fused_token_loss(x, head.t(), targets, bias=bias, vocab_shard=vocab_shard)
+
+    def _add_aux(self, out, aux_total) -> None:
+        """A family's auxiliary outputs (Mixtral's router loss)."""
 
     @torch.no_grad()
     def cached_step(self, input_ids, kv_cache, cache_index,
@@ -365,27 +406,33 @@ class GPT2LMHeadModel(CausalLM):
 
     _spec = staticmethod(gpt2_spec)
 
-    def _embed(self, input_ids, positions, w=None):
+    def _embed(self, input_ids, positions, w=None, tp=NO_TP):
         c = self.config
-        w = self._parameters if w is None else w
-        return (w["wte"][table_rows(input_ids, c.vocab_size)]
+        w = self._leaves(w)
+        return (self._lookup(w, input_ids, tp)
                 + w["wpe"][table_rows(positions, c.max_position_embeddings)])
 
     def _head(self, w=None):
-        return (self._parameters if w is None else w)["wte"], None
+        return self._leaves(w)["wte"], None
 
-    def _block(self, w, x, positions, attend):
-        """One pre-LN block (port of ``gpt2_layer_apply``)."""
+    def _block(self, w, x, positions, attend, tp=NO_TP):
+        """One pre-LN block (port of ``gpt2_layer_apply``). Under tensor
+        parallelism the fused QKV's shards are gathered and this rank's
+        heads' rows of q, k and v taken (:meth:`TPShard.fused_heads`), then
+        the output projection and the MLP run Megatron's row and column
+        shards."""
         c = self.config
         b, s, h = x.shape
-        nh, hd = c.num_attention_heads, c.head_dim
+        nh, hd = tp.heads(c.num_attention_heads, "w_qkv"), c.head_dim
         y = layer_norm(x, w["ln1_g"], w["ln1_b"], c.layer_norm_eps)
-        qkv = dense(y, w["w_qkv"]) + w["b_qkv"]
-        q, k, v = (z.reshape(b, s, nh, hd) for z in qkv.split(h, dim=-1))
+        qkv = (dense(tp.enter(y, "w_qkv"), tp.fused_heads(w["w_qkv"], "w_qkv"))
+               + tp.fused_heads(w["b_qkv"], "b_qkv"))
+        q, k, v = (z.reshape(b, s, nh, hd) for z in qkv.split(nh * hd, dim=-1))
         attn = attend(q, k, v)
-        x = x + dense(attn.reshape(b, s, h), w["w_proj"]) + w["b_proj"]
-        y = layer_norm(x, w["ln2_g"], w["ln2_b"], c.layer_norm_eps)
-        return x + dense(gelu_tanh(dense(y, w["w_fc"]) + w["b_fc"]), w["w_out"]) + w["b_out"]
+        x = x + tp.leave(dense(attn.reshape(b, s, nh * hd), w["w_proj"]), "w_proj") + w["b_proj"]
+        y = tp.enter(layer_norm(x, w["ln2_g"], w["ln2_b"], c.layer_norm_eps), "w_fc")
+        mlp = dense(gelu_tanh(dense(y, w["w_fc"]) + w["b_fc"]), w["w_out"])
+        return x + tp.leave(mlp, "w_out") + w["b_out"]
 
     def convert_state_dict(self, flat: dict) -> dict[str, torch.Tensor]:
         """An HF-layout state dict as this model's, for ``load_state_dict``."""

@@ -17,9 +17,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import NO_TP
 from ..parallel.sharding import PartitionSpec as P
 from ..ops.fp8 import dense
-from ..ops.layers import apply_rope, rope_frequencies, table_rows
+from ..ops.layers import apply_rope, rope_frequencies
 from ..parallel.pipeline import remat_policy
 from . import _params
 from ._params import Leaf
@@ -248,29 +249,33 @@ class GPTNeoXForCausalLM(CausalLM):
     _embed_leaves = ("wte",)
     _head_leaves = ("ln_f_g", "ln_f_b", "lm_head", "lm_head_b")
 
-    def _embed(self, input_ids, positions, w=None):
-        w = self._parameters if w is None else w
-        return w["wte"][table_rows(input_ids, self.config.vocab_size)]
+    _head_name = "lm_head"
+
+    def _embed(self, input_ids, positions, w=None, tp=NO_TP):
+        return self._lookup(self._leaves(w), input_ids, tp)
 
     def _head(self, w=None):
-        w = self._parameters if w is None else w
+        w = self._leaves(w)
         return w["lm_head"], w.get("lm_head_b")
 
-    def _block(self, w, x, positions, attend):
+    def _block(self, w, x, positions, attend, tp=NO_TP):
         """One parallel-residual block (port of ``gpt_neox_layer_apply``):
         both branches read the block's input unless
-        ``use_parallel_residual`` is off."""
+        ``use_parallel_residual`` is off. Under tensor parallelism the
+        fused QKV's shards are gathered and this rank's heads' rows taken
+        (:meth:`TPShard.fused_heads`); the projections run Megatron's row
+        and column shards."""
         c = self.config
         b, s, h = x.shape
-        nh, hd = c.num_attention_heads, c.head_dim
+        nh, hd = tp.heads(c.num_attention_heads, "w_qkv"), c.head_dim
         y = layer_norm(x, w["ln1_g"], w["ln1_b"], c.layer_norm_eps)
-        qkv = dense(y, w["w_qkv"])
+        qkv = dense(tp.enter(y, "w_qkv"), tp.fused_heads(w["w_qkv"], "w_qkv"))
         if c.attention_bias:
-            qkv = qkv + w["b_qkv"]
-        q, k, v = (z.reshape(b, s, nh, hd) for z in qkv.split(h, dim=-1))
+            qkv = qkv + tp.fused_heads(w["b_qkv"], "b_qkv")
+        q, k, v = (z.reshape(b, s, nh, hd) for z in qkv.split(nh * hd, dim=-1))
         q = _partial_rope(q, self.rope_cos, self.rope_sin, positions, c.rotary_dim)
         k = _partial_rope(k, self.rope_cos, self.rope_sin, positions, c.rotary_dim)
-        attn_out = dense(attend(q, k, v).reshape(b, s, h), w["w_proj"])
+        attn_out = tp.leave(dense(attend(q, k, v).reshape(b, s, nh * hd), w["w_proj"]), "w_proj")
         if c.attention_bias:
             attn_out = attn_out + w["b_proj"]
         if not c.use_parallel_residual:
@@ -278,8 +283,8 @@ class GPTNeoXForCausalLM(CausalLM):
             attn_out = 0.0  # folded in already; the final add is the MLP's alone
         y2 = y if c.shared_layernorm else layer_norm(x, w["ln2_g"], w["ln2_b"],
                                                      c.layer_norm_eps)
-        mlp_out = dense(_gelu(c, dense(y2, w["w_fc"]) + w["b_fc"]), w["w_out"]) + w["b_out"]
-        return x + attn_out + mlp_out
+        mlp = dense(_gelu(c, dense(tp.enter(y2, "w_fc"), w["w_fc"]) + w["b_fc"]), w["w_out"])
+        return x + attn_out + tp.leave(mlp, "w_out") + w["b_out"]
 
     def convert_state_dict(self, flat: dict) -> dict[str, torch.Tensor]:
         """An HF-layout state dict (GPT-J's when ``shared_layernorm``) as

@@ -33,21 +33,20 @@ import torch.nn.functional as F
 
 from ..parallel.sharding import PartitionSpec as P
 from ..modules import ModelOutput
-from ..ops.attention import attention, get_attention_context
+from ..ops.attention import attention
 from ..ops.fp8 import dense
 from ..ops.layers import (
     cross_entropy_loss,
-    fused_cross_entropy,
+    fused_token_loss,
     rms_norm,
     rope_attention_block,
     rope_cached_attention_block,
     rope_frequencies,
     rope_paged_attention_block,
-    shift_labels,
     table_rows,
 )
 from ..big_modeling import init_device
-from ..parallel.context import all_reduce_sum, gather_sequence
+from ..parallel.context import sequence_shard, shifted_targets
 from ..parallel.pipeline import remat_policy, remat_wrap
 from ..parallel.sharding import (
     full_tensor,
@@ -346,8 +345,9 @@ class LlamaForCausalLM(nn.Module):
     #: FSDP2 gathers each layer's weights when the layer is called, and
     #: under ``cp`` the positions, the label shift and the loss span the
     #: whole sequence
-    supports_fsdp = True
     supports_context_parallel = True
+    #: the inputs a ``cp`` rank takes its chunk of (``PreparedModel``)
+    sequence_inputs = ("input_ids", "attention_mask", "labels", "positions")
 
     def __init__(self, config: LlamaConfig, dtype=torch.float32, device=None):
         super().__init__()
@@ -415,7 +415,7 @@ class LlamaForCausalLM(nn.Module):
         attention; ``attention_mask [b, s]`` (1 = real token) masks keys.
         With ``labels [b, s]`` (-100 ignored) the loss is the next-token CE
         computed from the pre-head hidden states by
-        :func:`ops.layers.fused_cross_entropy`, one sequence chunk of logits
+        :func:`ops.layers.fused_token_loss`, one sequence chunk of logits
         at a time.
 
         **Prefill** (``use_cache=True``): the same forward, plus each layer's
@@ -435,9 +435,8 @@ class LlamaForCausalLM(nn.Module):
             self._check_length(s)
             return self.cached_step(input_ids, kv_cache, cache_index, spare_slot)
         # context parallelism: this rank holds chunk cp_rank of the sequence
-        ctx = get_attention_context()
-        cp_group, cp_rank = ctx.axis(ctx.cp_axis) if ctx.cp_mode else (None, 0)
-        self._check_length(s * (ctx.cp_extent if cp_group is not None else 1))
+        cp_group, cp_rank, cp_extent = sequence_shard()
+        self._check_length(s * cp_extent)
         if positions is None:
             positions = (cp_rank * s + torch.arange(s, device=input_ids.device))[None, :]
             positions = positions.expand(b, s)
@@ -476,27 +475,23 @@ class LlamaForCausalLM(nn.Module):
         return out
 
     def _loss(self, x, labels, cp_group, cp_rank, tp_group, tp_rank):
-        """The next-token CE over the whole sequence. Under tensor
-        parallelism each rank multiplies by its own rows of the head (JAX's
-        ``lm_head: P("fsdp", "tp")``) and the log-partition and gold logit
-        are summed over ``tp`` (vocab-parallel; a vocabulary that ``tp``
-        does not divide stays whole). Under context parallelism the labels
-        are shifted over the gathered sequence and each rank's summed NLL
-        and valid count are summed over the ``cp`` group, so every rank
-        returns the whole sequence's mean (its gradient is the rank's part
-        of the ``cp`` sum)."""
+        """The next-token CE over the whole sequence and the global batch.
+        Under tensor parallelism each rank multiplies by its own rows of the
+        head (JAX's ``lm_head: P("fsdp", "tp")``) and the log-partition and
+        gold logit are summed over ``tp`` (vocab-parallel; a vocabulary that
+        ``tp`` does not divide stays whole). Under context parallelism the
+        labels are shifted over the gathered sequence
+        (:func:`~..parallel.context.shifted_targets`). The summed NLL and
+        valid count are summed over every rank that holds other tokens
+        (:func:`~..ops.layers.fused_token_loss`), so every rank returns the
+        global batch's mean, as JAX does (its gradient is the rank's part of
+        the sum)."""
         head = local(self._head())
         vocab_shard = None
         if tp_group is not None and head.shape[0] != self.config.vocab_size:
             vocab_shard = (tp_rank * head.shape[0], tp_group)
-        if cp_group is None:
-            return fused_cross_entropy(x, head.t(), shift_labels(labels), vocab_shard=vocab_shard)
-        s = labels.shape[1]
-        targets = shift_labels(gather_sequence(labels, cp_group))[:, cp_rank * s:(cp_rank + 1) * s]
-        mean = fused_cross_entropy(x, head.t(), targets, vocab_shard=vocab_shard)
-        count = (targets != -100).sum().to(mean.dtype)
-        total = all_reduce_sum(count, cp_group)
-        return all_reduce_sum(mean * count, cp_group) / torch.clamp(total, min=1)
+        return fused_token_loss(x, head.t(), shifted_targets(labels, cp_group, cp_rank),
+                                vocab_shard=vocab_shard)
 
     def segments(self, input_ids=None, attention_mask=None, positions=None, labels=None,
                  **kw):

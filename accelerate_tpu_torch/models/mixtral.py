@@ -27,14 +27,12 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.sharding import PartitionSpec as P
-from ..ops.layers import (
-    fused_cross_entropy,
-    rms_norm,
-    rope_attention_block,
-    rope_frequencies,
-    shift_labels,
-    table_rows,
-)
+import torch.distributed as dist
+
+from ..ops.attention import attention
+from ..ops.layers import rms_norm, rope_attention_block, rope_frequencies
+from ..parallel.context import all_reduce_sum, sequence_shard
+from ..parallel.sharding import NO_TP
 from ..parallel.pipeline import remat_policy
 from . import _params
 from ._params import Leaf
@@ -125,20 +123,30 @@ def top_k_routes(probs: torch.Tensor, k: int):
     return values[:, :k], index[:, :k]
 
 
-def moe_ffn(config: MixtralConfig, w: dict, x: torch.Tensor):
+def moe_ffn(config: MixtralConfig, w: dict, x: torch.Tensor, tp=NO_TP, route=None):
     """Top-k routed expert FFN on one layer's weights (port of JAX
     ``moe_ffn``): ``x [b, s, h]`` → ``(y [b, s, h], aux_loss)``.
 
     Each token's ``k`` choices, in the flat ``(token, choice)`` order, take
     the next free slot of their expert's buffer of ``capacity`` rows; an
     assignment past it is dropped (it adds nothing to the output). The
-    router runs in f32; dispatch, the experts and combine in ``x.dtype``."""
+    router runs in f32; dispatch, the experts and combine in ``x.dtype``.
+
+    ``route`` (:func:`routing_group`): the tokens are this rank's block of
+    a global batch spread over a process group, as JAX's global arrays are
+    in one program. ``capacity`` then comes from the global token count,
+    the slots from the global exclusive count of each expert's selections
+    in JAX's flattened ``[b_global, s_global]`` order
+    (:func:`_global_exclusive_count`), and the load-balancing statistics
+    are global means, their sum over the group differentiable. Without one
+    the batch is this rank's, and the same code routes it. Under tensor
+    parallelism every ``tp`` rank routes alike (the router is whole) and
+    the experts run their hidden units' shards (``e_gate``/``e_up``
+    column, ``e_down`` row, summed over ``tp`` before the combine)."""
     c = config
     b, s, h = x.shape
     E, k = c.num_local_experts, c.num_experts_per_tok
     tokens = x.reshape(-1, h)  # [T, h]
-    T = tokens.shape[0]
-    capacity = min(int(np.ceil(c.capacity_factor * T * k / E)), T)
 
     logits = tokens.float() @ w["router"].float().t()  # [T, E]
     probs = torch.softmax(logits, dim=-1)
@@ -146,10 +154,8 @@ def moe_ffn(config: MixtralConfig, w: dict, x: torch.Tensor):
     topk_w = topk_w / topk_w.sum(dim=-1, keepdim=True)
 
     sel = F.one_hot(topk_idx, E)  # [T, k, E]
-    flat_sel = sel.reshape(T * k, E)
-    pos = torch.cumsum(flat_sel, dim=0) * flat_sel - 1  # [T*k, E]
-    pos = pos.max(dim=-1).values.reshape(T, k)
-    keep = (pos < capacity) & (pos >= 0)
+    capacity, pos, total = expert_slots(c, sel, topk_idx, (b, s), route)
+    keep = pos < capacity
 
     onehot_e = sel.to(x.dtype)
     onehot_c = F.one_hot(torch.where(keep, pos, capacity), capacity + 1).to(x.dtype)
@@ -157,15 +163,74 @@ def moe_ffn(config: MixtralConfig, w: dict, x: torch.Tensor):
     dispatch = torch.einsum("tke,tkc->tec", onehot_e, onehot_c)  # [T, E, C]
     combine = torch.einsum("tke,tkc,tk->tec", onehot_e, onehot_c, topk_w.to(x.dtype))
 
-    expert_in = torch.einsum("tec,th->ech", dispatch, tokens)  # [E, C, h]
+    expert_in = tp.enter(torch.einsum("tec,th->ech", dispatch, tokens), "e_gate")  # [E, C, h]
     g = F.silu(torch.bmm(expert_in, w["e_gate"]))
     u = torch.bmm(expert_in, w["e_up"])
-    expert_out = torch.bmm(g * u, w["e_down"])  # [E, C, h]
+    expert_out = tp.leave(torch.bmm(g * u, w["e_down"]), "e_down")  # [E, C, h]
     y = torch.einsum("tec,ech->th", combine, expert_out).reshape(b, s, h)
 
-    me = probs.mean(dim=0)  # [E]
-    ce = sel.float().sum(dim=(0, 1)) / (T * k)
+    group = route[0] if route is not None else None
+    me = all_reduce_sum(probs.sum(dim=0), group) / total  # [E]
+    ce = sel.float().sum(dim=(0, 1))
+    if group is not None:
+        dist.all_reduce(ce, group=group)
+    ce = ce / (total * k)
     return y, E * (me * ce).sum()
+
+
+def expert_slots(config: MixtralConfig, sel: torch.Tensor, topk_idx: torch.Tensor,
+                 shape: tuple, route=None) -> tuple:
+    """``(capacity, pos [T, k], total)`` of :func:`moe_ffn`'s routing:
+    ``total`` the global batch's token count, ``capacity`` an expert's
+    buffer rows, ``pos`` each (token, choice)'s slot in its expert's buffer
+    (the assignment is dropped at ``pos >= capacity``). A token's ``k``
+    choices are distinct experts, so a choice's slot is the count of its
+    expert's selections by the tokens before it: the ``cumsum`` over JAX's
+    flat ``(token, choice)`` order."""
+    b, s = shape
+    E, k = config.num_local_experts, config.num_experts_per_tok
+    before, total = _global_exclusive_count(sel.sum(dim=1).reshape(b, s, E), route)
+    capacity = min(int(np.ceil(config.capacity_factor * total * k / E)), total)
+    return capacity, torch.gather(before.reshape(b * s, E), 1, topk_idx), total
+
+
+def routing_group():
+    """The ``route`` of :func:`moe_ffn` in the training forward: ``(group,
+    batch index, cp index, cp extent)`` of the ranks that hold other
+    tokens of the global batch (``dp × fsdp × cp``; this rank's rows are
+    block ``batch index``, its chunk of the sequence block ``cp index``),
+    or None where one rank holds them all."""
+    from ..ops.attention import get_attention_context
+
+    group, index = get_attention_context().axis("data")
+    if group is None:
+        return None
+    _, cp_index, cp_extent = sequence_shard()
+    return group, index, cp_index, cp_extent
+
+
+def _global_exclusive_count(counts: torch.Tensor, route) -> tuple:
+    """Of this rank's ``[b, s, E]`` selection counts: for each token and
+    expert, the selections of the expert by every token before it in the
+    global batch's flattened ``[b_global, s_global]`` order, and the global
+    batch's token count. The ranks' row counts are gathered first, so a
+    rank may hold fewer rows than another (an uneven last batch)."""
+    b, s, E = counts.shape
+    if route is None:
+        flat = counts.reshape(-1, E)
+        return (torch.cumsum(flat, dim=0) - flat).reshape(b, s, E), b * s
+    group, bi, ci, cn = route
+    mine = torch.tensor([b, bi, ci], dtype=torch.int64, device=counts.device)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(every, mine, group=group)
+    rows = {int(r[1]): int(r[0]) for r in every}  # batch block -> its rows
+    start, B = sum(n for i, n in rows.items() if i < bi), sum(rows.values())
+    whole = torch.zeros((B, cn * s, E), dtype=torch.int64, device=counts.device)
+    whole[start:start + b, ci * s:(ci + 1) * s] = counts
+    dist.all_reduce(whole, group=group)
+    flat = whole.reshape(-1, E)
+    before = (torch.cumsum(flat, dim=0) - flat).reshape(B, cn * s, E)
+    return before[start:start + b, ci * s:(ci + 1) * s], B * cn * s
 
 
 #: path regex → PartitionSpec over JAX's leaf names (the JAX package's
@@ -210,31 +275,40 @@ class MixtralForCausalLM(CausalLM):
     #: JAX's Mixtral has no streaming plan: a DispatchedModel materialises it
     segments = None
 
-    def _embed(self, input_ids, positions, w=None):
-        w = self._parameters if w is None else w
-        return w["embed_tokens"][table_rows(input_ids, self.config.vocab_size)]
+    _table = "embed_tokens"
+    _head_name = "lm_head"
+
+    def _embed(self, input_ids, positions, w=None, tp=NO_TP):
+        return self._lookup(self._leaves(w), input_ids, tp)
 
     def _final(self, x, w=None):
-        w = self._parameters if w is None else w
-        return rms_norm(x, w["norm"], self.config.rms_norm_eps)
+        return rms_norm(x, self._leaves(w)["norm"], self.config.rms_norm_eps)
 
     def _head(self, w=None):
-        return (self._parameters if w is None else w)["lm_head"], None
+        return self._leaves(w)["lm_head"], None
 
-    def _block(self, w, x, positions, attend):
+    def _block(self, w, x, positions, attend, tp=NO_TP, route=None):
         """One block (port of ``mixtral_layer_apply``): the llama's
-        attention, then the routed FFN. Returns ``(x, aux)``."""
+        attention (this rank's heads under tensor parallelism, as the
+        llama's), then the routed FFN. Returns ``(x, aux)``."""
         c = self.config
         x = rope_attention_block(w, x, self.rope_cos, self.rope_sin, positions, attend,
-                                 c.num_attention_heads, c.num_key_value_heads, c.head_dim,
-                                 c.rms_norm_eps)
-        moe_out, aux = moe_ffn(c, w, rms_norm(x, w["mlp_norm"], c.rms_norm_eps))
+                                 tp.heads(c.num_attention_heads, "wq"),
+                                 tp.heads(c.num_key_value_heads, "wk"), c.head_dim,
+                                 c.rms_norm_eps, enter=lambda t: tp.enter(t, "wq"),
+                                 leave=lambda t: tp.leave(t, "wo"))
+        moe_out, aux = moe_ffn(c, w, rms_norm(x, w["mlp_norm"], c.rms_norm_eps), tp, route)
         return x + moe_out, aux
 
-    def _add_losses(self, out, x, labels, aux_total) -> None:
+    def _train_block(self, w, x, positions, attention_mask, tp=NO_TP):
+        """The training forward's block: the routing spans the global batch
+        (:func:`routing_group`)."""
+        return self._block(w, x, positions, lambda q, k, v: attention(
+            q, k, v, segment_mask=attention_mask, causal=True), tp=tp, route=routing_group())
+
+    def _add_aux(self, out, aux_total) -> None:
         c = self.config
         out["aux_loss"] = aux_total / c.num_hidden_layers
-        if labels is not None:
-            lm_loss = fused_cross_entropy(x, self.lm_head.t(), shift_labels(labels))
-            out["lm_loss"] = lm_loss
-            out["loss"] = lm_loss + c.router_aux_loss_coef * out["aux_loss"]
+        if "loss" in out:
+            out["lm_loss"] = out["loss"]
+            out["loss"] = out["lm_loss"] + c.router_aux_loss_coef * out["aux_loss"]

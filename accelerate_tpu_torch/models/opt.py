@@ -12,6 +12,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..parallel.sharding import NO_TP
 from ..parallel.sharding import PartitionSpec as P
 from ..ops.fp8 import dense
 from ..ops.layers import table_rows
@@ -164,26 +165,29 @@ class OPTForCausalLM(CausalLM):
 
     _spec = staticmethod(opt_spec)
 
-    def _embed(self, input_ids, positions, w=None):
+    def _embed(self, input_ids, positions, w=None, tp=NO_TP):
         c = self.config
-        w = self._parameters if w is None else w
-        return (w["wte"][table_rows(input_ids, c.vocab_size)]
+        w = self._leaves(w)
+        return (self._lookup(w, input_ids, tp)
                 + w["wpe"][table_rows(positions, c.max_position_embeddings)])
 
     def _head(self, w=None):
-        return (self._parameters if w is None else w)["wte"], None
+        return self._leaves(w)["wte"], None
 
-    def _block(self, w, x, positions, attend):
-        """One pre-LN block (port of ``opt_layer_apply``)."""
+    def _block(self, w, x, positions, attend, tp=NO_TP):
+        """One pre-LN block (port of ``opt_layer_apply``): under tensor
+        parallelism q, k, v and ``w_fc`` run column shards (this rank's
+        heads and hidden units), ``w_proj`` and ``w_out`` row shards."""
         c = self.config
         b, s, h = x.shape
-        nh, hd = c.num_attention_heads, c.head_dim
-        y = layer_norm(x, w["ln1_g"], w["ln1_b"], c.layer_norm_eps)
+        nh, hd = tp.heads(c.num_attention_heads, "w_q"), c.head_dim
+        y = tp.enter(layer_norm(x, w["ln1_g"], w["ln1_b"], c.layer_norm_eps), "w_q")
         q, k, v = ((dense(y, w[f"w_{n}"]) + w[f"b_{n}"]).reshape(b, s, nh, hd) for n in "qkv")
         attn = attend(q, k, v)
-        x = x + dense(attn.reshape(b, s, h), w["w_proj"]) + w["b_proj"]
-        y = layer_norm(x, w["ln2_g"], w["ln2_b"], c.layer_norm_eps)
-        return x + dense(torch.relu(dense(y, w["w_fc"]) + w["b_fc"]), w["w_out"]) + w["b_out"]
+        x = x + tp.leave(dense(attn.reshape(b, s, nh * hd), w["w_proj"]), "w_proj") + w["b_proj"]
+        y = tp.enter(layer_norm(x, w["ln2_g"], w["ln2_b"], c.layer_norm_eps), "w_fc")
+        mlp = dense(torch.relu(dense(y, w["w_fc"]) + w["b_fc"]), w["w_out"])
+        return x + tp.leave(mlp, "w_out") + w["b_out"]
 
     def convert_state_dict(self, flat: dict) -> dict[str, torch.Tensor]:
         """An HF-layout state dict as this model's, for ``load_state_dict``."""

@@ -18,12 +18,15 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..parallel.sharding import NO_TP
 from ..parallel.sharding import PartitionSpec as P
 from ..modules import ModelOutput
-from ..ops.layers import cross_entropy_loss
-from ..parallel.pipeline import remat_policy, remat_wrap
+from ..ops.layers import loss_group, token_loss
+from ..parallel.context import all_reduce_sum
+from ..parallel.pipeline import remat_policy
 from . import _params
 from ._params import Leaf
 
@@ -127,13 +130,36 @@ def _conv(x, w, stride: int = 1):
     return F.conv2d(_pad_same(x, w.shape[2], stride), w, stride=stride)
 
 
-def _bn(x, gamma, beta, eps):
-    """Batch statistics over (N, H, W) in f32."""
+def _bn(x, gamma, beta, eps, batch=None):
+    """Batch statistics over (N, H, W) in f32. With ``batch`` ``(group,
+    rows)`` (the ranks that hold other rows of the batch,
+    :func:`~..ops.layers.loss_group`, and the rows they hold together,
+    :func:`global_rows`) they are the global batch's, as JAX's are over its
+    global array: the sum, then the sum of squares about the global mean,
+    each all-reduced (:func:`~..parallel.context.all_reduce_sum`, whose
+    gradient is an all-reduce too)."""
     x32 = x.float()
-    mean = x32.mean(dim=(0, 2, 3), keepdim=True)
-    var = x32.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
+    if batch is None:
+        mean = x32.mean(dim=(0, 2, 3), keepdim=True)
+        var = x32.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
+    else:
+        group, rows = batch
+        n = rows * x32.shape[2] * x32.shape[3]
+        mean = all_reduce_sum(x32.sum(dim=(0, 2, 3), keepdim=True), group) / n
+        var = all_reduce_sum(((x32 - mean) ** 2).sum(dim=(0, 2, 3), keepdim=True), group) / n
     out = (x32 - mean) * torch.rsqrt(var + eps)
     return (out * gamma[:, None, None] + beta[:, None, None]).to(x.dtype)
+
+
+def global_rows(x: torch.Tensor, group):
+    """``(group, the rows its ranks hold together)`` for :func:`_bn`, the
+    ranks' own counts of ``x``'s rows summed (a rank may hold fewer, as in
+    an uneven last batch); None without a group."""
+    if group is None:
+        return None
+    total = torch.tensor([x.shape[0]], dtype=torch.int64, device=x.device)
+    dist.all_reduce(total, group=group)
+    return group, int(total)
 
 
 def to_nhwc(pixel_values: torch.Tensor, in_channels: int) -> torch.Tensor:
@@ -148,27 +174,34 @@ def to_nhwc(pixel_values: torch.Tensor, in_channels: int) -> torch.Tensor:
     return x
 
 
-def _bottleneck_d(eps: float, w: dict, x, stride: int):
+def _conv_bn(x, w: dict, conv: str, norm: str, eps: float, tp, batch, stride: int = 1):
+    """A convolution then batch norm. Under tensor parallelism the kernel's
+    output channels are on ``tp`` (JAX's HWIO ``P(None, None, "fsdp",
+    "tp")``): each rank convolves with its shard and the channels are
+    gathered whole before the norm, which takes every channel (a
+    column-parallel product with a gathered output)."""
+    y = tp.gather(_conv(tp.enter(x, conv), w[conv], stride), conv, dim=1)
+    return _bn(y, w[f"{norm}_gamma"], w[f"{norm}_beta"], eps, batch)
+
+
+def _bottleneck_d(eps: float, w: dict, x, stride: int, tp=NO_TP, batch=None):
     """The ResNet-D bottleneck (port of ``_bottleneck_d``)."""
-    y = F.relu(_bn(_conv(x, w["conv1"]), w["g1_gamma"], w["g1_beta"], eps))
-    y = F.relu(_bn(_conv(y, w["conv2"], stride), w["g2_gamma"], w["g2_beta"], eps))
-    y = _bn(_conv(y, w["conv3"]), w["g3_gamma"], w["g3_beta"], eps)
+    y = F.relu(_conv_bn(x, w, "conv1", "g1", eps, tp, batch))
+    y = F.relu(_conv_bn(y, w, "conv2", "g2", eps, tp, batch, stride))
+    y = _conv_bn(y, w, "conv3", "g3", eps, tp, batch)
     shortcut = x
     if stride > 1:
         shortcut = F.avg_pool2d(_pad_same(shortcut, stride, stride), stride, stride)
     if "conv_proj" in w:
-        shortcut = _bn(_conv(shortcut, w["conv_proj"]), w["gp_gamma"], w["gp_beta"], eps)
+        shortcut = _conv_bn(shortcut, w, "conv_proj", "gp", eps, tp, batch)
     return F.relu(y + shortcut)
 
 
-def _stage(eps: float, index: int, names, x, *flat):
-    """One stage over its blocks' weights, handed over as positional
-    tensors (so a remat recompute sees the very tensors the forward used)."""
-    at = 0
-    for b, keys in enumerate(names):
-        w = dict(zip(keys, flat[at:at + len(keys)]))
-        at += len(keys)
-        x = _bottleneck_d(eps, w, x, 2 if (b == 0 and index > 0) else 1)
+def _stage(ws, x, eps: float, index: int, batch, tps):
+    """One stage over its blocks' weights (a :class:`~._params.Stage`'s
+    call, rematerialised whole)."""
+    for b, (w, tp) in enumerate(zip(ws, tps)):
+        x = _bottleneck_d(eps, w, x, 2 if (b == 0 and index > 0) else 1, tp, batch)
     return x
 
 
@@ -198,22 +231,29 @@ class ResNetForImageClassification(_params.SpecModel):
     _spec = staticmethod(resnet_spec)
 
     def forward(self, pixel_values, labels=None) -> ModelOutput:
+        """The batch statistics and the loss span the global batch
+        (:func:`~..ops.layers.loss_group`: every ``cp`` rank takes the
+        whole batch, as JAX computes this family); under tensor parallelism
+        each convolution and the classifier run their output shards and
+        gather them whole."""
         c = self.config
         eps = c.bn_eps
         x = to_nhwc(pixel_values, c.in_channels).permute(0, 3, 1, 2)  # NCHW
-        s = _params.weights(self.stem)
-        x = F.relu(_bn(_conv(x, s["conv1"], 2), s["g1_gamma"], s["g1_beta"], eps))
-        x = F.relu(_bn(_conv(x, s["conv2"]), s["g2_gamma"], s["g2_beta"], eps))
-        x = F.relu(_bn(_conv(x, s["conv3"]), s["g3_gamma"], s["g3_beta"], eps))
+        batch = global_rows(x, loss_group(whole_batch=True))
+        s, tp = _params.weights(self.stem), _params.layer_tp(self.stem)
+        x = F.relu(_conv_bn(x, s, "conv1", "g1", eps, tp, batch, 2))
+        x = F.relu(_conv_bn(x, s, "conv2", "g2", eps, tp, batch))
+        x = F.relu(_conv_bn(x, s, "conv3", "g3", eps, tp, batch))
         x = F.max_pool2d(_pad_same(x, 3, 2, float("-inf")), 3, 2)
-        stage = remat_wrap(_stage, c.remat)
-        for i, blocks in enumerate(self.stages):
-            ws = [_params.weights(block) for block in blocks]
-            x = stage(eps, i, tuple(tuple(w) for w in ws), x,
-                      *(t for w in ws for t in w.values()))
+        for i, stage in enumerate(self.stages):
+            x = stage(_stage, c.remat, x, eps, i, batch)
         x = x.float().mean(dim=(2, 3))  # global average pool
-        logits = F.linear(x, self.fc.w.float(), self.fc.b.float())
+        fc, tp = _params.weights(self.fc), _params.layer_tp(self.fc)
+        if tp.on("w"):  # the classes on tp
+            logits = tp.gather(F.linear(tp.enter(x, "w"), fc["w"].float()), "w") + fc["b"].float()
+        else:
+            logits = F.linear(x, fc["w"].float(), fc["b"].float())
         out = ModelOutput(logits=logits)
         if labels is not None:
-            out["loss"] = cross_entropy_loss(logits[:, None, :], labels[:, None])
+            out["loss"] = token_loss(logits, labels, whole_batch=True)
         return out

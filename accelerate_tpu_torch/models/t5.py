@@ -22,10 +22,19 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import NO_TP, full_tensor, local, vocab_parallel_embedding
 from ..parallel.sharding import PartitionSpec as P
 from ..modules import ModelOutput
 from ..ops.fp8 import dense
-from ..ops.layers import cross_entropy_loss, rms_norm, table_rows
+from ..ops.layers import (
+    cross_entropy_loss,
+    fused_nll,
+    global_token_mean,
+    loss_group,
+    rms_norm,
+    table_rows,
+    token_loss,
+)
 from ..parallel.pipeline import remat_policy
 from . import _params
 from ._params import Leaf
@@ -211,36 +220,43 @@ class T5ForConditionalGeneration(_params.SpecModel):
     is_encoder_decoder = True
     _spec = staticmethod(t5_spec)
 
-    def _attend(self, w, x, kv_in, prefix, bias, mask):
+    def _attend(self, w, x, kv_in, prefix, bias, mask, tp=NO_TP):
+        """T5 attention. Under tensor parallelism q, k and v run this rank's
+        heads (column shards; ``bias`` holds the same heads, the relative
+        bias's ``tp`` columns) and the output projection its row shard."""
         c = self.config
         b, s, _ = x.shape
-        nh, kv = c.num_heads, c.d_kv
-        q = dense(x, w[f"{prefix}q"]).reshape(b, s, nh, kv)
+        nh, kv = tp.heads(c.num_heads, f"{prefix}q"), c.d_kv
+        x_in = tp.enter(x, f"{prefix}q")
+        kv_in = x_in if kv_in is x else tp.enter(kv_in, f"{prefix}q")
+        q = dense(x_in, w[f"{prefix}q"]).reshape(b, s, nh, kv)
         k = dense(kv_in, w[f"{prefix}k"]).reshape(b, kv_in.shape[1], nh, kv)
         v = dense(kv_in, w[f"{prefix}v"]).reshape(b, kv_in.shape[1], nh, kv)
-        return dense(_t5_attention(q, k, v, bias, mask).reshape(b, s, nh * kv), w[f"{prefix}o"])
+        out = _t5_attention(q, k, v, bias, mask).reshape(b, s, nh * kv)
+        return tp.leave(dense(out, w[f"{prefix}o"]), f"{prefix}o")
 
-    def _ffn(self, w, x):
+    def _ffn(self, w, x, tp=NO_TP):
         c = self.config
-        y = rms_norm(x, w["ffn_norm"], c.layer_norm_epsilon)
+        first = "wi_0" if c.feed_forward_proj == "gated-gelu" else "wi"
+        y = tp.enter(rms_norm(x, w["ffn_norm"], c.layer_norm_epsilon), first)
         if c.feed_forward_proj == "gated-gelu":
             z = gelu_tanh(dense(y, w["wi_0"])) * dense(y, w["wi_1"])
         else:
             z = F.relu(dense(y, w["wi"]))
-        return x + dense(z, w["wo_ffn"])
+        return x + tp.leave(dense(z, w["wo_ffn"]), "wo_ffn")
 
-    def _encoder_block(self, w, x, bias, mask):
+    def _encoder_block(self, w, x, bias, mask, tp=NO_TP):
         eps = self.config.layer_norm_epsilon
         y = rms_norm(x, w["attn_norm"], eps)
-        return self._ffn(w, x + self._attend(w, y, y, "w", bias, mask))
+        return self._ffn(w, x + self._attend(w, y, y, "w", bias, mask, tp), tp)
 
-    def _decoder_block(self, w, x, bias, dec_mask, enc_out, enc_mask):
+    def _decoder_block(self, w, x, bias, dec_mask, enc_out, enc_mask, tp=NO_TP):
         eps = self.config.layer_norm_epsilon
         y = rms_norm(x, w["attn_norm"], eps)
-        x = x + self._attend(w, y, y, "w", bias, dec_mask)
+        x = x + self._attend(w, y, y, "w", bias, dec_mask, tp)
         y = rms_norm(x, w["cross_norm"], eps)
-        x = x + self._attend(w, y, enc_out, "c", None, enc_mask)
-        return self._ffn(w, x)
+        x = x + self._attend(w, y, enc_out.to(y.dtype), "c", None, enc_mask, tp)
+        return self._ffn(w, x, tp)
 
     def _bias(self, rel_bias, s: int, bidirectional: bool):
         c = self.config
@@ -252,35 +268,58 @@ class T5ForConditionalGeneration(_params.SpecModel):
         causal = torch.tril(torch.ones((s, s), dtype=torch.bool, device=bias.device))[None, None]
         return torch.where(causal, bias, -1e9)
 
+    def _lookup(self, ids, tp=NO_TP):
+        """The ``shared`` rows of ``ids``, vocab-parallel where the table is
+        on ``tp``."""
+        c = self.config
+        return vocab_parallel_embedding(table_rows(ids, c.vocab_size), local(self.shared),
+                                        c.vocab_size, tp.rank,
+                                        tp.group if tp.on("shared") else None)
+
     def encode(self, input_ids, attention_mask=None):
         """The encoder stack and its final norm (port of ``t5_encode``)."""
         c = self.config
-        x = self.shared[table_rows(input_ids, c.vocab_size)]
-        bias = self._bias(self.encoder.rel_bias, input_ids.shape[1], True)
+        x = self._lookup(input_ids, self._tp())
+        bias = self._bias(local(self.encoder.rel_bias), input_ids.shape[1], True)
         for layer in self.encoder.layers:
-            x = _params.apply_layer(self._encoder_block, c.remat, layer, x, bias, attention_mask)
-        return rms_norm(x, self.encoder.final_norm, c.layer_norm_epsilon)
+            x = layer(self._encoder_block, c.remat, x, bias, attention_mask)
+        return rms_norm(x, local(self.encoder.final_norm), c.layer_norm_epsilon)
 
     def decode(self, decoder_input_ids, decoder_attention_mask, enc_out, enc_mask):
         """The decoder stack and its final norm (port of ``t5_decode``):
         the relative bias merged with the causal mask (-1e9 above the
-        diagonal)."""
+        diagonal). Every layer takes ``enc_out`` in f32 and casts it to the
+        compute dtype: its gradient, two products' a layer, then sums over
+        the layers in f32 one layer at a time, in the order the backward
+        reaches them, with or without FSDP2's hooks around each layer (in
+        the compute dtype the sum of four or more terms would round by how
+        the hooks group them)."""
         c = self.config
-        x = self.shared[table_rows(decoder_input_ids, c.vocab_size)]
-        bias = self._bias(self.decoder.rel_bias, decoder_input_ids.shape[1], False)
+        x = self._lookup(decoder_input_ids, self._tp())
+        bias = self._bias(local(self.decoder.rel_bias), decoder_input_ids.shape[1], False)
+        enc_out = enc_out.float()
         for layer in self.decoder.layers:
-            x = _params.apply_layer(self._decoder_block, c.remat, layer, x, bias,
-                                    decoder_attention_mask, enc_out, enc_mask)
-        return rms_norm(x, self.decoder.final_norm, c.layer_norm_epsilon)
+            x = layer(self._decoder_block, c.remat, x, bias, decoder_attention_mask, enc_out,
+                      enc_mask)
+        return rms_norm(x, local(self.decoder.final_norm), c.layer_norm_epsilon)
 
     def forward(self, input_ids=None, attention_mask=None, decoder_input_ids=None,
-                decoder_attention_mask=None, labels=None, encoder_outputs=None) -> ModelOutput:
+                decoder_attention_mask=None, labels=None, encoder_outputs=None,
+                return_logits: bool = False) -> ModelOutput:
         """Seq2seq forward (port of ``t5_apply``). With ``labels`` and no
         ``decoder_input_ids`` the decoder reads the shifted-right labels
         (the HF contract) and the loss is the unshifted CE: decoder position
         t predicts label t. ``encoder_outputs [b, s_enc, h]`` skips the
         encoder (generation encodes the prompt once). Returns ``logits``,
-        ``encoder_last_hidden_state`` and, with ``labels``, ``loss``."""
+        ``encoder_last_hidden_state`` and, with ``labels``, ``loss`` (the
+        global batch's mean). T5 attends with its own einsum, not the
+        attention dispatcher, so every ``cp`` rank computes the whole batch,
+        as JAX does. Under tensor parallelism a ``tp``-sharded head gives
+        the loss vocab-parallel, and with ``labels`` the logits are left out
+        unless ``return_logits`` (gathered whole, they are ``[b, s, V]`` on
+        every ``tp`` rank), as XLA drops them in JAX when only the loss is
+        forced; with a whole head they are the loss's input and always
+        returned."""
         c = self.config
         if decoder_input_ids is None:
             if labels is None:
@@ -289,12 +328,26 @@ class T5ForConditionalGeneration(_params.SpecModel):
         enc_out = (encoder_outputs if encoder_outputs is not None
                    else self.encode(input_ids, attention_mask))
         x = self.decode(decoder_input_ids, decoder_attention_mask, enc_out, attention_mask)
-        head = self.lm_head if "lm_head" in self._parameters else (
-            self.shared * c.hidden_size ** -0.5)
-        logits = dense(x, head)
+        tied = "lm_head" not in self._parameters
+        name = "shared" if tied else "lm_head"
+        scale = c.hidden_size ** -0.5 if tied else 1.0
+        head = self._parameters[name]
+        tp = self._tp()
+        if tp.on(name):
+            out = ModelOutput(encoder_last_hidden_state=enc_out)
+            if labels is None or return_logits:
+                out["logits"] = dense(x, full_tensor(head) * scale)
+            if labels is not None:
+                part = local(head) * scale
+                nll, count = fused_nll(x, part.t(), labels,
+                                       vocab_shard=(tp.rank * part.shape[0], tp.group))
+                out["loss"] = global_token_mean(nll, count, loss_group(whole_batch=True))
+            return out
+        head = local(head)
+        logits = dense(x, head * scale if tied else head)
         out = ModelOutput(logits=logits, encoder_last_hidden_state=enc_out)
-        if labels is not None:
-            out["loss"] = cross_entropy_loss(logits, labels)  # no shift: seq2seq
+        if labels is not None:  # no shift: seq2seq
+            out["loss"] = token_loss(logits, labels, whole_batch=True)
         return out
 
     def segments(self, input_ids=None, attention_mask=None, decoder_input_ids=None,

@@ -15,11 +15,13 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import NO_TP, local
 from ..parallel.sharding import PartitionSpec as P
 from ..modules import ModelOutput
 from ..ops.attention import attention
 from ..ops.fp8 import dense
-from ..ops.layers import cross_entropy_loss
+from ..ops.layers import token_loss
+from ..parallel.context import first_token, sequence_chunk, sequence_shard
 from ..parallel.pipeline import remat_policy
 from . import _params
 from ._params import Leaf
@@ -136,30 +138,46 @@ class ViTForImageClassification(_params.SpecModel):
 
     _spec = staticmethod(vit_spec)
 
-    def _block(self, w, x):
-        """One pre-LN block (port of ``_vit_block``)."""
+    def _block(self, w, x, tp=NO_TP):
+        """One pre-LN block (port of ``_vit_block``). Under tensor
+        parallelism the fused QKV's shards are gathered and this rank's
+        heads' rows taken (:meth:`TPShard.fused_heads`); the projections run
+        Megatron's row and column shards."""
         c = self.config
         b, n, d = x.shape
-        nh, hd = c.num_attention_heads, c.head_dim
+        nh, hd = tp.heads(c.num_attention_heads, "w_qkv"), c.head_dim
         y = layer_norm(x, w["ln1_g"], w["ln1_b"], c.layer_norm_eps)
-        qkv = dense(y, w["w_qkv"]) + w["b_qkv"]
-        q, k, v = (z.reshape(b, n, nh, hd) for z in qkv.split(d, dim=-1))
-        x = x + dense(attention(q, k, v, causal=False).reshape(b, n, d), w["w_proj"]) \
-            + w["b_proj"]
-        y = layer_norm(x, w["ln2_g"], w["ln2_b"], c.layer_norm_eps)
-        return x + dense(gelu_tanh(dense(y, w["w_fc1"]) + w["b_fc1"]), w["w_fc2"]) + w["b_fc2"]
+        qkv = (dense(tp.enter(y, "w_qkv"), tp.fused_heads(w["w_qkv"], "w_qkv"))
+               + tp.fused_heads(w["b_qkv"], "b_qkv"))
+        q, k, v = (z.reshape(b, n, nh, hd) for z in qkv.split(nh * hd, dim=-1))
+        attn = attention(q, k, v, causal=False).reshape(b, n, nh * hd)
+        x = x + tp.leave(dense(attn, w["w_proj"]), "w_proj") + w["b_proj"]
+        y = tp.enter(layer_norm(x, w["ln2_g"], w["ln2_b"], c.layer_norm_eps), "w_fc1")
+        mlp = dense(gelu_tanh(dense(y, w["w_fc1"]) + w["b_fc1"]), w["w_fc2"])
+        return x + tp.leave(mlp, "w_fc2") + w["b_fc2"]
 
     def forward(self, pixel_values, labels=None) -> ModelOutput:
+        """Under tensor parallelism the patch embedding runs its ``tp``
+        columns and gathers them whole (its bias, whole, added after).
+        Under context parallelism the patch sequence (cls + patches) is cut
+        after the embedding, JAX's words raised where the ``cp`` extent
+        does not divide its length, and the cls row reaches every ``cp``
+        rank before the head (:func:`~..parallel.context.first_token`)."""
         c = self.config
+        cp_group, cp_rank, cp_extent = sequence_shard()
+        pe = self.patch_embed
+        tp = _params.layer_tp(pe)
         patches = _patchify(to_nhwc(pixel_values, c.in_channels), c.patch_size)
-        h = dense(patches, self.patch_embed.w) + self.patch_embed.b
-        cls = self.cls_token.expand(h.shape[0], 1, c.hidden_size)
-        h = torch.cat([cls, h], dim=1) + self.pos_embed
+        h = tp.gather(dense(tp.enter(patches, "w"), local(pe.w)), "w") + local(pe.b)
+        cls = local(self.cls_token).expand(h.shape[0], 1, c.hidden_size)
+        h = torch.cat([cls, h], dim=1) + local(self.pos_embed)
+        h = sequence_chunk(h, cp_rank, cp_extent)
         for layer in self.layers:
-            h = _params.apply_layer(self._block, c.remat, layer, h)
-        h = layer_norm(h, self.ln_f_g, self.ln_f_b, c.layer_norm_eps)
-        logits = F.linear(h[:, 0, :], self.head.w, self.head.b)
+            h = layer(self._block, c.remat, h)
+        h = layer_norm(h, local(self.ln_f_g), local(self.ln_f_b), c.layer_norm_eps)
+        logits = F.linear(first_token(h, cp_group, cp_rank), local(self.head.w),
+                          local(self.head.b))
         out = ModelOutput(logits=logits)
         if labels is not None:
-            out["loss"] = cross_entropy_loss(logits[:, None, :], labels[:, None])
+            out["loss"] = token_loss(logits, labels, whole_batch=True)
         return out

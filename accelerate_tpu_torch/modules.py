@@ -9,6 +9,7 @@ The JAX ``Model`` / ``Model.from_flax`` have no PyTorch meaning: an
 from __future__ import annotations
 
 import contextlib
+import inspect
 
 import torch
 from torch.func import functional_call
@@ -73,13 +74,22 @@ class PreparedModel:
     ``generate()`` casts the weights once a call into one kept copy a
     dtype (``generation._cache_backend``), not once a token. On a sharded
     mesh FSDP2 gathers the parameters it holds in the compute dtype (its
-    ``MixedPrecisionPolicy``) and the call casts only the others."""
+    ``MixedPrecisionPolicy``) and the call casts only the others.
+
+    With ``batch_groups`` (the attention context's ``data`` and ``batch``
+    axes: the ranks that hold other tokens or rows of the global batch)
+    the call computes what spans the batch over the global batch, as JAX's
+    step over its global arrays: the token loss
+    (:func:`~.ops.layers.loss_group`), ResNet's batch statistics and
+    Mixtral's routing. Such a call is then a collective of those ranks; the
+    unwrapped module computes them over its own rows."""
 
     def __init__(self, module: torch.nn.Module, compute_dtype: torch.dtype | None = None,
-                 fp8_recipe=None):
+                 fp8_recipe=None, batch_groups: dict | None = None):
         self.module = module
         self.compute_dtype = compute_dtype
         self.fp8_recipe = fp8_recipe
+        self.batch_groups = batch_groups
         #: on a sharded mesh: every parameter's decision
         #: (:class:`~.parallel.sharding.ParamPlacement`) and the names of
         #: those FSDP2 holds (which it gathers in the compute dtype itself)
@@ -87,7 +97,7 @@ class PreparedModel:
         self.fsdp_managed: set[str] = set()
 
     def __getattr__(self, name):
-        if name in ("module", "compute_dtype", "fp8_recipe", "placements",
+        if name in ("module", "compute_dtype", "fp8_recipe", "batch_groups", "placements",
                     "fsdp_managed"):  # not set yet (e.g. during unpickling)
             raise AttributeError(name)
         return getattr(self.module, name)
@@ -105,7 +115,8 @@ class PreparedModel:
     def forward(self, *args, **kwargs):
         """The policy's call (``__call__`` goes through here, so a hook
         that replaces ``forward`` runs around it)."""
-        with self.fp8_context():
+        args, kwargs = self._sequence_chunks(args, kwargs)
+        with self._batch_context(), self.fp8_context():
             if self.compute_dtype is None:
                 return self.module(*args, **kwargs)
             params = {name: p.to(self.compute_dtype)
@@ -114,6 +125,36 @@ class PreparedModel:
             args = _cast_floats(args, self.compute_dtype)
             kwargs = _cast_floats(kwargs, self.compute_dtype)
             return _upcast_half(functional_call(self.module, params, args, kwargs))
+
+    def _sequence_chunks(self, args, kwargs):
+        """Under context parallelism, this ``cp`` rank's chunk of the
+        inputs the module names in ``sequence_inputs`` (the family's
+        sequences: the prepared loader hands every ``cp`` rank the whole
+        rows, and a family that takes no chunk, as ResNet and T5, takes
+        them whole; :func:`~.parallel.context.sequence_chunk`)."""
+        names = getattr(self.module, "sequence_inputs", ())
+        if not names:
+            return args, kwargs
+        from .parallel.context import sequence_chunk, sequence_shard
+
+        _, index, extent = sequence_shard()
+        if extent == 1:
+            return args, kwargs
+        bound = inspect.signature(self.module.forward).bind_partial(*args, **kwargs)
+        for name in names:
+            if name in bound.arguments:
+                bound.arguments[name] = sequence_chunk(bound.arguments[name], index, extent)
+        return bound.args, bound.kwargs
+
+    def _batch_context(self):
+        """The attention context with :attr:`batch_groups` bound, or a no-op
+        without them."""
+        if not self.batch_groups:
+            return contextlib.nullcontext()
+        from .ops.attention import attention_context, get_attention_context
+
+        return attention_context(groups={**(get_attention_context().groups or {}),
+                                         **self.batch_groups})
 
     def fp8_context(self):
         """:func:`~.ops.fp8.fp8_autocast` under the model's fp8 recipe, or a

@@ -77,6 +77,19 @@ def attention_context(**overrides):
         _current = prev
 
 
+@contextmanager
+def attention_context_as(ctx: AttentionContext):
+    """Run under ``ctx`` whole: a checkpoint's recompute under the context
+    its forward ran in (:func:`~..parallel.pipeline.remat_wrap`)."""
+    global _current
+    prev = _current
+    _current = ctx
+    try:
+        yield ctx
+    finally:
+        _current = prev
+
+
 def attention(q, k, v, segment_mask=None, causal=True, scale=None):
     """``q [b, s, nh, hd]``, ``k``/``v`` ``[b, s, n_kv, hd]``,
     ``segment_mask [b, s]`` (1 = valid token); output in q's layout and

@@ -109,16 +109,62 @@ def causal_attention(q, k, v, segment_mask=None):
     return dot_product_attention(q, k, v, mask=mask)
 
 
-def cross_entropy_loss(logits, labels, ignore_index: int = -100):
-    """Token-level CE with an ignore mask, f32 log-softmax; the masked mean
-    over valid tokens, the count clamped at 1."""
+def cross_entropy_sum(logits, labels, ignore_index: int = -100):
+    """Token-level CE with an ignore mask, f32 log-softmax: the summed NLL
+    over valid tokens and their count."""
     logits = logits.float()
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
-    nll = (logz - gold) * valid
-    return nll.sum() / torch.clamp(valid.sum(), min=1)
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+def cross_entropy_loss(logits, labels, ignore_index: int = -100):
+    """Token-level CE with an ignore mask, f32 log-softmax; the masked mean
+    over valid tokens, the count clamped at 1."""
+    nll, count = cross_entropy_sum(logits, labels, ignore_index)
+    return nll / torch.clamp(count, min=1)
+
+
+def loss_group(whole_batch: bool = False):
+    """The process group over which a model's loss is a mean: the ranks
+    that hold other tokens of the same global batch. That is ``dp × fsdp ×
+    cp`` (the attention context's ``data`` axis), or ``dp × fsdp`` (its
+    ``batch`` axis) for a ``whole_batch`` loss, one that every ``cp`` rank
+    computes over the same tokens (ResNet, T5, and the pooled classifiers).
+    None without a process group, or where one rank spans them."""
+    from .attention import get_attention_context
+
+    return get_attention_context().axis("batch" if whole_batch else "data")[0]
+
+
+def global_token_mean(nll, count, group):
+    """A model's token loss, JAX's way: the summed NLL over the valid count
+    summed over ``group`` (:func:`loss_group`), every rank returning the
+    global batch's mean. The NLL's sum is differentiable, its gradient the
+    sum of the ranks' (:func:`~..parallel.context.all_reduce_sum`), so each
+    rank's gradient is its part of the global sum times the group's size,
+    and the accelerator's average over the ranks gives JAX's gradient (the
+    convention of the llama's ``cp`` loss, widened to the data ranks).
+    Without a group, ``nll / count``."""
+    count = count.to(torch.float32)
+    if group is None:
+        return nll / torch.clamp(count, min=1)
+    import torch.distributed as dist
+
+    from ..parallel.context import all_reduce_sum
+
+    total = count.detach().clone()
+    dist.all_reduce(total, group=group)
+    return all_reduce_sum(nll, group) / torch.clamp(total, min=1)
+
+
+def token_loss(logits, labels, whole_batch: bool = False, ignore_index: int = -100):
+    """:func:`cross_entropy_loss` over the global batch
+    (:func:`global_token_mean` over :func:`loss_group`)."""
+    return global_token_mean(*cross_entropy_sum(logits, labels, ignore_index),
+                             loss_group(whole_batch))
 
 
 def shift_labels(labels, ignore_index: int = -100):
@@ -168,6 +214,32 @@ def _chunk_nll(x_i, head, l_i, ignore_index: int, bias=None, vocab_shard=None):
     return ((logz - gold) * valid).sum(), valid.sum()
 
 
+def fused_nll(x, head, labels, ignore_index: int = -100, chunk_tokens: int = 1024,
+              bias=None, vocab_shard=None):
+    """The summed NLL and valid count of :func:`fused_cross_entropy`."""
+    b, s, _ = x.shape
+    rows = max(1, chunk_tokens // b)
+    C = 1
+    for c in range(1, s + 1):
+        if s % c == 0 and s // c >= rows:
+            C = c
+    if C == 1:
+        return _chunk_nll(x, head, labels, ignore_index, bias, vocab_shard)
+    from torch.utils.checkpoint import checkpoint
+
+    n = s // C
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int64, device=x.device)
+    for i in range(C):
+        d_nll, d_cnt = checkpoint(_chunk_nll, x[:, i * n:(i + 1) * n], head,
+                                  labels[:, i * n:(i + 1) * n], ignore_index, bias,
+                                  vocab_shard, use_reentrant=False,
+                                  context_fn=checkpoint_contexts)
+        nll = nll + d_nll
+        count = count + d_cnt
+    return nll, count
+
+
 def fused_cross_entropy(x, head, labels, ignore_index: int = -100, chunk_tokens: int = 1024,
                         bias=None, vocab_shard=None):
     """Token CE from pre-head hidden states ``x [b, s, h]`` and ``head [h,
@@ -182,32 +254,16 @@ def fused_cross_entropy(x, head, labels, ignore_index: int = -100, chunk_tokens:
     (GPT-J). ``vocab_shard`` ``(start, group)``: ``head`` is this rank's
     columns of a vocabulary split over ``group`` (:func:`_chunk_nll`), and
     every rank returns the whole vocabulary's loss."""
-    b, s, _ = x.shape
-    rows = max(1, chunk_tokens // b)
-    C = 1
-    for c in range(1, s + 1):
-        if s % c == 0 and s // c >= rows:
-            C = c
-    if C == 1 and vocab_shard is not None:
-        nll, count = _chunk_nll(x, head, labels, ignore_index, bias, vocab_shard)
-        return nll / torch.clamp(count, min=1)
-    if C == 1:
-        logits = dense(x, head.t())
-        return cross_entropy_loss(logits if bias is None else logits + bias, labels,
-                                  ignore_index)
-    from torch.utils.checkpoint import checkpoint
-
-    n = s // C
-    nll = torch.zeros((), dtype=torch.float32, device=x.device)
-    count = torch.zeros((), dtype=torch.int64, device=x.device)
-    for i in range(C):
-        d_nll, d_cnt = checkpoint(_chunk_nll, x[:, i * n:(i + 1) * n], head,
-                                  labels[:, i * n:(i + 1) * n], ignore_index, bias,
-                                  vocab_shard, use_reentrant=False,
-                                  context_fn=checkpoint_contexts)
-        nll = nll + d_nll
-        count = count + d_cnt
+    nll, count = fused_nll(x, head, labels, ignore_index, chunk_tokens, bias, vocab_shard)
     return nll / torch.clamp(count, min=1)
+
+
+def fused_token_loss(x, head, labels, bias=None, vocab_shard=None):
+    """:func:`fused_cross_entropy` over the global batch: a decoder
+    family's next-token loss (:func:`global_token_mean` over
+    :func:`loss_group`)."""
+    return global_token_mean(*fused_nll(x, head, labels, bias=bias, vocab_shard=vocab_shard),
+                             loss_group())
 
 
 def write_kv_cache(k_cache_l, v_cache_l, k, v, idx, spare_slot: bool = False):

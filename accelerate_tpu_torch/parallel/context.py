@@ -2,8 +2,9 @@
 ``cp`` mesh axis (port of ``accelerate_tpu/parallel/context.py``).
 
 Each ``cp`` rank holds one contiguous chunk of the sequence (the prepared
-loader hands it out, :mod:`..data_loader`), so activations stay
-sequence-sharded and only attention looks across the chunks:
+model cuts the inputs a family names, :func:`sequence_chunk`), so
+activations stay sequence-sharded and only attention looks across the
+chunks:
 
 * **ring**: each rank keeps its Q chunk and streams every KV chunk past it
   (:class:`RingShift`, one ``batch_isend_irecv`` to the next rank a step),
@@ -159,6 +160,65 @@ def gather_sequence(x: torch.Tensor, group) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# a model's chunk of the sequence
+# ---------------------------------------------------------------------------
+
+
+def sequence_shard() -> tuple:
+    """``(group, index, extent)`` of the ``cp`` axis a model's forward runs
+    its chunk of the sequence over: ``(None, 0, 1)`` without a ``cp`` mode
+    or at an extent of 1."""
+    from ..ops.attention import get_attention_context
+
+    ctx = get_attention_context()
+    group, index = ctx.axis(ctx.cp_axis) if ctx.cp_mode else (None, 0)
+    return (group, index, ctx.cp_extent) if group is not None else (None, 0, 1)
+
+
+def sequence_chunk(t, index: int, extent: int):
+    """This ``cp`` rank's contiguous chunk of ``t``'s sequence dim (dim 1;
+    JAX's ``P(batch_axes, "cp")``), raising JAX's words where the extent
+    does not divide it (``context_parallel_attention``'s check); a tensor
+    of one dim (row ids) and a non-tensor whole."""
+    if not isinstance(t, torch.Tensor) or t.dim() < 2:
+        return t
+    check_sequence_length(t.shape[1], extent)
+    n = t.shape[1] // extent
+    return t[:, index * n:(index + 1) * n]
+
+
+def check_sequence_length(s: int, extent: int, cp_axis: str = "cp") -> None:
+    """JAX's refusal of a sequence the ``cp`` extent does not divide."""
+    if s % extent != 0:
+        raise ValueError(f"sequence length {s} must be divisible by the {cp_axis!r} mesh "
+                         f"extent {extent} for context parallelism")
+
+
+def shifted_targets(labels: torch.Tensor, group, index: int) -> torch.Tensor:
+    """Next-token targets of this rank's chunk ``labels [b, s_loc]``: the
+    labels are shifted over the whole gathered sequence, so a chunk's last
+    position takes the next chunk's first label (the sequence's last takes
+    -100). Without a group, :func:`~..ops.layers.shift_labels`."""
+    from ..ops.layers import shift_labels
+
+    if group is None:
+        return shift_labels(labels)
+    s = labels.shape[1]
+    return shift_labels(gather_sequence(labels, group))[:, index * s:(index + 1) * s]
+
+
+def first_token(x: torch.Tensor, group, index: int) -> torch.Tensor:
+    """``x[:, 0]`` of the whole sequence (a ``[CLS]`` token) on every ``cp``
+    rank, though only rank 0's chunk holds it: rank 0's row summed over the
+    group with the others' zeros (:func:`all_reduce_sum`), so its gradient
+    is the sum of every rank's. The zeros are the rank's own first row
+    times 0, so that every rank's backward runs the sum's collective."""
+    if group is None:
+        return x[:, 0]
+    return all_reduce_sum(x[:, 0] * (1.0 if index == 0 else 0.0), group)
+
+
+# ---------------------------------------------------------------------------
 # per-rank building block: one Q chunk × one KV chunk online-softmax update
 # ---------------------------------------------------------------------------
 
@@ -309,7 +369,7 @@ def context_parallel_attention(q, k, v, segment_mask=None, *, mesh: dict, group,
     if segment_mask is None:
         segment_mask = torch.ones((b, s_loc), dtype=torch.bool, device=q.device)
     # the sequence's divisibility by the cp extent is checked where the
-    # prepared loader cuts it (JAX's message, data_loader._seq_chunk)
+    # prepared model cuts it (JAX's message, sequence_chunk)
     cp_extent = mesh.get(cp_axis, 1)
     if mode == "ulysses":
         # the all_to_all splits the *local* head dim (after any tp sharding)

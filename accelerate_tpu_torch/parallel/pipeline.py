@@ -39,6 +39,7 @@ the port's layers do not name: they raise "not yet ported". A name
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -101,14 +102,33 @@ def _keep(ops, ctx, func, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
+def _forward_contexts(inner=None):
+    """A checkpoint's ``context_fn``: the recompute, which the backward runs
+    after the forward's contexts have exited, runs under the forward's fp8
+    state (:func:`~accelerate_tpu_torch.ops.fp8.checkpoint_contexts`) and
+    its attention context (Mixtral's routing reads the batch's groups
+    there). ``inner`` is a selective-checkpoint policy's ``context_fn``."""
+    from ..ops.attention import attention_context_as, get_attention_context
+    from ..ops.fp8 import checkpoint_contexts
+
+    forward, recompute = checkpoint_contexts(inner)
+    return forward, _both(recompute, attention_context_as(get_attention_context()))
+
+
 def remat_wrap(body, remat):
     """``body`` with the configured rematerialisation: itself for
     ``False``, else a function that runs it under
     ``torch.utils.checkpoint`` with the named policy (the whole body
     recomputed for ``True``). The recompute sees the fp8 recipe the forward
-    ran under (:func:`~accelerate_tpu_torch.ops.fp8.checkpoint_contexts`)."""
-    from ..ops.fp8 import checkpoint_contexts
-
+    ran under (:func:`~accelerate_tpu_torch.ops.fp8.checkpoint_contexts`)
+    and its attention context, with the groups a prepared model's call
+    bound (:func:`_forward_contexts`)."""
     policy = remat_policy(remat)
     if policy is False:
         return body
@@ -116,9 +136,8 @@ def remat_wrap(body, remat):
     if policy is not None:
         inner = functools.partial(create_selective_checkpoint_contexts,
                                   functools.partial(_keep, policy))
-    # the recompute runs under the forward's fp8 state (ops.fp8.dense)
     kwargs = {"use_reentrant": False,
-              "context_fn": functools.partial(checkpoint_contexts, inner)}
+              "context_fn": functools.partial(_forward_contexts, inner)}
 
     @functools.wraps(body)
     def wrapped(*args):

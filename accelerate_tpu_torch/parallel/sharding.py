@@ -329,7 +329,8 @@ def shard_params(module: torch.nn.Module, placements: dict[str, ParamPlacement],
     * a dim on ``tp``: ``distribute_tensor`` over ``mesh["tp"]`` with
       ``Shard(dim)``; every other parameter a ``Replicate()`` DTensor there;
     * a dim on ``fsdp``: FSDP2's ``fully_shard`` over ``mesh["fsdp"]``,
-      each layer of ``module.layers`` (where it has one) and then the root,
+      each layer (``module.fsdp_units()``, else ``module.layers``, where it
+      has them) and then the root,
       its ``shard_placement_fn`` returning ``Shard(dim)`` for the decided
       dim; the other parameters are FSDP2's ``ignored_params``. Under a
       compute dtype (``mp_dtype``) FSDP2 gathers the parameters in it and
@@ -366,7 +367,9 @@ def shard_params(module: torch.nn.Module, placements: dict[str, ParamPlacement],
           if mp_dtype is not None else MixedPrecisionPolicy())
     kwargs = dict(mesh=mesh["fsdp"], mp_policy=mp, ignored_params=ignored,
                   shard_placement_fn=lambda p: Shard(fsdp_dims[id(p)]))
-    for layer in getattr(module, "layers", None) or []:
+    units = (module.fsdp_units() if hasattr(module, "fsdp_units")
+             else getattr(module, "layers", None) or [])
+    for layer in units:
         if any(id(p) in fsdp_dims for p in layer.parameters()):
             fully_shard(layer, **kwargs)
     fully_shard(module, **kwargs)
@@ -521,14 +524,130 @@ def tp_leave(x: torch.Tensor, group) -> torch.Tensor:
     return x if group is None else _TPLeave.apply(x, group)
 
 
+class _GatherSplit(torch.autograd.Function):
+    """Every ``tp`` rank's part of a replicated activation concatenated on
+    ``dim``; the gradient (equal on every rank, as a replicated
+    activation's is) is cut back to this rank's part: the output of a
+    column-parallel product that the next op takes whole."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        ctx.rank, ctx.n = dist.get_rank(group), dist.get_world_size(group)
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(ctx.n)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, dim=ctx.dim)[ctx.rank], None, None
+
+
+def tp_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ``tp`` ranks' column-parallel outputs whole on ``dim`` (no-op
+    without a group)."""
+    return x if group is None else _GatherSplit.apply(x, dim % x.dim(), group)
+
+
+def gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """A ``tp``-sharded weight's dim-0 shards whole, differentiably: each
+    rank then reads other rows of it than its own, and the gradient is
+    reduce-scattered back (the sum of every rank's over this rank's rows)."""
+    if group is None:
+        return t
+    from .context import _AllGatherSeq
+
+    return _AllGatherSeq.apply(t[None], group)[0]
+
+
+def tp_sharded(t: torch.Tensor) -> bool:
+    """Whether a parameter is a DTensor with a dim on the ``tp`` axis: the
+    placement its decision gave it (a rule entry that the extent does not
+    divide was dropped, and the leaf is whole)."""
+    DTensor, _, Shard, _ = _dtensor()
+    return isinstance(t, DTensor) and any(
+        isinstance(pl, Shard) and name == "tp"
+        for name, pl in zip(t.device_mesh.mesh_dim_names, t.placements))
+
+
+@dataclass(frozen=True)
+class TPShard:
+    """What a block's forward needs of tensor parallelism: the ``tp``
+    group (None off a ``tp`` mesh of extent above 1), this rank's index
+    and the group's size, and the names of the leaves the block holds as
+    ``tp`` shards (:func:`tp_sharded`, read from the placed parameters).
+    A leaf not in ``sharded`` is whole on every rank, and the products
+    that read it run whole, with no collective."""
+
+    group: object = None
+    rank: int = 0
+    size: int = 1
+    sharded: frozenset = frozenset()
+
+    def on(self, name: str) -> bool:
+        return self.group is not None and name in self.sharded
+
+    def enter(self, x, name: str):
+        """``x`` entering the column-parallel product with leaf ``name``."""
+        return tp_enter(x, self.group) if self.on(name) else x
+
+    def leave(self, x, name: str):
+        """The row-parallel product with leaf ``name`` summed over ``tp``."""
+        return tp_leave(x, self.group) if self.on(name) else x
+
+    def gather(self, x, name: str, dim: int = -1):
+        """The column-parallel product with leaf ``name`` whole on ``dim``."""
+        return tp_gather(x, dim, self.group) if self.on(name) else x
+
+    def heads(self, n: int, name: str) -> int:
+        """This rank's count of ``n`` heads of the projection ``name``."""
+        if not self.on(name):
+            return n
+        if n % self.size:
+            raise ValueError(f"{n} heads do not split over a 'tp' extent of {self.size}")
+        return n // self.size
+
+    def fused_heads(self, w, name: str, parts: int = 3):
+        """This rank's rows of each of the ``parts`` equal blocks of a fused
+        projection (``w_qkv [3h, ...]``, ``[q | k | v]``) that JAX's rule
+        splits contiguously over ``tp``, so that a rank's shard is not its
+        heads (at ``tp`` 2 rank 0 holds all of q and half of k): the
+        shards are gathered whole (:func:`gather_rows`, whose gradient is
+        reduce-scattered back) and this rank's heads' rows of q, k and v
+        taken. Whole leaves are returned as they are."""
+        if not self.on(name):
+            return w
+        full = gather_rows(w, self.group)
+        n = full.shape[0] // parts
+        size = n // self.size
+        return torch.cat([full[j * n + self.rank * size:j * n + (self.rank + 1) * size]
+                          for j in range(parts)])
+
+
+#: off a ``tp`` mesh: every leaf whole
+NO_TP = TPShard()
+
+
+def tp_shard(named) -> TPShard:
+    """The :class:`TPShard` of a block whose placed parameters ``named``
+    (``(name, tensor)`` pairs) yields."""
+    group, rank = tensor_parallel_group()
+    if group is None:
+        return NO_TP
+    return TPShard(group, rank, dist.get_world_size(group),
+                   frozenset(n for n, t in named if tp_sharded(t)))
+
+
 def vocab_parallel_embedding(ids: torch.Tensor, table: torch.Tensor, vocab_size: int,
                              rank: int, group) -> torch.Tensor:
     """Rows of an embedding table whose vocabulary is sharded over ``tp``
     (``table`` this rank's ``[vocab / tp, h]`` rows): ``ids`` already hold
     the rows JAX's gather reads (``table_rows``), each rank looks up the
     ids in its own range and zeros the rest, and the ranks' rows are summed
-    (:func:`tp_leave`). Without a group, a plain lookup."""
-    if group is None:
+    (:func:`tp_leave`). Without a group, or of a whole table (a vocabulary
+    that ``tp`` does not divide), a plain lookup."""
+    if group is None or table.shape[0] == vocab_size:
         return torch.nn.functional.embedding(ids, table)
     rows = table.shape[0]
     start = rank * rows

@@ -114,11 +114,15 @@ class PartialState:
             #: the groups the gradients reduce over: ``data`` spans the ranks
             #: that read different data (every rank off a sharded mesh;
             #: dp × fsdp × cp on one), ``replica`` those that hold the same
-            #: parameter shards (dp × cp); ``cp`` and ``tp`` the attention's.
-            #: On a sharded mesh None where one rank spans them
-            groups = {"data": dist.group.WORLD}
+            #: parameter shards (dp × cp); ``batch`` the ranks that hold
+            #: other rows of the batch (dp × fsdp), which a loss or a batch
+            #: statistic that every ``cp`` rank computes whole spans; ``cp``
+            #: and ``tp`` the attention's. On a sharded mesh None where one
+            #: rank spans them
+            groups = {"data": dist.group.WORLD, "batch": dist.group.WORLD}
             if sharded:
                 groups = {"data": axes_group(mesh, ("dp", "fsdp", "cp")),
+                          "batch": axes_group(mesh, ("dp", "fsdp")),
                           "replica": axes_group(mesh, ("dp", "cp")),
                           "cp": axes_group(mesh, ("cp",)),
                           "tp": axes_group(mesh, ("tp",))}

@@ -321,7 +321,8 @@ failure, so the script exits non-zero and prints no result):
     200 causal and not with a left pad of 130, and GPT-J's shape; the
     gates of phases 8 and 14a, launched twice); the instance each of B1-B3
     launched at hd 128, 136, 200, 256 (bf16, f16, f32) and 512, read from
-    the profiler's kernel names (B1 and B2 in bf16 and f16 on wgmma up to
+    the profiler's kernel names in a process of its own (this script with
+    ``--flash-instances OUT.json``; B1 and B2 in bf16 and f16 on wgmma up to
     256; f32 and 512 on the FMA kernels); B1-B3 timed at
     GPT-J's shape; the loop at b 4 × 1024 with its profiled share.
     15d: gpt2, opt-125m, pythia-1.4b, bert-base (a key mask that pads every
@@ -445,6 +446,23 @@ failure, so the script exits non-zero and prints no result):
     f32 the flash ring against the einsum ring (3e-4) and the einsum
     body's autograd (5e-4 × scale); each chunk class (diagonal causal, full
     past) timed a launch beside its bound, the plain version and sdpa.
+    19c, in the same child after 19a: the zoo's other eight families
+    (15d's gpt2, opt-125m, pythia-1.4b, bert-base with its right-padded
+    key mask, vit-base-patch16-224, resnet50d and t5-small at their
+    published sizes and batches; Mixtral-8x7B's width at 2 of 32 layers,
+    b 4 × 1024) through the same ``MeshPlugin(dp=1, fsdp=-1)`` and FSDP
+    plugin in bf16 over f32 masters, 1 warm-up, 3 timed and 1 profiled
+    step, and each again group-less once the child's group is down. Gates:
+    every layer (``fsdp_units()``) an FSDP2 module called once a step;
+    every parameter a DTensor with its decided placement; B1-B3 one launch
+    a layer a step for the attention families (B1 two under Mixtral's
+    remat) by the wrappers' counts and in the profiled step, none for
+    ResNet and T5; the losses within 2e-2
+    of the group-less loop's (bitwise equality reported); the step ms and
+    peak HBM printed beside the group-less loop's. On one card the ``tp``
+    and ``cp`` extents are 1, so the tensor- and context-parallel code of
+    these families does not run here: it is held to JAX on 4 gloo ranks on
+    the CPU (``tests/test_torch_sharding.py``).
     ``python3 chip_smoke.py --phase 19`` runs phases 1, 2, 13 and 19
     alone and prints no verdict.
 
@@ -3309,7 +3327,8 @@ def check_flash_instances(dev) -> dict:
     launched at each of :data:`FLASH_INSTANCE_CASES`, read from the
     profiler's kernel names. Fails unless they are exactly
     :func:`flash_instances`: bf16 and f16 B1-B3 on their wgmma instances
-    up to hd 256, f32 and hd 512 on the FMA ones."""
+    up to hd 256, f32 and hd 512 on the FMA ones. Phase 15c runs it in a
+    process of its own (:func:`run_flash_instances`)."""
     from accelerate_tpu_torch.ops import flash_attention as fa
 
     dtypes = {name: dt for dt, name in FLASH_DTYPE_NAMES.items()}
@@ -3322,22 +3341,72 @@ def check_flash_instances(dev) -> dict:
         def fwd_bwd(i):
             fa.flash_attention(q, k, v, causal=True, impl="cuda").backward(do)
 
-        want = flash_instances(hd, name)
-        # a window can miss a row (the first launch in it, seen on the card):
-        # one that lacks an expected instance is taken again, while a wrong
-        # instance shows in every window and fails
+        want = set(flash_instances(hd, name).values())
+        # a window can miss rows (seen on the card, late in a long process):
+        # the instances seen are gathered over up to PROFILER_TRIES windows
+        # until every expected one has shown, and a wrong instance in any
+        # window fails at once
+        seen, windows, rows = set(), [], set()
+        counts = _flash_launch_counts(fa)
         for _ in range(PROFILER_TRIES):
-            seen = {key for key in (kernel_key(e.key) for e in _profiled_rows(fwd_bwd, 3))
-                    if key and key.startswith("flash_")}
-            if seen == set(want.values()):
+            names = [e.key for e in _profiled_rows(fwd_bwd, 3)]
+            rows |= set(names)
+            window = {key for key in map(kernel_key, names) if key and key.startswith("flash_")}
+            windows.append(sorted(window))
+            if window - want:
+                raise AssertionError(f"B1-B3 at hd {hd} {name} launched {sorted(window)}, "
+                                     f"{sorted(want)} expected")
+            seen |= window
+            if seen == want:
                 break
-        log(f"  hd {hd} {name}: {sorted(seen)}")
-        if seen != set(want.values()):
-            raise AssertionError(f"B1-B3 at hd {hd} {name} launched {sorted(seen)}, "
-                                 f"{sorted(want.values())} expected")
-        out[f"head_dim_{hd}_{name}"] = want
+        log(f"  hd {hd} {name}: {sorted(seen)} ({len(windows)} profiler windows)")
+        if seen != want:
+            launched = {k: n - counts[k] for k, n in _flash_launch_counts(fa).items()}
+            raise AssertionError(f"B1-B3 at hd {hd} {name} launched {sorted(seen)} over "
+                                 f"{len(windows)} windows ({windows}), {sorted(want)} expected; "
+                                 f"the wrappers counted {launched} launches meanwhile; every "
+                                 f"kernel row the profiler showed: {sorted(rows)}")
+        out[f"head_dim_{hd}_{name}"] = flash_instances(hd, name)
         del q, k, v, do
     torch.cuda.empty_cache()
+    return out
+
+
+def _flash_launch_counts(fa) -> dict:
+    return {"flash_fwd": fa.fwd_launches, "flash_bwd_dq": fa.bwd_dq_launches,
+            "flash_bwd_dkv": fa.bwd_dkv_launches}
+
+
+def flash_instances_child(out_path: str) -> int:
+    """Phase 15c's instance check as a process of its own: writes
+    :func:`check_flash_instances`'s result to ``out_path``."""
+    result = check_flash_instances(torch.device("cuda"))
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def run_flash_instances() -> dict:
+    """:func:`check_flash_instances` in a new process (the kernels come
+    from the build phase 2 left): late in this long process the profiler
+    has shown B1's launches at hd 136-200 in no window of four while it
+    showed B2's and B3's, so the names are read where its state is fresh."""
+    out_dir = os.path.join(REPO, "build", "flash_instances")
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, "result.json")
+    if os.path.exists(out_path):
+        os.remove(out_path)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--flash-instances",
+                           out_path], cwd=REPO, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode != 0:
+        log(proc.stderr[-6000:])
+        raise AssertionError(f"the flash instance check's process exited {proc.returncode}")
+    with open(out_path) as f:
+        out = json.load(f)
+    log(f"  instance check process: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -4147,6 +4216,9 @@ def ddp_loop_child(out_path: str) -> int:
         t0 = time.perf_counter()
         sharded[name] = _ddp_loop(None, **kw)
         sharded[name]["wall_s"] = time.perf_counter() - t0
+    # phase 19c: the zoo's other families on the same fsdp mesh, then (below)
+    # each group-less once the group is down
+    p19c = {"fsdp": {name: p19c_family_loop(name, sharded=True) for name in P19C_FAMILIES}}
     AcceleratorState._reset_state(reset_partial_state=True)
     GradientState._reset_state()
     if dist.is_initialized():
@@ -4158,11 +4230,13 @@ def ddp_loop_child(out_path: str) -> int:
     plain = _ddp_loop(None)
     if plain["backend"] is not None:
         raise AssertionError(f"the group-less loop brought a group up: {plain['backend']}")
+    p19c["group_less"] = {name: p19c_family_loop(name, sharded=False) for name in P19C_FAMILIES}
     for run, d in ((grouped, trace_dir), (thread, thread_dir)):
         run["fetch_ms"] = _spans(d, "dataloader/fetch")
         run["all_reduce_host_ms"] = _spans(d, "collective/all_reduce_gradients")
     with open(out_path, "w") as f:
-        json.dump({"grouped": grouped, "thread": thread, "plain": plain, "sharded": sharded}, f)
+        json.dump({"grouped": grouped, "thread": thread, "plain": plain, "sharded": sharded,
+                   "p19c": p19c}, f)
     return 0
 
 
@@ -4179,7 +4253,7 @@ def run_ddp_loop() -> dict:
     t0 = time.perf_counter()
     try:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--ddp-loop", out_path],
-                              env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+                              env=env, cwd=REPO, capture_output=True, text=True, timeout=900)
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
     wall_s = time.perf_counter() - t0
@@ -4258,6 +4332,7 @@ def run_ddp_loop() -> dict:
         "launches_per_step": grouped["launches_per_step"][0],
     }
     out["phase19a"] = check_sharded_loops(res["sharded"], grouped, plain)
+    out["phase19c"] = check_zoo_sharded_loops(res["p19c"])
     log(f"  NCCL at world size 1; step {out['step_ms']:.2f} ms (group-less "
         f"{out['step_ms_group_less']:.2f}, the loader's prefetch thread on "
         f"{out['step_ms_prefetch_thread']:.2f}), {out['tokens_per_s']:.0f} tokens/s "
@@ -4317,6 +4392,171 @@ def check_sharded_loops(sharded: dict, grouped: dict, plain: dict) -> dict:
             f"{out[name]['launches_per_step']}, profiled {profiled}; {run['wall_s']:.1f} s; "
             f"{run['free_hbm_gb_at_start']:.2f} GiB free at its start, {run['cuda_mallocs']} "
             f"cudaMalloc calls and {run['alloc_retries']} allocator retries over the loop")
+    return out
+
+
+#: phase 19c: the zoo's other eight families on the one-card fsdp mesh (15d's
+#: seven at their published sizes and batches, Mixtral-8x7B's width at 2 of
+#: 32 layers at 15a's b 4 × 1024), each step counted; the gate on their
+#: losses against the same family's group-less loop
+P19C_FAMILIES = ("gpt2", "opt-125m", "pythia-1.4b", "bert-base", "vit-base-patch16-224",
+                 "resnet50d", "t5-small", "mixtral-8x7b-2l")
+P19C_WARMUP, P19C_TIMED = 1, 3
+P19C_LOSS_GATE = 2e-2
+
+
+def _p19c_model(name: str):
+    """The family's config and its model from seed 0 on the card."""
+    if name == "mixtral-8x7b-2l":
+        from accelerate_tpu_torch.models.mixtral import MixtralForCausalLM
+
+        cfg = mixtral_width()
+        return cfg, MixtralForCausalLM.from_config(cfg)
+    from accelerate_tpu_torch.models import MODEL_ZOO
+
+    cfg, factory = MODEL_ZOO[name]
+    return cfg, factory(cfg)
+
+
+def p19c_family_loop(name: str, sharded: bool) -> dict:
+    """Phase 19c, one family in phase 13's child: the 5-line loop in bf16
+    over f32 masters (15d's AdamW) on ``MeshPlugin(dp=1, fsdp=-1)`` with an
+    FSDP plugin (``sharded``, over the child's NCCL group), or group-less
+    (after the child took its group down): 1 warm-up, 3 timed and one more
+    step, the flash counters set to 0 just before the loop and read after
+    each step; each FSDP2 unit's calls counted by a forward pre-hook (the
+    call that fires FSDP2's own pre-forward hook); the last step profiled on
+    the sharded mesh; the placements read against their decisions."""
+    from torch.distributed.fsdp import FSDPModule
+    from torch.profiler import ProfilerActivity, profile
+
+    from accelerate_tpu_torch import (
+        Accelerator,
+        AcceleratorState,
+        FullyShardedDataParallelPlugin,
+        GradientState,
+        MeshPlugin,
+    )
+
+    AcceleratorState._reset_state()  # a group, where the child has one, stays up
+    GradientState._reset_state()
+    clear_memory()
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg, module = _p19c_model(name)
+    batch, layers, items = p15_family_batch(name, cfg, np.random.default_rng(31), dev)
+    mesh = (dict(mesh_plugin=MeshPlugin(dp=1, fsdp=-1),
+                 fsdp_plugin=FullyShardedDataParallelPlugin()) if sharded else {})
+    accelerator = Accelerator(mixed_precision="bf16", **mesh)
+    model, opt = accelerator.prepare(module, torch.optim.AdamW(module.parameters(), **P15_ADAMW))
+    units = model.module.fsdp_units()
+    calls = [0] * len(units)
+    hooks = [u.register_forward_pre_hook(lambda m, a, i=i: calls.__setitem__(i, calls[i] + 1))
+             for i, u in enumerate(units)]
+    losses, per_step = [], []
+
+    def step():
+        out = model(**batch)
+        accelerator.backward(out.loss)
+        opt.step()
+        opt.zero_grad()
+        losses.append(out.loss.detach())
+        per_step.append(_flash_counts())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts()
+    for _ in range(P19C_WARMUP):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(P19C_TIMED):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / P19C_TIMED
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profiled = None
+    if sharded:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        rows = _kernel_rows(prof)
+        profiled = {k: sum(e.count for e in rows if re.search(flash_kernel_pattern(k), e.key))
+                    for k in FLASH_KERNELS}
+    else:
+        step()
+    # under remat each layer's forward runs again in the backward (B1 twice)
+    want = {k: layers * (2 if k == "flash_fwd" and cfg.remat else 1) for k in FLASH_KERNELS}
+    out = {"losses": [x.item() for x in losses], "step_ms": step_ms, "peak_hbm_gb": peak,
+           "want_launches": want, "items_per_step": items,
+           "launches_per_step": [{k: c[k] - (per_step[i - 1][k] if i else 0) for k in c}
+                                 for i, c in enumerate(per_step)],
+           "profiled_flash_launches": profiled, "unit_calls": list(calls),
+           "units": len(units), "fsdp_units": [isinstance(u, FSDPModule) for u in units]}
+    if sharded:
+        out["placements"] = _placement_report(model)
+    for h in hooks:
+        h.remove()
+    del model, opt, module
+    clear_memory()
+    out["wall_s"] = time.perf_counter() - t_start
+    return out
+
+
+def check_zoo_sharded_loops(p19c: dict) -> dict:
+    """Phase 19c's gates, from phase 13's child: each family's layers are
+    all FSDP2 modules, each called once a step; every parameter is a
+    DTensor with its decided placement; B1-B3 launch one time a layer a step
+    for the attention families (B1 twice under remat, as Mixtral's preset
+    has it) by the wrappers' counts and in the profiled step, and never for
+    ResNet and T5; the losses are within
+    :data:`P19C_LOSS_GATE` of the group-less loop's from the same seed
+    (whether bitwise equal is reported). The step and the peak HBM are
+    reported beside the group-less loop's."""
+    out = {}
+    for name in P19C_FAMILIES:
+        run, ref = p19c["fsdp"][name], p19c["group_less"][name]
+        steps = P19C_WARMUP + P19C_TIMED + 1
+        if not (run["units"] and all(run["fsdp_units"])):
+            raise AssertionError(f"phase 19c ({name}): layers that are not FSDP2 modules: "
+                                 f"{run['fsdp_units']}")
+        if run["unit_calls"] != [steps] * run["units"]:
+            raise AssertionError(f"phase 19c ({name}): FSDP2 units called {run['unit_calls']} "
+                                 f"times in {steps} steps")
+        rep = run["placements"]
+        if rep["mismatched"] or not rep["n"]:
+            raise AssertionError(f"phase 19c ({name}): placements differ from the decisions: "
+                                 f"{rep['mismatched'][:5]}")
+        want = run["want_launches"]
+        for what, r in (("sharded", run), ("group-less", ref)):
+            if any(d != want for d in r["launches_per_step"]):
+                raise AssertionError(f"phase 19c ({name}, {what}): flash launches a step "
+                                     f"{r['launches_per_step']}, {want} expected")
+        if run["profiled_flash_launches"] != want:
+            raise AssertionError(f"phase 19c ({name}): the profiled step shows "
+                                 f"{run['profiled_flash_launches']}, {want} expected")
+        got, plain = run["losses"], ref["losses"]
+        diff = max(abs(a - b) for a, b in zip(got, plain))
+        if not (len(got) == len(plain) == steps and all(np.isfinite(got))
+                and diff <= P19C_LOSS_GATE):
+            raise AssertionError(f"phase 19c ({name}): losses {got} against the group-less "
+                                 f"{plain} (max |diff| {diff:.3e} > {P19C_LOSS_GATE})")
+        out[name] = {"losses": got, "losses_group_less": plain,
+                     "max_abs_loss_diff_vs_group_less": diff, "bitwise_equal_losses": got == plain,
+                     "step_ms": run["step_ms"], "step_ms_group_less": ref["step_ms"],
+                     "peak_hbm_gb": run["peak_hbm_gb"],
+                     "peak_hbm_gb_group_less": ref["peak_hbm_gb"],
+                     "launches_per_step": run["launches_per_step"][0],
+                     "profiled_flash_launches": run["profiled_flash_launches"],
+                     "fsdp_units": run["units"], "unit_calls": run["unit_calls"][0],
+                     "placements": rep, "wall_s": run["wall_s"] + ref["wall_s"]}
+        log(f"  19c {name}: {run['units']} FSDP2 units, each called once a step; {rep['n']} "
+            f"parameters placed as decided (FSDP2 holds {rep['fsdp_managed']}); losses "
+            f"{['%.4f' % x for x in got]} (max |diff| {diff:.2e} against the group-less loop's, "
+            f"bitwise {got == plain}); step {run['step_ms']:.2f} ms against "
+            f"{ref['step_ms']:.2f}, peak HBM {run['peak_hbm_gb']:.2f} GiB against "
+            f"{ref['peak_hbm_gb']:.2f}; flash launches a step {run['launches_per_step'][0]}, "
+            f"profiled {run['profiled_flash_launches']}; {out[name]['wall_s']:.1f} s")
     return out
 
 
@@ -5239,6 +5479,34 @@ def _f32_logits_gap(module, batch) -> float:
         return _scaled_err(got, ref)
 
 
+def p15_family_batch(name: str, cfg, rng, dev) -> tuple:
+    """A 15d family's training batch (``P15_FAMILY_FLASH``'s shapes; bert
+    and t5 draw their ids from ``rng``), the launches of each flash kernel a
+    step (its layers; 0 for resnet and T5) and the items a step. Mixtral's
+    width takes phase 15a's b 4 × 1024."""
+    layers = getattr(cfg, "num_hidden_layers", 0)
+    if name == "mixtral-8x7b-2l":
+        return _lm_batch(cfg.vocab_size, P15_BATCH, P15_SEQ, dev), layers, P15_BATCH * P15_SEQ
+    if name in P15_FAMILY_FLASH:
+        b, s, _, _, _, _, pad = P15_FAMILY_FLASH[name]
+    if name in ("gpt2", "opt-125m", "pythia-1.4b"):
+        return _lm_batch(cfg.vocab_size, b, s, dev), layers, b * s
+    if name == "bert-base":
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, s)), device=dev)
+        mask = torch.ones_like(ids)
+        step, start = pad
+        mask[::step, start:] = 0  # every other row padded: a key mask on the kernels' path
+        return ({"input_ids": ids, "attention_mask": mask,
+                 "labels": torch.as_tensor(rng.integers(0, 2, size=(b,)), device=dev)}, layers, b)
+    if name == "t5-small":
+        ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(8, 128)), device=dev)
+        return ({"input_ids": ids, "attention_mask": torch.ones_like(ids),
+                 "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(8, 64)),
+                                           device=dev)}, 0, 8 * 64)
+    return (_image_batch(16, 224, cfg.num_classes, dev), 0 if name == "resnet50d" else layers,
+            16)
+
+
 def p15_families(dev) -> dict:
     """15d: the zoo's other families at their published sizes (random
     weights from seed 0, bf16 over f32 masters): for the attention families
@@ -5260,32 +5528,12 @@ def p15_families(dev) -> dict:
                  "resnet50d", "t5-small"):
         cfg, factory = MODEL_ZOO[name]
         module = factory(cfg)
-        layers = getattr(cfg, "num_hidden_layers", 0)
         if name in P15_FAMILY_FLASH:
-            b, s, nh, _, hd, _, pad = P15_FAMILY_FLASH[name]
+            _, _, nh, _, hd, _, _ = P15_FAMILY_FLASH[name]
             if (cfg.num_attention_heads, cfg.head_dim) != (nh, hd):
                 raise AssertionError(f"{name}: {cfg.num_attention_heads} heads × {cfg.head_dim}, "
                                      f"not the {nh} × {hd} its kernels were checked at")
-        if name in ("gpt2", "opt-125m", "pythia-1.4b"):
-            batch = _lm_batch(cfg.vocab_size, b, s, dev)
-            items = b * s
-        elif name == "bert-base":
-            ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, s)), device=dev)
-            mask = torch.ones_like(ids)
-            step, start = pad
-            mask[::step, start:] = 0  # every other row padded: a key mask on the kernels' path
-            batch = {"input_ids": ids, "attention_mask": mask,
-                     "labels": torch.as_tensor(rng.integers(0, 2, size=(b,)), device=dev)}
-            items = b
-        elif name == "t5-small":
-            ids = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(8, 128)), device=dev)
-            batch = {"input_ids": ids, "attention_mask": torch.ones_like(ids),
-                     "labels": torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(8, 64)),
-                                               device=dev)}
-            layers, items = 0, 8 * 64
-        else:
-            batch = _image_batch(16, 224, cfg.num_classes, dev)
-            layers, items = (0 if name == "resnet50d" else layers), 16
+        batch, layers, items = p15_family_batch(name, cfg, rng, dev)
         per_step = {k: layers for k in FLASH_KERNELS} if layers else {}
         gap = None
         if name in P15_FAMILY_FLASH:
@@ -5367,7 +5615,7 @@ def run_phase15(dev) -> dict:
               "each width and dtype launches; B1-B3 timed; the 5-line loop at b 4 × 1024")
     hd256_errs = check_flash_vs_plain(dev, [
         (2, P15_SEQ, 16, 16, 256, True, 77, torch.float32)] + wide_tc_flash_cases())
-    instances = check_flash_instances(dev)
+    instances = run_flash_instances()
     hd256_times = time_flash_at(dev, P15_BATCH, P15_SEQ, 16, (256,))
     gcfg = gptj_width()
     module = GPTNeoXForCausalLM.from_config(gcfg, seed=0, device=dev)
@@ -5408,7 +5656,7 @@ P16_LAYERS = 8
 #: the four prompts' lengths, right-padded to the longest
 P16_LENGTHS = (64, 88, 111, 128)
 P16_NEW = 8
-P16_NEW_QUANT = 4
+P16_NEW_QUANT = 2
 #: steady-state forwards timed with the offload files in the page cache
 P16_WARM = 2
 #: free bytes phase 16 needs for its checkpoint and three offload folders
@@ -6876,12 +7124,15 @@ def main() -> int:
         return ddp_loop_child(sys.argv[2])
     if sys.argv[1:2] == ["--p17-loop"]:
         return p17_loop_child(*sys.argv[2:5])
+    if sys.argv[1:2] == ["--flash-instances"]:
+        return flash_instances_child(sys.argv[2])
     # --phase N: phases 1, 2 and N alone, for work on that phase; no verdict
     alone = None
     if sys.argv[1:2] == ["--phase"]:
         alone = {"5i": lambda dev: run_fleet_slo(), "14": run_phase14, "15": run_phase15,
                  "16": run_phase16, "17": run_phase17, "18": run_phase18,
-                 "19": lambda dev: {"a": run_ddp_loop()["phase19a"],
+                 "19": lambda dev: {**{k: v for k, v in run_ddp_loop().items()
+                                       if k in ("phase19a", "phase19c")},
                                     "b": run_ring_cp4(dev)}}.get(sys.argv[2] if sys.argv[2:]
                                                                  else "")
         if alone is None:
@@ -7068,7 +7319,8 @@ def main() -> int:
     t19 = time.perf_counter()
     p19b = run_ring_cp4(dev)
     p19b["wall_s"] = time.perf_counter() - t19
-    log(json.dumps({"phase19": {"a": ddp["phase19a"], "b": p19b}, "card": smi}))
+    log(json.dumps({"phase19": {"a": ddp["phase19a"], "b": p19b, "c": ddp["phase19c"]},
+                    "card": smi}))
     gc.collect()
     torch.cuda.empty_cache()
     p14 = run_phase14(dev)
@@ -7213,6 +7465,8 @@ def main() -> int:
             "launches_phase19a_per_step": {
                 k: r["launches_per_step"][name] for k, r in ddp["phase19a"].items()},
             "launches_ring_cp4": {k: c["launches"][name] for k, c in p19b["cases"].items()},
+            "launches_phase19c_per_step": {
+                k: r["launches_per_step"][name] for k, r in ddp["phase19c"].items()},
             "at_ring_chunk": {kind: e[name] for kind, e in p19b["chunks"].items()},
         })
     log(json.dumps({"kernels": kernels, "build_s": build_s, "serve_wall_s": serve_run["wall_s"],

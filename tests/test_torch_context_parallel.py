@@ -14,7 +14,6 @@ session; ``tests/test_torch_ring_flash.py`` reads the same launch.
 """
 
 import functools
-import types
 
 import numpy as np
 import pytest
@@ -30,8 +29,10 @@ from accelerate_tpu.mesh import build_mesh  # noqa: E402
 from accelerate_tpu.parallel.context import context_parallel_attention as jcp  # noqa: E402
 from accelerate_tpu.utils.dataclasses import MeshPlugin as JMeshPlugin  # noqa: E402
 from accelerate_tpu_torch import AcceleratorState, GradientState, debug_launcher  # noqa: E402
-from accelerate_tpu_torch.data_loader import DataLoaderShard  # noqa: E402
-from accelerate_tpu_torch.parallel.context import context_parallel_attention  # noqa: E402
+from accelerate_tpu_torch.parallel.context import (  # noqa: E402
+    context_parallel_attention,
+    sequence_chunk,
+)
 
 CP = 4
 
@@ -115,13 +116,12 @@ def test_ulysses_head_divisibility_error_has_jax_words():
 
 
 def test_sequence_divisibility_error_has_jax_words():
-    """A sequence of 10 over cp 4: the loader's cut refuses as JAX's
-    attention does."""
+    """A sequence of 10 over cp 4: the prepared model's cut refuses as
+    JAX's attention does."""
     mesh = build_mesh(JMeshPlugin(dp=1, cp=CP, devices=jax.devices()[:CP]))
     x = jnp.zeros((1, 10, 4, 4), jnp.float32)
     with pytest.raises(ValueError) as want:
         jcp(x, x, x, mesh=mesh, mode="ring")
-    loader = types.SimpleNamespace(_seq_shard=(0, CP))
     with pytest.raises(ValueError) as got:
-        DataLoaderShard._seq_chunk(loader, torch.zeros(1, 10))
+        sequence_chunk(torch.zeros(1, 10), 0, CP)
     assert str(got.value) == str(want.value)

@@ -23,6 +23,8 @@ through a file lock.
 """
 
 import dataclasses
+import functools
+import importlib
 import os
 
 import numpy as np
@@ -75,13 +77,184 @@ def _setup():
     return jcfg, cfg_kwargs, init, train_ids, eval_ids
 
 
+#: the repairs' cases at dp 2: key -> (family, config overrides of
+#: ``tiny()``). Each holds the port's step to JAX's where a rank's local
+#: reduction differs from the global batch's: the batch-norm statistics
+#: (C6), the routing's capacity, slots and load-balancing means with a
+#: capacity factor that drops tokens (C7), and the token loss's mean with
+#: ignored labels on one rank's rows only (C8)
+REPAIRS = {
+    "c6_resnet": ("resnet", {}),
+    "c7_mixtral": ("mixtral", {"capacity_factor": 0.5}),
+    "c7_mixtral_remat": ("mixtral", {"capacity_factor": 0.5, "remat": True}),
+    "c8_llama": ("llama", {}),
+    "c8_gpt2": ("gpt2", {}),
+}
+REPAIR_STEPS = 3
+
+
+@functools.lru_cache(maxsize=None)
+def _repair_setup(key: str):
+    """The case's JAX config, port config kwargs, JAX-initialised weights
+    and its ``REPAIR_STEPS`` global batches of ``RANKS × PER_RANK`` rows.
+    C8's labels are -100 on the first third of the positions of the rows
+    rank 0 reads (the first ``PER_RANK`` of every global batch) only."""
+    family, overrides = REPAIRS[key]
+    cls, cfg_cls = workers.FAMILIES[family]
+    jmod = importlib.import_module(f"accelerate_tpu.models.{family}")
+    jcfg = dataclasses.replace(getattr(jmod, cfg_cls).tiny(), **overrides)
+    tmod = importlib.import_module(f"accelerate_tpu_torch.models.{family}")
+    fields = {f.name for f in dataclasses.fields(getattr(tmod, cfg_cls))}
+    cfg_kwargs = {k: v for k, v in dataclasses.asdict(jcfg).items() if k in fields}
+    init = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32),
+                                  getattr(jmod, cls).from_config(jcfg, seed=0).params)
+    rows = REPAIR_STEPS * RANKS * PER_RANK
+    rng = np.random.default_rng(11)
+    if family == "resnet":
+        data = {"pixel_values": rng.normal(size=(rows, 16, 16, 3)).astype(np.float32),
+                "labels": rng.integers(0, jcfg.num_classes, size=rows).astype(np.int32)}
+    else:
+        ids = rng.integers(0, jcfg.vocab_size, size=(rows, SEQ)).astype(np.int32)
+        labels = ids.copy()
+        if key.startswith("c8"):
+            rank0 = (np.arange(rows) % (RANKS * PER_RANK)) < PER_RANK
+            labels[rank0, :SEQ // 3] = -100
+        data = {"input_ids": ids, "labels": labels}
+    return jcfg, cfg_kwargs, init, data
+
+
+#: the forwards that span the batch (:func:`workers.batch_forwards`): a
+#: family's ``FORWARD_ROWS`` rows, ``FORWARD_SPLIT`` on rank 0 and the rest
+#: on rank 1; key -> the repair case whose config and weights it takes
+FORWARDS = {"resnet": "c6_resnet", "gpt2": "c8_gpt2", "mixtral": "c7_mixtral"}
+FORWARD_ROWS, FORWARD_SPLIT = 4, 3
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_rows(key: str) -> dict:
+    jcfg = _repair_setup(FORWARDS[key])[0]
+    rng = np.random.default_rng(13)
+    if key == "resnet":
+        return {"pixel_values": rng.normal(size=(FORWARD_ROWS, 16, 16, 3)).astype(np.float32),
+                "labels": rng.integers(0, jcfg.num_classes, size=FORWARD_ROWS).astype(np.int32)}
+    ids = rng.integers(0, jcfg.vocab_size, size=(FORWARD_ROWS, SEQ)).astype(np.int32)
+    return {"input_ids": ids, "labels": ids.copy()}
+
+
 @pytest.fixture
 def port_loops(tmp_path_factory):
     """Each rank's result of ``workers.train_loops`` (one launch a session)."""
     _, cfg_kwargs, init, train_ids, eval_ids = _setup()
+    cases = [{"key": k, "family": REPAIRS[k][0], "cfg": _repair_setup(k)[1],
+              "init": _repair_setup(k)[2], "data": _repair_setup(k)[3]} for k in REPAIRS]
+    forwards = [{"key": k, "family": REPAIRS[r][0], "cfg": _repair_setup(r)[1],
+                 "init": _repair_setup(r)[2], "rows": _forward_rows(k), "split": FORWARD_SPLIT}
+                for k, r in FORWARDS.items()]
     return workers.shared_result(tmp_path_factory, "torch_train_loops_2", lambda: debug_launcher(
-        workers.train_loops, (init, cfg_kwargs, train_ids, eval_ids, PER_RANK),
-        num_processes=RANKS, timeout=240))
+        workers.train_loops, (init, cfg_kwargs, train_ids, eval_ids, PER_RANK, cases,
+                              REPAIR_STEPS, forwards),
+        num_processes=RANKS, timeout=300))
+
+
+def _jax_repair_loop(key: str) -> dict:
+    """JAX's loop for a repair's case on a dp=2 mesh over the same global
+    batches: the losses and the final weights."""
+    jcfg, _, _, data = _repair_setup(key)
+    family = REPAIRS[key][0]
+    jmod = importlib.import_module(f"accelerate_tpu.models.{family}")
+    JAccState._reset_state(reset_partial_state=True)
+    JGradState._reset_state()
+    try:
+        acc = JAccelerator(mesh_plugin=JMeshPlugin(dp=2, devices=jax.devices()[:RANKS]))
+        model, opt, train = acc.prepare(
+            getattr(jmod, workers.FAMILIES[family][0]).from_config(jcfg, seed=0),
+            optax.sgd(workers.FAMILY_LR, momentum=workers.FAMILY_MOMENTUM),
+            DataLoader(workers.Arrays(data), batch_size=RANKS * PER_RANK))
+        losses = []
+        for batch in train:
+            out = model(**batch)
+            acc.backward(out.loss)
+            opt.step()
+            opt.zero_grad()
+            losses.append(out.loss.item())
+        return {"losses": losses, "weights": jax.tree_util.tree_map(np.asarray, model.params)}
+    finally:
+        JAccState._reset_state(reset_partial_state=True)
+        JGradState._reset_state()
+
+
+def _check_repair(port_loops, key: str):
+    ref = _jax_repair_loop(key)
+    family = REPAIRS[key][0]
+    tmod = importlib.import_module(f"accelerate_tpu_torch.models.{family}")
+    cfg = getattr(tmod, workers.FAMILIES[family][1])(**_repair_setup(key)[1])
+    want = tmod.params_from_jax(ref["weights"], cfg)
+    for rank in port_loops:
+        got = rank["cases"][key]
+        print(f"{key}: port losses {got['losses']} (rank), JAX {ref['losses']}")
+        np.testing.assert_allclose(got["losses"], ref["losses"], rtol=0, atol=1e-4)
+        for k, v in want.items():
+            np.testing.assert_allclose(got["weights"][k], v.numpy(), rtol=0, atol=1e-4,
+                                       err_msg=k)
+
+
+def test_c6_resnet_batch_norm_statistics_span_the_global_batch_at_dp2(port_loops):
+    """JAX normalises over its global batch; each rank's statistics are the
+    all-reduced sums of both ranks' rows."""
+    _check_repair(port_loops, "c6_resnet")
+
+
+def test_c7_mixtral_routes_over_the_global_batch_at_dp2(port_loops):
+    """A capacity factor of 0.5 drops tokens: the capacity, the slots (the
+    global exclusive count in JAX's flattened order) and the load-balancing
+    means are the global batch's."""
+    drops = sum(rank["cases"]["c7_mixtral"]["drops"] for rank in port_loops)
+    print(f"c7_mixtral: {drops} (token, choice) assignments dropped over the run")
+    assert drops > 0
+    _check_repair(port_loops, "c7_mixtral")
+
+
+@pytest.mark.parametrize("family", ["llama", "gpt2"])
+def test_c8_token_loss_is_the_global_batch_mean_at_dp2(port_loops, family):
+    """Ignored labels on one rank's rows only: every rank's loss is the mean
+    over the global batch's valid tokens, and its gradient the rank's part
+    of the global sum, as JAX's."""
+    _check_repair(port_loops, f"c8_{family}")
+
+
+def test_c7_mixtral_routes_over_the_global_batch_under_remat_at_dp2(port_loops):
+    """The layers' recompute in the backward routes as their forward did:
+    over the global batch, with the groups the prepared model's call bound."""
+    assert sum(rank["cases"]["c7_mixtral_remat"]["drops"] for rank in port_loops) > 0
+    _check_repair(port_loops, "c7_mixtral_remat")
+
+
+def _jax_forward_loss(key: str, rows: int) -> float:
+    """JAX's loss of the family's first ``rows`` rows on one device."""
+    jcfg, _, init, _ = _repair_setup(FORWARDS[key])
+    family = REPAIRS[FORWARDS[key]][0]
+    jmod = importlib.import_module(f"accelerate_tpu.models.{family}")
+    jmodel = getattr(jmod, workers.FAMILIES[family][0]).from_config(jcfg, seed=0)
+    batch = {k: jnp.asarray(v[:rows]) for k, v in _forward_rows(key).items()}
+    return float(jmodel.apply_fn(jax.tree_util.tree_map(jnp.asarray, init), **batch)["loss"])
+
+
+@pytest.mark.parametrize("key", sorted(FORWARDS))
+def test_a_prepared_forward_spans_a_batch_split_unevenly(port_loops, key):
+    """3 rows on rank 0 and 1 on rank 1: every rank's loss is JAX's over the
+    4 rows (ResNet's batch statistics, Mixtral's capacity, slots and
+    means, the token mean: each from the ranks' own counts)."""
+    want = _jax_forward_loss(key, FORWARD_ROWS)
+    for rank in port_loops:
+        np.testing.assert_allclose(rank["forwards"][key]["uneven"], want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("key", sorted(FORWARDS))
+def test_an_unwrapped_module_on_one_rank_computes_over_its_own_rows(port_loops, key):
+    """Rank 0 alone calls the unwrapped module, rank 1 nothing: the call
+    makes no collective and its loss is JAX's over rank 0's rows alone."""
+    got = port_loops[0]["forwards"][key]["rank_local"]
+    np.testing.assert_allclose(got, _jax_forward_loss(key, FORWARD_SPLIT), rtol=0, atol=1e-5)
 
 
 def _jax_loop(accumulation: int) -> dict:

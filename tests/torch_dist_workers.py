@@ -35,6 +35,107 @@ class Rows(Dataset):
         return {"input_ids": row, "labels": row.clone(), "idx": torch.tensor(i)}
 
 
+class Arrays(Dataset):
+    """Rows of a dict of equally long numpy arrays, as tensors."""
+
+    def __init__(self, arrays: dict):
+        self.arrays = arrays
+
+    def __len__(self):
+        return len(next(iter(self.arrays.values())))
+
+    def __getitem__(self, i):
+        return {k: torch.from_numpy(np.array(v[i])) for k, v in self.arrays.items()}
+
+
+#: the zoo's families: (model class, config class)
+FAMILIES = {
+    "llama": ("LlamaForCausalLM", "LlamaConfig"),
+    "gpt2": ("GPT2LMHeadModel", "GPT2Config"),
+    "opt": ("OPTForCausalLM", "OPTConfig"),
+    "gpt_neox": ("GPTNeoXForCausalLM", "GPTNeoXConfig"),
+    "mixtral": ("MixtralForCausalLM", "MixtralConfig"),
+    "bert": ("BertForSequenceClassification", "BertConfig"),
+    "vit": ("ViTForImageClassification", "ViTConfig"),
+    "resnet": ("ResNetForImageClassification", "ResNetConfig"),
+    "t5": ("T5ForConditionalGeneration", "T5Config"),
+}
+
+
+def family_model(family: str, cfg_kwargs: dict, init: dict):
+    """The family's port model on the CPU with JAX's weights."""
+    import importlib
+
+    mod = importlib.import_module(f"accelerate_tpu_torch.models.{family}")
+    cls, cfg_cls = FAMILIES[family]
+    cfg = getattr(mod, cfg_cls)(**cfg_kwargs)
+    model = getattr(mod, cls)(cfg, device="cpu")
+    model.load_state_dict(mod.params_from_jax(init, cfg))
+    return model
+
+
+def _counting_drops(drops: list):
+    """Mixtral's ``moe_ffn`` wrapped to add this rank's dropped
+    assignments (a choice whose slot lies past the capacity) to ``drops``,
+    recomputed with the port's own routing helpers on the same inputs."""
+    import torch.nn.functional as F
+
+    from accelerate_tpu_torch.models import mixtral as mm
+
+    inner = mm.moe_ffn
+
+    def moe_ffn(config, w, x, *args, **kwargs):
+        route = kwargs.get("route", args[1] if len(args) > 1 else None)
+        with torch.no_grad():
+            b, s, h = x.shape
+            probs = torch.softmax(x.reshape(-1, h).float() @ w["router"].float().t(), dim=-1)
+            idx = mm.top_k_routes(probs, config.num_experts_per_tok)[1]
+            capacity, pos, _ = mm.expert_slots(config, F.one_hot(idx, config.num_local_experts),
+                                               idx, (b, s), route)
+            drops.append(int((pos >= capacity).sum()))
+        return inner(config, w, x, *args, **kwargs)
+
+    mm.moe_ffn = moe_ffn
+
+
+#: the families' loops step SGD with momentum (``optax.sgd(FAMILY_LR,
+#: momentum=FAMILY_MOMENTUM)`` in JAX): its update is linear in the
+#: gradient, so a wrong gradient scale or reduction shows in the weights,
+#: where AdamW's per-element normalisation hides the one and turns float
+#: rounding near a ReLU kink or in a near-zero gradient into gaps of the
+#: learning rate's size
+FAMILY_LR, FAMILY_MOMENTUM = 1e-2, 0.9
+
+
+def family_dp_loop(family: str, cfg_kwargs: dict, init: dict, data: dict, batch_size: int,
+                   steps: int) -> dict:
+    """One family through the 5-line loop at f32 on the plain data-parallel
+    mesh, ``batch_size`` rows a rank a step: its step losses, final weights
+    and (Mixtral) the assignments its routing dropped on this rank."""
+    from accelerate_tpu_torch import Accelerator, AcceleratorState, GradientState
+
+    AcceleratorState._reset_state()  # the process group stays up
+    GradientState._reset_state()
+    acc = Accelerator(cpu=True)
+    model = family_model(family, cfg_kwargs, init)
+    opt = torch.optim.SGD(model.parameters(), lr=FAMILY_LR, momentum=FAMILY_MOMENTUM)
+    model, opt, train = acc.prepare(model, opt, DataLoader(Arrays(data), batch_size=batch_size))
+    drops: list = []
+    if family == "mixtral":
+        _counting_drops(drops)
+    losses = []
+    for i, batch in enumerate(train):
+        if i == steps:
+            break
+        out = model(**batch)
+        acc.backward(out.loss)
+        opt.step()
+        opt.zero_grad()
+        losses.append(float(out.loss.detach()))
+    return {"losses": losses, "drops": sum(drops),
+            "weights": {k: v.numpy().copy() for k, v in model.state_dict().items()}}
+
+
 class Stream(IterableDataset):
     """The numbers ``0..n-1`` as a stream with a length."""
 
@@ -187,13 +288,46 @@ def collectives_result(tmp_path_factory, world: int) -> list[dict]:
         collectives, (collective_inputs(world),), num_processes=world, timeout=240))
 
 
+def batch_forwards(cases: list[dict]) -> dict:
+    """Each case's loss (``key``, ``family``, ``cfg``, ``init``, ``rows``: a
+    dict of equally long numpy arrays, ``split``) at f32, twice: the
+    prepared model on every rank, rank 0 taking the first ``split`` rows and
+    the others the rest (an uneven batch), then the unwrapped module on
+    rank 0 alone over its rows while the other ranks call nothing."""
+    from accelerate_tpu_torch import Accelerator, AcceleratorState, GradientState
+
+    AcceleratorState._reset_state()  # the process group stays up
+    GradientState._reset_state()
+    acc = Accelerator(cpu=True)
+    out, modules = {}, {}
+    for c in cases:
+        model = acc.prepare(family_model(c["family"], c["cfg"], c["init"]))
+        n, split = len(next(iter(c["rows"].values()))), c["split"]
+        lo, hi = (0, split) if acc.process_index == 0 else (split, n)
+        with torch.no_grad():
+            loss = model(**{k: torch.from_numpy(v[lo:hi]) for k, v in c["rows"].items()}).loss
+        out[c["key"]] = {"uneven": float(loss)}
+        modules[c["key"]] = acc.unwrap_model(model)
+    if acc.process_index == 0:
+        for c in cases:
+            with torch.no_grad():
+                loss = modules[c["key"]](**{k: torch.from_numpy(v[:c["split"]])
+                                            for k, v in c["rows"].items()}).loss
+            out[c["key"]]["rank_local"] = float(loss)
+    return out
+
+
 def train_loops(init: dict, cfg_kwargs: dict, train_ids: np.ndarray, eval_ids: np.ndarray,
-                batch_size: int) -> dict:
+                batch_size: int, cases: tuple = (), steps: int = 0,
+                forwards: tuple = ()) -> dict:
     """The tiny llama through ``prepare(model, opt, loader, sched)`` at f32,
     two loops: plain with a clip (1.0) and an eval pass through
     ``gather_for_metrics``, then two micro-steps a sync. ``batch_size`` rows
     a rank a step. Returns each loop's local losses, clip norms, the final
-    weights, the scheduler's count and the gathered eval rows."""
+    weights, the scheduler's count and the gathered eval rows; and under
+    ``"cases"`` each case's :func:`family_dp_loop` (``key``, ``family``,
+    ``cfg``, ``init``, ``data``) of ``steps`` steps, and under
+    ``"forwards"`` :func:`batch_forwards` of ``forwards``."""
     from accelerate_tpu_torch import Accelerator, AcceleratorState, GradientState
     from accelerate_tpu_torch.models import llama as tllama
 
@@ -241,6 +375,9 @@ def train_loops(init: dict, cfg_kwargs: dict, train_ids: np.ndarray, eval_ids: n
             loop["eval_idx"] = np.concatenate(idx)
             loop["eval_logits"] = np.concatenate(logits)
         result[name] = loop
+    result["cases"] = {c["key"]: family_dp_loop(c["family"], c["cfg"], c["init"], c["data"],
+                                                batch_size, steps) for c in cases}
+    result["forwards"] = batch_forwards(list(forwards))
     return result
 
 

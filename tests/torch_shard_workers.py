@@ -10,11 +10,13 @@ against the JAX package's results.
 
 from __future__ import annotations
 
+import inspect
+
 import numpy as np
 import torch
 from torch.utils.data import DataLoader
 
-from torch_dist_workers import Rows
+from torch_dist_workers import FAMILY_LR, FAMILY_MOMENTUM, Arrays, Rows, family_model
 
 #: the meshes the sharded loop runs on, by name (the JAX test builds the same)
 MESHES = {
@@ -25,20 +27,6 @@ MESHES = {
 }
 
 _AXES = ("dp", "fsdp", "cp", "tp")
-
-#: the zoo's families but the llama: the sharded step refuses them on a
-#: mesh that would shard them (ROADMAP item 18)
-REFUSED_FAMILIES = {
-    "gpt2": ("GPT2LMHeadModel", "GPT2Config"),
-    "opt": ("OPTForCausalLM", "OPTConfig"),
-    "gpt_neox": ("GPTNeoXForCausalLM", "GPTNeoXConfig"),
-    "mixtral": ("MixtralForCausalLM", "MixtralConfig"),
-    "bert": ("BertForSequenceClassification", "BertConfig"),
-    "vit": ("ViTForImageClassification", "ViTConfig"),
-    "resnet": ("ResNetForImageClassification", "ResNetConfig"),
-    "t5": ("T5ForConditionalGeneration", "T5Config"),
-}
-
 
 def _coords(state) -> tuple:
     return tuple(state.axis_index(a) for a in _AXES)
@@ -106,7 +94,6 @@ def sharded_loops(init: dict, cfg_kwargs: dict, ids: np.ndarray, global_batch: i
                                    if k != "step"}
                                for n, p in model.module.named_parameters()}
         result["opt_check"] = opt_state_sharding_like(opt.optimizer)
-        result["refusals"] = _refusals(acc)
         if acc.state.mesh_sizes["tp"] > 1:
             result["vocab_parallel"] = _vocab_parallel_cross_entropy()
         # an Accelerator built again over the same group and mesh makes no
@@ -149,21 +136,127 @@ def _vocab_parallel_cross_entropy() -> dict:
             "dhead": float((hs.grad - hw.grad[:, cols]).abs().max())}
 
 
-def _refusals(acc) -> dict:
-    """What ``acc.prepare`` says to each family of :data:`REFUSED_FAMILIES`
-    at its tiny config (None where it took the model)."""
-    import importlib
+def family_loops(cases: list[dict], global_batch: int, steps: int) -> dict:
+    """Each case (``key``, ``family``, ``cfg``: config kwargs, ``init``:
+    JAX's weights, ``data``: the arrays of ``steps`` global batches,
+    ``meshes``) through the 5-line loop on each of its meshes
+    (:func:`family_loop`); results by ``(key, mesh)``."""
+    return {(case["key"], mesh): family_loop(case, mesh, global_batch, steps)
+            for case in cases for mesh in case["meshes"]}
 
-    said = {}
-    for family, (cls, cfg) in REFUSED_FAMILIES.items():
-        mod = importlib.import_module(f"accelerate_tpu_torch.models.{family}")
-        model = getattr(mod, cls).from_config(getattr(mod, cfg).tiny(), device="cpu")
-        try:
-            acc.prepare(model)
-            said[family] = None
-        except ValueError as e:
-            said[family] = str(e)
-    return said
+
+def family_loop(case: dict, mesh: str, global_batch: int, steps: int) -> dict:
+    """One family on one mesh, ``steps`` optimizer steps at f32 with an
+    FSDP plugin: this rank's mesh coordinates, its local shard and spec of
+    every parameter after ``prepare``, the FSDP2 units (whether each is an
+    FSDP module and how often it was called), the shapes of the inputs the
+    module's forward took, the step losses, the final whole weights and the
+    local momentum buffers. A ``ValueError`` of the forward is returned as
+    ``{"error": message}``."""
+    from torch.distributed.fsdp import FSDPModule
+
+    from accelerate_tpu_torch import (
+        Accelerator,
+        AcceleratorState,
+        FullyShardedDataParallelPlugin,
+        GradientState,
+        MeshPlugin,
+    )
+    from accelerate_tpu_torch.parallel.sharding import opt_state_sharding_like, placement_spec
+
+    AcceleratorState._reset_state()  # the process group stays up
+    GradientState._reset_state()
+    acc = Accelerator(cpu=True, mesh_plugin=MeshPlugin(**MESHES[mesh]),
+                      fsdp_plugin=FullyShardedDataParallelPlugin())
+    model = family_model(case["family"], case["cfg"], case["init"])
+    opt = torch.optim.SGD(model.parameters(), lr=FAMILY_LR, momentum=FAMILY_MOMENTUM)
+    per_rank = global_batch // acc.state.data_parallel_size
+    train = DataLoader(Arrays(case["data"]), batch_size=per_rank)
+    model, opt, train = acc.prepare(model, opt, train)
+    params = dict(model.module.named_parameters())
+    units = model.module.fsdp_units()
+    calls = [0] * len(units)
+    for i, unit in enumerate(units):
+        unit.register_forward_pre_hook(lambda m, a, i=i: calls.__setitem__(i, calls[i] + 1))
+    seen = {}
+
+    def record(module, args, kwargs):
+        bound = inspect.signature(module.forward).bind(*args, **kwargs).arguments
+        seen.setdefault("shapes", {k: tuple(v.shape) for k, v in bound.items()
+                                   if isinstance(v, torch.Tensor)})
+
+    model.module.register_forward_pre_hook(record, with_kwargs=True)
+    result = {
+        "coords": _coords(acc.state),
+        "prepared": {n: _local(p) for n, p in params.items()},
+        "specs": {n: placement_spec(p) for n, p in params.items()},
+        "decided": {n: pl.spec for n, pl in model.placements.items()},
+        "fsdp_managed": sorted(model.fsdp_managed),
+        "fsdp_units": [isinstance(u, FSDPModule) for u in units],
+        "batch_shapes": None,
+    }
+    losses = []
+    try:
+        for i, batch in enumerate(train):
+            if i == steps:
+                break
+            result["batch_shapes"] = result["batch_shapes"] or {
+                k: tuple(v.shape) for k, v in batch.items()}
+            out_ = model(**batch)
+            acc.backward(out_.loss)
+            opt.step()
+            opt.zero_grad()
+            losses.append(float(out_.loss.detach()))
+    except ValueError as e:
+        return {"coords": result["coords"], "error": str(e)}
+    result["losses"] = losses
+    result["output_keys"] = sorted(out_.keys())
+    result["unit_calls"] = calls
+    result["forward_shapes"] = seen["shapes"]
+    result["weights"] = {k: v.numpy().copy() for k, v in acc.get_state_dict(model).items()}
+    result["opt_state"] = {n: {k: _local(v) for k, v in opt.state[p].items() if k != "step"}
+                           for n, p in model.module.named_parameters()}
+    result["opt_check"] = opt_state_sharding_like(opt.optimizer)
+    return result
+
+
+def one_rank_bf16_loops(cases: list[dict], batch: int, steps: int) -> dict:
+    """Each case's 5-line loop in bf16 over f32 masters (AdamW) at one
+    rank, twice from the same weights and batches: on
+    ``MeshPlugin(dp=1, fsdp=-1)`` with an FSDP plugin (FSDP2 gathers each
+    unit in bf16), then group-less (the plain prepared model, which casts
+    every leaf itself). Their step losses by key."""
+    from accelerate_tpu_torch import (
+        Accelerator,
+        AcceleratorState,
+        FullyShardedDataParallelPlugin,
+        GradientState,
+        MeshPlugin,
+    )
+
+    out = {}
+    for case in cases:
+        for sharded in (True, False):
+            AcceleratorState._reset_state()  # the process group stays up
+            GradientState._reset_state()
+            mesh = (dict(mesh_plugin=MeshPlugin(dp=1, fsdp=-1),
+                         fsdp_plugin=FullyShardedDataParallelPlugin()) if sharded else {})
+            acc = Accelerator(cpu=True, mixed_precision="bf16", **mesh)
+            model = family_model(case["family"], case["cfg"], case["init"])
+            opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+            model, opt, train = acc.prepare(model, opt,
+                                            DataLoader(Arrays(case["data"]), batch_size=batch))
+            losses = []
+            for i, rows in enumerate(train):
+                if i == steps:
+                    break
+                loss = model(**rows).loss
+                acc.backward(loss)
+                opt.step()
+                opt.zero_grad()
+                losses.append(float(loss.detach()))
+            out[(case["key"], "fsdp" if sharded else "group_less")] = losses
+    return out
 
 
 #: the context-parallel attention cases at cp 4: (mode, causal, kv heads)
